@@ -1,0 +1,22 @@
+"""grtrace_torch — the PyTorch and CUDA port of grtrace.
+
+The Schwarzschild inverse ray tracer (folded pinhole camera, compensated
+FANTASY integration, exact-predicate rescue, classification and
+compositing) on tensors of any torch device.  On an NVIDIA Hopper GPU the
+integration runs a hand-written CUDA kernel (csrc/fantasy_eqc.cu); on the
+CPU it runs the kernel's eager twin.  The JAX package `grtrace` is the
+reference this package is tested against; this package never imports it,
+nor jax.
+"""
+from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
+                       SceneConfig, from_jax_scene)
+from .engine.render import RenderResult, render, render_pixels
+from .engine.integrate import SchwarzschildIntegrator
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BlackHole", "Observer", "PatchConfig", "IntegratorConfig",
+    "SceneConfig", "from_jax_scene", "RenderResult", "render",
+    "render_pixels", "SchwarzschildIntegrator", "__version__",
+]

@@ -1,0 +1,379 @@
+"""Batched geodesic integration in eager PyTorch — the torch counterpart of
+`grtrace.engine.integrate`, and the plain version of the CUDA kernel in
+`engine/integrate_cuda.py`.
+
+The whole (N,) ray batch advances in a Python loop whose body applies a
+masked FANTASY step to every ray; the loop stops once every ray has been
+captured or has escaped (checked every `_EXIT_CHECK` steps, so the host
+does not wait on the device every step — masked steps on finished rays
+are exact no-ops) or when the step budget runs out.
+
+Status codes:
+    ALIVE (0)    still inside the domain when the budget ran out
+    CAPTURED (1) r <= 1.1 * rs
+    ESCAPED (2)  r >= r_max
+
+Scalars follow the dtype of the rays: every scalar a loop body reads is a
+Python float rounded to that dtype on the host (see `_in_dtype`), so
+each tensor op rounds once, in the ray dtype, as the JAX program does.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..physics.hamiltonian import (bridge_sizes, fantasy_step, pack_state,
+                                   pack_state_eqc, staggered_eqc,
+                                   substep_schedule, unpack_eqc, unpack_p1,
+                                   unpack_q1)
+
+STATUS_ALIVE = 0
+STATUS_CAPTURED = 1
+STATUS_ESCAPED = 2
+
+# masked steps between `any(active)` exit checks (each check waits on the
+# device); the result does not depend on it
+_EXIT_CHECK = 64
+
+
+def _in_dtype(x, dtype):
+    """x rounded to `dtype`, as a Python float."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _capture_radius(rs, dtype):
+    """1.1 * rs rounded in `dtype` — the capture threshold."""
+    return float(torch.tensor(1.1, dtype=dtype) * torch.tensor(rs, dtype=dtype))
+
+
+def resolve_backend(backend: str, device) -> str:
+    """'auto' -> 'cuda' for CUDA tensors, 'torch' for CPU tensors."""
+    if backend != "auto":
+        return backend
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def select_path(backend, device, dtype, equatorial):
+    """Which integrator `integrate_dispatch` runs: 'kernel' (the CUDA
+    kernel), 'compensated' (its eager twin) or 'plain' (the 16-row
+    integrate_batch).  Raises for what the port has no kernel for yet —
+    never falls back to an eager path for a CUDA kernel."""
+    backend = resolve_backend(backend, device)
+    if backend == "cuda":
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                "float64 rays on CUDA need kernel B2 (12-row plain "
+                "equatorial), not ported yet: ROADMAP Queue B")
+        if not equatorial:
+            raise NotImplementedError(
+                "non-equatorial rays on CUDA need kernel B3 (16-row "
+                "generic), not ported yet: ROADMAP Queue B")
+        return "kernel"
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected 'auto', 'cuda' or 'torch')")
+    if equatorial and dtype == torch.float32:
+        return "compensated"
+    return "plain"
+
+
+def integrate_dispatch(q0s, p0s, steps, delta, rs, r_max, omega,
+                       backend="auto", equatorial=False, order=2):
+    """Backend-dispatching integrate: same signature/returns for every path.
+
+    equatorial=True promises theta == pi/2 and p_theta == 0 for every ray
+    (true for the folded camera).  float32 equatorial rays go to the
+    Kahan-compensated integrator — the CUDA kernel on CUDA tensors, its
+    eager twin on CPU tensors; float64 rays on the CPU take the 16-row
+    integrate_batch, the JAX package's own CPU path.
+    """
+    path = select_path(backend, q0s.device, q0s.dtype, equatorial)
+    if path == "kernel":
+        from .integrate_cuda import integrate_batch_cuda
+        return integrate_batch_cuda(q0s, p0s, steps, delta, rs, r_max, omega,
+                                    order=order)
+    if path == "compensated":
+        return integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max,
+                                           omega, order=order)
+    return integrate_batch(q0s, p0s, steps, delta, rs, r_max, omega,
+                           order=order)
+
+
+def _active_mask(q1r, r_capture, r_max):
+    """Pre-step domain check: r_capture < r < r_max."""
+    return (q1r > r_capture) & (q1r < r_max)
+
+
+# Blow-up guard row indices per state layout: (q1_r, q2_r, *kahan_deficits).
+_R_ROWS = {16: (1, 9), 12: (1, 7), 24: (1, 7, 13, 19)}
+
+
+def jump_cap(delta, dtype):
+    """Max legitimate per-step |dr|: max(5, 20 |delta|) in `dtype`."""
+    return float(torch.maximum(torch.tensor(5.0, dtype=dtype),
+                               20.0 * torch.tensor(delta, dtype=dtype).abs()))
+
+
+def guard_state(old, new, rs, cap):
+    """Horizon blow-up guard: a ray whose radius jumps by more than `cap`
+    (or turns non-finite) in one step is reverted to its last resolved
+    state and parked at r = rs (CAPTURED); the compensated layout's
+    parked deficit rows are zeroed.  Works on the 16-, 12- and 24-row
+    layouts."""
+    rows = _R_ROWS[len(old)]
+    r_old = old[rows[0]]
+    r_new = new[rows[0]]
+    bad = ~torch.isfinite(r_new) | ((r_new - r_old).abs() > cap)
+    out = [torch.where(bad, o, nw) for o, nw in zip(old, new)]
+    park = torch.full_like(r_new, rs)
+    for row in rows[:2]:
+        out[row] = torch.where(bad, park, out[row])
+    for row in rows[2:]:
+        out[row] = torch.where(bad, torch.zeros_like(r_new), out[row])
+    return tuple(out)
+
+
+def impact_parameter(p0s):
+    """Exact per-ray impact parameter b = |L/E| = |p_phi / p_t|."""
+    return p0s[..., 3].abs() / p0s[..., 0].abs().clamp(min=1e-30)
+
+
+def schw_true_escape_pred(q0s, p0s, rs):
+    """Exact capture/escape predicate per ray, from the LAUNCH state:
+    r0 >= 3M: outward rays escape, inward rays escape iff b > b_crit;
+    r0 < 3M: only outward rays with b <= b_crit escape."""
+    dtype = q0s.dtype
+    m = 0.5 * torch.tensor(rs, dtype=dtype)
+    b_crit = float(3.0 * torch.sqrt(torch.tensor(3.0, dtype=dtype)) * m)
+    b = impact_parameter(p0s)
+    outward = p0s[..., 1] >= 0.0
+    far = q0s[..., 1] >= float(3.0 * m)
+    return torch.where(far, outward | (b > b_crit), outward & (b <= b_crit))
+
+
+def schw_escape_rescue(final_q, final_p, status, esc_pred, rs, r_max):
+    """Reconcile the integrator's classification with the exact one:
+    fake escapes (pred says capture) are parked at r = rs, CAPTURED; fake
+    near-critical captures (pred says escape) are parked at 1.001 r_max
+    along the last resolved heading, ESCAPED.  Rays the predicate agrees
+    with, and ALIVE rays, pass through untouched."""
+    dtype = final_q.dtype
+    to_cap = (status == STATUS_ESCAPED) & ~esc_pred
+    to_esc = (status == STATUS_CAPTURED) & esc_pred
+    status = torch.where(to_cap, STATUS_CAPTURED,
+                         torch.where(to_esc, STATUS_ESCAPED, status))
+    r_park = float(torch.tensor(1.001, dtype=dtype)
+                   * torch.tensor(r_max, dtype=dtype))
+    r_new = torch.where(to_cap, _in_dtype(rs, dtype),
+                        torch.where(to_esc, r_park, final_q[..., 1]))
+    final_q = final_q.clone()
+    final_q[..., 1] = r_new
+    return final_q, status
+
+
+def _status(q1r, r_capture, r_max):
+    status = torch.full_like(q1r, STATUS_ALIVE, dtype=torch.int32)
+    status = torch.where(q1r >= r_max, STATUS_ESCAPED, status)
+    return torch.where(q1r <= r_capture, STATUS_CAPTURED, status)
+
+
+def _run_masked(state, steps, step_fn, r_capture, r_max):
+    """Apply `step_fn` to the active rays until none is active or the
+    budget runs out; returns (state, n_steps) with n_steps (N,) int32."""
+    n_steps = torch.zeros(state[1].shape, dtype=torch.int32,
+                          device=state[1].device)
+    for k in range(steps):
+        active = _active_mask(state[1], r_capture, r_max)
+        if k % _EXIT_CHECK == 0 and not bool(active.any()):
+            break
+        new = step_fn(state)
+        state = tuple(torch.where(active, nw, o) for nw, o in zip(new, state))
+        n_steps += active.to(torch.int32)
+    return state, n_steps
+
+
+def integrate_batch(q0s, p0s, steps, delta, rs, r_max, omega, order=2):
+    """Integrate a flat (N, 4) batch with the 16-row generic step.
+
+    Returns (final_q, final_p, status, n_steps); final_q is the first
+    copy's position, n_steps the per-ray count of steps applied.
+    """
+    dtype = q0s.dtype
+    delta = _in_dtype(delta, dtype)
+    rs = _in_dtype(rs, dtype)
+    r_max = _in_dtype(r_max, dtype)
+    subs = substep_schedule(delta, omega, order, dtype=dtype)
+    cap = jump_cap(delta, dtype)
+    r_capture = _capture_radius(rs, dtype)
+
+    def step(state):
+        return guard_state(state, fantasy_step(state, subs, rs), rs, cap)
+
+    state, n_steps = _run_masked(pack_state(q0s, p0s), steps, step,
+                                 r_capture, r_max)
+    status = _status(state[1], r_capture, r_max)
+    final_q, final_p = unpack_q1(state), unpack_p1(state)
+    final_q, status = schw_escape_rescue(
+        final_q, final_p, status, schw_true_escape_pred(q0s, p0s, rs),
+        rs, r_max)
+    return final_q, final_p, status, n_steps
+
+
+def substep_params(delta, rs, r_max, omega, order, dtype=torch.float32):
+    """The compensated staggered integrator's scalars as one CPU tensor:
+    [rs, r_max, cap, (d_i, one_minus_cos_i, sin_i, bridge_i) x n_sub], in
+    `dtype` — the layout of the JAX kernel's SMEM vector
+    (`integrate_pallas._substep_params(compensated=True, staggered=True)`).
+    The CUDA kernel and its eager twin both read this vector."""
+    delta = _in_dtype(delta, dtype)
+    subs = substep_schedule(delta, omega, order, omc=True, dtype=dtype)
+    bridges = bridge_sizes([s[0] for s in subs], dtype=dtype)
+    scal = [_in_dtype(rs, dtype), _in_dtype(r_max, dtype),
+            jump_cap(delta, dtype)]
+    for (d_i, omc_i, sin_i), br_i in zip(subs, bridges):
+        scal += [d_i, omc_i, sin_i, br_i]
+    return torch.tensor(scal, dtype=dtype)
+
+
+def finish_compensated(state, q0s, p0s, rs, r_max):
+    """Shared read-out of the compensated integrators (kernel and twin):
+    fold the deficits (true = s - c), rebuild the invariant theta slots
+    (pi/2 and 0), classify, and apply the exact-predicate rescue from the
+    launch state."""
+    dtype = q0s.dtype
+    best = unpack_eqc(state)
+    th = torch.full_like(best[1], math.pi / 2)
+    zero = torch.zeros_like(best[1])
+    final_q = torch.stack([best[0], best[1], th, best[2]], dim=-1)
+    final_p = torch.stack([best[3], best[4], zero, best[5]], dim=-1)
+    status = _status(best[1], _capture_radius(rs, dtype), r_max)
+    final_q, status = schw_escape_rescue(
+        final_q, final_p, status, schw_true_escape_pred(q0s, p0s, rs),
+        rs, r_max)
+    return final_q, final_p, status
+
+
+def integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max, omega,
+                                order=2):
+    """Eager twin of the compensated CUDA kernel (equatorial rays only).
+
+    Runs the staggered compensated flows (physics.hamiltonian.staggered_eqc)
+    on the 24-row state: one masked opening half-A, masked cores
+    B(d/2) M B(d/2) A(bridge) per substep with the blow-up guard, one
+    masked closing half-A (skipped for rays parked at r == rs).  Requires
+    theta == pi/2 and p_theta == 0 for every ray.
+    """
+    dtype = q0s.dtype
+    p = substep_params(delta, rs, r_max, omega, order, dtype).tolist()
+    rs, r_max, cap = p[0], p[1], p[2]
+    subs = [tuple(p[3 + 4 * j:7 + 4 * j]) for j in range((len(p) - 3) // 4)]
+    r_capture = _capture_radius(rs, dtype)
+    open_fn, core_fn, close_fn = staggered_eqc
+    d0 = subs[0][0]
+
+    state = pack_state_eqc(q0s, p0s)
+    act0 = _active_mask(state[1], r_capture, r_max)
+    if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
+        opened = open_fn(state, d0, rs)
+        state = tuple(torch.where(act0, o, s) for o, s in zip(opened, state))
+
+    def step(state):
+        new = state
+        for d_i, omc_i, sin_i, br_i in subs:
+            new = core_fn(new, d_i, rs, omc_i, sin_i, br_i)
+        return guard_state(state, new, rs, cap)
+
+    state, n_steps = _run_masked(state, steps, step, r_capture, r_max)
+
+    if steps > 0:  # undo the pending half-A, except for rays parked at rs
+        closed = close_fn(state, d0, rs)
+        close_mask = act0 & (state[1] != rs)
+        state = tuple(torch.where(close_mask, c, s)
+                      for c, s in zip(closed, state))
+
+    final_q, final_p, status = finish_compensated(state, q0s, p0s, rs, r_max)
+    return final_q, final_p, status, n_steps
+
+
+def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
+                         n_keep=None, order=2):
+    """Trajectory-capturing variant: returns (N, n_keep, 4) positions.
+
+    q1 is recorded every `stride` steps so that at most n_keep samples
+    exist, including the step on which a ray exits; rows after a ray's
+    exit stay zero.  n_keep=None keeps every step (stride 1).  Once every
+    ray has exited, the remaining records would all be zero, so the loop
+    stops there.
+    """
+    if n_keep is None or n_keep >= steps:
+        n_keep_eff = steps
+        stride = 1
+    else:
+        stride = -(-steps // n_keep)
+        n_keep_eff = -(-steps // stride)
+
+    dtype = q0s.dtype
+    delta = _in_dtype(delta, dtype)
+    rs = _in_dtype(rs, dtype)
+    r_max = _in_dtype(r_max, dtype)
+    subs = substep_schedule(delta, omega, order, dtype=dtype)
+    cap = jump_cap(delta, dtype)
+    r_capture = _capture_radius(rs, dtype)
+
+    n = q0s.shape[0]
+    traj = torch.zeros((n, n_keep_eff, 4), dtype=dtype, device=q0s.device)
+    state = pack_state(q0s, p0s)
+    alive = torch.ones((n,), dtype=torch.bool, device=q0s.device)
+    for k in range(steps):
+        if k % _EXIT_CHECK == 0 and not bool(alive.any()):
+            break
+        active = _active_mask(state[1], r_capture, r_max)
+        if k % stride == 0:
+            traj[:, k // stride, :] = unpack_q1(state) * alive[:, None]
+        alive = alive & active
+        new = guard_state(state, fantasy_step(state, subs, rs), rs, cap)
+        state = tuple(torch.where(active, nw, o) for nw, o in zip(new, state))
+    return traj
+
+
+class SchwarzschildIntegrator:
+    """Counterpart of `grtrace.engine.integrate.SchwarzschildIntegrator`
+    (the reference CUDASchwarzschildIntegrator's constructor signature).
+
+    backend 'torch' runs the 16-row integrate_batch on `device`; 'cuda'
+    needs kernel B3 (16-row generic), which is not ported yet.
+    """
+
+    def __init__(self, steps=500, delta=0.2, mass=1.0, omega=1.0, r_max=1e6,
+                 backend="torch", dtype=torch.float32, order=2, device="cpu"):
+        self.steps = int(steps)
+        self.delta = float(delta)
+        self.rs = 2.0 * float(mass)
+        self.omega = float(omega)
+        self.r_max = float(r_max)
+        self.backend = backend
+        self.dtype = dtype
+        self.order = int(order)
+        self.device = torch.device(device)
+
+    def _tensors(self, q0s, p0s):
+        return tuple(torch.as_tensor(
+            x if isinstance(x, torch.Tensor) else np.array(x),
+            dtype=self.dtype, device=self.device) for x in (q0s, p0s))
+
+    def integrate_batch(self, q0s, p0s):
+        q0s, p0s = self._tensors(q0s, p0s)
+        if self.backend == "cuda":
+            raise NotImplementedError(
+                "SchwarzschildIntegrator(backend='cuda') needs kernel B3 "
+                "(16-row generic), not ported yet: ROADMAP Queue B")
+        return integrate_batch(q0s, p0s, self.steps, self.delta, self.rs,
+                               self.r_max, self.omega, order=self.order)
+
+    def integrate_batch_full(self, q0s, p0s, n_keep=None):
+        q0s, p0s = self._tensors(q0s, p0s)
+        return integrate_batch_full(q0s, p0s, self.steps, self.delta,
+                                    self.rs, self.r_max, self.omega, n_keep,
+                                    order=self.order)

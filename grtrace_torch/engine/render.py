@@ -1,0 +1,235 @@
+"""End-to-end curved-ray render pipeline: camera -> integrate -> rescue ->
+classify -> composite — the torch counterpart of `grtrace.engine.render`.
+
+Everything from the pixel grid to the RGB image runs on one device, with
+no host round trip in between; the host loads the texture and fetches one
+(5,) count vector at the end.  On a CUDA device the integration runs the
+hand-written kernel (engine/integrate_cuda.py); on the CPU it runs the
+kernel's eager twin.  Only uncharged Schwarzschild scenes are ported: the
+other metric families, charged holes and antialiasing raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from ..io.scene import SceneConfig
+from ..physics.camera import camera_rays
+from ..physics.coords import rotate_x, spherical_to_cartesian
+from . import classify as _classify
+from .integrate import integrate_batch_full, integrate_dispatch
+from .metrics import RenderMetrics
+
+MAX_TRAJ_POINTS = 1000  # reference cap per sampled ray
+
+
+class RenderResult:
+    """Everything one render produced.
+
+    Per-pixel tensors stay on the device until first accessed: reading an
+    attribute (image, cls, final_q, final_th, final_ph, q0, p0, alpha0,
+    heading, beta, n_steps, status) fetches it to the host once and caches
+    it as a numpy array.
+    """
+
+    _FIELDS = ("image", "cls", "final_q", "final_th", "final_ph", "q0", "p0",
+               "alpha0", "heading", "beta", "n_steps", "status")
+
+    def __init__(self, device_arrays: dict, counts: dict,
+                 sampled_indices=None, sampled_trajectories=None):
+        self._dev = device_arrays
+        self._cache: dict = {}
+        self.counts = counts
+        self.sampled_indices = sampled_indices    # (K, 2) (i, j)
+        self.sampled_trajectories = sampled_trajectories  # list of (P, 3)
+
+    def __getattr__(self, name):
+        if name in RenderResult._FIELDS:
+            cache = self.__dict__["_cache"]
+            if name not in cache:
+                cache[name] = self.__dict__["_dev"][name].cpu().numpy()
+            return cache[name]
+        raise AttributeError(name)
+
+    def device(self, name):
+        """The raw device tensor (no host transfer)."""
+        return self._dev[name]
+
+
+def render_pixels(bg_array, obs_x, fov, mass, boundary_radius,
+                  steps, delta, omega,
+                  patch_center_theta, patch_center_phi,
+                  patch_size_theta, patch_size_phi,
+                  *, height, width, flip_theta=False, flip_phi=False,
+                  has_background=True, dtype=torch.float32, backend="auto",
+                  order=2):
+    """The device pipeline for one frame, on bg_array's device.
+
+    Scalars are Python floats; they are rounded to `dtype` as 0-dim tensors
+    on the device, as the JAX pipeline receives them.  Returns a dict of
+    per-pixel tensors plus the (5,) count vector.
+    """
+    device = bg_array.device
+
+    def scalar(x):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    obs_x_t, mass_t = scalar(obs_x), scalar(mass)
+    zero = torch.zeros_like(obs_x_t)
+    obs_pos = torch.stack([obs_x_t, zero, zero])
+    q0, p0, alpha0, heading, beta = camera_rays(
+        obs_pos, scalar(fov), height, width, mass_bh=mass_t, dtype=dtype,
+        device=device)
+
+    n = height * width
+    # camera rays are folded into the equatorial plane, which licenses the
+    # equatorial (compensated) integrator; it rounds its scalars to dtype
+    # on the host
+    final_q, final_p, status, n_steps = integrate_dispatch(
+        q0.reshape(n, 4), p0.reshape(n, 4), steps, float(delta),
+        2.0 * float(mass), float(boundary_radius), float(omega),
+        backend=backend, equatorial=True, order=order)
+    final_q = final_q.reshape(height, width, 4)
+
+    cls, th_csv, ph_csv, u01, v01 = _classify.classify_rays(
+        final_q, alpha0, beta, rs=2.0 * mass_t, r_obs_x=obs_x_t,
+        boundary_radius=scalar(boundary_radius),
+        patch_center_theta=scalar(patch_center_theta),
+        patch_center_phi=scalar(patch_center_phi),
+        patch_size_theta=scalar(patch_size_theta),
+        patch_size_phi=scalar(patch_size_phi),
+        flip_theta=flip_theta, flip_phi=flip_phi,
+        has_background=has_background)
+
+    image = _classify.composite(cls, u01, v01, bg_array)
+
+    return {
+        "image": image,
+        "cls": cls,
+        "final_q": final_q,
+        "final_th": th_csv,
+        "final_ph": ph_csv,
+        "q0": q0,
+        "p0": p0,
+        "alpha0": alpha0,
+        "heading": heading,
+        "beta": beta,
+        "n_steps": n_steps.reshape(height, width),
+        "status": status.reshape(height, width),
+        "count_vec": _classify.count_vector(cls),
+    }
+
+
+def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
+    """Re-integrate K sampled rays with decimated trajectory capture,
+    un-fold by beta, convert to Cartesian (float64, on the host)."""
+    h, w = scene.image_size
+    flat_idx = torch.as_tensor(sampled_ij[:, 0] * w + sampled_ij[:, 1],
+                               device=q0.device)
+    q0s = q0.reshape(-1, 4)[flat_idx]
+    p0s = p0.reshape(-1, 4)[flat_idx]
+    betas = beta.reshape(-1)[flat_idx].cpu().double()
+
+    integ = scene.integrator
+    traj = integrate_batch_full(
+        q0s.to(dtype), p0s.to(dtype), integ.steps, integ.delta,
+        2.0 * scene.bh_mass, scene.boundary_radius, float(integ.omega),
+        n_keep=min(MAX_TRAJ_POINTS, integ.steps), order=integ.order)
+
+    traj = traj.cpu().double()
+    out = []
+    for k in range(traj.shape[0]):
+        pts = traj[k]
+        x, y, z = spherical_to_cartesian(pts[:, 1], pts[:, 2], pts[:, 3])
+        x, y, z = rotate_x(x, y, z, betas[k])
+        out.append(torch.stack([x, y, z], dim=-1).numpy())
+    return out
+
+
+def _check_scene_ported(scene, aa_samples):
+    metric = getattr(scene, "metric", "Schwarzschild").lower()
+    if metric != "schwarzschild":
+        raise NotImplementedError(
+            f"metric {scene.metric!r} is not ported to grtrace_torch yet "
+            f"(ROADMAP Queue A items 5 and 9)")
+    if float(getattr(scene, "charge", 0.0)) != 0.0:
+        raise NotImplementedError(
+            "charged holes ride the Kerr-Newman engine, not ported to "
+            "grtrace_torch yet (ROADMAP Queue A item 5)")
+    if aa_samples:
+        raise NotImplementedError(
+            "adaptive antialiasing (engine/aa.py) is not ported to "
+            "grtrace_torch yet (ROADMAP Queue A item 8)")
+
+
+def _untimed(name):
+    return contextlib.nullcontext()
+
+
+def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
+           dtype=None, metrics: RenderMetrics | None = None, aa_samples=None,
+           device="cuda") -> RenderResult:
+    """Full-frame render of an uncharged Schwarzschild scene on `device`.
+
+    bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
+    torch dtype, by default the scene's integrator dtype.  metrics:
+    optional RenderMetrics to fill with stage timings and throughput.
+    device defaults to 'cuda' and raises when no GPU is present; pass
+    device='cpu' for the plain torch path.
+    """
+    _check_scene_ported(scene, aa_samples)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render(device='cuda') needs a CUDA GPU; "
+                           "pass device='cpu' for the plain torch path")
+
+    # without metrics the stages are not timed, so nothing synchronizes
+    # the card but the one count fetch
+    stage = metrics.stage if metrics is not None else _untimed
+    h, w = scene.image_size
+    integ = scene.integrator
+    if dtype is None:
+        dtype = torch.float64 if integ.dtype == "float64" else torch.float32
+    has_bg = bg_array is not None
+    with stage("texture_upload"):
+        bg_dev = (torch.as_tensor(np.asarray(bg_array), dtype=torch.uint8,
+                                  device=device) if has_bg
+                  else torch.zeros((1, 1, 3), dtype=torch.uint8,
+                                   device=device))
+
+    with stage("device_pipeline"):
+        out = render_pixels(
+            bg_dev, scene.observer_distance, scene.fov, scene.bh_mass,
+            scene.boundary_radius, integ.steps, integ.delta,
+            float(integ.omega),
+            scene.patch.center_theta, scene.patch.center_phi,
+            scene.patch.size_theta, scene.patch.size_phi,
+            height=h, width=w,
+            flip_theta=scene.patch.flip_theta,
+            flip_phi=scene.patch.flip_phi,
+            has_background=has_bg, dtype=dtype,
+            backend=integ.backend, order=integ.order)
+        cv = out.pop("count_vec").tolist()  # the one host fetch
+    counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
+              "background": cv[3], "numerical_error": cv[4]}
+    if metrics is not None:  # costs one (H, W) reduction and fetch
+        metrics.rays = h * w
+        metrics.geodesic_steps = int(out["n_steps"].sum())
+
+    n_samples = scene.n_samples if n_samples is None else n_samples
+    sampled_ij = None
+    sampled_trajs = None
+    if n_samples and n_samples > 0:
+        with stage("sample_trajectories"):
+            rng = np.random.default_rng(seed)
+            flat = rng.choice(h * w, size=min(n_samples, h * w),
+                              replace=False)
+            sampled_ij = np.stack([flat // w, flat % w], axis=-1)
+            sampled_trajs = _sample_trajectories(
+                out["q0"], out["p0"], out["beta"], sampled_ij, scene, dtype)
+
+    return RenderResult(out, counts, sampled_indices=sampled_ij,
+                        sampled_trajectories=sampled_trajs)

@@ -1,0 +1,129 @@
+"""Pinhole camera: pixel grid -> null-geodesic phase-space initial
+conditions — the torch counterpart of the folded Schwarzschild camera in
+`grtrace.physics.camera` (`pixel_grid`, `angles_to_p_sph`,
+`initial_conditions`, `camera_rays`).
+
+Camera geometry (the reference's):
+  * observer on the +x axis, optical axis -x, right = +y, up = +z
+  * image plane at distance 0.2*|obs| with width 2*d*tan(fov/2),
+    height = width * (h/w)
+  * pixel (i, j): offset u = (j+0.5)/w - 0.5 along +y, v = (i+0.5)/h - 0.5
+    along +z.
+
+Every ray is folded into the x-y plane by a rotation beta about +x, so the
+integrator sees theta = pi/2 and p_theta = 0 exactly.  Scalars (observer
+position, fov, mass) are tensors of the working dtype on the working
+device, as the JAX pipeline passes them, so scalar arithmetic rounds in
+that dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .coords import cartesian_to_spherical, rotate_x
+from .nullcond import null_p_t
+
+
+def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
+               device=None):
+    """Return (H, W, 3) pixel positions on the image plane."""
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    device = obs_pos.device
+    fov = torch.as_tensor(fov, dtype=dtype, device=device)
+    optical_axis = torch.tensor([-1.0, 0.0, 0.0], dtype=dtype, device=device)
+    right = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+
+    plane_dist = 0.2 * torch.linalg.vector_norm(obs_pos)
+    plane_center = obs_pos + optical_axis * plane_dist
+    plane_width = 2.0 * plane_dist * torch.tan(fov / 2.0)
+    plane_height = plane_width * (height / width)
+
+    jj = torch.arange(width, dtype=dtype, device=device)
+    ii = torch.arange(height, dtype=dtype, device=device)
+    u = (jj + 0.5) / width - 0.5   # (W,) along +y
+    v = (ii + 0.5) / height - 0.5  # (H,) along +z
+    offsets = (u[None, :, None] * plane_width * right
+               + v[:, None, None] * plane_height * up)
+    return plane_center + offsets
+
+
+def angles_to_p_sph(alpha, beta, r_obs, *, mass_bh=1.0):
+    """Camera angles -> reference-convention spatial momentum triplet:
+        n = (-cos a cos b, -sin b, sin a cos b)   orthonormal (rhat, thhat, phhat)
+        p = (n_r * sqrt(1 - 2M/r), n_th * r, n_ph * r)
+    alpha/beta/r_obs are tensors that broadcast elementwise.
+    """
+    alpha = torch.as_tensor(alpha)
+    beta = torch.as_tensor(beta, dtype=alpha.dtype, device=alpha.device)
+    r_obs = torch.as_tensor(r_obs, dtype=alpha.dtype, device=alpha.device)
+    f_r = torch.sqrt(1.0 - 2.0 * mass_bh / r_obs)
+    n_rhat = -torch.cos(alpha) * torch.cos(beta)
+    n_phhat = torch.sin(alpha) * torch.cos(beta)
+    n_thhat = -torch.sin(beta)
+    p_r = n_rhat * f_r
+    p_th = n_thhat * r_obs
+    p_ph = n_phhat * r_obs
+    p_r, p_th, p_ph = torch.broadcast_tensors(p_r, p_th, p_ph)
+    return torch.stack([p_r, p_th, p_ph], dim=-1)
+
+
+def initial_conditions(obs_pos, pixel_pos, *, mass_bh=1.0):
+    """Batched pixel positions -> (q0, p0, alpha0, heading, beta).
+
+    q0 : (..., 4)   initial position (0, r_obs, th_obs, ph_obs)
+    p0 : (..., 4)   null 4-momentum, future-directed root
+    alpha0 : (...)  angle off the optical axis
+    heading : (..., 3)  (h_r, h_theta, h_phi) of the lab-frame ray direction
+    beta : (...)    fold angle about +x (equatorial-plane trick)
+    """
+    obs_pos = torch.as_tensor(obs_pos, dtype=pixel_pos.dtype,
+                              device=pixel_pos.device)
+    ray = pixel_pos - obs_pos
+    ray = ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+    rx, ry, rz = ray[..., 0], ray[..., 1], ray[..., 2]
+
+    # fold the ray into the x-y plane: beta = angle out of plane;
+    # atan2(0, 0) = 0 handles the exact center pixel
+    beta = torch.atan2(rz, ry)
+    xy_x, xy_y, _ = rotate_x(rx, ry, rz, -beta)
+
+    r_obs, th_obs, ph_obs = cartesian_to_spherical(
+        obs_pos[..., 0], obs_pos[..., 1], obs_pos[..., 2])
+
+    # in-plane theta = pi/2, so h_phi = atan2(y, x); alpha_cam = pi - h_phi
+    h_phi_xy = torch.atan2(xy_y, xy_x)
+    alpha_cam = math.pi - h_phi_xy
+
+    p_spatial = angles_to_p_sph(alpha_cam, 0.0, r_obs, mass_bh=mass_bh)
+
+    p_t = null_p_t(p_spatial, r_obs, th_obs, mass_bh=mass_bh, future=True)
+    p0 = torch.cat([p_t[..., None], p_spatial], dim=-1)
+
+    zeros = torch.zeros_like(beta)
+    q0 = torch.stack([zeros, r_obs.expand(beta.shape),
+                      th_obs.expand(beta.shape),
+                      ph_obs.expand(beta.shape)], dim=-1)
+
+    h_r, h_th, h_ph = cartesian_to_spherical(rx, ry, rz)
+    heading = torch.stack([h_r, h_th, h_ph], dim=-1)
+
+    # angle off the optical axis, renormalized to flat geometry
+    f_r = torch.sqrt(1.0 - 2.0 * mass_bh / r_obs)
+    alpha0 = torch.arccos(torch.clamp(-p_spatial[..., 0] / f_r, -1.0, 1.0))
+
+    return q0, p0, alpha0, heading, beta
+
+
+def camera_rays(obs_pos, fov, height, width, *, mass_bh=1.0,
+                dtype=torch.float32, device=None):
+    """Camera parameters -> per-pixel initial conditions.
+
+    Shapes: q0/p0 (H, W, 4), alpha0/beta (H, W), heading (H, W, 3).
+    """
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
+                     device=obs_pos.device)
+    return initial_conditions(obs_pos, pix, mass_bh=mass_bh)

@@ -1,0 +1,61 @@
+"""The PyTorch port stands alone: it imports without jax and never imports
+the JAX package, and neither does the GPU smoke script."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+# between them these import every module of the port
+PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
+                "grtrace_torch.kernels.build"]
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "grtrace_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_imports_with_jax_blocked(module):
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['grtrace'] = None; "
+            f"import {module}; "
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'grtrace.'))"
+            " for m in sys.modules if sys.modules[m] is not None)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_grtrace_import_in_source(path):
+    with open(path) as f:
+        src = f.read()
+    bad = re.findall(r"^\s*(?:import|from)\s+(jax|grtrace)\b(?!_torch)", src,
+                     re.MULTILINE)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_public_api():
+    import grtrace_torch
+    for name in ("SceneConfig", "IntegratorConfig", "PatchConfig", "render",
+                 "RenderResult", "SchwarzschildIntegrator", "from_jax_scene"):
+        assert hasattr(grtrace_torch, name), name
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card the smoke script exits non-zero and prints no
+    result line."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
