@@ -2,13 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from `grtrace_torch/csrc`, holds it against
-its eager twin on the card, checks it against the float64 oracle golden,
-then drives the port's main path — `grtrace_torch.render` of the headline
-Schwarzschild scene (400x400 rays, 200k steps, delta 0.01, float32) — and
-checks that the render went through the kernel.  Each phase prints one
-line; any failure raises and the script exits non-zero.  The last two
-lines are a JSON record of the kernels and a JSON status line.
+Builds the port's CUDA kernels from `grtrace_torch/csrc` and drives both of
+the port's paths through them:
+
+  * kernel B1 (csrc/fantasy_eqc.cu): held against its eager twin on the
+    card and against the float64 oracle golden, then the headline
+    Schwarzschild render (400x400 rays, 200k steps, delta 0.01, float32);
+  * kernel B5 (csrc/fantasy_ks.cu): held bitwise against its eager twins
+    in the layouts the Kerr frame does not run (order 4 with charge, the
+    16-row float and double layouts) at 48x48, its Kerr shadow boundary
+    against the Bardeen closed form, then the full-width Kerr render (a =
+    0.9, 1024x1024 rays, 30k steps, delta 0.02, float32), whose camera rays
+    it is held bitwise against its twin on at the full budget.
+
+Each render checks that it went through its kernel.  Each phase prints one
+line; any failure raises and the script exits non-zero.  The last three
+lines are a JSON record of the kernels, the card's name and power limit,
+and a JSON status line.
 
 Imports only torch, numpy and grtrace_torch (never jax or grtrace): the
 machine with the card has no jax.
@@ -32,9 +42,40 @@ OBS_X, FOV_DEG, MASS, R_MAX = 30.0, 80.0, 1.0, 31.0
 # the TPU's counts for the headline scene (BENCH_r05.json)
 TPU_COUNTS = {"captured": 5712, "escaped": 154288}
 
+# the full-width Kerr scene (the README's Kerr row): a = 0.9, 1024x1024,
+# 30k steps, delta 0.02, order 2, float32, same camera and boundary
+KERR_SIZE, KERR_STEPS, KERR_DELTA, KERR_SPIN = 1024, 30_000, 0.02, 0.9
+
+# Bounds: the least time an H100 SXM could take, from its data sheet at
+# 700 W: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM3.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Floating-point operations per ray-step, counted from the kernel sources
+# (each add, subtract, multiply, divide and square root is one; no FMA
+# under -fmad=false):
+#   fantasy_eqc: per substep B M B A(bridge) = 1 + 3 flows x 42 + mixing 90
+#                = 217; the guard's |dr| test 2 per step
+#   fantasy_ks (32 rows): per substep 1 + 3 flows x (kick/drift 120 +
+#                7 Kahan adds x 5) + mixing 120 = 586; per step the active
+#                test 21 and the guard 95; the open and close flows 2 x 155
+#                once per ray
+# (both scenes run order 2: one substep per step)
+EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
+KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 116, 310
+# bytes the integration must move per ray: q0 and p0 in, final q and p,
+# status and n_steps out (each read or written once)
+BYTES_RAY = 8 * 4 + 8 * 4 + 4 + 4  # float32 rays
+
 
 def phase(n, msg):
     print(f"[{n}] {msg}", flush=True)
+
+
+def bound(flops, nbytes):
+    """(bound in ms, 'operations' | 'bytes')."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 def camera(size, device, dtype=torch.float32):
@@ -45,48 +86,17 @@ def camera(size, device, dtype=torch.float32):
     return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
 
 
-def timed(fn):
-    """(result, milliseconds) of one call, with CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
+def ks_camera(size, params, device, dtype=torch.float32):
+    from grtrace_torch.physics.camera import camera_rays_cartesian
+    from grtrace_torch.physics.spacetime import kerr_schild_g_inv
+    obs = torch.tensor([OBS_X, 0.0, 0.0], dtype=dtype, device=device)
+    q0, p0, _ = camera_rays_cartesian(
+        obs, math.radians(FOV_DEG), size, size, params=params,
+        g_inv_fn=kerr_schild_g_inv, dtype=dtype, device=device)
+    return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
 
 
-def compare(kern, twin):
-    """Mismatch counts of kernel vs twin outputs (q, p, status, n_steps)."""
-    (qk, pk, sk, nk), (qt, pt, st, nt) = kern, twin
-    bits = [torch.equal(a.view(torch.int32), b.view(torch.int32))
-            for a, b in ((qk, qt), (pk, pt))]
-    err = max(float((a - b).abs().nan_to_num(float("inf")).max())
-              for a, b in ((qk, qt), (pk, pt)))
-    return {"status_mismatch": int((sk != st).sum()),
-            "n_steps_mismatch": int((nk != nt).sum()),
-            "q_bitwise_equal": bits[0], "p_bitwise_equal": bits[1],
-            "max_abs_err": err}
-
-
-def check_parity(tag, q0, p0, steps, delta, order, n, record):
-    """The kernel against its eager twin, which `backend='torch'` selects
-    on the card."""
-    from grtrace_torch.engine.integrate import integrate_dispatch
-    from grtrace_torch.engine.integrate_cuda import integrate_batch_cuda
-    args = (steps, delta, 2.0 * MASS, R_MAX, OMEGA)
-    integrate_batch_cuda(q0, p0, *args, order=order)  # warm-up
-    kern, kern_ms = timed(lambda: integrate_batch_cuda(q0, p0, *args,
-                                                       order=order))
-    twin, twin_ms = timed(lambda: integrate_dispatch(
-        q0, p0, *args, backend="torch", equatorial=True, order=order))
-    res = compare(kern, twin)
-    status = kern[2]
-    res.update(rays=q0.shape[0], steps=steps, delta=delta, order=order,
-               captured=int((status == 1).sum()),
-               escaped=int((status == 2).sum()),
-               kernel_ms=kern_ms, twin_ms=twin_ms)
-    phase(n, f"kernel vs eager twin, {tag}: {json.dumps(res)}")
+def gate_parity(tag, res):
     if res["status_mismatch"] or res["n_steps_mismatch"]:
         raise AssertionError(f"{tag}: status/n_steps differ between kernel "
                              f"and twin")
@@ -95,8 +105,56 @@ def check_parity(tag, q0, p0, steps, delta, order, n, record):
             f"{tag}: final q/p not bitwise equal (max abs diff "
             f"{res['max_abs_err']:.3e}); the kernel is built with "
             f"-fmad=false to round exactly as the twin's torch ops")
-    record.append(res)
+
+
+def check_parity(tag, q0, p0, steps, delta, order, n):
+    """Kernel B1 against its eager twin, which `backend='torch'` selects
+    on the card."""
+    from grtrace_torch.engine.integrate import integrate_dispatch
+    from grtrace_torch.engine.integrate_cuda import integrate_batch_cuda
+    from grtrace_torch.engine.validate import compare_outputs, timed
+    args = (steps, delta, 2.0 * MASS, R_MAX, OMEGA)
+    integrate_batch_cuda(q0, p0, *args, order=order)  # warm-up
+    kern, kern_ms = timed(lambda: integrate_batch_cuda(q0, p0, *args,
+                                                       order=order),
+                          q0.device)
+    twin, twin_ms = timed(lambda: integrate_dispatch(
+        q0, p0, *args, backend="torch", equatorial=True, order=order),
+        q0.device)
+    res = compare_outputs(kern, twin)
+    status = kern[2]
+    res.update(rays=q0.shape[0], steps=steps, delta=delta, order=order,
+               captured=int((status == 1).sum()),
+               escaped=int((status == 2).sum()),
+               n_steps_sum=int(kern[3].long().sum()),
+               kernel_ms=kern_ms, twin_ms=twin_ms)
+    phase(n, f"B1 kernel vs eager twin, {tag}: {json.dumps(res)}")
+    gate_parity(tag, res)
     return res
+
+
+def check_parity_ks(tag, size, steps, delta, order, charge, dtype,
+                    compensated, n):
+    """Kernel B5 against its eager twin on the card, in one of its three
+    layouts, on the KS camera (`validate.ks_kernel_parity`)."""
+    from grtrace_torch.engine.integrate_ks_cuda import integrate_batch_ks_cuda
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    params = (MASS, KERR_SPIN, charge)
+    q0, p0 = ks_camera(size, params, torch.device("cuda", 0), dtype)
+    args = (steps, delta, params, R_MAX, OMEGA)
+    integrate_batch_ks_cuda(q0, p0, *args, order=order,
+                            compensated=compensated)  # warm-up
+    kern, res = ks_kernel_parity(q0, p0, *args, order=order,
+                                 compensated=compensated)
+    status = kern[2]
+    res.update(rows=32 if compensated else 16, dtype=str(dtype)[6:],
+               rays=q0.shape[0], steps=steps, delta=delta, order=order,
+               spin=KERR_SPIN, charge=charge,
+               captured=int((status == 1).sum()),
+               escaped=int((status == 2).sum()),
+               n_steps_max=int(kern[3].max()))
+    phase(n, f"B5 kernel vs eager twin, {tag}: {json.dumps(res)}")
+    gate_parity(tag, res)
 
 
 def golden_probes(device):
@@ -206,13 +264,127 @@ def main_path(device):
     return launches, wall
 
 
+def kerr_scene():
+    from grtrace_torch import IntegratorConfig, PatchConfig, SceneConfig
+    return SceneConfig(
+        size=KERR_SIZE, fov_deg=FOV_DEG, background=None, bh_mass=MASS,
+        metric="kerr", spin=KERR_SPIN, boundary_radius=R_MAX,
+        observer_distance=OBS_X,
+        integrator=IntegratorConfig(steps=KERR_STEPS, delta=KERR_DELTA,
+                                    omega=OMEGA, order=2, backend="auto",
+                                    dtype="float32"),
+        patch=PatchConfig(), n_samples=0)
+
+
+def kerr_boundary():
+    from grtrace_torch.engine.validate import kerr_shadow_errors
+    t0 = time.perf_counter()
+    res = kerr_shadow_errors(spin=KERR_SPIN, device="cuda")
+    res["seconds"] = time.perf_counter() - t0
+    phase(8, f"Kerr shadow boundary (B5 kernel, float32, 8 azimuths) vs the "
+             f"Bardeen closed form, 256^2 px: {json.dumps(res)}")
+    if not res["px_err_max"] <= 0.05:
+        raise AssertionError(f"Kerr boundary error {res['px_err_max']} px "
+                             f"> 0.05 px")
+
+
+def kerr_main_path():
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_ks_cuda
+    from grtrace_torch.engine.integrate_ks import bardeen_escape_pred
+    from grtrace_torch.engine.metrics import RenderMetrics
+    from grtrace_torch.io.textures import starfield
+
+    scene = kerr_scene()
+    tex = starfield()
+    integrate_ks_cuda.launches = 0
+    metrics = RenderMetrics()
+    res = grtrace_torch.render(scene, bg_array=tex, device="cuda",
+                               metrics=metrics)
+    launches = integrate_ks_cuda.launches
+    counts = res.counts
+    ns = res.n_steps.astype(np.int64)
+    q0 = res.device("q0").reshape(-1, 4)
+    p0 = res.device("p0").reshape(-1, 4)
+    pred = bardeen_escape_pred(q0, p0, MASS, KERR_SPIN, 0.0)
+    status = res.device("status").reshape(-1)
+    off_pred = int((((status == 1) & pred) | ((status == 2) & ~pred)).sum())
+    summary = {"launches": launches, "counts": counts,
+               "stages_s": metrics.stages,
+               "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum()),
+               "status_off_bardeen_pred": off_pred}
+    phase(9, f"Kerr render {KERR_SIZE}x{KERR_SIZE}/{KERR_STEPS} steps, "
+             f"a = {KERR_SPIN}, through the kernel: {json.dumps(summary)}")
+    if launches < 1:
+        raise AssertionError("the Kerr render did not launch kernel B5")
+    if counts["numerical_error"]:
+        raise AssertionError(f"numerical_error not 0: {counts}")
+    if (res.image.shape != (KERR_SIZE, KERR_SIZE, 3)
+            or not np.isfinite(res.final_q).all()):
+        raise AssertionError("Kerr render output has the wrong shape or "
+                             "non-finite final positions")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render(scene, bg_array=tex, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"warm Kerr render counts {r.counts} "
+                                 f"differ from the first render's {counts}")
+    wall = float(np.median(walls))
+
+    # kernel B5 and its wrapper (sort, pack, launch, unsort, rescue)
+    # against its eager twin, on this frame's camera rays and budget
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    q0c, p0c = q0.contiguous(), p0.contiguous()
+    kern, par = ks_kernel_parity(q0c, p0c, KERR_STEPS, KERR_DELTA,
+                                 (MASS, KERR_SPIN, 0.0), R_MAX, OMEGA)
+    ray_steps = int(kern[3].long().sum())
+    n = q0c.shape[0]
+    par.update(rays=n, steps=KERR_STEPS, ray_steps=ray_steps,
+               n_steps_max=int(kern[3].max()))
+    phase(9, f"B5 kernel vs eager twin on the Kerr frame's rays: "
+             f"{json.dumps(par)}")
+    gate_parity("Kerr frame", par)
+    bound_ms, bound_by = bound(
+        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP) + n * KS_FLOPS_RAY,
+        n * BYTES_RAY)
+    phase(9, f"Kerr render warm wall time: median {wall:.6f} s of "
+             f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B5 "
+             f"kernel+wrapper at this shape {par['kernel_ms']:.3f} ms "
+             f"({100 * par['kernel_ms'] / 1e3 / wall:.1f}% of the wall), "
+             f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
+             f"bound {bound_ms:.3f} ms ({bound_by})")
+    return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
+            "bound_by": bound_by, **par}
+
+
+def build_kernels():
+    from grtrace_torch.kernels import build
+    t0 = time.perf_counter()
+    built = build.build()
+    wall = time.perf_counter() - t0
+    build.load()
+    regs = []
+    for stem, (lib, _) in sorted(built.items()):
+        log = lib.with_suffix(".log").read_text()
+        for k in build.ptxas_summary(log):
+            regs.append(f"{k['kernel']}: {k['registers']} registers, "
+                        f"{k['spill_stores']}/{k['spill_loads']} bytes "
+                        f"spill stores/loads")
+    per_lib = {stem: round(s, 2) for stem, (_, s) in built.items()}
+    phase(2, f"built {sorted(p.name for p, _ in built.values())} in "
+             f"{wall:.2f} s (per nvcc {per_lib}); {' | '.join(regs)}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     import grtrace_torch  # noqa: F401  (fails outside a checkout)
-    from grtrace_torch.kernels import build
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -221,23 +393,17 @@ def main():
         check=True).stdout.strip()
     phase(1, f"card: {smi}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}")
+    build_kernels()
 
-    lib_path, build_s = build.build()
-    build.load()
-    ptxas = [ln.strip() for ln in
-             lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase(2, f"built {lib_path.name} in {build_s:.2f} s; {' | '.join(ptxas)}")
-
-    record = []
+    # --- kernel B1 and the headline Schwarzschild path --------------------
     q0, p0 = camera(SIZE, device)
     # the headline camera at the full budget: the very call render makes
     a = check_parity(f"headline camera {SIZE}x{SIZE}, {STEPS} steps",
-                     q0, p0, STEPS, DELTA, 2, "3a", record)
+                     q0, p0, STEPS, DELTA, 2, "3a")
     q0s, p0s = camera(64, device)
     for order in (2, 4):
         check_parity(f"64x64 camera, order {order}", q0s, p0s, 2000, 0.05,
-                     order, "3b", record)
+                     order, "3b")
 
     golden_probes(device)
     launches, wall = main_path(device)
@@ -246,15 +412,51 @@ def main():
              f"{STEPS} step budget): kernel {a['kernel_ms']:.3f} ms "
              f"({100 * a['kernel_ms'] / 1e3 / wall:.1f}% of the render's "
              f"warm wall time), eager twin {a['twin_ms']:.3f} ms")
-    print(json.dumps({"kernels": [{
-        "name": "fantasy_eqc",
-        "route": "cuda",
-        "source": "grtrace_torch/csrc/fantasy_eqc.cu",
-        "replaces": "grtrace/engine/integrate_pallas.py:77",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in record),
-        "ms": a["kernel_ms"],
-        "plain_ms": a["twin_ms"]}]}))
+    eqc_bound, eqc_by = bound(
+        a["n_steps_sum"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP),
+        a["rays"] * BYTES_RAY)
+
+    # --- kernel B5 and the Kerr path ---------------------------------------
+    # order 4 with charge and the 16-row layouts are off the main path and
+    # held at small shapes; the main path's order-2 32-row layout is held
+    # at the full Kerr frame in phase 9
+    check_parity_ks("KS camera 48x48, order 4, charge 0.3, 3000 steps, "
+                    "delta 0.05, 32 rows float", 48, 3000, 0.05, 4, 0.3,
+                    torch.float32, True, "7a")
+    for dtype in (torch.float32, torch.float64):
+        check_parity_ks(f"KS camera 48x48, 2000 steps, delta 0.05, 16 rows "
+                        f"{str(dtype)[6:]}", 48, 2000, 0.05, 2, 0.0, dtype,
+                        False, "7b")
+    kerr_boundary()
+    kerr = kerr_main_path()
+
+    print(json.dumps({"kernels": [
+        {"name": "fantasy_eqc",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_eqc.cu",
+         "replaces": "grtrace/engine/integrate_pallas.py:77",
+         "launches": launches,
+         "max_abs_err": a["max_abs_err"],
+         "ms": a["kernel_ms"],
+         "plain_ms": a["twin_ms"],
+         "bound_ms": eqc_bound,
+         "bound_by": eqc_by,
+         "library_ms": None,
+         "shapes": f"ms, plain_ms and bound at {SIZE}x{SIZE} headline rays, "
+                   f"{STEPS}-step budget (phase 3a)"},
+        {"name": "fantasy_ks",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_ks.cu",
+         "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
+         "launches": kerr["launches"],
+         "max_abs_err": kerr["max_abs_err"],
+         "ms": kerr["kernel_ms"],
+         "plain_ms": kerr["twin_ms"],
+         "bound_ms": kerr["bound_ms"],
+         "bound_by": kerr["bound_by"],
+         "library_ms": None,
+         "shapes": f"every number at {KERR_SIZE}x{KERR_SIZE} Kerr rays, "
+                   f"{KERR_STEPS}-step budget (phase 9)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,13 @@
 
 The Schwarzschild inverse ray tracer (folded pinhole camera, compensated
 FANTASY integration, exact-predicate rescue, classification and
-compositing) on tensors of any torch device.  On an NVIDIA Hopper GPU the
-integration runs a hand-written CUDA kernel (csrc/fantasy_eqc.cu); on the
-CPU it runs the kernel's eager twin.  The JAX package `grtrace` is the
-reference this package is tested against; this package never imports it,
-nor jax.
+compositing) and the Kerr / Kerr-Newman one in the Kerr-Schild chart
+(Cartesian camera, Kerr-Schild FANTASY flows with the null-invariant
+guard, exact Bardeen rescue), on tensors of any torch device.  On an
+NVIDIA Hopper GPU the integration runs hand-written CUDA kernels
+(csrc/fantasy_eqc.cu, csrc/fantasy_ks.cu); on the CPU it runs their eager
+twins.  The JAX package `grtrace` is the reference this package is tested
+against; this package never imports it, nor jax.
 """
 from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
                        SceneConfig, from_jax_scene)

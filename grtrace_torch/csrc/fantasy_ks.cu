@@ -1,0 +1,381 @@
+// Kerr / Kerr-Newman FANTASY integrator in Cartesian Kerr-Schild
+// coordinates: one CUDA thread per ray.
+//
+// Replaces the TPU kernel grtrace/engine/integrate_pallas_ks.py::
+// _make_kernel_ks in plain mode (no disk or subring recorder; entry point
+// integrate_batch_pallas_ks), in both of its layouts: 32 rows
+// Kahan-compensated (the float32 production layout) and 16 rows plain (the
+// float64 layout).  Its eager twins, which define what this kernel computes,
+// are grtrace_torch/engine/integrate_ks.py::integrate_batch_ksc (32 rows)
+// and ::integrate_batch_ks (16 rows), built on the flows of
+// grtrace_torch/physics/kerr_schild.py and the guard of make_ks_step.
+//
+// What bounds it on an H100: FP32 (or FP64) issue rate and latency.  Each
+// ray is a serial chain of about 500 floating-point operations per step at
+// order 2 (three Kerr-Schild kick/drift evaluations, each with two square
+// roots and three IEEE divisions, plus the guard's invariant), with no
+// memory traffic inside the loop; rays exit after very different step
+// counts (plungers early, escapers after ~4k steps, photon-shell winders
+// when the guard parks them).
+//
+// What the design does about it: the state (16 rows, plus 16 Kahan deficits
+// in the compensated layout) lives in registers, with no shared memory and
+// no global traffic until the ray exits; a finished ray breaks out of its
+// loop (the per-thread form of the TPU kernel's masked steps and per-tile
+// early exit); the wrapper sorts rays by their flat impact parameter's
+// distance to the critical ring (the TPU's _cost_sort_key_ks) so a warp's
+// rays retire together.  The guard reverts a bad step, so the pre-step state
+// is kept as a second copy in registers.  Making it fast is later work.
+//
+// Numerics: built with -fmad=false and without --use_fast_math, so every
+// operation below rounds once, in the order written, exactly as the twins'
+// torch ops do.  The association follows kerr_schild.py term by term
+// ((2 a) a, 4 (a z)(a z) in geom against 4 a a z z in ks_radius, inv_r inv_r,
+// ...); literals are of the ray type T (T(3e-2) is the float nearest 0.03,
+// as torch rounds the Python scalar), since a double literal would promote
+// a float expression and round it differently.  A plain step's p - dt k is
+// written p + (-dt) k, which IEEE arithmetic makes the same value.
+//
+// Layout: state_in/state_out are SoA (n_rows, n), each row contiguous, so a
+// warp's loads and stores are coalesced; rows 0..15 are q1, p1, q2, p2 in
+// (t, x, y, z) order and rows 16..31 their deficits (true value s - c).
+// params is the vector [M, a, Q, r_cap, r_max, plunge_zone, (d, cw, sw,
+// bridge) x n_sub] built on the host by engine/integrate_ks.py::ks_params
+// (cw is 1 - cos of the mixing angle in the compensated layout, cos in the
+// plain one).  ns_out (n,) int32 counts the steps each ray took, negated if
+// the guard parked it.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 16;
+constexpr int kScal = 6;
+
+template <typename T, bool kComp>
+struct KsState {
+  T s[kRows];               // q1 p1 q2 p2, each (t, x, y, z)
+  T c[kComp ? kRows : 1];   // Kahan deficits (compensated layout only)
+};
+
+template <typename T>
+struct Scalars {
+  T mass, a, charge, r_cap, r_max, plunge_zone;
+};
+
+template <typename T>
+__device__ __forceinline__ void kahan_add(T& s, T& c, T inc) {
+  // MUST stay exactly this op sequence (hamiltonian._kahan_add)
+  const T y = inc - c;
+  const T t = s + y;
+  c = (t - s) - y;
+  s = t;
+}
+
+// row += inc: compensated in the 32-row layout, plain in the 16-row one
+template <int I, typename T, bool kComp>
+__device__ __forceinline__ void accumulate(KsState<T, kComp>& st, T inc) {
+  if constexpr (kComp) {
+    kahan_add(st.s[I], st.c[I], inc);
+  } else {
+    st.s[I] = st.s[I] + inc;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T ks_radius(T x, T y, T z, T a) {
+  // kerr_schild.ks_radius_c
+  const T rho2 = x * x + y * y + z * z;
+  const T b = rho2 - a * a;
+  return sqrt(T(0.5) * (b + sqrt(b * b + T(4) * a * a * z * z)));
+}
+
+template <typename T>
+struct Geom {
+  T r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz;
+};
+
+template <typename T>
+__device__ __forceinline__ Geom<T> geom(T x, T y, T z, const Scalars<T>& sc) {
+  // kerr_schild._geom
+  Geom<T> g;
+  const T a = sc.a;
+  const T rho2 = x * x + y * y + z * z;
+  g.b = rho2 - a * a;
+  const T az = a * z;
+  const T s = sqrt(g.b * g.b + T(4) * az * az);
+  const T r2 = T(0.5) * (g.b + s);
+  g.r = sqrt(r2);
+  g.inv_r = T(1) / g.r;
+  g.inv_D = T(1) / s;
+  g.w = r2 + a * a;
+  g.inv_w = T(1) / g.w;
+  g.H = (sc.mass * g.r - T(0.5) * sc.charge * sc.charge) * g.inv_D;
+  g.lx = (g.r * x + a * y) * g.inv_w;
+  g.ly = (g.r * y - a * x) * g.inv_w;
+  g.lz = z * g.inv_r;
+  return g;
+}
+
+template <typename T>
+struct Kick {
+  T kx, ky, kz, dt, dx, dy, dz;
+};
+
+template <typename T>
+__device__ __forceinline__ Kick<T> kick_drift(T x, T y, T z, T pt, T px,
+                                              T py, T pz,
+                                              const Scalars<T>& sc) {
+  // kerr_schild._kick_drift
+  const Geom<T> g = geom(x, y, z, sc);
+  const T a = sc.a;
+  const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
+  const T HS2 = T(2) * g.H * S;
+  Kick<T> k;
+  k.dt = -pt + HS2;
+  k.dx = px - HS2 * g.lx;
+  k.dy = py - HS2 * g.ly;
+  k.dz = pz - HS2 * g.lz;
+
+  const T r_x = x * g.r * g.inv_D;
+  const T r_y = y * g.r * g.inv_D;
+  const T r_z = z * g.w * g.inv_r * g.inv_D;
+  const T D_x = T(2) * x * g.b * g.inv_D;
+  const T D_y = T(2) * y * g.b * g.inv_D;
+  const T D_z = T(2) * z * (g.b + T(2) * a * a) * g.inv_D;
+
+  const T H_x = (sc.mass * r_x - g.H * D_x) * g.inv_D;
+  const T H_y = (sc.mass * r_y - g.H * D_y) * g.inv_D;
+  const T H_z = (sc.mass * r_z - g.H * D_z) * g.inv_D;
+
+  const T inv_r2 = g.inv_r * g.inv_r;
+  const T G = (x * px + y * py - T(2) * g.r * (g.lx * px + g.ly * py))
+                  * g.inv_w
+              - z * pz * inv_r2;
+  const T S_x = r_x * G + (g.r * px - a * py) * g.inv_w;
+  const T S_y = r_y * G + (a * px + g.r * py) * g.inv_w;
+  const T S_z = r_z * G + pz * g.inv_r;
+
+  const T S2 = S * S;
+  k.kx = -H_x * S2 - HS2 * S_x;
+  k.ky = -H_y * S2 - HS2 * S_y;
+  k.kz = -H_z * S2 - HS2 * S_z;
+  return k;
+}
+
+template <typename T>
+__device__ __forceinline__ T hamiltonian(T x, T y, T z, T pt, T px, T py,
+                                         T pz, const Scalars<T>& sc) {
+  // kerr_schild.hamiltonian_ks
+  const Geom<T> g = geom(x, y, z, sc);
+  const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
+  return T(0.5) * (-pt * pt + px * px + py * py + pz * pz) - g.H * S * S;
+}
+
+// Flow A: metric at q1 (rows 1..3), momenta p2 (12..15); kick p1 (5..7),
+// drift q2 (8..11).
+template <typename T, bool kComp>
+__device__ __forceinline__ void flow_a(KsState<T, kComp>& st, T dt,
+                                       const Scalars<T>& sc) {
+  const Kick<T> k = kick_drift(st.s[1], st.s[2], st.s[3], st.s[12],
+                               st.s[13], st.s[14], st.s[15], sc);
+  accumulate<5>(st, (-dt) * k.kx);
+  accumulate<6>(st, (-dt) * k.ky);
+  accumulate<7>(st, (-dt) * k.kz);
+  accumulate<8>(st, dt * k.dt);
+  accumulate<9>(st, dt * k.dx);
+  accumulate<10>(st, dt * k.dy);
+  accumulate<11>(st, dt * k.dz);
+}
+
+// Flow B: metric at q2 (rows 9..11), momenta p1 (4..7); kick p2 (13..15),
+// drift q1 (0..3).
+template <typename T, bool kComp>
+__device__ __forceinline__ void flow_b(KsState<T, kComp>& st, T dt,
+                                       const Scalars<T>& sc) {
+  const Kick<T> k = kick_drift(st.s[9], st.s[10], st.s[11], st.s[4],
+                               st.s[5], st.s[6], st.s[7], sc);
+  accumulate<13>(st, (-dt) * k.kx);
+  accumulate<14>(st, (-dt) * k.ky);
+  accumulate<15>(st, (-dt) * k.kz);
+  accumulate<0>(st, dt * k.dt);
+  accumulate<1>(st, dt * k.dx);
+  accumulate<2>(st, dt * k.dy);
+  accumulate<3>(st, dt * k.dz);
+}
+
+// kerr_schild._flow_mixed_ksc: the mixing rotation in increment form,
+// omc_w = 1 - cos(2 omega delta), copy differences folding the deficits
+template <typename T>
+__device__ __forceinline__ void flow_mixed(KsState<T, true>& st, T omc_w,
+                                           T sin_w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const T q_dif = (st.s[i] - st.s[8 + i]) - (st.c[i] - st.c[8 + i]);
+    const T p_dif = (st.s[4 + i] - st.s[12 + i])
+                    - (st.c[4 + i] - st.c[12 + i]);
+    const T dq1 = T(0.5) * (sin_w * p_dif - omc_w * q_dif);
+    const T dp1 = T(0.5) * ((-sin_w) * q_dif - omc_w * p_dif);
+    kahan_add(st.s[i], st.c[i], dq1);
+    kahan_add(st.s[4 + i], st.c[4 + i], dp1);
+    kahan_add(st.s[8 + i], st.c[8 + i], -dq1);
+    kahan_add(st.s[12 + i], st.c[12 + i], -dp1);
+  }
+}
+
+// hamiltonian._flow_mixed: the plain mixing rotation, cos_w = cos(2 omega d)
+template <typename T>
+__device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
+                                           T sin_w) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const T q1 = st.s[i], p1 = st.s[4 + i];
+    const T q2 = st.s[8 + i], p2 = st.s[12 + i];
+    const T q_sum = q1 + q2;
+    const T q_dif = q1 - q2;
+    const T p_sum = p1 + p2;
+    const T p_dif = p1 - p2;
+    st.s[i] = T(0.5) * (q_sum + q_dif * cos_w + p_dif * sin_w);
+    st.s[4 + i] = T(0.5) * (p_sum + p_dif * cos_w - q_dif * sin_w);
+    st.s[8 + i] = T(0.5) * (q_sum - q_dif * cos_w - p_dif * sin_w);
+    st.s[12 + i] = T(0.5) * (p_sum - p_dif * cos_w + q_dif * sin_w);
+  }
+}
+
+template <typename T, bool kComp>
+__global__ void __launch_bounds__(128)
+fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
+                  int* __restrict__ ns_out, const T* __restrict__ params,
+                  int n, int n_sub, int steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t stride = static_cast<size_t>(n);
+
+  KsState<T, kComp> st;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    st.s[k] = state_in[k * stride + i];
+    if constexpr (kComp) st.c[k] = state_in[(kRows + k) * stride + i];
+  }
+
+  Scalars<T> sc;
+  sc.mass = __ldg(params + 0);
+  sc.a = __ldg(params + 1);
+  sc.charge = __ldg(params + 2);
+  sc.r_cap = __ldg(params + 3);
+  sc.r_max = __ldg(params + 4);
+  sc.plunge_zone = __ldg(params + 5);
+  const T d0 = __ldg(params + kScal);
+  const T r_plus = sc.r_cap / T(1.05);
+  const T r_max2 = sc.r_max * sc.r_max;
+
+  int ns = 0;
+  const bool act0 =
+      ks_radius(st.s[1], st.s[2], st.s[3], sc.a) > sc.r_cap
+      && st.s[1] * st.s[1] + st.s[2] * st.s[2] + st.s[3] * st.s[3] < r_max2;
+  if (act0 && steps > 0) {
+    flow_a(st, T(0.5) * d0, sc);  // opening half-A
+    for (int k = 0; k < steps; ++k) {
+      const T r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
+      const T rho2 = st.s[1] * st.s[1] + st.s[2] * st.s[2]
+                     + st.s[3] * st.s[3];
+      if (!(r_old > sc.r_cap && rho2 < r_max2)) break;
+      const KsState<T, kComp> old = st;
+      for (int j = 0; j < n_sub; ++j) {
+        const T* sub = params + kScal + 4 * j;
+        const T half = T(0.5) * __ldg(sub + 0);
+        flow_b(st, half, sc);
+        flow_mixed(st, __ldg(sub + 1), __ldg(sub + 2));
+        flow_b(st, half, sc);
+        flow_a(st, __ldg(sub + 3), sc);
+      }
+
+      // null-invariant blow-up guard (make_ks_step), on the (q1, p2) rows
+      T agg = st.s[0];
+#pragma unroll
+      for (int m = 1; m < kRows; ++m) agg = agg + st.s[m];
+      const bool finite = isfinite(agg);
+      const T h = hamiltonian(st.s[1], st.s[2], st.s[3], st.s[12], st.s[13],
+                              st.s[14], st.s[15], sc);
+      const T p2n = st.s[13] * st.s[13] + st.s[14] * st.s[14]
+                    + st.s[15] * st.s[15] + T(1);
+      // negated <= so that a NaN invariant trips it
+      const bool exploded = !(finite && fabs(h) <= T(3e-2) * p2n);
+      const T r_new = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
+      const bool crossed = finite && r_new < r_plus && !exploded;
+      const bool inward = old.s[1] * old.s[5] + old.s[2] * old.s[6]
+                          + old.s[3] * old.s[7] < T(0);
+      const bool capture =
+          crossed || (exploded && (inward || r_old < sc.plunge_zone));
+      ++ns;
+      if (exploded || crossed) {
+        // revert and park: captured on-axis at (0, 0, 0.5 r_cap), else the
+        // numerical sentinel (150, 0, 0); the park flag is the sign of ns
+        st = old;
+        st.s[1] = capture ? T(0) : T(150);
+        st.s[2] = T(0);
+        st.s[3] = capture ? T(0.5) * sc.r_cap : T(0);
+        if constexpr (kComp) {
+          st.c[1] = T(0);
+          st.c[2] = T(0);
+          st.c[3] = T(0);
+        }
+        ns = -ns;
+      }
+    }
+    // closing half-A for every opened ray (parked ones too: the park points
+    // are regular chart points and flow A cannot move q1)
+    flow_a(st, T(-0.5) * d0, sc);
+  }
+
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    state_out[k * stride + i] = st.s[k];
+    if constexpr (kComp) state_out[(kRows + k) * stride + i] = st.c[k];
+  }
+  ns_out[i] = ns;
+}
+
+template <typename T, bool kComp>
+int launch(const T* state_in, T* state_out, int* ns_out, const T* params,
+           int n, int n_sub, int steps, void* stream) {
+  if (n <= 0) return 0;
+  constexpr int kThreads = 128;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  fantasy_ks_kernel<T, kComp>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          state_in, state_out, ns_out, params, n, n_sub, steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// 32 rows, float, Kahan-compensated: the production float32 layout
+extern "C" int grt_fantasy_ks32_f32_launch(const float* state_in,
+                                           float* state_out, int* ns_out,
+                                           const float* params, int n,
+                                           int n_sub, int steps,
+                                           void* stream) {
+  return launch<float, true>(state_in, state_out, ns_out, params, n, n_sub,
+                             steps, stream);
+}
+
+// 16 rows, float, plain
+extern "C" int grt_fantasy_ks16_f32_launch(const float* state_in,
+                                           float* state_out, int* ns_out,
+                                           const float* params, int n,
+                                           int n_sub, int steps,
+                                           void* stream) {
+  return launch<float, false>(state_in, state_out, ns_out, params, n, n_sub,
+                              steps, stream);
+}
+
+// 16 rows, double, plain: the float64 layout
+extern "C" int grt_fantasy_ks16_f64_launch(const double* state_in,
+                                           double* state_out, int* ns_out,
+                                           const double* params, int n,
+                                           int n_sub, int steps,
+                                           void* stream) {
+  return launch<double, false>(state_in, state_out, ns_out, params, n,
+                               n_sub, steps, stream);
+}

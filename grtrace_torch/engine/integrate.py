@@ -343,11 +343,19 @@ class SchwarzschildIntegrator:
     (the reference CUDASchwarzschildIntegrator's constructor signature).
 
     backend 'torch' runs the 16-row integrate_batch on `device`; 'cuda'
-    needs kernel B3 (16-row generic), which is not ported yet.
+    needs kernel B3 (16-row generic), which is not ported yet.  device
+    defaults to 'cuda', as the JAX class runs on the default device, and
+    raises RuntimeError when no GPU is present; pass device='cpu' for the
+    CPU.
     """
 
     def __init__(self, steps=500, delta=0.2, mass=1.0, omega=1.0, r_max=1e6,
-                 backend="torch", dtype=torch.float32, order=2, device="cpu"):
+                 backend="torch", dtype=torch.float32, order=2,
+                 device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SchwarzschildIntegrator(device='cuda') needs "
+                               "a CUDA GPU; pass device='cpu' for the CPU")
         self.steps = int(steps)
         self.delta = float(delta)
         self.rs = 2.0 * float(mass)
@@ -356,7 +364,7 @@ class SchwarzschildIntegrator:
         self.backend = backend
         self.dtype = dtype
         self.order = int(order)
-        self.device = torch.device(device)
+        self.device = device
 
     def _tensors(self, q0s, p0s):
         return tuple(torch.as_tensor(

@@ -1,0 +1,389 @@
+"""Kerr-Schild step machinery and the eager twins of kernel B5 — the torch
+counterpart of `grtrace.engine.integrate_ks`.
+
+The CUDA kernel (csrc/fantasy_ks.cu, wrapped by engine/integrate_ks_cuda.py)
+and the twins here compute the same thing from the same host-built scalar
+vector (`ks_params`): the staggered composed step, the in-loop
+null-invariant blow-up guard, the parking and the sign-encoded park flag
+of `make_ks_step`.  The twins define what the kernel computes; the kernel
+matches them bit for bit on the card.
+
+    integrate_batch_ksc   32-row Kahan-compensated layout (float32 rays)
+    integrate_batch_ks    16-row plain layout (float64 rays; JAX runs it
+                          only as integrate_batch_pallas_ks(compensated=
+                          False), which has no XLA twin)
+
+Both return (final_q, final_p, status, n_steps) after the exact Bardeen
+rescue (`apply_bardeen_rescue`), which runs in plain torch after the
+integration and is shared by the kernel path.  Status codes are those of
+engine/integrate.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..physics.hamiltonian import bridge_sizes, pack_state, substep_schedule
+from ..physics.kerr_schild import (close_ks, close_ksc, core_ks, core_ksc,
+                                   hamiltonian_ks, ks_radius_c, open_ks,
+                                   open_ksc, pack_state_ksc, unpack_ksc)
+from ..physics.spacetime import horizon_radius
+from .integrate import (_EXIT_CHECK, STATUS_ALIVE, STATUS_CAPTURED,
+                        STATUS_ESCAPED, _in_dtype, resolve_backend)
+
+# [mass, a, charge, r_cap, r_max, plunge_zone] lead the scalar vector; then
+# (d_j, cw_j, sw_j, bridge_j) per substep of the staggered schedule
+N_SCAL = 6
+
+
+def ks_scene_scalars(params, dtype):
+    """(mass, a, charge, r_cap, plunge_zone) as Python floats, computed once
+    on the host in `dtype` from params = (M, a[, Q]).
+
+    r_cap: the thin 1.05 r_+ capture shell (backward rays freeze toward
+    the past horizon in any future chart).  plunge_zone: the outer edge of
+    the photon region, r_ph- = 2M(1 + cos((2/3) arccos(|a|/M))) (Bardeen
+    1973), the guard's captured-vs-numerical arbiter."""
+    p = torch.as_tensor(params, dtype=dtype).cpu()
+    mass, a = p[0], p[1]
+    charge = p[2] if p.numel() > 2 else torch.zeros((), dtype=dtype)
+    r_cap = 1.05 * horizon_radius("Kerr", mass, a, charge)
+    plunge_zone = 2.0 * mass * (1.0 + torch.cos(
+        (2.0 / 3.0) * torch.arccos(torch.abs(a) / mass)))
+    return tuple(float(x) for x in (mass, a, charge, r_cap, plunge_zone))
+
+
+def ks_substeps(delta, omega, order, compensated=False, dtype=torch.float32):
+    """Per-substep (d_j, cw_j, sw_j, bridge_j) of the staggered schedule as
+    Python floats exact in `dtype`: cw is cos(2 omega d) for the plain
+    flows and one-minus-cos, 2 sin^2(omega d), for the compensated ones."""
+    subs = substep_schedule(delta, omega, order, omc=compensated, dtype=dtype)
+    bridges = bridge_sizes([s[0] for s in subs], dtype=dtype)
+    return tuple(s + (br,) for s, br in zip(subs, bridges))
+
+
+def ks_params(delta, params, r_max, omega, order, compensated=False,
+              dtype=torch.float32):
+    """The KS integration's scalars as one CPU tensor in `dtype`:
+    [mass, a, charge, r_cap, r_max, plunge_zone, (d, cw, sw, bridge) x
+    n_sub] — the layout of the TPU kernel's SMEM vector
+    (`integrate_batch_pallas_ks`).  The CUDA kernel and the twins both
+    read this vector, so a host/device difference in sin or sqrt cannot
+    enter between them."""
+    mass, a, charge, r_cap, plunge_zone = ks_scene_scalars(params, dtype)
+    scal = [mass, a, charge, r_cap, _in_dtype(r_max, dtype), plunge_zone]
+    for sub in ks_substeps(delta, omega, order, compensated, dtype):
+        scal += list(sub)
+    return torch.tensor(scal, dtype=dtype)
+
+
+def split_params(vec):
+    """ks_params vector -> (mass, a, charge, r_cap, r_max, plunge_zone),
+    substeps, all Python floats."""
+    p = vec.tolist()
+    subs = tuple(tuple(p[N_SCAL + 4 * j:N_SCAL + 4 * j + 4])
+                 for j in range((len(p) - N_SCAL) // 4))
+    return tuple(p[:N_SCAL]), subs
+
+
+def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
+                 compensated=False, disk=None, subrings=None, *,
+                 dtype=torch.float32):
+    """(active, masked_step, open_fn, close_fn) for one KS integration.
+
+    active(comps) -> bool mask; masked_step(comps, ns) -> (comps, ns)
+    applies one full staggered composed step to the active rays, with the
+    null-invariant blow-up guard and parking; open_fn/close_fn are the
+    staggered boundary half-A flows (the caller masks them by the
+    initially active set).  Scalars are Python floats exact in `dtype`.
+    The disk (B6) and subring (B7) recorders are not ported yet.
+    """
+    if disk is not None:
+        raise NotImplementedError(
+            "make_ks_step(disk=...) is kernel B6's disk mode, not ported "
+            "to grtrace_torch yet (ROADMAP Queue B, B6)")
+    if subrings is not None:
+        raise NotImplementedError(
+            "make_ks_step(subrings=...) is kernel B7's subring mode, not "
+            "ported to grtrace_torch yet (ROADMAP Queue B, B7)")
+    core = core_ksc if compensated else core_ks
+    open_raw = open_ksc if compensated else open_ks
+    close_raw = close_ksc if compensated else close_ks
+    # r_cap / 1.05 rounded in dtype, as the kernel divides it
+    r_plus = float(torch.tensor(r_cap, dtype=dtype)
+                   / torch.tensor(1.05, dtype=dtype))
+    r_max2 = r_max * r_max  # exact in a Python float; rounds once on use
+
+    def open_fn(comps, d0):
+        return open_raw(comps, d0, mass, a, charge)
+
+    def close_fn(comps, d0):
+        return close_raw(comps, d0, mass, a, charge)
+
+    def active(comps):
+        r_bl = ks_radius_c(comps[1], comps[2], comps[3], a)
+        rho2 = comps[1] * comps[1] + comps[2] * comps[2] + comps[3] * comps[3]
+        return (r_bl > r_cap) & (rho2 < r_max2)
+
+    def masked_step(comps, ns):
+        r_old = ks_radius_c(comps[1], comps[2], comps[3], a)
+        rho2 = (comps[1] * comps[1] + comps[2] * comps[2]
+                + comps[3] * comps[3])
+        act = (r_old > r_cap) & (rho2 < r_max2)
+        new = comps
+        for d_j, cw_j, sw_j, bridge_j in subs:
+            new = core(new, d_j, mass, a, cw_j, sw_j, bridge_j, charge)
+
+        # null-invariant blow-up guard, on the (q1, p2) rows, which hold
+        # the exact plain-composition boundary values in the staggered
+        # state; finiteness of all 16 rows through one aggregate sum; the
+        # |h| test in negated-<= form so a NaN Hamiltonian trips it
+        agg = new[0]
+        for i in range(1, 16):
+            agg = agg + new[i]
+        finite = torch.isfinite(agg)
+        h = hamiltonian_ks(new[1], new[2], new[3], new[12], new[13],
+                           new[14], new[15], mass, a, charge)
+        p2n = new[13] * new[13] + new[14] * new[14] \
+            + new[15] * new[15] + 1.0
+        exploded = ~(finite & (torch.abs(h) <= 3e-2 * p2n))
+        r_new = ks_radius_c(new[1], new[2], new[3], a)
+        crossed = finite & (r_new < r_plus) & ~exploded
+        # pre-step radial heading, p1 copy
+        inward = (comps[1] * comps[5] + comps[2] * comps[6]
+                  + comps[3] * comps[7]) < 0.0
+        capture = crossed | (exploded & (inward | (r_old < plunge_zone)))
+        bad = exploded | crossed
+        # bad rays keep their old values except the parked q1 coordinates:
+        # captured -> on-axis (0, 0, 0.5 r_cap); numerical -> (150, 0, 0)
+        ok = act & ~bad
+        park = act & bad
+        out = [torch.where(ok, n, o) for n, o in zip(new, comps)]
+        zero = torch.zeros_like(out[1])
+        park_x = torch.where(capture, zero, zero + 150.0)
+        park_z = torch.where(capture, zero + 0.5 * r_cap, zero)
+        out[1] = torch.where(park, park_x, out[1])
+        out[2] = torch.where(park, zero, out[2])
+        out[3] = torch.where(park, park_z, out[3])
+        if compensated:
+            # parked coordinates are fresh exact values: zero their deficits
+            for row in (17, 18, 19):
+                out[row] = torch.where(park, zero, out[row])
+        # the park flag rides in the SIGN of the step counter
+        ns_new = ns + act.to(torch.int32)
+        ns_new = torch.where(park, -ns_new, ns_new)
+        return tuple(out), ns_new
+
+    return active, masked_step, open_fn, close_fn
+
+
+def _scalar_tensors(like, *xs):
+    """Numbers -> 0-dim tensors of `like`'s dtype and device (the JAX
+    rescue computes with traced scalars of the ray dtype)."""
+    return tuple(torch.as_tensor(x, dtype=like.dtype, device=like.device)
+                 for x in xs)
+
+
+def bardeen_escape_pred(q0s, p0s, mass, a, charge):
+    """Closed-form capture/escape predicate per ray (Bardeen 1973), from
+    the launch covector in the KS Cartesian chart.
+
+    E = -p_t, L_z = x p_y - y p_x, p_theta from the oblate map, and Carter
+    Q = p_theta^2 + cos^2 th (L^2/sin^2 th - a^2 E^2).  The backward ray
+    escapes iff the radial potential R(r) = [E(r^2+a^2) - a L]^2
+    - Delta(r) [(L - aE)^2 + Q] has a turning point in (r_+, r0), i.e.
+    min R <= 0 there (`_bardeen_min_R`)."""
+    mass, a, charge = _scalar_tensors(q0s, mass, a, charge)
+    x, y, z = q0s[:, 1], q0s[:, 2], q0s[:, 3]
+    E = -p0s[:, 0]
+    L = x * p0s[:, 2] - y * p0s[:, 1]
+    r0_bl = ks_radius_c(x, y, z, a)
+    cos_th = z / r0_bl
+    sin2 = torch.clamp(1.0 - cos_th * cos_th, min=1e-30)
+    sin_th = torch.sqrt(sin2)
+    p_th = (cos_th / sin_th) * (x * p0s[:, 1] + y * p0s[:, 2]) \
+        - r0_bl * sin_th * p0s[:, 3]
+    Q = p_th * p_th + cos_th * cos_th * (L * L / sin2 - a * a * E * E)
+    return _bardeen_min_R(E, L, Q, r0_bl, mass, a, charge)
+
+
+def _unit_grid(num, dtype, device):
+    """num points from 0 to 1 with the values jnp.linspace(0, 1, num)
+    gives under XLA, which turns its i / (num - 1) into i * (1 / (num - 1))
+    (torch.linspace rounds some points differently)."""
+    step = float(torch.tensor(1.0, dtype=dtype)
+                 / torch.tensor(num - 1.0, dtype=dtype))
+    ts = torch.arange(num, dtype=dtype, device=device) * step
+    ts[-1] = 1.0
+    return ts
+
+
+def _bardeen_min_R(E, L, Q, r0_bl, mass, a, charge):
+    """Does R(r) have a turning point in (r_+, r0)?  A 64-point grid
+    argmin (first minimum on ties) polished by 8 Newton steps on the
+    depressed cubic R'."""
+    c1 = (L - a * E) ** 2 + Q
+    B = E * a * a - a * L
+    aq = a * a + charge * charge
+    r_plus = mass + torch.sqrt(torch.clamp(mass * mass - aq, min=0.0))
+
+    E_, B_, c1_ = E[:, None], B[:, None], c1[:, None]
+    lin = 4.0 * E_ * B_ - 2.0 * c1_
+
+    def R(r):
+        quad = E_ * r * r + B_
+        delta = r * r - 2.0 * mass * r + aq
+        return quad * quad - delta * c1_
+
+    def dR(r):
+        return 4.0 * E_ * E_ * r ** 3 + lin * r + 2.0 * mass * c1_
+
+    def ddR(r):
+        return 12.0 * E_ * E_ * r * r + lin
+
+    lo = ((r_plus + 1e-3) + torch.zeros_like(r0_bl))[:, None]
+    hi = r0_bl[:, None]
+    grid = lo + (hi - lo) * _unit_grid(64, E.dtype, E.device)[None, :]
+    Rg = R(grid)
+    jmin = torch.argmin(Rg, dim=1)
+    r_n = torch.gather(grid, 1, jmin[:, None])
+    R_grid_min = torch.gather(Rg, 1, jmin[:, None])[:, 0]
+    tiny = torch.full_like(r_n, 1e-30)
+    for _ in range(8):
+        dd = ddR(r_n)
+        r_n = r_n - dR(r_n) / torch.where(torch.abs(dd) > 1e-30, dd, tiny)
+        r_n = torch.clamp(r_n, lo, hi)
+    R_min = torch.minimum(R_grid_min, R(r_n)[:, 0])
+    return R_min <= 0.0
+
+
+def ks_status(final_q, a, r_cap, r_max):
+    """(N, 4) final positions -> status codes (every KS path)."""
+    r_bl = ks_radius_c(final_q[:, 1], final_q[:, 2], final_q[:, 3], a)
+    rho = torch.linalg.vector_norm(final_q[:, 1:], dim=1)
+    alive = torch.full_like(r_bl, STATUS_ALIVE, dtype=torch.int32)
+    return torch.where(r_bl <= r_cap, STATUS_CAPTURED,
+                       torch.where(rho >= r_max, STATUS_ESCAPED, alive))
+
+
+def apply_bardeen_rescue(final_q, final_p, n_steps_signed, q2_spatial,
+                         q0s, p0s, mass, a, charge, r_cap, r_max):
+    """Reclassify guard-parked rays (n_steps_signed < 0) by the exact
+    Bardeen predicate: escape -> parked at 1.001 r_max along the
+    last-resolved direction of the second copy (q2_spatial), ESCAPED;
+    capture -> the on-axis capture point (0, 0, 0.5 r_cap), CAPTURED.
+    Unparked rays pass through.  Returns (final_q, final_p, status,
+    n_steps)."""
+    dtype = final_q.dtype
+    parked = n_steps_signed < 0
+    n_steps = torch.abs(n_steps_signed)
+    pred = bardeen_escape_pred(q0s, p0s, mass, a, charge)
+    esc_r = parked & pred
+    cap_r = parked & ~pred
+
+    norm = torch.linalg.vector_norm(q2_spatial, dim=1, keepdim=True)
+    # 1.001 r_max rounded as JAX rounds it, so the rescued radius stays
+    # >= r_max after rounding
+    r_esc = float(torch.tensor(1.001, dtype=dtype)
+                  * torch.tensor(r_max, dtype=dtype))
+    esc_pos = q2_spatial / torch.clamp(norm, min=1e-30) * r_esc
+    zero = torch.zeros_like(final_q[:, 0])
+    cap_pos = torch.stack([zero, zero, zero + 0.5 * r_cap], dim=1)
+    new_sp = torch.where(esc_r[:, None], esc_pos,
+                         torch.where(cap_r[:, None], cap_pos,
+                                     final_q[:, 1:]))
+    final_q = torch.cat([final_q[:, :1], new_sp], dim=1)
+    return final_q, final_p, ks_status(final_q, a, r_cap, r_max), n_steps
+
+
+def finish_ks(state, ns_signed, q0s, p0s, vec, compensated):
+    """Shared read-out of the KS integrators (kernel and twins): fold the
+    deficits (true = s - c), then the Bardeen rescue from the launch
+    state."""
+    (mass, a, charge, r_cap, r_max, _), _ = split_params(vec)
+    best = unpack_ksc(state) if compensated else tuple(state[:16])
+    final_q = torch.stack(best[0:4], dim=-1)
+    final_p = torch.stack(best[4:8], dim=-1)
+    q2_spatial = torch.stack(best[9:12], dim=-1)
+    return apply_bardeen_rescue(final_q, final_p, ns_signed, q2_spatial,
+                                q0s, p0s, mass, a, charge, r_cap, r_max)
+
+
+def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
+                    compensated):
+    dtype = q0s.dtype
+    vec = ks_params(delta, params, r_max, omega, order, compensated, dtype)
+    (mass, a, charge, r_cap, r_max, plunge_zone), subs = split_params(vec)
+    active, masked_step, open_fn, close_fn = make_ks_step(
+        subs, mass, a, charge, r_cap, r_max, plunge_zone,
+        compensated=compensated, dtype=dtype)
+    d0 = subs[0][0]
+
+    pack = pack_state_ksc if compensated else pack_state
+    state = pack(q0s, p0s)
+    ns = torch.zeros(q0s.shape[:-1], dtype=torch.int32, device=q0s.device)
+    act0 = active(state)
+    if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
+        opened = open_fn(state, d0)
+        state = tuple(torch.where(act0, o, s) for o, s in zip(opened, state))
+
+    # masked steps on inactive rays are exact no-ops, so checking for an
+    # early exit only every _EXIT_CHECK steps changes nothing
+    for k in range(steps):
+        if k % _EXIT_CHECK == 0 and not bool(active(state).any()):
+            break
+        state, ns = masked_step(state, ns)
+
+    # undo the pending half-A for every opened ray; no park exclusion: the
+    # park points are regular chart points and flow A cannot move q1
+    if steps > 0:
+        closed = close_fn(state, d0)
+        state = tuple(torch.where(act0, c, s) for c, s in zip(closed, state))
+    return finish_ks(state, ns, q0s, p0s, vec, compensated)
+
+
+def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
+                        order=2):
+    """Eager twin of the 32-row compensated kernel (float32 production
+    layout).  params = (M, a[, Q]); returns (final_q, final_p, status,
+    n_steps)."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=True)
+
+
+def integrate_batch_ks(q0s, p0s, steps, delta, params, r_max, omega,
+                       order=2):
+    """Eager twin of the 16-row plain kernel (the float64 layout): the
+    loop of integrate_batch_ksc on the uncompensated flows."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=False)
+
+
+def select_path_ks(backend, device, dtype):
+    """Which KS integrator `integrate_dispatch_ks` runs:
+    ('kernel' | 'twin', compensated).  float32 rays take the 32-row
+    compensated layout and float64 rays the 16-row plain one; CUDA tensors
+    go to the kernel and CPU tensors to the twins, and backend='torch'
+    picks the twin on any device.  Never falls back."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"KS rays must be float32 or float64 (got {dtype})")
+    compensated = dtype == torch.float32
+    backend = resolve_backend(backend, device)
+    if backend == "cuda":
+        return "kernel", compensated
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected 'auto', 'cuda' or 'torch')")
+    return "twin", compensated
+
+
+def integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max, omega,
+                          order=2, backend="auto"):
+    """Backend-dispatching KS integrate, one contract for every path."""
+    path, compensated = select_path_ks(backend, q0s.device, q0s.dtype)
+    if path == "kernel":
+        from .integrate_ks_cuda import integrate_batch_ks_cuda
+        return integrate_batch_ks_cuda(q0s, p0s, steps, delta, params, r_max,
+                                       omega, order=order,
+                                       compensated=compensated)
+    twin = integrate_batch_ksc if compensated else integrate_batch_ks
+    return twin(q0s, p0s, steps, delta, params, r_max, omega, order=order)

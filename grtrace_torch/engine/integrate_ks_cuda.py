@@ -1,0 +1,131 @@
+"""The Kerr-Schild FANTASY integrator as a hand-written CUDA kernel
+(`csrc/fantasy_ks.cu`) — the port of the TPU kernel
+`grtrace.engine.integrate_pallas_ks._make_kernel_ks` in plain mode, the
+counterpart of `integrate_batch_pallas_ks`.
+
+Three instantiations of one kernel template: 32 rows float
+(Kahan-compensated, the float32 production layout), 16 rows float and 16
+rows double (plain).  One thread integrates one ray to its exit;
+`integrate_batch_ksc` / `integrate_batch_ks` (engine/integrate_ks.py) are
+the eager twins that define its result, and all of them read the same
+host-built scalar vector (`ks_params`).  This module only launches: it never
+falls back to a twin.  Rays on the CPU belong to `integrate_dispatch_ks`,
+which sends them to the twins.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..physics.hamiltonian import pack_state
+from ..physics.kerr_schild import pack_state_ksc
+from .integrate_cuda import KernelLaunchError
+from .integrate_ks import N_SCAL, finish_ks, ks_params
+
+# Kernel launches since the process started (or since a caller reset it).
+launches = 0
+
+# (rows, dtype) -> C entry of csrc/fantasy_ks.cu
+ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_launch",
+           (16, torch.float32): "grt_fantasy_ks16_f32_launch",
+           (16, torch.float64): "grt_fantasy_ks16_f64_launch"}
+
+
+def _check_inputs(q0s, p0s, compensated):
+    for name, t in (("q0s", q0s), ("p0s", p0s)):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor "
+                             f"(got {getattr(t, 'device', type(t))})")
+        if t.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{name} must be float32 or float64 "
+                             f"(got {t.dtype})")
+        if t.dim() != 2 or t.shape[1] != 4:
+            raise ValueError(f"{name} must be (N, 4) (got {tuple(t.shape)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (q0s.shape != p0s.shape or q0s.device != p0s.device
+            or q0s.dtype != p0s.dtype):
+        raise ValueError("q0s and p0s must match in shape, dtype and device")
+    if compensated and q0s.dtype != torch.float32:
+        raise ValueError("the compensated (32-row) kernel takes float32 rays")
+
+
+def _cost_sort_key_ks(q0s, p0s, mass):
+    """Predicted cost key: the flat impact parameter's distance to the
+    Schwarzschild critical ring 3 sqrt(3) M.  It only has to cluster the
+    long-running photon-ring rays into the same warps."""
+    lvec = torch.linalg.cross(q0s[:, 1:], p0s[:, 1:], dim=1)
+    e = torch.abs(p0s[:, 0])
+    b = torch.linalg.vector_norm(lvec, dim=1) / torch.clamp(e, min=1e-30)
+    return torch.abs(b - 3.0 * math.sqrt(3.0) * mass)
+
+
+def launch_fantasy_ks(state_in, params, steps):
+    """Launch the kernel on a packed (32 | 16, N) state.
+
+    Returns (state_out, ns (N,) int32, negative for guard-parked rays).
+    `params` is the CPU vector from `ks_params` in the state's dtype; it is
+    copied to the state's device.
+    """
+    global launches
+    from ..kernels.build import load
+
+    if (not isinstance(state_in, torch.Tensor)
+            or state_in.device.type != "cuda" or state_in.dim() != 2
+            or not state_in.is_contiguous()):
+        raise ValueError("state_in must be a contiguous (rows, N) CUDA tensor")
+    n_rows, n = state_in.shape
+    entry = ENTRIES.get((n_rows, state_in.dtype))
+    if entry is None:
+        raise ValueError(f"no KS kernel for {n_rows} rows of "
+                         f"{state_in.dtype} (have {sorted(map(str, ENTRIES))})")
+    n_sub = (params.numel() - N_SCAL) // 4
+    if (params.dtype != state_in.dtype or n_sub < 1
+            or params.numel() != N_SCAL + 4 * n_sub):
+        raise ValueError("params must be [M, a, Q, r_cap, r_max, plunge_zone, "
+                         "(d, cw, sw, bridge) x n_sub] in the state's dtype")
+    if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
+    state_out = torch.empty_like(state_in)
+    ns = torch.empty((n,), dtype=torch.int32, device=state_in.device)
+    if n == 0:  # nothing to launch
+        return state_out, ns
+    lib = load()
+    params_dev = params.to(state_in.device)
+    with torch.cuda.device(state_in.device):  # launch on the data's card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr(),
+            params_dev.data_ptr(), n, n_sub, int(steps), stream)
+    if err != 0:
+        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+    launches += 1
+    return state_out, ns
+
+
+def integrate_batch_ks_cuda(q0s, p0s, steps, delta, params, r_max, omega,
+                            order=2, compensated=True):
+    """Integrate (N, 4) Kerr-Schild camera rays through the CUDA kernel:
+    the 32-row compensated layout (float32 rays) or, with
+    compensated=False, the 16-row plain one (float32 or float64).
+
+    Rays are launched in cost-sorted order (`_cost_sort_key_ks`) and the
+    results come back in the input order, after the Bardeen rescue:
+    (final_q, final_p, status, n_steps), the contract of the twins, which
+    it matches bit for bit on the card.  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch.
+    """
+    _check_inputs(q0s, p0s, compensated)
+    vec = ks_params(delta, params, r_max, omega, order, compensated,
+                    q0s.dtype)
+    order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s, float(vec[0])),
+                              stable=True)
+    pack = pack_state_ksc if compensated else pack_state
+    state_in = torch.stack(pack(q0s[order_idx], p0s[order_idx]))
+    state_sorted, ns_sorted = launch_fantasy_ks(state_in, vec, steps)
+    state_out = torch.empty_like(state_sorted)  # back to the caller's order
+    state_out[:, order_idx] = state_sorted
+    ns = torch.empty_like(ns_sorted)
+    ns[order_idx] = ns_sorted
+    return finish_ks(tuple(state_out), ns, q0s, p0s, vec, compensated)

@@ -5,9 +5,9 @@ Everything from the pixel grid to the RGB image runs on one device, with
 no host round trip in between; the host loads the texture and fetches one
 (5,) count vector at the end.  On a CUDA device the integration runs the
 hand-written kernel (engine/integrate_cuda.py); on the CPU it runs the
-kernel's eager twin.  Only uncharged Schwarzschild scenes are ported: the
-other metric families, charged holes and antialiasing raise
-NotImplementedError.
+kernel's eager twin.  `render` also routes Kerr and charged scenes to the
+Kerr-Schild chart (engine/render_generic.py); the Boyer-Lindquist chart,
+the other metric families and antialiasing raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -149,20 +149,30 @@ def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
     return out
 
 
-def _check_scene_ported(scene, aa_samples):
+def _route(scene, aa_samples):
+    """'kerr-schild' for the scenes `render_generic` takes (Kerr in the
+    Kerr-Schild chart, and a charged Schwarzschild scene, which is
+    Reissner-Nordstrom there), 'schwarzschild' for the headline path;
+    raises for what the port does not have yet."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
+    if metric in ("kerr-bl", "kerrbl"):
+        raise NotImplementedError(
+            "the Boyer-Lindquist Kerr chart (metric 'kerr-bl') rides the "
+            "generic autodiff engine, not ported to grtrace_torch yet "
+            "(ROADMAP Queue A item 5b)")
+    charged = float(getattr(scene, "charge", 0.0)) != 0.0
+    if (metric in ("kerr", "kerrschild", "kerr-schild")
+            or (metric == "schwarzschild" and charged)):
+        return "kerr-schild"
     if metric != "schwarzschild":
         raise NotImplementedError(
             f"metric {scene.metric!r} is not ported to grtrace_torch yet "
-            f"(ROADMAP Queue A items 5 and 9)")
-    if float(getattr(scene, "charge", 0.0)) != 0.0:
-        raise NotImplementedError(
-            "charged holes ride the Kerr-Newman engine, not ported to "
-            "grtrace_torch yet (ROADMAP Queue A item 5)")
+            f"(ROADMAP Queue A item 9)")
     if aa_samples:
         raise NotImplementedError(
             "adaptive antialiasing (engine/aa.py) is not ported to "
             "grtrace_torch yet (ROADMAP Queue A item 8)")
+    return "schwarzschild"
 
 
 def _untimed(name):
@@ -172,7 +182,10 @@ def _untimed(name):
 def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
            dtype=None, metrics: RenderMetrics | None = None, aa_samples=None,
            device="cuda") -> RenderResult:
-    """Full-frame render of an uncharged Schwarzschild scene on `device`.
+    """Full-frame render on `device`: the headline Schwarzschild path, or,
+    for scene.metric in ('kerr', 'kerrschild', 'kerr-schild') and for a
+    charged Schwarzschild scene, the Kerr-Newman render in the Kerr-Schild
+    chart (engine/render_generic.py), as `grtrace.render` routes them.
 
     bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
     torch dtype, by default the scene's integrator dtype.  metrics:
@@ -180,7 +193,11 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     device defaults to 'cuda' and raises when no GPU is present; pass
     device='cpu' for the plain torch path.
     """
-    _check_scene_ported(scene, aa_samples)
+    if _route(scene, aa_samples) == "kerr-schild":
+        from .render_generic import render_generic
+        return render_generic(scene, bg_array=bg_array, dtype=dtype,
+                              n_samples=n_samples, metrics=metrics,
+                              aa_samples=aa_samples, device=device)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda') needs a CUDA GPU; "

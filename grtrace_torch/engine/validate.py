@@ -1,0 +1,187 @@
+"""Float32 validation of the Kerr path against closed-form GR — the torch
+counterpart of the Kerr checks of `grtrace.engine.validate`.
+
+  * `kerr_shadow_errors` — the shadow boundary of the float32 Kerr-Schild
+    path (kernel B5 on a CUDA device, its eager twin on the CPU) against
+    the Bardeen (1973) radial-potential construction, per image azimuth,
+    by sub-pixel bisection;
+  * `ks_kernel_parity` — kernel B5 against its eager twin on the same
+    rays: q and p bit for bit, status and exit step exactly.
+
+Boundary positions are quoted in 256x256-image pixels whatever the probe
+resolution.  Scene: observer at r0 = 30 M on +x, fov 80 deg, boundary
+sphere 31 M — the headline configuration.  The host-side pieces
+(`_pixel_positions`, `bisect_boundary`, `bardeen_escapes`) are numpy and
+float64.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..physics.camera import cartesian_ics_from_pixels
+from ..physics.spacetime import kerr_schild_g_inv
+from . import integrate_ks_cuda
+from .integrate import STATUS_ESCAPED
+from .integrate_ks import (integrate_batch_ks, integrate_batch_ksc,
+                           integrate_dispatch_ks)
+
+R0 = 30.0
+FOV = np.radians(80.0)
+SIZE = 256                      # pixel scale the errors are quoted at
+BOUNDARY = 31.0
+PLANE_D = 0.2 * R0              # image plane distance (as pixel_grid)
+PLANE_W = 2.0 * PLANE_D * np.tan(FOV / 2.0)
+N_PSI = 8
+PSIS = np.linspace(0.0, 2 * np.pi, N_PSI, endpoint=False)
+
+
+def _pixel_positions(rho_px, psi):
+    """Continuous pixel radius (256-image units) + azimuth -> image-plane
+    points (the plane geometry of physics.camera.pixel_grid)."""
+    off = np.asarray(rho_px) / SIZE * PLANE_W
+    y = off * np.cos(psi)
+    z = off * np.sin(psi)
+    x = np.full_like(y, R0 - PLANE_D)
+    return np.stack([x, y, z], axis=-1)
+
+
+def bisect_boundary(escape_fn, lo, hi, rounds=3, k=17, n_psi=N_PSI):
+    """Per-azimuth radial bisection of the capture -> escape transition.
+
+    escape_fn((P, K) pixel radii) -> (P, K) bool.  Returns (midpoints (P,),
+    max bracket width).
+    """
+    lo = np.full(n_psi, float(lo))
+    hi = np.full(n_psi, float(hi))
+    for _ in range(rounds):
+        rhos = np.linspace(lo, hi, k, axis=-1)           # (P, K)
+        esc = np.asarray(escape_fn(rhos))
+        if esc[:, 0].any() or not esc[:, -1].all():
+            raise ValueError("bisection bracket does not straddle the "
+                             "shadow boundary")
+        first = esc.argmax(axis=1)                       # first escaped idx
+        idx = np.arange(n_psi)
+        lo = rhos[idx, first - 1]
+        hi = rhos[idx, first]
+    return 0.5 * (lo + hi), float((hi - lo).max())
+
+
+def bardeen_escapes(rhos, spin, charge=0.0, psis=None):
+    """Analytic escape predicate for camera rays at the given pixel radii:
+    each ray's conserved (xi, eta) = (L_z/E, Q/E^2) follows from its
+    initial covector (the port's Cartesian camera, float64 on the host);
+    the backward ray escapes iff the Bardeen radial potential has a real
+    root in (r_+, r0) (quartic roots with numpy)."""
+    if psis is None:
+        psis = PSIS
+    pix = torch.as_tensor(_pixel_positions(rhos, np.asarray(psis)[:, None]))
+    _, p0, _ = cartesian_ics_from_pixels(
+        torch.tensor([R0, 0.0, 0.0], dtype=torch.float64), pix,
+        params=(1.0, spin, charge), g_inv_fn=kerr_schild_g_inv)
+    p0 = p0.numpy()
+    E = -p0[..., 0]
+    L = R0 * p0[..., 2]                      # x p_y - y p_x at (R0, 0, 0)
+    r_bl_obs = np.sqrt(R0 ** 2 - spin ** 2)  # spheroidal radius at z = 0
+    p_th = -r_bl_obs * p0[..., 3]            # dz/dtheta = -r at the equator
+    xi = L / E
+    eta = (p_th / E) ** 2
+
+    r_plus = 1.0 + np.sqrt(max(1.0 - spin ** 2 - charge ** 2, 0.0))
+    out = np.zeros(xi.shape, dtype=bool)
+    for idx in np.ndindex(xi.shape):
+        c = (xi[idx] - spin) ** 2 + eta[idx]
+        p1 = np.poly1d([1.0, 0.0, spin ** 2 - spin * xi[idx]]) ** 2
+        p2 = np.poly1d([1.0, -2.0, spin ** 2 + charge ** 2]) * c
+        roots = (p1 - p2).roots
+        real = roots[np.abs(roots.imag) < 1e-9].real
+        out[idx] = bool(((real > r_plus + 1e-9) & (real < r_bl_obs)).any())
+    return out
+
+
+def kerr_shadow_errors(spin=0.9, charge=0.0, steps=8_000, delta=0.02,
+                       order=4, backend="auto", dtype=torch.float32,
+                       device="cuda"):
+    """{'px_err': per-azimuth |boundary - Bardeen| in 256^2 pixels, ...}
+    for the float32 Kerr-Schild path (+ the Bardeen rescue): kernel B5 for
+    CUDA rays, the eager twin for CPU rays (`integrate_dispatch_ks`)."""
+    params = (1.0, spin, charge)
+    obs = torch.tensor([R0, 0.0, 0.0], dtype=dtype, device=device)
+
+    def escape(rhos):
+        pix = torch.as_tensor(_pixel_positions(rhos, PSIS[:, None]),
+                              dtype=dtype, device=device)
+        q0, p0, _ = cartesian_ics_from_pixels(obs, pix, params=params,
+                                              g_inv_fn=kerr_schild_g_inv)
+        _, _, status, _ = integrate_dispatch_ks(
+            q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous(),
+            steps, delta, params, BOUNDARY, 1.0, order=order,
+            backend=backend)
+        return status.reshape(rhos.shape).cpu().numpy() == STATUS_ESCAPED
+
+    rho_ana, _ = bisect_boundary(
+        lambda r: bardeen_escapes(r, spin, charge), 10.0, 34.0, rounds=4)
+    rho_num, br_n = bisect_boundary(escape, 10.0, 34.0, rounds=3, k=9)
+    err = np.abs(rho_num - rho_ana)
+    return {
+        "spin": spin,
+        "charge": charge,
+        "px_err": [round(float(e), 4) for e in err],
+        "px_err_max": float(err.max()),
+        "bracket_px": round(br_n, 4),
+        "rho_num": [round(float(r), 3) for r in rho_num],
+        "rho_bardeen": [round(float(r), 3) for r in rho_ana],
+    }
+
+
+def compare_outputs(kern, twin):
+    """Mismatch counts of a kernel's (q, p, status, n_steps) against its
+    twin's: q and p compared bit for bit, status and n_steps exactly."""
+    (qk, pk, sk, nk), (qt, pt, st, nt) = kern, twin
+    ints = {4: torch.int32, 8: torch.int64}[qk.element_size()]
+    err = max(float((a - b).abs().nan_to_num(float("inf")).max())
+              for a, b in ((qk, qt), (pk, pt)))
+    return {"status_mismatch": int((sk != st).sum()),
+            "n_steps_mismatch": int((nk != nt).sum()),
+            "q_bitwise_equal": bool(torch.equal(qk.view(ints), qt.view(ints))),
+            "p_bitwise_equal": bool(torch.equal(pk.view(ints), pt.view(ints))),
+            "max_abs_err": err}
+
+
+def timed(fn, device):
+    """(result, milliseconds) of one call: CUDA events on a CUDA device,
+    the host clock elsewhere."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def ks_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
+                     omega=1.0, order=2, compensated=True):
+    """Kernel B5 (`integrate_batch_ks_cuda`, 32 rows or, with
+    compensated=False, 16 rows) against its eager twin
+    (`integrate_batch_ksc` / `integrate_batch_ks`) on the same (N, 4) rays.
+
+    Returns (the kernel's (q, p, status, n_steps), `compare_outputs`'s
+    counts plus the kernel+wrapper and twin times in ms).  The kernel's
+    wrapper raises for CPU rays: nothing falls back to the twin.
+    """
+    args = (steps, delta, params, r_max, omega)
+    twin = integrate_batch_ksc if compensated else integrate_batch_ks
+    kern, kernel_ms = timed(lambda: integrate_ks_cuda.integrate_batch_ks_cuda(
+        q0, p0, *args, order=order, compensated=compensated), q0.device)
+    ref, twin_ms = timed(lambda: twin(q0, p0, *args, order=order),
+                          q0.device)
+    res = compare_outputs(kern, ref)
+    res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
+    return kern, res

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface, which is loaded with `ctypes` (no PyTorch headers, so a
-build takes seconds).  The library lands in `build/grtrace_torch_kernels/`
-beside the package, named by a hash of the sources and flags: it is built
-at first use and reused while the sources are unchanged.
+Each `csrc/*.cu` file is compiled by its own `nvcc` into a shared library
+with a plain C interface, which is loaded with `ctypes` (no PyTorch headers,
+so a build takes seconds); the compilers for all sources are started
+together.  A library lands in `build/grtrace_torch_kernels/` beside the
+package, named by its source and a hash of the source and flags: it is built
+at first use and reused while the source is unchanged.
 
 Numerics: `-fmad=false`, no `--use_fast_math`, IEEE division and square
 root (nvcc's defaults), so each kernel rounds exactly like its eager twin.
@@ -15,9 +16,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -27,9 +30,21 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "grtrace_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# C entry points of each source; every one takes (state_in, state_out,
+# ns_out, params, n, n_sub, steps, stream)
+ENTRIES = {
+    "fantasy_eqc": ("grt_fantasy_eqc_launch",),
+    "fantasy_ks": ("grt_fantasy_ks32_f32_launch",
+                   "grt_fantasy_ks16_f32_launch",
+                   "grt_fantasy_ks16_f64_launch"),
+}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused the sources."""
+    """nvcc is missing or refused a source."""
 
 
 def _sources():
@@ -48,50 +63,104 @@ def _nvcc():
                            "/usr/local/cuda/bin)")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(source: Path) -> Path:
+    """Where the library of `source`, at the current flags, lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libgrtrace_torch_kernels_{h.hexdigest()[:16]}.so"
+    h.update(source.name.encode())
+    h.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the sources if their library is not built yet.
+def build() -> dict:
+    """Compile every source whose library is not built yet, with one nvcc
+    per source, all started together.
 
-    Returns (library path, seconds spent compiling — 0.0 when the library
-    already existed).  The compiler's output (ptxas register counts
-    included) is kept in `<library>.log`.
+    Returns {source stem: (library path, seconds until its nvcc finished,
+    0.0 when the library already existed)}.  Each compiler's output (the
+    ptxas register counts included) is kept in `<library>.log`.
     """
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0
+    libs = {src.stem: (src, library_path(src)) for src in _sources()}
+    out = {stem: (lib, 0.0) for stem, (_, lib) in libs.items()}
+    todo = {stem: pair for stem, pair in libs.items() if not pair[1].exists()}
+    if not todo:
+        return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    lib.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    return lib, seconds
+    running = {}
+    for stem, (src, lib) in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[stem] = (proc, cmd, tmp, lib)
+    failed = []
+    for stem, (proc, cmd, tmp, lib) in running.items():
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        log = f"$ {' '.join(cmd)}\n{text}"
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {stem}.cu ({proc.returncode}):\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
+        out[stem] = (lib, seconds)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return out
+
+
+def ptxas_summary(log: str) -> list:
+    """[{kernel, registers, spill_stores, spill_loads}] from an nvcc -Xptxas
+    -v log, one entry per compiled kernel (mangled names shortened to the
+    kernel's name and template arguments)."""
+    out = []
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = {"kernel": _short_name(m.group(1)), "registers": None,
+                       "spill_stores": None, "spill_loads": None}
+            out.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
+
+
+def _short_name(mangled: str) -> str:
+    """'..._18fantasy_ks_kernelIfLb1EEv...' -> 'fantasy_ks_kernel<f,1>'."""
+    m = re.search(r"\d+(fantasy_\w+?_kernel)(I(.*?)E)?E?v?P", mangled)
+    if not m:
+        return mangled
+    args = m.group(3)
+    if not args:
+        return m.group(1)
+    parts = re.findall(r"Lb(\d)|([fd])", args)
+    return f"{m.group(1)}<{','.join(b or t for b, t in parts)}>"
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build if needed and load the kernel library, with its C entry
-    points' signatures declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.grt_fantasy_eqc_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def load() -> types.SimpleNamespace:
+    """Build if needed and load every kernel library; returns a namespace
+    of the C entry points, their signatures declared."""
+    built = build()
+    fns = {}
+    for stem, names in ENTRIES.items():
+        lib = ctypes.CDLL(str(built[stem][0]))
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)

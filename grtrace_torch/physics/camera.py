@@ -1,7 +1,8 @@
 """Pinhole camera: pixel grid -> null-geodesic phase-space initial
 conditions — the torch counterpart of the folded Schwarzschild camera in
 `grtrace.physics.camera` (`pixel_grid`, `angles_to_p_sph`,
-`initial_conditions`, `camera_rays`).
+`initial_conditions`, `camera_rays`) and of its Cartesian-chart camera
+(`camera_rays_cartesian`, `cartesian_ics_from_pixels`).
 
 Camera geometry (the reference's):
   * observer on the +x axis, optical axis -x, right = +y, up = +z
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from . import spacetime
 from .coords import cartesian_to_spherical, rotate_x
 from .nullcond import null_p_t
 
@@ -127,3 +129,57 @@ def camera_rays(obs_pos, fov, height, width, *, mass_bh=1.0,
     pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
                      device=obs_pos.device)
     return initial_conditions(obs_pos, pix, mass_bh=mass_bh)
+
+
+def _dot3(v, w):
+    """v . w over the last axis of length 3, summed left to right."""
+    return v[..., 0] * w[..., 0] + v[..., 1] * w[..., 1] + v[..., 2] * w[..., 2]
+
+
+def camera_rays_cartesian(obs_pos, fov, height, width, *, params, g_inv_fn,
+                          dtype=torch.float32, device=None):
+    """Camera for Cartesian-chart metrics (Kerr-Schild): the ray direction
+    is the spatial covector, and p_t closes the exact null quadratic with
+    all g^{t i} cross terms.
+
+    Returns (q0, p0, alpha0): q0 = (0, x, y, z) and p0 = (p_t, n_x, n_y,
+    n_z), (H, W, 4) each; alpha0 (H, W) is the flat angle off the optical
+    axis (diagnostics only)."""
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
+                     device=obs_pos.device)
+    return cartesian_ics_from_pixels(obs_pos, pix, params=params,
+                                     g_inv_fn=g_inv_fn)
+
+
+def cartesian_ics_from_pixels(obs, pix, *, params, g_inv_fn):
+    """Core of the Cartesian-chart camera for arbitrary pixel positions
+    pix (..., 3).
+
+    The reference camera scales the radial covector component by
+    sqrt(1 - 2M/r); in Cartesian components that is
+    n + (sqrt(f) - 1)(n . rhat) rhat.  This reproduces the spherical
+    camera's covector components, not its physical pixel -> viewing-angle
+    map (an O(2M/r_obs) apparent-size gauge; see the JAX module)."""
+    dtype, device = pix.dtype, pix.device
+    obs = torch.as_tensor(obs, dtype=dtype, device=device)
+    ray = pix - obs
+    ray = ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+
+    shape = ray.shape[:-1]
+    q0 = torch.cat([torch.zeros(shape + (1,), dtype=dtype, device=device),
+                    obs.expand(shape + (3,))], dim=-1)
+
+    params = torch.as_tensor(params, dtype=dtype, device=device)
+    r_obs = torch.linalg.vector_norm(obs)
+    rhat = obs / r_obs
+    f_r = torch.sqrt(1.0 - 2.0 * params[0] / r_obs)
+    n_r = _dot3(ray, rhat)
+    p_sp = ray + (f_r - 1.0) * n_r[..., None] * rhat
+
+    p_t = spacetime.null_p_t(p_sp, q0, params, g_inv_fn)
+    p0 = torch.cat([p_t[..., None], p_sp], dim=-1)
+
+    axis = -obs / torch.linalg.vector_norm(obs)
+    alpha0 = torch.arccos(torch.clamp(_dot3(ray, axis), -1.0, 1.0))
+    return q0, p0, alpha0

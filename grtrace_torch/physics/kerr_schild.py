@@ -1,0 +1,271 @@
+"""Analytic FANTASY flows for Kerr(-Newman) in Cartesian Kerr-Schild
+coordinates — the torch counterpart of `grtrace.physics.kerr_schild`, and
+the arithmetic of the CUDA kernel `csrc/fantasy_ks.cu`.
+
+The state is a tuple of (N,) component tensors, one per row:
+    16 rows: (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+              q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z)
+    32 rows (compensated): the 16 rows followed by their Kahan deficits
+                           (deficit of row i at 16 + i; true value s - c)
+
+Geometry (q = (t, x, y, z), parameters M, a, Q):
+    rho^2 = x^2 + y^2 + z^2,  b = rho^2 - a^2,  s = sqrt(b^2 + 4 a^2 z^2)
+    r^2 = (b + s)/2 (the Boyer-Lindquist radius),  D == s,  w = r^2 + a^2
+    H = (M r - Q^2/2)/D,  l = ((r x + a y)/w, (r y - a x)/w, z/r),  l^t = -1
+    S = l^a p_a,  Ham = 1/2 eta^{ab} p_a p_b - H S^2
+The JAX module's docstring derives the gradients written out in
+`_kick_drift`.
+
+Every expression keeps the JAX module's association, since the kernel must
+round exactly as these functions do; in particular `(2.0 * a) * a`,
+`4.0 * az * az` in `_geom` against `4.0 * a * a * z * z` in `ks_radius_c`
+(two different roundings, both kept), and `inv_r * inv_r`.  The scalars
+M, a, Q, dt and the mixing trig are Python floats exact in the working
+dtype (`engine.integrate_ks.ks_params` rounds them); a product of two of
+them, such as `a * a`, is exact in a Python float and rounds once when the
+tensor op casts it, which is the rounding of the same product in the
+working dtype.  Only plain binary tensor ops appear (see
+physics/hamiltonian.py).
+"""
+from __future__ import annotations
+
+import torch
+
+from .hamiltonian import _flow_mixed, _kahan_add, pack_state
+
+N_STATE = 16
+N_STATE_KSC = 32
+
+
+def _geom(x, y, z, mass, a, charge=0.0):
+    """Shared Kerr-Schild geometry at one spatial point (elementwise)."""
+    rho2 = x * x + y * y + z * z
+    b = rho2 - a * a
+    az = a * z
+    s = torch.sqrt(b * b + 4.0 * az * az)
+    r2 = 0.5 * (b + s)
+    r = torch.sqrt(r2)
+    inv_r = 1.0 / r
+    inv_D = 1.0 / s
+    w = r2 + a * a
+    inv_w = 1.0 / w
+    H = (mass * r - 0.5 * charge * charge) * inv_D
+    lx = (r * x + a * y) * inv_w
+    ly = (r * y - a * x) * inv_w
+    lz = z * inv_r
+    return r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz
+
+
+def _kick_drift(x, y, z, pt, px, py, pz, mass, a, charge=0.0):
+    """dHam/dq (x, y, z slots) and dHam/dp (all 4) at one phase point:
+    (kx, ky, kz, dt_, dx_, dy_, dz_).  The kick is SUBTRACTED scaled by
+    dt, the drift ADDED scaled by dt."""
+    r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz = _geom(x, y, z, mass, a,
+                                                        charge)
+
+    S = -pt + lx * px + ly * py + lz * pz
+    HS2 = 2.0 * H * S
+
+    dt_ = -pt + HS2
+    dx_ = px - HS2 * lx
+    dy_ = py - HS2 * ly
+    dz_ = pz - HS2 * lz
+
+    r_x = x * r * inv_D
+    r_y = y * r * inv_D
+    r_z = z * w * inv_r * inv_D
+    D_x = 2.0 * x * b * inv_D
+    D_y = 2.0 * y * b * inv_D
+    D_z = 2.0 * z * (b + 2.0 * a * a) * inv_D
+
+    H_x = (mass * r_x - H * D_x) * inv_D
+    H_y = (mass * r_y - H * D_y) * inv_D
+    H_z = (mass * r_z - H * D_z) * inv_D
+
+    inv_r2 = inv_r * inv_r
+    G = (x * px + y * py - 2.0 * r * (lx * px + ly * py)) * inv_w \
+        - z * pz * inv_r2
+    S_x = r_x * G + (r * px - a * py) * inv_w
+    S_y = r_y * G + (a * px + r * py) * inv_w
+    S_z = r_z * G + pz * inv_r
+
+    S2 = S * S
+    kx = -H_x * S2 - HS2 * S_x
+    ky = -H_y * S2 - HS2 * S_y
+    kz = -H_z * S2 - HS2 * S_z
+    return kx, ky, kz, dt_, dx_, dy_, dz_
+
+
+def _flow_a_ks(state, dt, mass, a, charge=0.0):
+    """Flow A: metric at q1, kick p1 spatial slots, drift q2 (all 4)."""
+    (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+     q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) = state
+    kx, ky, kz, dt_, dx_, dy_, dz_ = _kick_drift(
+        q1x, q1y, q1z, p2t, p2x, p2y, p2z, mass, a, charge)
+    p1x = p1x - dt * kx
+    p1y = p1y - dt * ky
+    p1z = p1z - dt * kz
+    q2t = q2t + dt * dt_
+    q2x = q2x + dt * dx_
+    q2y = q2y + dt * dy_
+    q2z = q2z + dt * dz_
+    return (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+            q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z)
+
+
+def _flow_b_ks(state, dt, mass, a, charge=0.0):
+    """Flow B: metric at q2, kick p2 spatial slots, drift q1 (all 4)."""
+    (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+     q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) = state
+    kx, ky, kz, dt_, dx_, dy_, dz_ = _kick_drift(
+        q2x, q2y, q2z, p1t, p1x, p1y, p1z, mass, a, charge)
+    p2x = p2x - dt * kx
+    p2y = p2y - dt * ky
+    p2z = p2z - dt * kz
+    q1t = q1t + dt * dt_
+    q1x = q1x + dt * dx_
+    q1y = q1y + dt * dy_
+    q1z = q1z + dt * dz_
+    return (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+            q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z)
+
+
+# --- staggered (half-A-fused) step forms -----------------------------------
+# Flow A reads only q1 and p2 and writes only p1 and q2, so the trailing and
+# leading half-A of consecutive (sub)steps fuse into one A(bridge); the
+# (q1, p2) rows then hold the exact plain-composition boundary values, on
+# which the blow-up guard tests the null invariant.
+
+
+def open_ks(state, d0, mass, a, charge=0.0):
+    """s -> w: apply the pending opening half-A of the first substep."""
+    return _flow_a_ks(state, 0.5 * d0, mass, a, charge)
+
+
+def core_ks(state, delta, mass, a, cos_w, sin_w, bridge, charge=0.0):
+    """One staggered (sub)step: B(d/2) M B(d/2) A(bridge)."""
+    half = 0.5 * delta
+    state = _flow_b_ks(state, half, mass, a, charge)
+    state = _flow_mixed(state, cos_w, sin_w)
+    state = _flow_b_ks(state, half, mass, a, charge)
+    return _flow_a_ks(state, bridge, mass, a, charge)
+
+
+def close_ks(state, d0, mass, a, charge=0.0):
+    """w -> s: undo the pending half-A (safe on parked rays: the park
+    points are regular chart points and A cannot move q1)."""
+    return _flow_a_ks(state, -0.5 * d0, mass, a, charge)
+
+
+# --- compensated (Kahan double-float32) flows, 32 rows ---------------------
+# Every row carries a Kahan deficit and each flow accumulates its increments
+# through _kahan_add.  The geometry reads the raw accumulator rows s, not
+# s - c (the deficit is below an ulp of s); the mixing flow folds the
+# deficits into the copy differences.
+
+
+def pack_state_ksc(q0, p0):
+    """(N, 4) q0/p0 -> 32-tuple: the 16-row state (the layout of
+    hamiltonian.pack_state) + zero deficit rows."""
+    hi = pack_state(q0, p0)
+    zero = torch.zeros_like(hi[0])
+    return hi + tuple(zero for _ in range(N_STATE))
+
+
+def unpack_ksc(state):
+    """Best-estimate 16-tuple from a compensated 32-tuple (s - c)."""
+    return tuple(state[i] - state[N_STATE + i] for i in range(N_STATE))
+
+
+def _flow_a_ksc(state, dt, mass, a, charge=0.0):
+    """Increment-form flow A with Kahan accumulation (metric at q1, kick
+    p1 spatial slots, drift q2)."""
+    (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+     q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) = state[:16]
+    c = list(state[16:])
+    kx, ky, kz, dt_, dx_, dy_, dz_ = _kick_drift(
+        q1x, q1y, q1z, p2t, p2x, p2y, p2z, mass, a, charge)
+    p1x, c[5] = _kahan_add(p1x, c[5], -dt * kx)
+    p1y, c[6] = _kahan_add(p1y, c[6], -dt * ky)
+    p1z, c[7] = _kahan_add(p1z, c[7], -dt * kz)
+    q2t, c[8] = _kahan_add(q2t, c[8], dt * dt_)
+    q2x, c[9] = _kahan_add(q2x, c[9], dt * dx_)
+    q2y, c[10] = _kahan_add(q2y, c[10], dt * dy_)
+    q2z, c[11] = _kahan_add(q2z, c[11], dt * dz_)
+    return (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+            q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) + tuple(c)
+
+
+def _flow_b_ksc(state, dt, mass, a, charge=0.0):
+    """Increment-form flow B with Kahan accumulation (metric at q2, kick
+    p2 spatial slots, drift q1)."""
+    (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+     q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) = state[:16]
+    c = list(state[16:])
+    kx, ky, kz, dt_, dx_, dy_, dz_ = _kick_drift(
+        q2x, q2y, q2z, p1t, p1x, p1y, p1z, mass, a, charge)
+    p2x, c[13] = _kahan_add(p2x, c[13], -dt * kx)
+    p2y, c[14] = _kahan_add(p2y, c[14], -dt * ky)
+    p2z, c[15] = _kahan_add(p2z, c[15], -dt * kz)
+    q1t, c[0] = _kahan_add(q1t, c[0], dt * dt_)
+    q1x, c[1] = _kahan_add(q1x, c[1], dt * dx_)
+    q1y, c[2] = _kahan_add(q1y, c[2], dt * dy_)
+    q1z, c[3] = _kahan_add(q1z, c[3], dt * dz_)
+    return (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
+            q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z) + tuple(c)
+
+
+def _flow_mixed_ksc(state, omc_w, sin_w):
+    """Mixing rotation in increment form, omc_w = 1 - cos(2 omega delta);
+    the copy differences fold in the deficits (true value = s - c)."""
+    hi = state[:16]
+    c = list(state[16:])
+    q1, p1 = hi[0:4], hi[4:8]
+    q2, p2 = hi[8:12], hi[12:16]
+    new = list(hi)
+    for i in range(4):
+        q_dif = (q1[i] - q2[i]) - (c[i] - c[8 + i])
+        p_dif = (p1[i] - p2[i]) - (c[4 + i] - c[12 + i])
+        dq1 = 0.5 * (sin_w * p_dif - omc_w * q_dif)
+        dp1 = 0.5 * (-sin_w * q_dif - omc_w * p_dif)
+        new[i], c[i] = _kahan_add(q1[i], c[i], dq1)
+        new[4 + i], c[4 + i] = _kahan_add(p1[i], c[4 + i], dp1)
+        new[8 + i], c[8 + i] = _kahan_add(q2[i], c[8 + i], -dq1)
+        new[12 + i], c[12 + i] = _kahan_add(p2[i], c[12 + i], -dp1)
+    return tuple(new) + tuple(c)
+
+
+def open_ksc(state, d0, mass, a, charge=0.0):
+    """s -> w: apply the pending opening half-A (compensated layout)."""
+    return _flow_a_ksc(state, 0.5 * d0, mass, a, charge)
+
+
+def core_ksc(state, delta, mass, a, omc_w, sin_w, bridge, charge=0.0):
+    """One compensated staggered (sub)step: B(d/2) M B(d/2) A(bridge).
+    The mixing argument is ONE-MINUS-COS of the mixing angle."""
+    half = 0.5 * delta
+    state = _flow_b_ksc(state, half, mass, a, charge)
+    state = _flow_mixed_ksc(state, omc_w, sin_w)
+    state = _flow_b_ksc(state, half, mass, a, charge)
+    return _flow_a_ksc(state, bridge, mass, a, charge)
+
+
+def close_ksc(state, d0, mass, a, charge=0.0):
+    """w -> s: undo the pending half-A (compensated layout)."""
+    return _flow_a_ksc(state, -0.5 * d0, mass, a, charge)
+
+
+def hamiltonian_ks(x, y, z, pt, px, py, pz, mass, a, charge=0.0):
+    """Ham = 1/2 eta^{ab} p_a p_b - H S^2, elementwise: the null invariant
+    the blow-up guard tests."""
+    _, _, _, _, _, _, H, lx, ly, lz = _geom(x, y, z, mass, a, charge)
+    S = -pt + lx * px + ly * py + lz * pz
+    return 0.5 * (-pt * pt + px * px + py * py + pz * pz) - H * S * S
+
+
+def ks_radius_c(x, y, z, a):
+    """BL radius from KS Cartesian coordinates, elementwise (the component
+    form of physics.spacetime.ks_radius)."""
+    rho2 = x * x + y * y + z * z
+    b = rho2 - a * a
+    return torch.sqrt(0.5 * (b + torch.sqrt(b * b + 4.0 * a * a * z * z)))

@@ -8,9 +8,16 @@ import sys
 import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# between them these import every module of the port
+# between them these import every module of the port, each new module of
+# the Kerr slice on its own
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
-                "grtrace_torch.kernels.build"]
+                "grtrace_torch.kernels.build",
+                "grtrace_torch.physics.spacetime",
+                "grtrace_torch.physics.kerr_schild",
+                "grtrace_torch.engine.integrate_ks",
+                "grtrace_torch.engine.integrate_ks_cuda",
+                "grtrace_torch.engine.render_generic",
+                "grtrace_torch.engine.validate"]
 
 
 def _port_sources():

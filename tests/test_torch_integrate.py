@@ -245,12 +245,21 @@ def test_schwarzschild_integrator_matches_jax():
     kw = dict(steps=800, delta=0.05, mass=1.0, omega=1.0, r_max=31.0)
     j = _np(ji.SchwarzschildIntegrator(**kw, dtype=jnp.float64)
             .integrate_batch(q0, p0))
-    t = _np(ti.SchwarzschildIntegrator(**kw, dtype=torch.float64)
-            .integrate_batch(q0, p0))
+    t = _np(ti.SchwarzschildIntegrator(**kw, dtype=torch.float64,
+                                       device="cpu").integrate_batch(q0, p0))
     assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
     with pytest.raises(NotImplementedError, match="B3"):
-        ti.SchwarzschildIntegrator(**kw, backend="cuda").integrate_batch(
-            q0, p0)
+        ti.SchwarzschildIntegrator(**kw, backend="cuda",
+                                   device="cpu").integrate_batch(q0, p0)
+
+
+def test_schwarzschild_integrator_defaults_to_the_card(monkeypatch):
+    """Like the JAX class, which runs on the default device (the chip),
+    the port's class defaults to the card and raises without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ti.SchwarzschildIntegrator()
+    assert ti.SchwarzschildIntegrator(device="cpu").device.type == "cpu"
 
 
 # --- dispatch rules: pure logic and mocks, nothing is launched -----------
@@ -324,6 +333,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(tbuild.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(tbuild, "library_path",
-                        lambda: tmp_path / "libmissing.so")
+                        lambda src: tmp_path / f"lib{src.stem}.so")
     with pytest.raises(tbuild.KernelBuildError, match="nvcc"):
         tbuild.build()

@@ -175,8 +175,8 @@ def test_from_jax_scene_maps_every_field():
 
 
 @pytest.mark.parametrize("change,kw", [
-    ({"metric": "kerr"}, {}), ({"metric": "bardeen"}, {}),
-    ({"charge": 0.3}, {}), ({}, {"aa_samples": 4})])
+    ({"metric": "kerr-bl"}, {}), ({"metric": "bardeen"}, {}),
+    ({"metric": "kerr-ds", "charge": 0.3}, {}), ({}, {"aa_samples": 4})])
 def test_unported_scenes_raise(change, kw):
     from dataclasses import replace
     scene = replace(grtrace_torch.SceneConfig(size=8), **change)
