@@ -13,7 +13,13 @@ the port's paths through them:
     16-row float and double layouts) at 48x48, its Kerr shadow boundary
     against the Bardeen closed form, then the full-width Kerr render (a =
     0.9, 1024x1024 rays, 30k steps, delta 0.02, float32), whose camera rays
-    it is held bitwise against its twin on at the full budget.
+    it is held bitwise against its twin on at the full budget;
+  * kernel B6 (the disk mode of csrc/fantasy_ks.cu): held bitwise against
+    its eager twins in the layouts the disk frame does not run (16 rows
+    float and double) at 48x48, then the full-width thin-disk render (the
+    README's disk command: a = 0.9, 512x512 rays, 30k steps, delta 0.02,
+    float32, camera 12 deg above the disk, annulus [ISCO, 14]), whose
+    camera rays it is held bitwise against its twin on at the full budget.
 
 Each render checks that it went through its kernel.  Each phase prints one
 line; any failure raises and the script exits non-zero.  The last three
@@ -46,6 +52,11 @@ TPU_COUNTS = {"captured": 5712, "escaped": 154288}
 # 30k steps, delta 0.02, order 2, float32, same camera and boundary
 KERR_SIZE, KERR_STEPS, KERR_DELTA, KERR_SPIN = 1024, 30_000, 0.02, 0.9
 
+# the full-width disk scene (the README's disk command, with the CLI's
+# defaults): a = 0.9, 512x512, 30k steps, delta 0.02, order 2, float32, the
+# default DiskConfig (camera 12 deg above the plane, annulus [ISCO, 14])
+DISK_SIZE, DISK_STEPS, DISK_DELTA, DISK_SPIN = 512, 30_000, 0.02, 0.9
+
 # Bounds: the least time an H100 SXM could take, from its data sheet at
 # 700 W: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM3.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -58,12 +69,20 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #                7 Kahan adds x 5) + mixing 120 = 586; per step the active
 #                test 21 and the guard 95; the open and close flows 2 x 155
 #                once per ray
-# (both scenes run order 2: one substep per step)
+#   fantasy_ks disk mode (32 rows): B5's count plus, per accepted step, the
+#                two folds of z and their product (3); per hit ray the
+#                crossing: t (2), eight lerps on folded rows (8 x 5) and the
+#                hit radius (17) = 59 (crossings outside the annulus, which
+#                do 39 of these, are not counted: the bound stays a bound)
+# (every scene runs order 2: one substep per step)
 EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
 KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 116, 310
+DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
 # bytes the integration must move per ray: q0 and p0 in, final q and p,
-# status and n_steps out (each read or written once)
+# status and n_steps out (each read or written once); the disk mode also
+# writes hit_q and hit_p
 BYTES_RAY = 8 * 4 + 8 * 4 + 4 + 4  # float32 rays
+DISK_BYTES_RAY = BYTES_RAY + 8 * 4
 
 
 def phase(n, msg):
@@ -97,12 +116,14 @@ def ks_camera(size, params, device, dtype=torch.float32):
 
 
 def gate_parity(tag, res):
-    if res["status_mismatch"] or res["n_steps_mismatch"]:
-        raise AssertionError(f"{tag}: status/n_steps differ between kernel "
-                             f"and twin")
-    if not (res["q_bitwise_equal"] and res["p_bitwise_equal"]):
+    if (res["status_mismatch"] or res["n_steps_mismatch"]
+            or res.get("hit_mismatch", 0)):
+        raise AssertionError(f"{tag}: status/n_steps/hit flags differ "
+                             f"between kernel and twin")
+    equal = [k for k in res if k.endswith("_bitwise_equal")]
+    if not all(res[k] for k in equal):
         raise AssertionError(
-            f"{tag}: final q/p not bitwise equal (max abs diff "
+            f"{tag}: {[k for k in equal if not res[k]]} false (max abs diff "
             f"{res['max_abs_err']:.3e}); the kernel is built with "
             f"-fmad=false to round exactly as the twin's torch ops")
 
@@ -361,6 +382,158 @@ def kerr_main_path():
             "bound_by": bound_by, **par}
 
 
+def disk_camera(size, device, dtype=torch.float32):
+    """The disk scene's inclined camera rays, as render_disk makes them."""
+    from grtrace_torch import DiskConfig, SceneConfig
+    from grtrace_torch.engine.disk import disk_observer_position
+    from grtrace_torch.physics.camera import (cartesian_ics_from_pixels,
+                                              pixel_grid_lookat)
+    from grtrace_torch.physics.spacetime import kerr_schild_g_inv
+    obs = torch.tensor(disk_observer_position(SceneConfig(), DiskConfig()),
+                       dtype=dtype, device=device)
+    pix = pixel_grid_lookat(obs, torch.tensor(math.radians(FOV_DEG),
+                                              dtype=dtype, device=device),
+                            size, size, dtype=dtype, device=device)
+    q0, p0, _ = cartesian_ics_from_pixels(obs, pix,
+                                          params=(MASS, DISK_SPIN, 0.0),
+                                          g_inv_fn=kerr_schild_g_inv)
+    return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
+
+
+def disk_annulus():
+    from grtrace_torch import DiskConfig
+    disk = DiskConfig()
+    return disk.inner_edge(MASS, DISK_SPIN), disk.r_out
+
+
+def check_parity_disk(tag, size, steps, delta, dtype, compensated, n):
+    """Kernel B6 against its eager twin on the card, in one of its three
+    layouts, on the disk camera (`validate.ks_kernel_parity(disk=...)`)."""
+    from grtrace_torch.engine.integrate_ks_cuda import \
+        integrate_batch_disk_cuda
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    params = (MASS, DISK_SPIN, 0.0)
+    q0, p0 = disk_camera(size, torch.device("cuda", 0), dtype)
+    args = (steps, delta, params, R_MAX, OMEGA)
+    annulus = disk_annulus()
+    integrate_batch_disk_cuda(q0, p0, *args, *annulus,
+                              compensated=compensated)  # warm-up
+    kern, res = ks_kernel_parity(q0, p0, *args, compensated=compensated,
+                                 disk=annulus)
+    status = kern[2]
+    res.update(rows=32 if compensated else 16, dtype=str(dtype)[6:],
+               rays=q0.shape[0], steps=steps, delta=delta,
+               disk=int((status == 3).sum()),
+               captured=int((status == 1).sum()),
+               escaped=int((status == 2).sum()),
+               n_steps_max=int(kern[3].max()))
+    phase(n, f"B6 kernel vs eager twin, {tag}: {json.dumps(res)}")
+    gate_parity(tag, res)
+
+
+def disk_scene():
+    from grtrace_torch import IntegratorConfig, PatchConfig, SceneConfig
+    return SceneConfig(
+        size=DISK_SIZE, fov_deg=FOV_DEG, background=None, bh_mass=MASS,
+        metric="kerr", spin=DISK_SPIN, boundary_radius=R_MAX,
+        observer_distance=OBS_X,
+        integrator=IntegratorConfig(steps=DISK_STEPS, delta=DISK_DELTA,
+                                    omega=OMEGA, order=2, backend="auto",
+                                    dtype="float32"),
+        patch=PatchConfig(), n_samples=0)
+
+
+def disk_main_path():
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_ks_cuda
+    from grtrace_torch.engine.metrics import RenderMetrics
+    from grtrace_torch.io.textures import starfield
+    from grtrace_torch.physics.kerr_schild import ks_radius_c
+
+    scene = disk_scene()
+    tex = starfield()
+    r_in, r_out = disk_annulus()
+    integrate_ks_cuda.disk_launches = 0
+    metrics = RenderMetrics()
+    res = grtrace_torch.render_disk(scene, bg_array=tex, device="cuda",
+                                    metrics=metrics)
+    launches = integrate_ks_cuda.disk_launches
+    counts = res.counts
+    ns = res.n_steps.astype(np.int64)
+    dm = res.device("status").reshape(-1) == 3
+    if not bool(dm.any()):
+        raise AssertionError(f"the disk render has no disk pixel: {counts}")
+    g = res.device("redshift").reshape(-1)[dm]
+    hq = res.device("hit_q").reshape(-1, 4)[dm]
+    # the kernel's own hit radius, in float32 with the float32 scalars
+    a32 = float(torch.tensor(DISK_SPIN, dtype=torch.float32))
+    r_hit = ks_radius_c(hq[:, 1], hq[:, 2], hq[:, 3], a32)
+    r_in32 = float(torch.tensor(r_in, dtype=torch.float32))
+    summary = {"launches": launches, "counts": counts,
+               "stages_s": metrics.stages,
+               "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum()),
+               "r_in": r_in, "r_out": r_out,
+               "g_min": float(g.min()), "g_max": float(g.max()),
+               "g_finite": bool(torch.isfinite(g).all()),
+               "r_hit_min": float(r_hit.min()),
+               "r_hit_max": float(r_hit.max())}
+    phase(11, f"disk render {DISK_SIZE}x{DISK_SIZE}/{DISK_STEPS} steps, "
+              f"a = {DISK_SPIN}, through kernel B6: {json.dumps(summary)}")
+    if launches < 1:
+        raise AssertionError("the disk render did not launch kernel B6")
+    if counts["numerical_error"] or counts["disk"] <= 0:
+        raise AssertionError(f"numerical_error not 0 or no disk pixel: "
+                             f"{counts}")
+    if (res.image.shape != (DISK_SIZE, DISK_SIZE, 3)
+            or res.image.dtype != np.uint8):
+        raise AssertionError("disk render image is not (512, 512, 3) uint8")
+    if not (summary["g_finite"] and summary["g_max"] > 1.0
+            and summary["g_min"] < 0.7):
+        raise AssertionError("disk redshift not finite with max g > 1 and "
+                             "min g < 0.7 on the disk pixels")
+    if not (summary["r_hit_min"] >= r_in32 and summary["r_hit_max"] <= r_out):
+        raise AssertionError(f"a disk hit lies outside [{r_in32}, {r_out}]")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render_disk(scene, bg_array=tex, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"warm disk render counts {r.counts} "
+                                 f"differ from the first render's {counts}")
+    wall = float(np.median(walls))
+
+    # kernel B6 and its wrapper against its eager twin, on this frame's
+    # camera rays and budget
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    kern, par = ks_kernel_parity(q0, p0, DISK_STEPS, DISK_DELTA,
+                                 (MASS, DISK_SPIN, 0.0), R_MAX, OMEGA,
+                                 disk=(r_in, r_out))
+    ray_steps = int(kern[3].long().sum())
+    hits = int((kern[2] == 3).sum())
+    n = q0.shape[0]
+    par.update(rays=n, steps=DISK_STEPS, ray_steps=ray_steps, hits=hits,
+               n_steps_max=int(kern[3].max()))
+    phase(12, f"B6 kernel vs eager twin on the disk frame's rays: "
+              f"{json.dumps(par)}")
+    gate_parity("disk frame", par)
+    bound_ms, bound_by = bound(
+        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP + DISK_FLOPS_STEP)
+        + n * KS_FLOPS_RAY + hits * DISK_FLOPS_HIT, n * DISK_BYTES_RAY)
+    phase(12, f"disk render warm wall time: median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B6 "
+              f"kernel+wrapper at this shape {par['kernel_ms']:.3f} ms "
+              f"({100 * par['kernel_ms'] / 1e3 / wall:.1f}% of the wall), "
+              f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
+              f"bound {bound_ms:.3f} ms ({bound_by})")
+    return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
+            "bound_by": bound_by, **par}
+
+
 def build_kernels():
     from grtrace_torch.kernels import build
     t0 = time.perf_counter()
@@ -430,6 +603,15 @@ def main():
     kerr_boundary()
     kerr = kerr_main_path()
 
+    # --- kernel B6 and the disk path ---------------------------------------
+    # the 16-row layouts are off the main path and held at small shapes; the
+    # main path's 32-row layout is held at the full disk frame in phase 12
+    for dtype in (torch.float32, torch.float64):
+        check_parity_disk(f"disk camera 48x48, 2000 steps, delta 0.05, 16 "
+                          f"rows {str(dtype)[6:]}", 48, 2000, 0.05, dtype,
+                          False, "10")
+    disk = disk_main_path()
+
     print(json.dumps({"kernels": [
         {"name": "fantasy_eqc",
          "route": "cuda",
@@ -456,7 +638,21 @@ def main():
          "bound_by": kerr["bound_by"],
          "library_ms": None,
          "shapes": f"every number at {KERR_SIZE}x{KERR_SIZE} Kerr rays, "
-                   f"{KERR_STEPS}-step budget (phase 9)"}]}))
+                   f"{KERR_STEPS}-step budget (phase 9)"},
+        {"name": "fantasy_ks_disk",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_ks.cu",
+         "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
+         "launches": disk["launches"],
+         "max_abs_err": disk["max_abs_err"],
+         "ms": disk["kernel_ms"],
+         "plain_ms": disk["twin_ms"],
+         "bound_ms": disk["bound_ms"],
+         "bound_by": disk["bound_by"],
+         "library_ms": None,
+         "shapes": f"the disk mode (B6); every number at "
+                   f"{DISK_SIZE}x{DISK_SIZE} disk-camera rays, "
+                   f"{DISK_STEPS}-step budget (phase 12)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

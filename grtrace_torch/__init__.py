@@ -4,21 +4,25 @@ The Schwarzschild inverse ray tracer (folded pinhole camera, compensated
 FANTASY integration, exact-predicate rescue, classification and
 compositing) and the Kerr / Kerr-Newman one in the Kerr-Schild chart
 (Cartesian camera, Kerr-Schild FANTASY flows with the null-invariant
-guard, exact Bardeen rescue), on tensors of any torch device.  On an
-NVIDIA Hopper GPU the integration runs hand-written CUDA kernels
-(csrc/fantasy_eqc.cu, csrc/fantasy_ks.cu); on the CPU it runs their eager
-twins.  The JAX package `grtrace` is the reference this package is tested
-against; this package never imports it, nor jax.
+guard, exact Bardeen rescue), and the thin accretion disk around a Kerr
+hole (`render_disk`: inclined camera, first-equatorial-crossing capture,
+redshift shading), on tensors of any torch device.  On an NVIDIA Hopper
+GPU the integration runs hand-written CUDA kernels (csrc/fantasy_eqc.cu,
+csrc/fantasy_ks.cu in plain and disk mode); on the CPU it runs their
+eager twins.  The JAX package `grtrace` is the reference this package is
+tested against; this package never imports it, nor jax.
 """
 from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
                        SceneConfig, from_jax_scene)
 from .engine.render import RenderResult, render, render_pixels
 from .engine.integrate import SchwarzschildIntegrator
+from .engine.disk import DiskConfig, from_jax_disk, render_disk
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BlackHole", "Observer", "PatchConfig", "IntegratorConfig",
     "SceneConfig", "from_jax_scene", "RenderResult", "render",
-    "render_pixels", "SchwarzschildIntegrator", "__version__",
+    "render_pixels", "SchwarzschildIntegrator", "DiskConfig",
+    "from_jax_disk", "render_disk", "__version__",
 ]

@@ -2,13 +2,17 @@
 // coordinates: one CUDA thread per ray.
 //
 // Replaces the TPU kernel grtrace/engine/integrate_pallas_ks.py::
-// _make_kernel_ks in plain mode (no disk or subring recorder; entry point
-// integrate_batch_pallas_ks), in both of its layouts: 32 rows
+// _make_kernel_ks in plain mode (kernel B5; entry point
+// integrate_batch_pallas_ks) and in disk mode (kernel B6; entry point
+// integrate_batch_pallas_disk), in both of its layouts: 32 rows
 // Kahan-compensated (the float32 production layout) and 16 rows plain (the
-// float64 layout).  Its eager twins, which define what this kernel computes,
-// are grtrace_torch/engine/integrate_ks.py::integrate_batch_ksc (32 rows)
-// and ::integrate_batch_ks (16 rows), built on the flows of
-// grtrace_torch/physics/kerr_schild.py and the guard of make_ks_step.
+// float64 layout).  The subring mode (B7) is not ported yet.  Its eager
+// twins, which define what this kernel computes, are
+// grtrace_torch/engine/integrate_ks.py::integrate_batch_ksc (32 rows) and
+// ::integrate_batch_ks (16 rows), and in disk mode ::integrate_batch_disk_ksc
+// and ::integrate_batch_disk_ks, built on the flows of
+// grtrace_torch/physics/kerr_schild.py and the guard and crossing recorder
+// of make_ks_step.
 //
 // What bounds it on an H100: FP32 (or FP64) issue rate and latency.  Each
 // ray is a serial chain of about 500 floating-point operations per step at
@@ -42,8 +46,19 @@
 // params is the vector [M, a, Q, r_cap, r_max, plunge_zone, (d, cw, sw,
 // bridge) x n_sub] built on the host by engine/integrate_ks.py::ks_params
 // (cw is 1 - cos of the mixing angle in the compensated layout, cos in the
-// plain one).  ns_out (n,) int32 counts the steps each ray took, negated if
-// the guard parked it.
+// plain one), followed in disk mode by [r_in, r_out].  ns_out (n,) int32
+// counts the steps each ray took, negated if the guard parked it.
+//
+// Disk mode (kDisk): after a step that the guard accepts, the crossing of
+// the equatorial plane is tested on the folded pre-step and new q1 z rows
+// (z0 * z1 < 0, a product as in the twin); the crossing is lerped within
+// the step on the (q1, p2) rows, b_old + t (b_new - b_old) with
+// t = z0 / (z0 - z1), and a crossing at a Boyer-Lindquist radius inside
+// [r_in, r_out] is recorded and ends the ray's loop (the per-thread form of
+// the TPU kernel's frozen hit rays and its active & ~hit tile exit).  The
+// closing half-A still runs.  disk_out is SoA (9, n): the hit flag as
+// 1 / 0 in the ray type, hit_q (t, x, y, z), hit_p (t, x, y, z); rays that
+// never hit write zeros, as the TPU kernel's zero carry does.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +72,25 @@ struct KsState {
   T s[kRows];               // q1 p1 q2 p2, each (t, x, y, z)
   T c[kComp ? kRows : 1];   // Kahan deficits (compensated layout only)
 };
+
+// the best estimate of row I: s - c in the compensated layout (the twin's
+// `best`), the row itself in the plain one
+template <int I, typename T, bool kComp>
+__device__ __forceinline__ T best(const KsState<T, kComp>& st) {
+  if constexpr (kComp) {
+    return st.s[I] - st.c[I];
+  } else {
+    return st.s[I];
+  }
+}
+
+// b_old + t (b_new - b_old) on row I, the crossing lerp
+template <int I, typename T, bool kComp>
+__device__ __forceinline__ T lerp_row(const KsState<T, kComp>& old,
+                                      const KsState<T, kComp>& now, T t) {
+  const T b_old = best<I>(old);
+  return b_old + t * (best<I>(now) - b_old);
+}
 
 template <typename T>
 struct Scalars {
@@ -242,11 +276,11 @@ __device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
   }
 }
 
-template <typename T, bool kComp>
+template <typename T, bool kComp, bool kDisk>
 __global__ void __launch_bounds__(128)
 fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
-                  int* __restrict__ ns_out, const T* __restrict__ params,
-                  int n, int n_sub, int steps) {
+                  int* __restrict__ ns_out, T* __restrict__ disk_out,
+                  const T* __restrict__ params, int n, int n_sub, int steps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t stride = static_cast<size_t>(n);
@@ -268,6 +302,12 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   const T d0 = __ldg(params + kScal);
   const T r_plus = sc.r_cap / T(1.05);
   const T r_max2 = sc.r_max * sc.r_max;
+  // the disk annulus rides after the substeps (unused in plain mode)
+  const T r_in = kDisk ? __ldg(params + kScal + 4 * n_sub) : T(0);
+  const T r_out = kDisk ? __ldg(params + kScal + 4 * n_sub + 1) : T(0);
+  bool hit = false;
+  T hq[4] = {T(0), T(0), T(0), T(0)};
+  T hp[4] = {T(0), T(0), T(0), T(0)};
 
   int ns = 0;
   const bool act0 =
@@ -321,6 +361,27 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
           st.c[3] = T(0);
         }
         ns = -ns;
+      } else if constexpr (kDisk) {
+        // first equatorial crossing inside the annulus, from the folded
+        // pre-step and new states, in the twin's order
+        const T z0 = best<3>(old);
+        const T z1 = best<3>(st);
+        if (z0 * z1 < T(0)) {
+          const T t = z0 / (z0 - z1);
+          const T cq[4] = {lerp_row<0>(old, st, t), lerp_row<1>(old, st, t),
+                           lerp_row<2>(old, st, t), lerp_row<3>(old, st, t)};
+          const T r_hit = ks_radius(cq[1], cq[2], cq[3], sc.a);
+          if (r_hit >= r_in && r_hit <= r_out) {
+            hit = true;
+#pragma unroll
+            for (int m = 0; m < 4; ++m) hq[m] = cq[m];
+            hp[0] = lerp_row<12>(old, st, t);
+            hp[1] = lerp_row<13>(old, st, t);
+            hp[2] = lerp_row<14>(old, st, t);
+            hp[3] = lerp_row<15>(old, st, t);
+            break;  // the hit ray is frozen
+          }
+        }
       }
     }
     // closing half-A for every opened ray (parked ones too: the park points
@@ -334,17 +395,25 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
     if constexpr (kComp) state_out[(kRows + k) * stride + i] = st.c[k];
   }
   ns_out[i] = ns;
+  if constexpr (kDisk) {
+    disk_out[i] = hit ? T(1) : T(0);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      disk_out[(1 + m) * stride + i] = hq[m];
+      disk_out[(5 + m) * stride + i] = hp[m];
+    }
+  }
 }
 
-template <typename T, bool kComp>
-int launch(const T* state_in, T* state_out, int* ns_out, const T* params,
-           int n, int n_sub, int steps, void* stream) {
+template <typename T, bool kComp, bool kDisk>
+int launch(const T* state_in, T* state_out, int* ns_out, T* disk_out,
+           const T* params, int n, int n_sub, int steps, void* stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 128;
   const int blocks = (n + kThreads - 1) / kThreads;
-  fantasy_ks_kernel<T, kComp>
+  fantasy_ks_kernel<T, kComp, kDisk>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          state_in, state_out, ns_out, params, n, n_sub, steps);
+          state_in, state_out, ns_out, disk_out, params, n, n_sub, steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,8 +425,8 @@ extern "C" int grt_fantasy_ks32_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, true>(state_in, state_out, ns_out, params, n, n_sub,
-                             steps, stream);
+  return launch<float, true, false>(state_in, state_out, ns_out, nullptr,
+                                    params, n, n_sub, steps, stream);
 }
 
 // 16 rows, float, plain
@@ -366,8 +435,8 @@ extern "C" int grt_fantasy_ks16_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, false>(state_in, state_out, ns_out, params, n, n_sub,
-                              steps, stream);
+  return launch<float, false, false>(state_in, state_out, ns_out, nullptr,
+                                     params, n, n_sub, steps, stream);
 }
 
 // 16 rows, double, plain: the float64 layout
@@ -376,6 +445,39 @@ extern "C" int grt_fantasy_ks16_f64_launch(const double* state_in,
                                            const double* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<double, false>(state_in, state_out, ns_out, params, n,
-                               n_sub, steps, stream);
+  return launch<double, false, false>(state_in, state_out, ns_out, nullptr,
+                                      params, n, n_sub, steps, stream);
+}
+
+// Disk mode (kernel B6): the same three layouts, plus the (9, n) recorder
+// rows disk_out; params ends with [r_in, r_out].
+
+extern "C" int grt_fantasy_ks32_f32_disk_launch(const float* state_in,
+                                                float* state_out, int* ns_out,
+                                                float* disk_out,
+                                                const float* params, int n,
+                                                int n_sub, int steps,
+                                                void* stream) {
+  return launch<float, true, true>(state_in, state_out, ns_out, disk_out,
+                                   params, n, n_sub, steps, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f32_disk_launch(const float* state_in,
+                                                float* state_out, int* ns_out,
+                                                float* disk_out,
+                                                const float* params, int n,
+                                                int n_sub, int steps,
+                                                void* stream) {
+  return launch<float, false, true>(state_in, state_out, ns_out, disk_out,
+                                    params, n, n_sub, steps, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f64_disk_launch(const double* state_in,
+                                                double* state_out,
+                                                int* ns_out, double* disk_out,
+                                                const double* params, int n,
+                                                int n_sub, int steps,
+                                                void* stream) {
+  return launch<double, false, true>(state_in, state_out, ns_out, disk_out,
+                                     params, n, n_sub, steps, stream);
 }

@@ -1,0 +1,442 @@
+"""Thin accretion-disk rendering — the torch counterpart of
+`grtrace.engine.disk` for the Kerr-Newman family in the Kerr-Schild chart.
+
+An optically thick, geometrically thin equatorial disk between r_in (by
+default the prograde ISCO) and r_out, shaded by the exact gravitational +
+Doppler shift of circular Keplerian emitters (physics/orbits.py) and a
+Shakura-Sunyaev or Novikov-Thorne temperature profile.  Back-traced rays
+hit the disk at their first equatorial crossing inside the annulus, which
+is the surface an opaque disk shows the camera.
+
+The pipeline: the inclined look-at camera -> the disk integration
+(`integrate_dispatch_disk`: kernel B6 on a CUDA device, its eager twins on
+the CPU) -> classification of the rays that missed the disk -> the one
+shading function `run_shading` on the traced invariants (hit_q, hit_p,
+status and the base image), which a later port of `io/transfer.reshade`
+must call as well, so that a reshade reproduces a render's bytes.
+
+Rays that never hit carry zero hit rows, as the TPU kernel writes them
+(JAX's XLA disk engine carries the launch state there instead), so the
+redshift map is only meaningful on disk pixels.  Not ported yet, and
+raising NotImplementedError: polarization (`bfield`) and the moving camera
+(`camera_omega`), ROADMAP Queue A item 6; `aa_samples` and the autodiff
+ISCO of a charged hole (`r_in=None` with charge), item 8; the rotating
+regular metrics, item 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
+from ..physics.coords import cartesian_to_spherical
+from ..physics.orbits import isco_radius, page_thorne_flux, redshift_factor
+from ..physics.spacetime import horizon_radius, kerr_schild_g_inv, ks_radius
+from . import classify as _classify
+from .integrate import STATUS_CAPTURED
+from .integrate_ks import STATUS_DISK, _unit_grid, integrate_dispatch_disk
+
+CLS_DISK = 5             # extends classify.CLS_* (0..4)
+
+_ROTATING = ("rotating-bardeen", "rotatingbardeen", "rotating-hayward",
+             "rotatinghayward")
+
+
+@dataclasses.dataclass
+class DiskConfig:
+    """Thin-disk geometry and shading knobs (geometrized units); the fields
+    of `grtrace.engine.disk.DiskConfig`."""
+    r_in: Optional[float] = None   # inner edge; None -> prograde ISCO
+    r_out: float = 14.0            # outer edge
+    prograde: bool = True          # disk co-rotates with the hole
+    t_peak: float = 9000.0         # color temperature (K) at the profile peak
+    exposure: float = 2.5          # tone-mapping gain
+    show_background: bool = True   # compose lensed sky behind the disk
+    # 'shakura' (Newtonian Shakura-Sunyaev) or 'novikov' (relativistic
+    # Novikov-Thorne via the Page-Thorne integral)
+    profile: str = "shakura"
+    emissivity_index: float = 3.0  # line-profile index q (I_em ~ r^-q)
+    bfield: Optional[str] = None   # polarized imaging (not ported yet)
+    elevation_deg: float = 12.0    # camera elevation above the disk plane
+    camera_omega: "float | str | None" = None  # moving camera (not ported)
+
+    def __post_init__(self):
+        if self.profile not in ("shakura", "novikov"):
+            raise ValueError(
+                f"DiskConfig.profile must be 'shakura' or 'novikov', "
+                f"got {self.profile!r}")
+        if self.bfield not in (None, "vertical", "toroidal", "radial"):
+            raise ValueError(
+                f"DiskConfig.bfield must be None, 'vertical', 'toroidal' "
+                f"or 'radial', got {self.bfield!r}")
+        if isinstance(self.camera_omega, str) and \
+                self.camera_omega not in ("keplerian", "zamo"):
+            raise ValueError(
+                f"DiskConfig.camera_omega must be None, a float, "
+                f"'keplerian' or 'zamo', got {self.camera_omega!r}")
+
+    def inner_edge(self, mass, a, charge=0.0):
+        """Inner disk edge: the explicit r_in, else the prograde or
+        retrograde Kerr ISCO (BPT closed form), computed in float64."""
+        if self.r_in is not None:
+            return self.r_in
+        if charge:
+            raise NotImplementedError(
+                "the ISCO of a charged hole is the autodiff root of "
+                "physics/epicyclic.py, not ported to grtrace_torch yet "
+                "(ROADMAP Queue A item 8); pass DiskConfig(r_in=...)")
+        return float(isco_radius(mass, a, self.prograde))
+
+
+def from_jax_disk(disk) -> DiskConfig:
+    """Convert a `grtrace.engine.disk.DiskConfig` (duck-typed: any object
+    with the same attributes) into the port's DiskConfig."""
+    return DiskConfig(**{f.name: getattr(disk, f.name)
+                         for f in dataclasses.fields(DiskConfig)})
+
+
+# ---------------------------------------------------------------------------
+# Shading
+# ---------------------------------------------------------------------------
+
+def blackbody_rgb(kelvin):
+    """Planckian-locus RGB in [0, 1] (Tanner Helland's piecewise fit,
+    ~1000-40000 K), elementwise; (..., 3)."""
+    t = torch.clamp(kelvin, 1000.0, 40000.0) / 100.0
+    r = torch.where(t <= 66.0, 255.0, 329.698727446
+                    * torch.clamp(t - 60.0, min=1e-6) ** -0.1332047592)
+    g = torch.where(t <= 66.0,
+                    99.4708025861 * torch.log(t) - 161.1195681661,
+                    288.1221695283
+                    * torch.clamp(t - 60.0, min=1e-6) ** -0.0755148492)
+    b = torch.where(t >= 66.0, 255.0,
+                    torch.where(t <= 19.0, 0.0,
+                                138.5177312231 * torch.log(
+                                    torch.clamp(t - 10.0, min=1e-6))
+                                - 305.0447927307))
+    rgb = torch.stack([r, g, b], dim=-1)
+    return torch.clamp(rgb, 0.0, 255.0) / 255.0
+
+
+def _temp_profile(r, r_in):
+    """Shakura-Sunyaev local effective temperature, normalized to its
+    peak: T(r) ~ [r^-3 (1 - sqrt(r_in/r))]^(1/4), peaking at 49/36 r_in and
+    zero at the inner edge."""
+    r = torch.maximum(r, r_in * (1.0 + 1e-6))
+    flux = (1.0 - torch.sqrt(r_in / r)) / (r * r * r)
+    r_pk = (49.0 / 36.0) * r_in
+    flux_pk = (1.0 - torch.sqrt(r_in / r_pk)) / (r_pk * r_pk * r_pk)
+    return (torch.clamp(flux, min=0.0) / flux_pk) ** 0.25
+
+
+_NT_TABLE_N = 384      # radial quadrature/interp grid for the NT profile
+
+
+def _nt_temp_table(r_in, r_out, params, prograde, dtype):
+    """Peak-normalized Novikov-Thorne temperature T(r) ~ F(r)^(1/4) on a
+    geometric radial grid over the annulus, from the Page-Thorne quadrature
+    (physics.orbits.page_thorne_flux).  r_in, r_out: 0-dim tensors."""
+    lo = r_in * (1.0 + 1e-5)
+    u = _unit_grid(_NT_TABLE_N, dtype, lo.device)  # jnp.linspace's points
+    r_grid = lo * (r_out / lo) ** u
+    t = page_thorne_flux(r_grid, params, prograde) ** 0.25
+    return r_grid, t / torch.clamp(torch.max(t), min=1e-30)
+
+
+def _interp(x, xp, fp):
+    """Piecewise-linear interpolation with jnp.interp's arithmetic (torch
+    has none): constant beyond the ends, xp increasing."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.dtype(str(xp.dtype)[6:])).eps))
+    dx0 = torch.abs(dx) <= eps
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def shade_disk(hit_q, hit_p, params, r_obs, r_in, *, prograde=True,
+               t_peak=9000.0, exposure=2.5, theta_obs=math.pi / 2,
+               profile="shakura", r_out=14.0, omega_obs=0.0):
+    """(N, 4) crossings -> (g, rgb01): per-ray redshift factor and shaded
+    color, from the Killing constants E = -p_t and L_z = x p_y - y p_x and
+    the emission radius."""
+    x, y = hit_q[:, 1], hit_q[:, 2]
+    energy = -hit_p[:, 0]
+    l_z = x * hit_p[:, 2] - y * hit_p[:, 1]
+    r_em = ks_radius(hit_q[:, 1], hit_q[:, 2], hit_q[:, 3], params[1])
+    return shade_disk_constants(
+        energy, l_z, r_em, params, r_obs, r_in, prograde=prograde,
+        t_peak=t_peak, exposure=exposure, theta_obs=theta_obs,
+        profile=profile, r_out=r_out, omega_obs=omega_obs)
+
+
+def shade_disk_constants(energy, l_z, r_em, params, r_obs, r_in, *,
+                         prograde=True, t_peak=9000.0, exposure=2.5,
+                         theta_obs=math.pi / 2, profile="shakura",
+                         r_out=14.0, omega_obs=0.0):
+    """shade_disk's core on (E, L_z, r_em): I_obs = g^4 I_em (Liouville),
+    blackbody color at the observed temperature g T_em(r), tone-mapped
+    1 - exp(-exposure I) and gamma-encoded."""
+    g = redshift_factor(energy, l_z, r_em, r_obs, params, prograde,
+                        theta_obs, omega_obs)
+    if profile == "novikov":
+        r_grid, t_tab = _nt_temp_table(
+            r_in, torch.as_tensor(r_out, dtype=r_em.dtype,
+                                  device=r_em.device),
+            params, prograde, r_em.dtype)
+        t_norm = _interp(r_em, r_grid, t_tab)
+    else:
+        t_norm = _temp_profile(r_em, r_in)      # [0, 1]
+    t_obs = g * t_norm                          # observed (redshifted)
+    intensity = exposure * t_obs ** 4           # g^4 beaming * T^4
+    tone = 1.0 - torch.exp(-intensity)
+    tone = tone ** (1.0 / 2.2)
+    return g, blackbody_rgb(t_obs * t_peak) * tone[:, None]
+
+
+def run_shading(result_arrays, *, height, width, profile, prograde, params,
+                obs_pos, r_in, r_out, t_peak, exposure, camera_omega, dtype):
+    """THE disk-shading function: every path that shades disk pixels
+    (render_disk now, the transfer-map reshade once ported) calls it, with
+    its scalars cast here in one canonical way, so equal invariants give
+    equal bytes.
+
+    result_arrays = (hit_q (H, W, 4), hit_p, status (H, W), image
+    (H, W, 3) uint8), on one device; disk pixels of the image are
+    overwritten, the rest kept.  Returns {image, redshift, disk_count}."""
+    hit_q, hit_p, status, image = result_arrays
+    device = hit_q.device
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    params = torch.tensor(np.asarray(params, np.float64), dtype=dtype,
+                          device=device)
+    obs_pos = torch.tensor(np.asarray(obs_pos, np.float64), dtype=dtype,
+                           device=device)
+    n = height * width
+    hq = hit_q.reshape(n, 4)
+    hp = hit_p.reshape(n, 4)
+    disk_mask = status.reshape(n) == STATUS_DISK
+
+    r_obs_bl = ks_radius(obs_pos[0], obs_pos[1], obs_pos[2], params[1])
+    th_obs = torch.arccos(torch.clamp(
+        obs_pos[2] / torch.clamp(r_obs_bl, min=1e-30), -1.0, 1.0))
+    g, rgb01 = shade_disk(hq, hp, params, r_obs_bl, scalar(r_in),
+                          prograde=prograde, t_peak=scalar(t_peak),
+                          exposure=scalar(exposure), theta_obs=th_obs,
+                          profile=profile, r_out=scalar(r_out),
+                          omega_obs=scalar(camera_omega))
+    disk_u8 = torch.clamp(rgb01 * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    out_img = torch.where(disk_mask[:, None], disk_u8, image.reshape(n, 3))
+    return {"image": out_img.reshape(height, width, 3),
+            "redshift": g.reshape(height, width),
+            "disk_count": disk_mask.sum()}
+
+
+def disk_observer_position(scene, disk):
+    """Camera position of the disk scene: `disk.elevation_deg` above the
+    equatorial plane at the scene's observer distance (float64 numpy)."""
+    elev = np.deg2rad(disk.elevation_deg)
+    return np.array([scene.observer_distance * np.cos(elev), 0.0,
+                     scene.observer_distance * np.sin(elev)])
+
+
+def resolve_camera_omega(scene, disk):
+    """DiskConfig.camera_omega -> (moving, omega): (False, 0.0) for the
+    static camera, the only one ported."""
+    if disk.camera_omega is None:
+        return False, 0.0
+    raise NotImplementedError(
+        "a moving disk camera (DiskConfig.camera_omega) needs the boosted "
+        "camera tetrad and zamo_omega, not ported to grtrace_torch yet "
+        "(ROADMAP Queue A item 6)")
+
+
+# ---------------------------------------------------------------------------
+# Full-frame disk render
+# ---------------------------------------------------------------------------
+
+def _trace_flat(q0f, p0f, bg_array, hole, params, r_obs, boundary_radius,
+                steps, delta, omega, r_in, r_out, patch_center_theta,
+                patch_center_phi, patch_size_theta, patch_size_phi, *, order,
+                backend, flip_theta, flip_phi, has_background):
+    """The per-ray disk chain on flat (N, 4) phase points: integrate with
+    crossing capture -> classify the rays that missed -> composite, with
+    the disk pixels marked CLS_DISK.  JAX's `_trace_shade_flat` without its
+    shading: `run_shading` alone colors the disk pixels.  The
+    integration reads Python floats (hole = (M, a, Q); all rounded to the
+    ray dtype on the host); the classifier 0-dim tensors of the rays'
+    dtype and device (params = (M, a, Q) as one such tensor)."""
+    dtype, device = q0f.dtype, q0f.device
+    n = q0f.shape[0]
+    final_q, final_p, status, n_steps, hit_q, hit_p = integrate_dispatch_disk(
+        q0f, p0f, steps, float(delta), hole, float(boundary_radius),
+        float(omega), float(r_in), float(r_out), order=order,
+        backend=backend)
+    disk_mask = status == STATUS_DISK
+
+    rho, th, ph = cartesian_to_spherical(final_q[:, 1], final_q[:, 2],
+                                         final_q[:, 3])
+    rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho), rho)
+    fq_sph = torch.stack([final_q[:, 0], rho, th, ph], dim=-1)
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
+    cls, th_csv, ph_csv, u01, v01 = _classify.classify_rays(
+        fq_sph, torch.full((n,), math.pi, dtype=dtype, device=device),
+        torch.zeros((n,), dtype=dtype, device=device),
+        rs=(1.05 / 1.2) * r_plus, r_obs_x=r_obs,
+        boundary_radius=scalar(boundary_radius),
+        patch_center_theta=scalar(patch_center_theta),
+        patch_center_phi=scalar(patch_center_phi),
+        patch_size_theta=scalar(patch_size_theta),
+        patch_size_phi=scalar(patch_size_phi),
+        flip_theta=flip_theta, flip_phi=flip_phi,
+        has_background=has_background)
+    image = _classify.composite(cls, u01, v01, bg_array)
+    cls = torch.where(disk_mask, CLS_DISK, cls)
+    return {"colors": image, "cls": cls, "status": status,
+            "n_steps": n_steps, "hit_q": hit_q, "hit_p": hit_p,
+            "fq_sph": fq_sph, "th_csv": th_csv, "ph_csv": ph_csv}
+
+
+def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
+                       boundary_radius, steps, delta, omega, r_in, r_out,
+                       patch_center_theta, patch_center_phi,
+                       patch_size_theta, patch_size_phi, *, height, width,
+                       order=2, flip_theta=False, flip_phi=False,
+                       has_background=True, dtype=torch.float32,
+                       backend="auto"):
+    """The device pipeline of one disk frame, on bg_array's device: the
+    look-at camera -> disk integration -> classify + composite.  obs_pos
+    is a full (3,) position.  Scalars are Python floats (obs_pos a
+    sequence), rounded to `dtype` on the device as the JAX pipeline
+    receives them.  Returns per-pixel tensors, the base image (disk pixels
+    not yet shaded: see `run_shading`) and the (6,) count vector."""
+    device = bg_array.device
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    params = torch.stack([scalar(mass), scalar(spin), scalar(charge)])
+    obs = torch.tensor(np.asarray(obs_pos, np.float64), dtype=dtype,
+                       device=device)
+    r_obs = torch.linalg.vector_norm(obs)
+    pix = pixel_grid_lookat(obs, scalar(fov), height, width, dtype=dtype,
+                            device=device)
+    q0, p0, alpha0 = cartesian_ics_from_pixels(obs, pix, params=params,
+                                               g_inv_fn=kerr_schild_g_inv)
+    n = height * width
+    flat = _trace_flat(
+        q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous(),
+        bg_array, (float(mass), float(spin), float(charge)), params, r_obs,
+        boundary_radius, steps, delta, omega, r_in,
+        r_out, patch_center_theta, patch_center_phi, patch_size_theta,
+        patch_size_phi, order=order, backend=backend, flip_theta=flip_theta,
+        flip_phi=flip_phi, has_background=has_background)
+    cls = flat["cls"].reshape(height, width)
+    count_vec = torch.cat([_classify.count_vector(cls),
+                           (cls == CLS_DISK).sum()[None]])
+    return {
+        "image": flat["colors"].reshape(height, width, 3),
+        "cls": cls,
+        "final_q": flat["fq_sph"].reshape(height, width, 4),
+        "final_th": flat["th_csv"].reshape(height, width),
+        "final_ph": flat["ph_csv"].reshape(height, width),
+        "q0": q0,
+        "p0": p0,
+        "alpha0": alpha0,
+        "n_steps": flat["n_steps"].reshape(height, width),
+        "status": flat["status"].reshape(height, width),
+        "hit_q": flat["hit_q"].reshape(height, width, 4),
+        "hit_p": flat["hit_p"].reshape(height, width, 4),
+        "count_vec": count_vec,
+    }
+
+
+def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
+                dtype=None, metrics=None, aa_samples=None, device="cuda"):
+    """SceneConfig-driven thin-disk render -> engine.render.RenderResult.
+
+    scene.spin and scene.charge select the hole (Schwarzschild is spin 0);
+    every scene is traced in the Kerr-Schild chart.  The counts carry an
+    extra 'disk' entry; result.device('redshift') is the per-pixel g
+    factor (meaningful on disk pixels), result.device('hit_q') /
+    ('hit_p') the recorded crossings.  device defaults to 'cuda' (kernel
+    B6) and raises without a GPU; pass device='cpu' for the eager twins.
+    """
+    from .render import RenderResult, _untimed
+
+    disk = disk or DiskConfig()
+    if getattr(scene, "metric", "Schwarzschild").lower() in _ROTATING:
+        raise NotImplementedError(
+            f"disks around the rotating regular metric {scene.metric!r} "
+            f"are not ported to grtrace_torch yet (ROADMAP Queue A item 9)")
+    if disk.bfield is not None:
+        raise NotImplementedError(
+            "polarized imaging (DiskConfig.bfield, physics/polarization.py) "
+            "is not ported to grtrace_torch yet (ROADMAP Queue A item 6)")
+    if aa_samples:
+        raise NotImplementedError(
+            "adaptive antialiasing of the disk (engine/aa.py) is not ported "
+            "to grtrace_torch yet (ROADMAP Queue A item 8)")
+    _, camera_omega = resolve_camera_omega(scene, disk)
+    r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_disk(device='cuda') needs a CUDA GPU; "
+                           "pass device='cpu' for the eager twins")
+
+    stage = metrics.stage if metrics is not None else _untimed
+    h, w = scene.image_size
+    integ = scene.integrator
+    if dtype is None:
+        dtype = torch.float64 if integ.dtype == "float64" else torch.float32
+    has_bg = bg_array is not None and disk.show_background
+    with stage("texture_upload"):
+        bg_dev = (torch.as_tensor(np.asarray(bg_array), dtype=torch.uint8,
+                                  device=device) if has_bg
+                  else torch.zeros((1, 1, 3), dtype=torch.uint8,
+                                   device=device))
+    obs_pos = disk_observer_position(scene, disk)
+
+    with stage("device_pipeline"):
+        out = render_pixels_disk(
+            bg_dev, obs_pos, scene.fov, scene.bh_mass, scene.spin,
+            scene.charge, scene.boundary_radius, integ.steps, integ.delta,
+            float(integ.omega), r_in, disk.r_out,
+            scene.patch.center_theta, scene.patch.center_phi,
+            scene.patch.size_theta, scene.patch.size_phi,
+            height=h, width=w, order=integ.order,
+            flip_theta=scene.patch.flip_theta,
+            flip_phi=scene.patch.flip_phi, has_background=has_bg,
+            dtype=dtype, backend=integ.backend)
+        shaded = run_shading(
+            (out["hit_q"], out["hit_p"], out["status"], out["image"]),
+            height=h, width=w, profile=disk.profile, prograde=disk.prograde,
+            params=[scene.bh_mass, scene.spin, scene.charge],
+            obs_pos=obs_pos, r_in=r_in, r_out=disk.r_out,
+            t_peak=disk.t_peak, exposure=disk.exposure,
+            camera_omega=camera_omega, dtype=dtype)
+        out["image"] = shaded["image"]
+        out["redshift"] = shaded["redshift"]
+        cv = out.pop("count_vec").tolist()  # the one host fetch
+    counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
+              "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}
+    if metrics is not None:  # costs one (H, W) reduction and fetch
+        metrics.rays = h * w
+        metrics.geodesic_steps = int(out["n_steps"].sum())
+    out["beta"] = torch.zeros((h, w), dtype=dtype, device=device)
+    out["heading"] = torch.zeros((h, w, 3), dtype=dtype, device=device)
+    return RenderResult(out, counts)

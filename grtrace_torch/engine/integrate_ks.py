@@ -16,7 +16,15 @@ matches them bit for bit on the card.
 Both return (final_q, final_p, status, n_steps) after the exact Bardeen
 rescue (`apply_bardeen_rescue`), which runs in plain torch after the
 integration and is shared by the kernel path.  Status codes are those of
-engine/integrate.py.
+engine/integrate.py, plus STATUS_DISK.
+
+The disk mode (kernel B6, `integrate_batch_pallas_disk` in JAX) adds the
+first-equatorial-crossing recorder of `make_ks_step(disk=...)`:
+
+    integrate_batch_disk_ksc   32 rows (float32 rays)
+    integrate_batch_disk_ks    16 rows (float64 rays)
+
+which return (final_q, final_p, status, n_steps, hit_q, hit_p).
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ from ..physics.kerr_schild import (close_ks, close_ksc, core_ks, core_ksc,
 from ..physics.spacetime import horizon_radius
 from .integrate import (_EXIT_CHECK, STATUS_ALIVE, STATUS_CAPTURED,
                         STATUS_ESCAPED, _in_dtype, resolve_backend)
+
+# extends the STATUS_* codes of engine/integrate.py: the ray hit the disk
+STATUS_DISK = 3
 
 # [mass, a, charge, r_cap, r_max, plunge_zone] lead the scalar vector; then
 # (d_j, cw_j, sw_j, bridge_j) per substep of the staggered schedule
@@ -62,27 +73,44 @@ def ks_substeps(delta, omega, order, compensated=False, dtype=torch.float32):
 
 
 def ks_params(delta, params, r_max, omega, order, compensated=False,
-              dtype=torch.float32):
+              dtype=torch.float32, disk=None):
     """The KS integration's scalars as one CPU tensor in `dtype`:
     [mass, a, charge, r_cap, r_max, plunge_zone, (d, cw, sw, bridge) x
-    n_sub] — the layout of the TPU kernel's SMEM vector
-    (`integrate_batch_pallas_ks`).  The CUDA kernel and the twins both
+    n_sub], then [r_in, r_out] when disk=(r_in, r_out) — the layout of the
+    TPU kernel's SMEM vector (`integrate_batch_pallas_ks`,
+    `integrate_batch_pallas_disk`).  The CUDA kernel and the twins both
     read this vector, so a host/device difference in sin or sqrt cannot
     enter between them."""
     mass, a, charge, r_cap, plunge_zone = ks_scene_scalars(params, dtype)
     scal = [mass, a, charge, r_cap, _in_dtype(r_max, dtype), plunge_zone]
     for sub in ks_substeps(delta, omega, order, compensated, dtype):
         scal += list(sub)
+    if disk is not None:
+        scal += [_in_dtype(r, dtype) for r in disk]
     return torch.tensor(scal, dtype=dtype)
+
+
+def n_substeps(vec):
+    """Substeps in a ks_params vector (with or without the disk pair)."""
+    return (vec.numel() - N_SCAL) // 4
 
 
 def split_params(vec):
     """ks_params vector -> (mass, a, charge, r_cap, r_max, plunge_zone),
-    substeps, all Python floats."""
+    substeps, all Python floats (a trailing disk pair is left out; see
+    `disk_annulus`)."""
     p = vec.tolist()
     subs = tuple(tuple(p[N_SCAL + 4 * j:N_SCAL + 4 * j + 4])
-                 for j in range((len(p) - N_SCAL) // 4))
+                 for j in range(n_substeps(vec)))
     return tuple(p[:N_SCAL]), subs
+
+
+def disk_annulus(vec):
+    """(r_in, r_out) of a disk-mode ks_params vector, Python floats."""
+    tail = vec.tolist()[N_SCAL + 4 * n_substeps(vec):]
+    if len(tail) != 2:
+        raise ValueError("not a disk-mode ks_params vector")
+    return tuple(tail)
 
 
 def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
@@ -95,12 +123,16 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     null-invariant blow-up guard and parking; open_fn/close_fn are the
     staggered boundary half-A flows (the caller masks them by the
     initially active set).  Scalars are Python floats exact in `dtype`.
-    The disk (B6) and subring (B7) recorders are not ported yet.
+
+    disk=(r_in, r_out) swaps masked_step for kernel B6's disk-crossing
+    variant masked_step(comps, ns, hit, hq, hp) -> the same five: a ray
+    whose q1 z row changes sign within a step, at a lerped Boyer-Lindquist
+    radius inside [r_in, r_out], freezes with hit = True and the crossing
+    recorded in hq (q1 rows) and hp (p2 rows: like q1, they hold the exact
+    step-boundary values in the staggered state).  The caller's early-exit
+    test becomes active(comps) & ~hit.  The subring recorder (B7) is not
+    ported yet.
     """
-    if disk is not None:
-        raise NotImplementedError(
-            "make_ks_step(disk=...) is kernel B6's disk mode, not ported "
-            "to grtrace_torch yet (ROADMAP Queue B, B6)")
     if subrings is not None:
         raise NotImplementedError(
             "make_ks_step(subrings=...) is kernel B7's subring mode, not "
@@ -124,11 +156,13 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         rho2 = comps[1] * comps[1] + comps[2] * comps[2] + comps[3] * comps[3]
         return (r_bl > r_cap) & (rho2 < r_max2)
 
-    def masked_step(comps, ns):
+    def _advance(comps, ns, frozen=None):
         r_old = ks_radius_c(comps[1], comps[2], comps[3], a)
         rho2 = (comps[1] * comps[1] + comps[2] * comps[2]
                 + comps[3] * comps[3])
         act = (r_old > r_cap) & (rho2 < r_max2)
+        if frozen is not None:
+            act = act & ~frozen
         new = comps
         for d_j, cw_j, sw_j, bridge_j in subs:
             new = core(new, d_j, mass, a, cw_j, sw_j, bridge_j, charge)
@@ -171,9 +205,40 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         # the park flag rides in the SIGN of the step counter
         ns_new = ns + act.to(torch.int32)
         ns_new = torch.where(park, -ns_new, ns_new)
-        return tuple(out), ns_new
+        return tuple(out), ns_new, new, ok
 
-    return active, masked_step, open_fn, close_fn
+    def masked_step(comps, ns):
+        out, ns_new, _, _ = _advance(comps, ns)
+        return out, ns_new
+
+    if disk is None:
+        return active, masked_step, open_fn, close_fn
+
+    r_in, r_out = disk
+
+    # crossing reads fold the Kahan deficits (true = s - c)
+    def best(state, i):
+        return state[i] - state[16 + i] if compensated else state[i]
+
+    def masked_step_disk(comps, ns, hit, hq, hp):
+        out, ns_new, new, ok = _advance(comps, ns, frozen=hit)
+        # the first equatorial crossing inside the annulus, lerped within
+        # the step on the (q1, p2) rows; ok excludes guard-parked rays
+        z0, z1 = best(comps, 3), best(new, 3)
+        crossed = ok & (z0 * z1 < 0.0)
+        t = torch.where(crossed, z0 / (z0 - z1), 0.0)
+        cq = tuple(best(comps, i) + t * (best(new, i) - best(comps, i))
+                   for i in range(4))
+        cp = tuple(best(comps, 12 + i)
+                   + t * (best(new, 12 + i) - best(comps, 12 + i))
+                   for i in range(4))
+        r_hit = ks_radius_c(cq[1], cq[2], cq[3], a)
+        new_hit = crossed & (r_hit >= r_in) & (r_hit <= r_out)
+        hq = tuple(torch.where(new_hit, c, h) for c, h in zip(cq, hq))
+        hp = tuple(torch.where(new_hit, c, h) for c, h in zip(cp, hp))
+        return out, ns_new, hit | new_hit, hq, hp
+
+    return active, masked_step_disk, open_fn, close_fn
 
 
 def _scalar_tensors(like, *xs):
@@ -308,37 +373,68 @@ def finish_ks(state, ns_signed, q0s, p0s, vec, compensated):
                                 q0s, p0s, mass, a, charge, r_cap, r_max)
 
 
+def finish_disk(state, ns_signed, disk_rows, q0s, p0s, vec, compensated):
+    """Read-out of the disk integrators (kernel B6 and its twins):
+    `finish_ks`, then STATUS_DISK for the hit rays.  disk_rows are the 9
+    recorder rows in the ray dtype: the hit flag (1.0 / 0.0), hit_q,
+    hit_p.  Returns (final_q, final_p, status, n_steps, hit_q, hit_p)."""
+    final_q, final_p, status, n_steps = finish_ks(state, ns_signed, q0s, p0s,
+                                                  vec, compensated)
+    hit = disk_rows[0] > 0.5
+    status = torch.where(hit, STATUS_DISK, status)
+    hit_q = torch.stack(tuple(disk_rows[1:5]), dim=-1)
+    hit_p = torch.stack(tuple(disk_rows[5:9]), dim=-1)
+    return final_q, final_p, status, n_steps, hit_q, hit_p
+
+
 def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
-                    compensated):
+                    compensated, disk=None):
     dtype = q0s.dtype
-    vec = ks_params(delta, params, r_max, omega, order, compensated, dtype)
+    vec = ks_params(delta, params, r_max, omega, order, compensated, dtype,
+                    disk=disk)
     (mass, a, charge, r_cap, r_max, plunge_zone), subs = split_params(vec)
     active, masked_step, open_fn, close_fn = make_ks_step(
         subs, mass, a, charge, r_cap, r_max, plunge_zone,
-        compensated=compensated, dtype=dtype)
+        compensated=compensated,
+        disk=None if disk is None else disk_annulus(vec), dtype=dtype)
     d0 = subs[0][0]
 
     pack = pack_state_ksc if compensated else pack_state
     state = pack(q0s, p0s)
     ns = torch.zeros(q0s.shape[:-1], dtype=torch.int32, device=q0s.device)
+    if disk is not None:  # the recorder: hit flag, hit_q, hit_p
+        hit = torch.zeros(q0s.shape[:-1], dtype=torch.bool,
+                          device=q0s.device)
+        hq = hp = (torch.zeros_like(q0s[:, 0]),) * 4
     act0 = active(state)
     if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
         opened = open_fn(state, d0)
         state = tuple(torch.where(act0, o, s) for o, s in zip(opened, state))
 
-    # masked steps on inactive rays are exact no-ops, so checking for an
-    # early exit only every _EXIT_CHECK steps changes nothing
+    # masked steps on inactive (or, in disk mode, hit) rays are exact
+    # no-ops, so checking for an early exit only every _EXIT_CHECK steps
+    # changes nothing
     for k in range(steps):
-        if k % _EXIT_CHECK == 0 and not bool(active(state).any()):
-            break
-        state, ns = masked_step(state, ns)
+        if k % _EXIT_CHECK == 0:
+            live = active(state) if disk is None else active(state) & ~hit
+            if not bool(live.any()):
+                break
+        if disk is None:
+            state, ns = masked_step(state, ns)
+        else:
+            state, ns, hit, hq, hp = masked_step(state, ns, hit, hq, hp)
 
     # undo the pending half-A for every opened ray; no park exclusion: the
     # park points are regular chart points and flow A cannot move q1
+    # (hit rays too: the recorded crossing, not the final state, shades
+    # them)
     if steps > 0:
         closed = close_fn(state, d0)
         state = tuple(torch.where(act0, c, s) for c, s in zip(closed, state))
-    return finish_ks(state, ns, q0s, p0s, vec, compensated)
+    if disk is None:
+        return finish_ks(state, ns, q0s, p0s, vec, compensated)
+    rows = (hit.to(dtype),) + tuple(hq) + tuple(hp)
+    return finish_disk(state, ns, rows, q0s, p0s, vec, compensated)
 
 
 def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
@@ -356,6 +452,26 @@ def integrate_batch_ks(q0s, p0s, steps, delta, params, r_max, omega,
     loop of integrate_batch_ksc on the uncompensated flows."""
     return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
                            order, compensated=False)
+
+
+def integrate_batch_disk_ksc(q0s, p0s, steps, delta, params, r_max, omega,
+                             r_in, r_out, order=2):
+    """Eager twin of kernel B6 in the 32-row compensated layout (float32
+    production): the plain loop with the disk recorder, early exit on
+    active & ~hit.  Returns (final_q, final_p, status, n_steps, hit_q,
+    hit_p) with STATUS_DISK rays frozen at their first equatorial crossing
+    inside [r_in, r_out]; rays that never hit carry zero hit rows, as the
+    TPU kernel writes them."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=True, disk=(r_in, r_out))
+
+
+def integrate_batch_disk_ks(q0s, p0s, steps, delta, params, r_max, omega,
+                            r_in, r_out, order=2):
+    """Eager twin of kernel B6 in the 16-row plain layout (float64 rays):
+    integrate_batch_disk_ksc on the uncompensated flows."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=False, disk=(r_in, r_out))
 
 
 def select_path_ks(backend, device, dtype):
@@ -387,3 +503,22 @@ def integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max, omega,
                                        compensated=compensated)
     twin = integrate_batch_ksc if compensated else integrate_batch_ks
     return twin(q0s, p0s, steps, delta, params, r_max, omega, order=order)
+
+
+def integrate_dispatch_disk(q0s, p0s, steps, delta, params, r_max, omega,
+                            r_in, r_out, order=2, backend="auto"):
+    """Backend-dispatching disk integrate: CUDA float32 rays go to kernel
+    B6's 32-row layout, CUDA float64 rays to its 16-row one, CPU rays to
+    the matching twin; backend='torch' picks the twin on any device.
+    Never falls back.  Returns (final_q, final_p, status, n_steps, hit_q,
+    hit_p)."""
+    path, compensated = select_path_ks(backend, q0s.device, q0s.dtype)
+    if path == "kernel":
+        from .integrate_ks_cuda import integrate_batch_disk_cuda
+        return integrate_batch_disk_cuda(q0s, p0s, steps, delta, params,
+                                         r_max, omega, r_in, r_out,
+                                         order=order,
+                                         compensated=compensated)
+    twin = integrate_batch_disk_ksc if compensated else integrate_batch_disk_ks
+    return twin(q0s, p0s, steps, delta, params, r_max, omega, r_in, r_out,
+                order=order)

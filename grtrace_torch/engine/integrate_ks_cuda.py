@@ -1,16 +1,19 @@
 """The Kerr-Schild FANTASY integrator as a hand-written CUDA kernel
 (`csrc/fantasy_ks.cu`) — the port of the TPU kernel
-`grtrace.engine.integrate_pallas_ks._make_kernel_ks` in plain mode, the
-counterpart of `integrate_batch_pallas_ks`.
+`grtrace.engine.integrate_pallas_ks._make_kernel_ks` in plain mode (B5,
+the counterpart of `integrate_batch_pallas_ks`) and in disk mode (B6, the
+counterpart of `integrate_batch_pallas_disk`).
 
-Three instantiations of one kernel template: 32 rows float
+Each mode has three instantiations of one kernel template: 32 rows float
 (Kahan-compensated, the float32 production layout), 16 rows float and 16
 rows double (plain).  One thread integrates one ray to its exit;
-`integrate_batch_ksc` / `integrate_batch_ks` (engine/integrate_ks.py) are
-the eager twins that define its result, and all of them read the same
-host-built scalar vector (`ks_params`).  This module only launches: it never
-falls back to a twin.  Rays on the CPU belong to `integrate_dispatch_ks`,
-which sends them to the twins.
+`integrate_batch_ksc` / `integrate_batch_ks` and, in disk mode,
+`integrate_batch_disk_ksc` / `integrate_batch_disk_ks`
+(engine/integrate_ks.py) are the eager twins that define its result, and
+all of them read the same host-built scalar vector (`ks_params`).  This
+module only launches: it never falls back to a twin.  Rays on the CPU
+belong to `integrate_dispatch_ks` / `integrate_dispatch_disk`, which send
+them to the twins.
 """
 from __future__ import annotations
 
@@ -21,15 +24,22 @@ import torch
 from ..physics.hamiltonian import pack_state
 from ..physics.kerr_schild import pack_state_ksc
 from .integrate_cuda import KernelLaunchError
-from .integrate_ks import N_SCAL, finish_ks, ks_params
+from .integrate_ks import (N_SCAL, finish_disk, finish_ks, ks_params,
+                           n_substeps)
 
-# Kernel launches since the process started (or since a caller reset it).
+# Kernel launches since the process started (or since a caller reset it):
+# plain mode (B5) and disk mode (B6) apart.
 launches = 0
+disk_launches = 0
 
-# (rows, dtype) -> C entry of csrc/fantasy_ks.cu
+# (rows, dtype) -> C entry of csrc/fantasy_ks.cu, plain and disk mode
 ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_launch",
            (16, torch.float32): "grt_fantasy_ks16_f32_launch",
            (16, torch.float64): "grt_fantasy_ks16_f64_launch"}
+DISK_ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_disk_launch",
+                (16, torch.float32): "grt_fantasy_ks16_f32_disk_launch",
+                (16, torch.float64): "grt_fantasy_ks16_f64_disk_launch"}
+DISK_ROWS = 9  # hit flag, hit_q (4), hit_p (4)
 
 
 def _check_inputs(q0s, p0s, compensated):
@@ -61,14 +71,9 @@ def _cost_sort_key_ks(q0s, p0s, mass):
     return torch.abs(b - 3.0 * math.sqrt(3.0) * mass)
 
 
-def launch_fantasy_ks(state_in, params, steps):
-    """Launch the kernel on a packed (32 | 16, N) state.
-
-    Returns (state_out, ns (N,) int32, negative for guard-parked rays).
-    `params` is the CPU vector from `ks_params` in the state's dtype; it is
-    copied to the state's device.
-    """
-    global launches
+def _launch(state_in, params, steps, disk):
+    """Check, allocate and launch one entry; returns (state_out, ns,
+    disk_rows or None)."""
     from ..kernels.build import load
 
     if (not isinstance(state_in, torch.Tensor)
@@ -76,32 +81,81 @@ def launch_fantasy_ks(state_in, params, steps):
             or not state_in.is_contiguous()):
         raise ValueError("state_in must be a contiguous (rows, N) CUDA tensor")
     n_rows, n = state_in.shape
-    entry = ENTRIES.get((n_rows, state_in.dtype))
+    table = DISK_ENTRIES if disk else ENTRIES
+    entry = table.get((n_rows, state_in.dtype))
     if entry is None:
         raise ValueError(f"no KS kernel for {n_rows} rows of "
-                         f"{state_in.dtype} (have {sorted(map(str, ENTRIES))})")
-    n_sub = (params.numel() - N_SCAL) // 4
+                         f"{state_in.dtype} (have {sorted(map(str, table))})")
+    n_sub = n_substeps(params)
+    tail = 2 if disk else 0
     if (params.dtype != state_in.dtype or n_sub < 1
-            or params.numel() != N_SCAL + 4 * n_sub):
+            or params.numel() != N_SCAL + 4 * n_sub + tail):
         raise ValueError("params must be [M, a, Q, r_cap, r_max, plunge_zone, "
-                         "(d, cw, sw, bridge) x n_sub] in the state's dtype")
+                         "(d, cw, sw, bridge) x n_sub"
+                         + (", r_in, r_out" if disk else "")
+                         + "] in the state's dtype")
     if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
         raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
     state_out = torch.empty_like(state_in)
     ns = torch.empty((n,), dtype=torch.int32, device=state_in.device)
+    rows = (torch.empty((DISK_ROWS, n), dtype=state_in.dtype,
+                        device=state_in.device) if disk else None)
     if n == 0:  # nothing to launch
-        return state_out, ns
+        return state_out, ns, rows
     lib = load()
     params_dev = params.to(state_in.device)
+    ptrs = [state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr()]
+    if disk:
+        ptrs.append(rows.data_ptr())
     with torch.cuda.device(state_in.device):  # launch on the data's card
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr(),
-            params_dev.data_ptr(), n, n_sub, int(steps), stream)
+        err = getattr(lib, entry)(*ptrs, params_dev.data_ptr(), n, n_sub,
+                                  int(steps), stream)
     if err != 0:
         raise KernelLaunchError(f"{entry} failed: cudaError {err}")
-    launches += 1
+    return state_out, ns, rows
+
+
+def launch_fantasy_ks(state_in, params, steps):
+    """Launch the plain-mode kernel (B5) on a packed (32 | 16, N) state.
+
+    Returns (state_out, ns (N,) int32, negative for guard-parked rays).
+    `params` is the CPU vector from `ks_params` in the state's dtype; it is
+    copied to the state's device.
+    """
+    global launches
+    state_out, ns, _ = _launch(state_in, params, steps, disk=False)
+    if state_in.shape[1]:
+        launches += 1
     return state_out, ns
+
+
+def launch_fantasy_ks_disk(state_in, params, steps):
+    """Launch the disk-mode kernel (B6) on a packed (32 | 16, N) state;
+    `params` is a disk-mode `ks_params` vector (ending with r_in, r_out).
+
+    Returns (state_out, ns, disk_rows (9, N): hit flag 1/0, hit_q, hit_p).
+    """
+    global disk_launches
+    state_out, ns, rows = _launch(state_in, params, steps, disk=True)
+    if state_in.shape[1]:
+        disk_launches += 1
+    return state_out, ns, rows
+
+
+def _sorted_state(q0s, p0s, vec, compensated):
+    """(launch order, packed state in that order)."""
+    order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s, float(vec[0])),
+                              stable=True)
+    pack = pack_state_ksc if compensated else pack_state
+    return order_idx, torch.stack(pack(q0s[order_idx], p0s[order_idx]))
+
+
+def _unsort(rows, order_idx):
+    """(R, N) or (N,) launch-order rows back to the caller's order."""
+    out = torch.empty_like(rows)
+    out[..., order_idx] = rows
+    return out
 
 
 def integrate_batch_ks_cuda(q0s, p0s, steps, delta, params, r_max, omega,
@@ -119,13 +173,33 @@ def integrate_batch_ks_cuda(q0s, p0s, steps, delta, params, r_max, omega,
     _check_inputs(q0s, p0s, compensated)
     vec = ks_params(delta, params, r_max, omega, order, compensated,
                     q0s.dtype)
-    order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s, float(vec[0])),
-                              stable=True)
-    pack = pack_state_ksc if compensated else pack_state
-    state_in = torch.stack(pack(q0s[order_idx], p0s[order_idx]))
+    order_idx, state_in = _sorted_state(q0s, p0s, vec, compensated)
     state_sorted, ns_sorted = launch_fantasy_ks(state_in, vec, steps)
-    state_out = torch.empty_like(state_sorted)  # back to the caller's order
-    state_out[:, order_idx] = state_sorted
-    ns = torch.empty_like(ns_sorted)
-    ns[order_idx] = ns_sorted
-    return finish_ks(tuple(state_out), ns, q0s, p0s, vec, compensated)
+    return finish_ks(tuple(_unsort(state_sorted, order_idx)),
+                     _unsort(ns_sorted, order_idx), q0s, p0s, vec,
+                     compensated)
+
+
+def integrate_batch_disk_cuda(q0s, p0s, steps, delta, params, r_max, omega,
+                              r_in, r_out, order=2, compensated=True):
+    """Integrate (N, 4) Kerr-Schild camera rays through kernel B6, the disk
+    mode: the 32-row compensated layout (float32 rays) or, with
+    compensated=False, the 16-row plain one (float32 or float64).
+
+    Cost-sorted launch, results (the recorder rows too) back in the input
+    order: (final_q, final_p, status, n_steps, hit_q, hit_p) with
+    STATUS_DISK for the rays frozen at their first equatorial crossing
+    inside [r_in, r_out], the contract of the twins, which it matches bit
+    for bit on the card.  Raises for CPU, misshapen or non-contiguous
+    inputs, and for a failed build or launch.
+    """
+    _check_inputs(q0s, p0s, compensated)
+    vec = ks_params(delta, params, r_max, omega, order, compensated,
+                    q0s.dtype, disk=(r_in, r_out))
+    order_idx, state_in = _sorted_state(q0s, p0s, vec, compensated)
+    state_sorted, ns_sorted, rows_sorted = launch_fantasy_ks_disk(
+        state_in, vec, steps)
+    return finish_disk(tuple(_unsort(state_sorted, order_idx)),
+                       _unsort(ns_sorted, order_idx),
+                       _unsort(rows_sorted, order_idx), q0s, p0s, vec,
+                       compensated)

@@ -5,8 +5,10 @@ counterpart of the Kerr checks of `grtrace.engine.validate`.
     path (kernel B5 on a CUDA device, its eager twin on the CPU) against
     the Bardeen (1973) radial-potential construction, per image azimuth,
     by sub-pixel bisection;
-  * `ks_kernel_parity` — kernel B5 against its eager twin on the same
-    rays: q and p bit for bit, status and exit step exactly.
+  * `ks_kernel_parity` — kernel B5 (or, with disk=(r_in, r_out), kernel
+    B6) against its eager twin on the same rays: q and p bit for bit,
+    status and exit step exactly, and in disk mode the hit flag exactly
+    and hit_q and hit_p bit for bit.
 
 Boundary positions are quoted in 256x256-image pixels whatever the probe
 resolution.  Scene: observer at r0 = 30 M on +x, fov 80 deg, boundary
@@ -25,8 +27,9 @@ from ..physics.camera import cartesian_ics_from_pixels
 from ..physics.spacetime import kerr_schild_g_inv
 from . import integrate_ks_cuda
 from .integrate import STATUS_ESCAPED
-from .integrate_ks import (integrate_batch_ks, integrate_batch_ksc,
-                           integrate_dispatch_ks)
+from .integrate_ks import (STATUS_DISK, integrate_batch_disk_ks,
+                           integrate_batch_disk_ksc, integrate_batch_ks,
+                           integrate_batch_ksc, integrate_dispatch_ks)
 
 R0 = 30.0
 FOV = np.radians(80.0)
@@ -136,18 +139,37 @@ def kerr_shadow_errors(spin=0.9, charge=0.0, steps=8_000, delta=0.02,
     }
 
 
+def _bitwise_equal(a, b):
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(a.view(ints), b.view(ints)))
+
+
+def _max_abs_err(pairs):
+    return max(float((a - b).abs().nan_to_num(float("inf")).max())
+               if a.numel() else 0.0 for a, b in pairs)
+
+
 def compare_outputs(kern, twin):
     """Mismatch counts of a kernel's (q, p, status, n_steps) against its
-    twin's: q and p compared bit for bit, status and n_steps exactly."""
-    (qk, pk, sk, nk), (qt, pt, st, nt) = kern, twin
-    ints = {4: torch.int32, 8: torch.int64}[qk.element_size()]
-    err = max(float((a - b).abs().nan_to_num(float("inf")).max())
-              for a, b in ((qk, qt), (pk, pt)))
-    return {"status_mismatch": int((sk != st).sum()),
-            "n_steps_mismatch": int((nk != nt).sum()),
-            "q_bitwise_equal": bool(torch.equal(qk.view(ints), qt.view(ints))),
-            "p_bitwise_equal": bool(torch.equal(pk.view(ints), pt.view(ints))),
-            "max_abs_err": err}
+    twin's: q and p compared bit for bit, status and n_steps exactly.
+    With the disk mode's (hit_q, hit_p) appended to both, also the hit
+    flag (status == STATUS_DISK) exactly and hit_q and hit_p bit for bit;
+    max_abs_err then covers them too."""
+    (qk, pk, sk, nk), (qt, pt, st, nt) = kern[:4], twin[:4]
+    res = {"status_mismatch": int((sk != st).sum()),
+           "n_steps_mismatch": int((nk != nt).sum()),
+           "q_bitwise_equal": _bitwise_equal(qk, qt),
+           "p_bitwise_equal": _bitwise_equal(pk, pt)}
+    pairs = [(qk, qt), (pk, pt)]
+    if len(kern) == 6:
+        hqk, hpk, hqt, hpt = kern[4], kern[5], twin[4], twin[5]
+        res.update(hit_mismatch=int(((sk == STATUS_DISK)
+                                     != (st == STATUS_DISK)).sum()),
+                   hit_q_bitwise_equal=_bitwise_equal(hqk, hqt),
+                   hit_p_bitwise_equal=_bitwise_equal(hpk, hpt))
+        pairs += [(hqk, hqt), (hpk, hpt)]
+    res["max_abs_err"] = _max_abs_err(pairs)
+    return res
 
 
 def timed(fn, device):
@@ -167,18 +189,27 @@ def timed(fn, device):
 
 
 def ks_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
-                     omega=1.0, order=2, compensated=True):
+                     omega=1.0, order=2, compensated=True, disk=None):
     """Kernel B5 (`integrate_batch_ks_cuda`, 32 rows or, with
     compensated=False, 16 rows) against its eager twin
-    (`integrate_batch_ksc` / `integrate_batch_ks`) on the same (N, 4) rays.
+    (`integrate_batch_ksc` / `integrate_batch_ks`) on the same (N, 4) rays;
+    with disk=(r_in, r_out), kernel B6 (`integrate_batch_disk_cuda`)
+    against `integrate_batch_disk_ksc` / `integrate_batch_disk_ks`.
 
-    Returns (the kernel's (q, p, status, n_steps), `compare_outputs`'s
-    counts plus the kernel+wrapper and twin times in ms).  The kernel's
-    wrapper raises for CPU rays: nothing falls back to the twin.
+    Returns (the kernel's outputs, `compare_outputs`'s counts plus the
+    kernel+wrapper and twin times in ms).  The kernel's wrapper raises for
+    CPU rays: nothing falls back to the twin.
     """
     args = (steps, delta, params, r_max, omega)
-    twin = integrate_batch_ksc if compensated else integrate_batch_ks
-    kern, kernel_ms = timed(lambda: integrate_ks_cuda.integrate_batch_ks_cuda(
+    if disk is None:
+        twin = integrate_batch_ksc if compensated else integrate_batch_ks
+        kernel = integrate_ks_cuda.integrate_batch_ks_cuda
+    else:
+        args += tuple(disk)
+        twin = (integrate_batch_disk_ksc if compensated
+                else integrate_batch_disk_ks)
+        kernel = integrate_ks_cuda.integrate_batch_disk_cuda
+    kern, kernel_ms = timed(lambda: kernel(
         q0, p0, *args, order=order, compensated=compensated), q0.device)
     ref, twin_ms = timed(lambda: twin(q0, p0, *args, order=order),
                           q0.device)

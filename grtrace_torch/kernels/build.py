@@ -31,16 +31,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 # C entry points of each source; every one takes (state_in, state_out,
-# ns_out, params, n, n_sub, steps, stream)
+# ns_out, params, n, n_sub, steps, stream), and a disk entry (`*_disk_*`)
+# takes the recorder rows disk_out after ns_out
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch",),
     "fantasy_ks": ("grt_fantasy_ks32_f32_launch",
                    "grt_fantasy_ks16_f32_launch",
-                   "grt_fantasy_ks16_f64_launch"),
+                   "grt_fantasy_ks16_f64_launch",
+                   "grt_fantasy_ks32_f32_disk_launch",
+                   "grt_fantasy_ks16_f32_disk_launch",
+                   "grt_fantasy_ks16_f64_disk_launch"),
 }
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+
+
+def argtypes(name: str) -> list:
+    """The ctypes signature of the C entry `name`."""
+    if "_disk_" in name:
+        return _ARGTYPES[:3] + [ctypes.c_void_p] + _ARGTYPES[3:]
+    return list(_ARGTYPES)
 
 
 class KernelBuildError(RuntimeError):
@@ -160,7 +171,7 @@ def load() -> types.SimpleNamespace:
         lib = ctypes.CDLL(str(built[stem][0]))
         for name in names:
             fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = argtypes(name)
             fn.restype = ctypes.c_int
             fns[name] = fn
     return types.SimpleNamespace(**fns)

@@ -1,8 +1,9 @@
 """Pinhole camera: pixel grid -> null-geodesic phase-space initial
 conditions — the torch counterpart of the folded Schwarzschild camera in
 `grtrace.physics.camera` (`pixel_grid`, `angles_to_p_sph`,
-`initial_conditions`, `camera_rays`) and of its Cartesian-chart camera
-(`camera_rays_cartesian`, `cartesian_ics_from_pixels`).
+`initial_conditions`, `camera_rays`), of its Cartesian-chart camera
+(`camera_rays_cartesian`, `cartesian_ics_from_pixels`) and of the inclined
+look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`).
 
 Camera geometry (the reference's):
   * observer on the +x axis, optical axis -x, right = +y, up = +z
@@ -47,6 +48,50 @@ def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
     ii = torch.arange(height, dtype=dtype, device=device)
     u = (jj + 0.5) / width - 0.5   # (W,) along +y
     v = (ii + 0.5) / height - 0.5  # (H,) along +z
+    offsets = (u[None, :, None] * plane_width * right
+               + v[:, None, None] * plane_height * up)
+    return plane_center + offsets
+
+
+def _lookat_frame(obs_pos, fov, height, width, dtype=torch.float32,
+                  device=None):
+    """(plane_center, plane_width, plane_height, right, up) of the
+    origin-aimed image plane for an observer anywhere.  The up-reference
+    is +z (the spin axis), so the equatorial plane stays level, with a
+    right = +y fallback for near-polar observers (|axis x z| ~ 0)."""
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    device = obs_pos.device
+    fov = torch.as_tensor(fov, dtype=dtype, device=device)
+    d = torch.linalg.vector_norm(obs_pos)
+    axis = -obs_pos / d
+    z_hat = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    r_raw = torch.linalg.cross(axis, z_hat)
+    r_norm = torch.linalg.vector_norm(r_raw)
+    right = torch.where(r_norm > 1e-6, r_raw / torch.clamp(r_norm, min=1e-30),
+                        torch.tensor([0.0, 1.0, 0.0], dtype=dtype,
+                                     device=device))
+    up = torch.linalg.cross(right, axis)
+
+    plane_dist = 0.2 * d
+    plane_center = obs_pos + axis * plane_dist
+    plane_width = 2.0 * plane_dist * torch.tan(fov / 2.0)
+    plane_height = plane_width * (height / width)
+    return plane_center, plane_width, plane_height, right, up
+
+
+def pixel_grid_lookat(obs_pos, fov, height, width, dtype=torch.float32,
+                      device=None):
+    """(H, W, 3) pixel positions for an observer anywhere, optical axis
+    aimed at the origin (the inclined camera of the disk renderer).  For
+    the equatorial +x observer it reduces to `pixel_grid` (right = +y,
+    up = +z)."""
+    plane_center, plane_width, plane_height, right, up = _lookat_frame(
+        obs_pos, fov, height, width, dtype, device)
+    device = plane_center.device
+    jj = torch.arange(width, dtype=dtype, device=device)
+    ii = torch.arange(height, dtype=dtype, device=device)
+    u = (jj + 0.5) / width - 0.5
+    v = (ii + 0.5) / height - 0.5
     offsets = (u[None, :, None] * plane_width * right
                + v[:, None, None] * plane_height * up)
     return plane_center + offsets

@@ -1,7 +1,8 @@
 """The Kerr-Newman pieces of `grtrace.physics.spacetime`, in torch: the
-Boyer-Lindquist radius of a Kerr-Schild point, the contravariant Kerr-Schild
-metric (batched, closed form), the outer horizon radius and the null
-quadratic for p_t.
+contravariant Boyer-Lindquist metric (the disk's orbit algebra reads it),
+the Boyer-Lindquist radius of a Kerr-Schild point, the contravariant
+Kerr-Schild metric (batched, closed form), the outer horizon radius and the
+null quadratic for p_t.
 
 The autodiff flow engine of the JAX module (`make_flows`, the generic
 integrator and the other metric families) is not ported yet: ROADMAP Queue A
@@ -18,6 +19,38 @@ import torch
 def _charge(params):
     """Q from an optional third params slot."""
     return params[2] if len(params) > 2 else params[0] * 0.0
+
+
+def kerr_g_inv(q, params):
+    """Contravariant Kerr(-Newman) metric in Boyer-Lindquist coordinates
+    at every point of q (..., 4) = (t, r, theta, phi): returns (..., 4, 4).
+
+    The charge enters only through Delta = r^2 - 2 M r + a^2 + Q^2 and the
+    identity r^2 + a^2 - Delta = 2 M r - Q^2 in the t-phi term.  Each
+    component keeps the JAX function's association (inv_sd = 1/(sigma
+    delta), ...)."""
+    params = torch.as_tensor(params, dtype=q.dtype, device=q.device)
+    mass, a = params[0], params[1]
+    qc = _charge(params)
+    r, th = q[..., 1], q[..., 2]
+    sin_th = torch.sin(th)
+    cos_th = torch.cos(th)
+    sin2 = sin_th * sin_th
+    sigma = r * r + a * a * cos_th * cos_th
+    delta = r * r - 2.0 * mass * r + a * a + qc * qc
+    r2a2 = r * r + a * a
+
+    inv_sd = 1.0 / (sigma * delta)
+    g_tt = -(r2a2 * r2a2 - a * a * delta * sin2) * inv_sd
+    g_tp = -(r2a2 - delta) * a * inv_sd
+    g_rr = delta / sigma
+    g_thth = 1.0 / sigma
+    g_pp = (delta - a * a * sin2) * inv_sd / sin2
+
+    zero = torch.zeros_like(g_tt)
+    rows = ((g_tt, zero, zero, g_tp), (zero, g_rr, zero, zero),
+            (zero, zero, g_thth, zero), (g_tp, zero, zero, g_pp))
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
 
 
 def ks_radius(x, y, z, a):

@@ -137,3 +137,48 @@ def test_unfold_hit(points):
     j = [_np(x) for x in jcls.unfold_hit(jnp.asarray(q), jnp.asarray(beta))]
     t = [_np(x) for x in tcls.unfold_hit(torch.tensor(q), torch.tensor(beta))]
     np.testing.assert_allclose(t, j, rtol=0, atol=TOL)
+
+
+# --- the inclined look-at grid of the disk renderer ------------------------
+
+LOOKAT_OBSERVERS = [(30.0, 0.0, 0.0),                       # equatorial
+                    (25.0, 0.0, 8.0),                       # inclined
+                    (29.343, 0.0, 6.237),                   # the disk camera
+                    (1e-9, 0.0, 30.0),                      # polar fallback
+                    (-12.0, 18.0, -9.0)]
+
+
+@pytest.mark.parametrize("obs", LOOKAT_OBSERVERS)
+def test_pixel_grid_lookat_matches_jax(obs):
+    j = _np(jcam.pixel_grid_lookat(jnp.asarray(obs), jnp.radians(60.0), 9, 7,
+                                   dtype=jnp.float64))
+    t = _np(tcam.pixel_grid_lookat(obs, np.radians(60.0), 9, 7,
+                                   dtype=torch.float64))
+    assert t.shape == (9, 7, 3)
+    np.testing.assert_allclose(t, j, rtol=0, atol=TOL)
+    jf = jcam._lookat_frame(jnp.asarray(obs), jnp.radians(60.0), 9, 7,
+                            jnp.float64)
+    tf = tcam._lookat_frame(obs, np.radians(60.0), 9, 7, torch.float64)
+    for a, b in zip(tf, jf):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=TOL)
+
+
+def test_pixel_grid_lookat_is_pixel_grid_on_axis():
+    """For the reference's +x observer the look-at grid is the reference
+    grid (right = +y, up = +z)."""
+    a = _np(tcam.pixel_grid(OBS, FOV, 7, 5, dtype=torch.float64))
+    b = _np(tcam.pixel_grid_lookat(OBS, FOV, 7, 5, dtype=torch.float64))
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-13)
+
+
+def test_pixel_grid_lookat_inclined_geometry():
+    """The optical axis passes through the origin, the frame is orthogonal
+    and +z stays up in the image."""
+    obs = np.array([25.0, 0.0, 8.0])
+    g = _np(tcam.pixel_grid_lookat(obs, np.radians(60.0), 9, 9,
+                                   dtype=torch.float64))
+    np.testing.assert_allclose(g[4, 4], obs * 0.8, atol=1e-12)
+    axis = -obs / np.linalg.norm(obs)
+    dr, du = g[4, 5] - g[4, 4], g[5, 4] - g[4, 4]
+    assert abs(dr @ axis) < 1e-12 and abs(du @ axis) < 1e-12
+    assert abs(dr @ du) < 1e-12 and du[2] > 0.0

@@ -9,7 +9,7 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # between them these import every module of the port, each new module of
-# the Kerr slice on its own
+# the Kerr and disk slices on its own
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -17,7 +17,9 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.engine.integrate_ks",
                 "grtrace_torch.engine.integrate_ks_cuda",
                 "grtrace_torch.engine.render_generic",
-                "grtrace_torch.engine.validate"]
+                "grtrace_torch.engine.validate",
+                "grtrace_torch.physics.orbits",
+                "grtrace_torch.engine.disk"]
 
 
 def _port_sources():
@@ -52,7 +54,8 @@ def test_no_jax_or_grtrace_import_in_source(path):
 def test_public_api():
     import grtrace_torch
     for name in ("SceneConfig", "IntegratorConfig", "PatchConfig", "render",
-                 "RenderResult", "SchwarzschildIntegrator", "from_jax_scene"):
+                 "RenderResult", "SchwarzschildIntegrator", "from_jax_scene",
+                 "DiskConfig", "render_disk", "from_jax_disk"):
         assert hasattr(grtrace_torch, name), name
 
 

@@ -221,11 +221,20 @@ def test_cost_sort_key_matches_jax():
 
 
 def test_make_ks_step_disk_and_subrings_not_ported():
+    """The subring mode (B7) is not ported; the disk mode (B6) is, and its
+    step carries the recorder (tests/test_torch_disk.py holds it to JAX)."""
     args = (((0.1, 0.0, 0.0, 0.1),), 1.0, SPIN, 0.0, 2.0, 31.0, 3.9)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tks.make_ks_step(*args, disk=(6.0, 20.0))
     with pytest.raises(NotImplementedError, match="B7"):
         tks.make_ks_step(*args, subrings=3)
+    q0, p0 = map(torch.tensor, _ics(2))
+    _, step, _, _ = tks.make_ks_step(*args, disk=(6.0, 20.0),
+                                     dtype=torch.float64)
+    state = tuple(torch.cat([q0, p0, q0, p0], dim=1).T)
+    ns = torch.zeros(4, dtype=torch.int32)
+    hit = torch.zeros(4, dtype=torch.bool)
+    zeros = (torch.zeros(4, dtype=torch.float64),) * 4
+    out = step(state, ns, hit, zeros, zeros)
+    assert len(out) == 5 and len(out[0]) == 16 and (out[1] == 1).all()
 
 
 # --- dispatch rules: pure logic and mocks, nothing is launched -----------
@@ -297,7 +306,8 @@ def test_kernel_wrapper_raises_for_cpu_tensors():
 
 
 def test_build_registers_the_ks_entries():
-    assert set(tkc.ENTRIES.values()) == set(tbuild.ENTRIES["fantasy_ks"])
+    assert (set(tkc.ENTRIES.values()) | set(tkc.DISK_ENTRIES.values())
+            == set(tbuild.ENTRIES["fantasy_ks"]))
     names = {p.stem for p in tbuild._sources()}
     assert {"fantasy_eqc", "fantasy_ks"} <= names
     paths = {tbuild.library_path(p) for p in tbuild._sources()}
