@@ -19,7 +19,17 @@ the port's paths through them:
     float and double) at 48x48, then the full-width thin-disk render (the
     README's disk command: a = 0.9, 512x512 rays, 30k steps, delta 0.02,
     float32, camera 12 deg above the disk, annulus [ISCO, 14]), whose
-    camera rays it is held bitwise against its twin on at the full budget.
+    camera rays it is held bitwise against its twin on at the full budget;
+  * kernel B7 (the subring mode of csrc/fantasy_ks.cu): held bitwise
+    against its eager twins at 48x48 (16 rows float and double with 3
+    orders, 32 rows with 1 order), then the full-width subring render (the
+    photon-ring command `--spin 0.9 --size 256 --orders 3` with the CLI's
+    defaults: 256x256 rays, 30k steps, delta 0.02, float32, camera 75 deg
+    above the disk, 3 image orders) beside the photon-shell prediction,
+    whose camera rays it is held bitwise against its twin on at the full
+    budget; then the photon-shell anchor: on-axis rays at the capture /
+    escape edge cross the plane at the polar shell orbit's radius, at the
+    half-orbit delay that physics/photon_shell.py predicts.
 
 Each render checks that it went through its kernel.  Each phase prints one
 line; any failure raises and the script exits non-zero.  The last three
@@ -57,6 +67,13 @@ KERR_SIZE, KERR_STEPS, KERR_DELTA, KERR_SPIN = 1024, 30_000, 0.02, 0.9
 # default DiskConfig (camera 12 deg above the plane, annulus [ISCO, 14])
 DISK_SIZE, DISK_STEPS, DISK_DELTA, DISK_SPIN = 512, 30_000, 0.02, 0.9
 
+# the full-width subring scene (grtrace/cli/subring.py's first command,
+# `--spin 0.9 --size 256 --orders 3`, with the CLI's defaults): a = 0.9,
+# 256x256, 30k steps, delta 0.02, order 2, float32, camera 75 deg above the
+# plane, 3 image orders, annulus [ISCO, 14], Shakura-Sunyaev, no background
+SUB_SIZE, SUB_STEPS, SUB_DELTA, SUB_SPIN = 256, 30_000, 0.02, 0.9
+SUB_ORDERS, SUB_ELEV = 3, 75.0
+
 # Bounds: the least time an H100 SXM could take, from its data sheet at
 # 700 W: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM3.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -74,15 +91,22 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #                crossing: t (2), eight lerps on folded rows (8 x 5) and the
 #                hit radius (17) = 59 (crossings outside the annulus, which
 #                do 39 of these, are not counted: the bound stays a bound)
+#   fantasy_ks subring mode (32 rows): B5's count plus the same 3 per
+#                accepted step; per recorded crossing t (2) and the eight
+#                lerps (40) = 42 (a crossing past the last slot only adds
+#                one to an integer count)
 # (every scene runs order 2: one substep per step)
 EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
 KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 116, 310
 DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
+SUB_FLOPS_STEP, SUB_FLOPS_EVENT = 3, 42
 # bytes the integration must move per ray: q0 and p0 in, final q and p,
 # status and n_steps out (each read or written once); the disk mode also
-# writes hit_q and hit_p
+# writes hit_q and hit_p, the subring mode the count and n_orders slots of
+# (q, p)
 BYTES_RAY = 8 * 4 + 8 * 4 + 4 + 4  # float32 rays
 DISK_BYTES_RAY = BYTES_RAY + 8 * 4
+SUB_BYTES_RAY = BYTES_RAY + 4 + SUB_ORDERS * 8 * 4
 
 
 def phase(n, msg):
@@ -117,9 +141,9 @@ def ks_camera(size, params, device, dtype=torch.float32):
 
 def gate_parity(tag, res):
     if (res["status_mismatch"] or res["n_steps_mismatch"]
-            or res.get("hit_mismatch", 0)):
-        raise AssertionError(f"{tag}: status/n_steps/hit flags differ "
-                             f"between kernel and twin")
+            or res.get("hit_mismatch", 0) or res.get("count_mismatch", 0)):
+        raise AssertionError(f"{tag}: status/n_steps/hit flags/crossing "
+                             f"counts differ between kernel and twin")
     equal = [k for k in res if k.endswith("_bitwise_equal")]
     if not all(res[k] for k in equal):
         raise AssertionError(
@@ -382,15 +406,17 @@ def kerr_main_path():
             "bound_by": bound_by, **par}
 
 
-def disk_camera(size, device, dtype=torch.float32):
-    """The disk scene's inclined camera rays, as render_disk makes them."""
+def disk_camera(size, device, dtype=torch.float32, elevation_deg=12.0):
+    """The disk scene's inclined camera rays (the subring scene's at
+    elevation_deg=75), as render_disk and render_subrings make them."""
     from grtrace_torch import DiskConfig, SceneConfig
     from grtrace_torch.engine.disk import disk_observer_position
     from grtrace_torch.physics.camera import (cartesian_ics_from_pixels,
                                               pixel_grid_lookat)
     from grtrace_torch.physics.spacetime import kerr_schild_g_inv
-    obs = torch.tensor(disk_observer_position(SceneConfig(), DiskConfig()),
-                       dtype=dtype, device=device)
+    obs = torch.tensor(disk_observer_position(
+        SceneConfig(), DiskConfig(elevation_deg=elevation_deg)),
+        dtype=dtype, device=device)
     pix = pixel_grid_lookat(obs, torch.tensor(math.radians(FOV_DEG),
                                               dtype=dtype, device=device),
                             size, size, dtype=dtype, device=device)
@@ -534,6 +560,235 @@ def disk_main_path():
             "bound_by": bound_by, **par}
 
 
+def check_parity_subring(tag, size, steps, delta, dtype, compensated,
+                         n_orders, n):
+    """Kernel B7 against its eager twin on the card, in one of its three
+    layouts, on the subring camera
+    (`validate.ks_kernel_parity(subrings=...)`)."""
+    from grtrace_torch.engine.integrate_ks_cuda import \
+        integrate_batch_subrings_cuda
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    params = (MASS, SUB_SPIN, 0.0)
+    q0, p0 = disk_camera(size, torch.device("cuda", 0), dtype, SUB_ELEV)
+    args = (steps, delta, params, R_MAX, OMEGA)
+    integrate_batch_subrings_cuda(q0, p0, *args, n_orders=n_orders,
+                                  compensated=compensated)  # warm-up
+    kern, res = ks_kernel_parity(q0, p0, *args, compensated=compensated,
+                                 subrings=n_orders)
+    count = kern[6]
+    res.update(rows=32 if compensated else 16, dtype=str(dtype)[6:],
+               rays=q0.shape[0], steps=steps, delta=delta, n_orders=n_orders,
+               count_max=int(count.max()),
+               rays_past_last_slot=int((count > n_orders).sum()),
+               captured=int((kern[2] == 1).sum()),
+               escaped=int((kern[2] == 2).sum()),
+               n_steps_max=int(kern[3].max()))
+    phase(n, f"B7 kernel vs eager twin, {tag}: {json.dumps(res)}")
+    gate_parity(tag, res)
+
+
+def subring_scene():
+    from grtrace_torch import (DiskConfig, IntegratorConfig, PatchConfig,
+                               SceneConfig)
+    scene = SceneConfig(
+        size=SUB_SIZE, fov_deg=FOV_DEG, background=None, bh_mass=MASS,
+        metric="kerr", spin=SUB_SPIN, boundary_radius=R_MAX,
+        observer_distance=OBS_X,
+        integrator=IntegratorConfig(steps=SUB_STEPS, delta=SUB_DELTA,
+                                    omega=OMEGA, order=2, backend="auto",
+                                    dtype="float32"),
+        patch=PatchConfig(), n_samples=0)
+    disk = DiskConfig(r_out=14.0, prograde=True, profile="shakura",
+                      elevation_deg=SUB_ELEV, show_background=False,
+                      t_peak=9000.0)
+    return scene, disk
+
+
+def shell_theory():
+    """The photon-shell prediction along the critical curve seen from the
+    subring camera's latitude (float64 on the host, as the JAX CLI's
+    shell_theory computes it)."""
+    from grtrace_torch.physics.photon_shell import critical_curve_observables
+    theta_obs = max(math.radians(90.0 - SUB_ELEV), 1e-4)
+    curve = critical_curve_observables((MASS, SUB_SPIN, 0.0), theta_obs, n=33)
+    gam, dts = curve["gamma"].numpy(), curve["delta_t"].numpy()
+    return {"gamma_min": float(gam.min()), "gamma_median": float(
+                np.median(gam)), "gamma_max": float(gam.max()),
+            "delay_half_orbit_M_min": float(dts.min()),
+            "delay_half_orbit_M_median": float(np.median(dts)),
+            "delay_half_orbit_M_max": float(dts.max())}
+
+
+def subring_main_path():
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_ks_cuda
+    from grtrace_torch.engine.metrics import RenderMetrics
+
+    scene, disk = subring_scene()
+    r_in = disk.inner_edge(MASS, SUB_SPIN)
+    r_in32 = float(torch.tensor(r_in, dtype=torch.float32))
+    integrate_ks_cuda.subring_launches = 0
+    metrics = RenderMetrics()
+    res = grtrace_torch.render_subrings(scene, disk, n_orders=SUB_ORDERS,
+                                        device="cuda", metrics=metrics)
+    launches = integrate_ks_cuda.subring_launches
+    counts = res.counts
+    valid, inten = res.valid, res.intensity
+    count, ns = res.count, res.n_steps.astype(np.int64)
+    r_em = res.r_em[valid]
+    summary = grtrace_torch.subring_summary(res)
+    t0 = time.perf_counter()
+    theory = shell_theory()
+    theory_s = time.perf_counter() - t0
+    info = {"launches": launches, "counts": counts,
+            "stages_s": metrics.stages, "n_steps_max": int(ns.max()),
+            "n_steps_sum": int(ns.sum()),
+            "valid_per_order": valid.sum(axis=(1, 2)).tolist(),
+            "r_em_min": float(r_em.min()), "r_em_max": float(r_em.max()),
+            "summary": summary, "shell_theory": theory,
+            "shell_theory_s": theory_s}
+    phase(14, f"subring render {SUB_SIZE}x{SUB_SIZE}/{SUB_STEPS} steps, "
+              f"a = {SUB_SPIN}, {SUB_ORDERS} orders, camera {SUB_ELEV} deg, "
+              f"through kernel B7: {json.dumps(info)}")
+    if launches < 1:
+        raise AssertionError("the subring render did not launch kernel B7")
+    if counts["numerical_error"]:
+        raise AssertionError(f"numerical_error not 0: {counts}")
+    if (res.image.shape != (SUB_SIZE, SUB_SIZE, 3)
+            or res.image.dtype != np.uint8
+            or inten.shape != (SUB_ORDERS, SUB_SIZE, SUB_SIZE)
+            or valid.shape != inten.shape):
+        raise AssertionError("subring render: image not (256, 256, 3) uint8 "
+                             "or per-order stacks not (3, 256, 256)")
+    if not (valid[0].any() and valid[1].any() and count.max() >= 2):
+        raise AssertionError("subring render: orders 0 and 1 need pixels "
+                             "and some ray two crossings")
+    if (inten[~valid] != 0.0).any() or not (inten[valid] > 0.0).all():
+        raise AssertionError("subring intensity is not 0 exactly off the "
+                             "valid events and > 0 on them")
+    if not np.allclose(res.total_intensity, inten.sum(axis=0), rtol=1e-6,
+                       atol=0.0):
+        raise AssertionError("total_intensity is not the sum over orders")
+    if not (r_em.min() >= r_in32 and r_em.max() <= disk.r_out):
+        raise AssertionError(f"an emitting event lies outside "
+                             f"[{r_in32}, {disk.r_out}]")
+    flux = summary["flux_per_order"]
+    if not flux[0] > flux[1] > 0.0:
+        raise AssertionError(f"flux per order {flux}: need F0 > F1 > 0")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render_subrings(scene, disk, n_orders=SUB_ORDERS,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"warm subring render counts {r.counts} "
+                                 f"differ from the first render's {counts}")
+    wall = float(np.median(walls))
+
+    # kernel B7 and its wrapper against its eager twin, on this frame's
+    # camera rays and budget
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    kern, par = ks_kernel_parity(q0, p0, SUB_STEPS, SUB_DELTA,
+                                 (MASS, SUB_SPIN, 0.0), R_MAX, OMEGA,
+                                 subrings=SUB_ORDERS)
+    ray_steps = int(kern[3].long().sum())
+    cnt = kern[6]
+    recorded = [int((cnt > s).sum()) for s in range(SUB_ORDERS)]
+    n = q0.shape[0]
+    par.update(rays=n, steps=SUB_STEPS, ray_steps=ray_steps,
+               n_steps_max=int(kern[3].max()),
+               crossings_recorded_per_order=recorded,
+               crossings_total=int(cnt.long().sum()))
+    phase(15, f"B7 kernel vs eager twin on the subring frame's rays: "
+              f"{json.dumps(par)}")
+    gate_parity("subring frame", par)
+    bound_ms, bound_by = bound(
+        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP + SUB_FLOPS_STEP)
+        + n * KS_FLOPS_RAY + sum(recorded) * SUB_FLOPS_EVENT,
+        n * SUB_BYTES_RAY)
+    phase(15, f"subring render warm wall time: median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B7 "
+              f"kernel+wrapper at this shape {par['kernel_ms']:.3f} ms "
+              f"({100 * par['kernel_ms'] / 1e3 / wall:.1f}% of the wall), "
+              f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
+              f"bound {bound_ms:.3f} ms ({bound_by})")
+    return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
+            "bound_by": bound_by, **par}
+
+
+def photon_shell_anchor():
+    """The subring path's closed-form gate (tests/test_photon_shell.py's
+    tier 3): on-axis rays (L_z = 0) at the capture/escape edge of a = 0.9
+    shadow the polar shell orbit, so their deep equatorial crossings sit at
+    its radius, one predicted half-orbit delay apart in BL time.  B7's
+    float64 layout at order 4, delta 0.02, omega 0, 10 orders; the edge
+    u_crit is bracketed by bisection of 17-ray fans."""
+    from grtrace_torch.engine import integrate_ks_cuda
+    from grtrace_torch.engine.hotspot import bl_time_azimuth_offsets
+    from grtrace_torch.engine.validate import bisect_boundary
+    from grtrace_torch.physics.camera import cartesian_ics_from_pixels
+    from grtrace_torch.physics.photon_shell import (critical_parameters,
+                                                    polar_shell_radius)
+    from grtrace_torch.physics.spacetime import kerr_schild_g_inv, ks_radius
+
+    device, f64 = torch.device("cuda", 0), torch.float64
+    params = (MASS, SUB_SPIN, 0.0)
+    obs = torch.tensor([0.0, 0.0, OBS_X], dtype=f64, device=device)
+    t0 = time.perf_counter()
+    steps_max = [0]
+    integrate_ks_cuda.subring_launches = 0
+
+    def run(us):
+        u = torch.as_tensor(np.asarray(us, np.float64).reshape(-1),
+                            device=device)
+        pix = torch.stack([u, torch.zeros_like(u), torch.full_like(u, 24.0)],
+                          dim=-1)
+        q0, p0, _ = cartesian_ics_from_pixels(obs, pix, params=params,
+                                              g_inv_fn=kerr_schild_g_inv)
+        out = integrate_ks_cuda.integrate_batch_subrings_cuda(
+            q0.contiguous(), p0.contiguous(), 300_000, 0.02, params, R_MAX,
+            0.0, n_orders=10, order=4, compensated=False)
+        steps_max[0] = max(steps_max[0], int(out[3].max()))
+        return out
+
+    rounds = 11
+    mid, width = bisect_boundary(
+        lambda us: (run(us)[2] == 2).reshape(np.shape(us)).cpu().numpy(),
+        0.80, 0.92, rounds=rounds, k=17, n_psi=1)
+    u_crit = float(mid[0]) + 0.5 * width      # the bracket's escaping end
+    _, _, status, _, hq, _, count = run([u_crit + 1e-10])
+    hq = hq[:, 0].cpu()
+    r_bl = ks_radius(hq[:, 1], hq[:, 2], hq[:, 3], SUB_SPIN)
+    t_bl = hq[:, 0] - bl_time_azimuth_offsets(r_bl, params)[0]
+    r_polar = polar_shell_radius(params)
+    _, dt_pred, *_ = critical_parameters(r_polar, params)
+    gaps = [float(t_bl[i] - t_bl[i + 1]) for i in (2, 3)]
+    res = {"u_crit": u_crit, "bracket": width, "rounds": rounds,
+           "launches": integrate_ks_cuda.subring_launches,
+           "n_steps_max": steps_max[0],
+           "status": int(status[0]), "count": int(count[0]),
+           "r_bl_crossings": [float(r) for r in r_bl[:int(count[0])]],
+           "r_polar": float(r_polar), "delta_t_pred": float(dt_pred),
+           "gap_23": gaps[0], "gap_34": gaps[1],
+           "gap_rel_err": [g / float(dt_pred) - 1.0 for g in gaps],
+           "seconds": time.perf_counter() - t0}
+    phase(16, f"photon-shell anchor (B7 float64, a = {SUB_SPIN}, on-axis "
+              f"camera): {json.dumps(res)}")
+    if res["count"] < 5:
+        raise AssertionError(f"the edge ray crossed {res['count']} < 5 times")
+    if not all(abs(float(r_bl[i]) - float(r_polar)) < 0.02 for i in (2, 3)):
+        raise AssertionError("crossings 2 and 3 are not within 0.02 M of the "
+                             "polar shell radius")
+    if not all(abs(e) < 5e-3 for e in res["gap_rel_err"]):
+        raise AssertionError("crossing gaps 2-3 / 3-4 are not within 5e-3 of "
+                             "the predicted half-orbit delay")
+
+
 def build_kernels():
     from grtrace_torch.kernels import build
     t0 = time.perf_counter()
@@ -612,6 +867,20 @@ def main():
                           False, "10")
     disk = disk_main_path()
 
+    # --- kernel B7 and the subring path ------------------------------------
+    # the 16-row layouts and a single slot are off the main path and held at
+    # small shapes; the main path's 32-row, 3-order layout is held at the
+    # full subring frame in phase 15
+    for dtype in (torch.float32, torch.float64):
+        check_parity_subring(f"subring camera 48x48, 2000 steps, delta 0.05, "
+                             f"16 rows {str(dtype)[6:]}, 3 orders", 48, 2000,
+                             0.05, dtype, False, 3, "13")
+    check_parity_subring("subring camera 48x48, 2000 steps, delta 0.05, 32 "
+                         "rows float32, 1 order", 48, 2000, 0.05,
+                         torch.float32, True, 1, "13")
+    sub = subring_main_path()
+    photon_shell_anchor()
+
     print(json.dumps({"kernels": [
         {"name": "fantasy_eqc",
          "route": "cuda",
@@ -652,7 +921,22 @@ def main():
          "library_ms": None,
          "shapes": f"the disk mode (B6); every number at "
                    f"{DISK_SIZE}x{DISK_SIZE} disk-camera rays, "
-                   f"{DISK_STEPS}-step budget (phase 12)"}]}))
+                   f"{DISK_STEPS}-step budget (phase 12)"},
+        {"name": "fantasy_ks_subring",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_ks.cu",
+         "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
+         "launches": sub["launches"],
+         "max_abs_err": sub["max_abs_err"],
+         "ms": sub["kernel_ms"],
+         "plain_ms": sub["twin_ms"],
+         "bound_ms": sub["bound_ms"],
+         "bound_by": sub["bound_by"],
+         "library_ms": None,
+         "shapes": f"the subring mode (B7); every number at "
+                   f"{SUB_SIZE}x{SUB_SIZE} subring-camera rays, "
+                   f"{SUB_STEPS}-step budget, {SUB_ORDERS} orders "
+                   f"(phase 15)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,17 +6,21 @@ compositing) and the Kerr / Kerr-Newman one in the Kerr-Schild chart
 (Cartesian camera, Kerr-Schild FANTASY flows with the null-invariant
 guard, exact Bardeen rescue), and the thin accretion disk around a Kerr
 hole (`render_disk`: inclined camera, first-equatorial-crossing capture,
-redshift shading), on tensors of any torch device.  On an NVIDIA Hopper
-GPU the integration runs hand-written CUDA kernels (csrc/fantasy_eqc.cu,
-csrc/fantasy_ks.cu in plain and disk mode); on the CPU it runs their
-eager twins.  The JAX package `grtrace` is the reference this package is
-tested against; this package never imports it, nor jax.
+redshift shading), and the photon-ring subrings of a transparent disk
+(`render_subrings`: every image order as its own layer, with the
+photon-shell theory of physics/photon_shell.py beside it), on tensors of
+any torch device.  On an NVIDIA Hopper GPU the integration runs
+hand-written CUDA kernels (csrc/fantasy_eqc.cu, csrc/fantasy_ks.cu in
+plain, disk and subring mode); on the CPU it runs their eager twins.
+The JAX package `grtrace` is the reference this package is tested
+against; this package never imports it, nor jax.
 """
 from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
                        SceneConfig, from_jax_scene)
 from .engine.render import RenderResult, render, render_pixels
 from .engine.integrate import SchwarzschildIntegrator
 from .engine.disk import DiskConfig, from_jax_disk, render_disk
+from .engine.subring import render_subrings, subring_summary
 
 __version__ = "0.1.0"
 
@@ -24,5 +28,6 @@ __all__ = [
     "BlackHole", "Observer", "PatchConfig", "IntegratorConfig",
     "SceneConfig", "from_jax_scene", "RenderResult", "render",
     "render_pixels", "SchwarzschildIntegrator", "DiskConfig",
-    "from_jax_disk", "render_disk", "__version__",
+    "from_jax_disk", "render_disk", "render_subrings", "subring_summary",
+    "__version__",
 ]

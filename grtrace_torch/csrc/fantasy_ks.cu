@@ -3,16 +3,17 @@
 //
 // Replaces the TPU kernel grtrace/engine/integrate_pallas_ks.py::
 // _make_kernel_ks in plain mode (kernel B5; entry point
-// integrate_batch_pallas_ks) and in disk mode (kernel B6; entry point
-// integrate_batch_pallas_disk), in both of its layouts: 32 rows
+// integrate_batch_pallas_ks), in disk mode (kernel B6; entry point
+// integrate_batch_pallas_disk) and in subring mode (kernel B7; entry point
+// integrate_batch_pallas_subrings), in both of its layouts: 32 rows
 // Kahan-compensated (the float32 production layout) and 16 rows plain (the
-// float64 layout).  The subring mode (B7) is not ported yet.  Its eager
-// twins, which define what this kernel computes, are
-// grtrace_torch/engine/integrate_ks.py::integrate_batch_ksc (32 rows) and
-// ::integrate_batch_ks (16 rows), and in disk mode ::integrate_batch_disk_ksc
-// and ::integrate_batch_disk_ks, built on the flows of
-// grtrace_torch/physics/kerr_schild.py and the guard and crossing recorder
-// of make_ks_step.
+// float64 layout).  Its eager twins, which define what this kernel
+// computes, are grtrace_torch/engine/integrate_ks.py::integrate_batch_ksc
+// (32 rows) and ::integrate_batch_ks (16 rows), in disk mode
+// ::integrate_batch_disk_ksc and ::integrate_batch_disk_ks, and in subring
+// mode ::integrate_batch_subrings_ksc and ::integrate_batch_subrings_ks,
+// built on the flows of grtrace_torch/physics/kerr_schild.py and the guard
+// and crossing recorders of make_ks_step.
 //
 // What bounds it on an H100: FP32 (or FP64) issue rate and latency.  Each
 // ray is a serial chain of about 500 floating-point operations per step at
@@ -49,16 +50,32 @@
 // plain one), followed in disk mode by [r_in, r_out].  ns_out (n,) int32
 // counts the steps each ray took, negated if the guard parked it.
 //
-// Disk mode (kDisk): after a step that the guard accepts, the crossing of
-// the equatorial plane is tested on the folded pre-step and new q1 z rows
-// (z0 * z1 < 0, a product as in the twin); the crossing is lerped within
-// the step on the (q1, p2) rows, b_old + t (b_new - b_old) with
+// Disk mode (Mode::kDisk): after a step that the guard accepts, the
+// crossing of the equatorial plane is tested on the folded pre-step and new
+// q1 z rows (z0 * z1 < 0, a product as in the twin); the crossing is lerped
+// within the step on the (q1, p2) rows, b_old + t (b_new - b_old) with
 // t = z0 / (z0 - z1), and a crossing at a Boyer-Lindquist radius inside
 // [r_in, r_out] is recorded and ends the ray's loop (the per-thread form of
 // the TPU kernel's frozen hit rays and its active & ~hit tile exit).  The
-// closing half-A still runs.  disk_out is SoA (9, n): the hit flag as
+// closing half-A still runs.  rec_out is SoA (9, n): the hit flag as
 // 1 / 0 in the ray type, hit_q (t, x, y, z), hit_p (t, x, y, z); rays that
 // never hit write zeros, as the TPU kernel's zero carry does.
+//
+// Subring mode (Mode::kSubring): the thin disk is transparent, so no ray
+// freezes and the loop exits on the plain active test alone.  Every
+// accepted step tests the same product z0 * z1 < 0; a crossing while fewer
+// than n_orders have been recorded is lerped as in disk mode (t and the
+// eight (q1, p2) rows) and stored at once to global memory, in slot cnt of
+// rec_out (SoA
+// (8 n_orders, n): slot s holds q (t, x, y, z) in rows 8 s .. 8 s + 3 and
+// p in rows 8 s + 4 .. 8 s + 7); then cnt grows by one, on every crossing,
+// so it counts the total winding.  n_orders is a runtime argument: the
+// TPU kernel keeps every slot as a live tile, where a thread would need
+// 8 n_orders registers at a runtime index (a local-memory array); a ray
+// crosses the plane a handful of times, so the direct stores cost nothing
+// next to the ~700 operations of a step.  The wrapper zero-fills rec_out
+// (the TPU kernel's zero carry: unfilled slots are +0.0); cnt_out (n,)
+// int32 is written once, at exit.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +83,10 @@ namespace {
 
 constexpr int kRows = 16;
 constexpr int kScal = 6;
+
+// what the loop records besides the state: nothing (B5), the first
+// equatorial crossing inside the annulus (B6), every crossing (B7)
+enum class Mode : int { kPlain, kDisk, kSubring };
 
 template <typename T, bool kComp>
 struct KsState {
@@ -276,11 +297,13 @@ __device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
   }
 }
 
-template <typename T, bool kComp, bool kDisk>
+template <typename T, bool kComp, Mode kMode>
 __global__ void __launch_bounds__(128)
 fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
-                  int* __restrict__ ns_out, T* __restrict__ disk_out,
-                  const T* __restrict__ params, int n, int n_sub, int steps) {
+                  int* __restrict__ ns_out, T* __restrict__ rec_out,
+                  int* __restrict__ cnt_out, const T* __restrict__ params,
+                  int n, int n_sub, int steps, int n_orders) {
+  constexpr bool kDisk = kMode == Mode::kDisk;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t stride = static_cast<size_t>(n);
@@ -308,6 +331,7 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   bool hit = false;
   T hq[4] = {T(0), T(0), T(0), T(0)};
   T hp[4] = {T(0), T(0), T(0), T(0)};
+  int cnt = 0;  // subring mode: plane crossings so far
 
   int ns = 0;
   const bool act0 =
@@ -382,6 +406,26 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
             break;  // the hit ray is frozen
           }
         }
+      } else if constexpr (kMode == Mode::kSubring) {
+        // every equatorial crossing, at any radius; the first n_orders
+        // are lerped in the twin's order and stored in slot cnt
+        const T z0 = best<3>(old);
+        const T z1 = best<3>(st);
+        if (z0 * z1 < T(0)) {
+          if (cnt < n_orders) {
+            const T t = z0 / (z0 - z1);
+            T* slot = rec_out + static_cast<size_t>(8 * cnt) * stride + i;
+            slot[0 * stride] = lerp_row<0>(old, st, t);
+            slot[1 * stride] = lerp_row<1>(old, st, t);
+            slot[2 * stride] = lerp_row<2>(old, st, t);
+            slot[3 * stride] = lerp_row<3>(old, st, t);
+            slot[4 * stride] = lerp_row<12>(old, st, t);
+            slot[5 * stride] = lerp_row<13>(old, st, t);
+            slot[6 * stride] = lerp_row<14>(old, st, t);
+            slot[7 * stride] = lerp_row<15>(old, st, t);
+          }
+          ++cnt;
+        }
       }
     }
     // closing half-A for every opened ray (parked ones too: the park points
@@ -396,24 +440,27 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   }
   ns_out[i] = ns;
   if constexpr (kDisk) {
-    disk_out[i] = hit ? T(1) : T(0);
+    rec_out[i] = hit ? T(1) : T(0);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      disk_out[(1 + m) * stride + i] = hq[m];
-      disk_out[(5 + m) * stride + i] = hp[m];
+      rec_out[(1 + m) * stride + i] = hq[m];
+      rec_out[(5 + m) * stride + i] = hp[m];
     }
   }
+  if constexpr (kMode == Mode::kSubring) cnt_out[i] = cnt;
 }
 
-template <typename T, bool kComp, bool kDisk>
-int launch(const T* state_in, T* state_out, int* ns_out, T* disk_out,
-           const T* params, int n, int n_sub, int steps, void* stream) {
+template <typename T, bool kComp, Mode kMode>
+int launch(const T* state_in, T* state_out, int* ns_out, T* rec_out,
+           int* cnt_out, const T* params, int n, int n_sub, int steps,
+           int n_orders, void* stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 128;
   const int blocks = (n + kThreads - 1) / kThreads;
-  fantasy_ks_kernel<T, kComp, kDisk>
+  fantasy_ks_kernel<T, kComp, kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          state_in, state_out, ns_out, disk_out, params, n, n_sub, steps);
+          state_in, state_out, ns_out, rec_out, cnt_out, params, n, n_sub,
+          steps, n_orders);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,8 +472,9 @@ extern "C" int grt_fantasy_ks32_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, true, false>(state_in, state_out, ns_out, nullptr,
-                                    params, n, n_sub, steps, stream);
+  return launch<float, true, Mode::kPlain>(state_in, state_out, ns_out,
+                                           nullptr, nullptr, params, n, n_sub,
+                                           steps, 0, stream);
 }
 
 // 16 rows, float, plain
@@ -435,8 +483,9 @@ extern "C" int grt_fantasy_ks16_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, false, false>(state_in, state_out, ns_out, nullptr,
-                                     params, n, n_sub, steps, stream);
+  return launch<float, false, Mode::kPlain>(state_in, state_out, ns_out,
+                                            nullptr, nullptr, params, n,
+                                            n_sub, steps, 0, stream);
 }
 
 // 16 rows, double, plain: the float64 layout
@@ -445,8 +494,9 @@ extern "C" int grt_fantasy_ks16_f64_launch(const double* state_in,
                                            const double* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<double, false, false>(state_in, state_out, ns_out, nullptr,
-                                      params, n, n_sub, steps, stream);
+  return launch<double, false, Mode::kPlain>(state_in, state_out, ns_out,
+                                             nullptr, nullptr, params, n,
+                                             n_sub, steps, 0, stream);
 }
 
 // Disk mode (kernel B6): the same three layouts, plus the (9, n) recorder
@@ -458,8 +508,9 @@ extern "C" int grt_fantasy_ks32_f32_disk_launch(const float* state_in,
                                                 const float* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<float, true, true>(state_in, state_out, ns_out, disk_out,
-                                   params, n, n_sub, steps, stream);
+  return launch<float, true, Mode::kDisk>(state_in, state_out, ns_out,
+                                          disk_out, nullptr, params, n, n_sub,
+                                          steps, 0, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f32_disk_launch(const float* state_in,
@@ -468,8 +519,9 @@ extern "C" int grt_fantasy_ks16_f32_disk_launch(const float* state_in,
                                                 const float* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<float, false, true>(state_in, state_out, ns_out, disk_out,
-                                    params, n, n_sub, steps, stream);
+  return launch<float, false, Mode::kDisk>(state_in, state_out, ns_out,
+                                           disk_out, nullptr, params, n,
+                                           n_sub, steps, 0, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f64_disk_launch(const double* state_in,
@@ -478,6 +530,46 @@ extern "C" int grt_fantasy_ks16_f64_disk_launch(const double* state_in,
                                                 const double* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<double, false, true>(state_in, state_out, ns_out, disk_out,
-                                     params, n, n_sub, steps, stream);
+  return launch<double, false, Mode::kDisk>(state_in, state_out, ns_out,
+                                            disk_out, nullptr, params, n,
+                                            n_sub, steps, 0, stream);
+}
+
+// Subring mode (kernel B7): the same three layouts, plus cnt_out (n,)
+// int32, the plane crossings of each ray, and slot_out (8 n_orders, n),
+// the first n_orders crossings (zero-filled by the caller); params is the
+// plain-mode vector.
+
+extern "C" int grt_fantasy_ks32_f32_sub_launch(const float* state_in,
+                                               float* state_out, int* ns_out,
+                                               int* cnt_out, float* slot_out,
+                                               const float* params, int n,
+                                               int n_sub, int steps,
+                                               int n_orders, void* stream) {
+  return launch<float, true, Mode::kSubring>(state_in, state_out, ns_out,
+                                             slot_out, cnt_out, params, n,
+                                             n_sub, steps, n_orders, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f32_sub_launch(const float* state_in,
+                                               float* state_out, int* ns_out,
+                                               int* cnt_out, float* slot_out,
+                                               const float* params, int n,
+                                               int n_sub, int steps,
+                                               int n_orders, void* stream) {
+  return launch<float, false, Mode::kSubring>(state_in, state_out, ns_out,
+                                              slot_out, cnt_out, params, n,
+                                              n_sub, steps, n_orders, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f64_sub_launch(const double* state_in,
+                                               double* state_out, int* ns_out,
+                                               int* cnt_out, double* slot_out,
+                                               const double* params, int n,
+                                               int n_sub, int steps,
+                                               int n_orders, void* stream) {
+  return launch<double, false, Mode::kSubring>(state_in, state_out, ns_out,
+                                               slot_out, cnt_out, params, n,
+                                               n_sub, steps, n_orders,
+                                               stream);
 }

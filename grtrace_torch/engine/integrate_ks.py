@@ -25,6 +25,19 @@ first-equatorial-crossing recorder of `make_ks_step(disk=...)`:
     integrate_batch_disk_ks    16 rows (float64 rays)
 
 which return (final_q, final_p, status, n_steps, hit_q, hit_p).
+
+The subring mode (kernel B7, `integrate_batch_pallas_subrings` in JAX)
+counts every equatorial-plane crossing and records the first n_orders
+(`make_ks_step(subrings=...)`); no ray freezes:
+
+    integrate_batch_subrings_ksc   32 rows (float32 rays; JAX's XLA twin
+                                   is `integrate_batch_subrings_ksc`)
+    integrate_batch_subrings_ks    16 rows (float64 rays; JAX runs it only
+                                   as integrate_batch_pallas_subrings(
+                                   compensated=False))
+
+which return (final_q, final_p, status, n_steps, hits_q (n_orders, N, 4),
+hits_p, count (N,) int32).
 """
 from __future__ import annotations
 
@@ -130,13 +143,15 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     radius inside [r_in, r_out], freezes with hit = True and the crossing
     recorded in hq (q1 rows) and hp (p2 rows: like q1, they hold the exact
     step-boundary values in the staggered state).  The caller's early-exit
-    test becomes active(comps) & ~hit.  The subring recorder (B7) is not
-    ported yet.
+    test becomes active(comps) & ~hit.
+
+    subrings=n_orders swaps it for kernel B7's subring variant
+    masked_step(comps, ns, cnt, slots) -> the same four: every plane
+    crossing of an accepted step is counted in cnt (int32), and the first
+    n_orders are lerped as in disk mode and stored in slots (n_orders, 8,
+    N): slot s holds the q1 rows then the p2 rows of crossing s.  No ray
+    freezes, so the early-exit test stays active(comps).
     """
-    if subrings is not None:
-        raise NotImplementedError(
-            "make_ks_step(subrings=...) is kernel B7's subring mode, not "
-            "ported to grtrace_torch yet (ROADMAP Queue B, B7)")
     core = core_ksc if compensated else core_ks
     open_raw = open_ksc if compensated else open_ks
     close_raw = close_ksc if compensated else close_ks
@@ -211,27 +226,51 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         out, ns_new, _, _ = _advance(comps, ns)
         return out, ns_new
 
-    if disk is None:
+    if disk is None and subrings is None:
         return active, masked_step, open_fn, close_fn
-
-    r_in, r_out = disk
 
     # crossing reads fold the Kahan deficits (true = s - c)
     def best(state, i):
         return state[i] - state[16 + i] if compensated else state[i]
 
+    def crossing(comps, new, ok):
+        """(crossed, t): an accepted step whose folded q1 z changes sign,
+        and its lerp fraction (0 elsewhere)."""
+        z0, z1 = best(comps, 3), best(new, 3)
+        crossed = ok & (z0 * z1 < 0.0)
+        return crossed, torch.where(crossed, z0 / (z0 - z1), 0.0)
+
+    def lerp(comps, new, t, rows):
+        return tuple(best(comps, i) + t * (best(new, i) - best(comps, i))
+                     for i in rows)
+
+    if subrings is not None:
+        n_orders = int(subrings)
+
+        def masked_step_subrings(comps, ns, cnt, slots):
+            out, ns_new, new, ok = _advance(comps, ns)
+            # every crossing counts; the one that finds slot cnt free (cnt
+            # before this crossing, cnt < n_orders) lands there
+            crossed, t = crossing(comps, new, ok)
+            event = torch.stack(lerp(comps, new, t, (0, 1, 2, 3,
+                                                     12, 13, 14, 15)))
+            orders = torch.arange(n_orders, dtype=cnt.dtype,
+                                  device=cnt.device)
+            take = crossed & (cnt == orders[:, None])
+            slots = torch.where(take[:, None, :], event, slots)
+            return out, ns_new, cnt + crossed.to(cnt.dtype), slots
+
+        return active, masked_step_subrings, open_fn, close_fn
+
+    r_in, r_out = disk
+
     def masked_step_disk(comps, ns, hit, hq, hp):
         out, ns_new, new, ok = _advance(comps, ns, frozen=hit)
         # the first equatorial crossing inside the annulus, lerped within
         # the step on the (q1, p2) rows; ok excludes guard-parked rays
-        z0, z1 = best(comps, 3), best(new, 3)
-        crossed = ok & (z0 * z1 < 0.0)
-        t = torch.where(crossed, z0 / (z0 - z1), 0.0)
-        cq = tuple(best(comps, i) + t * (best(new, i) - best(comps, i))
-                   for i in range(4))
-        cp = tuple(best(comps, 12 + i)
-                   + t * (best(new, 12 + i) - best(comps, 12 + i))
-                   for i in range(4))
+        crossed, t = crossing(comps, new, ok)
+        cq = lerp(comps, new, t, (0, 1, 2, 3))
+        cp = lerp(comps, new, t, (12, 13, 14, 15))
         r_hit = ks_radius_c(cq[1], cq[2], cq[3], a)
         new_hit = crossed & (r_hit >= r_in) & (r_hit <= r_out)
         hq = tuple(torch.where(new_hit, c, h) for c, h in zip(cq, hq))
@@ -387,8 +426,22 @@ def finish_disk(state, ns_signed, disk_rows, q0s, p0s, vec, compensated):
     return final_q, final_p, status, n_steps, hit_q, hit_p
 
 
+def finish_subrings(state, ns_signed, count, slot_rows, q0s, p0s, vec,
+                    compensated):
+    """Read-out of the subring integrators (kernel B7 and its twins):
+    `finish_ks`, then the slots.  slot_rows (8 n_orders, N) in the ray
+    dtype hold crossing s's q1 rows in 8 s .. 8 s + 3 and its p2 rows in
+    8 s + 4 .. 8 s + 7; count (N,) int32.  Returns (final_q, final_p,
+    status, n_steps, hits_q (n_orders, N, 4), hits_p, count)."""
+    final_q, final_p, status, n_steps = finish_ks(state, ns_signed, q0s, p0s,
+                                                  vec, compensated)
+    slots = slot_rows.reshape(-1, 8, slot_rows.shape[-1]).transpose(1, 2)
+    return (final_q, final_p, status, n_steps, slots[..., :4].contiguous(),
+            slots[..., 4:].contiguous(), count)
+
+
 def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
-                    compensated, disk=None):
+                    compensated, disk=None, n_orders=None):
     dtype = q0s.dtype
     vec = ks_params(delta, params, r_max, omega, order, compensated, dtype,
                     disk=disk)
@@ -396,16 +449,20 @@ def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
     active, masked_step, open_fn, close_fn = make_ks_step(
         subs, mass, a, charge, r_cap, r_max, plunge_zone,
         compensated=compensated,
-        disk=None if disk is None else disk_annulus(vec), dtype=dtype)
+        disk=None if disk is None else disk_annulus(vec), subrings=n_orders,
+        dtype=dtype)
     d0 = subs[0][0]
 
     pack = pack_state_ksc if compensated else pack_state
     state = pack(q0s, p0s)
-    ns = torch.zeros(q0s.shape[:-1], dtype=torch.int32, device=q0s.device)
+    n, device = q0s.shape[0], q0s.device
+    ns = torch.zeros((n,), dtype=torch.int32, device=device)
     if disk is not None:  # the recorder: hit flag, hit_q, hit_p
-        hit = torch.zeros(q0s.shape[:-1], dtype=torch.bool,
-                          device=q0s.device)
+        hit = torch.zeros((n,), dtype=torch.bool, device=device)
         hq = hp = (torch.zeros_like(q0s[:, 0]),) * 4
+    if n_orders is not None:  # crossing count and zero-filled slots
+        cnt = torch.zeros((n,), dtype=torch.int32, device=device)
+        slots = torch.zeros((n_orders, 8, n), dtype=dtype, device=device)
     act0 = active(state)
     if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
         opened = open_fn(state, d0)
@@ -419,10 +476,12 @@ def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
             live = active(state) if disk is None else active(state) & ~hit
             if not bool(live.any()):
                 break
-        if disk is None:
-            state, ns = masked_step(state, ns)
-        else:
+        if disk is not None:
             state, ns, hit, hq, hp = masked_step(state, ns, hit, hq, hp)
+        elif n_orders is not None:
+            state, ns, cnt, slots = masked_step(state, ns, cnt, slots)
+        else:
+            state, ns = masked_step(state, ns)
 
     # undo the pending half-A for every opened ray; no park exclusion: the
     # park points are regular chart points and flow A cannot move q1
@@ -431,10 +490,13 @@ def _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega, order,
     if steps > 0:
         closed = close_fn(state, d0)
         state = tuple(torch.where(act0, c, s) for c, s in zip(closed, state))
-    if disk is None:
-        return finish_ks(state, ns, q0s, p0s, vec, compensated)
-    rows = (hit.to(dtype),) + tuple(hq) + tuple(hp)
-    return finish_disk(state, ns, rows, q0s, p0s, vec, compensated)
+    if disk is not None:
+        rows = (hit.to(dtype),) + tuple(hq) + tuple(hp)
+        return finish_disk(state, ns, rows, q0s, p0s, vec, compensated)
+    if n_orders is not None:
+        return finish_subrings(state, ns, cnt, slots.reshape(8 * n_orders, n),
+                               q0s, p0s, vec, compensated)
+    return finish_ks(state, ns, q0s, p0s, vec, compensated)
 
 
 def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
@@ -472,6 +534,36 @@ def integrate_batch_disk_ks(q0s, p0s, steps, delta, params, r_max, omega,
     integrate_batch_disk_ksc on the uncompensated flows."""
     return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
                            order, compensated=False, disk=(r_in, r_out))
+
+
+def _check_orders(n_orders):
+    """n_orders as an int >= 1 (JAX's `subrings or None` would silently
+    run the plain mode for 0)."""
+    if int(n_orders) != n_orders or n_orders < 1:
+        raise ValueError(f"n_orders must be an integer >= 1 (got {n_orders})")
+    return int(n_orders)
+
+
+def integrate_batch_subrings_ksc(q0s, p0s, steps, delta, params, r_max,
+                                 omega, n_orders=3, order=2):
+    """Eager twin of kernel B7 in the 32-row compensated layout (float32
+    production; JAX's `integrate_batch_subrings_ksc`): the plain loop with
+    the subring recorder, early exit on the plain active test.  Returns
+    (final_q, final_p, status, n_steps, hits_q (n_orders, N, 4), hits_p,
+    count (N,) int32); count totals every crossing, hits hold the first
+    n_orders, and unfilled slots are zero, as the TPU kernel writes them."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=True,
+                           n_orders=_check_orders(n_orders))
+
+
+def integrate_batch_subrings_ks(q0s, p0s, steps, delta, params, r_max,
+                                omega, n_orders=3, order=2):
+    """Eager twin of kernel B7 in the 16-row plain layout (float64 rays):
+    integrate_batch_subrings_ksc on the uncompensated flows."""
+    return _integrate_twin(q0s, p0s, steps, delta, params, r_max, omega,
+                           order, compensated=False,
+                           n_orders=_check_orders(n_orders))
 
 
 def select_path_ks(backend, device, dtype):
@@ -522,3 +614,24 @@ def integrate_dispatch_disk(q0s, p0s, steps, delta, params, r_max, omega,
     twin = integrate_batch_disk_ksc if compensated else integrate_batch_disk_ks
     return twin(q0s, p0s, steps, delta, params, r_max, omega, r_in, r_out,
                 order=order)
+
+
+def integrate_dispatch_subrings(q0s, p0s, steps, delta, params, r_max, omega,
+                                n_orders=3, order=2, backend="auto"):
+    """Backend-dispatching subring integrate: CUDA float32 rays go to kernel
+    B7's 32-row layout, CUDA float64 rays to its 16-row one, CPU rays to
+    the matching twin; backend='torch' picks the twin on any device.
+    Never falls back.  Returns (final_q, final_p, status, n_steps, hits_q,
+    hits_p, count)."""
+    n_orders = _check_orders(n_orders)
+    path, compensated = select_path_ks(backend, q0s.device, q0s.dtype)
+    if path == "kernel":
+        from .integrate_ks_cuda import integrate_batch_subrings_cuda
+        return integrate_batch_subrings_cuda(q0s, p0s, steps, delta, params,
+                                             r_max, omega, n_orders=n_orders,
+                                             order=order,
+                                             compensated=compensated)
+    twin = (integrate_batch_subrings_ksc if compensated
+            else integrate_batch_subrings_ks)
+    return twin(q0s, p0s, steps, delta, params, r_max, omega,
+                n_orders=n_orders, order=order)

@@ -1,19 +1,21 @@
 """The Kerr-Schild FANTASY integrator as a hand-written CUDA kernel
 (`csrc/fantasy_ks.cu`) — the port of the TPU kernel
 `grtrace.engine.integrate_pallas_ks._make_kernel_ks` in plain mode (B5,
-the counterpart of `integrate_batch_pallas_ks`) and in disk mode (B6, the
-counterpart of `integrate_batch_pallas_disk`).
+the counterpart of `integrate_batch_pallas_ks`), in disk mode (B6, the
+counterpart of `integrate_batch_pallas_disk`) and in subring mode (B7, the
+counterpart of `integrate_batch_pallas_subrings`).
 
 Each mode has three instantiations of one kernel template: 32 rows float
 (Kahan-compensated, the float32 production layout), 16 rows float and 16
 rows double (plain).  One thread integrates one ray to its exit;
-`integrate_batch_ksc` / `integrate_batch_ks` and, in disk mode,
-`integrate_batch_disk_ksc` / `integrate_batch_disk_ks`
+`integrate_batch_ksc` / `integrate_batch_ks`, in disk mode
+`integrate_batch_disk_ksc` / `integrate_batch_disk_ks` and in subring mode
+`integrate_batch_subrings_ksc` / `integrate_batch_subrings_ks`
 (engine/integrate_ks.py) are the eager twins that define its result, and
 all of them read the same host-built scalar vector (`ks_params`).  This
 module only launches: it never falls back to a twin.  Rays on the CPU
-belong to `integrate_dispatch_ks` / `integrate_dispatch_disk`, which send
-them to the twins.
+belong to `integrate_dispatch_ks` / `_disk` / `_subrings`, which send them
+to the twins.
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ import torch
 from ..physics.hamiltonian import pack_state
 from ..physics.kerr_schild import pack_state_ksc
 from .integrate_cuda import KernelLaunchError
-from .integrate_ks import (N_SCAL, finish_disk, finish_ks, ks_params,
-                           n_substeps)
+from .integrate_ks import (N_SCAL, _check_orders, finish_disk, finish_ks,
+                           finish_subrings, ks_params, n_substeps)
 
 # Kernel launches since the process started (or since a caller reset it):
-# plain mode (B5) and disk mode (B6) apart.
+# plain mode (B5), disk mode (B6) and subring mode (B7) apart.
 launches = 0
 disk_launches = 0
+subring_launches = 0
 
 # (rows, dtype) -> C entry of csrc/fantasy_ks.cu, plain and disk mode
 ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_launch",
@@ -39,6 +42,9 @@ ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_launch",
 DISK_ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_disk_launch",
                 (16, torch.float32): "grt_fantasy_ks16_f32_disk_launch",
                 (16, torch.float64): "grt_fantasy_ks16_f64_disk_launch"}
+SUB_ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_sub_launch",
+               (16, torch.float32): "grt_fantasy_ks16_f32_sub_launch",
+               (16, torch.float64): "grt_fantasy_ks16_f64_sub_launch"}
 DISK_ROWS = 9  # hit flag, hit_q (4), hit_p (4)
 
 
@@ -71,9 +77,11 @@ def _cost_sort_key_ks(q0s, p0s, mass):
     return torch.abs(b - 3.0 * math.sqrt(3.0) * mass)
 
 
-def _launch(state_in, params, steps, disk):
-    """Check, allocate and launch one entry; returns (state_out, ns,
-    disk_rows or None)."""
+def _launch(state_in, params, steps, mode="plain", n_orders=0):
+    """Check, allocate and launch one entry of `mode` ('plain', 'disk' or
+    'subring'); returns (state_out, ns, recorder outputs: () in plain
+    mode, (disk_rows,) in disk mode, (count, slot_rows) in subring
+    mode)."""
     from ..kernels.build import load
 
     if (not isinstance(state_in, torch.Tensor)
@@ -81,12 +89,14 @@ def _launch(state_in, params, steps, disk):
             or not state_in.is_contiguous()):
         raise ValueError("state_in must be a contiguous (rows, N) CUDA tensor")
     n_rows, n = state_in.shape
-    table = DISK_ENTRIES if disk else ENTRIES
+    table = {"plain": ENTRIES, "disk": DISK_ENTRIES,
+             "subring": SUB_ENTRIES}[mode]
     entry = table.get((n_rows, state_in.dtype))
     if entry is None:
         raise ValueError(f"no KS kernel for {n_rows} rows of "
                          f"{state_in.dtype} (have {sorted(map(str, table))})")
     n_sub = n_substeps(params)
+    disk = mode == "disk"
     tail = 2 if disk else 0
     if (params.dtype != state_in.dtype or n_sub < 1
             or params.numel() != N_SCAL + 4 * n_sub + tail):
@@ -98,22 +108,30 @@ def _launch(state_in, params, steps, disk):
         raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
     state_out = torch.empty_like(state_in)
     ns = torch.empty((n,), dtype=torch.int32, device=state_in.device)
-    rows = (torch.empty((DISK_ROWS, n), dtype=state_in.dtype,
-                        device=state_in.device) if disk else None)
+    if disk:
+        recs = (torch.empty((DISK_ROWS, n), dtype=state_in.dtype,
+                            device=state_in.device),)
+    elif mode == "subring":
+        n_orders = _check_orders(n_orders)
+        # zero-filled: unfilled slots stay +0.0 (the TPU's zero carry)
+        recs = (torch.empty((n,), dtype=torch.int32, device=state_in.device),
+                torch.zeros((8 * n_orders, n), dtype=state_in.dtype,
+                            device=state_in.device))
+    else:
+        recs = ()
     if n == 0:  # nothing to launch
-        return state_out, ns, rows
+        return state_out, ns, recs
     lib = load()
     params_dev = params.to(state_in.device)
-    ptrs = [state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr()]
-    if disk:
-        ptrs.append(rows.data_ptr())
+    ptrs = [t.data_ptr() for t in (state_in, state_out, ns) + recs]
+    ints = [n, n_sub, int(steps)] + ([n_orders] if mode == "subring" else [])
     with torch.cuda.device(state_in.device):  # launch on the data's card
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(*ptrs, params_dev.data_ptr(), n, n_sub,
-                                  int(steps), stream)
+        err = getattr(lib, entry)(*ptrs, params_dev.data_ptr(), *ints,
+                                  stream)
     if err != 0:
         raise KernelLaunchError(f"{entry} failed: cudaError {err}")
-    return state_out, ns, rows
+    return state_out, ns, recs
 
 
 def launch_fantasy_ks(state_in, params, steps):
@@ -124,7 +142,7 @@ def launch_fantasy_ks(state_in, params, steps):
     copied to the state's device.
     """
     global launches
-    state_out, ns, _ = _launch(state_in, params, steps, disk=False)
+    state_out, ns, _ = _launch(state_in, params, steps)
     if state_in.shape[1]:
         launches += 1
     return state_out, ns
@@ -137,10 +155,26 @@ def launch_fantasy_ks_disk(state_in, params, steps):
     Returns (state_out, ns, disk_rows (9, N): hit flag 1/0, hit_q, hit_p).
     """
     global disk_launches
-    state_out, ns, rows = _launch(state_in, params, steps, disk=True)
+    state_out, ns, (rows,) = _launch(state_in, params, steps, mode="disk")
     if state_in.shape[1]:
         disk_launches += 1
     return state_out, ns, rows
+
+
+def launch_fantasy_ks_subrings(state_in, params, steps, n_orders):
+    """Launch the subring-mode kernel (B7) on a packed (32 | 16, N) state;
+    `params` is a plain-mode `ks_params` vector.
+
+    Returns (state_out, ns, count (N,) int32, slot_rows (8 n_orders, N):
+    crossing s's q1 rows in 8 s .. 8 s + 3, its p2 rows in 8 s + 4 ..
+    8 s + 7, zeros where a ray crossed fewer than s + 1 times).
+    """
+    global subring_launches
+    state_out, ns, (count, slots) = _launch(state_in, params, steps,
+                                            mode="subring", n_orders=n_orders)
+    if state_in.shape[1]:
+        subring_launches += 1
+    return state_out, ns, count, slots
 
 
 def _sorted_state(q0s, p0s, vec, compensated):
@@ -203,3 +237,30 @@ def integrate_batch_disk_cuda(q0s, p0s, steps, delta, params, r_max, omega,
                        _unsort(ns_sorted, order_idx),
                        _unsort(rows_sorted, order_idx), q0s, p0s, vec,
                        compensated)
+
+
+def integrate_batch_subrings_cuda(q0s, p0s, steps, delta, params, r_max,
+                                  omega, n_orders=3, order=2,
+                                  compensated=True):
+    """Integrate (N, 4) Kerr-Schild camera rays through kernel B7, the
+    subring mode: the 32-row compensated layout (float32 rays) or, with
+    compensated=False, the 16-row plain one (float32 or float64).
+
+    Cost-sorted launch; the state, the counts and the slot rows come back
+    in the input order: (final_q, final_p, status, n_steps, hits_q
+    (n_orders, N, 4), hits_p, count), the contract of the twins, which it
+    matches bit for bit on the card.  Raises for CPU, misshapen or
+    non-contiguous inputs, n_orders < 1, and for a failed build or launch.
+    """
+    _check_inputs(q0s, p0s, compensated)
+    n_orders = _check_orders(n_orders)
+    vec = ks_params(delta, params, r_max, omega, order, compensated,
+                    q0s.dtype)
+    order_idx, state_in = _sorted_state(q0s, p0s, vec, compensated)
+    state_sorted, ns_sorted, cnt_sorted, slots_sorted = \
+        launch_fantasy_ks_subrings(state_in, vec, steps, n_orders)
+    return finish_subrings(tuple(_unsort(state_sorted, order_idx)),
+                           _unsort(ns_sorted, order_idx),
+                           _unsort(cnt_sorted, order_idx),
+                           _unsort(slots_sorted, order_idx), q0s, p0s, vec,
+                           compensated)

@@ -47,7 +47,7 @@ class RenderResult:
         self.sampled_trajectories = sampled_trajectories  # list of (P, 3)
 
     def __getattr__(self, name):
-        if name in RenderResult._FIELDS:
+        if name in type(self)._FIELDS:
             cache = self.__dict__["_cache"]
             if name not in cache:
                 cache[name] = self.__dict__["_dev"][name].cpu().numpy()

@@ -1,0 +1,357 @@
+"""Photon-ring subring decomposition — the torch counterpart of
+`grtrace.engine.subring`: image orders n = 0, 1, 2, ... of an optically
+thin equatorial disk, rendered as separate layers from one geodesic pass.
+
+Light that crossed the equatorial plane n times between emission and the
+camera forms the n-th sub-image (Gralla-Holz-Wald image orders): n = 0 the
+direct image, n = 1 the lensed far side, n >= 2 the photon ring, with
+successive orders demagnified by about e^{-gamma} and delayed by about the
+photon-shell half-period (physics/photon_shell.py predicts both).
+
+The pipeline: the inclined look-at camera -> the subring integration
+(`integrate_dispatch_subrings`: kernel B7 on a CUDA device, its eager twins
+on the CPU), which counts every plane crossing and records the first
+n_orders without freezing any ray (the disk is transparent) -> per-order
+shading of the recorded events (`shade_subrings`: a crossing emits iff its
+slot was filled and its Boyer-Lindquist radius lies in [r_in, r_out]) ->
+classification of the ray endpoints -> the additive thin-disk composite
+over the lensed sky.  `subring_summary` turns a result into flux per
+order, the measured demagnification exponent and the inter-order delays.
+
+Not ported yet, and raising NotImplementedError: adaptive antialiasing
+(`aa_samples`, `aa.refine_subrings`; ROADMAP Queue A item 8), polarized
+imaging (`DiskConfig.bfield`, with `polarized_moments`) and the moving
+camera (`camera_omega`), item 6, and the autodiff ISCO of a charged hole
+(`r_in=None` with charge), item 8.  `save_subring_maps` (matplotlib) and
+`subring_visibilities` (engine/visibility.py) wait as well (items 7, 8).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
+from ..physics.coords import cartesian_to_spherical
+from ..physics.orbits import redshift_factor
+from ..physics.spacetime import horizon_radius, kerr_schild_g_inv, ks_radius
+from . import classify as _classify
+from .disk import (CLS_DISK, DiskConfig, _interp, _nt_temp_table,
+                   _temp_profile, blackbody_rgb, disk_observer_position,
+                   resolve_camera_omega)
+from .hotspot import bl_time_azimuth_offsets
+from .integrate import STATUS_CAPTURED
+from .integrate_ks import integrate_dispatch_subrings
+from .render import RenderResult, _untimed
+
+
+def shade_subrings(hits_q, hits_p, count, params, r_obs_bl, r_in, r_out, *,
+                   prograde=True, theta_obs=math.pi / 2, profile="shakura",
+                   t_peak=9000.0, exposure=2.5, omega_obs=0.0):
+    """Per-order shading of recorded crossings -> layered observables.
+
+    hits_q, hits_p (n_orders, N, 4), count (N,).  Order n emits iff its
+    slot was filled (count > n) and its BL radius lies in [r_in, r_out];
+    each valid event gets the exact Killing-constant redshift g_n and the
+    Liouville intensity I_n = (g_n T(r_n))^4, and the layers add (optically
+    thin).  Returns a dict of (n_orders, N) tensors {g, intensity, r_em,
+    t_hit, valid}, the composited (N, 3) rgb01 and the (N,) tone and
+    total_intensity; the color is the blackbody at the intensity-weighted
+    mean observed temperature across orders."""
+    n_orders = hits_q.shape[0]
+    spin = params[1]
+    x, y = hits_q[..., 1], hits_q[..., 2]
+    energy = -hits_p[..., 0]
+    l_z = x * hits_p[..., 2] - y * hits_p[..., 1]
+    r_em = ks_radius(x, y, hits_q[..., 3], spin)
+
+    orders = torch.arange(n_orders, dtype=count.dtype, device=count.device)
+    filled = count[None, :] > orders[:, None]
+    valid = filled & (r_em >= r_in) & (r_em <= r_out)
+
+    g = redshift_factor(energy, l_z, r_em, r_obs_bl, params, prograde,
+                        theta_obs, omega_obs)
+    g = torch.where(valid, g, 0.0)
+
+    if profile == "novikov":
+        r_grid, t_tab = _nt_temp_table(r_in, r_out, params, prograde,
+                                       r_em.dtype)
+        t_norm = _interp(r_em, r_grid, t_tab)
+    else:
+        t_norm = _temp_profile(r_em, r_in)
+    t_obs = g * t_norm
+    intensity = torch.where(valid, t_obs ** 4, 0.0)
+
+    total = torch.sum(intensity, dim=0)
+    tone = 1.0 - torch.exp(-exposure * total)
+    tone_disp = tone ** (1.0 / 2.2)
+    t_eff = torch.sum(intensity * t_obs, dim=0) / torch.clamp(total,
+                                                               min=1e-30)
+    rgb01 = blackbody_rgb(t_eff * t_peak) * tone_disp[:, None]
+    return {"g": g, "intensity": intensity, "r_em": r_em,
+            "t_hit": hits_q[..., 0], "valid": valid, "rgb01": rgb01,
+            "tone": tone_disp, "total_intensity": total}
+
+
+def _trace_shade_subrings(q0f, p0f, bg_array, hole, params, r_obs, r_obs_bl,
+                          th_obs, boundary_radius, steps, delta, omega, r_in,
+                          r_out, t_peak, exposure, patch_center_theta,
+                          patch_center_phi, patch_size_theta, patch_size_phi,
+                          *, n_orders, order, backend, prograde, profile,
+                          flip_theta, flip_phi, has_background):
+    """The per-ray subring chain on flat (N, 4) phase points: transparent-
+    disk integration -> per-order shade -> endpoint classify -> additive
+    thin-disk composite.  The integration reads Python floats (hole =
+    (M, a, Q), rounded to the ray dtype on the host); the shading and the
+    classifier 0-dim tensors of the rays' dtype and device (params =
+    (M, a, Q) as one such tensor)."""
+    dtype, device = q0f.dtype, q0f.device
+    n = q0f.shape[0]
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    final_q, _, status, n_steps, hq, hp, count = integrate_dispatch_subrings(
+        q0f, p0f, steps, float(delta), hole, float(boundary_radius),
+        float(omega), n_orders=n_orders, order=order, backend=backend)
+
+    shade = shade_subrings(
+        hq, hp, count, params, r_obs_bl, scalar(r_in), scalar(r_out),
+        prograde=prograde, theta_obs=th_obs, profile=profile,
+        t_peak=scalar(t_peak), exposure=scalar(exposure),
+        omega_obs=scalar(0.0))
+
+    # background classification of the ray endpoints (transparent disk:
+    # every escaped ray still lands on the sky)
+    rho, th, ph = cartesian_to_spherical(final_q[:, 1], final_q[:, 2],
+                                         final_q[:, 3])
+    rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho), rho)
+    fq_sph = torch.stack([final_q[:, 0], rho, th, ph], dim=-1)
+    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
+    cls, _, _, u01, v01 = _classify.classify_rays(
+        fq_sph, torch.full((n,), math.pi, dtype=dtype, device=device),
+        torch.zeros((n,), dtype=dtype, device=device),
+        rs=(1.05 / 1.2) * r_plus, r_obs_x=r_obs,
+        boundary_radius=scalar(boundary_radius),
+        patch_center_theta=scalar(patch_center_theta),
+        patch_center_phi=scalar(patch_center_phi),
+        patch_size_theta=scalar(patch_size_theta),
+        patch_size_phi=scalar(patch_size_phi),
+        flip_theta=flip_theta, flip_phi=flip_phi,
+        has_background=has_background)
+    bg = _classify.composite(cls, u01, v01, bg_array)
+
+    # additive thin-disk blend: out = bg (1 - tone) + disk emission
+    tone = shade["tone"]
+    disk_rgb = torch.clamp(shade["rgb01"] * 255.0, 0.0, 255.0)
+    out = bg.to(dtype) * (1.0 - tone[:, None]) + disk_rgb
+    image = torch.clamp(out + 0.5, 0.0, 255.0).to(torch.uint8)
+    cls = torch.where(shade["valid"].any(dim=0), CLS_DISK, cls)
+    return {"image": image, "cls": cls, "status": status,
+            "n_steps": n_steps, "count": count, "hq": hq, "hp": hp,
+            "shade": shade}
+
+
+def render_pixels_subrings(bg_array, obs_pos, fov, mass, spin, charge,
+                           boundary_radius, steps, delta, omega, r_in, r_out,
+                           t_peak, exposure, patch_center_theta,
+                           patch_center_phi, patch_size_theta, patch_size_phi,
+                           *, height, width, n_orders=3, order=2,
+                           flip_theta=False, flip_phi=False,
+                           has_background=True, dtype=torch.float32,
+                           prograde=True, profile="shakura", backend="auto"):
+    """The device pipeline of one subring frame, on bg_array's device: the
+    look-at camera -> subring integration -> per-order shade -> additive
+    composite over the lensed background.  obs_pos is a full (3,) position;
+    scalars are Python floats, rounded to `dtype` on the device as the JAX
+    pipeline receives them.  Per-order observables come back as
+    (n_orders, H, W) stacks, with the (6,) count vector (the last entry the
+    emitting pixels)."""
+    device = bg_array.device
+
+    def scalar(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    params = torch.stack([scalar(mass), scalar(spin), scalar(charge)])
+    obs = torch.tensor(np.asarray(obs_pos, np.float64), dtype=dtype,
+                       device=device)
+    r_obs = torch.linalg.vector_norm(obs)
+    r_obs_bl = ks_radius(obs[0], obs[1], obs[2], params[1])
+    th_obs = torch.arccos(torch.clamp(
+        obs[2] / torch.clamp(r_obs_bl, min=1e-30), -1.0, 1.0))
+    pix = pixel_grid_lookat(obs, scalar(fov), height, width, dtype=dtype,
+                            device=device)
+    q0, p0, alpha0 = cartesian_ics_from_pixels(obs, pix, params=params,
+                                               g_inv_fn=kerr_schild_g_inv)
+    n = height * width
+    flat = _trace_shade_subrings(
+        q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous(),
+        bg_array, (float(mass), float(spin), float(charge)), params, r_obs,
+        r_obs_bl, th_obs, boundary_radius, steps, delta, omega, r_in, r_out,
+        t_peak, exposure, patch_center_theta, patch_center_phi,
+        patch_size_theta, patch_size_phi, n_orders=n_orders, order=order,
+        backend=backend, prograde=prograde, profile=profile,
+        flip_theta=flip_theta, flip_phi=flip_phi,
+        has_background=has_background)
+    shade = flat["shade"]
+    cls = flat["cls"].reshape(height, width)
+    count_vec = torch.cat([_classify.count_vector(cls),
+                           (cls == CLS_DISK).sum()[None]])
+    hw = (height, width)
+    return {
+        "image": flat["image"].reshape(height, width, 3),
+        "cls": cls,
+        "status": flat["status"].reshape(hw),
+        "n_steps": flat["n_steps"].reshape(hw),
+        "count": flat["count"].reshape(hw),
+        "q0": q0,
+        "p0": p0,
+        "alpha0": alpha0,
+        "hits_q": flat["hq"].reshape((-1,) + hw + (4,)),
+        "hits_p": flat["hp"].reshape((-1,) + hw + (4,)),
+        "g": shade["g"].reshape((-1,) + hw),
+        "intensity": shade["intensity"].reshape((-1,) + hw),
+        "r_em": shade["r_em"].reshape((-1,) + hw),
+        "valid": shade["valid"].reshape((-1,) + hw),
+        "total_intensity": shade["total_intensity"].reshape(hw),
+        "count_vec": count_vec,
+    }
+
+
+class SubringResult(RenderResult):
+    """What one subring render produced: the per-pixel and per-order
+    tensors stay on the device until first read (as an attribute or as
+    result['name'], which is how `subring_summary` reads a JAX result
+    dict too), then are cached as numpy arrays; `counts` and the scene
+    scalars params, r_in, r_out, obs_pos, n_orders are plain values."""
+
+    _FIELDS = ("image", "cls", "status", "n_steps", "count", "q0", "p0",
+               "alpha0", "hits_q", "hits_p", "g", "intensity", "r_em",
+               "valid", "total_intensity")
+    _SCALARS = ("params", "r_in", "r_out", "obs_pos", "n_orders")
+
+    def __init__(self, device_arrays, counts, **scalars):
+        super().__init__(device_arrays, counts)
+        self.__dict__.update(scalars)
+
+    def __getitem__(self, name):
+        if name in self._FIELDS or name in self._SCALARS:
+            return getattr(self, name)
+        raise KeyError(name)
+
+
+def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
+                    bg_array=None, dtype=None, metrics=None, aa_samples=None,
+                    device="cuda"):
+    """SceneConfig (+ DiskConfig) -> SubringResult: the transparent-disk
+    render with every image order resolved, the torch counterpart of
+    `grtrace.engine.subring.render_subrings` (inclined look-at camera,
+    ISCO inner edge by default; like JAX's, it traces the Kerr-Newman hole
+    of scene.spin and scene.charge in the Kerr-Schild chart whatever
+    scene.metric says).
+
+    counts carries a sixth entry, 'disk': the emitting pixels (any order
+    valid).  device defaults to 'cuda' (kernel B7) and raises without a
+    GPU; pass device='cpu' for the eager twins."""
+    disk = disk or DiskConfig()
+    if disk.bfield is not None:
+        raise NotImplementedError(
+            "per-order polarized imaging (DiskConfig.bfield, "
+            "polarized_moments) is not ported to grtrace_torch yet (ROADMAP "
+            "Queue A item 6)")
+    if aa_samples:
+        raise NotImplementedError(
+            "adaptive antialiasing of the subring layers (aa.refine_subrings)"
+            " is not ported to grtrace_torch yet (ROADMAP Queue A item 8)")
+    resolve_camera_omega(scene, disk)  # raises for a moving camera (item 6)
+    r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_subrings(device='cuda') needs a CUDA GPU; "
+                           "pass device='cpu' for the eager twins")
+
+    stage = metrics.stage if metrics is not None else _untimed
+    h, w = scene.image_size
+    integ = scene.integrator
+    if dtype is None:
+        dtype = torch.float64 if integ.dtype == "float64" else torch.float32
+    has_bg = bg_array is not None and disk.show_background
+    with stage("texture_upload"):
+        bg_dev = (torch.as_tensor(np.asarray(bg_array), dtype=torch.uint8,
+                                  device=device) if has_bg
+                  else torch.zeros((1, 1, 3), dtype=torch.uint8,
+                                   device=device))
+    obs_pos = disk_observer_position(scene, disk)
+
+    with stage("device_pipeline"):
+        out = render_pixels_subrings(
+            bg_dev, obs_pos, scene.fov, scene.bh_mass, scene.spin,
+            scene.charge, scene.boundary_radius, integ.steps, integ.delta,
+            float(integ.omega), r_in, disk.r_out, disk.t_peak,
+            disk.exposure, scene.patch.center_theta, scene.patch.center_phi,
+            scene.patch.size_theta, scene.patch.size_phi,
+            height=h, width=w, n_orders=n_orders, order=integ.order,
+            flip_theta=scene.patch.flip_theta,
+            flip_phi=scene.patch.flip_phi, has_background=has_bg,
+            dtype=dtype, prograde=disk.prograde, profile=disk.profile,
+            backend=integ.backend)
+        cv = out.pop("count_vec").tolist()  # the one host fetch
+    counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
+              "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}
+    if metrics is not None:  # costs one (H, W) reduction and fetch
+        metrics.rays = h * w
+        metrics.geodesic_steps = int(out["n_steps"].sum())
+    return SubringResult(
+        out, counts, params=np.array([scene.bh_mass, scene.spin,
+                                      scene.charge]),
+        r_in=float(r_in), r_out=float(disk.r_out),
+        obs_pos=np.asarray(obs_pos), n_orders=n_orders)
+
+
+def subring_summary(result):
+    """Flux per order, Lyapunov and delay estimates from a subring render
+    (host-side numpy): `result` is a SubringResult or any mapping with the
+    keys intensity, valid, params, r_em, hits_q and count (a JAX result
+    dict too).
+
+    * flux F_n: the sum of layer n's per-pixel intensity;
+    * gamma_hat = ln(F_n / F_{n+1}) between the two highest orders with
+      nonzero flux: the measured demagnification exponent;
+    * delay_n: the median BL arrival-time gap t_{n-1} - t_n over the
+      pixels whose slots n-1 and n were both filled (Kerr-Schild and BL
+      time differ by a function of radius, `bl_time_azimuth_offsets`).
+    """
+    inten = np.asarray(result["intensity"], dtype=np.float64)
+    valid = np.asarray(result["valid"])
+    n_orders = inten.shape[0]
+    r_em = np.asarray(result["r_em"], dtype=np.float64)
+    t_ks = np.asarray(result["hits_q"][..., 0], dtype=np.float64)
+    t_off, _ = bl_time_azimuth_offsets(
+        torch.tensor(r_em), np.asarray(result["params"], np.float64))
+    t_bl = t_ks - t_off.numpy()
+
+    flux = [float(inten[i].sum()) for i in range(n_orders)]
+    pix = [int(valid[i].sum()) for i in range(n_orders)]
+    ratios = [flux[i + 1] / flux[i] if flux[i] > 0 else float("nan")
+              for i in range(n_orders - 1)]
+    gamma_hat = float("nan")
+    for i in range(n_orders - 2, -1, -1):
+        if flux[i] > 0 and flux[i + 1] > 0:
+            gamma_hat = float(np.log(flux[i] / flux[i + 1]))
+            break
+    # the delay masks use slot-filled (count > i), not annulus-valid: a
+    # crossing in the ISCO gap emits nothing, but its time is exact
+    count = np.asarray(result["count"])
+    filled = count.reshape(-1)[None, :] > np.arange(n_orders)[:, None]
+    filled = filled.reshape(valid.shape)
+    delays = []
+    for i in range(1, n_orders):
+        both = filled[i] & filled[i - 1]
+        # past-directed rays: deeper orders were emitted earlier (more
+        # negative t), so the physical delay is t_{n-1} - t_n > 0
+        delays.append(float(np.median(t_bl[i - 1][both] - t_bl[i][both]))
+                      if both.any() else float("nan"))
+    return {"flux_per_order": flux, "pixels_per_order": pix,
+            "flux_ratio": ratios, "gamma_hat": gamma_hat,
+            "delay_per_order_M": delays, "max_crossings": int(count.max())}

@@ -5,10 +5,12 @@ counterpart of the Kerr checks of `grtrace.engine.validate`.
     path (kernel B5 on a CUDA device, its eager twin on the CPU) against
     the Bardeen (1973) radial-potential construction, per image azimuth,
     by sub-pixel bisection;
-  * `ks_kernel_parity` — kernel B5 (or, with disk=(r_in, r_out), kernel
-    B6) against its eager twin on the same rays: q and p bit for bit,
-    status and exit step exactly, and in disk mode the hit flag exactly
-    and hit_q and hit_p bit for bit.
+  * `ks_kernel_parity` — kernel B5 (with disk=(r_in, r_out) kernel B6,
+    with subrings=n_orders kernel B7) against its eager twin on the same
+    rays: q and p bit for bit, status and exit step exactly; in disk mode
+    the hit flag exactly and hit_q and hit_p bit for bit; in subring mode
+    the crossing count exactly and hits_q and hits_p bit for bit in every
+    slot, filled or not.
 
 Boundary positions are quoted in 256x256-image pixels whatever the probe
 resolution.  Scene: observer at r0 = 30 M on +x, fov 80 deg, boundary
@@ -29,7 +31,9 @@ from . import integrate_ks_cuda
 from .integrate import STATUS_ESCAPED
 from .integrate_ks import (STATUS_DISK, integrate_batch_disk_ks,
                            integrate_batch_disk_ksc, integrate_batch_ks,
-                           integrate_batch_ksc, integrate_dispatch_ks)
+                           integrate_batch_ksc, integrate_batch_subrings_ks,
+                           integrate_batch_subrings_ksc,
+                           integrate_dispatch_ks)
 
 R0 = 30.0
 FOV = np.radians(80.0)
@@ -154,7 +158,9 @@ def compare_outputs(kern, twin):
     twin's: q and p compared bit for bit, status and n_steps exactly.
     With the disk mode's (hit_q, hit_p) appended to both, also the hit
     flag (status == STATUS_DISK) exactly and hit_q and hit_p bit for bit;
-    max_abs_err then covers them too."""
+    with the subring mode's (hits_q, hits_p, count), the count exactly and
+    hits_q and hits_p bit for bit in every slot, filled or not.
+    max_abs_err covers every floating-point output compared."""
     (qk, pk, sk, nk), (qt, pt, st, nt) = kern[:4], twin[:4]
     res = {"status_mismatch": int((sk != st).sum()),
            "n_steps_mismatch": int((nk != nt).sum()),
@@ -167,6 +173,12 @@ def compare_outputs(kern, twin):
                                      != (st == STATUS_DISK)).sum()),
                    hit_q_bitwise_equal=_bitwise_equal(hqk, hqt),
                    hit_p_bitwise_equal=_bitwise_equal(hpk, hpt))
+        pairs += [(hqk, hqt), (hpk, hpt)]
+    elif len(kern) == 7:
+        (hqk, hpk, ck), (hqt, hpt, ct) = kern[4:], twin[4:]
+        res.update(count_mismatch=int((ck != ct).sum()),
+                   hits_q_bitwise_equal=_bitwise_equal(hqk, hqt),
+                   hits_p_bitwise_equal=_bitwise_equal(hpk, hpt))
         pairs += [(hqk, hqt), (hpk, hpt)]
     res["max_abs_err"] = _max_abs_err(pairs)
     return res
@@ -189,30 +201,37 @@ def timed(fn, device):
 
 
 def ks_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
-                     omega=1.0, order=2, compensated=True, disk=None):
+                     omega=1.0, order=2, compensated=True, disk=None,
+                     subrings=None):
     """Kernel B5 (`integrate_batch_ks_cuda`, 32 rows or, with
     compensated=False, 16 rows) against its eager twin
     (`integrate_batch_ksc` / `integrate_batch_ks`) on the same (N, 4) rays;
     with disk=(r_in, r_out), kernel B6 (`integrate_batch_disk_cuda`)
-    against `integrate_batch_disk_ksc` / `integrate_batch_disk_ks`.
+    against `integrate_batch_disk_ksc` / `integrate_batch_disk_ks`; with
+    subrings=n_orders, kernel B7 (`integrate_batch_subrings_cuda`) against
+    `integrate_batch_subrings_ksc` / `integrate_batch_subrings_ks`.
 
     Returns (the kernel's outputs, `compare_outputs`'s counts plus the
     kernel+wrapper and twin times in ms).  The kernel's wrapper raises for
     CPU rays: nothing falls back to the twin.
     """
-    args = (steps, delta, params, r_max, omega)
-    if disk is None:
-        twin = integrate_batch_ksc if compensated else integrate_batch_ks
-        kernel = integrate_ks_cuda.integrate_batch_ks_cuda
-    else:
+    args, kw = (steps, delta, params, r_max, omega), {"order": order}
+    if disk is not None:
         args += tuple(disk)
         twin = (integrate_batch_disk_ksc if compensated
                 else integrate_batch_disk_ks)
         kernel = integrate_ks_cuda.integrate_batch_disk_cuda
+    elif subrings is not None:
+        kw["n_orders"] = subrings
+        twin = (integrate_batch_subrings_ksc if compensated
+                else integrate_batch_subrings_ks)
+        kernel = integrate_ks_cuda.integrate_batch_subrings_cuda
+    else:
+        twin = integrate_batch_ksc if compensated else integrate_batch_ks
+        kernel = integrate_ks_cuda.integrate_batch_ks_cuda
     kern, kernel_ms = timed(lambda: kernel(
-        q0, p0, *args, order=order, compensated=compensated), q0.device)
-    ref, twin_ms = timed(lambda: twin(q0, p0, *args, order=order),
-                          q0.device)
+        q0, p0, *args, compensated=compensated, **kw), q0.device)
+    ref, twin_ms = timed(lambda: twin(q0, p0, *args, **kw), q0.device)
     res = compare_outputs(kern, ref)
     res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
     return kern, res

@@ -31,8 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 # C entry points of each source; every one takes (state_in, state_out,
-# ns_out, params, n, n_sub, steps, stream), and a disk entry (`*_disk_*`)
-# takes the recorder rows disk_out after ns_out
+# ns_out, params, n, n_sub, steps, stream), a disk entry (`*_disk_*`) takes
+# the recorder rows disk_out after ns_out, and a subring entry (`*_sub_*`)
+# takes cnt_out and slot_out after ns_out and n_orders after steps
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch",),
     "fantasy_ks": ("grt_fantasy_ks32_f32_launch",
@@ -40,18 +41,19 @@ ENTRIES = {
                    "grt_fantasy_ks16_f64_launch",
                    "grt_fantasy_ks32_f32_disk_launch",
                    "grt_fantasy_ks16_f32_disk_launch",
-                   "grt_fantasy_ks16_f64_disk_launch"),
+                   "grt_fantasy_ks16_f64_disk_launch",
+                   "grt_fantasy_ks32_f32_sub_launch",
+                   "grt_fantasy_ks16_f32_sub_launch",
+                   "grt_fantasy_ks16_f64_sub_launch"),
 }
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def argtypes(name: str) -> list:
     """The ctypes signature of the C entry `name`."""
-    if "_disk_" in name:
-        return _ARGTYPES[:3] + [ctypes.c_void_p] + _ARGTYPES[3:]
-    return list(_ARGTYPES)
+    sub = "_sub_" in name
+    recorders = 2 if sub else 1 if "_disk_" in name else 0
+    return [_PTR] * (4 + recorders) + [_INT] * (4 if sub else 3) + [_PTR]
 
 
 class KernelBuildError(RuntimeError):
@@ -150,15 +152,16 @@ def ptxas_summary(log: str) -> list:
 
 
 def _short_name(mangled: str) -> str:
-    """'..._18fantasy_ks_kernelIfLb1EEv...' -> 'fantasy_ks_kernel<f,1>'."""
+    """'..._18fantasy_ks_kernelIfLb1EEv...' -> 'fantasy_ks_kernel<f,1>'; an
+    enum argument ('LNS_4ModeE2E') shows as its value."""
     m = re.search(r"\d+(fantasy_\w+?_kernel)(I(.*?)E)?E?v?P", mangled)
     if not m:
         return mangled
     args = m.group(3)
     if not args:
         return m.group(1)
-    parts = re.findall(r"Lb(\d)|([fd])", args)
-    return f"{m.group(1)}<{','.join(b or t for b, t in parts)}>"
+    parts = re.findall(r"Lb(\d)|L\w*?E(\d+)E|([fd])", args)
+    return f"{m.group(1)}<{','.join(''.join(p) for p in parts)}>"
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,7 +9,9 @@ import pytest
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # between them these import every module of the port, each new module of
-# the Kerr and disk slices on its own
+# the Kerr and disk slices on its own; of the subring slice's, the two that
+# `import grtrace_torch` does not reach (it imports engine.subring and
+# engine.hotspot), as each subprocess costs a torch import
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -19,7 +21,9 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.engine.render_generic",
                 "grtrace_torch.engine.validate",
                 "grtrace_torch.physics.orbits",
-                "grtrace_torch.engine.disk"]
+                "grtrace_torch.engine.disk",
+                "grtrace_torch.physics.photon_shell",
+                "grtrace_torch.engine.spectrum"]
 
 
 def _port_sources():

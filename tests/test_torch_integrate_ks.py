@@ -221,12 +221,19 @@ def test_cost_sort_key_matches_jax():
 
 
 def test_make_ks_step_disk_and_subrings_not_ported():
-    """The subring mode (B7) is not ported; the disk mode (B6) is, and its
-    step carries the recorder (tests/test_torch_disk.py holds it to JAX)."""
+    """Both recorder modes are ported now: the disk mode (B6) and the
+    subring mode (B7) steps carry their recorders (tests/test_torch_disk.py
+    and tests/test_torch_subring.py hold them to JAX)."""
     args = (((0.1, 0.0, 0.0, 0.1),), 1.0, SPIN, 0.0, 2.0, 31.0, 3.9)
-    with pytest.raises(NotImplementedError, match="B7"):
-        tks.make_ks_step(*args, subrings=3)
     q0, p0 = map(torch.tensor, _ics(2))
+    _, sub_step, _, _ = tks.make_ks_step(*args, subrings=3,
+                                         dtype=torch.float64)
+    state = tuple(torch.cat([q0, p0, q0, p0], dim=1).T)
+    out = sub_step(state, torch.zeros(4, dtype=torch.int32),
+                   torch.zeros(4, dtype=torch.int32),
+                   torch.zeros((3, 8, 4), dtype=torch.float64))
+    assert len(out) == 4 and len(out[0]) == 16 and (out[1] == 1).all()
+    assert out[3].shape == (3, 8, 4)
     _, step, _, _ = tks.make_ks_step(*args, disk=(6.0, 20.0),
                                      dtype=torch.float64)
     state = tuple(torch.cat([q0, p0, q0, p0], dim=1).T)
@@ -307,6 +314,7 @@ def test_kernel_wrapper_raises_for_cpu_tensors():
 
 def test_build_registers_the_ks_entries():
     assert (set(tkc.ENTRIES.values()) | set(tkc.DISK_ENTRIES.values())
+            | set(tkc.SUB_ENTRIES.values())
             == set(tbuild.ENTRIES["fantasy_ks"]))
     names = {p.stem for p in tbuild._sources()}
     assert {"fantasy_eqc", "fantasy_ks"} <= names
