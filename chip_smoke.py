@@ -29,7 +29,30 @@ the port's paths through them:
     whose camera rays it is held bitwise against its twin on at the full
     budget; then the photon-shell anchor: on-axis rays at the capture /
     escape edge cross the plane at the polar shell orbit's radius, at the
-    half-orbit delay that physics/photon_shell.py predicts.
+    half-orbit delay that physics/photon_shell.py predicts;
+  * kernel B2 (the plain 12-row layout of csrc/fantasy_eqc.cu, float64):
+    held bitwise against its eager twin at 64x64, then the float64
+    headline render (the same frame with IntegratorConfig(dtype=
+    "float64")), whose rays it is held bitwise against its twin on at the
+    full budget; the oracle golden through B2 and through B3 in float64;
+  * kernel B3 (csrc/fantasy_schw16.cu, the 16-row fused-flow layout): the
+    card's sinf/cosf (sin/cos) against torch.sin/torch.cos first, then B3
+    held bitwise against its eager twin at 64x64 on rays turned out of the
+    plane, in float and double, and `SchwarzschildIntegrator(backend=
+    'cuda')` routed through it; later its chunk against its twin at
+    64x64, and the float64 headline rays through
+    `SchwarzschildIntegrator(backend='cuda')` and through the chunked job
+    (`integrate_chunked`, the generic layout), both bitwise equal to one
+    monolithic B3 launch, which is held bitwise against its twin on those
+    rays at the full budget;
+  * kernel B4 (the core-loop-only layout of csrc/fantasy_eqc.cu): held
+    bitwise against its twin over one chunk at 64x64 and over the
+    headline job's 50k-step chunk, then the checkpointed float32 headline
+    job (200k budget, 50k-step chunks; and 2,500-step chunks with an .npz
+    save and load after the second), bitwise equal to B1's monolithic
+    result;
+  * the Schwarzschild shadow boundary through B1 (float32) and B2
+    (float64) against the closed form, within 0.01 px.
 
 Each render checks that it went through its kernel.  Each phase prints one
 line; any failure raises and the script exits non-zero.  The last three
@@ -75,8 +98,9 @@ SUB_SIZE, SUB_STEPS, SUB_DELTA, SUB_SPIN = 256, 30_000, 0.02, 0.9
 SUB_ORDERS, SUB_ELEV = 3, 75.0
 
 # Bounds: the least time an H100 SXM could take, from its data sheet at
-# 700 W: 67 TFLOP/s float32 outside the tensor cores, 3.35 TB/s HBM3.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# 700 W: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor
+# cores, 3.35 TB/s HBM3.
+PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 # Floating-point operations per ray-step, counted from the kernel sources
 # (each add, subtract, multiply, divide and square root is one; no FMA
 # under -fmad=false):
@@ -95,8 +119,19 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #                accepted step; per recorded crossing t (2) and the eight
 #                lerps (40) = 42 (a crossing past the last slot only adds
 #                one to an integer count)
+#   fantasy_eqc plain layout (B2, float64): per substep B M B A(bridge) =
+#                1 + 3 flows x 30 + mixing 72 = 163; the guard 2 per step;
+#                the open and close flows 2 x 31 once per ray
+#   fantasy_schw16 (B3): per substep A B M B A = 1 + 4 fused flows x 46
+#                (each sin and each cos counted as one operation, though
+#                the card spends several on it: the bound stays a bound)
+#                + mixing 96 = 281; the guard 2 per step
+#   fantasy_eqc core loop (B4): B1's 217 per substep and 2 per step, no
+#                open or close
 # (every scene runs order 2: one substep per step)
 EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
+EQ_FLOPS_SUBSTEP, EQ_FLOPS_STEP, EQ_FLOPS_RAY = 163, 2, 62
+SCHW16_FLOPS_SUBSTEP, SCHW16_FLOPS_STEP = 281, 2
 KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 116, 310
 DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
 SUB_FLOPS_STEP, SUB_FLOPS_EVENT = 3, 42
@@ -105,6 +140,16 @@ SUB_FLOPS_STEP, SUB_FLOPS_EVENT = 3, 42
 # writes hit_q and hit_p, the subring mode the count and n_orders slots of
 # (q, p)
 BYTES_RAY = 8 * 4 + 8 * 4 + 4 + 4  # float32 rays
+BYTES_RAY64 = 8 * 8 + 8 * 8 + 4 + 4  # float64 rays
+# a checkpoint chunk of B4 reads its 24-row float32 carry, writes it back
+# and the steps applied
+CHUNK24_BYTES_RAY = 2 * 24 * 4 + 4
+# the chunks of the checkpointed jobs (phases 22, 23): integrate_chunked's,
+# and the short one of the jobs saved and loaded after their second chunk
+JOB_CHUNK, CHUNK = 50_000, 2_500
+# phase 24's gate on the Schwarzschild boundary: a few of its bisection
+# brackets (0.0042 px)
+SCHW_PX_ERR = 0.01
 DISK_BYTES_RAY = BYTES_RAY + 8 * 4
 SUB_BYTES_RAY = BYTES_RAY + 4 + SUB_ORDERS * 8 * 4
 
@@ -113,9 +158,9 @@ def phase(n, msg):
     print(f"[{n}] {msg}", flush=True)
 
 
-def bound(flops, nbytes):
-    """(bound in ms, 'operations' | 'bytes')."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_FLOPS):
+    """(bound in ms, 'operations' | 'bytes'); peak: the operations' rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
@@ -152,30 +197,43 @@ def gate_parity(tag, res):
             f"-fmad=false to round exactly as the twin's torch ops")
 
 
-def check_parity(tag, q0, p0, steps, delta, order, n):
-    """Kernel B1 against its eager twin, which `backend='torch'` selects
-    on the card."""
-    from grtrace_torch.engine.integrate import integrate_dispatch
-    from grtrace_torch.engine.integrate_cuda import integrate_batch_cuda
+def check_parity(tag, q0, p0, steps, delta, order, n, kernel="B1"):
+    """Kernel B1, B2 or B3 and its wrapper against its eager twin on the
+    card: B1's through `integrate_dispatch(backend='torch')`, which selects
+    it there, B2's `integrate_batch_eq`, B3's `integrate_batch_fused`."""
+    from grtrace_torch.engine import integrate as ti
+    from grtrace_torch.engine import integrate_cuda as tc
     from grtrace_torch.engine.validate import compare_outputs, timed
     args = (steps, delta, 2.0 * MASS, R_MAX, OMEGA)
-    integrate_batch_cuda(q0, p0, *args, order=order)  # warm-up
-    kern, kern_ms = timed(lambda: integrate_batch_cuda(q0, p0, *args,
-                                                       order=order),
+    wrapper = {"B1": tc.integrate_batch_cuda,
+               "B2": tc.integrate_batch_eq_cuda,
+               "B3": tc.integrate_batch_generic_cuda}[kernel]
+    if kernel == "B1":
+        def twin():
+            return ti.integrate_dispatch(q0, p0, *args, backend="torch",
+                                         equatorial=True, order=order)
+    else:
+        twin_fn = {"B2": ti.integrate_batch_eq,
+                   "B3": ti.integrate_batch_fused}[kernel]
+
+        def twin():
+            return twin_fn(q0, p0, *args, order=order)
+    wrapper(q0, p0, *args, order=order)  # warm-up
+    kern, kern_ms = timed(lambda: wrapper(q0, p0, *args, order=order),
                           q0.device)
-    twin, twin_ms = timed(lambda: integrate_dispatch(
-        q0, p0, *args, backend="torch", equatorial=True, order=order),
-        q0.device)
-    res = compare_outputs(kern, twin)
+    twin_out, twin_ms = timed(twin, q0.device)
+    res = compare_outputs(kern, twin_out)
     status = kern[2]
-    res.update(rays=q0.shape[0], steps=steps, delta=delta, order=order,
+    res.update(dtype=str(q0.dtype)[6:], rays=q0.shape[0], steps=steps,
+               delta=delta, order=order,
                captured=int((status == 1).sum()),
                escaped=int((status == 2).sum()),
                n_steps_sum=int(kern[3].long().sum()),
+               n_steps_max=int(kern[3].max()),
                kernel_ms=kern_ms, twin_ms=twin_ms)
-    phase(n, f"B1 kernel vs eager twin, {tag}: {json.dumps(res)}")
+    phase(n, f"{kernel} kernel vs eager twin, {tag}: {json.dumps(res)}")
     gate_parity(tag, res)
-    return res
+    return res, kern
 
 
 def check_parity_ks(tag, size, steps, delta, order, charge, dtype,
@@ -230,13 +288,13 @@ def golden_probes(device):
                              "dtheta < 1e-6)")
 
 
-def headline_scene():
+def headline_scene(dtype="float32"):
     from grtrace_torch import IntegratorConfig, PatchConfig, SceneConfig
     return SceneConfig(
         size=SIZE, fov_deg=FOV_DEG, background=None, bh_mass=MASS,
         boundary_radius=R_MAX, observer_distance=OBS_X,
         integrator=IntegratorConfig(steps=STEPS, delta=DELTA, omega=OMEGA,
-                                    backend="auto", dtype="float32"),
+                                    backend="auto", dtype=dtype),
         patch=PatchConfig(), n_samples=0)
 
 
@@ -306,7 +364,7 @@ def main_path(device):
     wall = float(np.median(walls))
     phase(5, f"headline render warm wall time: median {wall:.6f} s of "
              f"{[round(w, 6) for w in walls]}, {SIZE * SIZE / wall:.1f} rays/s")
-    return launches, wall
+    return launches, wall, counts
 
 
 def kerr_scene():
@@ -789,6 +847,401 @@ def photon_shell_anchor():
                              "the predicted half-orbit delay")
 
 
+def golden_probes_f64(device):
+    """The oracle golden's pixels as float64 camera rays through B2 and
+    through B3 (the golden was made from float64 camera rays by the
+    float64 oracle)."""
+    from grtrace_torch.engine import integrate_cuda as tc
+    g = np.load(GOLDEN)
+    q0, p0 = camera(int(g["size"]), device, torch.float64)
+    idx = torch.as_tensor(g["flat_idx"], device=device)
+    q0, p0 = q0[idx].contiguous(), p0[idx].contiguous()
+    args = (int(g["steps"]), float(g["delta"]), 2.0 * float(g["mass"]),
+            float(g["rmax"]), float(g["omega"]))
+    oq = g["final_q"]
+    out = {}
+    for name, wrapper in (("B2", tc.integrate_batch_eq_cuda),
+                          ("B3", tc.integrate_batch_generic_cuda)):
+        fq, _, st, ns = wrapper(q0, p0, *args)
+        fq, st, ns = fq.cpu().numpy(), st.cpu().numpy(), ns.cpu().numpy()
+        dph = np.abs((fq[:, 3] - oq[:, 3] + np.pi) % (2 * np.pi) - np.pi)
+        flips = np.flatnonzero(ns != g["n_steps"])
+        out[name] = {"all_escaped": bool((st == 2).all()),
+                     "max_dphi": float(dph.max()),
+                     "median_dphi": float(np.median(dph)),
+                     "max_dtheta": float(np.abs(fq[:, 2] - oq[:, 2]).max()),
+                     "exit_step_flips": [[int(i), int(ns[i]),
+                                          int(g["n_steps"][i])]
+                                         for i in flips]}
+    phase(20, f"golden probes ({len(idx)} rays, {args[0]} steps, float64) "
+              f"through B2 and B3 vs the float64 oracle: {json.dumps(out)}")
+    for name, r in out.items():
+        if not (r["all_escaped"] and r["max_dphi"] < 1e-7):
+            raise AssertionError(f"{name} golden probes: not all escaped or "
+                                 f"max dphi >= 1e-7")
+
+
+def f64_main_path(device, counts32):
+    """The float64 headline render (IntegratorConfig(dtype='float64')):
+    kernel B2 through `render`."""
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_cuda
+    from grtrace_torch.engine.integrate import schw_true_escape_pred
+    from grtrace_torch.engine.metrics import RenderMetrics
+    from grtrace_torch.io.textures import starfield
+
+    scene = headline_scene("float64")
+    tex = starfield()
+    integrate_cuda.eq_launches = 0
+    metrics = RenderMetrics()
+    res = grtrace_torch.render(scene, bg_array=tex, device="cuda",
+                               metrics=metrics)
+    launches = integrate_cuda.eq_launches
+    counts = res.counts
+    ns = res.n_steps.astype(np.int64)
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    # the rays whose float32 and float64 launch predicates disagree: after
+    # the rescue a finished ray's class is its launch predicate
+    pred64 = schw_true_escape_pred(q0, p0, 2.0 * MASS)
+    q32, p32 = camera(SIZE, device)
+    pred32 = schw_true_escape_pred(q32, p32, 2.0 * MASS)
+    summary = {"launches": launches, "counts": counts,
+               "float32_counts_phase5": counts32,
+               "captured_minus_float32": counts["captured"]
+               - counts32["captured"],
+               "f32_f64_predicate_disagreements": int(
+                   (pred64 != pred32).sum()),
+               "stages_s": metrics.stages,
+               "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum())}
+    phase(18, f"float64 headline render {SIZE}x{SIZE}/{STEPS} steps through "
+              f"kernel B2: {json.dumps(summary)}")
+    if launches != 1:
+        raise AssertionError(f"the float64 render launched B2 {launches} "
+                             f"times, not 1")
+    if counts["numerical_error"] or counts["in_domain"]:
+        raise AssertionError(f"numerical_error/in_domain not 0: {counts}")
+    if counts["captured"] + counts["escaped"] != SIZE * SIZE:
+        raise AssertionError(f"captured + escaped != {SIZE * SIZE}: {counts}")
+    if (res.image.shape != (SIZE, SIZE, 3)
+            or not np.isfinite(res.final_q).all()):
+        raise AssertionError("float64 render output has the wrong shape or "
+                             "non-finite final positions")
+
+    walls = []
+    for _ in range(3):
+        before = integrate_cuda.eq_launches
+        t0 = time.perf_counter()
+        r = grtrace_torch.render(scene, bg_array=tex, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts or integrate_cuda.eq_launches != before + 1:
+            raise AssertionError(f"warm float64 render: counts {r.counts} "
+                                 f"or B2 launches differ from the first's")
+    wall = float(np.median(walls))
+    phase(18, f"float64 headline render warm wall time: median {wall:.6f} s "
+              f"of {[round(w, 6) for w in walls]}, {SIZE * SIZE / wall:.1f} "
+              f"rays/s")
+    return q0, p0, launches, wall, counts
+
+
+def trig_probe(device):
+    """The card's sinf/cosf and sin/cos as kernel B3 calls them (built by
+    kernels/build.py into fantasy_schw16.cu's library) against torch.sin /
+    torch.cos: every float32 in (0, pi), and 1e8 float64 points there."""
+    from grtrace_torch.kernels.build import load
+    lib = load()
+    t0 = time.perf_counter()
+
+    def card(x):
+        entry = (lib.grt_fantasy_trig_f32_launch if x.dtype == torch.float32
+                 else lib.grt_fantasy_trig_f64_launch)
+        s, c = torch.empty_like(x), torch.empty_like(x)
+        err = entry(x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(),
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"trig probe launch failed: cudaError {err}")
+        return s, c
+
+    def diffs(x, stats):
+        ints = torch.int32 if x.dtype == torch.float32 else torch.int64
+        for name, mine, ref in zip(("sin", "cos"), card(x),
+                                   (torch.sin(x), torch.cos(x))):
+            ulp = (mine.view(ints).long() - ref.view(ints).long()).abs()
+            bad = ulp != 0
+            stats[name] += int(bad.sum())
+            stats[f"{name}_max_ulp"] = max(stats[f"{name}_max_ulp"],
+                                           int(ulp.max()))
+            if bad.any() and len(stats["examples"]) < 4:
+                k = int(torch.nonzero(bad)[0])
+                stats["examples"].append([name, float(x[k]), float(mine[k]),
+                                          float(ref[k])])
+
+    def new_stats():
+        return {"points": 0, "sin": 0, "cos": 0, "sin_max_ulp": 0,
+                "cos_max_ulp": 0, "examples": []}
+
+    f32 = new_stats()
+    # float32(pi) lies above pi, so bit patterns 1 .. bits(float32(pi)) - 1
+    # are every positive float32 below pi
+    end = int(np.array(np.pi, np.float32).view(np.int32))
+    for lo in range(1, end, 1 << 27):
+        x = torch.arange(lo, min(lo + (1 << 27), end), dtype=torch.int32,
+                         device=device).view(torch.float32)
+        f32["points"] += x.numel()
+        diffs(x, f32)
+    f64 = new_stats()
+    gen = torch.Generator(device=device).manual_seed(5)
+    for _ in range(4):
+        x = torch.rand(25_000_000, dtype=torch.float64, device=device,
+                       generator=gen) * math.pi
+        x = x[x > 0.0]
+        f64["points"] += x.numel()
+        diffs(x, f64)
+    torch.cuda.synchronize()
+    res = {"float32": f32, "float64": f64,
+           "seconds": time.perf_counter() - t0}
+    phase("21a", f"the card's sin/cos (kernel build) vs torch.sin/torch.cos "
+                 f"on (0, pi), differing values (B3's parity in 21b rests "
+                 f"on 0): {json.dumps(res)}")
+
+
+def rotated_rays(size, device, dtype):
+    """The folded camera rays turned out of the plane by their own fold
+    angle beta: p_theta <- -sin(beta) p_phi, p_phi <- cos(beta) p_phi (null
+    still, since g^thth = g^phph at theta = pi/2), so theta moves."""
+    from grtrace_torch.physics.camera import camera_rays
+    obs = torch.tensor([OBS_X, 0.0, 0.0], dtype=dtype, device=device)
+    q0, p0, _, _, beta = camera_rays(obs, math.radians(FOV_DEG), size, size,
+                                     mass_bh=MASS, dtype=dtype, device=device)
+    q0, p0, beta = q0.reshape(-1, 4), p0.reshape(-1, 4), beta.reshape(-1)
+    p_ph = p0[:, 3]
+    p0 = torch.stack([p0[:, 0], p0[:, 1], -torch.sin(beta) * p_ph,
+                      torch.cos(beta) * p_ph], dim=-1)
+    return q0.contiguous(), p0.contiguous()
+
+
+def generic_phase(device):
+    """Kernel B3 at 64x64 on rays out of the plane (21b), and
+    SchwarzschildIntegrator(backend='cuda') through it (21c)."""
+    from grtrace_torch import SchwarzschildIntegrator
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import compare_outputs
+    for dtype in (torch.float32, torch.float64):
+        q0, p0 = rotated_rays(64, device, dtype)
+        for order in (2, 4):
+            check_parity(f"64x64 camera turned out of the plane, "
+                         f"{str(dtype)[6:]}, order {order}", q0, p0, 2000,
+                         0.05, order, "21b", kernel="B3")
+    args = dict(steps=2000, delta=0.05, mass=MASS, omega=OMEGA, r_max=R_MAX)
+    integ = SchwarzschildIntegrator(**args, backend="cuda",
+                                    dtype=torch.float64, device=device)
+    tc.generic_launches = 0
+    out = integ.integrate_batch(q0, p0)
+    launches = tc.generic_launches
+    ref = tc.integrate_batch_generic_cuda(q0, p0, 2000, 0.05, 2.0 * MASS,
+                                          R_MAX, OMEGA)
+    res = compare_outputs(out, ref)
+    res.update(launches=launches, rays=q0.shape[0])
+    phase("21c", f"SchwarzschildIntegrator(backend='cuda', float64) on the "
+                 f"out-of-plane rays vs integrate_batch_generic_cuda: "
+                 f"{json.dumps(res)}")
+    if launches != 1:
+        raise AssertionError(f"SchwarzschildIntegrator(backend='cuda') "
+                             f"launched B3 {launches} times, not 1")
+    gate_parity("SchwarzschildIntegrator", res)
+
+
+def ckpt_path(name):
+    d = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, name)
+
+
+def gate_final(tag, st, mono):
+    """A chunked job's read-out against a monolithic (final_q, final_p,
+    status, n_steps), bit for bit."""
+    from grtrace_torch.engine.validate import compare_outputs
+    res = compare_outputs((st.final_q, st.final_p, st.status, st.n_steps),
+                          mono)
+    gate_parity(tag, res)
+    return res
+
+
+def resumed_job(q0, p0, mono, compensated):
+    """start, two CHUNK-step chunks, save to and load from an .npz, then
+    CHUNK-step chunks to the end; held bitwise against `mono`.  Returns
+    (chunks, the chunks' summed kernel+wrapper ms, compare counts)."""
+    from grtrace_torch.engine import checkpoint as ck
+    from grtrace_torch.engine.validate import timed
+    st = ck.start(q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA,
+                  compensated=compensated)
+    chunks, ms = 0, 0.0
+    while not st.done:
+        st, t = timed(lambda: ck.advance(st, CHUNK), q0.device)
+        chunks, ms = chunks + 1, ms + t
+        if chunks == 2:
+            path = ckpt_path(f"resumed_{st.layout}.npz")
+            st.save(path)
+            st = ck.IntegrationState.load(path, device=q0.device)
+    res = gate_final(f"resumed {st.layout} job", st, mono)
+    return chunks, ms, res
+
+
+def checkpoint_eqc(device, q0, p0, mono, mono_ms):
+    """Kernel B4: against its twin over one chunk at 64x64, and over the
+    headline job's own chunk (JOB_CHUNK steps on the opened headline
+    carry, the call integrate_chunked makes), then the checkpointed
+    float32 headline job, bitwise equal to B1's monolithic result `mono`
+    (phase 3a)."""
+    from grtrace_torch.engine import checkpoint as ck
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import chunk_parity, timed
+    qs, ps = camera(64, device)
+    st = ck.start(qs, ps, 2000, 0.05, 2.0 * MASS, R_MAX, OMEGA,
+                  compensated=True)
+    _, small = chunk_parity(tc.advance_state_eqc_cuda, ck._advance_eqc,
+                            st.state, 2000, 0.05, 2.0 * MASS, R_MAX, OMEGA)
+    phase(22, f"B4 kernel vs _advance_eqc, one 2000-step chunk on the "
+              f"opened 64x64 carry (delta 0.05): {json.dumps(small)}")
+    gate_parity("B4 64x64 chunk", small)
+
+    path = ckpt_path("chunked_eqc.npz")
+    tc.chunk_launches = 0
+    st, job_ms = timed(lambda: ck.integrate_chunked(
+        q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA,
+        chunk_steps=JOB_CHUNK, checkpoint_path=path, backend="auto"), device)
+    launches = tc.chunk_launches
+    if st.layout != "eqc" or launches < 1:
+        raise AssertionError(f"the float32 chunked job took layout "
+                             f"{st.layout!r} and {launches} B4 launches")
+    job = gate_final("chunked eqc job", st, mono)
+    saved = gate_final("chunked eqc job, loaded",
+                       ck.IntegrationState.load(path, device=device), mono)
+    chunks, chunk_ms, resumed = resumed_job(q0, p0, mono, True)
+
+    # the job's first chunk against its twin: the same call on the same
+    # opened carry
+    opened = ck.start(q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA,
+                      compensated=True)
+    (_, applied), par = chunk_parity(tc.advance_state_eqc_cuda,
+                                     ck._advance_eqc, opened.state, JOB_CHUNK,
+                                     DELTA, 2.0 * MASS, R_MAX, OMEGA)
+    par.update(rays=q0.shape[0], steps=JOB_CHUNK,
+               ray_steps=int(applied.long().sum()))
+    phase(22, f"B4 kernel vs _advance_eqc, the job's first {JOB_CHUNK}-step "
+              f"chunk on the opened headline carry: {json.dumps(par)}")
+    gate_parity("B4 headline chunk", par)
+    phase(22, f"checkpointed float32 headline ({SIZE}x{SIZE}, {STEPS} "
+              f"steps) vs B1's monolithic result: integrate_chunked with "
+              f"{JOB_CHUNK}-step chunks: {launches} B4 launch(es) (every ray "
+              f"ends inside the first chunk), {job_ms:.3f} ms with its save, "
+              f"{json.dumps(job)}; reloaded: {json.dumps(saved)}; "
+              f"{CHUNK}-step chunks with a save and load after the second: "
+              f"{chunks} chunks, {chunk_ms:.3f} ms summed, "
+              f"{json.dumps(resumed)}; B1 monolithic {mono_ms:.3f} ms")
+    bound_ms, bound_by = bound(
+        par["ray_steps"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP),
+        par["rays"] * CHUNK24_BYTES_RAY)
+    return {"launches": launches, "bound_ms": bound_ms,
+            "bound_by": bound_by, **par}
+
+
+def checkpoint_generic(device, q0, p0, counts18):
+    """Kernel B3: its chunk against its twin at 64x64 on rays out of the
+    plane; then B3's float64 headline paths, SchwarzschildIntegrator(
+    backend='cuda') on the frame's rays and the chunked job (the generic
+    layout), both bitwise equal to one monolithic B3 launch, which is held
+    bitwise against its twin `integrate_batch_fused` at the full budget."""
+    from grtrace_torch import SchwarzschildIntegrator
+    from grtrace_torch.engine import checkpoint as ck
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import chunk_parity, compare_outputs
+    from grtrace_torch.engine.validate import timed
+    qs, ps = rotated_rays(64, device, torch.float64)
+    st = ck.start(qs, ps, 2000, 0.05, 2.0 * MASS, R_MAX, OMEGA)
+    _, small = chunk_parity(tc.advance_state_cuda, ck._advance_fused,
+                            st.state, 2000, 0.05, 2.0 * MASS, R_MAX, OMEGA)
+    phase(23, f"B3 chunk kernel vs _advance_fused, one 2000-step chunk on "
+              f"the 64x64 float64 carry turned out of the plane (delta "
+              f"0.05): {json.dumps(small)}")
+    gate_parity("B3 64x64 chunk", small)
+
+    integ = SchwarzschildIntegrator(steps=STEPS, delta=DELTA, mass=MASS,
+                                    omega=OMEGA, r_max=R_MAX, backend="cuda",
+                                    dtype=torch.float64, device=device)
+    path = ckpt_path("chunked_generic.npz")
+    tc.generic_launches = 0
+    mono = integ.integrate_batch(q0, p0)
+    integ_launches = tc.generic_launches
+    st, job_ms = timed(lambda: ck.integrate_chunked(
+        q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA,
+        chunk_steps=JOB_CHUNK, checkpoint_path=path, backend="auto"), device)
+    launches = tc.generic_launches
+    if integ_launches != 1 or st.layout != "generic" or launches < 2:
+        raise AssertionError(f"SchwarzschildIntegrator launched B3 "
+                             f"{integ_launches} times, not 1; the float64 "
+                             f"chunked job took layout {st.layout!r} and "
+                             f"{launches - integ_launches} B3 launches")
+
+    # the integrator's call, B3 at the full budget, against its twin
+    b3, kern = check_parity(f"float64 headline frame {SIZE}x{SIZE}, {STEPS} "
+                            f"steps", q0, p0, STEPS, DELTA, 2, 23,
+                            kernel="B3")
+    same = compare_outputs(mono, kern)
+    gate_parity("SchwarzschildIntegrator on the float64 frame", same)
+    job = gate_final("chunked generic job", st, mono)
+    chunks, chunk_ms, resumed = resumed_job(q0, p0, mono, False)
+    status = st.status
+    counts = {"captured": int((status == 1).sum()),
+              "escaped": int((status == 2).sum()),
+              "alive": int((status == 0).sum())}
+    phase(23, f"float64 headline ({SIZE}x{SIZE}, {STEPS} steps, generic "
+              f"layout): SchwarzschildIntegrator(backend='cuda') 1 B3 launch, "
+              f"bitwise equal to the timed launch {json.dumps(same)}; "
+              f"integrate_chunked with {JOB_CHUNK}-step chunks: "
+              f"{launches - integ_launches} B3 launch(es), {job_ms:.3f} ms "
+              f"with its save, {json.dumps(job)}; {CHUNK}-step chunks with a "
+              f"save and load after the second: {chunks} chunks, "
+              f"{chunk_ms:.3f} ms summed, {json.dumps(resumed)}; one "
+              f"monolithic B3 launch {b3['kernel_ms']:.3f} ms; counts "
+              f"{json.dumps(counts)} beside phase 18's render "
+              f"{json.dumps(counts18)}; longest ray "
+              f"{int(st.n_steps.max())} steps")
+    bound_ms, bound_by = bound(
+        b3["n_steps_sum"] * (SCHW16_FLOPS_SUBSTEP + SCHW16_FLOPS_STEP),
+        b3["rays"] * BYTES_RAY64, PEAK_FLOPS64)
+    return {"launches": launches, "bound_ms": bound_ms,
+            "bound_by": bound_by, **b3}
+
+
+def schw_boundary(device):
+    """The Schwarzschild shadow boundary through B1 (float32) and B2
+    (float64) against the closed form (`validate.schwarzschild_shadow_
+    error`: 3 bisection rounds of 8 azimuths x 17 radii, 19,968 steps,
+    delta 0.01, one kernel launch a round)."""
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import schwarzschild_shadow_error
+    out = {}
+    for dtype, name, counter in ((torch.float32, "B1", "launches"),
+                                 (torch.float64, "B2", "eq_launches")):
+        setattr(tc, counter, 0)
+        t0 = time.perf_counter()
+        res = schwarzschild_shadow_error(dtype=dtype, device=device)
+        res.update(launches=getattr(tc, counter),
+                   seconds=time.perf_counter() - t0)
+        out[f"{str(dtype)[6:]} {name}"] = res
+    phase(24, f"Schwarzschild shadow boundary vs the closed form, 256^2 px: "
+              f"{json.dumps(out)}")
+    for name, res in out.items():
+        if res["launches"] != 3:
+            raise AssertionError(f"{name}: {res['launches']} launches, not "
+                                 f"one per bisection round (3)")
+        if not res["px_err"] < SCHW_PX_ERR:
+            raise AssertionError(f"{name}: boundary {res['px_err']} px from "
+                                 f"the closed form, not < {SCHW_PX_ERR} px")
+
+
 def build_kernels():
     from grtrace_torch.kernels import build
     t0 = time.perf_counter()
@@ -826,15 +1279,15 @@ def main():
     # --- kernel B1 and the headline Schwarzschild path --------------------
     q0, p0 = camera(SIZE, device)
     # the headline camera at the full budget: the very call render makes
-    a = check_parity(f"headline camera {SIZE}x{SIZE}, {STEPS} steps",
-                     q0, p0, STEPS, DELTA, 2, "3a")
+    a, b1_out = check_parity(f"headline camera {SIZE}x{SIZE}, {STEPS} steps",
+                             q0, p0, STEPS, DELTA, 2, "3a")
     q0s, p0s = camera(64, device)
     for order in (2, 4):
         check_parity(f"64x64 camera, order {order}", q0s, p0s, 2000, 0.05,
                      order, "3b")
 
     golden_probes(device)
-    launches, wall = main_path(device)
+    launches, wall, counts32 = main_path(device)
 
     phase(6, f"integration at phase 3a's shapes ({SIZE * SIZE} rays, "
              f"{STEPS} step budget): kernel {a['kernel_ms']:.3f} ms "
@@ -880,6 +1333,37 @@ def main():
                          torch.float32, True, 1, "13")
     sub = subring_main_path()
     photon_shell_anchor()
+
+    # --- kernel B2 and the float64 headline path ---------------------------
+    q0d, p0d = camera(64, device, torch.float64)
+    for order in (2, 4):
+        check_parity(f"64x64 camera, float64, order {order}", q0d, p0d, 2000,
+                     0.05, order, "17", kernel="B2")
+    q064, p064, eq_launches, wall64, counts64 = f64_main_path(device,
+                                                             counts32)
+    # the float64 headline camera at the full budget: the call render makes
+    b2, _ = check_parity(f"float64 headline frame {SIZE}x{SIZE}, {STEPS} "
+                         f"steps", q064, p064, STEPS, DELTA, 2, "19",
+                         kernel="B2")
+    eq_bound, eq_by = bound(
+        b2["n_steps_sum"] * (EQ_FLOPS_SUBSTEP + EQ_FLOPS_STEP)
+        + b2["rays"] * EQ_FLOPS_RAY, b2["rays"] * BYTES_RAY64, PEAK_FLOPS64)
+    phase(19, f"float64 headline render warm wall time {wall64:.6f} s; B2 "
+              f"kernel+wrapper at this shape {b2['kernel_ms']:.3f} ms "
+              f"({100 * b2['kernel_ms'] / 1e3 / wall64:.1f}% of the wall), "
+              f"eager twin {b2['twin_ms']:.3f} ms, {b2['n_steps_sum']} "
+              f"ray-steps, bound {eq_bound:.3f} ms ({eq_by}); B1 at the "
+              f"float32 frame {a['kernel_ms']:.3f} ms")
+    golden_probes_f64(device)
+
+    # --- kernel B3: SchwarzschildIntegrator and the generic checkpoint ------
+    trig_probe(device)
+    generic_phase(device)
+
+    # --- kernel B4 and the checkpointed headline ----------------------------
+    eqc = checkpoint_eqc(device, q0, p0, b1_out, a["kernel_ms"])
+    gen = checkpoint_generic(device, q064, p064, counts64)
+    schw_boundary(device)
 
     print(json.dumps({"kernels": [
         {"name": "fantasy_eqc",
@@ -936,7 +1420,54 @@ def main():
          "shapes": f"the subring mode (B7); every number at "
                    f"{SUB_SIZE}x{SUB_SIZE} subring-camera rays, "
                    f"{SUB_STEPS}-step budget, {SUB_ORDERS} orders "
-                   f"(phase 15)"}]}))
+                   f"(phase 15)"},
+        {"name": "fantasy_eq",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_eqc.cu",
+         "replaces": "grtrace/engine/integrate_pallas.py:77",
+         "launches": eq_launches,
+         "max_abs_err": b2["max_abs_err"],
+         "ms": b2["kernel_ms"],
+         "plain_ms": b2["twin_ms"],
+         "bound_ms": eq_bound,
+         "bound_by": eq_by,
+         "library_ms": None,
+         "shapes": f"B2, the plain 12-row float64 layout; every number at "
+                   f"{SIZE}x{SIZE} float64 headline rays, {STEPS}-step "
+                   f"budget (phase 19); bound over the FP64 rate"},
+        {"name": "fantasy_schw16",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_schw16.cu",
+         "replaces": "grtrace/engine/integrate_pallas.py:77",
+         "launches": gen["launches"],
+         "max_abs_err": gen["max_abs_err"],
+         "ms": gen["kernel_ms"],
+         "plain_ms": gen["twin_ms"],
+         "bound_ms": gen["bound_ms"],
+         "bound_by": gen["bound_by"],
+         "library_ms": None,
+         "shapes": f"B3, the 16-row fused-flow layout; launches: "
+                   f"SchwarzschildIntegrator(backend='cuda') and the "
+                   f"chunked job on the {SIZE}x{SIZE} float64 headline rays "
+                   f"(phase 23); every other number at the integrator's "
+                   f"call, one launch on those rays at the {STEPS}-step "
+                   f"budget; bound over the FP64 rate"},
+        {"name": "fantasy_eqc_chunk",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_eqc.cu",
+         "replaces": "grtrace/engine/integrate_pallas.py:77",
+         "launches": eqc["launches"],
+         "max_abs_err": eqc["max_abs_err"],
+         "ms": eqc["kernel_ms"],
+         "plain_ms": eqc["twin_ms"],
+         "bound_ms": eqc["bound_ms"],
+         "bound_by": eqc["bound_by"],
+         "library_ms": None,
+         "shapes": f"B4, B1's core loop on an opened carry; launches from "
+                   f"the checkpointed float32 headline job (phase 22); "
+                   f"every other number at that job's call, its first "
+                   f"{JOB_CHUNK}-step chunk on the opened {SIZE}x{SIZE} "
+                   f"float32 carry"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

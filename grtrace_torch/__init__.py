@@ -8,9 +8,12 @@ guard, exact Bardeen rescue), and the thin accretion disk around a Kerr
 hole (`render_disk`: inclined camera, first-equatorial-crossing capture,
 redshift shading), and the photon-ring subrings of a transparent disk
 (`render_subrings`: every image order as its own layer, with the
-photon-shell theory of physics/photon_shell.py beside it), on tensors of
-any torch device.  On an NVIDIA Hopper GPU the integration runs
-hand-written CUDA kernels (csrc/fantasy_eqc.cu, csrc/fantasy_ks.cu in
+photon-shell theory of physics/photon_shell.py beside it), the
+reference-compatible `SchwarzschildIntegrator` for rays in any plane, and
+checkpoint / resume of long integrations (engine/checkpoint.py), on
+tensors of any torch device.  On an NVIDIA Hopper GPU the integration
+runs hand-written CUDA kernels (csrc/fantasy_eqc.cu in its compensated,
+float64 and chunk layouts, csrc/fantasy_schw16.cu, csrc/fantasy_ks.cu in
 plain, disk and subring mode); on the CPU it runs their eager twins.
 The JAX package `grtrace` is the reference this package is tested
 against; this package never imports it, nor jax.

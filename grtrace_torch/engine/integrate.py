@@ -24,8 +24,10 @@ import math
 import numpy as np
 import torch
 
-from ..physics.hamiltonian import (bridge_sizes, fantasy_step, pack_state,
-                                   pack_state_eqc, staggered_eqc,
+from ..physics.hamiltonian import (bridge_sizes, fantasy_step,
+                                   fantasy_step_ord2_fused, pack_state,
+                                   pack_state_eq, pack_state_eqc,
+                                   staggered_eq, staggered_eqc,
                                    substep_schedule, unpack_eqc, unpack_p1,
                                    unpack_q1)
 
@@ -56,21 +58,20 @@ def resolve_backend(backend: str, device) -> str:
 
 
 def select_path(backend, device, dtype, equatorial):
-    """Which integrator `integrate_dispatch` runs: 'kernel' (the CUDA
-    kernel), 'compensated' (its eager twin) or 'plain' (the 16-row
-    integrate_batch).  Raises for what the port has no kernel for yet —
-    never falls back to an eager path for a CUDA kernel."""
+    """Which integrator `integrate_dispatch` runs.
+
+    On CUDA: 'kernel' (B1, float32 equatorial), 'kernel_eq' (B2, float64
+    equatorial) or 'kernel_generic' (B3, any ray, float32 or float64) —
+    the JAX package's `integrate_batch_pallas` routes.  With the eager
+    backend ('torch', and 'auto' on the CPU): 'compensated' (B1's twin)
+    for float32 equatorial rays, 'plain' (the 16-row integrate_batch, the
+    JAX package's own CPU path) for the rest.  A CUDA route never falls
+    back to an eager path."""
     backend = resolve_backend(backend, device)
     if backend == "cuda":
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "float64 rays on CUDA need kernel B2 (12-row plain "
-                "equatorial), not ported yet: ROADMAP Queue B")
         if not equatorial:
-            raise NotImplementedError(
-                "non-equatorial rays on CUDA need kernel B3 (16-row "
-                "generic), not ported yet: ROADMAP Queue B")
-        return "kernel"
+            return "kernel_generic"
+        return "kernel" if dtype == torch.float32 else "kernel_eq"
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r} "
                          f"(expected 'auto', 'cuda' or 'torch')")
@@ -84,21 +85,20 @@ def integrate_dispatch(q0s, p0s, steps, delta, rs, r_max, omega,
     """Backend-dispatching integrate: same signature/returns for every path.
 
     equatorial=True promises theta == pi/2 and p_theta == 0 for every ray
-    (true for the folded camera).  float32 equatorial rays go to the
-    Kahan-compensated integrator — the CUDA kernel on CUDA tensors, its
-    eager twin on CPU tensors; float64 rays on the CPU take the 16-row
+    (true for the folded camera).  On CUDA tensors float32 equatorial rays
+    go to kernel B1 (Kahan-compensated), float64 equatorial rays to kernel
+    B2 and the rest to kernel B3 (`select_path`); on CPU tensors float32
+    equatorial rays take B1's eager twin and the rest the 16-row
     integrate_batch, the JAX package's own CPU path.
     """
     path = select_path(backend, q0s.device, q0s.dtype, equatorial)
-    if path == "kernel":
-        from .integrate_cuda import integrate_batch_cuda
-        return integrate_batch_cuda(q0s, p0s, steps, delta, rs, r_max, omega,
-                                    order=order)
-    if path == "compensated":
-        return integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max,
-                                           omega, order=order)
-    return integrate_batch(q0s, p0s, steps, delta, rs, r_max, omega,
-                           order=order)
+    from . import integrate_cuda as tc
+    integrator = {"kernel": tc.integrate_batch_cuda,
+                  "kernel_eq": tc.integrate_batch_eq_cuda,
+                  "kernel_generic": tc.integrate_batch_generic_cuda,
+                  "compensated": integrate_batch_compensated,
+                  "plain": integrate_batch}[path]
+    return integrator(q0s, p0s, steps, delta, rs, r_max, omega, order=order)
 
 
 def _active_mask(q1r, r_capture, r_max):
@@ -194,47 +194,131 @@ def _run_masked(state, steps, step_fn, r_capture, r_max):
     return state, n_steps
 
 
+def classify_final(final_q, final_p, esc_pred, rs, r_max):
+    """Status from the final radius (captured at r <= 1.1 rs, escaped at
+    r >= r_max, else alive), then the exact-predicate rescue unless
+    esc_pred is None: returns (final_q, status).  rs and r_max are exact
+    in final_q's dtype."""
+    status = _status(final_q[..., 1], _capture_radius(rs, final_q.dtype),
+                     r_max)
+    if esc_pred is None:
+        return final_q, status
+    return schw_escape_rescue(final_q, final_p, status, esc_pred, rs, r_max)
+
+
+def finish_generic(state, q0s, p0s, rs, r_max):
+    """Read-out of the 16-row integrators: the first copy's q and p,
+    classified and rescued from the launch state; (final_q, final_p,
+    status)."""
+    final_q, final_p = unpack_q1(state), unpack_p1(state)
+    final_q, status = classify_final(
+        final_q, final_p, schw_true_escape_pred(q0s, p0s, rs), rs, r_max)
+    return final_q, final_p, status
+
+
 def integrate_batch(q0s, p0s, steps, delta, rs, r_max, omega, order=2):
     """Integrate a flat (N, 4) batch with the 16-row generic step.
 
     Returns (final_q, final_p, status, n_steps); final_q is the first
     copy's position, n_steps the per-ray count of steps applied.
     """
+    state, n_steps = plain_cores(pack_state(q0s, p0s), steps, delta, rs,
+                                 r_max, omega, order)
     dtype = q0s.dtype
+    return (*finish_generic(state, q0s, p0s, _in_dtype(rs, dtype),
+                            _in_dtype(r_max, dtype)), n_steps)
+
+
+def plain_cores(state, steps, delta, rs, r_max, omega, order=2):
+    """At most `steps` masked, guarded unfused steps on a 16-row state
+    (integrate_batch's loop, the JAX package's XLA path): (state,
+    n_steps)."""
+    dtype = state[1].dtype
     delta = _in_dtype(delta, dtype)
     rs = _in_dtype(rs, dtype)
     r_max = _in_dtype(r_max, dtype)
     subs = substep_schedule(delta, omega, order, dtype=dtype)
     cap = jump_cap(delta, dtype)
-    r_capture = _capture_radius(rs, dtype)
 
     def step(state):
         return guard_state(state, fantasy_step(state, subs, rs), rs, cap)
 
-    state, n_steps = _run_masked(pack_state(q0s, p0s), steps, step,
-                                 r_capture, r_max)
-    status = _status(state[1], r_capture, r_max)
-    final_q, final_p = unpack_q1(state), unpack_p1(state)
-    final_q, status = schw_escape_rescue(
-        final_q, final_p, status, schw_true_escape_pred(q0s, p0s, rs),
-        rs, r_max)
-    return final_q, final_p, status, n_steps
+    return _run_masked(state, steps, step, _capture_radius(rs, dtype), r_max)
 
 
-def substep_params(delta, rs, r_max, omega, order, dtype=torch.float32):
-    """The compensated staggered integrator's scalars as one CPU tensor:
-    [rs, r_max, cap, (d_i, one_minus_cos_i, sin_i, bridge_i) x n_sub], in
-    `dtype` — the layout of the JAX kernel's SMEM vector
-    (`integrate_pallas._substep_params(compensated=True, staggered=True)`).
-    The CUDA kernel and its eager twin both read this vector."""
+def substep_params(delta, rs, r_max, omega, order, dtype=torch.float32,
+                   compensated=True, staggered=True):
+    """The integrators' scalars as one CPU tensor in `dtype`:
+    [rs, r_max, cap, (d_i, c_i, sin_i[, bridge_i]) x n_sub], with c_i
+    one_minus_cos of the mixing angle (compensated) or its cos (plain),
+    and the bridge only in the staggered layouts — the JAX kernel's SMEM
+    vector (`integrate_pallas._substep_params(compensated, staggered)`).
+    Kernel B1 reads the compensated staggered vector, B2 the plain
+    staggered one, B3 the plain triples; each kernel and its eager twin
+    read the same vector."""
     delta = _in_dtype(delta, dtype)
-    subs = substep_schedule(delta, omega, order, omc=True, dtype=dtype)
+    subs = substep_schedule(delta, omega, order, omc=compensated,
+                            dtype=dtype)
     bridges = bridge_sizes([s[0] for s in subs], dtype=dtype)
     scal = [_in_dtype(rs, dtype), _in_dtype(r_max, dtype),
             jump_cap(delta, dtype)]
-    for (d_i, omc_i, sin_i), br_i in zip(subs, bridges):
-        scal += [d_i, omc_i, sin_i, br_i]
+    for trip, br_i in zip(subs, bridges):
+        scal += list(trip) + ([br_i] if staggered else [])
     return torch.tensor(scal, dtype=dtype)
+
+
+def split_params(vec, width):
+    """(rs, r_max, cap, [substep tuples of `width`]) as Python floats from
+    a `substep_params` vector (width 4 staggered, 3 plain)."""
+    p = vec.tolist()
+    subs = [tuple(p[3 + width * j:3 + width * (j + 1)])
+            for j in range((len(p) - 3) // width)]
+    return p[0], p[1], p[2], subs
+
+
+def staggered_open(state, vec, open_fn):
+    """The masked opening half-A of a staggered integrator, applied to the
+    initially active rays: returns (state, act0)."""
+    rs, r_max, _, subs = split_params(vec, 4)
+    act0 = _active_mask(state[1], _capture_radius(rs, state[1].dtype), r_max)
+    opened = open_fn(state, subs[0][0], rs)
+    return tuple(torch.where(act0, o, s) for o, s in zip(opened, state)), act0
+
+
+def staggered_cores(state, steps, vec, core_fn):
+    """At most `steps` masked, guarded core steps B(d/2) M B(d/2)
+    A(bridge) per substep on an opened state: (state, n_steps)."""
+    rs, r_max, cap, subs = split_params(vec, 4)
+
+    def step(state):
+        new = state
+        for d_i, c_i, sin_i, br_i in subs:
+            new = core_fn(new, d_i, rs, c_i, sin_i, br_i)
+        return guard_state(state, new, rs, cap)
+
+    return _run_masked(state, steps, step,
+                       _capture_radius(rs, state[1].dtype), r_max)
+
+
+def staggered_close(state, opened, vec, close_fn):
+    """Undo the pending half-A of the `opened` rays, except those the
+    guard parked at exactly r == rs (flow A divides by r - rs there)."""
+    rs, _, _, subs = split_params(vec, 4)
+    closed = close_fn(state, subs[0][0], rs)
+    mask = opened & (state[1] != rs)
+    return tuple(torch.where(mask, c, s) for c, s in zip(closed, state))
+
+
+def _integrate_staggered(state, steps, vec, flows):
+    """Open, cores, close — the loop of kernels B1 and B2; steps == 0 is an
+    exact no-op, as in the kernels."""
+    open_fn, core_fn, close_fn = flows
+    if steps <= 0:
+        return state, torch.zeros(state[1].shape, dtype=torch.int32,
+                                  device=state[1].device)
+    state, act0 = staggered_open(state, vec, open_fn)
+    state, n_steps = staggered_cores(state, steps, vec, core_fn)
+    return staggered_close(state, act0, vec, close_fn), n_steps
 
 
 def finish_compensated(state, q0s, p0s, rs, r_max):
@@ -242,22 +326,20 @@ def finish_compensated(state, q0s, p0s, rs, r_max):
     fold the deficits (true = s - c), rebuild the invariant theta slots
     (pi/2 and 0), classify, and apply the exact-predicate rescue from the
     launch state."""
-    dtype = q0s.dtype
     best = unpack_eqc(state)
     th = torch.full_like(best[1], math.pi / 2)
     zero = torch.zeros_like(best[1])
     final_q = torch.stack([best[0], best[1], th, best[2]], dim=-1)
     final_p = torch.stack([best[3], best[4], zero, best[5]], dim=-1)
-    status = _status(best[1], _capture_radius(rs, dtype), r_max)
-    final_q, status = schw_escape_rescue(
-        final_q, final_p, status, schw_true_escape_pred(q0s, p0s, rs),
-        rs, r_max)
+    final_q, status = classify_final(
+        final_q, final_p, schw_true_escape_pred(q0s, p0s, rs), rs, r_max)
     return final_q, final_p, status
 
 
 def integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max, omega,
                                 order=2):
-    """Eager twin of the compensated CUDA kernel (equatorial rays only).
+    """Eager twin of kernel B1, the compensated CUDA kernel (equatorial
+    rays only).
 
     Runs the staggered compensated flows (physics.hamiltonian.staggered_eqc)
     on the 24-row state: one masked opening half-A, masked cores
@@ -265,36 +347,65 @@ def integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max, omega,
     masked closing half-A (skipped for rays parked at r == rs).  Requires
     theta == pi/2 and p_theta == 0 for every ray.
     """
-    dtype = q0s.dtype
-    p = substep_params(delta, rs, r_max, omega, order, dtype).tolist()
-    rs, r_max, cap = p[0], p[1], p[2]
-    subs = [tuple(p[3 + 4 * j:7 + 4 * j]) for j in range((len(p) - 3) // 4)]
-    r_capture = _capture_radius(rs, dtype)
-    open_fn, core_fn, close_fn = staggered_eqc
-    d0 = subs[0][0]
+    vec = substep_params(delta, rs, r_max, omega, order, q0s.dtype)
+    state, n_steps = _integrate_staggered(pack_state_eqc(q0s, p0s), steps,
+                                          vec, staggered_eqc)
+    return (*finish_compensated(state, q0s, p0s, float(vec[0]),
+                                float(vec[1])), n_steps)
 
-    state = pack_state_eqc(q0s, p0s)
-    act0 = _active_mask(state[1], r_capture, r_max)
-    if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
-        opened = open_fn(state, d0, rs)
-        state = tuple(torch.where(act0, o, s) for o, s in zip(opened, state))
+
+def finish_eq(state, q0s, p0s, rs, r_max):
+    """Read-out of the plain 12-row integrators (kernel B2 and its twin):
+    the theta slots come back from the launch state, as the JAX kernel's
+    `_unpack_tiles` rebuilds them (pi/2 and 0 for equatorial rays), then
+    classify and rescue."""
+    final_q = torch.stack([state[0], state[1], q0s[..., 2], state[2]], dim=-1)
+    final_p = torch.stack([state[3], state[4], p0s[..., 2], state[5]], dim=-1)
+    final_q, status = classify_final(
+        final_q, final_p, schw_true_escape_pred(q0s, p0s, rs), rs, r_max)
+    return final_q, final_p, status
+
+
+def integrate_batch_eq(q0s, p0s, steps, delta, rs, r_max, omega, order=2):
+    """Eager twin of kernel B2: the plain staggered 12-row equatorial
+    integrator (physics.hamiltonian.staggered_eq, the cos/sin mixing flow)
+    with B1's loop — the float64 render's integrator on the card, the JAX
+    package's `integrate_batch_pallas(equatorial=True, compensated=False)`.
+    Requires theta == pi/2 and p_theta == 0 for every ray."""
+    vec = substep_params(delta, rs, r_max, omega, order, q0s.dtype,
+                         compensated=False)
+    state, n_steps = _integrate_staggered(pack_state_eq(q0s, p0s), steps,
+                                          vec, staggered_eq)
+    return (*finish_eq(state, q0s, p0s, float(vec[0]), float(vec[1])),
+            n_steps)
+
+
+def fused_cores(state, steps, vec):
+    """At most `steps` masked, guarded fused-flow steps on a 16-row state
+    (the loop of kernel B3), from a plain-triples `substep_params`
+    vector: (state, n_steps)."""
+    rs, r_max, cap, subs = split_params(vec, 3)
 
     def step(state):
-        new = state
-        for d_i, omc_i, sin_i, br_i in subs:
-            new = core_fn(new, d_i, rs, omc_i, sin_i, br_i)
+        new = fantasy_step(state, subs, rs, step2_fn=fantasy_step_ord2_fused)
         return guard_state(state, new, rs, cap)
 
-    state, n_steps = _run_masked(state, steps, step, r_capture, r_max)
+    return _run_masked(state, steps, step,
+                       _capture_radius(rs, state[1].dtype), r_max)
 
-    if steps > 0:  # undo the pending half-A, except for rays parked at rs
-        closed = close_fn(state, d0, rs)
-        close_mask = act0 & (state[1] != rs)
-        state = tuple(torch.where(close_mask, c, s)
-                      for c, s in zip(closed, state))
 
-    final_q, final_p, status = finish_compensated(state, q0s, p0s, rs, r_max)
-    return final_q, final_p, status, n_steps
+def integrate_batch_fused(q0s, p0s, steps, delta, rs, r_max, omega,
+                          order=2):
+    """Eager twin of kernel B3: the 16-row generic integrator on the fused
+    flows (`fantasy_step_ord2_fused`), masked and guarded — the JAX
+    package's `integrate_batch_pallas(equatorial=False)`, for rays in any
+    plane.  Not bit-equal to integrate_batch, whose unfused flows round
+    differently."""
+    vec = substep_params(delta, rs, r_max, omega, order, q0s.dtype,
+                         compensated=False, staggered=False)
+    state, n_steps = fused_cores(pack_state(q0s, p0s), steps, vec)
+    return (*finish_generic(state, q0s, p0s, float(vec[0]), float(vec[1])),
+            n_steps)
 
 
 def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
@@ -342,11 +453,12 @@ class SchwarzschildIntegrator:
     """Counterpart of `grtrace.engine.integrate.SchwarzschildIntegrator`
     (the reference CUDASchwarzschildIntegrator's constructor signature).
 
-    backend 'torch' runs the 16-row integrate_batch on `device`; 'cuda'
-    needs kernel B3 (16-row generic), which is not ported yet.  device
-    defaults to 'cuda', as the JAX class runs on the default device, and
-    raises RuntimeError when no GPU is present; pass device='cpu' for the
-    CPU.
+    backend 'torch' runs the 16-row integrate_batch on `device` (the JAX
+    class's 'xla'); 'cuda' runs kernel B3, the 16-row generic kernel on
+    the fused flows (the JAX class's 'pallas', `integrate_batch_pallas`
+    with equatorial=False), and raises for CPU rays.  device defaults to
+    'cuda', as the JAX class runs on the default device, and raises
+    RuntimeError when no GPU is present; pass device='cpu' for the CPU.
     """
 
     def __init__(self, steps=500, delta=0.2, mass=1.0, omega=1.0, r_max=1e6,
@@ -356,6 +468,9 @@ class SchwarzschildIntegrator:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SchwarzschildIntegrator(device='cuda') needs "
                                "a CUDA GPU; pass device='cpu' for the CPU")
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {backend!r} "
+                             f"(expected 'torch' or 'cuda')")
         self.steps = int(steps)
         self.delta = float(delta)
         self.rs = 2.0 * float(mass)
@@ -369,16 +484,17 @@ class SchwarzschildIntegrator:
     def _tensors(self, q0s, p0s):
         return tuple(torch.as_tensor(
             x if isinstance(x, torch.Tensor) else np.array(x),
-            dtype=self.dtype, device=self.device) for x in (q0s, p0s))
+            dtype=self.dtype, device=self.device).contiguous()
+            for x in (q0s, p0s))
 
     def integrate_batch(self, q0s, p0s):
         q0s, p0s = self._tensors(q0s, p0s)
+        args = (q0s, p0s, self.steps, self.delta, self.rs, self.r_max,
+                self.omega)
         if self.backend == "cuda":
-            raise NotImplementedError(
-                "SchwarzschildIntegrator(backend='cuda') needs kernel B3 "
-                "(16-row generic), not ported yet: ROADMAP Queue B")
-        return integrate_batch(q0s, p0s, self.steps, self.delta, self.rs,
-                               self.r_max, self.omega, order=self.order)
+            from .integrate_cuda import integrate_batch_generic_cuda
+            return integrate_batch_generic_cuda(*args, order=self.order)
+        return integrate_batch(*args, order=self.order)
 
     def integrate_batch_full(self, q0s, p0s, n_keep=None):
         q0s, p0s = self._tensors(q0s, p0s)

@@ -25,7 +25,7 @@ import torch
 
 from ..physics.hamiltonian import pack_state
 from ..physics.kerr_schild import pack_state_ksc
-from .integrate_cuda import KernelLaunchError
+from .integrate_cuda import KernelLaunchError, _unsort
 from .integrate_ks import (N_SCAL, _check_orders, finish_disk, finish_ks,
                            finish_subrings, ks_params, n_substeps)
 
@@ -183,13 +183,6 @@ def _sorted_state(q0s, p0s, vec, compensated):
                               stable=True)
     pack = pack_state_ksc if compensated else pack_state
     return order_idx, torch.stack(pack(q0s[order_idx], p0s[order_idx]))
-
-
-def _unsort(rows, order_idx):
-    """(R, N) or (N,) launch-order rows back to the caller's order."""
-    out = torch.empty_like(rows)
-    out[..., order_idx] = rows
-    return out
 
 
 def integrate_batch_ks_cuda(q0s, p0s, steps, delta, params, r_max, omega,

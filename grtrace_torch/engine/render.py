@@ -3,11 +3,13 @@ classify -> composite — the torch counterpart of `grtrace.engine.render`.
 
 Everything from the pixel grid to the RGB image runs on one device, with
 no host round trip in between; the host loads the texture and fetches one
-(5,) count vector at the end.  On a CUDA device the integration runs the
-hand-written kernel (engine/integrate_cuda.py); on the CPU it runs the
-kernel's eager twin.  `render` also routes Kerr and charged scenes to the
-Kerr-Schild chart (engine/render_generic.py); the Boyer-Lindquist chart,
-the other metric families and antialiasing raise NotImplementedError.
+(5,) count vector at the end.  On a CUDA device the integration runs a
+hand-written kernel (engine/integrate_cuda.py: B1 for float32 rays, B2 for
+float64 rays); on the CPU it runs B1's eager twin for float32 rays and the
+16-row integrator for float64 rays, as the JAX package does.  `render`
+also routes Kerr and charged scenes to the Kerr-Schild chart
+(engine/render_generic.py); the Boyer-Lindquist chart, the other metric
+families and antialiasing raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -86,8 +88,8 @@ def render_pixels(bg_array, obs_x, fov, mass, boundary_radius,
 
     n = height * width
     # camera rays are folded into the equatorial plane, which licenses the
-    # equatorial (compensated) integrator; it rounds its scalars to dtype
-    # on the host
+    # equatorial integrators (B1, B2); they round their scalars to dtype on
+    # the host
     final_q, final_p, status, n_steps = integrate_dispatch(
         q0.reshape(n, 4), p0.reshape(n, 4), steps, float(delta),
         2.0 * float(mass), float(boundary_radius), float(omega),

@@ -1,10 +1,17 @@
-"""Float32 validation of the Kerr path against closed-form GR — the torch
-counterpart of the Kerr checks of `grtrace.engine.validate`.
+"""Validation of the Schwarzschild and Kerr paths against closed-form GR —
+the torch counterpart of `grtrace.engine.validate`.
 
+  * `schwarzschild_shadow_error` — the shadow boundary of the equatorial
+    Schwarzschild path (`integrate_dispatch`: kernel B1 for float32 and B2
+    for float64 CUDA rays, the eager paths for CPU rays) against the exact
+    arcsin formula (`schwarzschild_analytic_rho`), by sub-pixel bisection
+    along 8 image azimuths;
   * `kerr_shadow_errors` — the shadow boundary of the float32 Kerr-Schild
     path (kernel B5 on a CUDA device, its eager twin on the CPU) against
     the Bardeen (1973) radial-potential construction, per image azimuth,
     by sub-pixel bisection;
+  * `chunk_parity` — a checkpoint chunk kernel (B3 or B4) against its
+    eager twin on the same carry, the state bit for bit;
   * `ks_kernel_parity` — kernel B5 (with disk=(r_in, r_out) kernel B6,
     with subrings=n_orders kernel B7) against its eager twin on the same
     rays: q and p bit for bit, status and exit step exactly; in disk mode
@@ -25,10 +32,10 @@ import time
 import numpy as np
 import torch
 
-from ..physics.camera import cartesian_ics_from_pixels
+from ..physics.camera import cartesian_ics_from_pixels, initial_conditions
 from ..physics.spacetime import kerr_schild_g_inv
 from . import integrate_ks_cuda
-from .integrate import STATUS_ESCAPED
+from .integrate import STATUS_ESCAPED, integrate_dispatch
 from .integrate_ks import (STATUS_DISK, integrate_batch_disk_ks,
                            integrate_batch_disk_ksc, integrate_batch_ks,
                            integrate_batch_ksc, integrate_batch_subrings_ks,
@@ -74,6 +81,47 @@ def bisect_boundary(escape_fn, lo, hi, rounds=3, k=17, n_psi=N_PSI):
         lo = rhos[idx, first - 1]
         hi = rhos[idx, first]
     return 0.5 * (lo + hi), float((hi - lo).max())
+
+
+def schwarzschild_analytic_rho(mass=1.0):
+    """Closed-form shadow pixel radius: sin(alpha_phys) = b_crit sqrt(f)/r0
+    (exact for a static observer at finite r0), tan(alpha_cam) =
+    f tan(alpha_phys) (the camera scales the radial covector by sqrt(f)),
+    pinhole tan mapping to the plane."""
+    f = 1.0 - 2.0 * mass / R0
+    b_crit = 3.0 * np.sqrt(3.0) * mass
+    alpha_phys = np.arcsin(b_crit * np.sqrt(f) / R0)
+    tan_cam = f * np.tan(alpha_phys)
+    return tan_cam * PLANE_D / PLANE_W * SIZE
+
+
+def schwarzschild_shadow_error(steps=19_968, delta=0.01, omega=1.0,
+                               backend="auto", dtype=torch.float32,
+                               device="cuda"):
+    """{'px_err': max |boundary - analytic| in 256^2 pixels, 'bracket_px',
+    'rho_num': per azimuth, 'rho_analytic'} for the equatorial
+    Schwarzschild path at `dtype` (`integrate_dispatch`: kernel B1 for
+    float32 and B2 for float64 CUDA rays, the eager paths for CPU rays)."""
+    obs = torch.tensor([R0, 0.0, 0.0], dtype=dtype, device=device)
+
+    def escape(rhos):
+        pix = torch.as_tensor(_pixel_positions(rhos, PSIS[:, None]),
+                              dtype=dtype, device=device)
+        q0, p0, *_ = initial_conditions(obs, pix, mass_bh=1.0)
+        _, _, status, _ = integrate_dispatch(
+            q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous(),
+            steps, delta, 2.0, BOUNDARY, omega, backend=backend,
+            equatorial=True)
+        return status.reshape(rhos.shape).cpu().numpy() == STATUS_ESCAPED
+
+    rho_num, bracket = bisect_boundary(escape, 15.0, 32.0)
+    rho_ana = schwarzschild_analytic_rho()
+    return {
+        "px_err": float(np.abs(rho_num - rho_ana).max()),
+        "bracket_px": round(bracket, 4),
+        "rho_num": [round(float(r), 3) for r in rho_num],
+        "rho_analytic": round(float(rho_ana), 3),
+    }
 
 
 def bardeen_escapes(rhos, spin, charge=0.0, psis=None):
@@ -198,6 +246,34 @@ def timed(fn, device):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def chunk_parity(kernel, twin, state, steps, delta, rs, r_max, omega,
+                 order=2):
+    """A checkpoint chunk kernel (B3's `advance_state_cuda`, B4's
+    `advance_state_eqc_cuda`) against its eager twin (`checkpoint.
+    _advance_fused`, `_advance_eqc`) on the same carry.
+
+    Returns (the kernel's (state, n_steps_applied), the mismatch counts:
+    the state rows bit for bit, the steps applied exactly, and the domain
+    status of row 1 (captured r <= 1.1 rs, escaped r >= r_max, else alive)
+    exactly; plus the kernel+wrapper and twin times in ms).
+    """
+    args = (state, steps, delta, rs, r_max, omega)
+    (sk, nk), kernel_ms = timed(lambda: kernel(*args, order=order),
+                                state.device)
+    (st, nt), twin_ms = timed(lambda: twin(*args, order=order), state.device)
+
+    def domain(s):
+        r = s[1]
+        return torch.where(r >= r_max, 2, torch.where(r <= 1.1 * rs, 1, 0))
+
+    res = {"status_mismatch": int((domain(sk) != domain(st)).sum()),
+           "n_steps_mismatch": int((nk != nt).sum()),
+           "state_bitwise_equal": _bitwise_equal(sk, st),
+           "max_abs_err": _max_abs_err([(sk, st)]),
+           "kernel_ms": kernel_ms, "twin_ms": twin_ms}
+    return (sk, nk), res
 
 
 def ks_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,

@@ -6,11 +6,13 @@ arXiv:2010.02237).  The state is a tuple of component tensors, one per row,
 exactly as in the JAX module, and every expression keeps the JAX module's
 association, so a reader can hold the two side by side.
 
-Arithmetic rules that the CUDA kernel (csrc/fantasy_eqc.cu) relies on to be
-bit-equal to these flows on the card:
+Arithmetic rules that the CUDA kernels (csrc/fantasy_eqc.cu,
+csrc/fantasy_schw16.cu) rely on to be bit-equal to these flows on the card:
   * only plain binary tensor ops: no addcmul, lerp, or torch.compile;
   * `1.0 / x` is torch's reciprocal (an IEEE-rounded 1/x), which is what
     the kernel's `1.0f / x` gives under -prec-div;
+  * the fused flows' `torch.sin` / `torch.cos` are the card's `sin` /
+    `cos` of the ray type, the functions the kernel calls;
   * scalars (dt, rs, trig of the mixing angle) are Python floats that are
     exact in the working dtype — a torch op casts such a scalar to the
     tensor's dtype without rounding, so the op rounds once, in that dtype.
@@ -126,6 +128,95 @@ def fantasy_step_ord2(state, delta, rs, cos_w, sin_w):
     state = _flow_mixed(state, cos_w, sin_w)
     state = _flow_b(state, half, rs)
     state = _flow_a(state, half, rs)
+    return state
+
+
+def _flow_a_fused(state, dt, rs):
+    """Flow A with shared reciprocals and trig: the formulas of _flow_a
+    factored as the JAX module factors them (3 divisions, 1 sin, 1 cos)."""
+    (q1t, q1r, q1th, q1ph,
+     p1t, p1r, p1th, p1ph,
+     q2t, q2r, q2th, q2ph,
+     p2t, p2r, p2th, p2ph) = state
+
+    r = q1r
+    inv_r = 1.0 / r
+    inv_r2 = inv_r * inv_r
+    inv_r3 = inv_r2 * inv_r
+    inv_rms = 1.0 / (r - rs)
+    sin_th = torch.sin(q1th)
+    cos_th = torch.cos(q1th)
+    inv_sin = 1.0 / sin_th
+    inv_sin2 = inv_sin * inv_sin
+
+    pt2 = p2t * p2t
+    pr2 = p2r * p2r
+    pth2 = p2th * p2th
+    pph2_s = p2ph * p2ph * inv_sin2
+
+    dH_r = (0.5 * rs) * (inv_rms * inv_rms * pt2 + inv_r2 * pr2) \
+        - inv_r3 * (pth2 + pph2_s)
+    dH_th = -cos_th * inv_sin * inv_r2 * pph2_s
+
+    p1r = p1r - dt * dH_r
+    p1th = p1th - dt * dH_th
+
+    q2t = q2t - (dt * r * inv_rms) * p2t          # g^tt = -r/(r-rs)
+    q2r = q2r + dt * (1.0 - rs * inv_r) * p2r     # g^rr = 1 - rs/r
+    q2th = q2th + (dt * inv_r2) * p2th
+    q2ph = q2ph + (dt * inv_r2 * inv_sin2) * p2ph
+
+    return (q1t, q1r, q1th, q1ph, p1t, p1r, p1th, p1ph,
+            q2t, q2r, q2th, q2ph, p2t, p2r, p2th, p2ph)
+
+
+def _flow_b_fused(state, dt, rs):
+    """Flow B twin of _flow_a_fused (metric at q2, drift q1, kick p2)."""
+    (q1t, q1r, q1th, q1ph,
+     p1t, p1r, p1th, p1ph,
+     q2t, q2r, q2th, q2ph,
+     p2t, p2r, p2th, p2ph) = state
+
+    r = q2r
+    inv_r = 1.0 / r
+    inv_r2 = inv_r * inv_r
+    inv_r3 = inv_r2 * inv_r
+    inv_rms = 1.0 / (r - rs)
+    sin_th = torch.sin(q2th)
+    cos_th = torch.cos(q2th)
+    inv_sin = 1.0 / sin_th
+    inv_sin2 = inv_sin * inv_sin
+
+    pt2 = p1t * p1t
+    pr2 = p1r * p1r
+    pth2 = p1th * p1th
+    pph2_s = p1ph * p1ph * inv_sin2
+
+    dH_r = (0.5 * rs) * (inv_rms * inv_rms * pt2 + inv_r2 * pr2) \
+        - inv_r3 * (pth2 + pph2_s)
+    dH_th = -cos_th * inv_sin * inv_r2 * pph2_s
+
+    p2r = p2r - dt * dH_r
+    p2th = p2th - dt * dH_th
+
+    q1t = q1t - (dt * r * inv_rms) * p1t
+    q1r = q1r + dt * (1.0 - rs * inv_r) * p1r
+    q1th = q1th + (dt * inv_r2) * p1th
+    q1ph = q1ph + (dt * inv_r2 * inv_sin2) * p1ph
+
+    return (q1t, q1r, q1th, q1ph, p1t, p1r, p1th, p1ph,
+            q2t, q2r, q2th, q2ph, p2t, p2r, p2th, p2ph)
+
+
+def fantasy_step_ord2_fused(state, delta, rs, cos_w, sin_w):
+    """Fused-flow order-2 step (the step of kernel B3): the algorithm of
+    fantasy_step_ord2 with fewer divisions; not bit-equal to it."""
+    half = 0.5 * delta
+    state = _flow_a_fused(state, half, rs)
+    state = _flow_b_fused(state, half, rs)
+    state = _flow_mixed(state, cos_w, sin_w)
+    state = _flow_b_fused(state, half, rs)
+    state = _flow_a_fused(state, half, rs)
     return state
 
 
@@ -407,7 +498,9 @@ def substep_schedule(delta, omega, order: int, omc=False,
 
 
 def fantasy_step(state, subs, rs, step2_fn=fantasy_step_ord2):
-    """One composed step of any order: apply step2_fn per substep."""
+    """One composed step of any order: apply step2_fn per substep
+    (fantasy_step_ord2, fantasy_step_ord2_fused, or a 12- or 24-row step
+    for its layout)."""
     for d_i, cos_i, sin_i in subs:
         state = step2_fn(state, d_i, rs, cos_i, sin_i)
     return state

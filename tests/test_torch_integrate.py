@@ -8,7 +8,7 @@
   equal step counts, q and p within 1e-6 — and at the full 200k-step
   headline budget against the float64 oracle golden.
 * The dispatch rules, decided from the tensors' device and dtype, with no
-  kernel launched.
+  kernel launched: B1, B2 or B3 on CUDA, the eager paths on the CPU.
 
 The CUDA kernel itself is compared with its twin on the card, by
 chip_smoke.py (this machine has neither a GPU nor nvcc).
@@ -248,8 +248,9 @@ def test_schwarzschild_integrator_matches_jax():
     t = _np(ti.SchwarzschildIntegrator(**kw, dtype=torch.float64,
                                        device="cpu").integrate_batch(q0, p0))
     assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-    with pytest.raises(NotImplementedError, match="B3"):
-        ti.SchwarzschildIntegrator(**kw, backend="cuda",
+    # backend 'cuda' is kernel B3, which refuses CPU rays: no fallback
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.SchwarzschildIntegrator(**kw, backend="cuda", dtype=torch.float64,
                                    device="cpu").integrate_batch(q0, p0)
 
 
@@ -270,11 +271,19 @@ CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 @pytest.mark.parametrize("backend,device,dtype,equatorial,path", [
     ("auto", CUDA, torch.float32, True, "kernel"),
     ("cuda", CUDA, torch.float32, True, "kernel"),
+    ("auto", CUDA, torch.float64, True, "kernel_eq"),
+    ("cuda", CUDA, torch.float64, True, "kernel_eq"),
+    ("auto", CUDA, torch.float32, False, "kernel_generic"),
+    ("auto", CUDA, torch.float64, False, "kernel_generic"),
+    ("cuda", CPU, torch.float64, False, "kernel_generic"),
     ("auto", CPU, torch.float32, True, "compensated"),
     ("auto", CPU, torch.float64, True, "plain"),
     ("auto", CPU, torch.float32, False, "plain"),
+    ("auto", CPU, torch.float64, False, "plain"),
     ("torch", CUDA, torch.float32, True, "compensated"),
     ("torch", CUDA, torch.float64, True, "plain"),
+    ("torch", CUDA, torch.float32, False, "plain"),
+    ("torch", CUDA, torch.float64, False, "plain"),
 ])
 def test_select_path(backend, device, dtype, equatorial, path):
     assert ti.select_path(backend, device, dtype, equatorial) == path
@@ -282,9 +291,24 @@ def test_select_path(backend, device, dtype, equatorial, path):
 
 @pytest.mark.parametrize("dtype,equatorial,kernel", [
     (torch.float64, True, "B2"), (torch.float32, False, "B3")])
-def test_cuda_without_kernel_raises(dtype, equatorial, kernel):
-    with pytest.raises(NotImplementedError, match=kernel):
-        ti.select_path("auto", CUDA, dtype, equatorial)
+def test_cuda_without_kernel_raises(monkeypatch, dtype, equatorial, kernel):
+    """The CUDA routes of B2 and B3 reach their kernel or raise: here the
+    wrapper refuses rays it cannot launch on, and no eager twin runs in
+    its place, nor does any launch counter move."""
+    path = ti.select_path("auto", CUDA, dtype, equatorial)
+    assert path == {"B2": "kernel_eq", "B3": "kernel_generic"}[kernel]
+    monkeypatch.setattr(ti, "select_path", lambda *a: path)
+    twins = []
+    for name in ("integrate_batch", "integrate_batch_eq",
+                 "integrate_batch_fused", "integrate_batch_compensated"):
+        monkeypatch.setattr(ti, name, lambda *a, **k: twins.append(a))
+    before = (tc.launches, tc.eq_launches, tc.generic_launches)
+    q0 = torch.zeros((4, 4), dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        ti.integrate_dispatch(q0, q0, 10, 0.01, 2.0, 31.0, 1.0,
+                              equatorial=equatorial)
+    assert not twins
+    assert (tc.launches, tc.eq_launches, tc.generic_launches) == before
 
 
 def test_unknown_backend_raises():
