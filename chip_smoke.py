@@ -54,6 +54,18 @@ the port's paths through them:
   * the Schwarzschild shadow boundary through B1 (float32) and B2
     (float64) against the closed form, within 0.01 px.
 
+Beside them it reports what bounds the kernels: the resident blocks per SM,
+registers, local and shared bytes of every kernel instantiation
+(`cudaOccupancyMaxActiveBlocksPerMultiprocessor` through probe libraries
+built from the same sources) and, where the toolkit has `cuobjdump`, the
+SASS instruction and MUFU counts of each kernel and its loops (phase 2b;
+B3 and B5-B7 must not spill); bare B5, B6 and B7 launches on a quarter, a
+half and all of their frames' rays (9b, 12b, 15b: a change to
+fantasy_ks.cu for B5 is kept only if B6 and B7 do not rise beyond their
+spread) and B3's on the float64 headline rays (23b); and, in 21a, the
+sincos that B3's flows call, which must equal torch's sin and cos on every
+point.
+
 Each render checks that it went through its kernel.  Each phase prints one
 line; any failure raises and the script exits non-zero.  The last three
 lines are a JSON record of the kernels, the card's name and power limit,
@@ -65,6 +77,7 @@ machine with the card has no jax.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -102,19 +115,24 @@ SUB_ORDERS, SUB_ELEV = 3, 75.0
 # cores, 3.35 TB/s HBM3.
 PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 # Floating-point operations per ray-step, counted from the kernel sources
-# (each add, subtract, multiply, divide and square root is one; no FMA
-# under -fmad=false):
+# (each add, subtract, multiply, divide and square root is one, a negation
+# none; no FMA under -fmad=false):
 #   fantasy_eqc: per substep B M B A(bridge) = 1 + 3 flows x 42 + mixing 90
 #                = 217; the guard's |dr| test 2 per step
 #   fantasy_ks (32 rows): per substep 1 + 3 flows x (kick/drift 120 +
 #                7 Kahan adds x 5) + mixing 120 = 586; per step the active
-#                test 21 and the guard 95; the open and close flows 2 x 155
-#                once per ray
+#                test's |q1|^2 (5; the radius is carried from the last
+#                guard) and the guard 50: the sum of the 16 rows (15), h
+#                from the H and S of the step's last flow A (11), the
+#                tolerance |p2|^2 + 1 and its product (7) and the new radius
+#                (17); once per ray the open and close flows (2 x 155) and
+#                the launch's radius and active test (22) = 332 (the radius
+#                a park recomputes is not counted: the bound stays a bound)
 #   fantasy_ks disk mode (32 rows): B5's count plus, per accepted step, the
 #                two folds of z and their product (3); per hit ray the
 #                crossing: t (2), eight lerps on folded rows (8 x 5) and the
 #                hit radius (17) = 59 (crossings outside the annulus, which
-#                do 39 of these, are not counted: the bound stays a bound)
+#                do 34 of these, are not counted: the bound stays a bound)
 #   fantasy_ks subring mode (32 rows): B5's count plus the same 3 per
 #                accepted step; per recorded crossing t (2) and the eight
 #                lerps (40) = 42 (a crossing past the last slot only adds
@@ -122,17 +140,19 @@ PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 #   fantasy_eqc plain layout (B2, float64): per substep B M B A(bridge) =
 #                1 + 3 flows x 30 + mixing 72 = 163; the guard 2 per step;
 #                the open and close flows 2 x 31 once per ray
-#   fantasy_schw16 (B3): per substep A B M B A = 1 + 4 fused flows x 46
-#                (each sin and each cos counted as one operation, though
-#                the card spends several on it: the bound stays a bound)
-#                + mixing 96 = 281; the guard 2 per step
+#   fantasy_schw16 (B3): per substep A B M B A = 1 + 3 metric evaluations
+#                x 26 (each sin and each cos counted as one operation,
+#                though the card spends several on it: the bound stays a
+#                bound; flow A's metric is carried to the next substep) + 4
+#                applications of dt x 20 + mixing 96 = 255; the guard 2 per
+#                step
 #   fantasy_eqc core loop (B4): B1's 217 per substep and 2 per step, no
 #                open or close
 # (every scene runs order 2: one substep per step)
 EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
 EQ_FLOPS_SUBSTEP, EQ_FLOPS_STEP, EQ_FLOPS_RAY = 163, 2, 62
-SCHW16_FLOPS_SUBSTEP, SCHW16_FLOPS_STEP = 281, 2
-KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 116, 310
+SCHW16_FLOPS_SUBSTEP, SCHW16_FLOPS_STEP = 255, 2
+KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 55, 332
 DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
 SUB_FLOPS_STEP, SUB_FLOPS_EVENT = 3, 42
 # bytes the integration must move per ray: q0 and p0 in, final q and p,
@@ -461,7 +481,7 @@ def kerr_main_path():
              f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
              f"bound {bound_ms:.3f} ms ({bound_by})")
     return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
-            "bound_by": bound_by, **par}
+            "bound_by": bound_by, "q0": q0c, "p0": p0c, **par}
 
 
 def disk_camera(size, device, dtype=torch.float32, elevation_deg=12.0):
@@ -615,7 +635,7 @@ def disk_main_path():
               f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
               f"bound {bound_ms:.3f} ms ({bound_by})")
     return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
-            "bound_by": bound_by, **par}
+            "bound_by": bound_by, "q0": q0, "p0": p0, **par}
 
 
 def check_parity_subring(tag, size, steps, delta, dtype, compensated,
@@ -776,7 +796,7 @@ def subring_main_path():
               f"eager twin {par['twin_ms']:.3f} ms, {ray_steps} ray-steps, "
               f"bound {bound_ms:.3f} ms ({bound_by})")
     return {"launches": launches, "wall": wall, "bound_ms": bound_ms,
-            "bound_by": bound_by, **par}
+            "bound_by": bound_by, "q0": q0, "p0": p0, **par}
 
 
 def photon_shell_anchor():
@@ -946,27 +966,30 @@ def f64_main_path(device, counts32):
 
 
 def trig_probe(device):
-    """The card's sinf/cosf and sin/cos as kernel B3 calls them (built by
-    kernels/build.py into fantasy_schw16.cu's library) against torch.sin /
+    """The card's sinf/cosf and sin/cos, as two calls and as the one
+    sincosf/sincos call that kernel B3's flows make (built by
+    kernels/build.py into fantasy_schw16.cu's library), against torch.sin /
     torch.cos: every float32 in (0, pi), and 1e8 float64 points there."""
     from grtrace_torch.kernels.build import load
     lib = load()
     t0 = time.perf_counter()
+    names = ("sin", "cos", "sincos_sin", "sincos_cos")
 
     def card(x):
         entry = (lib.grt_fantasy_trig_f32_launch if x.dtype == torch.float32
                  else lib.grt_fantasy_trig_f64_launch)
-        s, c = torch.empty_like(x), torch.empty_like(x)
-        err = entry(x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(),
+        outs = [torch.empty_like(x) for _ in names]
+        err = entry(x.data_ptr(), *(o.data_ptr() for o in outs), x.numel(),
                     torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"trig probe launch failed: cudaError {err}")
-        return s, c
+        return outs
 
     def diffs(x, stats):
         ints = torch.int32 if x.dtype == torch.float32 else torch.int64
-        for name, mine, ref in zip(("sin", "cos"), card(x),
-                                   (torch.sin(x), torch.cos(x))):
+        ref_sin, ref_cos = torch.sin(x), torch.cos(x)
+        for name, mine, ref in zip(names, card(x),
+                                   (ref_sin, ref_cos, ref_sin, ref_cos)):
             ulp = (mine.view(ints).long() - ref.view(ints).long()).abs()
             bad = ulp != 0
             stats[name] += int(bad.sum())
@@ -978,8 +1001,10 @@ def trig_probe(device):
                                           float(ref[k])])
 
     def new_stats():
-        return {"points": 0, "sin": 0, "cos": 0, "sin_max_ulp": 0,
-                "cos_max_ulp": 0, "examples": []}
+        stats = {"points": 0, "examples": []}
+        for name in names:
+            stats.update({name: 0, f"{name}_max_ulp": 0})
+        return stats
 
     f32 = new_stats()
     # float32(pi) lies above pi, so bit patterns 1 .. bits(float32(pi)) - 1
@@ -1001,9 +1026,15 @@ def trig_probe(device):
     torch.cuda.synchronize()
     res = {"float32": f32, "float64": f64,
            "seconds": time.perf_counter() - t0}
-    phase("21a", f"the card's sin/cos (kernel build) vs torch.sin/torch.cos "
-                 f"on (0, pi), differing values (B3's parity in 21b rests "
-                 f"on 0): {json.dumps(res)}")
+    phase("21a", f"the card's sin/cos and sincos (kernel build) vs "
+                 f"torch.sin/torch.cos on (0, pi), differing values (B3's "
+                 f"flows call sincos; its parity in 21b rests on 0): "
+                 f"{json.dumps(res)}")
+    for dt, st in (("float32", f32), ("float64", f64)):
+        if st["sincos_sin"] or st["sincos_cos"]:
+            raise AssertionError(f"{dt} sincos differs from torch.sin/cos "
+                                 f"on {st['sincos_sin']} / "
+                                 f"{st['sincos_cos']} points")
 
 
 def rotated_rays(size, device, dtype):
@@ -1242,22 +1273,247 @@ def schw_boundary(device):
                                  f"the closed form, not < {SCHW_PX_ERR} px")
 
 
+# kernels whose __launch_bounds__ ask for the most blocks that fit without a
+# spill (B3, B5-B7): a spill means a later edit outgrew them
+NO_SPILL = ("fantasy_ks_kernel", "fantasy_schw16_kernel")
+
+
 def build_kernels():
     from grtrace_torch.kernels import build
     t0 = time.perf_counter()
     built = build.build()
     wall = time.perf_counter() - t0
     build.load()
-    regs = []
+    regs, spilled = [], []
     for stem, (lib, _) in sorted(built.items()):
         log = lib.with_suffix(".log").read_text()
         for k in build.ptxas_summary(log):
             regs.append(f"{k['kernel']}: {k['registers']} registers, "
                         f"{k['spill_stores']}/{k['spill_loads']} bytes "
                         f"spill stores/loads")
+            if (k["kernel"].startswith(NO_SPILL)
+                    and (k["spill_stores"] or k["spill_loads"])):
+                spilled.append(k["kernel"])
     per_lib = {stem: round(s, 2) for stem, (_, s) in built.items()}
     phase(2, f"built {sorted(p.name for p, _ in built.values())} in "
              f"{wall:.2f} s (per nvcc {per_lib}); {' | '.join(regs)}")
+    if spilled:
+        raise AssertionError(f"{spilled} spill registers: lower their "
+                             f"min_blocks (or their register use)")
+
+
+# Every kernel instantiation of the port, for the occupancy report:
+# resident blocks of 128 threads per SM, from the CUDA runtime on the card
+OCC_KERNELS = {
+    "fantasy_eqc": [f"fantasy_eqc_kernel<{args}>" for args in (
+        "float, true, true", "double, false, true", "float, true, false")],
+    "fantasy_ks": [f"fantasy_ks_kernel<{t}, {comp}, Mode::{mode}>"
+                   for mode in ("kPlain", "kDisk", "kSubring")
+                   for t, comp in (("float", "true"), ("float", "false"),
+                                   ("double", "false"))],
+    "fantasy_schw16": ["fantasy_schw16_kernel<float>",
+                       "fantasy_schw16_kernel<double>"],
+}
+# a probe library that includes one kernel source and asks the runtime
+# about each of its kernels: out = [blocks per SM, registers, local bytes a
+# thread, static shared bytes a block]
+OCC_SHIM = """#include "{source}"
+
+namespace {{
+template <typename K>
+int query(K kernel, int* out) {{
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {{
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, 128, 0);
+  }}
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(err);
+}}
+}}  // namespace
+
+extern "C" int grt_occupancy(int which, int* out) {{
+  switch (which) {{
+{cases}
+  }}
+  return -1;
+}}
+"""
+
+
+def occupancy():
+    """{kernel: {blocks_per_sm, warps_per_sm, registers, local_bytes,
+    shared_bytes}} for OCC_KERNELS, through probe libraries built from the
+    checkout's sources with the kernels' own nvcc flags (all nvcc started
+    together)."""
+    import ctypes
+    from grtrace_torch.kernels import build
+    out_dir = build.BUILD_DIR / "occupancy"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for stem, kernels in OCC_KERNELS.items():
+        src = out_dir / f"{stem}_occ.cu"
+        cases = "\n".join(f"    case {j}: return query(&{k}, out);"
+                          for j, k in enumerate(kernels))
+        src.write_text(OCC_SHIM.format(source=build.CSRC_DIR / f"{stem}.cu",
+                                       cases=cases))
+        lib = out_dir / f"lib{stem}_occ.so"
+        procs[stem] = (lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    res = {}
+    for stem, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"occupancy probe of {stem} failed:\n{log}")
+        fn = ctypes.CDLL(str(lib)).grt_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        for j, kernel in enumerate(OCC_KERNELS[stem]):
+            buf = (ctypes.c_int * 4)()
+            err = fn(j, ctypes.addressof(buf))
+            if err:
+                raise RuntimeError(f"occupancy of {kernel}: cudaError {err}")
+            res[kernel] = {"blocks_per_sm": buf[0], "warps_per_sm": 4 * buf[0],
+                           "registers": buf[1], "local_bytes": buf[2],
+                           "shared_bytes": buf[3]}
+    return res
+
+
+def _cuobjdump():
+    from grtrace_torch.kernels import build
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidate = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return candidate if os.path.exists(candidate) else None
+
+
+def sass_counts(lib):
+    """{kernel: counts} from `cuobjdump -sass` of a built library: the
+    function's instructions and MUFU (special-function unit) instructions
+    by kind, and the same inside its two longest loops (the spans of its
+    backward branches; IEEE division and square root issue one MUFU.RCP /
+    MUFU.RSQ (64H in double) each on their fast path, their slow paths
+    are called subroutines past the function's exit)."""
+    import collections
+    import re
+    from grtrace_torch.kernels.build import _short_name
+    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(_short_name(m.group(1)), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, ins in funcs.items():
+        ops = [(a, re.sub(r"^@!?U?P\w+\s+", "", t)) for a, t in ins]
+        ops = [(a, t) for a, t in ops if not t.startswith("NOP")]
+
+        def count(lo=0, hi=float("inf")):
+            sel = [t for a, t in ops if lo <= a <= hi]
+            mufu = collections.Counter(t.split()[0] for t in sel
+                                       if t.startswith("MUFU"))
+            return {"instructions": len(sel),
+                    "mufu": sum(mufu.values()), "mufu_by_kind": dict(mufu)}
+
+        loops = []
+        for a, t in ops:
+            m = re.match(r"BRA(?:\.\S+)?\s+(?:\S+\s*,\s*)?0x([0-9a-f]+)", t)
+            if m and int(m.group(1), 16) < a:
+                loops.append((int(m.group(1), 16), a))
+        loops.sort(key=lambda span: span[0] - span[1])
+        out[name] = {**count(), "loops": [count(lo, hi)
+                                          for lo, hi in loops[:2]]}
+    return out
+
+
+def kernel_report():
+    """Phase 2b: resident blocks and warps per SM beside the registers of
+    every kernel instantiation, and the SASS counts of the libraries."""
+    from grtrace_torch.kernels import build
+    occ = occupancy()
+    phase("2b", f"resident blocks of 128 threads per SM "
+                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+                f"registers, local and shared bytes: {json.dumps(occ)}")
+    # B5-B7 use no local memory at all (B3's is sin and cos's argument
+    # reduction, not a spill: phase 2 checks its spills)
+    local = [k for k, v in occ.items()
+             if k.startswith("fantasy_ks_kernel") and v["local_bytes"]]
+    if local:
+        raise AssertionError(f"{local} use local memory: a spill")
+    tool = _cuobjdump()
+    if tool is None:
+        phase("2b", "SASS counts: no cuobjdump on this machine")
+        return occ
+    for stem in OCC_KERNELS:
+        lib = build.library_path(build.CSRC_DIR / f"{stem}.cu")
+        phase("2b", f"SASS of {lib.name} ({tool}): "
+                    f"{json.dumps(sass_counts(lib))}")
+    return occ
+
+
+# the ray-count sweep: every 4th, every 2nd and every ray of a frame, so
+# that the time shows whether the kernel waits on its longest ray or on the
+# bulk of the rays
+SWEEP_STRIDES = (4, 2, 1)
+
+
+def ray_sweep(prepare, q0, p0, reps=3):
+    """{'1/k': {rays, ms (median of reps launches, CUDA events), ms_all}}
+    for k in SWEEP_STRIDES; prepare(q, p) packs the rays as the wrapper
+    does and returns the bare kernel launch."""
+    from grtrace_torch.engine.validate import timed
+    out = {}
+    for k in SWEEP_STRIDES:
+        launch = prepare(q0[::k].contiguous(), p0[::k].contiguous())
+        launch()  # warm-up
+        times = [timed(launch, q0.device)[1] for _ in range(reps)]
+        out[f"1/{k}"] = {"rays": q0[::k].shape[0],
+                         "ms": float(np.median(times)), "ms_all": times}
+    return out
+
+
+def ks_sweep(q0, p0, steps, delta, spin, mode="plain"):
+    """B5 (or, with mode 'disk' / 'subring', B6 with the disk annulus / B7
+    with SUB_ORDERS orders) in the 32-row layout on a frame's KS camera
+    rays, cost-sorted as the wrappers sort."""
+    from grtrace_torch.engine import integrate_ks_cuda as tkc
+    from grtrace_torch.engine.integrate_ks import ks_params
+    disk = {"disk": disk_annulus()} if mode == "disk" else {}
+    vec = ks_params(delta, (MASS, spin, 0.0), R_MAX, OMEGA, 2, True,
+                    q0.dtype, **disk)
+
+    def subring(state, vec, steps):
+        return tkc.launch_fantasy_ks_subrings(state, vec, steps, SUB_ORDERS)
+    launch = {"plain": tkc.launch_fantasy_ks,
+              "disk": tkc.launch_fantasy_ks_disk, "subring": subring}[mode]
+
+    def prepare(q, p):
+        _, state = tkc._sorted_state(q, p, vec, True)
+        return lambda: launch(state, vec, steps)
+    return ray_sweep(prepare, q0, p0)
+
+
+def schw16_sweep(q0, p0, steps, delta):
+    """B3 on a frame's rays, cost-sorted as its monolithic wrapper sorts."""
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.integrate import substep_params
+    from grtrace_torch.physics.hamiltonian import pack_state
+    params = substep_params(delta, 2.0 * MASS, R_MAX, OMEGA, 2, q0.dtype,
+                            compensated=False, staggered=False)
+
+    def prepare(q, p):
+        _, q_s, p_s = tc._sorted(q, p, float(params[0]))
+        state = torch.stack(pack_state(q_s, p_s))
+        return lambda: tc.launch_fantasy_schw16(state, params, steps)
+    return ray_sweep(prepare, q0, p0)
 
 
 def main():
@@ -1275,6 +1531,7 @@ def main():
     phase(1, f"card: {smi}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}")
     build_kernels()
+    occ = kernel_report()
 
     # --- kernel B1 and the headline Schwarzschild path --------------------
     q0, p0 = camera(SIZE, device)
@@ -1310,6 +1567,13 @@ def main():
                         False, "7b")
     kerr_boundary()
     kerr = kerr_main_path()
+    b5 = "fantasy_ks_kernel<float, true, Mode::kPlain>"
+    sweep = ks_sweep(kerr["q0"], kerr["p0"], KERR_STEPS, KERR_DELTA,
+                     KERR_SPIN)
+    phase("9b", f"B5 (32 rows) on a quarter, a half and all of the Kerr "
+                f"frame's rays, {KERR_STEPS}-step budget, bare launches; "
+                f"{occ[b5]['blocks_per_sm']} resident blocks per SM at "
+                f"{occ[b5]['registers']} registers: {json.dumps(sweep)}")
 
     # --- kernel B6 and the disk path ---------------------------------------
     # the 16-row layouts are off the main path and held at small shapes; the
@@ -1319,6 +1583,10 @@ def main():
                           f"rows {str(dtype)[6:]}", 48, 2000, 0.05, dtype,
                           False, "10")
     disk = disk_main_path()
+    sweep = ks_sweep(disk["q0"], disk["p0"], DISK_STEPS, DISK_DELTA,
+                     DISK_SPIN, "disk")
+    phase("12b", f"B6 (32 rows) on a quarter, a half and all of the disk "
+                 f"frame's rays, bare launches: {json.dumps(sweep)}")
 
     # --- kernel B7 and the subring path ------------------------------------
     # the 16-row layouts and a single slot are off the main path and held at
@@ -1332,6 +1600,11 @@ def main():
                          "rows float32, 1 order", 48, 2000, 0.05,
                          torch.float32, True, 1, "13")
     sub = subring_main_path()
+    sweep = ks_sweep(sub["q0"], sub["p0"], SUB_STEPS, SUB_DELTA, SUB_SPIN,
+                     "subring")
+    phase("15b", f"B7 (32 rows, {SUB_ORDERS} orders) on a quarter, a half "
+                 f"and all of the subring frame's rays, bare launches: "
+                 f"{json.dumps(sweep)}")
     photon_shell_anchor()
 
     # --- kernel B2 and the float64 headline path ---------------------------
@@ -1363,6 +1636,12 @@ def main():
     # --- kernel B4 and the checkpointed headline ----------------------------
     eqc = checkpoint_eqc(device, q0, p0, b1_out, a["kernel_ms"])
     gen = checkpoint_generic(device, q064, p064, counts64)
+    b3 = "fantasy_schw16_kernel<double>"
+    sweep = schw16_sweep(q064, p064, STEPS, DELTA)
+    phase("23b", f"B3 (double) on a quarter, a half and all of the float64 "
+                 f"headline rays, {STEPS}-step budget, bare launches; "
+                 f"{occ[b3]['blocks_per_sm']} resident blocks per SM at "
+                 f"{occ[b3]['registers']} registers: {json.dumps(sweep)}")
     schw_boundary(device)
 
     print(json.dumps({"kernels": [

@@ -16,21 +16,29 @@
 // and crossing recorders of make_ks_step.
 //
 // What bounds it on an H100: FP32 (or FP64) issue rate and latency.  Each
-// ray is a serial chain of about 500 floating-point operations per step at
+// ray is a serial chain of about 700 floating-point operations per step at
 // order 2 (three Kerr-Schild kick/drift evaluations, each with two square
-// roots and three IEEE divisions, plus the guard's invariant), with no
-// memory traffic inside the loop; rays exit after very different step
-// counts (plungers early, escapers after ~4k steps, photon-shell winders
-// when the guard parks them).
+// roots and three IEEE divisions, plus the guard), with no memory traffic
+// inside the loop but the pre-step copy; rays exit after very different
+// step counts (plungers early, escapers after ~4k steps, photon-shell
+// winders when the guard parks them, disk hits at the plane).
 //
-// What the design does about it: the state (16 rows, plus 16 Kahan deficits
-// in the compensated layout) lives in registers, with no shared memory and
-// no global traffic until the ray exits; a finished ray breaks out of its
-// loop (the per-thread form of the TPU kernel's masked steps and per-tile
-// early exit); the wrapper sorts rays by their flat impact parameter's
-// distance to the critical ring (the TPU's _cost_sort_key_ks) so a warp's
-// rays retire together.  The guard reverts a bad step, so the pre-step state
-// is kept as a second copy in registers.  Making it fast is later work.
+// What the design does about it:
+//  * one geometry per flow, one radius per step: the guard's invariant h is
+//    formed from the H and S that the step's last flow A computed at the
+//    very (q1, p2) the guard reads (flow A changes neither), and the radius
+//    at the end of a step is carried as the next step's r_old (recomputed
+//    only after a park); at order 2 a step takes 6 + 2 square roots and
+//    9 divisions, where a fourth geometry and a second radius took 12 and 12;
+//  * the pre-step copy that a revert and the crossing lerps need lives in
+//    shared memory (one column per thread, conflict-free), not in
+//    registers, so that more blocks fit on an SM: __launch_bounds__ asks
+//    for the most that each instantiation's registers allow without a
+//    spill (min_blocks below);
+//  * a finished ray breaks out of its loop (the per-thread form of the
+//    TPU kernel's masked steps and per-tile early exit), and the wrapper
+//    sorts rays by their flat impact parameter's distance to the critical
+//    ring (the TPU's _cost_sort_key_ks), so a warp's rays retire together.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // operation below rounds once, in the order written, exactly as the twins'
@@ -58,8 +66,9 @@
 // [r_in, r_out] is recorded and ends the ray's loop (the per-thread form of
 // the TPU kernel's frozen hit rays and its active & ~hit tile exit).  The
 // closing half-A still runs.  rec_out is SoA (9, n): the hit flag as
-// 1 / 0 in the ray type, hit_q (t, x, y, z), hit_p (t, x, y, z); rays that
-// never hit write zeros, as the TPU kernel's zero carry does.
+// 1 / 0 in the ray type, hit_q (t, x, y, z), hit_p (t, x, y, z), stored at
+// the hit; rays that never hit write zeros, as the TPU kernel's zero carry
+// does.
 //
 // Subring mode (Mode::kSubring): the thin disk is transparent, so no ray
 // freezes and the loop exits on the plain active test alone.  Every
@@ -83,10 +92,27 @@ namespace {
 
 constexpr int kRows = 16;
 constexpr int kScal = 6;
+constexpr int kThreads = 128;
 
 // what the loop records besides the state: nothing (B5), the first
 // equatorial crossing inside the annulus (B6), every crossing (B7)
 enum class Mode : int { kPlain, kDisk, kSubring };
+
+// The resident blocks per SM that __launch_bounds__ asks ptxas to fit: the
+// most each instantiation's registers allow without spilling.  ptxas spills
+// rather than fail when an edit outgrows them, so chip_smoke.py fails on
+// any spill or local memory here: lower the count then.
+template <typename T, bool kComp, Mode kMode>
+constexpr int min_blocks() {
+  constexpr bool kPlain = kMode == Mode::kPlain;
+  if constexpr (sizeof(T) == 8) {
+    return 5;
+  } else if constexpr (kComp) {
+    return kPlain ? 7 : 6;
+  } else {
+    return kPlain ? 9 : 8;
+  }
+}
 
 template <typename T, bool kComp>
 struct KsState {
@@ -105,11 +131,49 @@ __device__ __forceinline__ T best(const KsState<T, kComp>& st) {
   }
 }
 
+// A thread's pre-step copy of its state, in shared memory: row m at
+// col[m * kThreads], so a warp's accesses to one row are 32 consecutive
+// words.  Written every step, read only on a revert and for the crossing
+// lerps.
+template <typename T, bool kComp>
+struct Saved {
+  T* col;
+
+  __device__ __forceinline__ void store(const KsState<T, kComp>& st) const {
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      col[m * kThreads] = st.s[m];
+      if constexpr (kComp) col[(kRows + m) * kThreads] = st.c[m];
+    }
+  }
+
+  __device__ __forceinline__ KsState<T, kComp> load() const {
+    KsState<T, kComp> st;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      st.s[m] = col[m * kThreads];
+      if constexpr (kComp) st.c[m] = col[(kRows + m) * kThreads];
+    }
+    return st;
+  }
+
+  __device__ __forceinline__ T s(int m) const { return col[m * kThreads]; }
+
+  template <int I>
+  __device__ __forceinline__ T best() const {
+    if constexpr (kComp) {
+      return col[I * kThreads] - col[(kRows + I) * kThreads];
+    } else {
+      return col[I * kThreads];
+    }
+  }
+};
+
 // b_old + t (b_new - b_old) on row I, the crossing lerp
 template <int I, typename T, bool kComp>
-__device__ __forceinline__ T lerp_row(const KsState<T, kComp>& old,
+__device__ __forceinline__ T lerp_row(const Saved<T, kComp>& old,
                                       const KsState<T, kComp>& now, T t) {
-  const T b_old = best<I>(old);
+  const T b_old = old.template best<I>();
   return b_old + t * (best<I>(now) - b_old);
 }
 
@@ -172,9 +236,17 @@ __device__ __forceinline__ Geom<T> geom(T x, T y, T z, const Scalars<T>& sc) {
   return g;
 }
 
+// H and S = -pt + l.p at the (q, p) of one kick/drift: all that the null
+// invariant needs of the geometry there
+template <typename T>
+struct HS {
+  T H, S;
+};
+
 template <typename T>
 struct Kick {
   T kx, ky, kz, dt, dx, dy, dz;
+  HS<T> hs;
 };
 
 template <typename T>
@@ -187,6 +259,7 @@ __device__ __forceinline__ Kick<T> kick_drift(T x, T y, T z, T pt, T px,
   const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
   const T HS2 = T(2) * g.H * S;
   Kick<T> k;
+  k.hs = {g.H, S};
   k.dt = -pt + HS2;
   k.dx = px - HS2 * g.lx;
   k.dy = py - HS2 * g.ly;
@@ -218,20 +291,21 @@ __device__ __forceinline__ Kick<T> kick_drift(T x, T y, T z, T pt, T px,
   return k;
 }
 
+// kerr_schild.hamiltonian_ks, from the H and S that a kick/drift computed
+// at the same (q, p): the operations its own geometry would repeat, on the
+// same values
 template <typename T>
-__device__ __forceinline__ T hamiltonian(T x, T y, T z, T pt, T px, T py,
-                                         T pz, const Scalars<T>& sc) {
-  // kerr_schild.hamiltonian_ks
-  const Geom<T> g = geom(x, y, z, sc);
-  const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
-  return T(0.5) * (-pt * pt + px * px + py * py + pz * pz) - g.H * S * S;
+__device__ __forceinline__ T hamiltonian(T pt, T px, T py, T pz, HS<T> hs) {
+  return T(0.5) * (-pt * pt + px * px + py * py + pz * pz)
+         - hs.H * hs.S * hs.S;
 }
 
 // Flow A: metric at q1 (rows 1..3), momenta p2 (12..15); kick p1 (5..7),
-// drift q2 (8..11).
+// drift q2 (8..11).  Returns H and S at (q1, p2), which it leaves as they
+// were.
 template <typename T, bool kComp>
-__device__ __forceinline__ void flow_a(KsState<T, kComp>& st, T dt,
-                                       const Scalars<T>& sc) {
+__device__ __forceinline__ HS<T> flow_a(KsState<T, kComp>& st, T dt,
+                                        const Scalars<T>& sc) {
   const Kick<T> k = kick_drift(st.s[1], st.s[2], st.s[3], st.s[12],
                                st.s[13], st.s[14], st.s[15], sc);
   accumulate<5>(st, (-dt) * k.kx);
@@ -241,6 +315,7 @@ __device__ __forceinline__ void flow_a(KsState<T, kComp>& st, T dt,
   accumulate<9>(st, dt * k.dx);
   accumulate<10>(st, dt * k.dy);
   accumulate<11>(st, dt * k.dz);
+  return k.hs;
 }
 
 // Flow B: metric at q2 (rows 9..11), momenta p1 (4..7); kick p2 (13..15),
@@ -298,14 +373,17 @@ __device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
 }
 
 template <typename T, bool kComp, Mode kMode>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads, (min_blocks<T, kComp, kMode>()))
 fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
                   int* __restrict__ ns_out, T* __restrict__ rec_out,
                   int* __restrict__ cnt_out, const T* __restrict__ params,
                   int n, int n_sub, int steps, int n_orders) {
   constexpr bool kDisk = kMode == Mode::kDisk;
+  constexpr bool kSub = kMode == Mode::kSubring;
+  __shared__ T saved[(kComp ? 2 : 1) * kRows][kThreads];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const Saved<T, kComp> old{&saved[0][threadIdx.x]};
   const size_t stride = static_cast<size_t>(n);
 
   KsState<T, kComp> st;
@@ -325,33 +403,36 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   const T d0 = __ldg(params + kScal);
   const T r_plus = sc.r_cap / T(1.05);
   const T r_max2 = sc.r_max * sc.r_max;
-  // the disk annulus rides after the substeps (unused in plain mode)
+  // the disk annulus rides after the substeps (unused in the other modes)
   const T r_in = kDisk ? __ldg(params + kScal + 4 * n_sub) : T(0);
   const T r_out = kDisk ? __ldg(params + kScal + 4 * n_sub + 1) : T(0);
   bool hit = false;
-  T hq[4] = {T(0), T(0), T(0), T(0)};
-  T hp[4] = {T(0), T(0), T(0), T(0)};
   int cnt = 0;  // subring mode: plane crossings so far
 
   int ns = 0;
+  // ks_radius of q1 at the top of the next step; flow A leaves q1 as it
+  // is, so the launch radius is also the first step's
+  T r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
   const bool act0 =
-      ks_radius(st.s[1], st.s[2], st.s[3], sc.a) > sc.r_cap
+      r_old > sc.r_cap
       && st.s[1] * st.s[1] + st.s[2] * st.s[2] + st.s[3] * st.s[3] < r_max2;
   if (act0 && steps > 0) {
-    flow_a(st, T(0.5) * d0, sc);  // opening half-A
+    // H and S of the last flow A, at today's (q1, p2)
+    HS<T> hs = flow_a(st, T(0.5) * d0, sc);  // opening half-A
     for (int k = 0; k < steps; ++k) {
-      const T r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
       const T rho2 = st.s[1] * st.s[1] + st.s[2] * st.s[2]
                      + st.s[3] * st.s[3];
       if (!(r_old > sc.r_cap && rho2 < r_max2)) break;
-      const KsState<T, kComp> old = st;
+      old.store(st);
+      T z0 = T(0);
+      if constexpr (kDisk || kSub) z0 = best<3>(st);
       for (int j = 0; j < n_sub; ++j) {
         const T* sub = params + kScal + 4 * j;
         const T half = T(0.5) * __ldg(sub + 0);
         flow_b(st, half, sc);
         flow_mixed(st, __ldg(sub + 1), __ldg(sub + 2));
         flow_b(st, half, sc);
-        flow_a(st, __ldg(sub + 3), sc);
+        hs = flow_a(st, __ldg(sub + 3), sc);
       }
 
       // null-invariant blow-up guard (make_ks_step), on the (q1, p2) rows
@@ -359,23 +440,22 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
 #pragma unroll
       for (int m = 1; m < kRows; ++m) agg = agg + st.s[m];
       const bool finite = isfinite(agg);
-      const T h = hamiltonian(st.s[1], st.s[2], st.s[3], st.s[12], st.s[13],
-                              st.s[14], st.s[15], sc);
+      const T h = hamiltonian(st.s[12], st.s[13], st.s[14], st.s[15], hs);
       const T p2n = st.s[13] * st.s[13] + st.s[14] * st.s[14]
                     + st.s[15] * st.s[15] + T(1);
       // negated <= so that a NaN invariant trips it
       const bool exploded = !(finite && fabs(h) <= T(3e-2) * p2n);
       const T r_new = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
       const bool crossed = finite && r_new < r_plus && !exploded;
-      const bool inward = old.s[1] * old.s[5] + old.s[2] * old.s[6]
-                          + old.s[3] * old.s[7] < T(0);
-      const bool capture =
-          crossed || (exploded && (inward || r_old < sc.plunge_zone));
       ++ns;
       if (exploded || crossed) {
+        const bool inward = old.s(1) * old.s(5) + old.s(2) * old.s(6)
+                            + old.s(3) * old.s(7) < T(0);
+        const bool capture =
+            crossed || (exploded && (inward || r_old < sc.plunge_zone));
         // revert and park: captured on-axis at (0, 0, 0.5 r_cap), else the
         // numerical sentinel (150, 0, 0); the park flag is the sign of ns
-        st = old;
+        st = old.load();
         st.s[1] = capture ? T(0) : T(150);
         st.s[2] = T(0);
         st.s[3] = capture ? T(0.5) * sc.r_cap : T(0);
@@ -385,32 +465,36 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
           st.c[3] = T(0);
         }
         ns = -ns;
-      } else if constexpr (kDisk) {
+        r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
+        continue;
+      }
+      r_old = r_new;
+      const T z1 = best<3>(st);
+      if constexpr (kDisk) {
         // first equatorial crossing inside the annulus, from the folded
         // pre-step and new states, in the twin's order
-        const T z0 = best<3>(old);
-        const T z1 = best<3>(st);
         if (z0 * z1 < T(0)) {
           const T t = z0 / (z0 - z1);
-          const T cq[4] = {lerp_row<0>(old, st, t), lerp_row<1>(old, st, t),
-                           lerp_row<2>(old, st, t), lerp_row<3>(old, st, t)};
-          const T r_hit = ks_radius(cq[1], cq[2], cq[3], sc.a);
+          const T cx = lerp_row<1>(old, st, t);
+          const T cy = lerp_row<2>(old, st, t);
+          const T cz = lerp_row<3>(old, st, t);
+          const T r_hit = ks_radius(cx, cy, cz, sc.a);
           if (r_hit >= r_in && r_hit <= r_out) {
             hit = true;
-#pragma unroll
-            for (int m = 0; m < 4; ++m) hq[m] = cq[m];
-            hp[0] = lerp_row<12>(old, st, t);
-            hp[1] = lerp_row<13>(old, st, t);
-            hp[2] = lerp_row<14>(old, st, t);
-            hp[3] = lerp_row<15>(old, st, t);
+            rec_out[1 * stride + i] = lerp_row<0>(old, st, t);
+            rec_out[2 * stride + i] = cx;
+            rec_out[3 * stride + i] = cy;
+            rec_out[4 * stride + i] = cz;
+            rec_out[5 * stride + i] = lerp_row<12>(old, st, t);
+            rec_out[6 * stride + i] = lerp_row<13>(old, st, t);
+            rec_out[7 * stride + i] = lerp_row<14>(old, st, t);
+            rec_out[8 * stride + i] = lerp_row<15>(old, st, t);
             break;  // the hit ray is frozen
           }
         }
-      } else if constexpr (kMode == Mode::kSubring) {
+      } else if constexpr (kSub) {
         // every equatorial crossing, at any radius; the first n_orders
         // are lerped in the twin's order and stored in slot cnt
-        const T z0 = best<3>(old);
-        const T z1 = best<3>(st);
         if (z0 * z1 < T(0)) {
           if (cnt < n_orders) {
             const T t = z0 / (z0 - z1);
@@ -440,14 +524,14 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   }
   ns_out[i] = ns;
   if constexpr (kDisk) {
+    // a hit stored its rows at the crossing; the other rays write zeros
     rec_out[i] = hit ? T(1) : T(0);
+    if (!hit) {
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      rec_out[(1 + m) * stride + i] = hq[m];
-      rec_out[(5 + m) * stride + i] = hp[m];
+      for (int m = 1; m < 9; ++m) rec_out[m * stride + i] = T(0);
     }
   }
-  if constexpr (kMode == Mode::kSubring) cnt_out[i] = cnt;
+  if constexpr (kSub) cnt_out[i] = cnt;
 }
 
 template <typename T, bool kComp, Mode kMode>
@@ -455,7 +539,6 @@ int launch(const T* state_in, T* state_out, int* ns_out, T* rec_out,
            int* cnt_out, const T* params, int n, int n_sub, int steps,
            int n_orders, void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 128;
   const int blocks = (n + kThreads - 1) / kThreads;
   fantasy_ks_kernel<T, kComp, kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -15,26 +15,35 @@
 //
 // What bounds it on an H100: FP32 (or FP64) instruction throughput and
 // latency.  Each ray is a serial chain of about 280 floating-point
-// operations per step, with 12 IEEE divisions and four sin/cos pairs (every
-// flow evaluates the metric at its copy's theta), for up to the step
-// budget; near-critical rays orbit longest.  No memory traffic inside the
-// loop.
+// operations per step, for up to the step budget; near-critical rays orbit
+// longest.  No memory traffic inside the loop.  In float64 the IEEE
+// divisions and sin/cos, which the card computes in software, are most of
+// the instructions.
 //
 // What the design does about it: the 16-row state and the guard's copy of
 // it live in registers; a finished ray breaks out of its loop (the
 // per-thread form of the TPU kernel's masked steps and per-tile early
 // exit); the monolithic wrapper sorts rays by |b - b_crit| so a warp's rays
-// retire together (the chunk keeps the caller's order).  Making it fast is
-// later work.
+// retire together (the chunk keeps the caller's order).  Flow A reads the
+// metric at q1 and the momenta p2 and moves neither, so the first flow A of
+// a substep reads the very values that the last flow A before it read: the
+// kernel keeps that flow's metric terms and forces (Metric) and forms only
+// the products with dt again, across substep and step boundaries alike.
+// At order 2 a step evaluates the metric three times, not four: 9 IEEE
+// divisions and 3 sin/cos pairs where the fused step as written takes 12
+// and 4.  The two increments of the back-to-back A flows are still added
+// one after the other.  A launch's first step evaluates it afresh; a ray
+// that the guard reverts is parked inside the capture radius and takes no
+// further step.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // operation below rounds once, in the order written, exactly as the twin's
 // torch ops do; the association follows hamiltonian.py's fused flows term
 // by term, literals are of the ray type T, and `1 / x` is an IEEE division
-// (torch's reciprocal).  sin and cos are the card's sinf/cosf (sin/cos for
-// double), each called on its own as torch.sin and torch.cos are;
-// fantasy_trig_kernel evaluates exactly these two calls on given points so
-// that a caller can hold them against torch's.
+// (torch's reciprocal).  sin and cos of one angle come from one sincosf
+// (sincos for double) call, which gives the very values of the card's
+// sinf/cosf (sin/cos); fantasy_trig_kernel evaluates both forms on given
+// points so that a caller can hold them against torch.sin and torch.cos.
 //
 // Layout: state_in/state_out are SoA (16, n) in T, each row contiguous:
 // q1 (t, r, theta, phi), p1, q2, p2.  params is the vector [rs, r_max, cap,
@@ -52,24 +61,37 @@ __device__ __forceinline__ float sin_t(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_t(double x) { return sin(x); }
 __device__ __forceinline__ float cos_t(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_t(double x) { return cos(x); }
+__device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ void sincos_t(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
 __device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 
-// The fused flow A (metric at q1, kick p1 r/theta, drift q2) or B (metric
-// at q2, kick p2, drift q1): Q = base row of the copy whose metric is read
-// (0 or 8), P_READ = the other copy's momenta (12 or 4), P_KICK = the
-// momenta kicked (4 or 12), Q_DRIFT = the position drifted (8 or 0).
-template <int Q, int P_READ, int P_KICK, int Q_DRIFT, typename T>
-__device__ __forceinline__ void flow(T (&s)[kRows], T dt, T rs) {
-  const T r = s[Q + 1];
-  const T inv_r = T(1) / r;
-  const T inv_r2 = inv_r * inv_r;
-  const T inv_r3 = inv_r2 * inv_r;
-  const T inv_rms = T(1) / (r - rs);
-  const T sin_th = sin_t(s[Q + 2]);
-  const T cos_th = cos_t(s[Q + 2]);
+// What a fused flow computes before it applies dt: the metric terms at the
+// position copy it reads and the force on the momenta it reads (inv_r3,
+// sin, cos and 1 / sin only feed the force).
+template <typename T>
+struct Metric {
+  T r, inv_r, inv_r2, inv_rms, inv_sin2, dH_r, dH_th;
+};
+
+// The metric at the copy whose base row is Q (0 or 8), with the other
+// copy's momenta P_READ (12 or 4).
+template <int Q, int P_READ, typename T>
+__device__ __forceinline__ Metric<T> metric(const T (&s)[kRows], T rs) {
+  Metric<T> m;
+  m.r = s[Q + 1];
+  m.inv_r = T(1) / m.r;
+  m.inv_r2 = m.inv_r * m.inv_r;
+  const T inv_r3 = m.inv_r2 * m.inv_r;
+  m.inv_rms = T(1) / (m.r - rs);
+  T sin_th, cos_th;
+  sincos_t(s[Q + 2], &sin_th, &cos_th);
   const T inv_sin = T(1) / sin_th;
-  const T inv_sin2 = inv_sin * inv_sin;
+  m.inv_sin2 = inv_sin * inv_sin;
 
   const T pt = s[P_READ + 0];
   const T pr = s[P_READ + 1];
@@ -78,19 +100,51 @@ __device__ __forceinline__ void flow(T (&s)[kRows], T dt, T rs) {
   const T pt2 = pt * pt;
   const T pr2 = pr * pr;
   const T pth2 = pth * pth;
-  const T pph2_s = pph * pph * inv_sin2;
+  const T pph2_s = pph * pph * m.inv_sin2;
 
-  const T dH_r = (T(0.5) * rs) * (inv_rms * inv_rms * pt2 + inv_r2 * pr2)
-                 - inv_r3 * (pth2 + pph2_s);
-  const T dH_th = -cos_th * inv_sin * inv_r2 * pph2_s;
+  m.dH_r = (T(0.5) * rs) * (m.inv_rms * m.inv_rms * pt2 + m.inv_r2 * pr2)
+           - inv_r3 * (pth2 + pph2_s);
+  m.dH_th = -cos_th * inv_sin * m.inv_r2 * pph2_s;
+  return m;
+}
 
-  s[P_KICK + 1] = s[P_KICK + 1] + (-dt) * dH_r;
-  s[P_KICK + 2] = s[P_KICK + 2] + (-dt) * dH_th;
+// The fused flow's update with the metric m of its own (position, momenta)
+// copies: kick the momenta P_KICK, drift the position Q_DRIFT by dt.
+template <int P_READ, int P_KICK, int Q_DRIFT, typename T>
+__device__ __forceinline__ void apply(T (&s)[kRows], const Metric<T>& m,
+                                      T dt, T rs) {
+  const T pt = s[P_READ + 0];
+  const T pr = s[P_READ + 1];
+  const T pth = s[P_READ + 2];
+  const T pph = s[P_READ + 3];
 
-  s[Q_DRIFT + 0] = s[Q_DRIFT + 0] + (-((dt * r) * inv_rms)) * pt;
-  s[Q_DRIFT + 1] = s[Q_DRIFT + 1] + (dt * (T(1) - rs * inv_r)) * pr;
-  s[Q_DRIFT + 2] = s[Q_DRIFT + 2] + (dt * inv_r2) * pth;
-  s[Q_DRIFT + 3] = s[Q_DRIFT + 3] + ((dt * inv_r2) * inv_sin2) * pph;
+  s[P_KICK + 1] = s[P_KICK + 1] + (-dt) * m.dH_r;
+  s[P_KICK + 2] = s[P_KICK + 2] + (-dt) * m.dH_th;
+
+  s[Q_DRIFT + 0] = s[Q_DRIFT + 0] + (-((dt * m.r) * m.inv_rms)) * pt;
+  s[Q_DRIFT + 1] = s[Q_DRIFT + 1] + (dt * (T(1) - rs * m.inv_r)) * pr;
+  s[Q_DRIFT + 2] = s[Q_DRIFT + 2] + (dt * m.inv_r2) * pth;
+  s[Q_DRIFT + 3] = s[Q_DRIFT + 3] + ((dt * m.inv_r2) * m.inv_sin2) * pph;
+}
+
+// Flow A's metric: at q1 with the momenta p2, the rows that flow A itself
+// leaves as they are (it kicks p1 and drifts q2).
+template <typename T>
+__device__ __forceinline__ Metric<T> metric_a(const T (&s)[kRows], T rs) {
+  return metric<0, 12>(s, rs);
+}
+
+// flow A on its metric m
+template <typename T>
+__device__ __forceinline__ void apply_a(T (&s)[kRows], const Metric<T>& m,
+                                        T dt, T rs) {
+  apply<12, 4, 8>(s, m, dt, rs);
+}
+
+// flow B: metric at q2 with the momenta p1; kick p2, drift q1
+template <typename T>
+__device__ __forceinline__ void flow_b(T (&s)[kRows], T dt, T rs) {
+  apply<4, 12, 0>(s, metric<8, 4>(s, rs), dt, rs);
 }
 
 // _flow_mixed: the rotation between the copies, cos/sin form
@@ -110,16 +164,19 @@ __device__ __forceinline__ void flow_mixed(T (&s)[kRows], T cw, T sw) {
   }
 }
 
-// fantasy_step_ord2_fused: A(d/2) B(d/2) M(d) B(d/2) A(d/2)
+// fantasy_step_ord2_fused: A(d/2) B(d/2) M(d) B(d/2) A(d/2).  On entry
+// `ma` is flow A's metric at the current (q1, p2); on return it is again,
+// for the next substep's first flow A.
 template <typename T>
-__device__ __forceinline__ void step_ord2(T (&s)[kRows], T d, T rs, T cw,
-                                          T sw) {
+__device__ __forceinline__ void step_ord2(T (&s)[kRows], Metric<T>& ma, T d,
+                                          T rs, T cw, T sw) {
   const T half = T(0.5) * d;
-  flow<0, 12, 4, 8>(s, half, rs);
-  flow<8, 4, 12, 0>(s, half, rs);
+  apply_a(s, ma, half, rs);
+  flow_b(s, half, rs);
   flow_mixed(s, cw, sw);
-  flow<8, 4, 12, 0>(s, half, rs);
-  flow<0, 12, 4, 8>(s, half, rs);
+  flow_b(s, half, rs);
+  ma = metric_a(s, rs);
+  apply_a(s, ma, half, rs);
 }
 
 template <typename T>
@@ -145,6 +202,10 @@ fantasy_schw16_kernel(const T* __restrict__ state_in,
   const T cap = __ldg(params + 2);
   const T r_capture = T(1.1) * rs;
 
+  // flow A's metric at the current (q1, p2): evaluated afresh for the
+  // launch's first step, then carried from step to step
+  Metric<T> ma{};
+  if (steps > 0 && active(s[1], r_capture, r_max)) ma = metric_a(s, rs);
   int ns = 0;
   for (int k = 0; k < steps; ++k) {
     if (!active(s[1], r_capture, r_max)) break;
@@ -153,7 +214,7 @@ fantasy_schw16_kernel(const T* __restrict__ state_in,
     for (int m = 0; m < kRows; ++m) old[m] = s[m];
     for (int j = 0; j < n_sub; ++j) {
       const T* sub = params + 3 + 3 * j;
-      step_ord2(s, __ldg(sub + 0), rs, __ldg(sub + 1), __ldg(sub + 2));
+      step_ord2(s, ma, __ldg(sub + 0), rs, __ldg(sub + 1), __ldg(sub + 2));
     }
     // blow-up guard on rows 1 and 9; the negated <= also catches NaN, Inf
     if (!(abs_t(s[1] - old[1]) <= cap)) {
@@ -161,6 +222,8 @@ fantasy_schw16_kernel(const T* __restrict__ state_in,
       for (int m = 0; m < kRows; ++m) s[m] = old[m];
       s[1] = rs;  // q1_r
       s[9] = rs;  // q2_r
+      // parked inside r_capture: the ray is inactive, so the carried ma is
+      // never read again (a later chunk evaluates it afresh)
     }
     ++ns;
   }
@@ -170,16 +233,22 @@ fantasy_schw16_kernel(const T* __restrict__ state_in,
   ns_out[i] = ns;
 }
 
-// sin and cos of each point, as the flows call them
+// sin and cos of each point, as two calls and as one sincos (the flows'
+// form)
 template <typename T>
 __global__ void __launch_bounds__(256)
 fantasy_trig_kernel(const T* __restrict__ x, T* __restrict__ sin_out,
-                    T* __restrict__ cos_out, int n) {
+                    T* __restrict__ cos_out, T* __restrict__ sc_sin_out,
+                    T* __restrict__ sc_cos_out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const T v = x[i];
   sin_out[i] = sin_t(v);
   cos_out[i] = cos_t(v);
+  T s, c;
+  sincos_t(v, &s, &c);
+  sc_sin_out[i] = s;
+  sc_cos_out[i] = c;
 }
 
 template <typename T>
@@ -195,13 +264,14 @@ int launch(const T* state_in, T* state_out, int* ns_out, const T* params,
 }
 
 template <typename T>
-int launch_trig(const T* x, T* sin_out, T* cos_out, int n, void* stream) {
+int launch_trig(const T* x, T* sin_out, T* cos_out, T* sc_sin_out,
+                T* sc_cos_out, int n, void* stream) {
   if (n <= 0) return 0;
   constexpr int kThreads = 256;
   const int blocks = (n + kThreads - 1) / kThreads;
   fantasy_trig_kernel<T>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, sin_out, cos_out, n);
+          x, sin_out, cos_out, sc_sin_out, sc_cos_out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,13 +296,17 @@ extern "C" int grt_fantasy_schw16_f64_launch(const double* state_in,
 }
 
 extern "C" int grt_fantasy_trig_f32_launch(const float* x, float* sin_out,
-                                           float* cos_out, int n,
+                                           float* cos_out, float* sc_sin_out,
+                                           float* sc_cos_out, int n,
                                            void* stream) {
-  return launch_trig<float>(x, sin_out, cos_out, n, stream);
+  return launch_trig<float>(x, sin_out, cos_out, sc_sin_out, sc_cos_out, n,
+                          stream);
 }
 
 extern "C" int grt_fantasy_trig_f64_launch(const double* x, double* sin_out,
-                                           double* cos_out, int n,
+                                           double* cos_out, double* sc_sin_out,
+                                           double* sc_cos_out, int n,
                                            void* stream) {
-  return launch_trig<double>(x, sin_out, cos_out, n, stream);
+  return launch_trig<double>(x, sin_out, cos_out, sc_sin_out, sc_cos_out, n,
+                          stream);
 }

@@ -73,16 +73,25 @@ def _check_inputs(q0s, p0s, dtypes):
         raise ValueError("q0s and p0s must match in shape, dtype and device")
 
 
-def _cost_sort_key(q0s, p0s, rs):
-    """Predicted integration cost |b - b_crit| (rays near the critical
-    impact parameter b_crit = 3 sqrt(3) rs orbit longest); sorting by it
-    lets a warp's rays retire together."""
+def _impact_parameter(q0s, p0s, rs):
+    """The camera ray's impact parameter b = r0 sin(alpha) / sqrt(f), from
+    cos(alpha) = -p_r / sqrt(f), f = 1 - rs / r0, term for term as
+    `grtrace.engine.integrate_pallas._cost_sort_key` forms it."""
     r0 = q0s[:, 1]
     f = 1.0 - rs / r0
     cos_a = -p0s[:, 1] / torch.sqrt(f)
     sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
-    b = r0 * sin_a / torch.sqrt(f)
-    return (b - 3.0 * math.sqrt(3.0) * rs).abs()
+    return r0 * sin_a / torch.sqrt(f)
+
+
+def _cost_sort_key(q0s, p0s, rs):
+    """Predicted integration cost |b - b_crit|: rays near the critical
+    impact parameter b_crit = 3 sqrt(3) M = 1.5 sqrt(3) rs orbit longest,
+    and sorting by it lets a warp's rays retire together.  (The JAX
+    package's key centres on 3 sqrt(3) rs, twice b_crit; only the launch
+    order differs, and no result depends on it.)"""
+    b = _impact_parameter(q0s, p0s, rs)
+    return (b - 1.5 * math.sqrt(3.0) * rs).abs()
 
 
 def _launch(config, state_in, params, steps):

@@ -60,6 +60,11 @@ class RenderResult:
         """The raw device tensor (no host transfer)."""
         return self._dev[name]
 
+    def has(self, name):
+        """Whether an optional per-pixel field (e.g. the disk mode's
+        'evpa') was produced by this render."""
+        return name in self._dev
+
 
 def render_pixels(bg_array, obs_x, fov, mass, boundary_radius,
                   steps, delta, omega,

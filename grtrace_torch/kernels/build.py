@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # state_out, ns_out, params, n, n_sub, steps, stream), a disk entry
 # (`*_disk_*`) takes the recorder rows disk_out after ns_out, and a subring
 # entry (`*_sub_*`) takes cnt_out and slot_out after ns_out and n_orders
-# after steps; a trig entry (`*_trig_*`) takes (x, sin_out, cos_out, n,
-# stream)
+# after steps; a trig entry (`*_trig_*`) takes (x, sin_out, cos_out,
+# sincos_sin_out, sincos_cos_out, n, stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -59,7 +59,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 def argtypes(name: str) -> list:
     """The ctypes signature of the C entry `name`."""
     if "_trig_" in name:
-        return [_PTR] * 3 + [_INT, _PTR]
+        return [_PTR] * 5 + [_INT, _PTR]
     sub = "_sub_" in name
     recorders = 2 if sub else 1 if "_disk_" in name else 0
     return [_PTR] * (4 + recorders) + [_INT] * (4 if sub else 3) + [_PTR]

@@ -222,11 +222,29 @@ def test_jump_cap():
             ji.jump_cap(jnp.asarray(d), jnp.float64))
 
 
-def test_cost_sort_key_matches_pallas():
+@pytest.mark.parametrize("rs", [2.0, 1.4])
+def test_cost_sort_key_matches_pallas(rs):
+    """The port forms the JAX key's b term for term, and centres its key on
+    b_crit = 3 sqrt(3) M = 1.5 sqrt(3) rs, where the JAX key centres on
+    3 sqrt(3) rs: a deliberate divergence in launch order only."""
     q0, p0 = _ics(16)
-    j = np.asarray(jp._cost_sort_key(jnp.asarray(q0), jnp.asarray(p0), 2.0))
-    t = tc._cost_sort_key(torch.tensor(q0), torch.tensor(p0), 2.0).numpy()
-    np.testing.assert_allclose(t, j, rtol=1e-12, atol=1e-12)
+    j = np.asarray(jp._cost_sort_key(jnp.asarray(q0), jnp.asarray(p0), rs))
+    tq, tp = torch.tensor(q0), torch.tensor(p0)
+    b = tc._impact_parameter(tq, tp, rs).numpy()
+    # JAX's key is |b - 3 sqrt(3) rs| of its own b: the same b, ray by ray
+    np.testing.assert_allclose(np.abs(b - 3.0 * np.sqrt(3.0) * rs), j,
+                               rtol=1e-12, atol=1e-12)
+    t = tc._cost_sort_key(tq, tp, rs).numpy()
+    np.testing.assert_array_equal(t, np.abs(b - 1.5 * np.sqrt(3.0) * rs))
+    # a ray launched at b_crit from r0 = 30 has key 0
+    r0, b_crit = 30.0, 1.5 * np.sqrt(3.0) * rs
+    f = 1.0 - rs / r0
+    sin_a = b_crit * np.sqrt(f) / r0
+    qc = torch.tensor([[0.0, r0, np.pi / 2, 0.0]], dtype=torch.float64)
+    pc = torch.tensor([[-1.0, -np.sqrt(f) * np.sqrt(1.0 - sin_a ** 2), 0.0,
+                        0.0]], dtype=torch.float64)
+    assert float(tc._cost_sort_key(qc, pc, rs)[0]) < 1e-12
+    assert int(np.argmin(t)) == int(np.argmin(np.abs(b - b_crit)))
 
 
 def test_integrate_batch_full_matches_jax():

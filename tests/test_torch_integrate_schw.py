@@ -369,7 +369,8 @@ def test_build_registers_the_b2_b3_b4_entries():
     assert wanted <= registered
     for name in wanted:
         assert len(tbuild.argtypes(name)) == 8
-    assert len(tbuild.argtypes("grt_fantasy_trig_f32_launch")) == 5
+    # x, the two calls' sin and cos, sincos's sin and cos, n, the stream
+    assert len(tbuild.argtypes("grt_fantasy_trig_f32_launch")) == 7
     log = ("ptxas info    : Compiling entry function "
            "'_ZN12_GLOBAL__N_118fantasy_eqc_kernelIdLb0ELb1EEEvPKT_PS1_PiS3_"
            "iii' for 'sm_90a'\n"

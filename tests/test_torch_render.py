@@ -189,3 +189,21 @@ def test_render_on_cuda_raises_without_a_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         grtrace_torch.render(grtrace_torch.SceneConfig(size=8))
+
+
+@pytest.mark.parametrize("cls", ["RenderResult", "SubringResult"])
+def test_result_has_optional_fields(cls):
+    """`has(name)`, as grtrace.engine.render.RenderResult has it: whether
+    the render produced an optional per-pixel field."""
+    from grtrace_torch.engine.render import RenderResult
+    from grtrace_torch.engine.subring import SubringResult
+    kind = {"RenderResult": RenderResult, "SubringResult": SubringResult}[cls]
+    base = {"image": torch.zeros((2, 2, 3), dtype=torch.uint8),
+            "status": torch.zeros((2, 2), dtype=torch.int32)}
+    without = kind(dict(base), {"captured": 0})
+    with_evpa = kind(dict(base, evpa=torch.zeros((2, 2))), {"captured": 0})
+    assert without.has("image") and without.has("status")
+    assert not without.has("evpa")
+    assert with_evpa.has("evpa") and with_evpa.has("image")
+    assert not with_evpa.has("polarization")
+
