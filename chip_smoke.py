@@ -59,10 +59,13 @@ registers, local and shared bytes of every kernel instantiation
 (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` through probe libraries
 built from the same sources) and, where the toolkit has `cuobjdump`, the
 SASS instruction and MUFU counts of each kernel and its loops (phase 2b;
-B3 and B5-B7 must not spill); bare B5, B6 and B7 launches on a quarter, a
-half and all of their frames' rays (9b, 12b, 15b: a change to
-fantasy_ks.cu for B5 is kept only if B6 and B7 do not rise beyond their
-spread) and B3's on the float64 headline rays (23b); and, in 21a, the
+no kernel may spill); bare B1, B2 and B4 launches on a quarter, a half and
+all of the float32 and float64 headline rays (3c: a change to
+fantasy_eqc.cu is kept only if B1 drops and B2 and B4 do not rise beyond
+their spread), bare B5, B6 and B7 launches on a quarter, a half and all
+of their frames' rays (9b, 12b, 15b: a change to fantasy_ks.cu for B5 is
+kept only if B6 and B7 do not rise beyond their spread) and B3's on the
+float64 headline rays (23b); and, in 21a, the
 sincos that B3's flows call, which must equal torch's sin and cos on every
 point.
 
@@ -117,8 +120,12 @@ PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 # Floating-point operations per ray-step, counted from the kernel sources
 # (each add, subtract, multiply, divide and square root is one, a negation
 # none; no FMA under -fmad=false):
-#   fantasy_eqc: per substep B M B A(bridge) = 1 + 3 flows x 42 + mixing 90
-#                = 217; the guard's |dr| test 2 per step
+#   fantasy_eqc: per substep B M B A(bridge) = 3 flows x 42 + mixing 90
+#                = 216 (at order 2 the kernel forms d / 2 once per ray,
+#                not once per substep); the guard's |dr| test 2 per step;
+#                once per ray d / 2 and the open flow, 1 + 42 = 43 (the
+#                close, which parked rays skip, is not counted: the bound
+#                stays a bound)
 #   fantasy_ks (32 rows): per substep 1 + 3 flows x (kick/drift 120 +
 #                7 Kahan adds x 5) + mixing 120 = 586; per step the active
 #                test's |q1|^2 (5; the radius is carried from the last
@@ -138,19 +145,21 @@ PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 #                lerps (40) = 42 (a crossing past the last slot only adds
 #                one to an integer count)
 #   fantasy_eqc plain layout (B2, float64): per substep B M B A(bridge) =
-#                1 + 3 flows x 30 + mixing 72 = 163; the guard 2 per step;
-#                the open and close flows 2 x 31 once per ray
+#                3 flows x 30 + mixing 72 = 162; the guard 2 per step;
+#                once per ray d / 2 and the open flow, 1 + 30 = 31 (the
+#                close not counted, as in B1)
 #   fantasy_schw16 (B3): per substep A B M B A = 1 + 3 metric evaluations
 #                x 26 (each sin and each cos counted as one operation,
 #                though the card spends several on it: the bound stays a
 #                bound; flow A's metric is carried to the next substep) + 4
 #                applications of dt x 20 + mixing 96 = 255; the guard 2 per
 #                step
-#   fantasy_eqc core loop (B4): B1's 217 per substep and 2 per step, no
-#                open or close
+#   fantasy_eqc core loop (B4): B1's 216 per substep and 2 per step; once
+#                per ray d / 2 (1), no open or close
 # (every scene runs order 2: one substep per step)
-EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP = 217, 2
-EQ_FLOPS_SUBSTEP, EQ_FLOPS_STEP, EQ_FLOPS_RAY = 163, 2, 62
+EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP, EQC_FLOPS_RAY = 216, 2, 43
+EQC_CHUNK_FLOPS_RAY = 1
+EQ_FLOPS_SUBSTEP, EQ_FLOPS_STEP, EQ_FLOPS_RAY = 162, 2, 31
 SCHW16_FLOPS_SUBSTEP, SCHW16_FLOPS_STEP = 255, 2
 KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 55, 332
 DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
@@ -1172,8 +1181,8 @@ def checkpoint_eqc(device, q0, p0, mono, mono_ms):
               f"{chunks} chunks, {chunk_ms:.3f} ms summed, "
               f"{json.dumps(resumed)}; B1 monolithic {mono_ms:.3f} ms")
     bound_ms, bound_by = bound(
-        par["ray_steps"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP),
-        par["rays"] * CHUNK24_BYTES_RAY)
+        par["ray_steps"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP)
+        + par["rays"] * EQC_CHUNK_FLOPS_RAY, par["rays"] * CHUNK24_BYTES_RAY)
     return {"launches": launches, "bound_ms": bound_ms,
             "bound_by": bound_by, **par}
 
@@ -1273,9 +1282,11 @@ def schw_boundary(device):
                                  f"the closed form, not < {SCHW_PX_ERR} px")
 
 
-# kernels whose __launch_bounds__ ask for the most blocks that fit without a
-# spill (B3, B5-B7): a spill means a later edit outgrew them
-NO_SPILL = ("fantasy_ks_kernel", "fantasy_schw16_kernel")
+# kernels that must not spill: B3 and B5-B7, whose __launch_bounds__ ask
+# for the most blocks that fit without a spill (a spill means a later edit
+# outgrew them), and B1, B2 and B4, whose step loop a spill would lengthen
+NO_SPILL = ("fantasy_eqc_kernel", "fantasy_ks_kernel",
+            "fantasy_schw16_kernel")
 
 
 def build_kernels():
@@ -1442,10 +1453,11 @@ def kernel_report():
     phase("2b", f"resident blocks of 128 threads per SM "
                 f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
                 f"registers, local and shared bytes: {json.dumps(occ)}")
-    # B5-B7 use no local memory at all (B3's is sin and cos's argument
-    # reduction, not a spill: phase 2 checks its spills)
+    # B1, B2 and B4-B7 use no local memory at all (B3's is sin and cos's
+    # argument reduction, not a spill: phase 2 checks its spills)
     local = [k for k, v in occ.items()
-             if k.startswith("fantasy_ks_kernel") and v["local_bytes"]]
+             if k.startswith(("fantasy_eqc_kernel", "fantasy_ks_kernel"))
+             and v["local_bytes"]]
     if local:
         raise AssertionError(f"{local} use local memory: a spill")
     tool = _cuobjdump()
@@ -1516,6 +1528,40 @@ def schw16_sweep(q0, p0, steps, delta):
     return ray_sweep(prepare, q0, p0)
 
 
+def eqc_sweep(q0, p0, q0d, p0d):
+    """Phase 3c: bare launches of fantasy_eqc.cu on cost-sorted, packed
+    headline rays, as the wrappers sort and pack them: B1 on the float32
+    rays (q0, p0), B2 on the float64 ones (q0d, p0d), both at the STEPS
+    budget, and B4 for JOB_CHUNK steps on the carry that `checkpoint.start`
+    opens from the sorted float32 rays."""
+    from grtrace_torch.engine import checkpoint as ck
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.integrate import substep_params
+    from grtrace_torch.physics.hamiltonian import pack_state_eq, pack_state_eqc
+    rs = 2.0 * MASS
+    p32 = substep_params(DELTA, rs, R_MAX, OMEGA, 2, torch.float32)
+    p64 = substep_params(DELTA, rs, R_MAX, OMEGA, 2, torch.float64,
+                         compensated=False)
+
+    def b1(q, p):
+        _, q_s, p_s = tc._sorted(q, p, float(p32[0]))
+        state = torch.stack(pack_state_eqc(q_s, p_s))
+        return lambda: tc.launch_fantasy_eqc(state, p32, STEPS)
+
+    def b2(q, p):
+        _, q_s, p_s = tc._sorted(q, p, float(p64[0]))
+        state = torch.stack(pack_state_eq(q_s, p_s))
+        return lambda: tc.launch_fantasy_eq(state, p64, STEPS)
+
+    def b4(q, p):
+        _, q_s, p_s = tc._sorted(q, p, float(p32[0]))
+        st = ck.start(q_s, p_s, STEPS, DELTA, rs, R_MAX, OMEGA,
+                      compensated=True)
+        return lambda: tc.launch_fantasy_eqc_chunk(st.state, p32, JOB_CHUNK)
+    return {"B1": ray_sweep(b1, q0, p0), "B2": ray_sweep(b2, q0d, p0d),
+            "B4": ray_sweep(b4, q0, p0)}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1542,6 +1588,14 @@ def main():
     for order in (2, 4):
         check_parity(f"64x64 camera, order {order}", q0s, p0s, 2000, 0.05,
                      order, "3b")
+    sweep = eqc_sweep(q0, p0, *camera(SIZE, device, torch.float64))
+    eqc_occ = {k: (v["blocks_per_sm"], v["registers"]) for k, v in occ.items()
+               if k.startswith("fantasy_eqc")}
+    phase("3c", f"B1 and B2 on a quarter, a half and all of the float32 and "
+                f"float64 headline rays ({STEPS}-step budget), B4 on the "
+                f"carry opened from them ({JOB_CHUNK} steps), bare launches; "
+                f"(resident blocks per SM, registers): {json.dumps(eqc_occ)}: "
+                f"{json.dumps(sweep)}")
 
     golden_probes(device)
     launches, wall, counts32 = main_path(device)
@@ -1551,8 +1605,8 @@ def main():
              f"({100 * a['kernel_ms'] / 1e3 / wall:.1f}% of the render's "
              f"warm wall time), eager twin {a['twin_ms']:.3f} ms")
     eqc_bound, eqc_by = bound(
-        a["n_steps_sum"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP),
-        a["rays"] * BYTES_RAY)
+        a["n_steps_sum"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP)
+        + a["rays"] * EQC_FLOPS_RAY, a["rays"] * BYTES_RAY)
 
     # --- kernel B5 and the Kerr path ---------------------------------------
     # order 4 with charge and the 16-row layouts are off the main path and

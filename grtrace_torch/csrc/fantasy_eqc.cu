@@ -18,20 +18,32 @@
 // _advance_eqc (B4), built on the flows of
 // grtrace_torch/physics/hamiltonian.py (staggered_eqc, staggered_eq).
 //
-// What bounds it on an H100: FP32 (B1, B4) or FP64 (B2) instruction
-// throughput and latency.  Each ray is a serial chain of about 220
-// (compensated) or 160 (plain) floating-point operations per step, with six
-// IEEE divisions, for up to 2e5 steps; the long tail of near-critical
-// rays that orbit the photon sphere runs far longer than the rest.  There
-// is no memory traffic inside the loop.
+// What bounds it on an H100: the issue rate of its instructions.  Each ray
+// is a serial chain of about 220 (compensated) or 160 (plain)
+// floating-point operations per step, six of them IEEE reciprocals, for
+// up to 2e5 steps, with no memory traffic inside the loop; -fmad=false
+// forbids FMA, so every operation issues alone.  With the rays
+// cost-sorted, a warp's rays retire together, and on the headline frame
+// the bulk of the rays keeps every scheduler issuing at close to one
+// instruction a cycle (the float32 layouts at 28 resident warps per SM):
+// the time follows the instructions a step issues, not the resident warps.
 //
-// What the design does about it: the state (12 equatorial rows, plus their
-// 12 Kahan deficits in the compensated layout) lives in registers, with no
-// shared memory and no global traffic until the ray exits; a finished ray
-// breaks out of its loop (the per-thread form of the TPU kernel's masked
-// steps and per-tile early exit); the wrapper sorts rays by |b - b_crit| so
-// a warp's rays retire together.  Making it fast is later work.
-//
+// What the design does about it:
+//  * the state (12 equatorial rows, plus their 12 Kahan deficits in the
+//    compensated layout) lives in registers, with no global traffic until
+//    the ray exits; a finished ray breaks out of its loop (the per-thread
+//    form of the TPU kernel's masked steps and per-tile early exit), and
+//    the wrapper sorts rays by |b - b_crit|;
+//  * at order 2 (n_sub == 1, every scene's) the step's scalars (d / 2, the
+//    mixing's two coefficients, the bridge) are read once per ray and stay
+//    in registers, so the step loop holds no load, no index arithmetic and
+//    no substep loop; orders 4 to 8 keep the general substep loop;
+//  * the guard's pre-step copy stays in registers.  Its cost is the moves
+//    of the rows a revert restores, at every step; a copy in shared memory
+//    (six 16-byte stores a step, and a compiler fence so that the revert
+//    reads them) and more resident blocks through __launch_bounds__ cost
+//    the float32 layouts more than they saved.
+
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // operation below rounds once, in the order written, exactly as the eager
 // twins' torch ops do: the association follows hamiltonian.py term by term
@@ -49,11 +61,14 @@
 // where c is one_minus_cos of the mixing angle (compensated) or its cos
 // (plain).  ns_out (n,) int32 counts the steps each ray took in this launch.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
 constexpr int kRows = 12;
+constexpr int kThreads = 128;
 
 template <typename T, bool kComp>
 struct State {
@@ -156,13 +171,47 @@ __device__ __forceinline__ void flow_mixed(State<T, kComp>& st, T cw, T sw) {
   }
 }
 
+// One staggered (sub)step B(d/2) M B(d/2) A(bridge), half = d / 2
+template <typename T, bool kComp>
+__device__ __forceinline__ void substep(State<T, kComp>& st, T half, T cw,
+                                        T sw, T bridge, T rs) {
+  flow_b(st, half, rs);
+  flow_mixed(st, cw, sw);
+  flow_b(st, half, rs);
+  flow_a(st, bridge, rs);
+}
+
 template <typename T>
 __device__ __forceinline__ bool active(T r, T r_capture, T r_max) {
   return (r > r_capture) && (r < r_max);
 }
 
+// At most `steps` guarded core steps of an active ray; `step` applies one
+// step's substeps.  Returns the steps taken.
+template <typename T, bool kComp, typename Step>
+__device__ __forceinline__ int cores(State<T, kComp>& st, int steps, T rs,
+                                     T r_capture, T r_max, T cap, Step step) {
+  int ns = 0;
+  for (; ns < steps; ++ns) {
+    if (!active(st.s[1], r_capture, r_max)) break;
+    const State<T, kComp> old = st;
+    step(st);
+    // blow-up guard; the negated <= also catches NaN and Inf
+    if (!(abs_t(st.s[1] - old.s[1]) <= cap)) {
+      st = old;
+      st.s[1] = rs;  // q1_r
+      st.s[7] = rs;  // q2_r
+      if constexpr (kComp) {
+        st.c[1] = T(0);
+        st.c[7] = T(0);
+      }
+    }
+  }
+  return ns;
+}
+
 template <typename T, bool kComp, bool kOpenClose>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 fantasy_eqc_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
                    int* __restrict__ ns_out, const T* __restrict__ params,
                    int n, int n_sub, int steps) {
@@ -181,38 +230,35 @@ fantasy_eqc_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   const T cap = __ldg(params + 2);
   const T d0 = __ldg(params + 3);
   const T r_capture = T(1.1) * rs;
+  // the first substep's d / 2: the open and close flows' size, and the B
+  // flows' at order 2
+  const T half0 = T(0.5) * d0;
 
   int ns = 0;
   const bool act0 = active(st.s[1], r_capture, r_max);
   if (act0 && steps > 0) {
-    if constexpr (kOpenClose) flow_a(st, T(0.5) * d0, rs);  // opening half-A
-    for (int k = 0; k < steps; ++k) {
-      if (!active(st.s[1], r_capture, r_max)) break;
-      const State<T, kComp> old = st;
-      for (int j = 0; j < n_sub; ++j) {
-        const T* sub = params + 3 + 4 * j;
-        const T d = __ldg(sub + 0);
-        const T half = T(0.5) * d;
-        flow_b(st, half, rs);
-        flow_mixed(st, __ldg(sub + 1), __ldg(sub + 2));
-        flow_b(st, half, rs);
-        flow_a(st, __ldg(sub + 3), rs);
-      }
-      // blow-up guard; the negated <= also catches NaN and Inf
-      if (!(abs_t(st.s[1] - old.s[1]) <= cap)) {
-        st = old;
-        st.s[1] = rs;  // q1_r
-        st.s[7] = rs;  // q2_r
-        if constexpr (kComp) {
-          st.c[1] = T(0);
-          st.c[7] = T(0);
-        }
-      }
-      ++ns;
+    if constexpr (kOpenClose) flow_a(st, half0, rs);  // opening half-A
+    if (n_sub == 1) {
+      const T cw = __ldg(params + 4);
+      const T sw = __ldg(params + 5);
+      const T bridge = __ldg(params + 6);
+      ns = cores(st, steps, rs, r_capture, r_max, cap,
+                 [&](State<T, kComp>& s) {
+                   substep(s, half0, cw, sw, bridge, rs);
+                 });
+    } else {
+      ns = cores(st, steps, rs, r_capture, r_max, cap,
+                 [&](State<T, kComp>& s) {
+                   for (int j = 0; j < n_sub; ++j) {
+                     const T* sub = params + 3 + 4 * j;
+                     substep(s, T(0.5) * __ldg(sub + 0), __ldg(sub + 1),
+                             __ldg(sub + 2), __ldg(sub + 3), rs);
+                   }
+                 });
     }
     // closing half-A, except for rays the guard parked at exactly r == rs
     if constexpr (kOpenClose) {
-      if (st.s[1] != rs) flow_a(st, T(-0.5) * d0, rs);
+      if (st.s[1] != rs) flow_a(st, -half0, rs);
     }
   }
 
@@ -224,11 +270,15 @@ fantasy_eqc_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   ns_out[i] = ns;
 }
 
+}  // namespace
+
+#ifdef __CUDACC__
+namespace {
+
 template <typename T, bool kComp, bool kOpenClose>
 int launch(const T* state_in, T* state_out, int* ns_out, const T* params,
            int n, int n_sub, int steps, void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 128;
   const int blocks = (n + kThreads - 1) / kThreads;
   fantasy_eqc_kernel<T, kComp, kOpenClose>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -264,3 +314,4 @@ extern "C" int grt_fantasy_eqc_chunk_launch(const float* state_in,
   return launch<float, true, false>(state_in, state_out, ns_out, params, n,
                                     n_sub, steps, stream);
 }
+#endif  // __CUDACC__

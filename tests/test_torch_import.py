@@ -27,7 +27,8 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "eqc_ablation.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "grtrace_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
