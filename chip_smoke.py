@@ -52,7 +52,19 @@ the port's paths through them:
     save and load after the second), bitwise equal to B1's monolithic
     result;
   * the Schwarzschild shadow boundary through B1 (float32) and B2
-    (float64) against the closed form, within 0.01 px.
+    (float64) against the closed form, within 0.01 px;
+  * the command-line drivers and kernel S1 (csrc/fantasy_traj.cu, the
+    trajectory recorder): `grtrace_torch.cli.main` at the headline width
+    (400x400, 200k steps, delta 0.01, a procedural sky, 20 sampled
+    trajectories, no plots) with B1 and S1 launched once each, no eager
+    sampler on CUDA rays, counts equal to a direct render(), the CSVs
+    written by the native writer and the PNGs decoding to the arrays in
+    memory, each stage timed (phase 25); S1 bitwise against its eager twin
+    on those 20 rays at the full budget, on the single-ray driver's
+    float64 ray with every step kept and at order 4 (26); the band sweep
+    (500x500, 30k steps through B1, 50 rays through S1; 27); and the CLI
+    with --profile, its top device operations and device-busy share
+    printed, ungated (28).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -88,6 +100,8 @@ import time
 import numpy as np
 import torch
 
+from grtrace_torch.engine import metrics
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "oracle_escape_headline.npz")
 
@@ -113,57 +127,13 @@ DISK_SIZE, DISK_STEPS, DISK_DELTA, DISK_SPIN = 512, 30_000, 0.02, 0.9
 SUB_SIZE, SUB_STEPS, SUB_DELTA, SUB_SPIN = 256, 30_000, 0.02, 0.9
 SUB_ORDERS, SUB_ELEV = 3, 75.0
 
-# Bounds: the least time an H100 SXM could take, from its data sheet at
-# 700 W: 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the tensor
-# cores, 3.35 TB/s HBM3.
-PEAK_FLOPS, PEAK_FLOPS64, PEAK_BYTES = 67e12, 34e12, 3.35e12
-# Floating-point operations per ray-step, counted from the kernel sources
-# (each add, subtract, multiply, divide and square root is one, a negation
-# none; no FMA under -fmad=false):
-#   fantasy_eqc: per substep B M B A(bridge) = 3 flows x 42 + mixing 90
-#                = 216 (at order 2 the kernel forms d / 2 once per ray,
-#                not once per substep); the guard's |dr| test 2 per step;
-#                once per ray d / 2 and the open flow, 1 + 42 = 43 (the
-#                close, which parked rays skip, is not counted: the bound
-#                stays a bound)
-#   fantasy_ks (32 rows): per substep 1 + 3 flows x (kick/drift 120 +
-#                7 Kahan adds x 5) + mixing 120 = 586; per step the active
-#                test's |q1|^2 (5; the radius is carried from the last
-#                guard) and the guard 50: the sum of the 16 rows (15), h
-#                from the H and S of the step's last flow A (11), the
-#                tolerance |p2|^2 + 1 and its product (7) and the new radius
-#                (17); once per ray the open and close flows (2 x 155) and
-#                the launch's radius and active test (22) = 332 (the radius
-#                a park recomputes is not counted: the bound stays a bound)
-#   fantasy_ks disk mode (32 rows): B5's count plus, per accepted step, the
-#                two folds of z and their product (3); per hit ray the
-#                crossing: t (2), eight lerps on folded rows (8 x 5) and the
-#                hit radius (17) = 59 (crossings outside the annulus, which
-#                do 34 of these, are not counted: the bound stays a bound)
-#   fantasy_ks subring mode (32 rows): B5's count plus the same 3 per
-#                accepted step; per recorded crossing t (2) and the eight
-#                lerps (40) = 42 (a crossing past the last slot only adds
-#                one to an integer count)
-#   fantasy_eqc plain layout (B2, float64): per substep B M B A(bridge) =
-#                3 flows x 30 + mixing 72 = 162; the guard 2 per step;
-#                once per ray d / 2 and the open flow, 1 + 30 = 31 (the
-#                close not counted, as in B1)
-#   fantasy_schw16 (B3): per substep A B M B A = 1 + 3 metric evaluations
-#                x 26 (each sin and each cos counted as one operation,
-#                though the card spends several on it: the bound stays a
-#                bound; flow A's metric is carried to the next substep) + 4
-#                applications of dt x 20 + mixing 96 = 255; the guard 2 per
-#                step
-#   fantasy_eqc core loop (B4): B1's 216 per substep and 2 per step; once
-#                per ray d / 2 (1), no open or close
-# (every scene runs order 2: one substep per step)
-EQC_FLOPS_SUBSTEP, EQC_FLOPS_STEP, EQC_FLOPS_RAY = 216, 2, 43
-EQC_CHUNK_FLOPS_RAY = 1
-EQ_FLOPS_SUBSTEP, EQ_FLOPS_STEP, EQ_FLOPS_RAY = 162, 2, 31
-SCHW16_FLOPS_SUBSTEP, SCHW16_FLOPS_STEP = 255, 2
-KS_FLOPS_SUBSTEP, KS_FLOPS_STEP, KS_FLOPS_RAY = 586, 55, 332
-DISK_FLOPS_STEP, DISK_FLOPS_HIT = 3, 59
-SUB_FLOPS_STEP, SUB_FLOPS_EVENT = 3, 42
+# Bounds: the least time an H100 SXM could take, from the one table of
+# peaks and per-ray-step operation counts that `--print-metrics` reads too
+# (grtrace_torch/engine/metrics.py, where each count is derived from its
+# kernel source); every scene runs order 2: one substep per step.
+PEAK_FLOPS = metrics.PEAK_FLOPS["float32"]
+PEAK_FLOPS64 = metrics.PEAK_FLOPS["float64"]
+PEAK_BYTES = metrics.PEAK_BYTES
 # bytes the integration must move per ray: q0 and p0 in, final q and p,
 # status and n_steps out (each read or written once); the disk mode also
 # writes hit_q and hit_p, the subring mode the count and n_orders slots of
@@ -337,9 +307,9 @@ def main_path(device):
     scene = headline_scene()
     tex = starfield()
     integrate_cuda.launches = 0
-    metrics = RenderMetrics()
+    rm = RenderMetrics()
     res = grtrace_torch.render(scene, bg_array=tex, device="cuda",
-                               metrics=metrics)
+                               metrics=rm)
     launches = integrate_cuda.launches
     counts = res.counts
     ns = res.n_steps.astype(np.int64)
@@ -347,7 +317,7 @@ def main_path(device):
     fq = res.final_q
     summary = {"launches": launches, "counts": counts,
                "tpu_counts_BENCH_r05": TPU_COUNTS,
-               "stages_s": metrics.stages,
+               "stages_s": rm.stages,
                "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum()),
                "share_full_budget": float((ns == STEPS).mean())}
     phase(5, f"main path render {SIZE}x{SIZE}/{STEPS} steps through the "
@@ -430,9 +400,9 @@ def kerr_main_path():
     scene = kerr_scene()
     tex = starfield()
     integrate_ks_cuda.launches = 0
-    metrics = RenderMetrics()
+    rm = RenderMetrics()
     res = grtrace_torch.render(scene, bg_array=tex, device="cuda",
-                               metrics=metrics)
+                               metrics=rm)
     launches = integrate_ks_cuda.launches
     counts = res.counts
     ns = res.n_steps.astype(np.int64)
@@ -442,7 +412,7 @@ def kerr_main_path():
     status = res.device("status").reshape(-1)
     off_pred = int((((status == 1) & pred) | ((status == 2) & ~pred)).sum())
     summary = {"launches": launches, "counts": counts,
-               "stages_s": metrics.stages,
+               "stages_s": rm.stages,
                "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum()),
                "status_off_bardeen_pred": off_pred}
     phase(9, f"Kerr render {KERR_SIZE}x{KERR_SIZE}/{KERR_STEPS} steps, "
@@ -481,8 +451,7 @@ def kerr_main_path():
              f"{json.dumps(par)}")
     gate_parity("Kerr frame", par)
     bound_ms, bound_by = bound(
-        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP) + n * KS_FLOPS_RAY,
-        n * BYTES_RAY)
+        metrics.kernel_ops("fantasy_ks", ray_steps, n), n * BYTES_RAY)
     phase(9, f"Kerr render warm wall time: median {wall:.6f} s of "
              f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B5 "
              f"kernel+wrapper at this shape {par['kernel_ms']:.3f} ms "
@@ -567,9 +536,9 @@ def disk_main_path():
     tex = starfield()
     r_in, r_out = disk_annulus()
     integrate_ks_cuda.disk_launches = 0
-    metrics = RenderMetrics()
+    rm = RenderMetrics()
     res = grtrace_torch.render_disk(scene, bg_array=tex, device="cuda",
-                                    metrics=metrics)
+                                    metrics=rm)
     launches = integrate_ks_cuda.disk_launches
     counts = res.counts
     ns = res.n_steps.astype(np.int64)
@@ -583,7 +552,7 @@ def disk_main_path():
     r_hit = ks_radius_c(hq[:, 1], hq[:, 2], hq[:, 3], a32)
     r_in32 = float(torch.tensor(r_in, dtype=torch.float32))
     summary = {"launches": launches, "counts": counts,
-               "stages_s": metrics.stages,
+               "stages_s": rm.stages,
                "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum()),
                "r_in": r_in, "r_out": r_out,
                "g_min": float(g.min()), "g_max": float(g.max()),
@@ -635,8 +604,9 @@ def disk_main_path():
               f"{json.dumps(par)}")
     gate_parity("disk frame", par)
     bound_ms, bound_by = bound(
-        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP + DISK_FLOPS_STEP)
-        + n * KS_FLOPS_RAY + hits * DISK_FLOPS_HIT, n * DISK_BYTES_RAY)
+        metrics.kernel_ops("fantasy_ks", ray_steps, n)
+        + ray_steps * metrics.DISK_OPS_STEP + hits * metrics.DISK_OPS_HIT,
+        n * DISK_BYTES_RAY)
     phase(12, f"disk render warm wall time: median {wall:.6f} s of "
               f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B6 "
               f"kernel+wrapper at this shape {par['kernel_ms']:.3f} ms "
@@ -715,9 +685,9 @@ def subring_main_path():
     r_in = disk.inner_edge(MASS, SUB_SPIN)
     r_in32 = float(torch.tensor(r_in, dtype=torch.float32))
     integrate_ks_cuda.subring_launches = 0
-    metrics = RenderMetrics()
+    rm = RenderMetrics()
     res = grtrace_torch.render_subrings(scene, disk, n_orders=SUB_ORDERS,
-                                        device="cuda", metrics=metrics)
+                                        device="cuda", metrics=rm)
     launches = integrate_ks_cuda.subring_launches
     counts = res.counts
     valid, inten = res.valid, res.intensity
@@ -728,7 +698,7 @@ def subring_main_path():
     theory = shell_theory()
     theory_s = time.perf_counter() - t0
     info = {"launches": launches, "counts": counts,
-            "stages_s": metrics.stages, "n_steps_max": int(ns.max()),
+            "stages_s": rm.stages, "n_steps_max": int(ns.max()),
             "n_steps_sum": int(ns.sum()),
             "valid_per_order": valid.sum(axis=(1, 2)).tolist(),
             "r_em_min": float(r_em.min()), "r_em_max": float(r_em.max()),
@@ -795,8 +765,9 @@ def subring_main_path():
               f"{json.dumps(par)}")
     gate_parity("subring frame", par)
     bound_ms, bound_by = bound(
-        ray_steps * (KS_FLOPS_SUBSTEP + KS_FLOPS_STEP + SUB_FLOPS_STEP)
-        + n * KS_FLOPS_RAY + sum(recorded) * SUB_FLOPS_EVENT,
+        metrics.kernel_ops("fantasy_ks", ray_steps, n)
+        + ray_steps * metrics.SUB_OPS_STEP
+        + sum(recorded) * metrics.SUB_OPS_EVENT,
         n * SUB_BYTES_RAY)
     phase(15, f"subring render warm wall time: median {wall:.6f} s of "
               f"{[round(w, 6) for w in walls]}, {n / wall:.1f} rays/s; B7 "
@@ -922,9 +893,9 @@ def f64_main_path(device, counts32):
     scene = headline_scene("float64")
     tex = starfield()
     integrate_cuda.eq_launches = 0
-    metrics = RenderMetrics()
+    rm = RenderMetrics()
     res = grtrace_torch.render(scene, bg_array=tex, device="cuda",
-                               metrics=metrics)
+                               metrics=rm)
     launches = integrate_cuda.eq_launches
     counts = res.counts
     ns = res.n_steps.astype(np.int64)
@@ -941,7 +912,7 @@ def f64_main_path(device, counts32):
                - counts32["captured"],
                "f32_f64_predicate_disagreements": int(
                    (pred64 != pred32).sum()),
-               "stages_s": metrics.stages,
+               "stages_s": rm.stages,
                "n_steps_max": int(ns.max()), "n_steps_sum": int(ns.sum())}
     phase(18, f"float64 headline render {SIZE}x{SIZE}/{STEPS} steps through "
               f"kernel B2: {json.dumps(summary)}")
@@ -1181,8 +1152,8 @@ def checkpoint_eqc(device, q0, p0, mono, mono_ms):
               f"{chunks} chunks, {chunk_ms:.3f} ms summed, "
               f"{json.dumps(resumed)}; B1 monolithic {mono_ms:.3f} ms")
     bound_ms, bound_by = bound(
-        par["ray_steps"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP)
-        + par["rays"] * EQC_CHUNK_FLOPS_RAY, par["rays"] * CHUNK24_BYTES_RAY)
+        metrics.kernel_ops("fantasy_eqc_chunk", par["ray_steps"],
+                           par["rays"]), par["rays"] * CHUNK24_BYTES_RAY)
     return {"launches": launches, "bound_ms": bound_ms,
             "bound_by": bound_by, **par}
 
@@ -1249,7 +1220,7 @@ def checkpoint_generic(device, q0, p0, counts18):
               f"{json.dumps(counts18)}; longest ray "
               f"{int(st.n_steps.max())} steps")
     bound_ms, bound_by = bound(
-        b3["n_steps_sum"] * (SCHW16_FLOPS_SUBSTEP + SCHW16_FLOPS_STEP),
+        metrics.kernel_ops("fantasy_schw16", b3["n_steps_sum"], b3["rays"]),
         b3["rays"] * BYTES_RAY64, PEAK_FLOPS64)
     return {"launches": launches, "bound_ms": bound_ms,
             "bound_by": bound_by, **b3}
@@ -1280,6 +1251,250 @@ def schw_boundary(device):
         if not res["px_err"] < SCHW_PX_ERR:
             raise AssertionError(f"{name}: boundary {res['px_err']} px from "
                                  f"the closed form, not < {SCHW_PX_ERR} px")
+
+
+# --- the command-line drivers and kernel S1 (phases 25-28) ----------------
+# the CLI's headline run: the README's quick start at the headline width,
+# 200k steps (the CLI's defaults: 20 sampled trajectories of at most 1000
+# points, seed 0), without the plots, which need matplotlib
+CLI_OUT = os.path.join(HERE, "build", "cli_out")
+CLI_ARGV = ["--size", str(SIZE), "--steps", str(STEPS), "--delta",
+            str(DELTA), "--observer-distance", "30", "--boundary-radius",
+            "31", "--background", "procedural:starfield", "--no-plots",
+            "--print-metrics"]
+N_SAMPLES, TRAJ_POINTS = 20, 1000
+# bytes S1 must move per ray: q0 and p0 in, the steps taken out (the
+# record's n_keep x 4 slots are counted per run)
+TRAJ_BYTES_RAY = 8 * 4 + 4  # float32 rays
+
+
+def run_cli(argv):
+    """grtrace_torch.cli.main in-process: (its result, its standard output
+    as lines)."""
+    import contextlib
+    import io
+    from grtrace_torch.cli import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = cli_main.main(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def json_line(lines, key):
+    """The JSON object the CLI printed under `key`."""
+    for line in lines:
+        if line.startswith("{") and f'"{key}"' in line:
+            return json.loads(line)
+    raise AssertionError(f"the CLI printed no {key!r} line")
+
+
+def host_packages():
+    """Which of the optional host packages import on this machine."""
+    import importlib.util
+    return {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "pandas", "matplotlib")}
+
+
+def cli_phase(device):
+    """Phase 25: `python -m grtrace_torch.cli.main` at the headline width,
+    in-process, with B1's and S1's counts and the native writer's count set
+    to 0 just before and read just after, and the eager sampler counted on
+    CUDA rays; then the same SceneConfig through render() directly, and the
+    CLI's files held against the arrays in memory."""
+    import grtrace_torch
+    from grtrace_torch.cli.args import parse_args, scene_from_args
+    from grtrace_torch.engine import integrate as ti
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.flat import flat_render_scene
+    from grtrace_torch.io import artifacts
+    argv = CLI_ARGV + ["--out-dir", CLI_OUT]
+    twin = ti.integrate_batch_full
+    eager_on_cuda = []
+
+    def counted_twin(q0s, *args, **kw):
+        if q0s.is_cuda:
+            eager_on_cuda.append(q0s.shape[0])
+        return twin(q0s, *args, **kw)
+
+    ti.integrate_batch_full = counted_twin
+    tc.launches = tc.traj_launches = 0
+    artifacts.writes.update(native=0, python=0)
+    t0 = time.perf_counter()
+    try:
+        res, lines = run_cli(argv)
+    finally:
+        ti.integrate_batch_full = twin
+    wall = time.perf_counter() - t0
+    launches = {"B1": tc.launches, "S1": tc.traj_launches}
+    writes = dict(artifacts.writes)
+    stages = json_line(lines, "stages_s")
+    roof = json_line(lines, "roofline")["roofline"]
+
+    scene = scene_from_args(parse_args(argv))
+    bg = artifacts.load_background(scene.background, size=(SIZE, SIZE))
+    direct = grtrace_torch.render(scene, bg_array=bg, seed=0, device=device)
+    flat_img, _ = flat_render_scene(
+        scene.observer(), bg, boundary_radius=scene.boundary_radius,
+        patch_center_theta=scene.patch.center_theta,
+        patch_center_phi=scene.patch.center_phi,
+        patch_size_theta=scene.patch.size_theta,
+        patch_size_phi=scene.patch.size_phi, n_sampled=10, seed=0,
+        device=device)
+    with open(os.path.join(CLI_OUT, "photon_data.csv")) as f:
+        photon_header = f.readline().strip()
+        photon_rows = sum(1 for _ in f)
+    with open(os.path.join(CLI_OUT, "sampled_rays.csv")) as f:
+        sampled_header = f.readline().strip()
+        sampled_rows = sum(1 for _ in f)
+    images = {name: artifacts.read_png(os.path.join(CLI_OUT, "images", name))
+              for name in ("manual_output.png", "no_gravity.png")}
+    # the CLI's csv_writes stage includes the native writer's g++ build at
+    # first use: time a second, warm write of photon_data.csv beside it
+    t1 = time.perf_counter()
+    artifacts.save_photon_data(res, os.path.join(CLI_OUT, "photon_warm.csv"))
+    warm_photon_s = time.perf_counter() - t1
+    os.remove(os.path.join(CLI_OUT, "photon_warm.csv"))
+    summary = {
+        "argv": " ".join(argv), "launches": launches,
+        "eager_sampler_calls_on_cuda": len(eager_on_cuda),
+        "counts": res.counts, "direct_render_counts": direct.counts,
+        "csv_writes": writes, "photon_rows": photon_rows,
+        "sampled_rows": sampled_rows, "stages_s": stages["stages_s"],
+        "photon_csv_warm_write_s": warm_photon_s,
+        "rays_per_s": stages["rays_per_s"],
+        "geodesic_steps": stages["geodesic_steps"], "cli_wall_s": wall,
+        "roofline": roof, "host_packages": host_packages()}
+    phase(25, f"grtrace_torch.cli.main at {SIZE}x{SIZE}, {STEPS} steps: "
+              f"{json.dumps(summary)}")
+    for line in lines:
+        if not line.startswith("{"):
+            phase(25, f"cli: {line}")
+    if launches != {"B1": 1, "S1": 1}:
+        raise AssertionError(f"the CLI's launches {launches}: B1 and S1 "
+                             f"must each launch once")
+    if eager_on_cuda:
+        raise AssertionError(f"the eager sampler ran on CUDA rays "
+                             f"{eager_on_cuda}")
+    if res.counts != direct.counts or res.counts["numerical_error"]:
+        raise AssertionError(f"CLI counts {res.counts} against render()'s "
+                             f"{direct.counts} (numerical_error must be 0)")
+    if writes != {"native": 2, "python": 0}:
+        raise AssertionError(f"CSV writers {writes}: the native writer must "
+                             f"take both files")
+    if (photon_header != ",".join(artifacts.PHOTON_COLUMNS)
+            or photon_rows != SIZE * SIZE
+            or sampled_header != ",".join(artifacts.SAMPLED_COLUMNS)
+            or sampled_rows != N_SAMPLES * TRAJ_POINTS):
+        raise AssertionError("photon_data.csv / sampled_rays.csv have the "
+                             "wrong header or row count")
+    if not (np.array_equal(images["manual_output.png"], res.image)
+            and np.array_equal(images["no_gravity.png"], flat_img)):
+        raise AssertionError("a PNG does not decode to the array in memory")
+    return res, launches
+
+
+def traj_phase(device, res):
+    """Phase 26: S1, through the entry the render's sampler calls, against
+    its twin, bit for bit: on phase 25's sampled rays at the full budget
+    (float32), with the CLI's own sampled trajectories equal to that
+    record's; on the single-ray driver's float64 ray with every step kept;
+    and at order 4 on 16 headline rays; each timed beside its twin.
+    Returns the first comparison."""
+    from grtrace_torch.cli import single_ray
+    from grtrace_torch.engine.render import trajectories_to_cartesian
+    from grtrace_torch.engine.validate import traj_parity
+    idx = torch.as_tensor(res.sampled_indices[:, 0] * SIZE
+                          + res.sampled_indices[:, 1], device=device)
+    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
+    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
+    (traj, _), cli = traj_parity(q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX,
+                                 OMEGA, n_keep=TRAJ_POINTS)
+    # the CLI's own sampled trajectories (its S1 launch, converted on the
+    # host) against the same conversion of the record just held against
+    # the twin
+    betas = res.device("beta").reshape(-1)[idx].cpu().double()
+    cli["cli_trajectories_equal"] = all(
+        np.array_equal(a, b) for a, b in zip(
+            res.sampled_trajectories, trajectories_to_cartesian(traj, betas)))
+    cli["bound_ms"], cli["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_traj", cli["n_steps_sum"], cli["rays"]),
+        cli["rays"] * (TRAJ_BYTES_RAY + cli["n_keep"] * 4 * 4))
+    phase(26, f"S1 vs eager twin on the CLI's {cli['rays']} sampled rays "
+              f"({STEPS}-step budget, {TRAJ_POINTS} points, float32): "
+              f"{json.dumps(cli)}")
+    args = single_ray.build_parser().parse_args([])
+    q1, p1 = single_ray.initial_state(args, device)
+    _, one = traj_parity(q1, p1, args.steps, args.delta, 2.0 * args.mass,
+                         args.r_max, args.omega, reps=1)
+    phase(26, f"S1 vs eager twin on single_ray's default ray (float64, "
+              f"{args.steps} steps, every step kept): {json.dumps(one)}")
+    q4, p4 = camera(64, device)
+    _, ord4 = traj_parity(q4[::256].contiguous(), p4[::256].contiguous(),
+                          3000, 0.05, 2.0 * MASS, R_MAX, OMEGA, n_keep=100,
+                          order=4, reps=1)
+    phase(26, f"S1 vs eager twin at order 4, 16 rays of the 64x64 camera, "
+              f"3000 steps, delta 0.05, 100 points: {json.dumps(ord4)}")
+    for tag, r in (("CLI rays", cli), ("single ray", one), ("order 4", ord4)):
+        if not r["traj_bitwise_equal"]:
+            raise AssertionError(f"S1 differs from its twin on the {tag} "
+                                 f"(max abs diff {r['max_abs_err']:.3e})")
+    if (len(res.sampled_trajectories) != N_SAMPLES
+            or not cli["cli_trajectories_equal"]):
+        raise AssertionError("the CLI's sampled trajectories differ from "
+                             "S1's twin record")
+    if one["n_keep"] != args.steps or one["stride"] != 1:
+        raise AssertionError("the single ray must keep every step")
+    return cli
+
+
+def band_phase(device):
+    """Phase 27: `python -m grtrace_torch.cli.band_sweep` (500x500, 30k
+    steps through B1; its 50 rays through S1), the plot left out where
+    matplotlib is missing; the rays' record held against the twin."""
+    from grtrace_torch.cli import band_sweep
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import traj_parity
+    from grtrace_torch.viz import plots
+    out = os.path.join(HERE, "build", "band_sweep_out")
+    argv = ["--out-dir", out] + ([] if plots.available() else ["--no-plots"])
+    tc.launches = tc.traj_launches = 0
+    t0 = time.perf_counter()
+    res, traj = band_sweep.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"B1": tc.launches, "S1": tc.traj_launches}
+    args = band_sweep.build_parser().parse_args(argv)
+    q0, p0 = band_sweep.band_rays(args.n_rays, args.seed, torch.float32,
+                                  device)
+    (kern, _), par = traj_parity(q0, p0, args.steps, args.delta,
+                                 2.0 * band_sweep.BH_MASS,
+                                 band_sweep.BOUNDARY, 1.0,
+                                 n_keep=band_sweep.N_KEEP, reps=1)
+    same = bool(np.array_equal(kern.cpu().numpy(), traj))
+    phase(27, f"band_sweep {' '.join(argv)}: launches {launches}, counts "
+              f"{res.counts}, record {list(traj.shape)}, {wall:.3f} s; S1 "
+              f"vs eager twin on its rays: {json.dumps(par)}; the driver's "
+              f"record equal to that launch: {same}")
+    if launches != {"B1": 1, "S1": 1} or res.counts["numerical_error"]:
+        raise AssertionError("band_sweep must launch B1 and S1 once each, "
+                             "with no numerical error")
+    if (traj.shape != (args.n_rays, band_sweep.N_KEEP, 4)
+            or not par["traj_bitwise_equal"] or not same):
+        raise AssertionError("band_sweep's record is misshapen or differs "
+                             "from S1's twin")
+
+
+def profile_phase():
+    """Phase 28 (ungated): phase 25's CLI run with --profile: the top
+    device operations by time and the device-busy share of the render,
+    from torch.profiler."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as out:
+        _, lines = run_cli(CLI_ARGV + ["--out-dir", out, "--profile"])
+    prof = json_line(lines, "profile")["profile"]
+    phase(28, f"torch.profiler over the CLI's curved render: "
+              f"{json.dumps(prof)}")
+    if not prof["device_ms"]:
+        phase(28, "the profiler saw no device time")
 
 
 # kernels that must not spill: B3 and B5-B7, whose __launch_bounds__ ask
@@ -1324,6 +1539,8 @@ OCC_KERNELS = {
                                    ("double", "false"))],
     "fantasy_schw16": ["fantasy_schw16_kernel<float>",
                        "fantasy_schw16_kernel<double>"],
+    "fantasy_traj": ["fantasy_traj_kernel<float>",
+                     "fantasy_traj_kernel<double>"],
 }
 # a probe library that includes one kernel source and asks the runtime
 # about each of its kernels: out = [blocks per SM, registers, local bytes a
@@ -1605,8 +1822,8 @@ def main():
              f"({100 * a['kernel_ms'] / 1e3 / wall:.1f}% of the render's "
              f"warm wall time), eager twin {a['twin_ms']:.3f} ms")
     eqc_bound, eqc_by = bound(
-        a["n_steps_sum"] * (EQC_FLOPS_SUBSTEP + EQC_FLOPS_STEP)
-        + a["rays"] * EQC_FLOPS_RAY, a["rays"] * BYTES_RAY)
+        metrics.kernel_ops("fantasy_eqc", a["n_steps_sum"], a["rays"]),
+        a["rays"] * BYTES_RAY)
 
     # --- kernel B5 and the Kerr path ---------------------------------------
     # order 4 with charge and the 16-row layouts are off the main path and
@@ -1673,8 +1890,8 @@ def main():
                          f"steps", q064, p064, STEPS, DELTA, 2, "19",
                          kernel="B2")
     eq_bound, eq_by = bound(
-        b2["n_steps_sum"] * (EQ_FLOPS_SUBSTEP + EQ_FLOPS_STEP)
-        + b2["rays"] * EQ_FLOPS_RAY, b2["rays"] * BYTES_RAY64, PEAK_FLOPS64)
+        metrics.kernel_ops("fantasy_eq", b2["n_steps_sum"], b2["rays"]),
+        b2["rays"] * BYTES_RAY64, PEAK_FLOPS64)
     phase(19, f"float64 headline render warm wall time {wall64:.6f} s; B2 "
               f"kernel+wrapper at this shape {b2['kernel_ms']:.3f} ms "
               f"({100 * b2['kernel_ms'] / 1e3 / wall64:.1f}% of the wall), "
@@ -1697,6 +1914,12 @@ def main():
                  f"{occ[b3]['blocks_per_sm']} resident blocks per SM at "
                  f"{occ[b3]['registers']} registers: {json.dumps(sweep)}")
     schw_boundary(device)
+
+    # --- the command-line drivers and kernel S1 ----------------------------
+    cli_res, cli_launches = cli_phase(device)
+    s1 = traj_phase(device, cli_res)
+    band_phase(device)
+    profile_phase()
 
     print(json.dumps({"kernels": [
         {"name": "fantasy_eqc",
@@ -1800,7 +2023,24 @@ def main():
                    f"the checkpointed float32 headline job (phase 22); "
                    f"every other number at that job's call, its first "
                    f"{JOB_CHUNK}-step chunk on the opened {SIZE}x{SIZE} "
-                   f"float32 carry"}]}))
+                   f"float32 carry"},
+        {"name": "fantasy_traj",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_traj.cu",
+         "replaces": "none: a port-side kernel; the JAX package's sampler "
+                     "is the XLA loop grtrace/engine/integrate.py:328",
+         "launches": cli_launches["S1"],
+         "max_abs_err": s1["max_abs_err"],
+         "ms": s1["kernel_ms"],
+         "plain_ms": s1["twin_ms"],
+         "bound_ms": s1["bound_ms"],
+         "bound_by": s1["bound_by"],
+         "library_ms": None,
+         "shapes": f"S1, the trajectory recorder; launches from the CLI's "
+                   f"headline run (phase 25); every other number on its "
+                   f"{s1['rays']} sampled rays at the {STEPS}-step budget, "
+                   f"{TRAJ_POINTS} points, float32 (phase 26; longest ray "
+                   f"{s1['n_steps_max']} steps)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,229 @@
+"""End-to-end pipeline driver — the port's `grtrace.cli.main`.
+
+Pipeline (the reference main.py's):
+  scene -> flat-space reference image (no_gravity.png, scene_full.png)
+        -> curved render (manual_output.png, photon_data.csv,
+           sampled_rays.csv)
+        -> scene diagnostics (topdown, closeup 3D, embedding 3D x 8 azimuths)
+        -> photon summary printed from the counts.
+
+Everything runs on the CUDA card by default (--device cpu for the CPU): the
+flat render, the curved render through the hand-written kernels (B1 for
+float32, B2 for --dtype float64, B5 for --metric kerr) and the sampled
+trajectories through kernel S1.  The kernels build at first use (there is
+no compilation cache to warm).  Options whose engines are not ported yet
+raise NotImplementedError naming their ROADMAP item.
+
+Run: python -m grtrace_torch.cli.main [flags]  (flags: cli/args.py)
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..engine.flat import flat_render_scene
+from ..engine.metrics import (RenderMetrics, device_summary, roofline_report,
+                              trace)
+from ..engine.render import render
+from ..io import artifacts
+from ..viz import plots
+from .args import parse_args, scene_from_args
+
+logging.basicConfig(level=logging.INFO,
+                    format="%(asctime)s %(levelname)s: %(message)s")
+
+# the operation table's entry for the kernel layout each render runs (the
+# roofline): B1 or B2 on the headline path; in the Kerr-Schild chart B5's
+# 32-row compensated layout for float32 rays, its 16-row plain one for
+# float64 rays (render_generic)
+_KERNEL = {"float32": "fantasy_eqc", "float64": "fantasy_eq"}
+_KERNEL_KS = {"float32": "fantasy_ks", "float64": "fantasy_ks_plain"}
+
+
+def roofline_kernel(scene):
+    """The operation table's entry for the layout `render(scene)` runs."""
+    ks = scene.metric.lower() == "kerrschild" or scene.charge
+    return (_KERNEL_KS if ks else _KERNEL)[scene.integrator.dtype]
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported to grtrace_torch yet "
+                               f"(ROADMAP Queue A item {item})")
+
+
+def check_ported(args, scene):
+    """Raise NotImplementedError for the options whose engines the port
+    does not have yet, before any work runs."""
+    if args.disk:
+        raise _not_ported("--disk (the CLI's disk path with save_disk_maps)",
+                          "6.3")
+    if args.aa:
+        raise _not_ported("--aa (adaptive antialiasing, engine/aa.py)", "8")
+    if args.save_transfer:
+        raise _not_ported("--save-transfer (io/transfer.py)", "6.4")
+    if args.camera_omega is not None:
+        raise _not_ported("--camera-omega (the moving camera)", "6.2")
+    metric = scene.metric.lower()
+    if metric in ("kottler", "bardeen", "hayward", "rotating-bardeen",
+                  "rotating-hayward", "kerr-ds"):
+        raise _not_ported(f"--metric {args.metric}", "9")
+    if metric == "kerr-bl":
+        raise _not_ported("--metric kerr-bl (the Boyer-Lindquist chart)",
+                          "5b")
+    if (metric == "kerrschild" or scene.charge) and scene.n_samples > 0:
+        raise _not_ported("--n-samples > 0 on Kerr (the trajectory sampler "
+                          "of the Kerr-Schild chart; pass --n-samples 0)",
+                          "5b")
+
+
+def _untimed(name):
+    return contextlib.nullcontext()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    scene = scene_from_args(args)
+    check_ported(args, scene)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("grtrace_torch.cli.main: no CUDA device "
+                         "(torch.cuda.is_available() is False); pass "
+                         "--device cpu to run on the CPU")
+    if not args.no_plots and not plots.available():
+        raise SystemExit("grtrace_torch.cli.main: the scene plots need "
+                         "matplotlib, which this Python does not have; "
+                         "pass --no-plots")
+    out = args.out_dir
+    images_dir = os.path.join(out, "images")
+    rm = RenderMetrics() if args.print_metrics else None
+    stage = rm.stage if rm is not None else _untimed
+
+    bg_array = None
+    with stage("texture"):
+        if artifacts.background_available(scene.background):
+            # reference behavior: texture resized to the output resolution
+            bg_array = artifacts.load_background(
+                scene.background, size=(scene.size, scene.size))
+        elif scene.background:
+            logging.warning(
+                "Background %s not found; rendering without it (tip: "
+                "--background procedural:starfield needs no asset files)",
+                scene.background)
+
+    observer = scene.observer()
+    bh = scene.black_hole()
+
+    # --- flat-space reference image ---
+    flat_trajs = None
+    if not scene.no_flat_trajectories and bg_array is not None:
+        logging.info("Saving no-gravity image using background...")
+        with stage("flat_render"):
+            flat_img, flat_trajs = flat_render_scene(
+                observer, bg_array,
+                boundary_radius=scene.boundary_radius,
+                patch_center_theta=scene.patch.center_theta,
+                patch_center_phi=scene.patch.center_phi,
+                patch_size_theta=scene.patch.size_theta,
+                patch_size_phi=scene.patch.size_phi,
+                flip_theta=scene.patch.flip_theta,
+                flip_phi=scene.patch.flip_phi,
+                n_sampled=10, seed=args.seed,
+                override_patch_center=False, device=device)
+        with stage("png_writes"):
+            artifacts.save_image(flat_img,
+                                 os.path.join(images_dir, "no_gravity.png"))
+            artifacts.save_image(bg_array,
+                                 os.path.join(images_dir, "scene_full.png"))
+
+    # --- curved render ---
+    logging.info("Starting manual ray tracing simulation...")
+    with trace(os.path.join(out, "torch_trace") if args.profile
+               else None) as prof:
+        t0 = time.time()
+        result = render(scene, bg_array=bg_array, seed=args.seed,
+                        metrics=rm, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+    logging.info("Curved render finished in %.2fs (%s backend)",
+                 wall, scene.integrator.backend)
+    if args.profile:
+        logging.info("torch.profiler trace written to %s/torch_trace/"
+                     "trace.json (view in chrome://tracing or Perfetto)",
+                     out)
+        # the device-busy share of the render's wall time
+        print(json.dumps({"profile": device_summary(prof, wall)}))
+    with stage("png_writes"):
+        artifacts.save_image(result.image,
+                             os.path.join(images_dir, "manual_output.png"))
+    logging.info("Saved manual_output.png")
+
+    with stage("csv_writes"):
+        artifacts.save_photon_data(result,
+                                   os.path.join(out, "photon_data.csv"))
+        if result.sampled_trajectories:
+            artifacts.save_sampled_rays(
+                result, os.path.join(out, "sampled_rays.csv"))
+    if rm is not None:
+        print(rm)
+        if device.type == "cuda":
+            print(json.dumps({"roofline": roofline_report(
+                rm.steps_per_s, roofline_kernel(scene),
+                scene.integrator.order, scene.integrator.dtype)}))
+
+    # --- scene diagnostics ---
+    if not args.no_plots:
+        photon_trajs = None
+        if result.sampled_trajectories:
+            photon_trajs = []
+            for traj in result.sampled_trajectories:
+                keep = ~np.all(traj == 0, axis=1)
+                if keep.any():
+                    photon_trajs.append(traj[keep])
+            print(f"Filtered {len(photon_trajs)} trajectories")
+        logging.info("Saving top-down scene view...")
+        plots.plot_scene_topdown(
+            bh, observer, scene.image_size, scene.boundary_radius,
+            out_path=os.path.join(images_dir, "scene_topdown.png"),
+            fov_deg=scene.fov_deg,
+            patch_center_theta=scene.patch.center_theta,
+            patch_size_theta=scene.patch.size_theta,
+            patch_size_phi=scene.patch.size_phi,
+            photon_trajectories=photon_trajs)
+        logging.info("Saving close-up 3D scene view...")
+        plots.plot_scene_closeup_3d(
+            bh, observer, scene.image_size,
+            out_path=os.path.join(images_dir, "scene_closeup_3d.png"),
+            fov_deg=scene.fov_deg, photon_trajectories=photon_trajs)
+        logging.info("Saving 3D embedding scene view...")
+        plots.plot_scene_embedding_3d(
+            bh, observer, scene.image_size, scene.boundary_radius,
+            out_path=os.path.join(images_dir, "scene_topdown_3d.png"),
+            fov_deg=scene.fov_deg,
+            photon_trajectories=photon_trajs, flat_trajectories=flat_trajs,
+            patch_center_theta=scene.patch.center_theta,
+            patch_center_phi=scene.patch.center_phi,
+            patch_size_theta=scene.patch.size_theta,
+            patch_size_phi=scene.patch.size_phi,
+            override_patch_center=False)
+
+    # --- photon summary ---
+    artifacts.print_summary(result.counts)
+    return result
+
+
+def console(argv=None):
+    """setuptools console-script entry (must not return a value — sys.exit
+    would print it and exit non-zero)."""
+    main(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

@@ -408,29 +408,35 @@ def integrate_batch_fused(q0s, p0s, steps, delta, rs, r_max, omega,
             n_steps)
 
 
+def traj_layout(steps, n_keep):
+    """(stride, n_keep_eff) of a trajectory record: q1 every `stride` steps,
+    at most n_keep samples; n_keep None or >= steps keeps every step."""
+    if n_keep is None or n_keep >= steps:
+        return 1, steps
+    stride = -(-steps // n_keep)
+    return stride, -(-steps // stride)
+
+
 def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
                          n_keep=None, order=2):
-    """Trajectory-capturing variant: returns (N, n_keep, 4) positions.
+    """Trajectory-capturing variant: returns (N, n_keep, 4) positions, and
+    the eager twin of kernel S1 (csrc/fantasy_traj.cu).
 
-    q1 is recorded every `stride` steps so that at most n_keep samples
-    exist, including the step on which a ray exits; rows after a ray's
-    exit stay zero.  n_keep=None keeps every step (stride 1).  Once every
-    ray has exited, the remaining records would all be zero, so the loop
-    stops there.
+    q1 is recorded every `stride` steps (`traj_layout`) so that at most
+    n_keep samples exist, including the step on which a ray exits; rows
+    after a ray's exit stay +0.0 (the JAX package multiplies by the alive
+    mask, which leaves -0.0 in a dead ray's negative components; a kernel
+    that exits per ray cannot reproduce that sign, so both write +0.0).
+    n_keep=None keeps every step (stride 1).  Once every ray has exited,
+    the remaining records would all be zero, so the loop stops there.
+    The step is the unfused 16-row one with the guard, from the plain
+    triples `substep_params` vector that S1 reads too.
     """
-    if n_keep is None or n_keep >= steps:
-        n_keep_eff = steps
-        stride = 1
-    else:
-        stride = -(-steps // n_keep)
-        n_keep_eff = -(-steps // stride)
-
+    stride, n_keep_eff = traj_layout(steps, n_keep)
     dtype = q0s.dtype
-    delta = _in_dtype(delta, dtype)
-    rs = _in_dtype(rs, dtype)
-    r_max = _in_dtype(r_max, dtype)
-    subs = substep_schedule(delta, omega, order, dtype=dtype)
-    cap = jump_cap(delta, dtype)
+    vec = substep_params(delta, rs, r_max, omega, order, dtype,
+                         compensated=False, staggered=False)
+    rs, r_max, cap, subs = split_params(vec, 3)
     r_capture = _capture_radius(rs, dtype)
 
     n = q0s.shape[0]
@@ -442,11 +448,30 @@ def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
             break
         active = _active_mask(state[1], r_capture, r_max)
         if k % stride == 0:
-            traj[:, k // stride, :] = unpack_q1(state) * alive[:, None]
+            traj[:, k // stride, :] = torch.where(alive[:, None],
+                                                  unpack_q1(state), 0.0)
         alive = alive & active
         new = guard_state(state, fantasy_step(state, subs, rs), rs, cap)
         state = tuple(torch.where(active, nw, o) for nw, o in zip(new, state))
     return traj
+
+
+def integrate_full_dispatch(q0s, p0s, steps, delta, rs, r_max, omega,
+                            n_keep=None, order=2):
+    """The trajectory sampler on the rays' device: CUDA rays go to kernel
+    S1 (`integrate_cuda.integrate_batch_full_cuda`), CPU rays to its eager
+    twin `integrate_batch_full`; any other device raises.  The card never
+    runs the eager loop."""
+    kind = q0s.device.type
+    if kind == "cuda":
+        from .integrate_cuda import integrate_batch_full_cuda
+        return integrate_batch_full_cuda(q0s, p0s, steps, delta, rs, r_max,
+                                         omega, n_keep=n_keep, order=order)
+    if kind != "cpu":
+        raise ValueError(f"no trajectory sampler for {kind!r} tensors "
+                         f"(CUDA runs kernel S1, the CPU its eager twin)")
+    return integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
+                                n_keep=n_keep, order=order)
 
 
 class SchwarzschildIntegrator:
@@ -497,7 +522,9 @@ class SchwarzschildIntegrator:
         return integrate_batch(*args, order=self.order)
 
     def integrate_batch_full(self, q0s, p0s, n_keep=None):
+        """Trajectories on the integrator's device: kernel S1 on the card,
+        its eager twin on the CPU (`integrate_full_dispatch`)."""
         q0s, p0s = self._tensors(q0s, p0s)
-        return integrate_batch_full(q0s, p0s, self.steps, self.delta,
-                                    self.rs, self.r_max, self.omega, n_keep,
-                                    order=self.order)
+        return integrate_full_dispatch(q0s, p0s, self.steps, self.delta,
+                                       self.rs, self.r_max, self.omega,
+                                       n_keep, order=self.order)

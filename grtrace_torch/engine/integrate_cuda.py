@@ -13,15 +13,20 @@ all four of its configurations:
     checkpoint chunk `advance_state_cuda`; JAX: `integrate_batch_pallas(
     equatorial=False)` and `advance_state_pallas`);
   * B4, B1's core loop only, on an opened carry (`fantasy_eqc.cu`,
-    `advance_state_eqc_cuda`; JAX: `advance_state_pallas_eqc`).
+    `advance_state_eqc_cuda`; JAX: `advance_state_pallas_eqc`);
+
+and the port-side trajectory recorder S1 (`csrc/fantasy_traj.cu`,
+`integrate_batch_full_cuda`), which replaces no TPU kernel: the JAX
+package samples trajectories in an XLA loop (`integrate_batch_full`).
 
 One thread integrates one ray.  The eager twins that define the kernels'
-results are `integrate_batch_compensated`, `integrate_batch_eq` and
-`integrate_batch_fused` (engine/integrate.py) and the chunk twins of
-engine/checkpoint.py; each kernel and its twin read the same host-built
-scalar vector (`substep_params`).  This module only launches: it never
-falls back to a twin, and every wrapper raises for CPU tensors.  Rays on
-the CPU belong to `integrate_dispatch`, which sends them to the twins.
+results are `integrate_batch_compensated`, `integrate_batch_eq`,
+`integrate_batch_fused` and `integrate_batch_full` (engine/integrate.py)
+and the chunk twins of engine/checkpoint.py; each kernel and its twin
+read the same host-built scalar vector (`substep_params`).  This module
+only launches: it never falls back to a twin, and every wrapper raises for
+CPU tensors.  Rays on the CPU belong to `integrate_dispatch` and
+`integrate_full_dispatch`, which send them to the twins.
 """
 from __future__ import annotations
 
@@ -30,15 +35,16 @@ import math
 import torch
 
 from .integrate import (finish_compensated, finish_eq, finish_generic,
-                        substep_params)
+                        substep_params, traj_layout)
 from ..physics.hamiltonian import pack_state, pack_state_eq, pack_state_eqc
 
 # Kernel launches since the process started (or since a caller reset it),
-# one counter per configuration: B1, B2, B3 (monolithic and chunk), B4.
+# one counter per configuration: B1, B2, B3 (monolithic and chunk), B4, S1.
 launches = 0
 eq_launches = 0
 generic_launches = 0
 chunk_launches = 0
+traj_launches = 0
 
 F32, F64 = torch.float32, torch.float64
 # configuration -> ({dtype: C entry}, state rows, scalars per substep)
@@ -273,3 +279,66 @@ def advance_state_eqc_cuda(state24, steps, delta, rs, r_max, omega,
                          f"with backend='torch'")
     params = substep_params(delta, rs, r_max, omega, order, F32)
     return launch_fantasy_eqc_chunk(state24, params, steps)
+
+
+TRAJ_ENTRIES = {F32: "grt_fantasy_traj_f32_launch",
+                F64: "grt_fantasy_traj_f64_launch"}
+
+
+def launch_fantasy_traj(q0s, p0s, params, steps, stride, n_keep):
+    """Launch kernel S1 on (N, 4) float32 or float64 CUDA rays; `params`
+    is the plain-triples vector (`substep_params(compensated=False,
+    staggered=False)`) in the rays' dtype.  Returns (traj (N, n_keep, 4),
+    zero past each ray's exit; ns (N,) int32, the steps each ray took)."""
+    global traj_launches
+    from ..kernels.build import load
+
+    _check_inputs(q0s, p0s, (F32, F64))
+    n = q0s.shape[0]
+    n_sub = (params.numel() - 3) // 3
+    if (params.dtype != q0s.dtype or n_sub < 1
+            or params.numel() != 3 + 3 * n_sub):
+        raise ValueError("params must be [rs, r_max, cap, (d, cos, sin) x "
+                         "n_sub] in the rays' dtype")
+    if (not 0 <= steps < 2 ** 31 or not 1 <= stride < 2 ** 31
+            or not 0 <= n_keep < 2 ** 31 or n >= 2 ** 31
+            or n_keep * stride < steps):
+        raise ValueError(f"steps={steps}, stride={stride}, n_keep={n_keep} "
+                         f"or N={n} out of the kernel's range")
+    # the slots past a ray's exit stay +0.0; the kernel indexes them in
+    # 64 bits (N * n_keep * 4 may pass 2**31)
+    traj = torch.zeros((n, n_keep, 4), dtype=q0s.dtype, device=q0s.device)
+    ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
+    if n == 0:
+        return traj, ns
+    entry = TRAJ_ENTRIES[q0s.dtype]
+    lib = load()
+    params_dev = params.to(q0s.device)
+    with torch.cuda.device(q0s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            q0s.data_ptr(), p0s.data_ptr(), traj.data_ptr(), ns.data_ptr(),
+            params_dev.data_ptr(), n, n_sub, int(steps), int(stride),
+            int(n_keep), stream)
+    if err != 0:
+        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+    traj_launches += 1
+    return traj, ns
+
+
+def integrate_batch_full_cuda(q0s, p0s, steps, delta, rs, r_max, omega,
+                              n_keep=None, order=2, return_steps=False):
+    """Record the trajectories of (N, 4) float32 or float64 CUDA rays in
+    any plane through kernel S1: (N, n_keep, 4) positions, q1 every
+    `stride` steps (`traj_layout`), the contract of `integrate_batch_full`,
+    which it matches bit for bit on the card; with return_steps, also the
+    (N,) int32 steps each ray took.  Rays keep the caller's order (tens of
+    rays fill no more than a warp or two).  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch."""
+    _check_inputs(q0s, p0s, (F32, F64))
+    stride, n_keep_eff = traj_layout(steps, n_keep)
+    params = substep_params(delta, rs, r_max, omega, order, q0s.dtype,
+                            compensated=False, staggered=False)
+    traj, ns = launch_fantasy_traj(q0s, p0s, params, steps, stride,
+                                   n_keep_eff)
+    return (traj, ns) if return_steps else traj

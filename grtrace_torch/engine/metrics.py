@@ -1,17 +1,23 @@
-"""Per-stage wall-clock timers for one render — the torch counterpart of
-`grtrace.engine.metrics.RenderMetrics` (its stage timers; the TPU roofline
-and profiler hooks are not ported).
+"""Observability for the port: per-stage timers and throughput of one render,
+the kernels' operation counts and the card's peaks (one table for
+`--print-metrics` and chip_smoke.py's bounds), and a torch.profiler trace —
+the torch counterpart of `grtrace.engine.metrics`.
 
 PyTorch returns before the card finishes, so on a process that has started
 CUDA a stage synchronizes the card before it reads the clock, at both ends:
 the time a stage reports is the time its work took, not its enqueue.
+A share of the card's peak is reported only for work that ran on a card,
+beside that card's name and power limit.
 """
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -42,3 +48,204 @@ class RenderMetrics:
     @property
     def total_s(self) -> float:
         return sum(self.stages.values())
+
+    def _pipeline_s(self) -> float:
+        return self.stages.get("device_pipeline", self.total_s)
+
+    @property
+    def rays_per_s(self) -> float:
+        t = self._pipeline_s()
+        return self.rays / t if t > 0 else 0.0
+
+    @property
+    def steps_per_s(self) -> float:
+        t = self._pipeline_s()
+        return self.geodesic_steps / t if t > 0 else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "stages_s": dict(self.stages),
+            "total_s": self.total_s,
+            "rays": self.rays,
+            "geodesic_steps": self.geodesic_steps,
+            "rays_per_s": self.rays_per_s,
+            "geodesic_steps_per_s": self.steps_per_s,
+        }
+
+    def __str__(self) -> str:
+        return json.dumps(self.summary())
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+# An H100 SXM's data sheet at 700 W: 67 TFLOP/s float32 and 34 TFLOP/s
+# float64 outside the tensor cores, 3.35 TB/s HBM3.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
+
+# Floating-point operations a ray costs in each kernel, counted from the
+# kernel sources (each add, subtract, multiply, divide and square root is
+# one, a negation none; no FMA under -fmad=false): (per substep, per step,
+# per ray).
+#   fantasy_eqc (B1): per substep B M B A(bridge) = 3 flows x 42 + mixing
+#                90 = 216 (at order 2 the kernel forms d / 2 once per ray,
+#                not once per substep); the guard's |dr| test 2 per step;
+#                once per ray d / 2 and the open flow, 1 + 42 = 43 (the
+#                close, which parked rays skip, is not counted: the bound
+#                stays a bound)
+#   fantasy_eq (B2, float64): per substep 3 flows x 30 + mixing 72 = 162;
+#                the guard 2 per step; once per ray d / 2 and the open
+#                flow, 1 + 30 = 31 (the close not counted, as in B1)
+#   fantasy_schw16 (B3): per substep A B M B A = 1 + 3 metric evaluations
+#                x 26 (each sin and each cos counted as one operation,
+#                though the card spends several on it: the bound stays a
+#                bound; flow A's metric is carried to the next substep) + 4
+#                applications of dt x 20 + mixing 96 = 255; the guard 2 per
+#                step
+#   fantasy_eqc_chunk (B4): B1's 216 per substep and 2 per step; once per
+#                ray d / 2 (1), no open or close
+#   fantasy_ks (B5, 32 rows): per substep 1 + 3 flows x (kick/drift 120 +
+#                7 Kahan adds x 5) + mixing 120 = 586; per step the active
+#                test's |q1|^2 (5; the radius is carried from the last
+#                guard) and the guard 50: the sum of the 16 rows (15), h
+#                from the H and S of the step's last flow A (11), the
+#                tolerance |p2|^2 + 1 and its product (7) and the new radius
+#                (17); once per ray the open and close flows (2 x 155) and
+#                the launch's radius and active test (22) = 332 (the radius
+#                a park recomputes is not counted: the bound stays a bound)
+#   fantasy_ks_plain (B5, 16 rows, the float64 rays' layout): per substep 1
+#                + 3 flows x (kick/drift 120 + 7 plain adds x 2) + mixing 96
+#                = 499; per step the same 5 + 50 as the 32 rows; once per
+#                ray the open and close flows (2 x 134) and the launch's 22
+#                = 290
+#   fantasy_traj (S1): per substep A B M B A = 1 + 4 unfused flows x 60
+#                (sin and cos 2; the metric's derivatives 19 and their
+#                contraction 15; the kicks 4; the metric 8 and the drifts
+#                12; a multiply by -1 is a negation) + mixing 96 = 337; the
+#                guard 2 per step; once per ray 1.1 rs (1)
+# The disk mode (B6) adds per accepted step the two folds of z and their
+# product (3) and per hit ray the crossing: t (2), eight lerps on folded
+# rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
+# which do 34 of these, are not counted); the subring mode (B7) adds the
+# same 3 per accepted step and per recorded crossing t (2) and the eight
+# lerps (40) = 42 (a crossing past the last slot only adds one to an
+# integer count).  Both are counted on the 32-row layout.
+KERNEL_OPS = {
+    "fantasy_eqc": (216, 2, 43),
+    "fantasy_eq": (162, 2, 31),
+    "fantasy_schw16": (255, 2, 0),
+    "fantasy_eqc_chunk": (216, 2, 1),
+    "fantasy_ks": (586, 55, 332),
+    "fantasy_ks_plain": (499, 55, 290),
+    "fantasy_traj": (337, 2, 1),
+}
+DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
+SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42
+
+
+def flops_per_ray_step(kernel: str = "fantasy_eqc", order: int = 2) -> int:
+    """Floating-point operations one ray costs per composed step in
+    `kernel` (KERNEL_OPS; the per-ray terms are left out)."""
+    from ..physics.hamiltonian import yoshida_gammas
+    sub, step, _ = KERNEL_OPS[kernel]
+    return sub * len(yoshida_gammas(order)) + step
+
+
+def kernel_ops(kernel: str, ray_steps: int, rays: int,
+               order: int = 2) -> int:
+    """Floating-point operations `rays` rays that took `ray_steps` steps in
+    all cost in `kernel`, per-ray terms included."""
+    return (ray_steps * flops_per_ray_step(kernel, order)
+            + rays * KERNEL_OPS[kernel][2])
+
+
+def nvidia_smi(fields: str) -> list:
+    """One row per card of `nvidia-smi --query-gpu=<fields>`, or [] where
+    nvidia-smi is missing or fails."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return out.stdout.strip().splitlines() if out.returncode == 0 else []
+
+
+def card() -> Optional[str]:
+    """The card's name and power limit as nvidia-smi gives them, or None
+    without a CUDA device."""
+    if not torch.cuda.is_available():
+        return None
+    index = torch.cuda.current_device()
+    smi = nvidia_smi("name,power.limit")
+    if index < len(smi):
+        return smi[index]
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+def roofline_report(steps_per_s: float, kernel: str = "fantasy_eqc",
+                    order: int = 2, dtype: str = "float32") -> dict:
+    """The operations a measured geodesic-steps/s figure sustains, and its
+    share of the card's peak, beside the card's name and power limit.
+    Only meaningful for work that ran on the card: without a CUDA device
+    the share is None."""
+    fps = flops_per_ray_step(kernel, order)
+    name = card()
+    sustained = steps_per_s * fps
+    return {
+        "kernel": kernel,
+        "flops_per_ray_step": fps,
+        "peak_flops": PEAK_FLOPS[dtype],
+        "sustained_flops": sustained,
+        "share_of_peak": sustained / PEAK_FLOPS[dtype] if name else None,
+        "card": name or "no CUDA device: not measured",
+    }
+
+
+# ---------------------------------------------------------------------------
+# Profiler
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """A torch.profiler trace of the block (CPU, and the card where there is
+    one), written as a Chrome trace to <log_dir>/trace.json; yields the
+    profiler, or None when log_dir is None (no-op)."""
+    if log_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        _sync()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_summary(prof, wall_s: float, top: int = 10) -> dict:
+    """From a finished profiler: the `top` device activities (kernels,
+    copies) by time in ms, their summed time and its share of `wall_s` (the
+    device-busy share; work on one stream does not overlap).  Device time
+    0 means the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:  # older torch
+            t = evt.self_cuda_time_total
+        if t:
+            rows.append((evt.key, t / 1e3, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"top": [{"op": k, "device_ms": t, "calls": c}
+                    for k, t, c in rows[:top]],
+            "device_ms": busy_ms,
+            "wall_ms": wall_s * 1e3,
+            "busy_share": busy_ms / (wall_s * 1e3) if wall_s > 0 else None}

@@ -5,8 +5,9 @@ Everything from the pixel grid to the RGB image runs on one device, with
 no host round trip in between; the host loads the texture and fetches one
 (5,) count vector at the end.  On a CUDA device the integration runs a
 hand-written kernel (engine/integrate_cuda.py: B1 for float32 rays, B2 for
-float64 rays); on the CPU it runs B1's eager twin for float32 rays and the
-16-row integrator for float64 rays, as the JAX package does.  `render`
+float64 rays, S1 for the sampled trajectories); on the CPU it runs B1's
+eager twin for float32 rays and the 16-row integrator for float64 rays, as
+the JAX package does, and S1's twin for the trajectories.  `render`
 also routes Kerr and charged scenes to the Kerr-Schild chart
 (engine/render_generic.py); the Boyer-Lindquist chart, the other metric
 families and antialiasing raise NotImplementedError.
@@ -22,7 +23,7 @@ from ..io.scene import SceneConfig
 from ..physics.camera import camera_rays
 from ..physics.coords import rotate_x, spherical_to_cartesian
 from . import classify as _classify
-from .integrate import integrate_batch_full, integrate_dispatch
+from .integrate import integrate_dispatch, integrate_full_dispatch
 from .metrics import RenderMetrics
 
 MAX_TRAJ_POINTS = 1000  # reference cap per sampled ray
@@ -131,7 +132,8 @@ def render_pixels(bg_array, obs_x, fov, mass, boundary_radius,
 
 
 def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
-    """Re-integrate K sampled rays with decimated trajectory capture,
+    """Re-integrate K sampled rays with decimated trajectory capture (kernel
+    S1 on the card, its eager twin on the CPU: `integrate_full_dispatch`),
     un-fold by beta, convert to Cartesian (float64, on the host)."""
     h, w = scene.image_size
     flat_idx = torch.as_tensor(sampled_ij[:, 0] * w + sampled_ij[:, 1],
@@ -141,11 +143,19 @@ def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
     betas = beta.reshape(-1)[flat_idx].cpu().double()
 
     integ = scene.integrator
-    traj = integrate_batch_full(
-        q0s.to(dtype), p0s.to(dtype), integ.steps, integ.delta,
-        2.0 * scene.bh_mass, scene.boundary_radius, float(integ.omega),
-        n_keep=min(MAX_TRAJ_POINTS, integ.steps), order=integ.order)
+    traj = integrate_full_dispatch(
+        q0s.to(dtype).contiguous(), p0s.to(dtype).contiguous(), integ.steps,
+        integ.delta, 2.0 * scene.bh_mass, scene.boundary_radius,
+        float(integ.omega), n_keep=min(MAX_TRAJ_POINTS, integ.steps),
+        order=integ.order)
 
+    return trajectories_to_cartesian(traj, betas)
+
+
+def trajectories_to_cartesian(traj, betas):
+    """(K, P, 4) records of (t, r, theta, phi) -> K (P, 3) float64 numpy
+    arrays, each un-folded by its ray's beta, in Cartesian coordinates (on
+    the host)."""
     traj = traj.cpu().double()
     out = []
     for k in range(traj.shape[0]):

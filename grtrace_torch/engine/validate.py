@@ -17,7 +17,9 @@ the torch counterpart of `grtrace.engine.validate`.
     rays: q and p bit for bit, status and exit step exactly; in disk mode
     the hit flag exactly and hit_q and hit_p bit for bit; in subring mode
     the crossing count exactly and hits_q and hits_p bit for bit in every
-    slot, filled or not.
+    slot, filled or not;
+  * `traj_parity` — kernel S1, the trajectory recorder, against its eager
+    twin `integrate_batch_full` on the same rays, every slot bit for bit.
 
 Boundary positions are quoted in 256x256-image pixels whatever the probe
 resolution.  Scene: observer at r0 = 30 M on +x, fov 80 deg, boundary
@@ -311,3 +313,36 @@ def ks_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
     res = compare_outputs(kern, ref)
     res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
     return kern, res
+
+
+def traj_parity(q0s, p0s, steps, delta, rs, r_max, omega, n_keep=None,
+                order=2, reps=3):
+    """Kernel S1, through `integrate_batch_full_cuda` (the entry that the
+    render's sampler and the drivers call), against its eager twin
+    `integrate_batch_full` on the same CUDA rays; every timed call's
+    record is held against the twin.
+
+    Returns (the first call's (traj, ns), a dict: traj_bitwise_equal over
+    every slot of every call (+0.0 past each exit included), max_abs_err,
+    the rays' longest and summed step counts, the calls' times (median
+    and each, CUDA events) and the twin's time (one call), in ms)."""
+    from .integrate import integrate_batch_full, traj_layout
+    from .integrate_cuda import integrate_batch_full_cuda
+    args = (steps, delta, rs, r_max, omega)
+    runs = [timed(lambda: integrate_batch_full_cuda(
+        q0s, p0s, *args, n_keep=n_keep, order=order, return_steps=True),
+        q0s.device) for _ in range(reps)]
+    twin, twin_ms = timed(lambda: integrate_batch_full(
+        q0s, p0s, *args, n_keep=n_keep, order=order), q0s.device)
+    traj, ns = runs[0][0]
+    stride, n_keep_eff = traj_layout(steps, n_keep)
+    times = [ms for _, ms in runs]
+    res = {"traj_bitwise_equal": all(_bitwise_equal(t, twin)
+                                     for (t, _), _ in runs),
+           "max_abs_err": _max_abs_err([(t, twin) for (t, _), _ in runs]),
+           "rays": q0s.shape[0], "n_keep": n_keep_eff, "stride": stride,
+           "n_steps_max": int(ns.max()) if ns.numel() else 0,
+           "n_steps_sum": int(ns.long().sum()),
+           "kernel_ms": float(np.median(times)), "kernel_ms_all": times,
+           "twin_ms": twin_ms}
+    return (traj, ns), res

@@ -118,7 +118,7 @@ class SceneConfig:
 
 
 # JAX backend names -> the port's
-_BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
+JAX_BACKENDS = {"auto": "auto", "pallas": "cuda", "xla": "torch"}
 
 
 def from_jax_scene(scene) -> SceneConfig:
@@ -136,7 +136,7 @@ def from_jax_scene(scene) -> SceneConfig:
         integrator=IntegratorConfig(
             steps=integ.steps, delta=integ.delta, omega=integ.omega,
             order=integ.order, rtol=integ.rtol, atol=integ.atol,
-            backend=_BACKENDS.get(integ.backend, integ.backend),
+            backend=JAX_BACKENDS.get(integ.backend, integ.backend),
             dtype=integ.dtype),
         patch=PatchConfig(
             center_theta=patch.center_theta, center_phi=patch.center_phi,
@@ -145,3 +145,13 @@ def from_jax_scene(scene) -> SceneConfig:
         n_samples=scene.n_samples,
         suppress_warnings=scene.suppress_warnings,
         no_flat_trajectories=scene.no_flat_trajectories)
+
+
+def apply_relative_offsets(theta_base_deg, phi_base_deg,
+                           dtheta_deg=0.0, dphi_deg=0.0):
+    """Observer-relative patch aiming (reference simulation/utils.py:27-36):
+    (theta, phi) in radians."""
+    theta = np.clip(np.deg2rad(theta_base_deg) + np.deg2rad(dtheta_deg),
+                    0.0, np.pi)
+    phi = (np.deg2rad(phi_base_deg) + np.deg2rad(dphi_deg)) % (2 * np.pi)
+    return theta, phi

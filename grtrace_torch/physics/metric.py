@@ -37,3 +37,22 @@ def dcontravariant_dth(r, theta, rs):
     sin_th = torch.sin(theta)
     cos_th = torch.cos(theta)
     return (-2.0 * cos_th) / ((r * r) * sin_th * sin_th * sin_th)
+
+
+def christoffel_nonzero(r, theta, rs):
+    """Non-zero Schwarzschild Christoffel symbols as a dict of tensors,
+    keyed (upper, lower1, lower2), symmetric partners implied — the legacy
+    Euler integrator's (engine/euler.py)."""
+    sin_th = torch.sin(theta)
+    cos_th = torch.cos(theta)
+    return {
+        (0, 1, 0): rs / (2.0 * r * (r - rs)),
+        (1, 0, 0): (r - rs) * rs / (2.0 * r * r * r),
+        (1, 1, 1): -rs / (2.0 * r * (r - rs)),
+        (1, 2, 2): -(r - rs),
+        (1, 3, 3): -(r - rs) * sin_th * sin_th,
+        (2, 1, 2): 1.0 / r,
+        (2, 3, 3): -sin_th * cos_th,
+        (3, 1, 3): 1.0 / r,
+        (3, 2, 3): cos_th / sin_th,
+    }

@@ -28,3 +28,11 @@ def null_p_t(p_sph, r, theta, *, mass_bh=1.0, future=True):
     disc = -4.0 * a_coef * c_coef  # B = 0 in Schwarzschild
     p_t = torch.sqrt(disc) / (2.0 * (-a_coef))  # always positive
     return p_t if future else -p_t
+
+
+def build_null_4momentum(p_sph, pos_sph, *, mass_bh=1.0, future=True):
+    """(..., 3) spatial momentum + (..., 3) position (r, theta, phi) ->
+    (..., 4) null momentum (p_t, p_r, p_th, p_ph)."""
+    p_t = null_p_t(p_sph, pos_sph[..., 0], pos_sph[..., 1], mass_bh=mass_bh,
+                   future=future)
+    return torch.cat([p_t[..., None], p_sph], dim=-1)

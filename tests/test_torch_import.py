@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports without jax and never imports
 the JAX package, and neither does the GPU smoke script."""
+import json
 import os
 import re
 import subprocess
@@ -11,7 +12,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # between them these import every module of the port, each new module of
 # the Kerr and disk slices on its own; of the subring slice's, the two that
 # `import grtrace_torch` does not reach (it imports engine.subring and
-# engine.hotspot), as each subprocess costs a torch import
+# engine.hotspot); and the command-line drivers
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -23,7 +24,43 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.physics.orbits",
                 "grtrace_torch.engine.disk",
                 "grtrace_torch.physics.photon_shell",
-                "grtrace_torch.engine.spectrum"]
+                "grtrace_torch.engine.spectrum",
+                "grtrace_torch.cli.main",
+                "grtrace_torch.cli.single_ray",
+                "grtrace_torch.cli.band_sweep",
+                "grtrace_torch.cli.probe"]
+
+# One interpreter with jax and grtrace blocked (any import of them raises)
+# imports the modules in turn and reports, for each, whether it imported
+# and whether jax or grtrace appeared in sys.modules: one torch import
+# instead of one per module.
+_BLOCKED_IMPORTS = r"""
+import importlib, json, sys, traceback
+sys.modules['jax'] = None
+sys.modules['grtrace'] = None
+out = {}
+for name in sys.argv[1:]:
+    try:
+        importlib.import_module(name)
+        err = None
+    except BaseException:
+        err = traceback.format_exc()
+    leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and (m == 'jax' or m.startswith(('jax.', 'grtrace.'))))
+    out[name] = {'error': err, 'leaked': leaked}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def blocked_imports():
+    """{module: {'error': traceback or None, 'leaked': [jax/grtrace
+    modules in sys.modules after importing it]}}."""
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS,
+                           *PORT_MODULES], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _port_sources():
@@ -35,15 +72,10 @@ def _port_sources():
 
 
 @pytest.mark.parametrize("module", PORT_MODULES)
-def test_imports_with_jax_blocked(module):
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['grtrace'] = None; "
-            f"import {module}; "
-            "assert not any(m == 'jax' or m.startswith(('jax.', 'grtrace.'))"
-            " for m in sys.modules if sys.modules[m] is not None)")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+def test_imports_with_jax_blocked(blocked_imports, module):
+    got = blocked_imports[module]
+    assert got["error"] is None, got["error"]
+    assert not got["leaked"], f"{module} pulled in {got['leaked']}"
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -12,6 +12,9 @@
 
 The CUDA kernel itself is compared with its twin on the card, by
 chip_smoke.py (this machine has neither a GPU nor nvcc).
+
+The comparisons that take seconds are in tests/test_torch_integrate_jax.py
+and tests/test_torch_integrate_oracle.py.
 """
 import os
 
@@ -29,9 +32,16 @@ from grtrace_torch.kernels import build as tbuild
 
 torch.set_num_threads(1)
 
-ARGS = (2000, 0.05, 2.0, 31.0, 1.0)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "oracle_escape_headline.npz")
+
+
+ARGS = (2000, 0.05, 2.0, 31.0, 1.0)
+
+
+def _np(xs):
+    return [np.asarray(x) if not isinstance(x, torch.Tensor) else x.numpy()
+            for x in xs]
 
 
 def _ics(n, dtype=jnp.float64):
@@ -40,11 +50,6 @@ def _ics(n, dtype=jnp.float64):
     np_dtype = np.float32 if dtype == jnp.float32 else np.float64
     return (np.asarray(q0, np_dtype).reshape(-1, 4),
             np.asarray(p0, np_dtype).reshape(-1, 4))
-
-
-def _np(xs):
-    return [np.asarray(x) if not isinstance(x, torch.Tensor) else x.numpy()
-            for x in xs]
 
 
 @pytest.fixture(scope="module")
@@ -65,78 +70,6 @@ def probes_f32(golden):
             np.asarray(p0).reshape(-1, 4)[idx])
 
 
-def test_integrate_batch_f64_matches_jax():
-    q0, p0 = _ics(16)
-    j = _np(ji.integrate_batch(jnp.asarray(q0), jnp.asarray(p0), *ARGS))
-    t = _np(ti.integrate_batch(torch.tensor(q0), torch.tensor(p0), *ARGS))
-    assert np.array_equal(t[2], j[2])
-    assert np.array_equal(t[3], j[3])
-    weak = j[0][:, 1] > 3.0
-    assert np.abs(t[0] - j[0]).max(axis=1)[weak].max() < 1e-8
-    assert np.abs(t[1] - j[1]).max(axis=1)[weak].max() < 1e-8
-
-
-@pytest.mark.parametrize("reference", ["xla_twin", "pallas_interpret"])
-def test_compensated_twin_matches_jax(golden, probes_f32, reference):
-    g = golden
-    q0, p0 = probes_f32[0][:24], probes_f32[1][:24]
-    args = (512, float(g["delta"]), 2.0 * float(g["mass"]), float(g["rmax"]),
-            float(g["omega"]))
-    if reference == "xla_twin":
-        j = ji.integrate_batch_compensated(jnp.asarray(q0), jnp.asarray(p0),
-                                           *args)
-    else:
-        j = jp.integrate_batch_pallas(jnp.asarray(q0), jnp.asarray(p0),
-                                      *args, interpret=True, equatorial=True,
-                                      compensated=True)
-    j = _np(j)
-    t = _np(ti.integrate_batch_compensated(torch.tensor(q0),
-                                           torch.tensor(p0), *args))
-    assert np.array_equal(t[3], j[3])
-    assert np.array_equal(t[2], j[2])
-    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(t[1], j[1], rtol=0, atol=1e-6)
-
-
-def test_compensated_twin_meets_oracle_at_headline_budget(golden, probes_f32):
-    """The kernel's arithmetic at the full 200k-step budget: every probe
-    escapes at the oracle's step, escape directions within 1e-5 (median
-    2e-6), theta within 1e-6 — test_f32_accuracy.py's bounds."""
-    g = golden
-    q0, p0 = probes_f32
-    fq, fp, st, ns = _np(ti.integrate_batch_compensated(
-        torch.tensor(q0), torch.tensor(p0), int(g["steps"]),
-        float(g["delta"]), 2.0 * float(g["mass"]), float(g["rmax"]),
-        float(g["omega"])))
-    oq = g["final_q"]
-    dth = np.abs(fq[:, 2] - oq[:, 2])
-    dph = np.abs((fq[:, 3] - oq[:, 3] + np.pi) % (2 * np.pi) - np.pi)
-    assert (st == ti.STATUS_ESCAPED).all()
-    assert np.array_equal(ns, g["n_steps"])
-    assert dph.max() < 1e-5, f"max dphi {dph.max():.2e}"
-    assert np.median(dph) < 2e-6
-    assert dth.max() < 1e-6
-
-
-def test_compensated_f64_matches_plain_f64():
-    """Compensation changes rounding, not physics: in float64 the
-    compensated twin tracks the plain 16-row integrator on weak-field
-    rays (impact parameters ~9..14)."""
-    from grtrace_torch.physics.camera import angles_to_p_sph
-    from grtrace_torch.physics.nullcond import null_p_t
-    r0 = torch.tensor(30.0, dtype=torch.float64)
-    alpha = torch.tensor(np.linspace(0.3, 0.5, 16))
-    p_sp = angles_to_p_sph(alpha, 0.0, r0)
-    p_t = null_p_t(p_sp, r0, torch.tensor(np.pi / 2, dtype=torch.float64))
-    q0 = torch.tensor(np.tile([0.0, 30.0, np.pi / 2, 0.0], (16, 1)))
-    p0 = torch.cat([p_t[:, None], p_sp], dim=-1)
-    args = (4000, 0.05, 2.0, 31.0, 1.0)
-    qc, _, sc, _ = ti.integrate_batch_compensated(q0, p0, *args)
-    qp, _, sp, _ = ti.integrate_batch(q0, p0, *args)
-    assert torch.equal(sc, sp)
-    np.testing.assert_allclose(qc.numpy(), qp.numpy(), rtol=1e-12, atol=1e-12)
-
-
 def test_compensated_zero_steps_is_noop(probes_f32):
     q0, p0 = map(torch.tensor, probes_f32)
     fq, fp, st, ns = ti.integrate_batch_compensated(q0, p0, 0, 0.01, 2.0,
@@ -144,20 +77,6 @@ def test_compensated_zero_steps_is_noop(probes_f32):
     assert torch.equal(fq, q0) and torch.equal(fp[:, [0, 1, 3]],
                                                p0[:, [0, 1, 3]])
     assert (ns == 0).all() and (st == ti.STATUS_ALIVE).all()
-
-
-@pytest.mark.parametrize("order", [4, 6])
-def test_compensated_twin_higher_order_matches_jax(order):
-    q0, p0 = _ics(6, jnp.float32)
-    args = (400, 0.05, 2.0, 31.0, 1.0)
-    j = _np(ji.integrate_batch_compensated(jnp.asarray(q0), jnp.asarray(p0),
-                                           *args, order=order))
-    t = _np(ti.integrate_batch_compensated(torch.tensor(q0),
-                                           torch.tensor(p0), *args,
-                                           order=order))
-    assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-    weak = j[0][:, 1] > 3.0
-    assert np.abs(t[0] - j[0]).max(axis=1)[weak].max() < 1e-5
 
 
 @pytest.mark.parametrize("n_rows", [16, 12, 24])
@@ -247,31 +166,6 @@ def test_cost_sort_key_matches_pallas(rs):
     assert int(np.argmin(t)) == int(np.argmin(np.abs(b - b_crit)))
 
 
-def test_integrate_batch_full_matches_jax():
-    q0, p0 = _ics(4)
-    args = (400, 0.05, 2.0, 31.0, 1.0)
-    j = np.asarray(ji.integrate_batch_full(jnp.asarray(q0), jnp.asarray(p0),
-                                           *args, n_keep=60))
-    t = ti.integrate_batch_full(torch.tensor(q0), torch.tensor(p0), *args,
-                                n_keep=60).numpy()
-    assert t.shape == j.shape
-    np.testing.assert_allclose(t, j, rtol=0, atol=1e-9)
-
-
-def test_schwarzschild_integrator_matches_jax():
-    q0, p0 = _ics(6)
-    kw = dict(steps=800, delta=0.05, mass=1.0, omega=1.0, r_max=31.0)
-    j = _np(ji.SchwarzschildIntegrator(**kw, dtype=jnp.float64)
-            .integrate_batch(q0, p0))
-    t = _np(ti.SchwarzschildIntegrator(**kw, dtype=torch.float64,
-                                       device="cpu").integrate_batch(q0, p0))
-    assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-    # backend 'cuda' is kernel B3, which refuses CPU rays: no fallback
-    with pytest.raises(ValueError, match="CUDA"):
-        ti.SchwarzschildIntegrator(**kw, backend="cuda", dtype=torch.float64,
-                                   device="cpu").integrate_batch(q0, p0)
-
-
 def test_schwarzschild_integrator_defaults_to_the_card(monkeypatch):
     """Like the JAX class, which runs on the default device (the chip),
     the port's class defaults to the card and raises without one."""
@@ -343,14 +237,6 @@ def test_dispatch_routes_kernel_path_to_the_kernel(monkeypatch):
     assert ti.integrate_dispatch(q0, q0, 10, 0.01, 2.0, 31.0, 1.0,
                                  equatorial=True) == "kernel"
     assert len(calls) == 1
-
-
-def test_dispatch_cpu_float32_is_the_twin():
-    q0, p0 = map(torch.tensor, _ics(6, jnp.float32))
-    a = ti.integrate_dispatch(q0, p0, *ARGS, equatorial=True)
-    b = ti.integrate_batch_compensated(q0, p0, *ARGS)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
 
 
 def test_kernel_wrapper_raises_for_cpu_tensors():

@@ -17,15 +17,17 @@ them, and their wrappers' refusals.
 
 The kernels themselves are held against their twins on the card by
 chip_smoke.py (phases 17-21); this machine has neither a GPU nor nvcc.
+
+The comparisons that take seconds are in
+tests/test_torch_integrate_schw_jax.py and
+tests/test_torch_integrate_schw_pallas.py.
 """
-import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from grtrace.engine import integrate as ji
 from grtrace.engine import integrate_pallas as jp
 from grtrace.engine import validate as jv
 from grtrace.physics import camera as jcam
@@ -35,13 +37,16 @@ from grtrace_torch.engine import integrate_cuda as tc
 from grtrace_torch.engine import validate as tv
 from grtrace_torch.kernels import build as tbuild
 from grtrace_torch.physics import hamiltonian as th
-from grtrace_torch.physics.camera import angles_to_p_sph
-from grtrace_torch.physics.nullcond import null_p_t
 
 torch.set_num_threads(1)
 
 ARGS = (2000, 0.05, 2.0, 31.0, 1.0)
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
+
+
+def _np(xs):
+    return [x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in xs]
 
 
 def _rays(n, dtype=np.float64):
@@ -59,11 +64,6 @@ def _rays(n, dtype=np.float64):
     turned[:, 2] = -np.sin(beta) * p0[:, 3]
     turned[:, 3] = np.cos(beta) * p0[:, 3]
     return q0, p0, turned.astype(dtype)
-
-
-def _np(xs):
-    return [x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-            for x in xs]
 
 
 # --- the fused flows -------------------------------------------------------
@@ -148,70 +148,6 @@ def rays8():
     return _rays(8)
 
 
-@pytest.fixture(scope="module")
-def eq_pair(rays8):
-    q0, p0, _ = rays8
-    j = _np(jp.integrate_batch_pallas(jnp.asarray(q0), jnp.asarray(p0),
-                                      *ARGS, interpret=True,
-                                      equatorial=True, compensated=False))
-    t = _np(ti.integrate_batch_eq(torch.tensor(q0), torch.tensor(p0), *ARGS))
-    return t, j
-
-
-@pytest.fixture(scope="module")
-def generic_pair(rays8):
-    q0, _, turned = rays8
-    j = _np(jp.integrate_batch_pallas(jnp.asarray(q0), jnp.asarray(turned),
-                                      *ARGS, interpret=True,
-                                      equatorial=False))
-    t = _np(ti.integrate_batch_fused(torch.tensor(q0), torch.tensor(turned),
-                                     *ARGS))
-    return t, j
-
-
-def test_eq_twin_status_and_steps_match_pallas(eq_pair):
-    t, j = eq_pair
-    assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-    assert (t[2] == ti.STATUS_CAPTURED).any() and (t[2] == 2).any()
-
-
-def test_eq_twin_positions_match_pallas(eq_pair):
-    t, j = eq_pair
-    np.testing.assert_allclose(t[0], j[0], rtol=0, atol=1e-11)
-    np.testing.assert_allclose(t[1], j[1], rtol=0, atol=1e-11)
-    # the read-out rebuilds the theta slots from the launch state
-    assert (t[0][:, 2] == np.pi / 2).all() and (t[1][:, 2] == 0.0).all()
-
-
-def test_generic_twin_status_and_steps_match_pallas(generic_pair):
-    t, j = generic_pair
-    assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-
-
-def test_generic_twin_positions_match_pallas(generic_pair):
-    t, j = generic_pair
-    dq = np.abs(t[0] - j[0]).max(axis=1)
-    dp = np.abs(t[1] - j[1]).max(axis=1)
-    esc = t[2] == ti.STATUS_ESCAPED
-    assert esc.sum() > 20
-    assert dq[esc].max() < 1e-11 and dp[esc].max() < 1e-11
-    assert dq[~esc].max() < 1e-6 and dp[~esc].max() < 1e-6
-    # the rays left the plane: theta moved
-    assert np.abs(t[0][esc, 2] - np.pi / 2).max() > 0.1
-
-
-def test_eq_twin_matches_plain_integrator_f64(rays8, eq_pair):
-    """B2's staggered 12-row twin and the 16-row integrate_batch (the CPU
-    path of float64 renders) agree on the folded rays: same statuses and
-    steps, escaped rays within 1e-9."""
-    q0, p0, _ = map(torch.tensor, rays8)
-    a, _ = eq_pair
-    b = _np(ti.integrate_batch(q0, p0, *ARGS))
-    assert np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
-    esc = a[2] == ti.STATUS_ESCAPED
-    assert np.abs(a[0][esc] - b[0][esc]).max() < 1e-9
-
-
 def test_eq_twin_zero_steps_is_noop(rays8):
     q0, p0, _ = map(torch.tensor, rays8)
     fq, fp, st, ns = ti.integrate_batch_eq(q0, p0, 0, *ARGS[1:])
@@ -242,46 +178,6 @@ def test_compensated_substep_params_unchanged():
     b = ti.substep_params(0.01, 2.0, 31.0, 1.0, 4, torch.float32,
                           compensated=True, staggered=True)
     assert torch.equal(a, b) and a.numel() == 3 + 4 * 3
-
-
-# --- the escape-predicate fault (ROADMAP Queue C) --------------------------
-
-def _fault_rays():
-    """Three launch states at r0 = 30 on the equator with b = |p_phi / p_t|
-    = 2.49, 9.49 and 16.64, and the same rays turned into the polar plane
-    (p_theta <- p_phi, p_phi <- 0)."""
-    r0 = torch.tensor(30.0, dtype=torch.float64)
-    f = 1.0 - 2.0 / 30.0
-    b = np.array([2.49, 9.49, 16.64])
-    alpha = torch.tensor(np.arcsin(b * np.sqrt(f) / 30.0))
-    p_sp = angles_to_p_sph(alpha, 0.0, r0)
-    p_t = null_p_t(p_sp, r0, torch.tensor(math.pi / 2, dtype=torch.float64))
-    q0 = np.tile([0.0, 30.0, np.pi / 2, 0.0], (3, 1))
-    p0 = torch.cat([p_t[:, None], p_sp], dim=-1).numpy()
-    polar = p0.copy()
-    polar[:, 2], polar[:, 3] = p0[:, 3], 0.0
-    return q0, p0, polar
-
-
-def test_escape_predicate_fault_is_shared():
-    """schw_true_escape_pred takes b = |p_phi / p_t|, the z-part of the
-    angular momentum only: turned into the polar plane, the same three rays
-    take the same steps, but the rescue turns the two true escapes into
-    captures parked at r = rs.  Both packages do so; the port keeps the
-    reference behaviour."""
-    q0, p0, polar = _fault_rays()
-    args = (1500, 0.05, 2.0, 31.0, 1.0)
-    out = {}
-    for name, p in (("equatorial", p0), ("polar", polar)):
-        j = _np(ji.integrate_batch(jnp.asarray(q0), jnp.asarray(p), *args))
-        t = _np(ti.integrate_batch(torch.tensor(q0), torch.tensor(p), *args))
-        assert np.array_equal(t[2], j[2]) and np.array_equal(t[3], j[3])
-        out[name] = t
-    eq, po = out["equatorial"], out["polar"]
-    assert eq[2].tolist() == [1, 2, 2]
-    assert po[2].tolist() == [1, 1, 1]
-    assert np.array_equal(eq[3], po[3])
-    assert (po[0][:, 1] == 2.0).all()
 
 
 # --- routing, the integrator class and the wrappers -----------------------
@@ -412,20 +308,3 @@ def test_shadow_error_bisection_with_a_stubbed_integrator(monkeypatch):
     assert all(s[1] and s[2] for s in seen)
 
 
-@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
-                                          (torch.float64, jnp.float64)])
-def test_shadow_error_through_the_integrators_matches_jax(dtype, jdtype):
-    """The whole check with real integration on the CPU (B1's twin for
-    float32, the 16-row integrate_batch for float64; the JAX package's XLA
-    path beside it) at a short budget that every bisection ray finishes
-    in: the same boundary per azimuth and the same error, which stays
-    inside 0.01 px of the closed form."""
-    port = tv.schwarzschild_shadow_error(steps=1500, delta=0.1,
-                                         backend="torch", dtype=dtype,
-                                         device="cpu")
-    ref = jv.schwarzschild_shadow_error(steps=1500, delta=0.1,
-                                        backend="xla", dtype=jdtype)
-    assert port["rho_num"] == ref["rho_num"]
-    assert port["bracket_px"] == ref["bracket_px"]
-    assert port["px_err"] == pytest.approx(ref["px_err"], abs=1e-12)
-    assert port["px_err"] < 0.01
