@@ -64,7 +64,19 @@ the port's paths through them:
     float64 ray with every step kept and at order 4 (26); the band sweep
     (500x500, 30k steps through B1, 50 rays through S1; 27); and the CLI
     with --profile, its top device operations and device-busy share
-    printed, ungated (28).
+    printed, ungated (28);
+  * the disk product line through B6 and B7: the README's polarized
+    Novikov-Thorne disk command through `grtrace_torch.cli.main --disk`
+    at 512x512 with --save-transfer (B6 once, EVPA in [0, pi], one CSV
+    row per disk pixel; 29); that transfer map reshaded on the card,
+    byte-equal to the render, and `cli.reshade` with new knobs (B6 0
+    times; 30); the Keplerian camera (B6 once), 'zamo' bit-equal to its
+    explicit rate, a superluminal rate refused, and B6 bitwise against its
+    twin on the boosted camera's 48x48 rays (31); `cli.hotspot` at
+    256x256 with 64 frames (B6 once) and from the transfer map (B6 0
+    times; 32); the polarized subrings at 256x256 (B7 once, finite EVPA
+    and beta_2) and the face-on toroidal disk's radial EVPA pattern
+    (40x40 float64 through B6; 33).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -1497,6 +1509,381 @@ def profile_phase():
         phase(28, "the profiler saw no device time")
 
 
+# --- the disk product line (phases 29-33) -----------------------------------
+# the README's disk commands at the full disk width: the polarized
+# Novikov-Thorne frame with its transfer map, the reshade of that map, the
+# moving camera, the hot spot (256x256, 64 frames, and from the map) and the
+# polarized subrings; each phase reads kernel B6's or B7's count, set to 0
+# just before its path
+DISK_OUT = os.path.join(HERE, "build", "disk_out")
+DISK_MAP = os.path.join(DISK_OUT, "disk.transfer.npz")
+DISK_CLI_ARGV = ["--size", str(DISK_SIZE), "--metric", "kerr", "--spin",
+                 str(DISK_SPIN), "--disk", "--steps", str(DISK_STEPS),
+                 "--delta", str(DISK_DELTA), "--disk-profile", "novikov",
+                 "--disk-bfield", "vertical", "--no-plots"]
+# phase 31's kernel-vs-twin check on the boosted camera: 48x48 rays with a
+# budget whose 32-row twin stays under 10 s
+BOOST_SIZE, BOOST_STEPS, BOOST_DELTA = 48, 1000, 0.05
+HOT_FRAMES = 64
+CARD = ""   # the card's name and power limit (nvidia-smi), set by main
+
+
+def csv_rows(path):
+    with open(path) as f:
+        return sum(1 for _ in f) - 1
+
+
+def same_bytes(a, b):
+    """Whether two tensors hold the same bytes (NaN included)."""
+    return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+def disk_cli_phase():
+    """Phase 29: the polarized Novikov-Thorne disk frame through
+    `grtrace_torch.cli.main --disk` with --save-transfer; B6 once."""
+    import grtrace_torch
+    from grtrace_torch.cli.args import disk_from_args, parse_args, \
+        scene_from_args
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    from grtrace_torch.engine.validate import timed
+    from grtrace_torch.io import artifacts
+    os.makedirs(DISK_OUT, exist_ok=True)
+    argv = DISK_CLI_ARGV + ["--save-transfer", DISK_MAP, "--out-dir",
+                            DISK_OUT]
+    ks.disk_launches = 0
+    t0 = time.perf_counter()
+    res, _ = run_cli(argv)
+    cli_wall = time.perf_counter() - t0
+    launches = ks.disk_launches
+    counts = res.counts
+    dm = res.device("status") == 3
+    evpa = res.device("evpa")[dm]
+    chk = res.device("pol_check")[dm]
+    wgt = res.device("pol_weight")[dm]
+    rows = {name: csv_rows(os.path.join(DISK_OUT, name)) for name in
+            ("redshift_map.csv", "polarization_map.csv", "line_profile.csv",
+             "photon_data.csv")}
+    n_disk = int(dm.sum())
+    info = {"argv": " ".join(argv), "launches": launches, "counts": counts,
+            "csv_rows": rows, "cli_wall_s": cli_wall,
+            "evpa_finite": bool(torch.isfinite(evpa).all()),
+            "evpa_min": float(evpa.min()), "evpa_max": float(evpa.max()),
+            "max_abs_pol_check_minus_1": float((chk - 1.0).abs().max()),
+            "median_abs_pol_check_minus_1": float(
+                (chk - 1.0).abs().median()),
+            "pol_weight_min": float(wgt.min()),
+            "pol_weight_max": float(wgt.max())}
+    phase(29, f"polarized disk CLI {DISK_SIZE}x{DISK_SIZE}/{DISK_STEPS} "
+              f"steps through kernel B6 ({CARD}): {json.dumps(info)}")
+    if launches != 1:
+        raise AssertionError(f"the disk CLI launched B6 {launches} times")
+    if counts["numerical_error"] or counts["disk"] <= 0:
+        raise AssertionError(f"numerical_error not 0 or no disk: {counts}")
+    if not (info["evpa_finite"] and info["evpa_min"] >= 0.0
+            and info["evpa_max"] <= math.pi):
+        raise AssertionError("EVPA not finite in [0, pi] on the disk")
+    if not (rows["redshift_map.csv"] == rows["polarization_map.csv"]
+            == n_disk == counts["disk"]
+            and rows["photon_data.csv"] == DISK_SIZE * DISK_SIZE
+            and rows["line_profile.csv"] == 48):
+        raise AssertionError(f"the disk CSVs' rows {rows} are not one per "
+                             f"disk pixel ({n_disk}) / per pixel / 48 bins")
+
+    args = parse_args(argv)
+    scene, disk = scene_from_args(args), disk_from_args(args)
+    bg = (artifacts.load_background(scene.background,
+                                    size=(DISK_SIZE, DISK_SIZE))
+          if artifacts.background_available(scene.background) else None)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render_disk(scene, disk, bg_array=bg,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError("a warm polarized render's counts differ")
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    b6 = []
+    for _ in range(3):
+        b6.append(timed(lambda: ks.integrate_batch_disk_cuda(
+            q0, p0, DISK_STEPS, DISK_DELTA, (MASS, DISK_SPIN, 0.0), R_MAX,
+            OMEGA, *disk_annulus()), q0.device)[1])
+    wall = float(np.median(walls))
+    phase(29, f"polarized disk render_disk warm wall time ({CARD}): median "
+              f"{wall:.6f} s of {[round(w, 6) for w in walls]}; B6 "
+              f"kernel+wrapper on its rays median {np.median(b6):.3f} ms of "
+              f"{[round(t, 3) for t in b6]}")
+    return {"res": res, "launches": launches, "wall": wall,
+            "b6_ms": float(np.median(b6))}
+
+
+def reshade_phase(cli):
+    """Phase 30: the transfer map reshaded on the card with the trace-time
+    knobs equals the render byte for byte; then `cli.reshade` with new
+    knobs; B6 launched 0 times."""
+    import contextlib
+    import io
+    import grtrace_torch
+    from grtrace_torch.cli import reshade as reshade_cli
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    res = cli["res"]
+    ks.disk_launches = 0
+    tm = grtrace_torch.TransferMap.load(DISK_MAP)
+    re = grtrace_torch.reshade(tm, device="cuda")
+    torch.cuda.synchronize()
+    same = {k: same_bytes(re.device(k), res.device(k))
+            for k in ("image", "redshift", "evpa", "pol_weight", "pol_check")}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        grtrace_torch.reshade(tm, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out = os.path.join(DISK_OUT, "reshade")
+    argv = ["--transfer", DISK_MAP, "--disk-profile", "novikov",
+            "--disk-bfield", "toroidal", "--disk-emissivity", "2", "3", "4",
+            "--out-dir", out, "--no-plots"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rcli = reshade_cli.main(argv)
+    cli_wall = time.perf_counter() - t0
+    launches = ks.disk_launches
+    rows = [csv_rows(os.path.join(out, sub, "polarization_map.csv"))
+            for sub in ("", "q3", "q4")]
+    info = {"byte_equal": same, "launches": launches,
+            "reshade_s": times, "cli_argv": " ".join(argv),
+            "cli_wall_s": cli_wall, "cli_disk": rcli.counts["disk"],
+            "cli_polarization_rows": rows}
+    phase(30, f"transfer map reshaded on the card ({CARD}): "
+              f"{json.dumps(info)}")
+    if not all(same.values()):
+        raise AssertionError(f"reshade is not byte-equal to the render: "
+                             f"{same}")
+    if launches != 0:
+        raise AssertionError(f"reshade launched B6 {launches} times")
+    if rows != [res.counts["disk"]] * 3:
+        raise AssertionError(f"the reshade CLI's maps have {rows} rows")
+    return {"launches": launches, "reshade_s": float(np.median(times))}
+
+
+def moving_camera_phase():
+    """Phase 31: the moving camera: 'keplerian' through B6 once; 'zamo'
+    equal to its explicit float bit for bit; a superluminal rate refused;
+    B6 against its twin bitwise on the boosted camera's rays."""
+    import grtrace_torch
+    from grtrace_torch import DiskConfig
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    from grtrace_torch.engine.disk import resolve_camera_omega
+    from grtrace_torch.engine.validate import ks_kernel_parity
+    from grtrace_torch.io.textures import starfield
+    from grtrace_torch.physics.camera import (boosted_ics_from_pixels,
+                                              pixel_grid_lookat)
+    from grtrace_torch.physics.spacetime import kerr_schild_g_inv
+    scene = disk_scene()
+    tex = starfield()
+    ks.disk_launches = 0
+    t0 = time.perf_counter()
+    kep = grtrace_torch.render_disk(
+        scene, DiskConfig(camera_omega="keplerian"), bg_array=tex,
+        device="cuda")
+    wall = time.perf_counter() - t0
+    launches = ks.disk_launches
+    _, zamo = resolve_camera_omega(scene, DiskConfig(camera_omega="zamo"))
+    a = grtrace_torch.render_disk(scene, DiskConfig(camera_omega="zamo"),
+                                  device="cuda")
+    b = grtrace_torch.render_disk(scene, DiskConfig(camera_omega=zamo),
+                                  device="cuda")
+    zamo_equal = all(same_bytes(a.device(k), b.device(k))
+                     for k in ("image", "status", "hit_q", "hit_p",
+                               "redshift", "q0", "p0"))
+    try:
+        resolve_camera_omega(scene, DiskConfig(camera_omega=0.5))
+        refused = False
+    except ValueError:
+        refused = True
+
+    dev = torch.device("cuda", 0)
+    _, omega = resolve_camera_omega(scene,
+                                    DiskConfig(camera_omega="keplerian"))
+    obs = torch.tensor(np.array([OBS_X * math.cos(math.radians(12.0)), 0.0,
+                                 OBS_X * math.sin(math.radians(12.0))]),
+                       dtype=torch.float32, device=dev)
+    pix = pixel_grid_lookat(obs, torch.tensor(math.radians(FOV_DEG),
+                                              dtype=torch.float32,
+                                              device=dev),
+                            BOOST_SIZE, BOOST_SIZE, dtype=torch.float32,
+                            device=dev)
+    params = torch.tensor([MASS, DISK_SPIN, 0.0], dtype=torch.float32,
+                          device=dev)
+    q0, p0, _ = boosted_ics_from_pixels(
+        obs, pix, params=params, g_inv_fn=kerr_schild_g_inv,
+        omega_cam=torch.tensor(omega, dtype=torch.float32, device=dev))
+    q0, p0 = q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
+    ks.integrate_batch_disk_cuda(q0, p0, BOOST_STEPS, BOOST_DELTA,
+                                 (MASS, DISK_SPIN, 0.0), R_MAX, OMEGA,
+                                 *disk_annulus())  # warm-up
+    kern, par = ks_kernel_parity(q0, p0, BOOST_STEPS, BOOST_DELTA,
+                                 (MASS, DISK_SPIN, 0.0), R_MAX, OMEGA,
+                                 disk=disk_annulus())
+    par.update(rays=q0.shape[0], steps=BOOST_STEPS, delta=BOOST_DELTA,
+               omega=omega, hits=int((kern[2] == 3).sum()))
+    info = {"keplerian_launches": launches, "keplerian_counts": kep.counts,
+            "keplerian_first_render_s": wall, "zamo_omega": zamo,
+            "zamo_equals_explicit": zamo_equal,
+            "superluminal_refused": refused, "b6_vs_twin_boosted": par}
+    phase(31, f"moving camera, {DISK_SIZE}x{DISK_SIZE} ({CARD}): "
+              f"{json.dumps(info)}")
+    if launches != 1 or kep.counts["numerical_error"] \
+            or kep.counts["disk"] <= 0:
+        raise AssertionError("the Keplerian camera's render did not launch "
+                             "B6 once with numerical_error 0 and a disk")
+    if not zamo_equal or not refused:
+        raise AssertionError("'zamo' differs from its value, or a "
+                             "superluminal camera was accepted")
+    gate_parity("boosted disk camera", par)
+    return {"launches": launches}
+
+
+def hotspot_phase():
+    """Phase 32: `grtrace_torch.cli.hotspot` (256x256, a = 0.9, 64 frames:
+    B6 once) and with --transfer on phase 29's map (B6 0 times, frames
+    and, shaded 16 frames at a time, the same frames and light curve as
+    the movie shaded at once);
+    the --bench line's frames/s."""
+    import contextlib
+    import io
+    import grtrace_torch
+    from grtrace_torch.cli import hotspot as hot_cli
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    runs = {}
+    for tag, argv in (
+            ("render", ["--size", "256", "--metric", "kerr", "--spin",
+                        str(DISK_SPIN), "--frames", str(HOT_FRAMES)]),
+            ("transfer", ["--transfer", DISK_MAP, "--frames",
+                          str(HOT_FRAMES), "--no-gif"])):
+        out_dir = os.path.join(DISK_OUT, f"hotspot_{tag}")
+        ks.disk_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = hot_cli.main(argv + ["--no-plots", "--bench", "--out-dir",
+                                       out_dir])
+        wall = time.perf_counter() - t0
+        runs[tag] = {"argv": " ".join(argv), "launches": ks.disk_launches,
+                     "frames": list(out["frames"].shape),
+                     "lightcurve_rows": csv_rows(os.path.join(
+                         out_dir, "lightcurve.csv")),
+                     "flux_max": float(out["flux"].max()),
+                     "light_curve_finite": bool(all(
+                         np.isfinite(out[k]).all() for k in
+                         ("flux", "weighted_g", "centroid"))),
+                     "period_M": out["period"], "cli_wall_s": wall,
+                     "bench": out["bench"]}
+        runs[tag]["out"] = out
+    # the movie from the map again, 16 frames at a time: chunking is exact
+    tm = grtrace_torch.TransferMap.load(DISK_MAP)
+    ks.disk_launches = 0
+    chunked = grtrace_torch.hotspot_from_transfer(
+        tm, grtrace_torch.HotspotConfig(n_frames=HOT_FRAMES),
+        frames_per_chunk=16, device="cuda")
+    whole = runs["transfer"].pop("out")
+    runs["render"].pop("out")
+    # the frames are elementwise, so equal; the light curve's pixel sums
+    # may reduce in another order, so within float32 rounding
+    chunk_err = {k: float(np.max(np.abs(chunked[k] - whole[k])
+                                 / np.maximum(np.abs(whole[k]), 1e-30)))
+                 for k in ("flux", "weighted_g", "centroid")}
+    chunks_equal = (np.array_equal(chunked["frames"], whole["frames"])
+                    and all(e <= 1e-5 for e in chunk_err.values()))
+    runs["transfer_16_frames_per_chunk"] = {
+        "launches": ks.disk_launches, "frames_equal_and_curve_close":
+        chunks_equal, "max_rel_err": chunk_err}
+    phase(32, f"hot spot ({CARD}): {json.dumps(runs)}")
+    if runs["render"]["launches"] != 1 or runs["transfer"]["launches"] != 0 \
+            or ks.disk_launches != 0:
+        raise AssertionError("the hot spot must launch B6 once, and 0 times "
+                             "from a transfer map")
+    if not chunks_equal:
+        raise AssertionError("the movie shaded 16 frames at a time differs "
+                             f"from the movie shaded at once: {chunk_err}")
+    for tag in ("render", "transfer"):
+        r = runs[tag]
+        if (r["frames"][0] != HOT_FRAMES or r["lightcurve_rows"]
+                != HOT_FRAMES or not r["flux_max"] > 0.0
+                or not r["light_curve_finite"]):
+            raise AssertionError(f"hot spot {tag}: {r}")
+    return runs
+
+
+def polarized_subring_phase():
+    """Phase 33: the polarized subring frame (256x256, 3 orders, vertical
+    field) through B7 once; then the face-on toroidal disk (40x40, a = 0,
+    float64, through B6): a radial EVPA pattern."""
+    import grtrace_torch
+    from grtrace_torch import DiskConfig, IntegratorConfig, SceneConfig
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    scene, disk = subring_scene()
+    disk = DiskConfig(**{**vars(disk), "bfield": "vertical"})
+    ks.subring_launches = 0
+    t0 = time.perf_counter()
+    res = grtrace_torch.render_subrings(scene, disk, n_orders=SUB_ORDERS,
+                                        device="cuda")
+    wall = time.perf_counter() - t0
+    launches = ks.subring_launches
+    valid = res.valid
+    evpa = res.evpa
+    finite = [bool(np.isfinite(evpa[k][valid[k]]).all())
+              for k in range(SUB_ORDERS)]
+    beta = grtrace_torch.polarized_moments(res, ms=(2,))[2]
+    summ = grtrace_torch.subring_summary(res)
+
+    face = SceneConfig(size=40, metric="kerr", spin=0.0, n_samples=0,
+                       background=None,
+                       integrator=IntegratorConfig(steps=2500, delta=0.06,
+                                                   dtype="float64"))
+    ks.disk_launches = 0
+    fr = grtrace_torch.render_disk(face, DiskConfig(
+        elevation_deg=89.9, show_background=False, bfield="toroidal"),
+        device="cuda")
+    face_launches = ks.disk_launches
+    dm = fr.status == 3
+    ii, jj = np.nonzero(dm)
+    psi = np.mod(np.arctan2(jj - 19.5, ii - 19.5), np.pi)
+    d = np.abs(fr.device("evpa").cpu().numpy()[dm] - psi)
+    d = np.minimum(d, np.pi - d)           # EVPA is an angle mod pi
+    chk = fr.device("pol_check").cpu().numpy()[dm]
+    info = {"launches": launches, "counts": res.counts,
+            "first_render_s": wall,
+            "valid_per_order": valid.sum(axis=(1, 2)).tolist(),
+            "evpa_finite_per_order": finite,
+            "beta2": [[b.real, b.imag] for b in beta],
+            "beta2_abs_per_order": summ["beta2_abs_per_order"],
+            "evpa_twist_per_order_rad": summ["evpa_twist_per_order_rad"],
+            "face_on": {"launches": face_launches, "disk": int(dm.sum()),
+                        "median_circular_err": float(np.median(d)),
+                        "max_circular_err": float(d.max()),
+                        "max_abs_pol_check_minus_1": float(
+                            np.abs(chk - 1.0).max())}}
+    phase(33, f"polarized subrings {SUB_SIZE}x{SUB_SIZE}, {SUB_ORDERS} "
+              f"orders, and the face-on toroidal disk ({CARD}): "
+              f"{json.dumps(info)}")
+    if launches != 1 or res.counts["numerical_error"]:
+        raise AssertionError("the polarized subring render did not launch "
+                             "B7 once with numerical_error 0")
+    if not (all(finite) and all(np.isfinite([b.real, b.imag]).all()
+                                for b in beta)
+            and valid[0].any() and valid[1].any()):
+        raise AssertionError("per-order EVPA or beta_2 not finite")
+    if face_launches != 1 or dm.sum() <= 100:
+        raise AssertionError("the face-on disk did not launch B6 once with "
+                             "over 100 disk pixels")
+    if not (np.median(d) < 0.05 and d.max() < 0.2
+            and np.abs(chk - 1.0).max() < 1e-3):
+        raise AssertionError("the face-on toroidal EVPA is not radial")
+    return {"launches": launches, "face_launches": face_launches}
+
+
 # kernels that must not spill: B3 and B5-B7, whose __launch_bounds__ ask
 # for the most blocks that fit without a spill (a spill means a later edit
 # outgrew them), and B1, B2 and B4, whose step loop a spill would lengthen
@@ -1791,6 +2178,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    global CARD
+    CARD = smi
     phase(1, f"card: {smi}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}")
     build_kernels()
@@ -1921,6 +2310,18 @@ def main():
     band_phase(device)
     profile_phase()
 
+    # --- the disk product line through B6 and B7 ---------------------------
+    dcli = disk_cli_phase()
+    rsh = reshade_phase(dcli)
+    mov = moving_camera_phase()
+    hot = hotspot_phase()
+    psub = polarized_subring_phase()
+    disk_line = {"disk_cli": dcli["launches"], "reshade": rsh["launches"],
+                 "camera_keplerian": mov["launches"],
+                 "hotspot": hot["render"]["launches"],
+                 "hotspot_transfer": hot["transfer"]["launches"],
+                 "face_on_toroidal": psub["face_launches"]}
+
     print(json.dumps({"kernels": [
         {"name": "fantasy_eqc",
          "route": "cuda",
@@ -1959,6 +2360,7 @@ def main():
          "bound_ms": disk["bound_ms"],
          "bound_by": disk["bound_by"],
          "library_ms": None,
+         "launches_disk_line": disk_line,
          "shapes": f"the disk mode (B6); every number at "
                    f"{DISK_SIZE}x{DISK_SIZE} disk-camera rays, "
                    f"{DISK_STEPS}-step budget (phase 12)"},
@@ -1973,6 +2375,7 @@ def main():
          "bound_ms": sub["bound_ms"],
          "bound_by": sub["bound_by"],
          "library_ms": None,
+         "launches_disk_line": {"polarized_subrings": psub["launches"]},
          "shapes": f"the subring mode (B7); every number at "
                    f"{SUB_SIZE}x{SUB_SIZE} subring-camera rays, "
                    f"{SUB_STEPS}-step budget, {SUB_ORDERS} orders "

@@ -8,7 +8,11 @@ guard, exact Bardeen rescue), and the thin accretion disk around a Kerr
 hole (`render_disk`: inclined camera, first-equatorial-crossing capture,
 redshift shading), and the photon-ring subrings of a transparent disk
 (`render_subrings`: every image order as its own layer, with the
-photon-shell theory of physics/photon_shell.py beside it), the
+photon-shell theory of physics/photon_shell.py beside it), with
+Walker-Penrose polarization maps (`bfield`) and a camera on a circular
+worldline (`camera_omega`), geodesic transfer maps that re-shade a disk
+without tracing (`TransferMap`, `reshade`), orbiting hot-spot movies
+(`render_hotspot`, `hotspot_from_transfer`), the
 reference-compatible `SchwarzschildIntegrator` for rays in any plane, and
 checkpoint / resume of long integrations (engine/checkpoint.py), on
 tensors of any torch device.  On an NVIDIA Hopper GPU the integration
@@ -22,8 +26,12 @@ from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
                        SceneConfig, from_jax_scene)
 from .engine.render import RenderResult, render, render_pixels
 from .engine.integrate import SchwarzschildIntegrator
-from .engine.disk import DiskConfig, from_jax_disk, render_disk
-from .engine.subring import render_subrings, subring_summary
+from .engine.disk import (DiskConfig, from_jax_disk, render_disk,
+                          save_disk_maps)
+from .engine.hotspot import HotspotConfig, from_jax_hotspot, render_hotspot
+from .engine.subring import (polarized_moments, render_subrings,
+                             subring_summary)
+from .io.transfer import TransferMap, hotspot_from_transfer, reshade
 
 __version__ = "0.1.0"
 
@@ -31,6 +39,8 @@ __all__ = [
     "BlackHole", "Observer", "PatchConfig", "IntegratorConfig",
     "SceneConfig", "from_jax_scene", "RenderResult", "render",
     "render_pixels", "SchwarzschildIntegrator", "DiskConfig",
-    "from_jax_disk", "render_disk", "render_subrings", "subring_summary",
-    "__version__",
+    "from_jax_disk", "render_disk", "save_disk_maps", "render_subrings",
+    "subring_summary", "polarized_moments", "HotspotConfig",
+    "from_jax_hotspot", "render_hotspot", "TransferMap", "reshade",
+    "hotspot_from_transfer", "__version__",
 ]

@@ -125,8 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
     # --- accretion disk mode (beyond the reference; engine/disk.py) ---
     p.add_argument('--disk', action='store_true',
                    help='Render a thin equatorial accretion disk (GR '
-                        'redshift/Doppler shading; the CLI path is not '
-                        'ported yet: ROADMAP item 6.3)')
+                        'redshift/Doppler shading; engine.disk, kernel B6)')
     p.add_argument('--disk-r-in', type=float, default=None,
                    help='Disk inner edge (default: the prograde ISCO)')
     p.add_argument('--disk-r-out', type=float, default=14.0,
@@ -159,12 +158,12 @@ def build_parser() -> argparse.ArgumentParser:
                         '+ Doppler via the orthonormal camera tetrad); '
                         "'keplerian' = the circular-geodesic rate at the "
                         "camera radius, 'zamo' = the locally nonrotating "
-                        'observer (not ported yet: ROADMAP item 6.2)')
+                        'observer')
     p.add_argument('--save-transfer', type=str, default=None, metavar='NPZ',
                    help='Persist the geodesic transfer map (per-pixel '
                         'crossing invariants) so the disk can be re-shaded '
-                        'without retracing (not ported yet: ROADMAP item '
-                        '6.4)')
+                        'without retracing (io.transfer; see '
+                        'python -m grtrace_torch.cli.reshade)')
     p.add_argument('--out-dir', type=str, default='.',
                    help='Output directory for artifacts')
     p.add_argument('--no-plots', action='store_true',
@@ -181,6 +180,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None):
     return build_parser().parse_args(argv)
+
+
+def disk_from_args(args):
+    """argparse Namespace -> DiskConfig, or None when --disk is absent."""
+    if not getattr(args, 'disk', False):
+        return None
+    from ..engine.disk import DiskConfig
+    cam = getattr(args, 'camera_omega', None)
+    if cam is not None and cam not in ('keplerian', 'zamo'):
+        try:
+            cam = float(cam)
+        except ValueError:
+            raise SystemExit(f"--camera-omega must be a number, "
+                             f"'keplerian' or 'zamo', got {cam!r}")
+    return DiskConfig(r_in=args.disk_r_in, r_out=args.disk_r_out,
+                      prograde=not args.disk_retrograde,
+                      t_peak=args.disk_temp, exposure=args.disk_exposure,
+                      elevation_deg=args.disk_elevation,
+                      profile=args.disk_profile,
+                      emissivity_index=args.disk_emissivity,
+                      bfield=args.disk_bfield,
+                      camera_omega=cam)
 
 
 def scene_from_args(args) -> SceneConfig:

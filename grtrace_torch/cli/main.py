@@ -9,8 +9,12 @@ Pipeline (the reference main.py's):
 
 Everything runs on the CUDA card by default (--device cpu for the CPU): the
 flat render, the curved render through the hand-written kernels (B1 for
-float32, B2 for --dtype float64, B5 for --metric kerr) and the sampled
-trajectories through kernel S1.  The kernels build at first use (there is
+float32, B2 for --dtype float64, B5 for --metric kerr, B6 for --disk) and
+the sampled trajectories through kernel S1.  --disk writes the disk's
+science products (redshift_map.csv, line_profile.csv and, with
+--disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
+with --save-transfer, the transfer map that cli/reshade.py and
+cli/hotspot.py --transfer read.  The kernels build at first use (there is
 no compilation cache to warm).  Options whose engines are not ported yet
 raise NotImplementedError naming their ROADMAP item.
 
@@ -27,13 +31,14 @@ import time
 import numpy as np
 import torch
 
+from ..engine.disk import render_disk, save_disk_maps
 from ..engine.flat import flat_render_scene
 from ..engine.metrics import (RenderMetrics, device_summary, roofline_report,
                               trace)
 from ..engine.render import render
 from ..io import artifacts
 from ..viz import plots
-from .args import parse_args, scene_from_args
+from .args import disk_from_args, parse_args, scene_from_args
 
 logging.basicConfig(level=logging.INFO,
                     format="%(asctime)s %(levelname)s: %(message)s")
@@ -46,9 +51,11 @@ _KERNEL = {"float32": "fantasy_eqc", "float64": "fantasy_eq"}
 _KERNEL_KS = {"float32": "fantasy_ks", "float64": "fantasy_ks_plain"}
 
 
-def roofline_kernel(scene):
-    """The operation table's entry for the layout `render(scene)` runs."""
-    ks = scene.metric.lower() == "kerrschild" or scene.charge
+def roofline_kernel(scene, disk=False):
+    """The operation table's entry for the layout `render(scene)` (or,
+    with `disk`, `render_disk(scene)`: always the Kerr-Schild chart)
+    runs."""
+    ks = disk or scene.metric.lower() == "kerrschild" or scene.charge
     return (_KERNEL_KS if ks else _KERNEL)[scene.integrator.dtype]
 
 
@@ -59,20 +66,25 @@ def _not_ported(what, item):
 
 def check_ported(args, scene):
     """Raise NotImplementedError for the options whose engines the port
-    does not have yet, before any work runs."""
-    if args.disk:
-        raise _not_ported("--disk (the CLI's disk path with save_disk_maps)",
-                          "6.3")
+    does not have yet, before any work runs, and SystemExit for the
+    options the JAX CLI refuses."""
+    if args.save_transfer and not args.disk:
+        raise SystemExit("--save-transfer requires --disk (the transfer "
+                         "map records disk-crossing invariants)")
+    if args.camera_omega is not None and not args.disk:
+        raise SystemExit("--camera-omega requires --disk (the orbiting "
+                         "camera rides the disk pipeline)")
     if args.aa:
         raise _not_ported("--aa (adaptive antialiasing, engine/aa.py)", "8")
-    if args.save_transfer:
-        raise _not_ported("--save-transfer (io/transfer.py)", "6.4")
-    if args.camera_omega is not None:
-        raise _not_ported("--camera-omega (the moving camera)", "6.2")
     metric = scene.metric.lower()
     if metric in ("kottler", "bardeen", "hayward", "rotating-bardeen",
                   "rotating-hayward", "kerr-ds"):
-        raise _not_ported(f"--metric {args.metric}", "9")
+        what = "--disk around " if args.disk else ""
+        raise _not_ported(f"{what}--metric {args.metric}", "9")
+    if args.disk:
+        # render_disk traces every Kerr-Newman scene in the Kerr-Schild
+        # chart and samples no trajectories, as the JAX CLI's disk path
+        return
     if metric == "kerr-bl":
         raise _not_ported("--metric kerr-bl (the Boyer-Lindquist chart)",
                           "5b")
@@ -90,6 +102,7 @@ def main(argv=None):
     args = parse_args(argv)
     scene = scene_from_args(args)
     check_ported(args, scene)
+    disk_cfg = disk_from_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("grtrace_torch.cli.main: no CUDA device "
@@ -146,8 +159,12 @@ def main(argv=None):
     with trace(os.path.join(out, "torch_trace") if args.profile
                else None) as prof:
         t0 = time.time()
-        result = render(scene, bg_array=bg_array, seed=args.seed,
-                        metrics=rm, device=device)
+        if disk_cfg is not None:
+            result = render_disk(scene, disk_cfg, bg_array=bg_array,
+                                 metrics=rm, device=device)
+        else:
+            result = render(scene, bg_array=bg_array, seed=args.seed,
+                            metrics=rm, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0
@@ -163,6 +180,22 @@ def main(argv=None):
         artifacts.save_image(result.image,
                              os.path.join(images_dir, "manual_output.png"))
     logging.info("Saved manual_output.png")
+    if disk_cfg is not None:
+        # the disk mode's science products: the per-pixel g = nu_obs/nu_em,
+        # the emission radius, the line profile (and the EVPA map)
+        with stage("disk_maps"):
+            save_disk_maps(result, out,
+                           emissivity_index=disk_cfg.emissivity_index,
+                           spin=scene.spin, plots=not args.no_plots)
+        logging.info("Saved the disk maps (redshift_map, line_profile%s)",
+                     ", polarization_map" if disk_cfg.bfield else "")
+        if args.save_transfer:
+            from ..io.transfer import TransferMap
+            TransferMap.from_result(result, scene, disk_cfg).save(
+                args.save_transfer)
+            logging.info("Saved geodesic transfer map to %s (re-shade with "
+                         "python -m grtrace_torch.cli.reshade)",
+                         args.save_transfer)
 
     with stage("csv_writes"):
         artifacts.save_photon_data(result,
@@ -174,7 +207,7 @@ def main(argv=None):
         print(rm)
         if device.type == "cuda":
             print(json.dumps({"roofline": roofline_report(
-                rm.steps_per_s, roofline_kernel(scene),
+                rm.steps_per_s, roofline_kernel(scene, disk_cfg is not None),
                 scene.integrator.order, scene.integrator.dtype)}))
 
     # --- scene diagnostics ---

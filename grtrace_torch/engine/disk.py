@@ -8,34 +8,43 @@ Shakura-Sunyaev or Novikov-Thorne temperature profile.  Back-traced rays
 hit the disk at their first equatorial crossing inside the annulus, which
 is the surface an opaque disk shows the camera.
 
-The pipeline: the inclined look-at camera -> the disk integration
-(`integrate_dispatch_disk`: kernel B6 on a CUDA device, its eager twins on
-the CPU) -> classification of the rays that missed the disk -> the one
-shading function `run_shading` on the traced invariants (hit_q, hit_p,
-status and the base image), which a later port of `io/transfer.reshade`
-must call as well, so that a reshade reproduces a render's bytes.
+The pipeline: the inclined look-at camera, static or on a circular
+worldline (`camera_omega`: physics/camera.boosted_ics_from_pixels) -> the
+disk integration (`integrate_dispatch_disk`: kernel B6 on a CUDA device,
+its eager twins on the CPU) -> classification of the rays that missed the
+disk -> the one shading function `run_shading` on the traced invariants
+(hit_q, hit_p, status and the base image), with the Walker-Penrose
+polarization maps when `bfield` is set.  io/transfer.reshade calls the
+same `run_shading`, so a reshade on the render's device and dtype
+reproduces the render's bytes.  `save_disk_maps` writes the science
+products (redshift map, line profile, polarization map).
 
 Rays that never hit carry zero hit rows, as the TPU kernel writes them
 (JAX's XLA disk engine carries the launch state there instead), so the
 redshift map is only meaningful on disk pixels.  Not ported yet, and
-raising NotImplementedError: polarization (`bfield`) and the moving camera
-(`camera_omega`), ROADMAP Queue A item 6; `aa_samples` and the autodiff
-ISCO of a charged hole (`r_in=None` with charge), item 8; the rotating
-regular metrics, item 9.
+raising NotImplementedError: `aa_samples` and the autodiff ISCO of a
+charged hole (`r_in=None` with charge), ROADMAP Queue A item 8; the
+rotating regular metrics, item 9.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
+from ..physics.camera import (_lookat_frame, boosted_ics_from_pixels,
+                              cartesian_ics_from_pixels, pixel_grid_lookat)
 from ..physics.coords import cartesian_to_spherical
-from ..physics.orbits import isco_radius, page_thorne_flux, redshift_factor
-from ..physics.spacetime import horizon_radius, kerr_schild_g_inv, ks_radius
+from ..physics.orbits import (_invert_bl_metric, isco_radius, keplerian_omega,
+                              page_thorne_flux, redshift_factor, zamo_omega)
+from ..physics.polarization import (bl_from_ks, emission_polarization,
+                                    observer_evpa)
+from ..physics.spacetime import (horizon_radius, kerr_g_inv,
+                                 kerr_schild_g_inv, ks_radius)
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED
 from .integrate_ks import STATUS_DISK, _unit_grid, integrate_dispatch_disk
@@ -60,9 +69,14 @@ class DiskConfig:
     # Novikov-Thorne via the Page-Thorne integral)
     profile: str = "shakura"
     emissivity_index: float = 3.0  # line-profile index q (I_em ~ r^-q)
-    bfield: Optional[str] = None   # polarized imaging (not ported yet)
+    # magnetic-field geometry of the Walker-Penrose EVPA maps: None
+    # (unpolarized), 'vertical', 'toroidal' or 'radial'
+    bfield: Optional[str] = None
     elevation_deg: float = 12.0    # camera elevation above the disk plane
-    camera_omega: "float | str | None" = None  # moving camera (not ported)
+    # camera worldline: None = static; a float = the circular worldline
+    # u^t (d_t + omega d_phi); 'keplerian' = the circular-geodesic rate at
+    # the camera's BL radius; 'zamo' = the zero-angular-momentum observer
+    camera_omega: "float | str | None" = None
 
     def __post_init__(self):
         if self.profile not in ("shakura", "novikov"):
@@ -202,16 +216,43 @@ def shade_disk_constants(energy, l_z, r_em, params, r_obs, r_in, *,
     return g, blackbody_rgb(t_obs * t_peak) * tone[:, None]
 
 
+def polarization_fields(hit_q, hit_p, q0f, p0f, obs_pos, fov, height, width,
+                        params, prograde, bfield, disk_mask, dtype,
+                        omega_obs=0.0):
+    """Walker-Penrose EVPA per disk pixel on flat (N, 4) tensors: kappa at
+    each emission event (hit_q, hit_p), solved for on the screen of the
+    camera ray (q0f, p0f) whose worldline rotates at omega_obs (0 = the
+    static observer).  obs_pos (3,) and fov are tensors of `dtype`.
+    Returns (evpa, pol_weight, pol_check), each masked to disk pixels."""
+    q_bl, p_bl = bl_from_ks(hit_q, hit_p, params)
+    kap1, kap2, sin2_b = emission_polarization(q_bl, p_bl, params, prograde,
+                                               bfield)
+    _, _, _, cam_right, cam_up = _lookat_frame(obs_pos, fov, height, width,
+                                               dtype)
+    evpa, c_norm = observer_evpa(kap1, kap2, q0f, p0f, cam_up, cam_right,
+                                 params, omega_obs=omega_obs)
+    zero = torch.zeros_like(evpa)
+    evpa = torch.where(disk_mask, evpa, zero)
+    pol_weight = torch.where(disk_mask, sin2_b, zero)
+    pol_check = torch.where(disk_mask, c_norm, torch.ones_like(c_norm))
+    return evpa, pol_weight, pol_check
+
+
 def run_shading(result_arrays, *, height, width, profile, prograde, params,
-                obs_pos, r_in, r_out, t_peak, exposure, camera_omega, dtype):
+                obs_pos, r_in, r_out, t_peak, exposure, camera_omega, dtype,
+                fov=None, bfield=None, camera_moving=False):
     """THE disk-shading function: every path that shades disk pixels
-    (render_disk now, the transfer-map reshade once ported) calls it, with
-    its scalars cast here in one canonical way, so equal invariants give
-    equal bytes.
+    (render_disk and io/transfer.reshade) calls it, with its scalars cast
+    here in one canonical way, so equal invariants on one device and dtype
+    give equal bytes.
 
     result_arrays = (hit_q (H, W, 4), hit_p, status (H, W), image
     (H, W, 3) uint8), on one device; disk pixels of the image are
-    overwritten, the rest kept.  Returns {image, redshift, disk_count}."""
+    overwritten, the rest kept.  With `bfield` set (and the camera's `fov`)
+    the camera rays the EVPA screen solve needs are recomputed (the
+    boosted tetrad when camera_moving: an explicit omega 0.0 is a moving
+    camera too).  Returns {image, redshift, disk_count} and, with bfield,
+    {evpa, pol_weight, pol_check}."""
     hit_q, hit_p, status, image = result_arrays
     device = hit_q.device
 
@@ -222,6 +263,7 @@ def run_shading(result_arrays, *, height, width, profile, prograde, params,
                           device=device)
     obs_pos = torch.tensor(np.asarray(obs_pos, np.float64), dtype=dtype,
                            device=device)
+    omega_obs = scalar(camera_omega)
     n = height * width
     hq = hit_q.reshape(n, 4)
     hp = hit_p.reshape(n, 4)
@@ -234,12 +276,31 @@ def run_shading(result_arrays, *, height, width, profile, prograde, params,
                           prograde=prograde, t_peak=scalar(t_peak),
                           exposure=scalar(exposure), theta_obs=th_obs,
                           profile=profile, r_out=scalar(r_out),
-                          omega_obs=scalar(camera_omega))
+                          omega_obs=omega_obs)
     disk_u8 = torch.clamp(rgb01 * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
     out_img = torch.where(disk_mask[:, None], disk_u8, image.reshape(n, 3))
-    return {"image": out_img.reshape(height, width, 3),
-            "redshift": g.reshape(height, width),
-            "disk_count": disk_mask.sum()}
+    out = {"image": out_img.reshape(height, width, 3),
+           "redshift": g.reshape(height, width),
+           "disk_count": disk_mask.sum()}
+    if bfield is not None:
+        fov = scalar(fov)
+        pix = pixel_grid_lookat(obs_pos, fov, height, width, dtype=dtype,
+                                device=device)
+        if camera_moving:
+            q0, p0, _ = boosted_ics_from_pixels(
+                obs_pos, pix, params=params, g_inv_fn=kerr_schild_g_inv,
+                omega_cam=omega_obs)
+        else:
+            q0, p0, _ = cartesian_ics_from_pixels(
+                obs_pos, pix, params=params, g_inv_fn=kerr_schild_g_inv)
+        evpa, wgt, chk = polarization_fields(
+            hq, hp, q0.reshape(n, 4), p0.reshape(n, 4), obs_pos, fov,
+            height, width, params, prograde, bfield, disk_mask, dtype,
+            omega_obs=omega_obs if camera_moving else 0.0)
+        out.update(evpa=evpa.reshape(height, width),
+                   pol_weight=wgt.reshape(height, width),
+                   pol_check=chk.reshape(height, width))
+    return out
 
 
 def disk_observer_position(scene, disk):
@@ -251,14 +312,40 @@ def disk_observer_position(scene, disk):
 
 
 def resolve_camera_omega(scene, disk):
-    """DiskConfig.camera_omega -> (moving, omega): (False, 0.0) for the
-    static camera, the only one ported."""
-    if disk.camera_omega is None:
+    """DiskConfig.camera_omega -> (moving, omega), on the host in float64.
+
+    'keplerian' and 'zamo' resolve at the camera's BL (r, theta); an
+    explicit float passes through.  Any moving camera must be timelike:
+    -(g_tt + 2 w g_tph + w^2 g_phph) > 0 at the camera event, else
+    ValueError (no such observer exists)."""
+    spec = disk.camera_omega
+    if spec is None:
         return False, 0.0
-    raise NotImplementedError(
-        "a moving disk camera (DiskConfig.camera_omega) needs the boosted "
-        "camera tetrad and zamo_omega, not ported to grtrace_torch yet "
-        "(ROADMAP Queue A item 6)")
+    f64 = torch.float64
+    obs = torch.tensor(disk_observer_position(scene, disk), dtype=f64)
+    params = torch.tensor([scene.bh_mass, scene.spin, scene.charge],
+                          dtype=f64)
+    r_bl = ks_radius(obs[0], obs[1], obs[2], params[1])
+    th = torch.arccos(torch.clamp(obs[2] / torch.clamp(r_bl, min=1e-30),
+                                  -1.0, 1.0))
+    if spec == "keplerian":
+        omega = float(keplerian_omega(r_bl, params[0], params[1], params[2],
+                                      disk.prograde))
+    elif spec == "zamo":
+        omega = float(zamo_omega(r_bl, params, th))
+    else:
+        omega = float(spec)
+    zero = torch.zeros((), dtype=f64)
+    g = _invert_bl_metric(kerr_g_inv(torch.stack([zero, r_bl, th, zero]),
+                                     params))
+    denom = -(g[0, 0] + 2.0 * omega * g[0, 3] + omega * omega * g[3, 3])
+    if not float(denom) > 0.0:
+        raise ValueError(
+            f"camera_omega = {omega:.6g} is superluminal at the camera "
+            f"(BL r = {float(r_bl):.4g}, theta = "
+            f"{math.degrees(float(th)):.3g} deg): the circular worldline is "
+            f"not timelike there")
+    return True, omega
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +404,16 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
                        patch_size_theta, patch_size_phi, *, height, width,
                        order=2, flip_theta=False, flip_phi=False,
                        has_background=True, dtype=torch.float32,
-                       backend="auto"):
+                       backend="auto", camera_omega=0.0,
+                       camera_moving=False):
     """The device pipeline of one disk frame, on bg_array's device: the
-    look-at camera -> disk integration -> classify + composite.  obs_pos
-    is a full (3,) position.  Scalars are Python floats (obs_pos a
-    sequence), rounded to `dtype` on the device as the JAX pipeline
-    receives them.  Returns per-pixel tensors, the base image (disk pixels
-    not yet shaded: see `run_shading`) and the (6,) count vector."""
+    look-at camera (static, or the boosted tetrad of the circular worldline
+    at camera_omega when camera_moving) -> disk integration -> classify +
+    composite.  obs_pos is a full (3,) position.  Scalars are Python
+    floats (obs_pos a sequence), rounded to `dtype` on the device as the
+    JAX pipeline receives them.  Returns per-pixel tensors, the base image
+    (disk pixels not yet shaded: see `run_shading`) and the (6,) count
+    vector."""
     device = bg_array.device
 
     def scalar(x):
@@ -335,8 +425,13 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
     r_obs = torch.linalg.vector_norm(obs)
     pix = pixel_grid_lookat(obs, scalar(fov), height, width, dtype=dtype,
                             device=device)
-    q0, p0, alpha0 = cartesian_ics_from_pixels(obs, pix, params=params,
-                                               g_inv_fn=kerr_schild_g_inv)
+    if camera_moving:
+        q0, p0, alpha0 = boosted_ics_from_pixels(
+            obs, pix, params=params, g_inv_fn=kerr_schild_g_inv,
+            omega_cam=scalar(camera_omega))
+    else:
+        q0, p0, alpha0 = cartesian_ics_from_pixels(
+            obs, pix, params=params, g_inv_fn=kerr_schild_g_inv)
     n = height * width
     flat = _trace_flat(
         q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous(),
@@ -383,15 +478,11 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
         raise NotImplementedError(
             f"disks around the rotating regular metric {scene.metric!r} "
             f"are not ported to grtrace_torch yet (ROADMAP Queue A item 9)")
-    if disk.bfield is not None:
-        raise NotImplementedError(
-            "polarized imaging (DiskConfig.bfield, physics/polarization.py) "
-            "is not ported to grtrace_torch yet (ROADMAP Queue A item 6)")
     if aa_samples:
         raise NotImplementedError(
             "adaptive antialiasing of the disk (engine/aa.py) is not ported "
             "to grtrace_torch yet (ROADMAP Queue A item 8)")
-    _, camera_omega = resolve_camera_omega(scene, disk)
+    camera_moving, camera_omega = resolve_camera_omega(scene, disk)
     r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -421,16 +512,18 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
             height=h, width=w, order=integ.order,
             flip_theta=scene.patch.flip_theta,
             flip_phi=scene.patch.flip_phi, has_background=has_bg,
-            dtype=dtype, backend=integ.backend)
+            dtype=dtype, backend=integ.backend, camera_omega=camera_omega,
+            camera_moving=camera_moving)
         shaded = run_shading(
             (out["hit_q"], out["hit_p"], out["status"], out["image"]),
             height=h, width=w, profile=disk.profile, prograde=disk.prograde,
             params=[scene.bh_mass, scene.spin, scene.charge],
-            obs_pos=obs_pos, r_in=r_in, r_out=disk.r_out,
+            obs_pos=obs_pos, fov=scene.fov, r_in=r_in, r_out=disk.r_out,
             t_peak=disk.t_peak, exposure=disk.exposure,
-            camera_omega=camera_omega, dtype=dtype)
-        out["image"] = shaded["image"]
-        out["redshift"] = shaded["redshift"]
+            camera_omega=camera_omega, dtype=dtype, bfield=disk.bfield,
+            camera_moving=camera_moving)
+        shaded.pop("disk_count")
+        out.update(shaded)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}
@@ -440,3 +533,126 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
     out["beta"] = torch.zeros((h, w), dtype=dtype, device=device)
     out["heading"] = torch.zeros((h, w, 3), dtype=dtype, device=device)
     return RenderResult(out, counts)
+
+
+# ---------------------------------------------------------------------------
+# Science products
+# ---------------------------------------------------------------------------
+
+def _host(result, name):
+    return result.device(name).cpu().numpy()
+
+
+def save_disk_maps(result, out_dir, emissivity_index=3.0, spin=0.0, *,
+                   plots=True):
+    """Write the disk mode's science products from a render_disk (or
+    io/transfer.reshade) result, as `grtrace.engine.disk.save_disk_maps`:
+
+    redshift_map.csv: one row per disk pixel: i, j, g (= nu_obs/nu_em) and
+    r_em (the BL radius of the Kerr-Schild crossing);
+    line_profile.csv: the relativistic line profile, observed flux vs g for
+    a monochromatic line with emissivity I_em ~ r^-q, q = emissivity_index
+    (pixel flux ~ g^4 r_em^-q, 48 bins);
+    polarization_map.csv (when the result has 'evpa'): i, j, evpa (mod pi,
+    from camera-up toward camera-right), pol_weight, pol_check.
+
+    The CSVs are always written; the figures (redshift_map.png,
+    line_profile.png, polarization_map.png) only with `plots`, which needs
+    matplotlib (viz.plots.available())."""
+    g = _host(result, "redshift")
+    status = _host(result, "status")
+    hq = _host(result, "hit_q")
+    dm = status == STATUS_DISK
+    ii, jj = np.nonzero(dm)
+    r_em = ks_radius(*(torch.from_numpy(hq[dm, k]) for k in (1, 2, 3)),
+                     spin).numpy()
+    rows = np.column_stack([ii, jj, g[dm], r_em])
+    np.savetxt(os.path.join(out_dir, "redshift_map.csv"), rows,
+               delimiter=",", header="i,j,redshift_g,r_emission",
+               comments="", fmt=("%d", "%d", "%.8g", "%.8g"))
+
+    g_disk = g[dm]
+    if g_disk.size:
+        flux = g_disk ** 4 * r_em ** -float(emissivity_index)
+        hist, edges = np.histogram(g_disk, bins=48, weights=flux)
+        centers = 0.5 * (edges[1:] + edges[:-1])
+        peak = hist.max()
+        if peak > 0:
+            hist = hist / peak
+        np.savetxt(os.path.join(out_dir, "line_profile.csv"),
+                   np.column_stack([centers, hist]), delimiter=",",
+                   header="g,relative_flux", comments="", fmt="%.8g")
+    if result.has("evpa"):
+        evpa = _host(result, "evpa")
+        wgt = _host(result, "pol_weight")
+        chk = _host(result, "pol_check")
+        np.savetxt(os.path.join(out_dir, "polarization_map.csv"),
+                   np.column_stack([ii, jj, evpa[dm], wgt[dm], chk[dm]]),
+                   delimiter=",", comments="",
+                   header="i,j,evpa_rad,pol_weight,pol_check",
+                   fmt=("%d", "%d", "%.8g", "%.8g", "%.8g"))
+    if not plots:
+        return
+
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if g_disk.size:
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.plot(centers, hist, drawstyle="steps-mid")
+        ax.set_xlabel("g = $\\nu_{obs}/\\nu_{em}$")
+        ax.set_ylabel("relative flux")
+        ax.set_title("relativistic line profile "
+                     f"($r^{{-{float(emissivity_index):g}}}$ emissivity)")
+        fig.savefig(os.path.join(out_dir, "line_profile.png"), dpi=110,
+                    bbox_inches="tight")
+        plt.close(fig)
+
+    fig, ax = plt.subplots(figsize=(6, 5))
+    gm = np.ma.masked_where(~dm, g)
+    span = max(abs(1.0 - gm.min()), abs(gm.max() - 1.0)) if dm.any() else 1.0
+    # RdBu (unreversed): low g -> red (redshifted), high g -> blue
+    im = ax.imshow(gm, cmap="RdBu", vmin=1.0 - span, vmax=1.0 + span)
+    ax.set_facecolor("black")
+    ax.set_title("disk redshift factor g = $\\nu_{obs}/\\nu_{em}$")
+    fig.colorbar(im, ax=ax, label="g  (<1 redshifted, >1 blueshifted)")
+    fig.savefig(os.path.join(out_dir, "redshift_map.png"), dpi=110,
+                bbox_inches="tight")
+    plt.close(fig)
+
+    if result.has("evpa"):
+        polarization_ticks_png(result, os.path.join(out_dir,
+                                                    "polarization_map.png"))
+
+
+def polarization_ticks_png(result, path, stride=1, dpi=110, scale=28.0,
+                           width=0.003):
+    """EVPA ticks over the rendered frame (matplotlib): the tick of EVPA
+    chi is cos(chi) up + sin(chi) right, rows advancing along camera-up and
+    columns along camera-right, its length the pitch-angle weight;
+    `stride` subsamples the tick grid."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    evpa = _host(result, "evpa")
+    wgt = _host(result, "pol_weight")
+    dm = _host(result, "status") == STATUS_DISK
+    if stride > 1:
+        keep = np.zeros_like(dm)
+        keep[::stride, ::stride] = True
+        dm = dm & keep
+    ii, jj = np.nonzero(dm)
+
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.imshow(_host(result, "image"))
+    if dm.any():
+        ax.quiver(jj, ii, np.sin(evpa[dm]) * wgt[dm],
+                  np.cos(evpa[dm]) * wgt[dm], color="white", scale=scale,
+                  headwidth=1, headlength=0, headaxislength=0,
+                  pivot="middle", width=width)
+    ax.set_title("disk polarization (EVPA ticks, length ~ sin$^2\\theta_B$)")
+    ax.set_axis_off()
+    fig.savefig(path, dpi=dpi, bbox_inches="tight")
+    plt.close(fig)

@@ -18,12 +18,16 @@ classification of the ray endpoints -> the additive thin-disk composite
 over the lensed sky.  `subring_summary` turns a result into flux per
 order, the measured demagnification exponent and the inter-order delays.
 
+With `DiskConfig.bfield` each order gets its own Walker-Penrose EVPA map
+(kappa at that order's emission event, solved on the shared camera ray's
+screen), and `polarized_moments` reduces them to the beta_m moments; with
+`camera_omega` the camera rides a circular worldline (the boosted tetrad).
+
 Not ported yet, and raising NotImplementedError: adaptive antialiasing
-(`aa_samples`, `aa.refine_subrings`; ROADMAP Queue A item 8), polarized
-imaging (`DiskConfig.bfield`, with `polarized_moments`) and the moving
-camera (`camera_omega`), item 6, and the autodiff ISCO of a charged hole
-(`r_in=None` with charge), item 8.  `save_subring_maps` (matplotlib) and
-`subring_visibilities` (engine/visibility.py) wait as well (items 7, 8).
+(`aa_samples`, `aa.refine_subrings`; ROADMAP Queue A item 8) and the
+autodiff ISCO of a charged hole (`r_in=None` with charge), item 8.
+`save_subring_maps` (matplotlib) and `subring_visibilities`
+(engine/visibility.py) wait as well (items 7, 8).
 """
 from __future__ import annotations
 
@@ -32,14 +36,15 @@ import math
 import numpy as np
 import torch
 
-from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
+from ..physics.camera import (boosted_ics_from_pixels,
+                              cartesian_ics_from_pixels, pixel_grid_lookat)
 from ..physics.coords import cartesian_to_spherical
 from ..physics.orbits import redshift_factor
 from ..physics.spacetime import horizon_radius, kerr_schild_g_inv, ks_radius
 from . import classify as _classify
 from .disk import (CLS_DISK, DiskConfig, _interp, _nt_temp_table,
                    _temp_profile, blackbody_rgb, disk_observer_position,
-                   resolve_camera_omega)
+                   polarization_fields, resolve_camera_omega)
 from .hotspot import bl_time_azimuth_offsets
 from .integrate import STATUS_CAPTURED
 from .integrate_ks import integrate_dispatch_subrings
@@ -99,7 +104,8 @@ def _trace_shade_subrings(q0f, p0f, bg_array, hole, params, r_obs, r_obs_bl,
                           r_out, t_peak, exposure, patch_center_theta,
                           patch_center_phi, patch_size_theta, patch_size_phi,
                           *, n_orders, order, backend, prograde, profile,
-                          flip_theta, flip_phi, has_background):
+                          flip_theta, flip_phi, has_background,
+                          omega_obs=0.0):
     """The per-ray subring chain on flat (N, 4) phase points: transparent-
     disk integration -> per-order shade -> endpoint classify -> additive
     thin-disk composite.  The integration reads Python floats (hole =
@@ -120,7 +126,7 @@ def _trace_shade_subrings(q0f, p0f, bg_array, hole, params, r_obs, r_obs_bl,
         hq, hp, count, params, r_obs_bl, scalar(r_in), scalar(r_out),
         prograde=prograde, theta_obs=th_obs, profile=profile,
         t_peak=scalar(t_peak), exposure=scalar(exposure),
-        omega_obs=scalar(0.0))
+        omega_obs=scalar(omega_obs))
 
     # background classification of the ray endpoints (transparent disk:
     # every escaped ray still lands on the sky)
@@ -160,14 +166,17 @@ def render_pixels_subrings(bg_array, obs_pos, fov, mass, spin, charge,
                            *, height, width, n_orders=3, order=2,
                            flip_theta=False, flip_phi=False,
                            has_background=True, dtype=torch.float32,
-                           prograde=True, profile="shakura", backend="auto"):
+                           prograde=True, profile="shakura", backend="auto",
+                           camera_omega=0.0, camera_moving=False,
+                           bfield=None):
     """The device pipeline of one subring frame, on bg_array's device: the
-    look-at camera -> subring integration -> per-order shade -> additive
-    composite over the lensed background.  obs_pos is a full (3,) position;
-    scalars are Python floats, rounded to `dtype` on the device as the JAX
-    pipeline receives them.  Per-order observables come back as
-    (n_orders, H, W) stacks, with the (6,) count vector (the last entry the
-    emitting pixels)."""
+    look-at camera (the boosted tetrad at camera_omega when camera_moving)
+    -> subring integration -> per-order shade (and, with bfield, per-order
+    polarization) -> additive composite over the lensed background.
+    obs_pos is a full (3,) position; scalars are Python floats, rounded to
+    `dtype` on the device as the JAX pipeline receives them.  Per-order
+    observables come back as (n_orders, H, W) stacks, with the (6,) count
+    vector (the last entry the emitting pixels)."""
     device = bg_array.device
 
     def scalar(x):
@@ -180,26 +189,48 @@ def render_pixels_subrings(bg_array, obs_pos, fov, mass, spin, charge,
     r_obs_bl = ks_radius(obs[0], obs[1], obs[2], params[1])
     th_obs = torch.arccos(torch.clamp(
         obs[2] / torch.clamp(r_obs_bl, min=1e-30), -1.0, 1.0))
-    pix = pixel_grid_lookat(obs, scalar(fov), height, width, dtype=dtype,
+    fov_t = scalar(fov)
+    pix = pixel_grid_lookat(obs, fov_t, height, width, dtype=dtype,
                             device=device)
-    q0, p0, alpha0 = cartesian_ics_from_pixels(obs, pix, params=params,
-                                               g_inv_fn=kerr_schild_g_inv)
+    if camera_moving:
+        q0, p0, alpha0 = boosted_ics_from_pixels(
+            obs, pix, params=params, g_inv_fn=kerr_schild_g_inv,
+            omega_cam=scalar(camera_omega))
+    else:
+        q0, p0, alpha0 = cartesian_ics_from_pixels(
+            obs, pix, params=params, g_inv_fn=kerr_schild_g_inv)
     n = height * width
+    q0f, p0f = q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous()
     flat = _trace_shade_subrings(
-        q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous(),
-        bg_array, (float(mass), float(spin), float(charge)), params, r_obs,
-        r_obs_bl, th_obs, boundary_radius, steps, delta, omega, r_in, r_out,
-        t_peak, exposure, patch_center_theta, patch_center_phi,
-        patch_size_theta, patch_size_phi, n_orders=n_orders, order=order,
+        q0f, p0f, bg_array, (float(mass), float(spin), float(charge)),
+        params, r_obs, r_obs_bl, th_obs, boundary_radius, steps, delta,
+        omega, r_in, r_out, t_peak, exposure, patch_center_theta,
+        patch_center_phi, patch_size_theta, patch_size_phi,
+        n_orders=n_orders, order=order,
         backend=backend, prograde=prograde, profile=profile,
         flip_theta=flip_theta, flip_phi=flip_phi,
-        has_background=has_background)
+        has_background=has_background,
+        omega_obs=camera_omega if camera_moving else 0.0)
     shade = flat["shade"]
     cls = flat["cls"].reshape(height, width)
     count_vec = torch.cat([_classify.count_vector(cls),
                            (cls == CLS_DISK).sum()[None]])
     hw = (height, width)
-    return {
+    pol = {}
+    if bfield is not None:
+        # kappa at each order's emission event, solved on the screen of the
+        # camera ray the orders share: one pass gives the EVPA rotation
+        # between the direct image and each subring.  As in the JAX
+        # package, the screen is the static observer's (omega_obs 0) even
+        # for a moving camera.
+        maps = [polarization_fields(
+            flat["hq"][s], flat["hp"][s], q0f, p0f, obs, fov_t, height,
+            width, params, prograde, bfield, shade["valid"][s], dtype)
+            for s in range(n_orders)]
+        for k, name in enumerate(("evpa", "pol_weight", "pol_check")):
+            pol[name] = torch.stack([m[k] for m in maps]).reshape(
+                (-1,) + hw)
+    return pol | {
         "image": flat["image"].reshape(height, width, 3),
         "cls": cls,
         "status": flat["status"].reshape(hw),
@@ -228,7 +259,8 @@ class SubringResult(RenderResult):
 
     _FIELDS = ("image", "cls", "status", "n_steps", "count", "q0", "p0",
                "alpha0", "hits_q", "hits_p", "g", "intensity", "r_em",
-               "valid", "total_intensity")
+               "valid", "total_intensity", "evpa", "pol_weight",
+               "pol_check")
     _SCALARS = ("params", "r_in", "r_out", "obs_pos", "n_orders")
 
     def __init__(self, device_arrays, counts, **scalars):
@@ -255,16 +287,11 @@ def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
     valid).  device defaults to 'cuda' (kernel B7) and raises without a
     GPU; pass device='cpu' for the eager twins."""
     disk = disk or DiskConfig()
-    if disk.bfield is not None:
-        raise NotImplementedError(
-            "per-order polarized imaging (DiskConfig.bfield, "
-            "polarized_moments) is not ported to grtrace_torch yet (ROADMAP "
-            "Queue A item 6)")
     if aa_samples:
         raise NotImplementedError(
             "adaptive antialiasing of the subring layers (aa.refine_subrings)"
             " is not ported to grtrace_torch yet (ROADMAP Queue A item 8)")
-    resolve_camera_omega(scene, disk)  # raises for a moving camera (item 6)
+    moving, omega_cam = resolve_camera_omega(scene, disk)
     r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -295,7 +322,8 @@ def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
             flip_theta=scene.patch.flip_theta,
             flip_phi=scene.patch.flip_phi, has_background=has_bg,
             dtype=dtype, prograde=disk.prograde, profile=disk.profile,
-            backend=integ.backend)
+            backend=integ.backend, camera_omega=omega_cam,
+            camera_moving=moving, bfield=disk.bfield)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}
@@ -309,6 +337,39 @@ def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
         obs_pos=np.asarray(obs_pos), n_orders=n_orders)
 
 
+def _has(result, name):
+    """Whether a SubringResult or a result mapping carries `name`."""
+    return result.has(name) if hasattr(result, "has") else name in result
+
+
+def polarized_moments(result, ms=(1, 2)):
+    """Azimuthal moments of the complex polarization field per image order,
+    beta_m (Palumbo, Wong & Prather 2020), host-side numpy:
+
+        beta_m = sum_px P e^{-i m psi} / sum_px I,   P = p I e^{2 i chi}
+
+    with psi the pixel's screen position angle about the image center (rows
+    along camera-up, columns along camera-right, the EVPA's basis), chi the
+    EVPA, I the layer intensity and p the pitch-angle weight.  arg(beta_2)
+    = 0 is a radial EVPA pattern, +-pi an azimuthal one.  `result` is a
+    polarized SubringResult or a mapping with intensity, evpa and
+    pol_weight.  Returns {m: [complex per order]}."""
+    inten = np.asarray(result["intensity"], dtype=np.float64)
+    evpa = np.asarray(result["evpa"], dtype=np.float64)
+    wgt = np.asarray(result["pol_weight"], dtype=np.float64)
+    n_orders, h, w = inten.shape
+    ii, jj = np.mgrid[0:h, 0:w]
+    psi = np.arctan2(jj - (w - 1) / 2.0, ii - (h - 1) / 2.0)
+    pfield = wgt * inten * np.exp(2j * evpa)
+    out = {}
+    for m in ms:
+        phase = np.exp(-1j * m * psi)
+        out[int(m)] = [
+            complex((pfield[n] * phase).sum() / max(inten[n].sum(), 1e-300))
+            for n in range(n_orders)]
+    return out
+
+
 def subring_summary(result):
     """Flux per order, Lyapunov and delay estimates from a subring render
     (host-side numpy): `result` is a SubringResult or any mapping with the
@@ -320,7 +381,9 @@ def subring_summary(result):
       nonzero flux: the measured demagnification exponent;
     * delay_n: the median BL arrival-time gap t_{n-1} - t_n over the
       pixels whose slots n-1 and n were both filled (Kerr-Schild and BL
-      time differ by a function of radius, `bl_time_azimuth_offsets`).
+      time differ by a function of radius, `bl_time_azimuth_offsets`);
+    * with polarization maps: the per-order EVPA twist and beta_2
+      (`polarized_moments`).
     """
     inten = np.asarray(result["intensity"], dtype=np.float64)
     valid = np.asarray(result["valid"])
@@ -352,6 +415,27 @@ def subring_summary(result):
         # negative t), so the physical delay is t_{n-1} - t_n > 0
         delays.append(float(np.median(t_bl[i - 1][both] - t_bl[i][both]))
                       if both.any() else float("nan"))
-    return {"flux_per_order": flux, "pixels_per_order": pix,
-            "flux_ratio": ratios, "gamma_hat": gamma_hat,
-            "delay_per_order_M": delays, "max_crossings": int(count.max())}
+    out = {"flux_per_order": flux, "pixels_per_order": pix,
+           "flux_ratio": ratios, "gamma_hat": gamma_hat,
+           "delay_per_order_M": delays, "max_crossings": int(count.max())}
+    if _has(result, "evpa"):
+        # the per-order EVPA twist: the median mod-pi angle difference
+        # between adjacent orders over pixels emitting in both, and the
+        # beta_2 moment of each order
+        evpa = np.asarray(result["evpa"], dtype=np.float64)
+        twists = []
+        for i in range(1, n_orders):
+            both = valid[i] & valid[i - 1]
+            if both.any():
+                d = evpa[i][both] - evpa[i - 1][both]
+                d = (d + np.pi / 2) % np.pi - np.pi / 2  # EVPA is mod pi
+                twists.append(float(np.median(d)))
+            else:
+                twists.append(float("nan"))
+        out["evpa_twist_per_order_rad"] = twists
+        beta = polarized_moments(result, ms=(2,))[2]
+        out["beta2_abs_per_order"] = [abs(b) for b in beta]
+        out["beta2_arg_per_order_rad"] = [
+            float(np.angle(b)) if abs(b) > 0 else float("nan")
+            for b in beta]
+    return out

@@ -2,8 +2,9 @@
 conditions — the torch counterpart of the folded Schwarzschild camera in
 `grtrace.physics.camera` (`pixel_grid`, `angles_to_p_sph`,
 `initial_conditions`, `camera_rays`), of its Cartesian-chart camera
-(`camera_rays_cartesian`, `cartesian_ics_from_pixels`) and of the inclined
-look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`).
+(`camera_rays_cartesian`, `cartesian_ics_from_pixels`), of the inclined
+look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`)
+and of the moving camera's tetrad (`boosted_ics_from_pixels`).
 
 Camera geometry (the reference's):
   * observer on the +x axis, optical axis -x, right = +y, up = +z
@@ -227,4 +228,69 @@ def cartesian_ics_from_pixels(obs, pix, *, params, g_inv_fn):
 
     axis = -obs / torch.linalg.vector_norm(obs)
     alpha0 = torch.arccos(torch.clamp(_dot3(ray, axis), -1.0, 1.0))
+    return q0, p0, alpha0
+
+
+def _gdot(a, g, b):
+    """a . g . b for one 4-vector pair and a (4, 4) metric."""
+    return torch.einsum("i,ij,j->", a, g, b)
+
+
+def boosted_ics_from_pixels(obs, pix, *, params, g_inv_fn, omega_cam):
+    """Initial conditions for a camera on the circular worldline
+    u = u^t (d_t + omega_cam d_phi): exact GR aberration and Doppler through
+    an orthonormal camera tetrad, at the camera event on the Cartesian
+    chart:
+      1. the covariant metric g = inv(g_inv) (one 4x4);
+      2. e0 = the camera 4-velocity (1, -omega y, omega x, 0) / norm;
+      3. {e1, e2, e3} = Gram-Schmidt of the look-at frame's (axis, right,
+         up) coordinate vectors against e0 under g;
+      4. each pixel's image-plane coefficients (c_ax, c_r, c_up) give the
+         unit rest-frame direction d = sum c_i e_i / |c|, and the photon
+         momentum is p = d - e0 (null, unit camera-frame frequency),
+         lowered with g.
+    omega_cam is a 0-dim tensor (or number) in pix's dtype.  Returns
+    (q0, p0, alpha0) shaped like cartesian_ics_from_pixels."""
+    dtype, device = pix.dtype, pix.device
+    obs = torch.as_tensor(obs, dtype=dtype, device=device)
+    params = torch.as_tensor(params, dtype=dtype, device=device)
+    omega_cam = torch.as_tensor(omega_cam, dtype=dtype, device=device)
+    zero1 = torch.zeros((1,), dtype=dtype, device=device)
+
+    shape = pix.shape[:-1]
+    q0 = torch.cat([torch.zeros(shape + (1,), dtype=dtype, device=device),
+                    obs.expand(shape + (3,))], dim=-1)
+
+    g = torch.linalg.inv(g_inv_fn(torch.cat([zero1, obs]), params))
+    v0 = torch.cat([torch.ones((1,), dtype=dtype, device=device),
+                    omega_cam * torch.stack([-obs[1], obs[0], zero1[0]])])
+    e0 = v0 / torch.sqrt(torch.clamp(-_gdot(v0, g, v0), min=1e-30))
+
+    axis = -obs / torch.linalg.vector_norm(obs)
+    z_hat = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    r_raw = torch.linalg.cross(axis, z_hat)
+    r_nrm = torch.linalg.vector_norm(r_raw)
+    right = torch.where(r_nrm > 1e-6, r_raw / torch.clamp(r_nrm, min=1e-30),
+                        torch.tensor([0.0, 1.0, 0.0], dtype=dtype,
+                                     device=device))
+    up = torch.linalg.cross(right, axis)
+
+    triad = []
+    for v3 in (axis, right, up):
+        v = torch.cat([zero1, v3])
+        w = v + _gdot(v, g, e0) * e0          # project out e0 (e0.e0 = -1)
+        for e in triad:
+            w = w - _gdot(v, g, e) * e
+        triad.append(w / torch.sqrt(torch.clamp(_gdot(w, g, w),
+                                                min=1e-30)))
+    e1, e2, e3 = triad
+
+    rel = pix - obs
+    c = torch.stack([_dot3(rel, axis), _dot3(rel, right), _dot3(rel, up)],
+                    dim=-1)
+    c = c / torch.linalg.vector_norm(c, dim=-1, keepdim=True)
+    d = c[..., 0:1] * e1 + c[..., 1:2] * e2 + c[..., 2:3] * e3
+    p_up = d - e0
+    p0 = torch.einsum("...j,ij->...i", p_up, g)
+    alpha0 = torch.arccos(torch.clamp(c[..., 0], -1.0, 1.0))
     return q0, p0, alpha0

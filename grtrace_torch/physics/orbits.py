@@ -12,8 +12,8 @@ chart are shaded with them directly, because E = -p_t and
 L_z = x p_y - y p_x are the same Killing constants in both charts.
 
 Functions are elementwise on tensors, with the JAX module's association.
-`zamo_omega` and a Keplerian camera rate belong to the moving camera, which
-is not ported yet (ROADMAP Queue A item 6).
+`zamo_omega` and `keplerian_omega` also give the moving disk camera its
+rate (engine/disk.resolve_camera_omega).
 """
 from __future__ import annotations
 
@@ -112,6 +112,14 @@ def rotating_u_t(r, params, theta=math.pi / 2, omega=0.0):
     denom = -(g[..., 0, 0] + 2.0 * omega * g[..., 0, 3]
               + omega * omega * g[..., 3, 3])
     return 1.0 / torch.sqrt(torch.clamp(denom, min=1e-30))
+
+
+def zamo_omega(r, params, theta=math.pi / 2):
+    """Angular velocity omega = -g_tph / g_phph of the zero-angular-momentum
+    observer (ZAMO) at BL (r, theta): the locally nonrotating frame dragged
+    by the hole (static in Schwarzschild, where g_tph = 0)."""
+    g = _invert_bl_metric(kerr_g_inv(_bl_point(r, theta), params))
+    return -g[..., 0, 3] / g[..., 3, 3]
 
 
 def circular_e_lz(r, params, prograde=True):

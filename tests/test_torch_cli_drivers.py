@@ -41,21 +41,26 @@ def test_cli_refuses_without_a_card(background, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--disk"], "6.3"), (["--aa", "2"], "8"),
-    (["--save-transfer", "t.npz"], "6.4"), (["--camera-omega", "0.1"], "6.2"),
+    (["--disk", "--metric", "kottler"], "9"), (["--aa", "2"], "8"),
+    (["--disk", "--aa", "2"], "8"),
+    (["--disk", "--camera-omega", "0.1", "--metric", "hayward"], "9"),
     (["--metric", "kottler"], "9"), (["--metric", "kerr-ds"], "9"),
     (["--metric", "rotating-bardeen", "--spin", "0.5"], "9"),
     (["--metric", "kerr-bl", "--n-samples", "0"], "5b"),
     (["--metric", "kerr", "--spin", "0.5"], "5b")])
 def test_unported_options_raise(flags, item):
     """Each unported option raises NotImplementedError naming its ROADMAP
-    item, before any work runs; --metric kerr runs with --n-samples 0."""
+    item, before any work runs; --metric kerr runs with --n-samples 0, and
+    with the default --n-samples on the disk path (which samples no
+    trajectories)."""
     args = targs.parse_args(flags + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         tmain.check_ported(args, targs.scene_from_args(args))
-    ok = targs.parse_args(["--metric", "kerr", "--spin", "0.5",
-                           "--n-samples", "0"])
-    tmain.check_ported(ok, targs.scene_from_args(ok))
+    for argv in (["--metric", "kerr", "--spin", "0.5", "--n-samples", "0"],
+                 ["--disk", "--metric", "kerr", "--spin", "0.9",
+                  "--camera-omega", "zamo", "--save-transfer", "t.npz"]):
+        ok = targs.parse_args(argv)
+        tmain.check_ported(ok, targs.scene_from_args(ok))
 
 
 def test_flag_parity():

@@ -12,7 +12,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # between them these import every module of the port, each new module of
 # the Kerr and disk slices on its own; of the subring slice's, the two that
 # `import grtrace_torch` does not reach (it imports engine.subring and
-# engine.hotspot); and the command-line drivers
+# engine.hotspot); the command-line drivers; and each new module of the
+# disk product line (polarization, transfer maps, hot spots, their CLIs)
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -28,7 +29,12 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.cli.main",
                 "grtrace_torch.cli.single_ray",
                 "grtrace_torch.cli.band_sweep",
-                "grtrace_torch.cli.probe"]
+                "grtrace_torch.cli.probe",
+                "grtrace_torch.physics.polarization",
+                "grtrace_torch.io.transfer",
+                "grtrace_torch.engine.hotspot",
+                "grtrace_torch.cli.reshade",
+                "grtrace_torch.cli.hotspot"]
 
 # One interpreter with jax and grtrace blocked (any import of them raises)
 # imports the modules in turn and reports, for each, whether it imported
@@ -92,7 +98,10 @@ def test_public_api():
     import grtrace_torch
     for name in ("SceneConfig", "IntegratorConfig", "PatchConfig", "render",
                  "RenderResult", "SchwarzschildIntegrator", "from_jax_scene",
-                 "DiskConfig", "render_disk", "from_jax_disk"):
+                 "DiskConfig", "render_disk", "from_jax_disk",
+                 "save_disk_maps", "polarized_moments", "HotspotConfig",
+                 "from_jax_hotspot", "render_hotspot", "TransferMap",
+                 "reshade", "hotspot_from_transfer"):
         assert hasattr(grtrace_torch, name), name
 
 

@@ -121,9 +121,9 @@ def test_disk_config_matches_jax():
 
 
 @pytest.mark.parametrize("change,kw,match", [
-    ({"bfield": "vertical"}, {}, "item 6"),
-    ({"camera_omega": "zamo"}, {}, "item 6"),
-    ({"camera_omega": 0.01}, {}, "item 6"),
+    ({"bfield": "vertical"}, {"aa_samples": 3}, "item 8"),
+    ({"camera_omega": "zamo"}, {"charge": 0.3}, "item 8"),
+    ({"camera_omega": 0.01}, {"metric": "rotating-bardeen"}, "item 9"),
     ({}, {"aa_samples": 3}, "item 8"),
     ({}, {"charge": 0.3}, "item 8"),
     ({}, {"metric": "rotating-bardeen"}, "item 9"),

@@ -112,9 +112,9 @@ def test_finish_subrings_reads_the_slot_rows():
 # --- the parts left out, and the card as the default -----------------------
 
 @pytest.mark.parametrize("change,kw,match", [
-    ({"bfield": "vertical"}, {}, "item 6"),
-    ({"camera_omega": "zamo"}, {}, "item 6"),
-    ({"camera_omega": 0.01}, {}, "item 6"),
+    ({"bfield": "vertical"}, {"aa_samples": 2}, "item 8"),
+    ({"camera_omega": "zamo"}, {"charge": 0.3}, "item 8"),
+    ({"camera_omega": 0.01, "bfield": "radial"}, {"charge": 0.3}, "item 8"),
     ({}, {"aa_samples": 2}, "item 8"),
     ({}, {"charge": 0.3}, "item 8"),
 ])
