@@ -76,7 +76,20 @@ the port's paths through them:
     256x256 with 64 frames (B6 once) and from the transfer map (B6 0
     times; 32); the polarized subrings at 256x256 (B7 once, finite EVPA
     and beta_2) and the face-on toroidal disk's radial EVPA pattern
-    (40x40 float64 through B6; 33).
+    (40x40 float64 through B6; 33);
+  * the generic engine's kernels G1 (the Boyer-Lindquist integrator) and
+    S2 (the trajectory recorder in both Kerr charts; csrc/fantasy_gen.cu):
+    G1 bitwise against its eager twin on the 48x48 unfolded camera with
+    charge, in float32 and float64 at orders 2 and 4 (34); the README's
+    Kerr command at full width in the Boyer-Lindquist chart, `cli.main
+    --metric kerr-bl` at 1024x1024, 30k steps (G1 and S2 once each, no
+    eager step on CUDA rays, numerical_error 0), G1 bitwise against its
+    twin on that frame's rays at the full budget and S2 on its 20
+    sampled rays (35); the a = 0 Boyer-Lindquist frame at 400x400 beside
+    the Schwarzschild fast path (every G1 capture a B1 capture; 36); the
+    same command with `--metric kerr` (B5 and S2 once each) and S2 in the
+    Kerr-Schild chart bitwise against its twin on the 20 sampled rays,
+    whose rows start at the observer (37).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -1884,6 +1897,333 @@ def polarized_subring_phase():
     return {"launches": launches, "face_launches": face_launches}
 
 
+# --- the generic engine: kernels G1 and S2 (phases 34-37) -----------------
+# the README's Kerr command at full width, in both charts (the default sky
+# is not in the repository, so a procedural one, as in phase 25; no plots,
+# which need matplotlib): path 1 '--metric kerr' (B5 for the frame, S2 in
+# the Kerr-Schild chart for the 20 sampled rays), path 2 '--metric kerr-bl'
+# (G1, then the Boyer-Lindquist rescue on the host, then S2 in that chart)
+GEN_ARGV = ["--size", str(KERR_SIZE), "--spin", str(KERR_SPIN), "--steps",
+            str(KERR_STEPS), "--delta", str(KERR_DELTA), "--background",
+            "procedural:starfield", "--no-plots", "--print-metrics"]
+GEN_OUT = os.path.join(HERE, "build", "gen_cli_out")
+# phase 34's shapes: the unfolded camera at 48x48 with charge, 3000 steps
+# (delta 0.1: the twins' loops end when the last ray exits, 7-16 ms a step
+# on the card at order 2 and 4)
+GEN_SMALL, GEN_SMALL_STEPS, GEN_SMALL_DELTA, GEN_CHARGE = 48, 3000, 0.1, 0.3
+# phase 35's full-budget twin holds every ray of the frame unless the
+# kernel's longest ray is longer than this (about 8 ms a twin step on the
+# frame's million rays); then every 16th ray
+GEN_TWIN_MAX_STEPS = 8_000
+
+
+def gen_camera(size, params, dtype=torch.float32):
+    """The unfolded Boyer-Lindquist camera's (N, 4) rays on the card."""
+    from grtrace_torch.physics.camera import camera_rays_unfolded
+    from grtrace_torch.physics.spacetime import kerr_g_inv
+    obs = torch.tensor([OBS_X, 0.0, 0.0], dtype=dtype, device="cuda")
+    q0, p0, _ = camera_rays_unfolded(obs, math.radians(FOV_DEG), size, size,
+                                     params=params, g_inv_fn=kerr_g_inv,
+                                     dtype=dtype, device="cuda")
+    return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
+
+
+def gen_parity_phase():
+    """Phase 34: G1 bitwise against its twin on the 48x48 unfolded camera,
+    a = 0.9, Q = 0.3, 3000 steps, in float32 and float64 at orders 2 and
+    4."""
+    from grtrace_torch.engine.integrate_generic_cuda import \
+        integrate_batch_generic_cuda
+    from grtrace_torch.engine.validate import gen_kernel_parity
+    params = (MASS, KERR_SPIN, GEN_CHARGE)
+    args = (GEN_SMALL_STEPS, GEN_SMALL_DELTA, params, R_MAX, OMEGA)
+    for dtype in (torch.float32, torch.float64):
+        q0, p0 = gen_camera(GEN_SMALL, params, dtype)
+        for order in (2, 4):
+            integrate_batch_generic_cuda(q0, p0, *args, order=order)  # warm
+            kern, res = gen_kernel_parity(q0, p0, *args, order=order)
+            status = kern[2]
+            res.update(dtype=str(dtype)[6:], rays=q0.shape[0], order=order,
+                       steps=GEN_SMALL_STEPS, delta=GEN_SMALL_DELTA,
+                       spin=KERR_SPIN, charge=GEN_CHARGE,
+                       captured=int((status == 1).sum()),
+                       escaped=int((status == 2).sum()),
+                       n_steps_max=int(kern[3].max()))
+            tag = (f"unfolded camera {GEN_SMALL}x{GEN_SMALL}, "
+                   f"{str(dtype)[6:]}, order {order}")
+            phase(34, f"G1 kernel vs eager twin, {tag} ({CARD}): "
+                      f"{json.dumps(res)}")
+            gate_parity(tag, res)
+
+
+def gen_cli(metric):
+    """`grtrace_torch.cli.main` on the README's Kerr command with
+    `--metric metric`, in-process, with G1's, S2's and B5's counts set to
+    0 just before and read just after, and the eager twins counted on
+    CUDA rays.  Returns (result, {G1, S2, B5: launches}, eager calls on
+    CUDA rays, the printed stages, the wall in s)."""
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine import integrate_ks as tks
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    eager_on_cuda = []
+
+    def counted(fn, name):
+        def twin(q0s, *args, **kw):
+            if q0s.is_cuda:
+                eager_on_cuda.append(name)
+            return fn(q0s, *args, **kw)
+        return twin
+
+    twins = {(tig, "integrate_generic_twin"), (tig, "trajectory_generic_twin"),
+             (tks, "_integrate_twin")}
+    saved = {(mod, name): getattr(mod, name) for mod, name in twins}
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, counted(fn, name))
+    tgc.launches = tgc.traj_launches = ks.launches = 0
+    argv = GEN_ARGV + ["--metric", metric, "--out-dir", GEN_OUT]
+    t0 = time.perf_counter()
+    try:
+        res, lines = run_cli(argv)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    wall = time.perf_counter() - t0
+    launches = {"G1": tgc.launches, "S2": tgc.traj_launches,
+                "B5": ks.launches}
+    return res, launches, eager_on_cuda, json_line(lines, "stages_s"), wall
+
+
+def gen_warm_wall(metric, counts):
+    """The path's render (frame and 20 sampled rays), warm: median of 3
+    synchronized calls of render() on the CLI's scene."""
+    import grtrace_torch
+    from grtrace_torch.cli.args import parse_args, scene_from_args
+    from grtrace_torch.io import artifacts
+    scene = scene_from_args(parse_args(GEN_ARGV + ["--metric", metric]))
+    bg = artifacts.load_background(scene.background,
+                                   size=(KERR_SIZE, KERR_SIZE))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render(scene, bg_array=bg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"a warm {metric} render's counts "
+                                 f"{r.counts} differ from the CLI's {counts}")
+    return float(np.median(walls)), walls
+
+
+def sampled_rays(res, params, metric, tag, n):
+    """S2 against its twin on the CLI's sampled rays at the full budget
+    (`validate.gen_traj_parity`), with the CLI's own converted
+    trajectories' first rows checked; returns the parity dict with its
+    bound."""
+    from grtrace_torch.engine.validate import gen_traj_parity
+    idx = torch.as_tensor(res.sampled_indices[:, 0] * KERR_SIZE
+                          + res.sampled_indices[:, 1], device="cuda")
+    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
+    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
+    _, par = gen_traj_parity(q0, p0, KERR_STEPS, KERR_DELTA, params, R_MAX,
+                             OMEGA, metric=metric, n_keep=TRAJ_POINTS)
+    first = np.stack([t[0] for t in res.sampled_trajectories])
+    rho0 = np.linalg.norm(first, axis=1)
+    finite = all(np.isfinite(t).all() for t in res.sampled_trajectories)
+    par.update(first_row_rho_min=float(rho0.min()),
+               first_row_rho_max=float(rho0.max()),
+               trajectories_finite=bool(finite))
+    kernel = ("fantasy_gen_traj_bl" if metric == "Kerr"
+              else "fantasy_gen_traj_ks")
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops(kernel, par["n_steps_sum"], par["rays"]),
+        par["rays"] * (TRAJ_BYTES_RAY + par["n_keep"] * 4 * 4))
+    phase(n, f"S2 ({tag}) vs eager twin on the CLI's {par['rays']} sampled "
+             f"rays ({KERR_STEPS}-step budget, {TRAJ_POINTS} points, "
+             f"float32; {CARD}): {json.dumps(par)}")
+    if not par["traj_bitwise_equal"]:
+        raise AssertionError(f"S2 ({tag}) differs from its twin (max abs "
+                             f"diff {par['max_abs_err']:.3e})")
+    if (len(res.sampled_trajectories) != N_SAMPLES
+            or not par["trajectories_finite"]
+            or not 29.0 < rho0.min() <= rho0.max() < 31.0):
+        raise AssertionError(f"the {tag} samples are not {N_SAMPLES} finite "
+                             f"trajectories starting at rho in (29, 31)")
+    return par
+
+
+def gen_cli_checks(tag, launches, want, eager, counts, n):
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
+    if eager:
+        raise AssertionError(f"{tag}: eager twins ran on CUDA rays {eager}")
+    if counts["numerical_error"]:
+        raise AssertionError(f"{tag}: numerical_error not 0: {counts}")
+    phase(n, f"{tag}: launches {launches}, no eager step on CUDA rays")
+
+
+def bl_path_phase():
+    """Phase 35: path 2 at full width, `cli.main --metric kerr-bl` (G1
+    once, the rescue, S2 once; numerical_error 0); G1 bitwise against its
+    twin on the frame's own rays at the full budget; S2 bitwise against
+    its twin on the 20 sampled rays."""
+    from grtrace_torch.engine.validate import gen_kernel_parity
+    params = (MASS, KERR_SPIN, 0.0)
+    res, launches, eager, stages, cli_wall = gen_cli("kerr-bl")
+    counts = res.counts
+    ns = res.n_steps.astype(np.int64)
+    phase(35, f"cli.main --metric kerr-bl {KERR_SIZE}x{KERR_SIZE}/"
+              f"{KERR_STEPS} steps ({CARD}): counts {counts}, cli wall "
+              f"{cli_wall:.3f} s, stages {json.dumps(stages)}, longest ray "
+              f"{int(ns.max())}, ray-steps {int(ns.sum())}")
+    gen_cli_checks("path 2 (kerr-bl)", launches, {"G1": 1, "S2": 1, "B5": 0},
+                   eager, counts, 35)
+    if res.image.shape != (KERR_SIZE, KERR_SIZE, 3) or \
+            not np.isfinite(res.final_q).all():
+        raise AssertionError("the BL frame is misshapen or not finite")
+    wall, walls = gen_warm_wall("kerr-bl", counts)
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    # G1 and its wrapper on the whole frame (CUDA events, median of 3)
+    from grtrace_torch.engine.integrate_generic_cuda import \
+        integrate_batch_generic_cuda
+    from grtrace_torch.engine.validate import timed
+    full = [timed(lambda: integrate_batch_generic_cuda(
+        q0, p0, KERR_STEPS, KERR_DELTA, params, R_MAX, OMEGA), q0.device)
+        for _ in range(3)]
+    full_steps = int(full[0][0][3].long().sum())
+    full_ms = [ms for _, ms in full]
+    full_bound = bound(metrics.kernel_ops("fantasy_gen", full_steps,
+                                          q0.shape[0]),
+                       q0.shape[0] * BYTES_RAY)
+    phase(35, f"G1 kernel+wrapper on the whole BL frame ({q0.shape[0]} "
+              f"rays, {full_steps} ray-steps; {CARD}): median "
+              f"{float(np.median(full_ms)):.3f} ms of "
+              f"{[round(t, 3) for t in full_ms]}, bound {full_bound[0]:.3f} "
+              f"ms ({full_bound[1]})")
+    held = "every ray"
+    if int(ns.max()) > GEN_TWIN_MAX_STEPS:
+        q0, p0, held = q0[::16].contiguous(), p0[::16].contiguous(), \
+            "every 16th ray (the longest ray outlasts the twin's budget)"
+    kern, par = gen_kernel_parity(q0, p0, KERR_STEPS, KERR_DELTA, params,
+                                  R_MAX, OMEGA)
+    ray_steps = int(kern[3].long().sum())
+    n = q0.shape[0]
+    par.update(rays=n, held=held, ray_steps=ray_steps,
+               n_steps_max=int(kern[3].max()))
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen", ray_steps, n), n * BYTES_RAY)
+    phase(35, f"G1 kernel vs eager twin on the BL frame's rays, "
+              f"{KERR_STEPS}-step budget ({CARD}): {json.dumps(par)}")
+    gate_parity("BL frame", par)
+    phase(35, f"path 2 render warm wall time (frame and {N_SAMPLES} "
+              f"samples): median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}; G1 kernel+wrapper "
+              f"{par['kernel_ms']:.3f} ms on {n} rays, bound "
+              f"{par['bound_ms']:.3f} ms ({par['bound_by']})")
+    s2 = sampled_rays(res, params, "Kerr", "Boyer-Lindquist", 35)
+    return {"launches": launches, "wall": wall, "g1": par, "s2": s2,
+            "g1_full_ms": float(np.median(full_ms)),
+            "g1_full_bound_ms": full_bound[0]}
+
+
+# the rays of phase 36's float32 frame that JAX's float32 engine captures
+# beyond the critical curve (b > 1.02 b_crit), all in the two middle
+# columns: `JAX_PLATFORMS=cpu python tools/bl_critical_gap.py --groups
+# outside --packages jax`
+JAX_F32_POLAR_CAPTURES = 5
+
+
+def bl_a0_phase():
+    """Phase 36: at a = 0 the 400x400 Boyer-Lindquist frame (G1) beside
+    the Schwarzschild fast path at the Kerr budget, in float64 (B2) and
+    float32 (B1).  In float64, as `tests/test_render_kerr.py` holds it in
+    JAX, every pixel G1 captures the fast path captures too (its
+    classifier's shortcut only adds captures).  In float32 the reference
+    itself does not hold that: JAX's float32 engine captures
+    JAX_F32_POLAR_CAPTURES rays of this frame beyond the critical curve,
+    all in the two middle columns, whose orbits pass within sin(theta) ~
+    0.012 of the chart's pole (`tools/bl_critical_gap.py --groups outside
+    --packages jax`; ROADMAP Queue C).  So in float32 the pixels G1 alone
+    captures must lie in those columns and number no more than JAX's.
+    numerical_error is 0 in both."""
+    from dataclasses import replace
+
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    b_crit = 3.0 * math.sqrt(3.0) * MASS
+    out = {}
+    for dtype in ("float64", "float32"):
+        base = kerr_scene()
+        scene = replace(base, size=SIZE, metric="kerr-bl", spin=0.0,
+                        integrator=replace(base.integrator, dtype=dtype))
+        tgc.launches = tc.launches = tc.eq_launches = 0
+        bl = grtrace_torch.render(scene, device="cuda")
+        schw = grtrace_torch.render(replace(scene, metric="Schwarzschild"),
+                                    device="cuda")
+        launches = {"G1": tgc.launches, "B1": tc.launches,
+                    "B2": tc.eq_launches}
+        only = np.argwhere((bl.cls == 0) & (schw.cls != 0))
+        q0, p0 = bl.q0.astype(np.float64), bl.p0.astype(np.float64)
+        b = np.sqrt(p0[..., 2] ** 2 + p0[..., 3] ** 2
+                    / np.sin(q0[..., 2]) ** 2) / np.abs(p0[..., 0])
+        info = {"launches": launches, "bl_counts": bl.counts,
+                "schwarzschild_counts": schw.counts,
+                "bl_captured_not_fast_path": len(only),
+                "fast_path_captured_not_bl": int(
+                    ((schw.cls == 0) & (bl.cls != 0)).sum()),
+                "bl_only_pixels": [
+                    {"ij": [int(i), int(j)],
+                     "b_over_b_crit_minus_1": float(b[i, j] / b_crit - 1),
+                     "g1_steps": int(bl.n_steps[i, j])}
+                    for i, j in only[:10]]}
+        phase(36, f"a = 0, {dtype}: the {SIZE}x{SIZE} BL frame beside the "
+                  f"Schwarzschild fast path, {KERR_STEPS} steps, delta "
+                  f"{KERR_DELTA} ({CARD}): {json.dumps(info)}")
+        want = {"G1": 1, "B1": int(dtype == "float32"),
+                "B2": int(dtype == "float64")}
+        if launches != want:
+            raise AssertionError(f"a = 0 launches {launches}, want {want}")
+        if bl.counts["numerical_error"]:
+            raise AssertionError(f"a = 0, {dtype}: numerical error pixels")
+        if dtype == "float64" and len(only):
+            raise AssertionError("a = 0, float64: G1 captured a pixel the "
+                                 "fast path did not")
+        polar = np.isin(only[:, 1], (SIZE // 2 - 1, SIZE // 2))
+        if dtype == "float32" and (len(only) > JAX_F32_POLAR_CAPTURES
+                                   or not polar.all()):
+            raise AssertionError(
+                f"a = 0, float32: G1 captured {len(only)} pixels the fast "
+                f"path did not ({int((~polar).sum())} off the polar "
+                f"columns); JAX's float32 engine captures "
+                f"{JAX_F32_POLAR_CAPTURES}, all polar")
+        out[dtype] = info
+    return out
+
+
+def ks_path_phase():
+    """Phase 37: path 1 at full width, `cli.main --metric kerr` (B5 once
+    for the frame, S2 once in the Kerr-Schild chart for the 20 sampled
+    rays, no eager step on CUDA rays); S2 bitwise against its twin on
+    those rays at the full budget, their rows starting at rho in (29,
+    31)."""
+    params = (MASS, KERR_SPIN, 0.0)
+    res, launches, eager, stages, cli_wall = gen_cli("kerr")
+    counts = res.counts
+    phase(37, f"cli.main --metric kerr {KERR_SIZE}x{KERR_SIZE}/{KERR_STEPS} "
+              f"steps ({CARD}): counts {counts}, cli wall {cli_wall:.3f} s, "
+              f"stages {json.dumps(stages)}")
+    gen_cli_checks("path 1 (kerr)", launches, {"G1": 0, "S2": 1, "B5": 1},
+                   eager, counts, 37)
+    wall, walls = gen_warm_wall("kerr", counts)
+    phase(37, f"path 1 render warm wall time (frame and {N_SAMPLES} "
+              f"samples): median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}")
+    s2 = sampled_rays(res, params, "KerrSchild", "Kerr-Schild", 37)
+    return {"launches": launches, "wall": wall, "s2": s2}
+
+
 # kernels that must not spill: B3 and B5-B7, whose __launch_bounds__ ask
 # for the most blocks that fit without a spill (a spill means a later edit
 # outgrew them), and B1, B2 and B4, whose step loop a spill would lengthen
@@ -1928,6 +2268,10 @@ OCC_KERNELS = {
                        "fantasy_schw16_kernel<double>"],
     "fantasy_traj": ["fantasy_traj_kernel<float>",
                      "fantasy_traj_kernel<double>"],
+    "fantasy_gen": [f"fantasy_gen_kernel<{t}, Chart::{c}, Mode::{m}>"
+                    for c, m in (("kBL", "kIntegrate"), ("kBL", "kRecord"),
+                                 ("kKS", "kRecord"))
+                    for t in ("float", "double")],
 }
 # a probe library that includes one kernel source and asks the runtime
 # about each of its kernels: out = [blocks per SM, registers, local bytes a
@@ -2316,6 +2660,11 @@ def main():
     mov = moving_camera_phase()
     hot = hotspot_phase()
     psub = polarized_subring_phase()
+    # --- the generic engine: G1 and S2 ---------------------------------------
+    gen_parity_phase()
+    bl = bl_path_phase()
+    ks_path = ks_path_phase()
+    bl_a0_phase()
     disk_line = {"disk_cli": dcli["launches"], "reshade": rsh["launches"],
                  "camera_keplerian": mov["launches"],
                  "hotspot": hot["render"]["launches"],
@@ -2443,7 +2792,65 @@ def main():
                    f"headline run (phase 25); every other number on its "
                    f"{s1['rays']} sampled rays at the {STEPS}-step budget, "
                    f"{TRAJ_POINTS} points, float32 (phase 26; longest ray "
-                   f"{s1['n_steps_max']} steps)"}]}))
+                   f"{s1['n_steps_max']} steps)"},
+        {"name": "fantasy_gen",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (G1); the JAX package's "
+                     "Boyer-Lindquist engine is the XLA while_loop "
+                     "grtrace/engine/integrate_generic.py:209",
+         "launches": bl["launches"]["G1"],
+         "max_abs_err": bl["g1"]["max_abs_err"],
+         "ms": bl["g1"]["kernel_ms"],
+         "plain_ms": bl["g1"]["twin_ms"],
+         "bound_ms": bl["g1"]["bound_ms"],
+         "bound_by": bl["g1"]["bound_by"],
+         "library_ms": None,
+         "ms_whole_frame": bl["g1_full_ms"],
+         "bound_ms_whole_frame": bl["g1_full_bound_ms"],
+         "shapes": f"G1, the Boyer-Lindquist integrator; launches from "
+                   f"cli.main --metric kerr-bl at {KERR_SIZE}x{KERR_SIZE}, "
+                   f"{KERR_STEPS} steps (phase 35); max_abs_err, ms, "
+                   f"plain_ms and bound_ms on {bl['g1']['held']} of that "
+                   f"frame at the full budget (the twin's time there), "
+                   f"float32; *_whole_frame on all its rays"},
+        {"name": "fantasy_gen_traj_bl",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (S2, Boyer-Lindquist chart); "
+                     "the JAX package's sampler is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:312",
+         "launches": bl["launches"]["S2"],
+         "max_abs_err": bl["s2"]["max_abs_err"],
+         "ms": bl["s2"]["kernel_ms"],
+         "plain_ms": bl["s2"]["twin_ms"],
+         "bound_ms": bl["s2"]["bound_ms"],
+         "bound_by": bl["s2"]["bound_by"],
+         "library_ms": None,
+         "shapes": f"S2 in the Boyer-Lindquist chart; launches from phase "
+                   f"35's CLI run; every other number on its {N_SAMPLES} "
+                   f"sampled rays at the {KERR_STEPS}-step budget, "
+                   f"{TRAJ_POINTS} points, float32 (longest ray "
+                   f"{bl['s2']['n_steps_max']} steps)"},
+        {"name": "fantasy_gen_traj_ks",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (S2, Kerr-Schild chart); the "
+                     "JAX package's sampler is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:312",
+         "launches": ks_path["launches"]["S2"],
+         "max_abs_err": ks_path["s2"]["max_abs_err"],
+         "ms": ks_path["s2"]["kernel_ms"],
+         "plain_ms": ks_path["s2"]["twin_ms"],
+         "bound_ms": ks_path["s2"]["bound_ms"],
+         "bound_by": ks_path["s2"]["bound_by"],
+         "library_ms": None,
+         "shapes": f"S2 in the Kerr-Schild chart; launches from "
+                   f"cli.main --metric kerr at {KERR_SIZE}x{KERR_SIZE} "
+                   f"(phase 37); every other number on its {N_SAMPLES} "
+                   f"sampled rays at the {KERR_STEPS}-step budget, "
+                   f"{TRAJ_POINTS} points, float32 (longest ray "
+                   f"{ks_path['s2']['n_steps_max']} steps)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

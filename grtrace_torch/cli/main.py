@@ -9,8 +9,9 @@ Pipeline (the reference main.py's):
 
 Everything runs on the CUDA card by default (--device cpu for the CPU): the
 flat render, the curved render through the hand-written kernels (B1 for
-float32, B2 for --dtype float64, B5 for --metric kerr, B6 for --disk) and
-the sampled trajectories through kernel S1.  --disk writes the disk's
+float32, B2 for --dtype float64, B5 for --metric kerr, G1 for --metric
+kerr-bl, B6 for --disk) and the sampled trajectories through kernel S1
+(S2 on the Kerr charts).  --disk writes the disk's
 science products (redshift_map.csv, line_profile.csv and, with
 --disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
 with --save-transfer, the transfer map that cli/reshade.py and
@@ -46,7 +47,7 @@ logging.basicConfig(level=logging.INFO,
 # the operation table's entry for the kernel layout each render runs (the
 # roofline): B1 or B2 on the headline path; in the Kerr-Schild chart B5's
 # 32-row compensated layout for float32 rays, its 16-row plain one for
-# float64 rays (render_generic)
+# float64 rays; in the Boyer-Lindquist chart G1 (render_generic)
 _KERNEL = {"float32": "fantasy_eqc", "float64": "fantasy_eq"}
 _KERNEL_KS = {"float32": "fantasy_ks", "float64": "fantasy_ks_plain"}
 
@@ -55,6 +56,8 @@ def roofline_kernel(scene, disk=False):
     """The operation table's entry for the layout `render(scene)` (or,
     with `disk`, `render_disk(scene)`: always the Kerr-Schild chart)
     runs."""
+    if not disk and scene.metric.lower() == "kerr-bl":
+        return "fantasy_gen"
     ks = disk or scene.metric.lower() == "kerrschild" or scene.charge
     return (_KERNEL_KS if ks else _KERNEL)[scene.integrator.dtype]
 
@@ -81,17 +84,6 @@ def check_ported(args, scene):
                   "rotating-hayward", "kerr-ds"):
         what = "--disk around " if args.disk else ""
         raise _not_ported(f"{what}--metric {args.metric}", "9")
-    if args.disk:
-        # render_disk traces every Kerr-Newman scene in the Kerr-Schild
-        # chart and samples no trajectories, as the JAX CLI's disk path
-        return
-    if metric == "kerr-bl":
-        raise _not_ported("--metric kerr-bl (the Boyer-Lindquist chart)",
-                          "5b")
-    if (metric == "kerrschild" or scene.charge) and scene.n_samples > 0:
-        raise _not_ported("--n-samples > 0 on Kerr (the trajectory sampler "
-                          "of the Kerr-Schild chart; pass --n-samples 0)",
-                          "5b")
 
 
 def _untimed(name):

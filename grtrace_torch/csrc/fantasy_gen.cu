@@ -1,0 +1,517 @@
+// The generic engine's FANTASY integrator for the Kerr-Newman charts: one
+// CUDA thread per ray, one template in two charts and two modes.
+//
+//   G1 (Chart::kBL, Mode::kIntegrate): the Boyer-Lindquist integrator, to
+//      each ray's exit, with the spherical-chart blow-up guard and the park
+//      flag in the sign of the step count; float and double.
+//   S2 (Mode::kRecord, Chart::kBL or Chart::kKS): the trajectory recorder,
+//      q1 stored every `stride` steps, in the Boyer-Lindquist chart or the
+//      Kerr-Schild one (the invariant guard); float and double.
+//
+// Port-side kernels: they replace no TPU kernel.  The JAX package runs
+// this engine as an XLA while_loop / scan over vmapped jax.grad flows
+// (grtrace/engine/integrate_generic.py::integrate_batch_generic and
+// ::trajectory_batch_decimated), not in Pallas; an eager torch loop costs
+// milliseconds a step on the card, whatever the ray count.  The eager
+// twins, which define what these kernels compute, are grtrace_torch/
+// engine/integrate_generic.py::integrate_generic_twin (G1) and
+// ::trajectory_generic_twin (S2), built on the closed-form flows of
+// physics/kerr_bl.py and physics/kerr_schild.py (_flow_a_ks, _flow_b_ks,
+// hamiltonian_ks) and hamiltonian._flow_mixed.
+//
+// The step: per substep the unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) of
+// grtrace.physics.spacetime.make_step, flow A kicking p1 from the metric at
+// q1 and momenta p2 and drifting q2, flow B the other way round.
+//
+// G1, per ray, at step k < steps: the ray is active while r_cap < r <
+// r_max; an inactive ray stops.  After the step, the guard
+// (integrate_generic.py::make_generic_step, JAX's guard_spherical) flags a
+// step that turned q1 or p1 non-finite, moved r by more than jump_cap or
+// theta by more than 1.5 ("exploded"), or ended inside r_plus
+// ("crossed"); such a ray reverts to its pre-step state with q1's radius
+// parked at cap_park (crossed, or exploded while heading inward or inside
+// the plunge zone) or err_park, its step count becomes -(n + 1), and it
+// stops.  The host applies the exact Boyer-Lindquist rescue to the output
+// (integrate_ks.py::apply_bardeen_rescue_bl).
+//
+// S2, per ray, at step k < steps: if k % stride == 0, q1 goes to slot
+// k / stride (the step on which the ray is first found inactive
+// included); an inactive ray stops; otherwise the step runs under the
+// chart's guard, which parks and reverts as in G1 (a parked ray stops at
+// the next step, after that step's slot).  The Kerr-Schild guard (JAX's
+// guard_cartesian) tests the null invariant |H| > 3e-2 (|p|^2 + 1) at the
+// post-step (q1, p1), or at the pre-step one where the step is not finite,
+// and parks on the axis: (0, 0, cap_park) captured, (err_park, 0, 0)
+// numerical.  The host zeroes the record, so the slots after a ray's exit
+// stay +0.0.
+//
+// What bounds them on an H100.  G1 on a 1024x1024 frame: FP32 (or FP64)
+// issue rate and latency; a ray is a serial chain of about 480
+// floating-point operations a step at order 2 (four Boyer-Lindquist
+// kick/drifts, each with a sine, a cosine and five IEEE divisions), with no
+// memory traffic inside the loop, and rays exit after very different step
+// counts.  S2 runs tens of rays (20 in the render's sampler), one warp: it
+// is bound by the latency of its longest ray's chain, as S1 is.
+//
+// What the design does about it: in this first version, nothing beyond one
+// thread per ray with its state and its pre-step copy in registers and a
+// per-ray exit; no cost sort, no shared memory.  Making it fast is later
+// work.
+//
+// Numerics: built with -fmad=false and without --use_fast_math, so every
+// operation rounds once, in the order written, exactly as the twins' torch
+// ops do; the association follows kerr_bl.py and kerr_schild.py term by
+// term.  A Python scalar divided by a tensor is torch's reciprocal times the
+// scalar, so 1 / x is one IEEE division; no twin divides a tensor by a
+// Python scalar.  Literals are of the ray type T (T(3e-2) is the float
+// nearest 0.03, as torch rounds the Python scalar).  sin and cos are the
+// card's sinf/cosf (sin/cos for double), which chip_smoke.py's phase 21a
+// holds against torch.sin and torch.cos on the card.
+//
+// Layout: q0 and p0 are (n, 4) in T, row-major.  params is the vector [M,
+// a, Q, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park, err_park,
+// (d, cos, sin) x n_sub] built on the host by integrate_generic.py::
+// gen_params, the vector the twins read.  G1 writes out (12, n) SoA: q1,
+// p1, q2 in (t, r, theta, phi) order; S2 writes traj (n, n_keep, 4),
+// row-major and zeroed by the host.  ns_out (n,) int32 counts the steps
+// each ray took (negated in G1 if the guard parked it).
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kRows = 16;
+constexpr int kScal = 10;
+
+enum class Chart : int { kBL, kKS };
+enum class Mode : int { kIntegrate, kRecord };
+
+// threads per block: a full frame for G1, tens of rays for S2
+constexpr int threads_of(Mode mode) {
+  return mode == Mode::kIntegrate ? 128 : 32;
+}
+
+__device__ __forceinline__ float sin_t(float x) { return sinf(x); }
+__device__ __forceinline__ double sin_t(double x) { return sin(x); }
+__device__ __forceinline__ float cos_t(float x) { return cosf(x); }
+__device__ __forceinline__ double cos_t(double x) { return cos(x); }
+__device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_t(double x) { return fabs(x); }
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+
+template <typename T>
+struct Scalars {
+  T mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
+      err_park;
+};
+
+// dH/dq on the kicked rows and dH/dp on all four: kick[0..2] is
+// subtracted scaled by dt from rows 1..K of the kicked momenta, drift[0..3]
+// added scaled by dt to the drifted position
+template <typename T>
+struct KickDrift {
+  T kick[3];
+  T drift[4];
+};
+
+// kerr_bl._kick_drift: (k_r, k_th) and the drift at (r, theta)
+template <typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift_bl(T r, T th, T pt, T pr,
+                                                      T pth, T pph,
+                                                      const Scalars<T>& sc) {
+  const T a = sc.a;
+  const T mass = sc.mass;
+  // kerr_bl._geom
+  const T sin_th = sin_t(th);
+  const T cos_th = cos_t(th);
+  const T sin2 = sin_th * sin_th;
+  const T rr = r * r;
+  const T sigma = rr + a * a * cos_th * cos_th;
+  const T delta = rr - T(2) * mass * r + a * a + sc.charge * sc.charge;
+  const T w = rr + a * a;
+  const T inv_sd = T(1) / (sigma * delta);
+  const T n_tt = w * w - a * a * delta * sin2;
+  const T n_tp = w - delta;
+  const T n_pp = delta - a * a * sin2;
+  const T g_tt = -n_tt * inv_sd;
+  const T g_tp = -n_tp * a * inv_sd;
+  const T g_rr = delta / sigma;
+  const T g_thth = T(1) / sigma;
+  const T g_pp = n_pp * inv_sd / sin2;
+
+  const T two_r = T(2) * r;
+  const T sc2 = T(2) * sin_th * cos_th;
+  const T sig_th = -a * a * sc2;
+  const T del_r = two_r - T(2) * mass;
+  const T q_r = (two_r * delta + sigma * del_r) * inv_sd;
+  const T q_th = sig_th * delta * inv_sd;
+
+  const T tt_r =
+      -(T(2) * w * two_r - a * a * del_r * sin2 - n_tt * q_r) * inv_sd;
+  const T tt_th = -(-a * a * delta * sc2 - n_tt * q_th) * inv_sd;
+  const T tp_r = -(T(2) * mass - n_tp * q_r) * a * inv_sd;
+  const T tp_th = n_tp * q_th * a * inv_sd;
+  const T rr_r = (del_r - g_rr * two_r) / sigma;
+  const T rr_th = -(g_rr * sig_th) / sigma;
+  const T hh_r = -(g_thth * two_r) / sigma;
+  const T hh_th = -(g_thth * sig_th) / sigma;
+  const T pp_r = (del_r - n_pp * q_r) * inv_sd / sin2;
+  const T pp_th = (sig_th - n_pp * q_th) * inv_sd / sin2
+                  - T(2) * g_pp * cos_th / sin_th;
+
+  const T ptpt = pt * pt;
+  const T ptpp = pt * pph;
+  const T prpr = pr * pr;
+  const T phph = pth * pth;
+  const T pppp = pph * pph;
+  KickDrift<T> k;
+  k.kick[0] = T(0.5) * (tt_r * ptpt + T(2) * tp_r * ptpp + rr_r * prpr
+                        + hh_r * phph + pp_r * pppp);
+  k.kick[1] = T(0.5) * (tt_th * ptpt + T(2) * tp_th * ptpp + rr_th * prpr
+                        + hh_th * phph + pp_th * pppp);
+  k.kick[2] = T(0);  // unused: the chart has no third kicked row
+  k.drift[0] = g_tt * pt + g_tp * pph;
+  k.drift[1] = g_rr * pr;
+  k.drift[2] = g_thth * pth;
+  k.drift[3] = g_tp * pt + g_pp * pph;
+  return k;
+}
+
+// Kerr-Schild geometry at one spatial point (kerr_schild._geom)
+template <typename T>
+struct Geom {
+  T r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz;
+};
+
+template <typename T>
+__device__ __forceinline__ Geom<T> geom_ks(T x, T y, T z,
+                                           const Scalars<T>& sc) {
+  Geom<T> g;
+  const T a = sc.a;
+  const T rho2 = x * x + y * y + z * z;
+  g.b = rho2 - a * a;
+  const T az = a * z;
+  const T s = sqrt_t(g.b * g.b + T(4) * az * az);
+  const T r2 = T(0.5) * (g.b + s);
+  g.r = sqrt_t(r2);
+  g.inv_r = T(1) / g.r;
+  g.inv_D = T(1) / s;
+  g.w = r2 + a * a;
+  g.inv_w = T(1) / g.w;
+  g.H = (sc.mass * g.r - T(0.5) * sc.charge * sc.charge) * g.inv_D;
+  g.lx = (g.r * x + a * y) * g.inv_w;
+  g.ly = (g.r * y - a * x) * g.inv_w;
+  g.lz = z * g.inv_r;
+  return g;
+}
+
+// kerr_schild._kick_drift: (kx, ky, kz) and the drift at (x, y, z)
+template <typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift_ks(T x, T y, T z, T pt,
+                                                      T px, T py, T pz,
+                                                      const Scalars<T>& sc) {
+  const Geom<T> g = geom_ks(x, y, z, sc);
+  const T a = sc.a;
+  const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
+  const T HS2 = T(2) * g.H * S;
+  KickDrift<T> k;
+  k.drift[0] = -pt + HS2;
+  k.drift[1] = px - HS2 * g.lx;
+  k.drift[2] = py - HS2 * g.ly;
+  k.drift[3] = pz - HS2 * g.lz;
+
+  const T r_x = x * g.r * g.inv_D;
+  const T r_y = y * g.r * g.inv_D;
+  const T r_z = z * g.w * g.inv_r * g.inv_D;
+  const T D_x = T(2) * x * g.b * g.inv_D;
+  const T D_y = T(2) * y * g.b * g.inv_D;
+  const T D_z = T(2) * z * (g.b + T(2) * a * a) * g.inv_D;
+
+  const T H_x = (sc.mass * r_x - g.H * D_x) * g.inv_D;
+  const T H_y = (sc.mass * r_y - g.H * D_y) * g.inv_D;
+  const T H_z = (sc.mass * r_z - g.H * D_z) * g.inv_D;
+
+  const T inv_r2 = g.inv_r * g.inv_r;
+  const T G = (x * px + y * py - T(2) * g.r * (g.lx * px + g.ly * py))
+                  * g.inv_w
+              - z * pz * inv_r2;
+  const T S_x = r_x * G + (g.r * px - a * py) * g.inv_w;
+  const T S_y = r_y * G + (a * px + g.r * py) * g.inv_w;
+  const T S_z = r_z * G + pz * g.inv_r;
+
+  const T S2 = S * S;
+  k.kick[0] = -H_x * S2 - HS2 * S_x;
+  k.kick[1] = -H_y * S2 - HS2 * S_y;
+  k.kick[2] = -H_z * S2 - HS2 * S_z;
+  return k;
+}
+
+// kerr_schild.ks_radius_c
+template <typename T>
+__device__ __forceinline__ T ks_radius(T x, T y, T z, T a) {
+  const T rho2 = x * x + y * y + z * z;
+  const T b = rho2 - a * a;
+  return sqrt_t(T(0.5) * (b + sqrt_t(b * b + T(4) * a * a * z * z)));
+}
+
+// One flow: the metric at the position copy Q with the momenta P_READ
+// kicks the momenta P_KICK and drifts the position Q_DRIFT by dt (flow A:
+// Q = 0, P_READ = 12, P_KICK = 4, Q_DRIFT = 8; flow B: Q = 8, P_READ = 4,
+// P_KICK = 12, Q_DRIFT = 0).  Boyer-Lindquist kicks rows r and theta,
+// Kerr-Schild x, y and z; p_t (and p_phi in BL) stay exact invariants.
+template <Chart kChart, int Q, int P_READ, int P_KICK, int Q_DRIFT,
+          typename T>
+__device__ __forceinline__ void flow(T (&s)[kRows], T dt,
+                                     const Scalars<T>& sc) {
+  constexpr int kKicked = kChart == Chart::kBL ? 2 : 3;
+  KickDrift<T> k;
+  if constexpr (kChart == Chart::kBL) {
+    k = kick_drift_bl(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
+                      s[P_READ + 2], s[P_READ + 3], sc);
+  } else {
+    k = kick_drift_ks(s[Q + 1], s[Q + 2], s[Q + 3], s[P_READ + 0],
+                      s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
+  }
+#pragma unroll
+  for (int m = 0; m < kKicked; ++m) {
+    s[P_KICK + 1 + m] = s[P_KICK + 1 + m] - dt * k.kick[m];
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    s[Q_DRIFT + m] = s[Q_DRIFT + m] + dt * k.drift[m];
+  }
+}
+
+// hamiltonian._flow_mixed: the rotation between the copies, cos/sin form
+template <typename T>
+__device__ __forceinline__ void flow_mixed(T (&s)[kRows], T cw, T sw) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const T q1 = s[m], p1 = s[4 + m], q2 = s[8 + m], p2 = s[12 + m];
+    const T q_sum = q1 + q2;
+    const T q_dif = q1 - q2;
+    const T p_sum = p1 + p2;
+    const T p_dif = p1 - p2;
+    s[m] = T(0.5) * (q_sum + q_dif * cw + p_dif * sw);
+    s[4 + m] = T(0.5) * (p_sum + p_dif * cw - q_dif * sw);
+    s[8 + m] = T(0.5) * (q_sum - q_dif * cw - p_dif * sw);
+    s[12 + m] = T(0.5) * (p_sum - p_dif * cw + q_dif * sw);
+  }
+}
+
+// One composed step: per substep A(d/2) B(d/2) M B(d/2) A(d/2)
+template <Chart kChart, typename T>
+__device__ __forceinline__ void composed(T (&s)[kRows], const T* subs,
+                                         int n_sub, const Scalars<T>& sc) {
+  for (int j = 0; j < n_sub; ++j) {
+    const T half = T(0.5) * __ldg(subs + 3 * j);
+    const T cw = __ldg(subs + 3 * j + 1);
+    const T sw = __ldg(subs + 3 * j + 2);
+    flow<kChart, 0, 12, 4, 8>(s, half, sc);
+    flow<kChart, 8, 4, 12, 0>(s, half, sc);
+    flow_mixed(s, cw, sw);
+    flow<kChart, 8, 4, 12, 0>(s, half, sc);
+    flow<kChart, 0, 12, 4, 8>(s, half, sc);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ bool finite_q1p1(const T (&s)[kRows]) {
+  bool finite = true;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) finite = finite && isfinite(s[m]);
+  return finite;
+}
+
+// The pre-step domain test; r_b is the chart radius the guard reads
+template <Chart kChart, typename T>
+__device__ __forceinline__ bool active(const T (&s)[kRows],
+                                       const Scalars<T>& sc, T& r_b) {
+  if constexpr (kChart == Chart::kBL) {
+    r_b = s[1];
+    return (s[1] > sc.r_cap) && (s[1] < sc.r_max);
+  } else {
+    r_b = ks_radius(s[1], s[2], s[3], sc.a);
+    const T rho = sqrt_t(s[1] * s[1] + s[2] * s[2] + s[3] * s[3]);
+    return (r_b > sc.r_cap) && (rho < sc.r_max);
+  }
+}
+
+// The blow-up guard after a step from `old` (chart radius r_b) to s: true
+// if it reverted s to old and parked q1
+template <Chart kChart, typename T>
+__device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
+                                      T r_b, const Scalars<T>& sc) {
+  const bool finite = finite_q1p1(s);
+  bool exploded;
+  bool crossed;
+  bool inward;
+  if constexpr (kChart == Chart::kBL) {
+    exploded = !finite || abs_t(s[1] - r_b) > sc.jump_cap
+               || abs_t(s[2] - old[2]) > T(1.5);
+    crossed = finite && s[1] < sc.r_plus && !exploded;
+    inward = old[5] < T(0);
+  } else {
+    // the null invariant at the post-step (q1, p1), pre-step where the
+    // step is not finite (kerr_schild.hamiltonian_ks)
+    const T x = finite ? s[1] : old[1];
+    const T y = finite ? s[2] : old[2];
+    const T z = finite ? s[3] : old[3];
+    const T pt = finite ? s[4] : old[4];
+    const T px = finite ? s[5] : old[5];
+    const T py = finite ? s[6] : old[6];
+    const T pz = finite ? s[7] : old[7];
+    const Geom<T> g = geom_ks(x, y, z, sc);
+    const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
+    const T h = T(0.5) * (-pt * pt + px * px + py * py + pz * pz)
+                - g.H * S * S;
+    const T p2 = px * px + py * py + pz * pz + T(1);
+    exploded = !finite || abs_t(h) > T(3e-2) * p2;
+    crossed = finite && ks_radius(x, y, z, sc.a) < sc.r_plus && !exploded;
+    inward = (old[1] * old[5] + old[2] * old[6] + old[3] * old[7]) < T(0);
+  }
+  const bool capture =
+      crossed || (exploded && (inward || r_b < sc.plunge_zone));
+  if (!(exploded || crossed)) return false;
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) s[m] = old[m];
+  if constexpr (kChart == Chart::kBL) {
+    s[1] = capture ? sc.cap_park : sc.err_park;
+  } else {
+    s[1] = capture ? T(0) : sc.err_park;
+    s[2] = T(0);
+    s[3] = capture ? sc.cap_park : T(0);
+  }
+  return true;
+}
+
+template <typename T, Chart kChart, Mode kMode>
+__global__ void __launch_bounds__(threads_of(kMode))
+fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
+                   T* __restrict__ out, int* __restrict__ ns_out,
+                   const T* __restrict__ params, int n, int n_sub, int steps,
+                   int stride, int n_keep) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  T s[kRows];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    s[m] = q0[4 * static_cast<size_t>(i) + m];
+    s[4 + m] = p0[4 * static_cast<size_t>(i) + m];
+    s[8 + m] = s[m];
+    s[12 + m] = s[4 + m];
+  }
+  Scalars<T> sc;
+  sc.mass = __ldg(params + 0);
+  sc.a = __ldg(params + 1);
+  sc.charge = __ldg(params + 2);
+  sc.r_cap = __ldg(params + 3);
+  sc.r_max = __ldg(params + 4);
+  sc.r_plus = __ldg(params + 5);
+  sc.plunge_zone = __ldg(params + 6);
+  sc.jump_cap = __ldg(params + 7);
+  sc.cap_park = __ldg(params + 8);
+  sc.err_park = __ldg(params + 9);
+  const T* subs = params + kScal;
+
+  T* row = out;
+  if constexpr (kMode == Mode::kRecord) {
+    row += static_cast<size_t>(i) * static_cast<size_t>(n_keep) * 4;
+  }
+  int next_store = 0;  // S2: the next step whose q1 is recorded
+  int ns = 0;
+  for (int k = 0; k < steps; ++k) {
+    if constexpr (kMode == Mode::kRecord) {
+      if (k == next_store) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) row[m] = s[m];
+        row += 4;
+        next_store += stride;
+      }
+    }
+    T r_b;
+    if (!active<kChart>(s, sc, r_b)) break;
+    T old[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) old[m] = s[m];
+    composed<kChart>(s, subs, n_sub, sc);
+    const bool parked = guard<kChart>(s, old, r_b, sc);
+    ++ns;
+    if constexpr (kMode == Mode::kIntegrate) {
+      if (parked) {
+        ns = -ns;  // the park flag rides in the sign
+        break;
+      }
+    }
+  }
+  ns_out[i] = ns;
+  if constexpr (kMode == Mode::kIntegrate) {
+    const size_t stride_n = static_cast<size_t>(n);
+#pragma unroll
+    for (int m = 0; m < 12; ++m) out[m * stride_n + i] = s[m];
+  }
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
+namespace {
+
+template <typename T, Chart kChart, Mode kMode>
+int launch(const T* q0, const T* p0, T* out, int* ns_out, const T* params,
+           int n, int n_sub, int steps, int stride, int n_keep,
+           void* stream) {
+  if (n <= 0) return 0;
+  constexpr int kThreads = threads_of(kMode);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  fantasy_gen_kernel<T, kChart, kMode>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          q0, p0, out, ns_out, params, n, n_sub, steps, stride, n_keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// G1: (q0, p0, out (12, n), ns_out, params, n, n_sub, steps, stream)
+extern "C" int grt_fantasy_gen_bl_f32_launch(const float* q0, const float* p0,
+                                             float* out, int* ns_out,
+                                             const float* params, int n,
+                                             int n_sub, int steps,
+                                             void* stream) {
+  return launch<float, Chart::kBL, Mode::kIntegrate>(
+      q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);
+}
+
+extern "C" int grt_fantasy_gen_bl_f64_launch(const double* q0,
+                                             const double* p0, double* out,
+                                             int* ns_out,
+                                             const double* params, int n,
+                                             int n_sub, int steps,
+                                             void* stream) {
+  return launch<double, Chart::kBL, Mode::kIntegrate>(
+      q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);
+}
+
+// S2: (q0, p0, traj (n, n_keep, 4), ns_out, params, n, n_sub, steps,
+// stride, n_keep, stream)
+#define GRT_S2_ENTRY(NAME, T, CHART)                                         \
+  extern "C" int NAME(const T* q0, const T* p0, T* traj, int* ns_out,       \
+                      const T* params, int n, int n_sub, int steps,         \
+                      int stride, int n_keep, void* stream) {               \
+    return launch<T, CHART, Mode::kRecord>(q0, p0, traj, ns_out, params, n, \
+                                           n_sub, steps, stride, n_keep,    \
+                                           stream);                         \
+  }
+
+GRT_S2_ENTRY(grt_fantasy_gen_traj_bl_f32_launch, float, Chart::kBL)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_bl_f64_launch, double, Chart::kBL)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f32_launch, float, Chart::kKS)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f64_launch, double, Chart::kKS)
+#undef GRT_S2_ENTRY
+#endif  // __CUDACC__

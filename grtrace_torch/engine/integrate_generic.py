@@ -1,0 +1,338 @@
+"""The generic engine for the Kerr(-Newman) charts — the torch counterpart
+of `grtrace.engine.integrate_generic`, and the eager twins of the CUDA
+kernels G1 and S2 (csrc/fantasy_gen.cu, wrapped by
+engine/integrate_generic_cuda.py).
+
+JAX runs this engine as a masked `lax.while_loop` (or `scan`) over
+`vmap`ped `jax.grad` flows.  The port keeps its semantics and takes the
+flows in closed form: physics/kerr_bl.py in the Boyer-Lindquist chart
+(metric 'Kerr'), physics/kerr_schild.py's unstaggered flows in the
+Kerr-Schild chart (metric 'KerrSchild').  Every composed step is the
+unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
+`spacetime.make_step`, followed by the chart's blow-up guard.
+
+    integrate_batch_generic     metric 'Kerr': the eager twin of G1, then
+                                the exact Boyer-Lindquist rescue; metric
+                                'KerrSchild': the Kerr-Schild integrators
+                                (kernel B5's twins, integrate_dispatch_ks)
+    trajectory_batch_decimated  both charts: the eager twin of S2, q1
+                                recorded every `stride` steps
+
+`integrate_dispatch_generic` and `trajectory_dispatch_generic` send CUDA
+rays to the kernels (B5 for the Kerr-Schild frame) and CPU rays to the
+twins; the sampler raises for any other device.  A kernel and its twin read the same
+host-built scalar vector (`gen_params`), so they round alike.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..physics import kerr_bl
+from ..physics.hamiltonian import _flow_mixed, pack_state, substep_schedule
+from ..physics.kerr_schild import (_flow_a_ks, _flow_b_ks, hamiltonian_ks,
+                                   ks_radius_c)
+from ..physics.spacetime import COORDS, horizon_radius
+from .integrate import _EXIT_CHECK, resolve_backend, traj_layout
+from .integrate_ks import apply_bardeen_rescue_bl, integrate_dispatch_ks
+
+# [mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
+# err_park] lead the scalar vector; then (d_j, cos_j, sin_j) per substep
+N_SCAL = 10
+# the charts the engine integrates, by metric
+CHARTS = ("Kerr", "KerrSchild")
+
+
+def _capture_radius(metric, params):
+    """The capture surface, in params' dtype: 1.1 r_+ in the spherical
+    charts (Boyer-Lindquist goes stiff as Delta -> 0, so one stops short),
+    1.05 r_+ in the Kerr-Schild chart (regular at r_+, but backward rays
+    freeze toward the past horizon).  params = (M, a[, Q]) or (M,) for
+    Schwarzschild; the other families raise (ROADMAP Queue A item 9)."""
+    params = torch.as_tensor(params)
+    charge = params[2] if len(params) > 2 else params[0] * 0.0
+    if metric == "KerrSchild":
+        return 1.05 * horizon_radius("Kerr", params[0], params[1], charge)
+    if metric == "Kerr":
+        return 1.1 * horizon_radius("Kerr", params[0], params[1], charge)
+    COORDS[metric]  # raises for the families of item 9
+    if metric == "Schwarzschild":
+        return 1.1 * horizon_radius("Schwarzschild", params[0])
+    raise KeyError(metric)
+
+
+def _check_metric(metric):
+    if metric not in CHARTS:
+        COORDS[metric]  # raises for the families of item 9
+        raise NotImplementedError(
+            f"the generic engine of grtrace_torch integrates the Kerr-Newman "
+            f"charts {CHARTS} (got {metric!r}); Schwarzschild rays take "
+            f"engine.integrate")
+
+
+def gen_params(metric, delta, params, r_max, omega, order, dtype):
+    """The engine's scalars as one CPU tensor in `dtype`:
+    [M, a, Q, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
+    err_park, (d, cos, sin) x n_sub], each rounded as the JAX engine rounds
+    it (`_domain_tools`):
+      r_cap      the capture radius (`_capture_radius`);
+      r_plus     r_cap / 1.1 (Boyer-Lindquist) or / 1.05 (Kerr-Schild):
+                 a step that ends inside it crossed the horizon;
+      plunge_zone  where an exploded step counts as a capture: r_cap + M/2
+                 (BL), the retrograde photon orbit 2M(1 + cos((2/3)
+                 arccos(|a|/M))) (KS);
+      jump_cap   the largest legitimate radius change of a step,
+                 max(5, 20 delta) (BL; unused in KS);
+      cap_park   the radius a captured ray parks at: 0.99 r_cap (BL), the
+                 on-axis point's z = 0.5 r_cap (KS);
+      err_park   the numerical-error park radius max(150, 2 r_max).
+    The kernels and the twins read this vector, so a host/device
+    difference in sqrt or arccos cannot enter between them."""
+    _check_metric(metric)
+    p = torch.as_tensor(params, dtype=dtype).cpu()
+    mass, a = p[0], p[1]
+    charge = p[2] if p.numel() > 2 else torch.zeros((), dtype=dtype)
+    r_cap = _capture_radius(metric, torch.stack([mass, a, charge]))
+    r_max_t = torch.tensor(r_max, dtype=dtype)
+    if metric == "KerrSchild":
+        r_plus = r_cap / torch.tensor(1.05, dtype=dtype)
+        plunge_zone = 2.0 * mass * (1.0 + torch.cos(
+            (2.0 / 3.0) * torch.arccos(torch.abs(a) / mass)))
+        cap_park = 0.5 * r_cap
+    else:
+        r_plus = r_cap / torch.tensor(1.1, dtype=dtype)
+        plunge_zone = r_cap + 0.5 * mass
+        cap_park = 0.99 * r_cap
+    jump_cap = torch.maximum(torch.tensor(5.0, dtype=dtype),
+                             20.0 * torch.tensor(delta, dtype=dtype))
+    err_park = torch.maximum(torch.tensor(150.0, dtype=dtype),
+                             2.0 * r_max_t)
+    scal = [float(x) for x in (mass, a, charge, r_cap, r_max_t, r_plus,
+                               plunge_zone, jump_cap, cap_park, err_park)]
+    for sub in substep_schedule(delta, omega, order, dtype=dtype):
+        scal += list(sub)
+    return torch.tensor(scal, dtype=dtype)
+
+
+def split_params(vec):
+    """gen_params vector -> (the N_SCAL scalars, substeps), all Python
+    floats."""
+    p = vec.tolist()
+    return tuple(p[:N_SCAL]), tuple(tuple(p[N_SCAL + 3 * j:N_SCAL + 3 * j + 3])
+                                    for j in range((len(p) - N_SCAL) // 3))
+
+
+def make_generic_step(metric, vec):
+    """(active, step) for one integration from a gen_params vector.
+
+    active(state) -> the rays inside the domain before a step: r_cap < r <
+    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  step(state) ->
+    (bad, new state): one composed step of every ray, then the chart's
+    blow-up guard, which reverts the rays it flags (bad) to the pre-step
+    state and parks their q1 (`grtrace.engine.integrate_generic.
+    _domain_tools`'s guard_spherical / guard_cartesian)."""
+    (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
+     err_park), subs = split_params(vec)
+    if metric == "KerrSchild":
+        flow_a, flow_b = _flow_a_ks, _flow_b_ks
+    else:
+        flow_a, flow_b = kerr_bl.flow_a, kerr_bl.flow_b
+
+    def composed(state):
+        for d_j, cos_j, sin_j in subs:
+            half = 0.5 * d_j
+            state = flow_a(state, half, mass, a, charge)
+            state = flow_b(state, half, mass, a, charge)
+            state = _flow_mixed(state, cos_j, sin_j)
+            state = flow_b(state, half, mass, a, charge)
+            state = flow_a(state, half, mass, a, charge)
+        return state
+
+    def finite_q1p1(new):
+        finite = torch.isfinite(new[0])
+        for i in range(1, 8):
+            finite = finite & torch.isfinite(new[i])
+        return finite
+
+    def active_bl(s):
+        return (s[1] > r_cap) & (s[1] < r_max)
+
+    def active_ks(s):
+        rho = torch.sqrt(s[1] * s[1] + s[2] * s[2] + s[3] * s[3])
+        return (ks_radius_c(s[1], s[2], s[3], a) > r_cap) & (rho < r_max)
+
+    def step_bl(old):
+        new = composed(old)
+        r_b = old[1]
+        finite = finite_q1p1(new)
+        exploded = (~finite | (torch.abs(new[1] - r_b) > jump_cap)
+                    | (torch.abs(new[2] - old[2]) > 1.5))
+        crossed = finite & (new[1] < r_plus) & ~exploded
+        inward = old[5] < 0.0
+        capture = crossed | (exploded & (inward | (r_b < plunge_zone)))
+        bad = exploded | crossed
+        out = [torch.where(bad, o, n) for o, n in zip(old, new)]
+        zero = torch.zeros_like(r_b)
+        out[1] = torch.where(bad, torch.where(capture, zero + cap_park,
+                                              zero + err_park), out[1])
+        return bad, tuple(out)
+
+    def step_ks(old):
+        new = composed(old)
+        r_b = ks_radius_c(old[1], old[2], old[3], a)
+        finite = finite_q1p1(new)
+        x, y, z, pt, px, py, pz = (torch.where(finite, new[i], old[i])
+                                   for i in range(1, 8))
+        h = hamiltonian_ks(x, y, z, pt, px, py, pz, mass, a, charge)
+        p2n = px * px + py * py + pz * pz + 1.0
+        exploded = ~finite | (torch.abs(h) > 3e-2 * p2n)
+        crossed = finite & (ks_radius_c(x, y, z, a) < r_plus) & ~exploded
+        inward = (old[1] * old[5] + old[2] * old[6] + old[3] * old[7]) < 0.0
+        capture = crossed | (exploded & (inward | (r_b < plunge_zone)))
+        bad = exploded | crossed
+        out = [torch.where(bad, o, n) for o, n in zip(old, new)]
+        # on-axis park points: (0, 0, cap_park) captured, (err_park, 0, 0)
+        # numerical
+        zero = torch.zeros_like(r_b)
+        out[1] = torch.where(bad, torch.where(capture, zero, zero + err_park),
+                             out[1])
+        out[2] = torch.where(bad, zero, out[2])
+        out[3] = torch.where(bad, torch.where(capture, zero + cap_park, zero),
+                             out[3])
+        return bad, tuple(out)
+
+    if metric == "KerrSchild":
+        return active_ks, step_ks
+    return active_bl, step_bl
+
+
+def integrate_generic_twin(q0s, p0s, steps, vec):
+    """The loop of kernel G1 on (N, 4) Boyer-Lindquist rays from a
+    gen_params vector: at most `steps` masked, guarded steps; a ray the
+    guard parks freezes with its step count negated (-(n + 1)).  Returns
+    (state, ns) before the rescue."""
+    active, step = make_generic_step("Kerr", vec)
+    state = pack_state(q0s, p0s)
+    ns = torch.zeros(q0s.shape[:1], dtype=torch.int32, device=q0s.device)
+    # masked steps on inactive rays are exact no-ops, so checking for an
+    # early exit only every _EXIT_CHECK steps changes nothing
+    for k in range(steps):
+        act = active(state)
+        if k % _EXIT_CHECK == 0 and not bool(act.any()):
+            break
+        bad, new = step(state)
+        ns = ns + act.to(torch.int32)
+        ns = torch.where(act & bad, -ns, ns)
+        state = tuple(torch.where(act, n, o) for n, o in zip(new, state))
+    return state, ns
+
+
+def finish_generic_bl(state, ns, q0s, p0s, vec):
+    """Read-out of G1 and its twin: the first copy's q and p, then the
+    exact Boyer-Lindquist rescue with the reverted second copy's q2."""
+    (mass, a, charge, r_cap, r_max, *_), _ = split_params(vec)
+    return apply_bardeen_rescue_bl(
+        torch.stack(state[0:4], dim=-1), torch.stack(state[4:8], dim=-1), ns,
+        torch.stack(state[8:12], dim=-1), q0s, p0s, mass, a, charge, r_cap,
+        r_max)
+
+
+def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
+                            order=2, metric="Kerr"):
+    """Integrate an (N, 4) batch in the named chart to completion:
+    (final_q, final_p, status, n_steps), the status codes of
+    engine/integrate.py.
+
+    metric 'Kerr' (Boyer-Lindquist): the eager twin of kernel G1 and the
+    exact rescue of its guard-parked rays.  metric 'KerrSchild': the
+    Kerr-Schild integrators' twins (kernel B5's; JAX's Pallas route).
+    params = (M, a[, Q])."""
+    _check_metric(metric)
+    if metric == "KerrSchild":
+        return integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max,
+                                     omega, order=order, backend="torch")
+    vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
+    state, ns = integrate_generic_twin(q0s, p0s, steps, vec)
+    return finish_generic_bl(state, ns, q0s, p0s, vec)
+
+
+def trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride, n_keep):
+    """The loop of kernel S2: (traj (N, n_keep, 4), ns (N,) int32).  At
+    step k < steps, slot k / stride takes q1 when k % stride == 0 and the
+    ray is still alive (+0.0 otherwise); a ray dies on the first step it
+    is inactive, so the first position outside the domain is recorded
+    when it falls on a slot.  Once no ray is alive, the remaining slots
+    would all be zero, so the loop stops there."""
+    active, step = make_generic_step(metric, vec)
+    n = q0s.shape[0]
+    traj = torch.zeros((n, n_keep, 4), dtype=q0s.dtype, device=q0s.device)
+    ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
+    state = pack_state(q0s, p0s)
+    alive = torch.ones((n,), dtype=torch.bool, device=q0s.device)
+    for k in range(steps):
+        if k % _EXIT_CHECK == 0 and not bool(alive.any()):
+            break
+        act = active(state)
+        if k % stride == 0:
+            traj[:, k // stride, :] = torch.where(
+                alive[:, None], torch.stack(state[0:4], dim=-1), 0.0)
+        alive = alive & act
+        _, new = step(state)
+        ns = ns + act.to(torch.int32)
+        state = tuple(torch.where(act, nw, o) for nw, o in zip(new, state))
+    return traj, ns
+
+
+def trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max, omega,
+                               order=2, metric="Kerr", n_keep=1000):
+    """(N, n_keep', 4) trajectories decimated to at most n_keep points: q1
+    every `stride` steps (`engine.integrate.traj_layout`), rows after a
+    ray's exit +0.0, the same guard as integrate_batch_generic (a parked
+    ray freezes at its park point; no rescue).  The eager twin of kernel
+    S2, in the Boyer-Lindquist chart (metric 'Kerr') or the Kerr-Schild
+    one ('KerrSchild')."""
+    stride, n_keep_eff = traj_layout(steps, n_keep)
+    vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
+    return trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride,
+                                   n_keep_eff)[0]
+
+
+def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
+                               order=2, metric="Kerr", backend="auto"):
+    """integrate_batch_generic on the rays' device: in the Boyer-Lindquist
+    chart CUDA rays go to kernel G1 and CPU rays to its twin (the
+    backend resolved as `integrate_dispatch_ks` resolves it, which takes
+    the Kerr-Schild chart: B5 or its twins).  Never falls back."""
+    _check_metric(metric)
+    if metric == "KerrSchild":
+        return integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max,
+                                     omega, order=order, backend=backend)
+    backend = resolve_backend(backend, q0s.device)
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected 'auto', 'cuda' or 'torch')")
+    if backend == "cuda":
+        from .integrate_generic_cuda import integrate_batch_generic_cuda
+        return integrate_batch_generic_cuda(q0s, p0s, steps, delta, params,
+                                            r_max, omega, order=order)
+    return integrate_batch_generic(q0s, p0s, steps, delta, params, r_max,
+                                   omega, order=order, metric=metric)
+
+
+def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
+                                order=2, metric="Kerr", n_keep=1000):
+    """trajectory_batch_decimated on the rays' device: CUDA rays go to
+    kernel S2, CPU rays to its twin; any other device raises (as
+    `integrate.integrate_full_dispatch` routes S1).  Never falls back."""
+    _check_metric(metric)
+    kind = q0s.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no trajectory sampler for {kind!r} tensors "
+                         f"(CUDA runs kernel S2, the CPU its eager twin)")
+    if kind == "cuda":
+        from .integrate_generic_cuda import trajectory_batch_decimated_cuda
+        return trajectory_batch_decimated_cuda(
+            q0s, p0s, steps, delta, params, r_max, omega, order=order,
+            metric=metric, n_keep=n_keep)
+    return trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max,
+                                      omega, order=order, metric=metric,
+                                      n_keep=n_keep)

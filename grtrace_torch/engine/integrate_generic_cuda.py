@@ -1,0 +1,145 @@
+"""The generic engine's Kerr-Newman kernels, hand-written in CUDA
+(`csrc/fantasy_gen.cu`):
+
+  * G1, the Boyer-Lindquist integrator (`integrate_batch_generic_cuda`;
+    the JAX package's `integrate_batch_generic(metric='Kerr')`);
+  * S2, the trajectory recorder in the Boyer-Lindquist and Kerr-Schild
+    charts (`trajectory_batch_decimated_cuda`; JAX's
+    `trajectory_batch_decimated`).
+
+Port-side kernels: JAX runs this engine in XLA loops, not in Pallas, so
+they replace no TPU kernel.  One thread integrates one ray, float32 or
+float64.  Their eager twins, `integrate_generic_twin` and
+`trajectory_generic_twin` (engine/integrate_generic.py), define their
+results, and each kernel and its twin read the same host-built scalar
+vector (`gen_params`).  This module only launches: it never falls back to
+a twin, and every wrapper raises for CPU tensors.  Rays on the CPU belong
+to `integrate_dispatch_generic` and `trajectory_dispatch_generic`, which
+send them to the twins.
+"""
+from __future__ import annotations
+
+import torch
+
+from .integrate import traj_layout
+from .integrate_cuda import KernelLaunchError, _check_inputs
+from .integrate_generic import N_SCAL, finish_generic_bl, gen_params
+
+# Kernel launches since the process started (or since a caller reset it):
+# G1, and S2 in both charts.
+launches = 0
+traj_launches = 0
+
+F32, F64 = torch.float32, torch.float64
+ENTRIES = {F32: "grt_fantasy_gen_bl_f32_launch",
+           F64: "grt_fantasy_gen_bl_f64_launch"}
+TRAJ_ENTRIES = {("Kerr", F32): "grt_fantasy_gen_traj_bl_f32_launch",
+                ("Kerr", F64): "grt_fantasy_gen_traj_bl_f64_launch",
+                ("KerrSchild", F32): "grt_fantasy_gen_traj_ks_f32_launch",
+                ("KerrSchild", F64): "grt_fantasy_gen_traj_ks_f64_launch"}
+OUT_ROWS = 12  # G1 writes q1, p1, q2
+
+
+def _n_sub(params, dtype):
+    n_sub = (params.numel() - N_SCAL) // 3
+    if (params.dtype != dtype or n_sub < 1
+            or params.numel() != N_SCAL + 3 * n_sub):
+        raise ValueError("params must be the gen_params vector [M, a, Q, "
+                         "r_cap, r_max, r_plus, plunge_zone, jump_cap, "
+                         "cap_park, err_park, (d, cos, sin) x n_sub] in the "
+                         "rays' dtype")
+    return n_sub
+
+
+def _call(entry, q0s, ptrs, params, ints):
+    from ..kernels.build import load
+    lib = load()
+    params_dev = params.to(q0s.device)
+    with torch.cuda.device(q0s.device):  # launch on the data's card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(q0s.data_ptr(), *ptrs,
+                                  params_dev.data_ptr(), *ints, stream)
+    if err != 0:
+        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+
+
+def launch_fantasy_gen(q0s, p0s, params, steps):
+    """Launch G1 on (N, 4) float32 or float64 CUDA rays; `params` is the
+    Boyer-Lindquist `gen_params` vector in the rays' dtype.  Returns (out
+    (12, N): q1, p1, q2 rows; ns (N,) int32, negative for guard-parked
+    rays)."""
+    global launches
+    _check_inputs(q0s, p0s, (F32, F64))
+    n = q0s.shape[0]
+    n_sub = _n_sub(params, q0s.dtype)
+    if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
+    out = torch.empty((OUT_ROWS, n), dtype=q0s.dtype, device=q0s.device)
+    ns = torch.empty((n,), dtype=torch.int32, device=q0s.device)
+    if n == 0:
+        return out, ns
+    _call(ENTRIES[q0s.dtype], q0s,
+          (p0s.data_ptr(), out.data_ptr(), ns.data_ptr()), params,
+          (n, n_sub, int(steps)))
+    launches += 1
+    return out, ns
+
+
+def launch_fantasy_gen_traj(q0s, p0s, params, steps, stride, n_keep,
+                            metric="Kerr"):
+    """Launch S2 in `metric`'s chart ('Kerr' or 'KerrSchild') on (N, 4)
+    float32 or float64 CUDA rays; `params` is that chart's `gen_params`
+    vector in the rays' dtype.  Returns (traj (N, n_keep, 4), zero past
+    each ray's exit; ns (N,) int32, the steps each ray took)."""
+    global traj_launches
+    _check_inputs(q0s, p0s, (F32, F64))
+    entry = TRAJ_ENTRIES.get((metric, q0s.dtype))
+    if entry is None:
+        raise ValueError(f"no S2 entry for metric {metric!r} (have "
+                         f"'Kerr', 'KerrSchild')")
+    n = q0s.shape[0]
+    n_sub = _n_sub(params, q0s.dtype)
+    if (not 0 <= steps < 2 ** 31 or not 1 <= stride < 2 ** 31
+            or not 0 <= n_keep < 2 ** 31 or n >= 2 ** 31
+            or n_keep * stride < steps):
+        raise ValueError(f"steps={steps}, stride={stride}, n_keep={n_keep} "
+                         f"or N={n} out of the kernel's range")
+    # the slots past a ray's exit stay +0.0
+    traj = torch.zeros((n, n_keep, 4), dtype=q0s.dtype, device=q0s.device)
+    ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
+    if n == 0:
+        return traj, ns
+    _call(entry, q0s, (p0s.data_ptr(), traj.data_ptr(), ns.data_ptr()),
+          params, (n, n_sub, int(steps), int(stride), int(n_keep)))
+    traj_launches += 1
+    return traj, ns
+
+
+def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
+                                 omega, order=2):
+    """Integrate (N, 4) Boyer-Lindquist rays through G1, then the exact
+    rescue: (final_q, final_p, status, n_steps), the contract of
+    `integrate_batch_generic(metric='Kerr')`, which it matches bit for bit
+    on the card.  Raises for CPU, misshapen or non-contiguous inputs, and
+    for a failed build or launch."""
+    _check_inputs(q0s, p0s, (F32, F64))
+    vec = gen_params("Kerr", delta, params, r_max, omega, order, q0s.dtype)
+    out, ns = launch_fantasy_gen(q0s, p0s, vec, steps)
+    return finish_generic_bl(tuple(out), ns, q0s, p0s, vec)
+
+
+def trajectory_batch_decimated_cuda(q0s, p0s, steps, delta, params, r_max,
+                                    omega, order=2, metric="Kerr",
+                                    n_keep=1000, return_steps=False):
+    """Record the trajectories of (N, 4) CUDA rays through S2: (N, n_keep',
+    4) positions, q1 every `stride` steps (`traj_layout`), the contract of
+    `trajectory_batch_decimated`, which it matches bit for bit on the
+    card; with return_steps, also the (N,) int32 steps each ray took.
+    Rays keep the caller's order.  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch."""
+    _check_inputs(q0s, p0s, (F32, F64))
+    stride, n_keep_eff = traj_layout(steps, n_keep)
+    vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
+    traj, ns = launch_fantasy_gen_traj(q0s, p0s, vec, steps, stride,
+                                       n_keep_eff, metric)
+    return (traj, ns) if return_steps else traj

@@ -38,6 +38,11 @@ counts every equatorial-plane crossing and records the first n_orders
 
 which return (final_q, final_p, status, n_steps, hits_q (n_orders, N, 4),
 hits_p, count (N,) int32).
+
+The Boyer-Lindquist chart's predicate and rescue (`bardeen_escape_pred_bl`,
+`apply_bardeen_rescue_bl`), which the generic engine applies to kernel
+G1's output and its twin's (engine/integrate_generic.py), live here beside
+the Kerr-Schild ones, as in JAX.
 """
 from __future__ import annotations
 
@@ -310,6 +315,22 @@ def bardeen_escape_pred(q0s, p0s, mass, a, charge):
     return _bardeen_min_R(E, L, Q, r0_bl, mass, a, charge)
 
 
+def bardeen_escape_pred_bl(q0s, p0s, mass, a, charge):
+    """The Bardeen predicate from the launch covector in the
+    Boyer-Lindquist chart: E = -p_t, L = p_phi and Carter
+    Q = p_theta^2 + cos^2 th (L^2/sin^2 th - a^2 E^2) read off directly
+    (the covector's overall sign cancels in R(r))."""
+    mass, a, charge = _scalar_tensors(q0s, mass, a, charge)
+    E = -p0s[:, 0]
+    L = p0s[:, 3]
+    th = q0s[:, 2]
+    sin2 = torch.sin(th) ** 2
+    cos2 = torch.cos(th) ** 2
+    Q = p0s[:, 2] ** 2 + cos2 * (L * L / torch.clamp(sin2, min=1e-30)
+                                 - a * a * E * E)
+    return _bardeen_min_R(E, L, Q, q0s[:, 1], mass, a, charge)
+
+
 def _unit_grid(num, dtype, device):
     """num points from 0 to 1 with the values jnp.linspace(0, 1, num)
     gives under XLA, which turns its i / (num - 1) into i * (1 / (num - 1))
@@ -397,6 +418,32 @@ def apply_bardeen_rescue(final_q, final_p, n_steps_signed, q2_spatial,
                                      final_q[:, 1:]))
     final_q = torch.cat([final_q[:, :1], new_sp], dim=1)
     return final_q, final_p, ks_status(final_q, a, r_cap, r_max), n_steps
+
+
+def apply_bardeen_rescue_bl(final_q, final_p, n_steps_signed, q2, q0s, p0s,
+                            mass, a, charge, r_cap, r_max, pred=None):
+    """The Boyer-Lindquist chart's rescue of guard-parked rays
+    (n_steps_signed < 0), by the exact predicate (`pred`, by default
+    `bardeen_escape_pred_bl`): escape -> radius 1.001 r_max along the
+    last-resolved direction (theta, phi of the reverted second copy q2),
+    capture -> radius 0.99 r_cap; then the status from the radius.
+    Returns (final_q, final_p, status, n_steps)."""
+    r_cap, r_max = _scalar_tensors(final_q, r_cap, r_max)
+    parked = n_steps_signed < 0
+    n_steps = torch.abs(n_steps_signed)
+    if pred is None:
+        pred = bardeen_escape_pred_bl(q0s, p0s, mass, a, charge)
+    esc_r = parked & pred
+    cap_r = parked & ~pred
+    r_out = torch.where(esc_r, 1.001 * r_max,
+                        torch.where(cap_r, 0.99 * r_cap, final_q[:, 1]))
+    th_out = torch.where(esc_r, q2[:, 2], final_q[:, 2])
+    ph_out = torch.where(esc_r, q2[:, 3], final_q[:, 3])
+    final_q = torch.stack([final_q[:, 0], r_out, th_out, ph_out], dim=1)
+    alive = torch.full_like(n_steps, STATUS_ALIVE)
+    status = torch.where(r_out <= r_cap, STATUS_CAPTURED,
+                         torch.where(r_out >= r_max, STATUS_ESCAPED, alive))
+    return final_q, final_p, status, n_steps
 
 
 def finish_ks(state, ns_signed, q0s, p0s, vec, compensated):

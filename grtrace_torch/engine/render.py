@@ -8,9 +8,9 @@ hand-written kernel (engine/integrate_cuda.py: B1 for float32 rays, B2 for
 float64 rays, S1 for the sampled trajectories); on the CPU it runs B1's
 eager twin for float32 rays and the 16-row integrator for float64 rays, as
 the JAX package does, and S1's twin for the trajectories.  `render`
-also routes Kerr and charged scenes to the Kerr-Schild chart
-(engine/render_generic.py); the Boyer-Lindquist chart, the other metric
-families and antialiasing raise NotImplementedError.
+also routes Kerr and charged scenes to the Kerr-Schild chart and 'kerr-bl'
+scenes to the Boyer-Lindquist one (engine/render_generic.py); the other
+metric families and antialiasing raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -167,20 +167,17 @@ def trajectories_to_cartesian(traj, betas):
 
 
 def _route(scene, aa_samples):
-    """'kerr-schild' for the scenes `render_generic` takes (Kerr in the
-    Kerr-Schild chart, and a charged Schwarzschild scene, which is
-    Reissner-Nordstrom there), 'schwarzschild' for the headline path;
-    raises for what the port does not have yet."""
+    """The chart `render` takes: 'Kerr' (Boyer-Lindquist, scene.metric
+    'kerr-bl' / 'kerrbl'), 'KerrSchild' (Kerr and charged Schwarzschild,
+    which is Reissner-Nordstrom there), or 'Schwarzschild' for the
+    headline path; raises for what the port does not have yet."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
     if metric in ("kerr-bl", "kerrbl"):
-        raise NotImplementedError(
-            "the Boyer-Lindquist Kerr chart (metric 'kerr-bl') rides the "
-            "generic autodiff engine, not ported to grtrace_torch yet "
-            "(ROADMAP Queue A item 5b)")
+        return "Kerr"
     charged = float(getattr(scene, "charge", 0.0)) != 0.0
     if (metric in ("kerr", "kerrschild", "kerr-schild")
             or (metric == "schwarzschild" and charged)):
-        return "kerr-schild"
+        return "KerrSchild"
     if metric != "schwarzschild":
         raise NotImplementedError(
             f"metric {scene.metric!r} is not ported to grtrace_torch yet "
@@ -189,7 +186,7 @@ def _route(scene, aa_samples):
         raise NotImplementedError(
             "adaptive antialiasing (engine/aa.py) is not ported to "
             "grtrace_torch yet (ROADMAP Queue A item 8)")
-    return "schwarzschild"
+    return "Schwarzschild"
 
 
 def _untimed(name):
@@ -199,10 +196,11 @@ def _untimed(name):
 def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
            dtype=None, metrics: RenderMetrics | None = None, aa_samples=None,
            device="cuda") -> RenderResult:
-    """Full-frame render on `device`: the headline Schwarzschild path, or,
-    for scene.metric in ('kerr', 'kerrschild', 'kerr-schild') and for a
-    charged Schwarzschild scene, the Kerr-Newman render in the Kerr-Schild
-    chart (engine/render_generic.py), as `grtrace.render` routes them.
+    """Full-frame render on `device`: the headline Schwarzschild path, or
+    the Kerr-Newman render of engine/render_generic.py, as `grtrace.render`
+    routes them: in the Kerr-Schild chart for scene.metric in ('kerr',
+    'kerrschild', 'kerr-schild') and for a charged Schwarzschild scene, in
+    the Boyer-Lindquist chart for 'kerr-bl' / 'kerrbl'.
 
     bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
     torch dtype, by default the scene's integrator dtype.  metrics:
@@ -210,11 +208,13 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     device defaults to 'cuda' and raises when no GPU is present; pass
     device='cpu' for the plain torch path.
     """
-    if _route(scene, aa_samples) == "kerr-schild":
+    chart = _route(scene, aa_samples)
+    if chart != "Schwarzschild":
         from .render_generic import render_generic
-        return render_generic(scene, bg_array=bg_array, dtype=dtype,
-                              n_samples=n_samples, metrics=metrics,
-                              aa_samples=aa_samples, device=device)
+        return render_generic(scene, metric=chart, bg_array=bg_array,
+                              dtype=dtype, n_samples=n_samples, seed=seed,
+                              metrics=metrics, aa_samples=aa_samples,
+                              device=device)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda') needs a CUDA GPU; "

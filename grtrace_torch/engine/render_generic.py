@@ -1,18 +1,21 @@
-"""Full-frame Kerr / Kerr-Newman rendering in the horizon-regular Cartesian
-Kerr-Schild chart — the torch counterpart of `grtrace.engine.render_generic`
-for metric='KerrSchild'.
+"""Full-frame Kerr / Kerr-Newman rendering — the torch counterpart of
+`grtrace.engine.render_generic` for the Kerr-Newman charts: metric
+'KerrSchild' (the horizon-regular Cartesian chart) and metric 'Kerr'
+(Boyer-Lindquist).
 
 Same scene layout as the Schwarzschild path (pinhole camera, boundary
 sphere, background patch), with what the physics forces:
-  * no equatorial fold (axisymmetry only): the Cartesian camera and full
-    3-D integration, through kernel B5 on a CUDA device
-    (engine/integrate_ks_cuda.py) or its eager twins on the CPU;
-  * capture by the integration's outcome (the 1.05 r_+ shell and the exact
+  * no equatorial fold (axisymmetry only): full 3-D integration, with the
+    Cartesian camera through kernel B5 (engine/integrate_ks_cuda.py) in
+    the Kerr-Schild chart, with the unfolded spherical camera through
+    kernel G1 (engine/integrate_generic_cuda.py) in the Boyer-Lindquist
+    one; their eager twins on the CPU;
+  * capture by the integration's outcome (the capture shell and the exact
     Bardeen rescue), not the b_crit shortcut;
   * classification reuses engine.classify with beta = 0 and the shortcut
     disabled (alpha0 = pi).
-The Boyer-Lindquist chart, the other metric families, antialiasing and
-the trajectory sampler are not ported yet and raise NotImplementedError.
+The sampled trajectories run through kernel S2 (its twin on the CPU).
+The other metric families and antialiasing raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,12 +24,13 @@ import math
 import numpy as np
 import torch
 
-from ..physics.camera import camera_rays_cartesian
+from ..physics.camera import camera_rays_cartesian, camera_rays_unfolded
 from ..physics.coords import cartesian_to_spherical
-from ..physics.spacetime import horizon_radius, kerr_schild_g_inv
+from ..physics.spacetime import COORDS, METRICS, horizon_radius
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED
-from .integrate_ks import integrate_dispatch_ks
+from .integrate_generic import (integrate_dispatch_generic,
+                                trajectory_dispatch_generic)
 
 
 def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
@@ -35,15 +39,17 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
                           patch_size_theta, patch_size_phi,
                           *, height, width, flip_theta=False, flip_phi=False,
                           has_background=True, dtype=torch.float32,
-                          order=2, backend="auto", charge=0.0):
+                          metric="Kerr", order=2, backend="auto", charge=0.0):
     """The device pipeline for one frame, on bg_array's device: camera ->
-    integrate -> fold to (rho, theta, phi) -> classify -> RGB.
+    integrate -> (Kerr-Schild: fold to (rho, theta, phi)) -> classify ->
+    RGB.
 
     Scalars are Python floats, rounded to `dtype` as 0-dim tensors on the
     device, as the JAX pipeline receives them.  Returns a dict of per-pixel
     tensors plus the (5,) count vector.
     """
     device = bg_array.device
+    cartesian = COORDS[metric] == "cartesian"
 
     def scalar(x):
         return torch.tensor(x, dtype=dtype, device=device)
@@ -52,33 +58,39 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
     obs_x_t = scalar(obs_x)
     zero = torch.zeros_like(obs_x_t)
     obs_pos = torch.stack([obs_x_t, zero, zero])
-    q0, p0, alpha0 = camera_rays_cartesian(
-        obs_pos, scalar(fov), height, width, params=params,
-        g_inv_fn=kerr_schild_g_inv, dtype=dtype, device=device)
+    camera = camera_rays_cartesian if cartesian else camera_rays_unfolded
+    q0, p0, alpha0 = camera(obs_pos, scalar(fov), height, width,
+                            params=params, g_inv_fn=METRICS[metric],
+                            dtype=dtype, device=device)
 
     n = height * width
-    # float32 rays take the Kahan-compensated 32-row layout, float64 rays
-    # the plain 16-row one; the scalars are rounded to dtype on the host
-    final_q, final_p, status, n_steps = integrate_dispatch_ks(
+    # Kerr-Schild: float32 rays take B5's Kahan-compensated 32-row layout,
+    # float64 rays the plain 16-row one; Boyer-Lindquist: G1 (the scalars
+    # are rounded to dtype on the host)
+    final_q, final_p, status, n_steps = integrate_dispatch_generic(
         q0.reshape(n, 4), p0.reshape(n, 4), steps, float(delta),
         (float(mass), float(spin), float(charge)), float(boundary_radius),
-        float(omega), order=order, backend=backend)
+        float(omega), order=order, metric=metric, backend=backend)
     final_q = final_q.reshape(height, width, 4)
     status = status.reshape(height, width)
 
-    # classify in spherical terms, (t, x, y, z) -> (t, rho, theta, phi):
-    # rho is the flat embedding radius the escape test used; captured rays
-    # stop at the Kerr-Schild r_+, where rho can exceed the classifier's
-    # capture threshold at high spin, so they are pinned to rho = 0
-    rho, th, ph = cartesian_to_spherical(
-        final_q[..., 1], final_q[..., 2], final_q[..., 3])
-    rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho), rho)
-    final_q = torch.stack([final_q[..., 0], rho, th, ph], dim=-1)
+    if cartesian:
+        # classify in spherical terms, (t, x, y, z) -> (t, rho, theta,
+        # phi): rho is the flat embedding radius the escape test used;
+        # captured rays stop at the Kerr-Schild r_+, where rho can exceed
+        # the classifier's capture threshold at high spin, so they are
+        # pinned to rho = 0
+        rho, th, ph = cartesian_to_spherical(
+            final_q[..., 1], final_q[..., 2], final_q[..., 3])
+        rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho),
+                          rho)
+        final_q = torch.stack([final_q[..., 0], rho, th, ph], dim=-1)
 
-    # the radius test fires exactly at the integrator's 1.05 r_+ shell; the
-    # analytic capture shortcut is off (alpha0 = pi); no fold (beta = 0)
+    # the radius test fires exactly at the integrator's capture shell (1.1
+    # r_+ in Boyer-Lindquist, 1.05 r_+ in Kerr-Schild); the analytic
+    # capture shortcut is off (alpha0 = pi); no fold (beta = 0)
     r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
-    rs_classify = (1.05 / 1.2) * r_plus
+    rs_classify = ((1.05 if cartesian else 1.1) / 1.2) * r_plus
     beta0 = torch.zeros((height, width), dtype=dtype, device=device)
     alpha_off = torch.full((height, width), math.pi, dtype=dtype,
                            device=device)
@@ -111,14 +123,46 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
     }
 
 
-def render_generic(scene, *, bg_array=None, dtype=None, n_samples=None,
-                   metrics=None, aa_samples=None, device="cuda"):
-    """SceneConfig-driven Kerr / Kerr-Newman render in the Kerr-Schild
-    chart -> engine.render.RenderResult.
+def _sample_trajectories_generic(q0, p0, sampled_ij, scene, spin, metric,
+                                 dtype, charge=0.0):
+    """Re-integrate K sampled rays with decimated trajectory capture (kernel
+    S2 on the card, its eager twin on the CPU:
+    `trajectory_dispatch_generic`): K (P, 3) float64 numpy arrays of
+    Cartesian positions, on the host.  Kerr-Schild rows are Cartesian
+    already; Boyer-Lindquist rows go through spherical_to_cartesian and
+    the unfolded camera's beta = 0 rotation (`trajectories_to_cartesian`),
+    as JAX converts them."""
+    from .render import MAX_TRAJ_POINTS, trajectories_to_cartesian
+    h, w = scene.image_size
+    flat_idx = torch.as_tensor(sampled_ij[:, 0] * w + sampled_ij[:, 1],
+                               device=q0.device)
+    integ = scene.integrator
+    traj = trajectory_dispatch_generic(
+        q0.reshape(-1, 4)[flat_idx].to(dtype).contiguous(),
+        p0.reshape(-1, 4)[flat_idx].to(dtype).contiguous(), integ.steps,
+        integ.delta, (scene.bh_mass, spin, charge), scene.boundary_radius,
+        float(integ.omega), order=integ.order, metric=metric,
+        n_keep=min(MAX_TRAJ_POINTS, integ.steps))
+    if COORDS[metric] == "cartesian":
+        traj = traj.cpu().double()
+        return [traj[k, :, 1:4].numpy() for k in range(traj.shape[0])]
+    return trajectories_to_cartesian(
+        traj, torch.zeros(traj.shape[0], dtype=torch.float64))
 
-    Spin and charge are the scene's.  device defaults to 'cuda'
-    (kernel B5) and raises without a GPU; pass device='cpu' for the eager
-    twins.  aa_samples and n_samples > 0 raise NotImplementedError.
+
+def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
+                   dtype=None, n_samples=None, seed=0, metrics=None,
+                   charge=None, aa_samples=None, device="cuda"):
+    """SceneConfig-driven Kerr / Kerr-Newman render in the named chart
+    ('Kerr' = Boyer-Lindquist, 'KerrSchild') -> engine.render.RenderResult,
+    with the sampled trajectories (scene.n_samples, or n_samples, rays
+    drawn with numpy's default_rng(seed), as the JAX render draws them).
+
+    spin and charge default to the scene's.  device defaults to 'cuda'
+    (kernels B5 or G1, and S2) and raises without a GPU; pass
+    device='cpu' for the eager twins.  aa_samples raises
+    NotImplementedError.  Prefer the top-level render, which routes
+    scene.metric to the right chart.
     """
     from .render import RenderResult, _untimed
 
@@ -126,17 +170,13 @@ def render_generic(scene, *, bg_array=None, dtype=None, n_samples=None,
         raise NotImplementedError(
             "adaptive antialiasing (engine/aa.py) is not ported to "
             "grtrace_torch yet (ROADMAP Queue A item 8)")
-    n_samples = scene.n_samples if n_samples is None else n_samples
-    if n_samples and n_samples > 0:
-        raise NotImplementedError(
-            "sampled trajectories on the Kerr path need the generic "
-            "engine's trajectory sampler, not ported to grtrace_torch yet "
-            "(ROADMAP Queue A item 5b); pass n_samples=0")
+    METRICS[metric]  # raises for the families of item 9
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda') needs a CUDA GPU; "
                            "pass device='cpu' for the eager twins")
-    spin, charge = float(scene.spin), float(scene.charge)
+    spin = float(scene.spin if spin is None else spin)
+    charge = float(scene.charge if charge is None else charge)
 
     stage = metrics.stage if metrics is not None else _untimed
     h, w = scene.image_size
@@ -160,7 +200,7 @@ def render_generic(scene, *, bg_array=None, dtype=None, n_samples=None,
             height=h, width=w,
             flip_theta=scene.patch.flip_theta,
             flip_phi=scene.patch.flip_phi,
-            has_background=has_bg, dtype=dtype,
+            has_background=has_bg, dtype=dtype, metric=metric,
             order=integ.order, backend=integ.backend, charge=charge)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
@@ -168,6 +208,20 @@ def render_generic(scene, *, bg_array=None, dtype=None, n_samples=None,
     if metrics is not None:  # costs one (H, W) reduction and fetch
         metrics.rays = h * w
         metrics.geodesic_steps = int(out["n_steps"].sum())
-    # no heading on this path (unfolded chart)
+    # no heading on this path (unfolded charts)
     out["heading"] = torch.zeros((h, w, 3), dtype=dtype, device=device)
-    return RenderResult(out, counts)
+
+    n_samples = scene.n_samples if n_samples is None else n_samples
+    sampled_ij = None
+    sampled_trajs = None
+    if n_samples and n_samples > 0:
+        with stage("sample_trajectories"):
+            rng = np.random.default_rng(seed)
+            flat = rng.choice(h * w, size=min(n_samples, h * w),
+                              replace=False)
+            sampled_ij = np.stack([flat // w, flat % w], axis=-1)
+            sampled_trajs = _sample_trajectories_generic(
+                out["q0"], out["p0"], sampled_ij, scene, spin, metric, dtype,
+                charge=charge)
+    return RenderResult(out, counts, sampled_indices=sampled_ij,
+                        sampled_trajectories=sampled_trajs)

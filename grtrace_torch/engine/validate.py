@@ -19,7 +19,14 @@ the torch counterpart of `grtrace.engine.validate`.
     the crossing count exactly and hits_q and hits_p bit for bit in every
     slot, filled or not;
   * `traj_parity` — kernel S1, the trajectory recorder, against its eager
-    twin `integrate_batch_full` on the same rays, every slot bit for bit.
+    twin `integrate_batch_full` on the same rays, every slot bit for bit;
+  * `gen_kernel_parity` — kernel G1, the generic engine's Boyer-Lindquist
+    integrator, against its eager twin `integrate_batch_generic(metric=
+    'Kerr')` on the same rays: q and p bit for bit, status and exit step
+    exactly;
+  * `gen_traj_parity` — kernel S2, the generic engine's trajectory
+    recorder, against its eager twin `trajectory_batch_decimated` in
+    either chart, every slot bit for bit.
 
 Boundary positions are quoted in 256x256-image pixels whatever the probe
 resolution.  Scene: observer at r0 = 30 M on +x, fov 80 deg, boundary
@@ -334,15 +341,59 @@ def traj_parity(q0s, p0s, steps, delta, rs, r_max, omega, n_keep=None,
         q0s.device) for _ in range(reps)]
     twin, twin_ms = timed(lambda: integrate_batch_full(
         q0s, p0s, *args, n_keep=n_keep, order=order), q0s.device)
-    traj, ns = runs[0][0]
-    stride, n_keep_eff = traj_layout(steps, n_keep)
+    return runs[0][0], _traj_report(runs, twin, twin_ms,
+                                    traj_layout(steps, n_keep))
+
+
+def _traj_report(runs, twin, twin_ms, layout):
+    """The comparison dict of a recorder's timed runs [((traj, ns), ms)]
+    against its twin's record."""
+    (traj, ns), _ = runs[0]
     times = [ms for _, ms in runs]
-    res = {"traj_bitwise_equal": all(_bitwise_equal(t, twin)
-                                     for (t, _), _ in runs),
-           "max_abs_err": _max_abs_err([(t, twin) for (t, _), _ in runs]),
-           "rays": q0s.shape[0], "n_keep": n_keep_eff, "stride": stride,
-           "n_steps_max": int(ns.max()) if ns.numel() else 0,
-           "n_steps_sum": int(ns.long().sum()),
-           "kernel_ms": float(np.median(times)), "kernel_ms_all": times,
-           "twin_ms": twin_ms}
-    return (traj, ns), res
+    return {"traj_bitwise_equal": all(_bitwise_equal(t, twin)
+                                      for (t, _), _ in runs),
+            "max_abs_err": _max_abs_err([(t, twin) for (t, _), _ in runs]),
+            "rays": traj.shape[0], "n_keep": layout[1], "stride": layout[0],
+            "n_steps_max": int(ns.max()) if ns.numel() else 0,
+            "n_steps_sum": int(ns.long().sum()),
+            "kernel_ms": float(np.median(times)), "kernel_ms_all": times,
+            "twin_ms": twin_ms}
+
+
+def gen_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
+                      omega=1.0, order=2):
+    """Kernel G1 (`integrate_batch_generic_cuda`) against its eager twin
+    (`integrate_batch_generic(metric='Kerr')`) on the same (N, 4) CUDA
+    rays.  Returns (the kernel's outputs, `compare_outputs`'s counts plus
+    the kernel+wrapper and twin times in ms)."""
+    from .integrate_generic import integrate_batch_generic
+    from .integrate_generic_cuda import integrate_batch_generic_cuda
+    args = (steps, delta, params, r_max, omega)
+    kern, kernel_ms = timed(lambda: integrate_batch_generic_cuda(
+        q0, p0, *args, order=order), q0.device)
+    ref, twin_ms = timed(lambda: integrate_batch_generic(
+        q0, p0, *args, order=order, metric="Kerr"), q0.device)
+    res = compare_outputs(kern, ref)
+    res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
+    return kern, res
+
+
+def gen_traj_parity(q0s, p0s, steps, delta, params, r_max, omega,
+                    metric="Kerr", n_keep=1000, order=2, reps=3):
+    """Kernel S2, through `trajectory_batch_decimated_cuda` (the entry the
+    render's sampler calls), against its eager twin
+    `trajectory_batch_decimated` on the same CUDA rays, in `metric`'s
+    chart; every timed call's record is held against the twin.  Returns
+    (the first call's (traj, ns), the dict of `traj_parity`)."""
+    from .integrate import traj_layout
+    from .integrate_generic import trajectory_batch_decimated
+    from .integrate_generic_cuda import trajectory_batch_decimated_cuda
+    args = (steps, delta, params, r_max, omega)
+    kw = {"order": order, "metric": metric, "n_keep": n_keep}
+    runs = [timed(lambda: trajectory_batch_decimated_cuda(
+        q0s, p0s, *args, return_steps=True, **kw), q0s.device)
+        for _ in range(reps)]
+    twin, twin_ms = timed(lambda: trajectory_batch_decimated(
+        q0s, p0s, *args, **kw), q0s.device)
+    return runs[0][0], _traj_report(runs, twin, twin_ms,
+                                    traj_layout(steps, n_keep))

@@ -37,7 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # after steps; a trig entry (`*_trig_*`) takes (x, sin_out, cos_out,
 # sincos_sin_out, sincos_cos_out, n, stream); a trajectory entry
 # (`*_traj_*`) takes (q0, p0, traj_out, ns_out, params, n, n_sub, steps,
-# stride, n_keep, stream)
+# stride, n_keep, stream); a generic-engine integrator (`*_gen_*`, not a
+# trajectory entry) takes (q0, p0, out, ns_out, params, n, n_sub, steps,
+# stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -56,6 +58,12 @@ ENTRIES = {
                    "grt_fantasy_ks16_f64_sub_launch"),
     "fantasy_traj": ("grt_fantasy_traj_f32_launch",
                      "grt_fantasy_traj_f64_launch"),
+    "fantasy_gen": ("grt_fantasy_gen_bl_f32_launch",
+                    "grt_fantasy_gen_bl_f64_launch",
+                    "grt_fantasy_gen_traj_bl_f32_launch",
+                    "grt_fantasy_gen_traj_bl_f64_launch",
+                    "grt_fantasy_gen_traj_ks_f32_launch",
+                    "grt_fantasy_gen_traj_ks_f64_launch"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -66,6 +74,8 @@ def argtypes(name: str) -> list:
         return [_PTR] * 5 + [_INT, _PTR]
     if "_traj_" in name:
         return [_PTR] * 5 + [_INT] * 5 + [_PTR]
+    if "_gen_" in name:
+        return [_PTR] * 5 + [_INT] * 3 + [_PTR]
     sub = "_sub_" in name
     recorders = 2 if sub else 1 if "_disk_" in name else 0
     return [_PTR] * (4 + recorders) + [_INT] * (4 if sub else 3) + [_PTR]

@@ -2,7 +2,10 @@
 conditions — the torch counterpart of the folded Schwarzschild camera in
 `grtrace.physics.camera` (`pixel_grid`, `angles_to_p_sph`,
 `initial_conditions`, `camera_rays`), of its Cartesian-chart camera
-(`camera_rays_cartesian`, `cartesian_ics_from_pixels`), of the inclined
+(`camera_rays_cartesian`, `cartesian_ics_from_pixels`), of the unfolded
+spherical-chart camera of the generic engine (`camera_rays_unfolded`,
+`unfolded_ics_from_pixels`: no fold, for axisymmetric metrics such as
+Kerr in Boyer-Lindquist coordinates), of the inclined
 look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`)
 and of the moving camera's tetrad (`boosted_ics_from_pixels`).
 
@@ -13,8 +16,9 @@ Camera geometry (the reference's):
   * pixel (i, j): offset u = (j+0.5)/w - 0.5 along +y, v = (i+0.5)/h - 0.5
     along +z.
 
-Every ray is folded into the x-y plane by a rotation beta about +x, so the
-integrator sees theta = pi/2 and p_theta = 0 exactly.  Scalars (observer
+The Schwarzschild camera folds every ray into the x-y plane by a rotation
+beta about +x, so the integrator sees theta = pi/2 and p_theta = 0
+exactly.  Scalars (observer
 position, fov, mass) are tensors of the working dtype on the working
 device, as the JAX pipeline passes them, so scalar arithmetic rounds in
 that dtype.
@@ -228,6 +232,52 @@ def cartesian_ics_from_pixels(obs, pix, *, params, g_inv_fn):
 
     axis = -obs / torch.linalg.vector_norm(obs)
     alpha0 = torch.arccos(torch.clamp(_dot3(ray, axis), -1.0, 1.0))
+    return q0, p0, alpha0
+
+
+def camera_rays_unfolded(obs_pos, fov, height, width, *, params, g_inv_fn,
+                         dtype=torch.float32, device=None):
+    """Camera for spherical-chart metrics without the equatorial fold
+    (Kerr is only axisymmetric, so rays keep their true headings):
+    pixel_grid -> unfolded_ics_from_pixels.  Returns (q0, p0, alpha0), (H,
+    W, 4 | 4 | -)."""
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
+                     device=obs_pos.device)
+    return unfolded_ics_from_pixels(obs_pos, pix, params=params,
+                                    g_inv_fn=g_inv_fn)
+
+
+def unfolded_ics_from_pixels(obs, pix, *, params, g_inv_fn):
+    """Core of the unfolded spherical-chart camera for pixel positions pix
+    (..., 3).  The spatial covector is the reference camera's
+    normalization (n_rhat sqrt(1 - 2M/r), n_thhat r, n_phhat r) in the
+    observer's orthonormal spherical basis, and p_t closes the exact null
+    quadratic of the metric, frame-dragging cross term included
+    (`spacetime.null_p_t(future=True)`).  alpha0 is arccos(-p_r / f_r),
+    the angle off the optical axis."""
+    dtype, device = pix.dtype, pix.device
+    obs = torch.as_tensor(obs, dtype=dtype, device=device)
+    ray = pix - obs
+    ray = ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+
+    r_obs, th_obs, ph_obs = cartesian_to_spherical(obs[0], obs[1], obs[2])
+    st, ct = torch.sin(th_obs), torch.cos(th_obs)
+    sp, cp = torch.sin(ph_obs), torch.cos(ph_obs)
+    rhat = torch.stack([st * cp, st * sp, ct])
+    thhat = torch.stack([ct * cp, ct * sp, -st])
+    phhat = torch.stack([-sp, cp, torch.zeros_like(sp)])
+    n_r, n_th, n_ph = _dot3(ray, rhat), _dot3(ray, thhat), _dot3(ray, phhat)
+
+    params = torch.as_tensor(params, dtype=dtype, device=device)
+    f_r = torch.sqrt(1.0 - 2.0 * params[0] / r_obs)
+    p_sp = torch.stack([n_r * f_r, n_th * r_obs, n_ph * r_obs], dim=-1)
+    q0 = torch.cat([torch.zeros_like(n_r)[..., None],
+                    torch.stack([r_obs, th_obs, ph_obs]).expand(
+                        n_r.shape + (3,))], dim=-1)
+    p_t = spacetime.null_p_t(p_sp, q0, params, g_inv_fn, future=True)
+    p0 = torch.cat([p_t[..., None], p_sp], dim=-1)
+    alpha0 = torch.arccos(torch.clamp(-p_sp[..., 0] / f_r, -1.0, 1.0))
     return q0, p0, alpha0
 
 

@@ -1,12 +1,16 @@
-"""The Kerr-Newman pieces of `grtrace.physics.spacetime`, in torch: the
-contravariant Boyer-Lindquist metric (the disk's orbit algebra reads it),
-the Boyer-Lindquist radius of a Kerr-Schild point, the contravariant
-Kerr-Schild metric (batched, closed form), the outer horizon radius and the
-null quadratic for p_t.
+"""The generic metric API of `grtrace.physics.spacetime`, in torch: the
+contravariant Schwarzschild and Kerr(-Newman) metrics in Boyer-Lindquist
+coordinates and the Kerr-Schild one (batched, closed form), the
+Boyer-Lindquist radius of a Kerr-Schild point, the outer horizon radius,
+the Hamiltonian, the null quadratic for p_t, the `METRICS` / `COORDS`
+tables, and the autodiff FANTASY flows `make_flows` / `make_step`
+(`torch.func.grad`, batched with `torch.func.vmap`).
 
-The autodiff flow engine of the JAX module (`make_flows`, the generic
-integrator and the other metric families) is not ported yet: ROADMAP Queue A
-items 5b and 9.
+The autodiff flows are the metric-generic API that the beyond-Kerr
+families plug into, and the CPU reference that the closed-form flows
+(physics/kerr_bl.py, physics/kerr_schild.py) are tested against; no path
+on the card runs them.  The other metric families are not ported yet
+(ROADMAP Queue A item 9): looking them up raises NotImplementedError.
 
 Metric parameters are `params = (M, a[, Q])`: a 1-D tensor, or a sequence
 of numbers, in the working dtype; the charge slot is optional, as in JAX.
@@ -19,6 +23,19 @@ import torch
 def _charge(params):
     """Q from an optional third params slot."""
     return params[2] if len(params) > 2 else params[0] * 0.0
+
+
+def schwarzschild_g_inv(q, params):
+    """Contravariant Schwarzschild metric at every point of q (..., 4) =
+    (t, r, theta, phi), params = (M, ...): returns (..., 4, 4)."""
+    params = torch.as_tensor(params, dtype=q.dtype, device=q.device)
+    mass = params[0]
+    r, th = q[..., 1], q[..., 2]
+    f = 1.0 - 2.0 * mass / r
+    sin_th = torch.sin(th)
+    return torch.diag_embed(torch.stack(
+        [-1.0 / f, f, 1.0 / (r * r), 1.0 / (r * r * sin_th * sin_th)],
+        dim=-1))
 
 
 def kerr_g_inv(q, params):
@@ -86,35 +103,134 @@ def kerr_schild_g_inv(q, params):
                                                * l_up[..., None, :])
 
 
+# the metric families of the JAX package that the port does not have yet
+_ITEM_9 = ("Kottler", "Bardeen", "Hayward", "RotatingBardeen",
+           "RotatingHayward", "KerrDS")
+
+
+class _Table(dict):
+    """A metric-name table whose lookup of an unported family raises
+    NotImplementedError naming its ROADMAP item."""
+
+    def __missing__(self, name):
+        if name in _ITEM_9:
+            raise NotImplementedError(
+                f"metric {name!r} is not ported to grtrace_torch yet "
+                f"(ROADMAP Queue A item 9)")
+        raise KeyError(name)
+
+
+METRICS = _Table({"Schwarzschild": schwarzschild_g_inv, "Kerr": kerr_g_inv,
+                  "KerrSchild": kerr_schild_g_inv})
+
+# coordinate chart per metric: 'spherical' q = (t, r, theta, phi),
+# 'cartesian' q = (t, x, y, z)
+COORDS = _Table({"Schwarzschild": "spherical", "Kerr": "spherical",
+                 "KerrSchild": "cartesian"})
+
+
 def horizon_radius(metric: str, mass, a=0.0, q=0.0):
-    """Outer event-horizon radius r_+ of the Kerr-Newman family:
-    M + sqrt(max(M^2 - a^2 - Q^2, 0)).  Arguments
-    are tensors or numbers; numbers take the dtype and device of the first
-    tensor argument (the default dtype if there is none)."""
+    """Outer event-horizon radius r_+: 2M for Schwarzschild, and
+    M + sqrt(max(M^2 - a^2 - Q^2, 0)) for the Kerr-Newman family.
+    Arguments are tensors or numbers; numbers take the dtype and device of
+    the first tensor argument (the default dtype if there is none)."""
+    ref = next((v for v in (mass, a, q) if isinstance(v, torch.Tensor)),
+               torch.zeros(()))
+    mass, a, q = (torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+                  for v in (mass, a, q))
+    if metric == "Schwarzschild":
+        return 2.0 * mass
     if metric in ("Kerr", "KerrSchild"):
-        ref = next((v for v in (mass, a, q) if isinstance(v, torch.Tensor)),
-                   torch.zeros(()))
-        mass, a, q = (torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
-                      for v in (mass, a, q))
         return mass + torch.sqrt(torch.clamp(mass * mass - a * a - q * q,
                                              min=0.0))
-    raise NotImplementedError(
-        f"horizon_radius({metric!r}): only the Kerr-Newman family is "
-        f"ported to grtrace_torch (ROADMAP Queue A item 9)")
+    METRICS[metric]  # raises for the families of item 9
+    raise KeyError(metric)
 
 
-def null_p_t(p_sp, q, params, g_inv_fn):
+def hamiltonian(q, p, params, g_inv_fn):
+    """H = 0.5 g^{ab}(q) p_a p_b for one ray, q and p (4,); vmap for
+    batches."""
+    g = g_inv_fn(q, params)
+    return 0.5 * p @ g @ p
+
+
+def null_p_t(p_sp, q, params, g_inv_fn, future=True):
     """Solve g^{ab} p_a p_b = 0 for p_t, with the g^{t i} cross terms, for
     a batch: p_sp (..., 3) spatial covectors, q (..., 4) positions.
 
     A p_t^2 + B p_t + C = 0 with A = g^tt, B = 2 g^{t i} p_i,
-    C = g^{ij} p_i p_j; the future-directed root (-B - disc) / (2A), the
-    branch that reduces to the positive Schwarzschild root (A < 0 outside
-    the ergosphere)."""
+    C = g^{ij} p_i p_j.  future=True picks (-B - disc) / (2A), the branch
+    that reduces to the positive Schwarzschild root (A < 0 outside the
+    ergosphere); future=False the other one."""
     g = g_inv_fn(q, params)
     A = g[..., 0, 0]
     B = 2.0 * (g[..., 0, 1:] * p_sp).sum(-1)
     C = (p_sp[..., :, None] * g[..., 1:, 1:] * p_sp[..., None, :]).sum(
         (-2, -1))
     disc = torch.sqrt(torch.clamp(B * B - 4.0 * A * C, min=0.0))
-    return (-B - disc) / (2.0 * A)
+    return ((-B - disc) if future else (-B + disc)) / (2.0 * A)
+
+
+def build_null_4momentum(p_sp, pos_sph, params, g_inv_fn, future=True):
+    """(..., 3) spatial momenta at (..., 3) positions (r, theta, phi) ->
+    (..., 4) null covectors."""
+    q4 = torch.cat([torch.zeros_like(pos_sph[..., :1]), pos_sph], dim=-1)
+    p_t = null_p_t(p_sp, q4, params, g_inv_fn, future=future)
+    return torch.cat([p_t[..., None], p_sp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# FANTASY flows for any metric (autodiff kicks and drifts)
+# ---------------------------------------------------------------------------
+
+def make_flows(g_inv_fn):
+    """(flow_a, flow_b, flow_mixed) for a metric function, per ray: the
+    state is (q1, p1, q2, p2), each (4,).  The kick -dH/dq and the drift
+    +dH/dp are `torch.func.grad` of the scalar Hamiltonian; batch them
+    with `torch.func.vmap` (`make_step`'s batched form does)."""
+    from torch.func import grad
+    dq = grad(hamiltonian, argnums=0)
+    dp = grad(hamiltonian, argnums=1)
+
+    def flow_a(q1, p1, q2, p2, dt, params):
+        p1 = p1 - dt * dq(q1, p2, params, g_inv_fn)
+        q2 = q2 + dt * dp(q1, p2, params, g_inv_fn)
+        return q1, p1, q2, p2
+
+    def flow_b(q1, p1, q2, p2, dt, params):
+        p2 = p2 - dt * dq(q2, p1, params, g_inv_fn)
+        q1 = q1 + dt * dp(q2, p1, params, g_inv_fn)
+        return q1, p1, q2, p2
+
+    def flow_mixed(q1, p1, q2, p2, cos_w, sin_w):
+        q_sum, q_dif = q1 + q2, q1 - q2
+        p_sum, p_dif = p1 + p2, p1 - p2
+        return (0.5 * (q_sum + q_dif * cos_w + p_dif * sin_w),
+                0.5 * (p_sum + p_dif * cos_w - q_dif * sin_w),
+                0.5 * (q_sum - q_dif * cos_w - p_dif * sin_w),
+                0.5 * (p_sum - p_dif * cos_w + q_dif * sin_w))
+
+    return flow_a, flow_b, flow_mixed
+
+
+def make_step(g_inv_fn):
+    """The composed FANTASY step for the metric on (N, 4) batches:
+    step(q1, p1, q2, p2, params, subs), subs the (delta_i, cos_i, sin_i)
+    schedule of hamiltonian.substep_schedule; per substep A(d/2) B(d/2) M
+    B(d/2) A(d/2), the flows `torch.func.vmap`ped over the rays."""
+    from torch.func import vmap
+    flow_a, flow_b, flow_mixed = make_flows(g_inv_fn)
+    flow_a = vmap(flow_a, in_dims=(0, 0, 0, 0, None, None))
+    flow_b = vmap(flow_b, in_dims=(0, 0, 0, 0, None, None))
+
+    def step(q1, p1, q2, p2, params, subs):
+        for d_i, cos_i, sin_i in subs:
+            half = 0.5 * d_i
+            q1, p1, q2, p2 = flow_a(q1, p1, q2, p2, half, params)
+            q1, p1, q2, p2 = flow_b(q1, p1, q2, p2, half, params)
+            q1, p1, q2, p2 = flow_mixed(q1, p1, q2, p2, cos_i, sin_i)
+            q1, p1, q2, p2 = flow_b(q1, p1, q2, p2, half, params)
+            q1, p1, q2, p2 = flow_a(q1, p1, q2, p2, half, params)
+        return q1, p1, q2, p2
+
+    return step

@@ -12,8 +12,10 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # between them these import every module of the port, each new module of
 # the Kerr and disk slices on its own; of the subring slice's, the two that
 # `import grtrace_torch` does not reach (it imports engine.subring and
-# engine.hotspot); the command-line drivers; and each new module of the
-# disk product line (polarization, transfer maps, hot spots, their CLIs)
+# engine.hotspot); the command-line drivers; each new module of the
+# disk product line (polarization, transfer maps, hot spots, their CLIs);
+# and the generic engine's (the Boyer-Lindquist flows, the twins, the
+# kernels' wrappers)
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -34,7 +36,10 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.io.transfer",
                 "grtrace_torch.engine.hotspot",
                 "grtrace_torch.cli.reshade",
-                "grtrace_torch.cli.hotspot"]
+                "grtrace_torch.cli.hotspot",
+                "grtrace_torch.physics.kerr_bl",
+                "grtrace_torch.engine.integrate_generic",
+                "grtrace_torch.engine.integrate_generic_cuda"]
 
 # One interpreter with jax and grtrace blocked (any import of them raises)
 # imports the modules in turn and reports, for each, whether it imported
