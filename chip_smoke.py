@@ -101,10 +101,11 @@ all of the float32 and float64 headline rays (3c: a change to
 fantasy_eqc.cu is kept only if B1 drops and B2 and B4 do not rise beyond
 their spread), bare B5, B6 and B7 launches on a quarter, a half and all
 of their frames' rays (9b, 12b, 15b: a change to fantasy_ks.cu for B5 is
-kept only if B6 and B7 do not rise beyond their spread) and B3's on the
-float64 headline rays (23b); and, in 21a, the
-sincos that B3's flows call, which must equal torch's sin and cos on every
-point.
+kept only if B6 and B7 do not rise beyond their spread), B3's on the
+float64 headline rays (23b) and G1's on the Boyer-Lindquist frame's
+(35b); and, in 21a, the sincos that B3's flows and G1's and S2's
+Boyer-Lindquist evaluations call, which must equal torch's sin and cos on
+every point.
 
 Each render checks that it went through its kernel.  Each phase prints one
 line; any failure raises and the script exits non-zero.  The last three
@@ -972,7 +973,8 @@ def f64_main_path(device, counts32):
 
 def trig_probe(device):
     """The card's sinf/cosf and sin/cos, as two calls and as the one
-    sincosf/sincos call that kernel B3's flows make (built by
+    sincosf/sincos call that kernel B3's flows and G1's and S2's
+    Boyer-Lindquist evaluations make (built by
     kernels/build.py into fantasy_schw16.cu's library), against torch.sin /
     torch.cos: every float32 in (0, pi), and 1e8 float64 points there."""
     from grtrace_torch.kernels.build import load
@@ -1033,7 +1035,8 @@ def trig_probe(device):
            "seconds": time.perf_counter() - t0}
     phase("21a", f"the card's sin/cos and sincos (kernel build) vs "
                  f"torch.sin/torch.cos on (0, pi), differing values (B3's "
-                 f"flows call sincos; its parity in 21b rests on 0): "
+                 f"flows and G1's and S2's Boyer-Lindquist evaluations call "
+                 f"sincos; their parity in 21b, 34, 35 rests on 0): "
                  f"{json.dumps(res)}")
     for dt, st in (("float32", f32), ("float64", f64)):
         if st["sincos_sin"] or st["sincos_cos"]:
@@ -2101,6 +2104,9 @@ def bl_path_phase():
               f"{float(np.median(full_ms)):.3f} ms of "
               f"{[round(t, 3) for t in full_ms]}, bound {full_bound[0]:.3f} "
               f"ms ({full_bound[1]})")
+    phase("35b", f"G1 (bare, cost-sorted) on a quarter, a half and all of "
+                 f"the BL frame's rays ({KERR_STEPS}-step budget; {CARD}): "
+                 f"{json.dumps(gen_sweep(q0, p0, params))}")
     held = "every ray"
     if int(ns.max()) > GEN_TWIN_MAX_STEPS:
         q0, p0, held = q0[::16].contiguous(), p0[::16].contiguous(), \
@@ -2224,11 +2230,12 @@ def ks_path_phase():
     return {"launches": launches, "wall": wall, "s2": s2}
 
 
-# kernels that must not spill: B3 and B5-B7, whose __launch_bounds__ ask
-# for the most blocks that fit without a spill (a spill means a later edit
-# outgrew them), and B1, B2 and B4, whose step loop a spill would lengthen
+# kernels that must not spill: B3, B5-B7 and G1 (with S2), whose
+# __launch_bounds__ ask for the most blocks that fit without a spill (a
+# spill means a later edit outgrew them), and B1, B2 and B4, whose step
+# loop a spill would lengthen
 NO_SPILL = ("fantasy_eqc_kernel", "fantasy_ks_kernel",
-            "fantasy_schw16_kernel")
+            "fantasy_schw16_kernel", "fantasy_gen_kernel")
 
 
 def build_kernels():
@@ -2473,6 +2480,19 @@ def schw16_sweep(q0, p0, steps, delta):
         _, q_s, p_s = tc._sorted(q, p, float(params[0]))
         state = torch.stack(pack_state(q_s, p_s))
         return lambda: tc.launch_fantasy_schw16(state, params, steps)
+    return ray_sweep(prepare, q0, p0)
+
+
+def gen_sweep(q0, p0, params):
+    """G1 on the Boyer-Lindquist frame's rays at the Kerr budget,
+    cost-sorted as its wrapper sorts."""
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.integrate_generic import gen_params
+    vec = gen_params("Kerr", KERR_DELTA, params, R_MAX, OMEGA, 2, q0.dtype)
+
+    def prepare(q, p):
+        _, q_s, p_s = tgc._sorted_rays(q, p, float(vec[0]))
+        return lambda: tgc.launch_fantasy_gen(q_s, p_s, vec, KERR_STEPS)
     return ray_sweep(prepare, q0, p0)
 
 

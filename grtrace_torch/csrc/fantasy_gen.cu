@@ -16,7 +16,7 @@
 // twins, which define what these kernels compute, are grtrace_torch/
 // engine/integrate_generic.py::integrate_generic_twin (G1) and
 // ::trajectory_generic_twin (S2), built on the closed-form flows of
-// physics/kerr_bl.py and physics/kerr_schild.py (_flow_a_ks, _flow_b_ks,
+// physics/kerr_bl.py and physics/kerr_schild.py (_kick_drift, _flow_b_ks,
 // hamiltonian_ks) and hamiltonian._flow_mixed.
 //
 // The step: per substep the unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) of
@@ -45,18 +45,39 @@
 // numerical.  The host zeroes the record, so the slots after a ray's exit
 // stay +0.0.
 //
-// What bounds them on an H100.  G1 on a 1024x1024 frame: FP32 (or FP64)
-// issue rate and latency; a ray is a serial chain of about 480
-// floating-point operations a step at order 2 (four Boyer-Lindquist
-// kick/drifts, each with a sine, a cosine and five IEEE divisions), with no
-// memory traffic inside the loop, and rays exit after very different step
-// counts.  S2 runs tens of rays (20 in the render's sampler), one warp: it
-// is bound by the latency of its longest ray's chain, as S1 is.
+// What bounds them on an H100.  G1 on a 1024x1024 frame: the rate at which
+// the SMs issue FP32 (or FP64) instructions.  A ray is a serial chain of
+// about 530 floating-point operations a step at order 2 (three
+// Boyer-Lindquist kick/drift evaluations, each with one sincos and five
+// IEEE divisions, four flows applied, the mixing), about 1,060 SASS
+// instructions with what the divisions and sincos issue besides, and no
+// memory traffic inside the loop; rays exit after very different step
+// counts.  Nothing here is a matrix product or a tile that streams through
+// memory, so the tensor cores, TMA and shared-memory staging have no work:
+// the levers are the instructions a step issues, their latency, and enough
+// resident warps to hide it.  S2 runs tens of rays (20 in the render's
+// sampler), one warp: it is bound by the latency of its longest ray's
+// chain, as S1 is.
 //
-// What the design does about it: in this first version, nothing beyond one
-// thread per ray with its state and its pre-step copy in registers and a
-// per-ray exit; no cost sort, no shared memory.  Making it fast is later
-// work.
+// What the design does about it:
+//  * flow A reads q1 and p2 and writes neither, and nothing runs between
+//    one flow A and the next (the guard aside), so each flow A applies the
+//    kick/drift that the one before it formed, across substeps and steps:
+//    three evaluations a substep, not four.  The launch forms the first;
+//    after a park, G1 ends the ray and S2 forms it anew.  Each flow is still
+//    applied by itself, with its own dt;
+//  * the derivatives multiply by g^thth = 1 / Sigma and by one 1 / sin^2
+//    theta where they divided by Sigma, sin^2 theta and sin theta: five
+//    divisions an evaluation (the metric's four and 1 / sin^2 theta), 15 a
+//    step at order 2 where there were 44 (the twin, kerr_bl.py, changed
+//    with the kernel, term by term);
+//  * sin and cos of theta come from one sincos;
+//  * the wrapper launches the rays sorted by |b - 3 sqrt(3) M|, so that a
+//    warp's rays retire together; a finished ray breaks out of its loop;
+//  * __launch_bounds__ asks for 7 float blocks of 128 threads per SM (at
+//    most 72 registers, no spill; min_blocks below).  The state and its
+//    pre-step copy stay in registers: no block size (64, 128, 256) nor
+//    fewer resident warps (6 or 5 blocks) measured faster.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // operation rounds once, in the order written, exactly as the twins' torch
@@ -64,9 +85,10 @@
 // term.  A Python scalar divided by a tensor is torch's reciprocal times the
 // scalar, so 1 / x is one IEEE division; no twin divides a tensor by a
 // Python scalar.  Literals are of the ray type T (T(3e-2) is the float
-// nearest 0.03, as torch rounds the Python scalar).  sin and cos are the
-// card's sinf/cosf (sin/cos for double), which chip_smoke.py's phase 21a
-// holds against torch.sin and torch.cos on the card.
+// nearest 0.03, as torch rounds the Python scalar).  sin and cos come from
+// the card's sincosf (sincos for double), which gives the very values of
+// its sinf and cosf and which chip_smoke.py's phase 21a holds against
+// torch.sin and torch.cos on the card.
 //
 // Layout: q0 and p0 are (n, 4) in T, row-major.  params is the vector [M,
 // a, Q, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park, err_park,
@@ -95,10 +117,23 @@ constexpr int threads_of(Mode mode) {
   return mode == Mode::kIntegrate ? 128 : 32;
 }
 
-__device__ __forceinline__ float sin_t(float x) { return sinf(x); }
-__device__ __forceinline__ double sin_t(double x) { return sin(x); }
-__device__ __forceinline__ float cos_t(float x) { return cosf(x); }
-__device__ __forceinline__ double cos_t(double x) { return cos(x); }
+// The resident blocks per SM that __launch_bounds__ asks ptxas to fit in
+// G1: 7 of float (at most 72 registers; left to itself ptxas takes 64 and
+// spills 52 bytes a thread), 4 of double (the 128 registers it takes
+// anyway).  chip_smoke.py fails on any spill here: lower the count then.
+// S2 asks for one.
+template <typename T, Mode kMode>
+constexpr int min_blocks() {
+  if constexpr (kMode == Mode::kRecord) return 1;
+  return sizeof(T) == 8 ? 4 : 7;
+}
+
+__device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ void sincos_t(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
 __device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
@@ -127,8 +162,8 @@ __device__ __forceinline__ KickDrift<T> kick_drift_bl(T r, T th, T pt, T pr,
   const T a = sc.a;
   const T mass = sc.mass;
   // kerr_bl._geom
-  const T sin_th = sin_t(th);
-  const T cos_th = cos_t(th);
+  T sin_th, cos_th;
+  sincos_t(th, &sin_th, &cos_th);
   const T sin2 = sin_th * sin_th;
   const T rr = r * r;
   const T sigma = rr + a * a * cos_th * cos_th;
@@ -156,13 +191,14 @@ __device__ __forceinline__ KickDrift<T> kick_drift_bl(T r, T th, T pt, T pr,
   const T tt_th = -(-a * a * delta * sc2 - n_tt * q_th) * inv_sd;
   const T tp_r = -(T(2) * mass - n_tp * q_r) * a * inv_sd;
   const T tp_th = n_tp * q_th * a * inv_sd;
-  const T rr_r = (del_r - g_rr * two_r) / sigma;
-  const T rr_th = -(g_rr * sig_th) / sigma;
-  const T hh_r = -(g_thth * two_r) / sigma;
-  const T hh_th = -(g_thth * sig_th) / sigma;
-  const T pp_r = (del_r - n_pp * q_r) * inv_sd / sin2;
-  const T pp_th = (sig_th - n_pp * q_th) * inv_sd / sin2
-                  - T(2) * g_pp * cos_th / sin_th;
+  const T inv_sin2 = T(1) / sin2;
+  const T rr_r = (del_r - g_rr * two_r) * g_thth;
+  const T rr_th = -(g_rr * sig_th) * g_thth;
+  const T hh_r = -(g_thth * two_r) * g_thth;
+  const T hh_th = -(g_thth * sig_th) * g_thth;
+  const T pp_r = (del_r - n_pp * q_r) * inv_sd * inv_sin2;
+  const T pp_th = (sig_th - n_pp * q_th) * inv_sd * inv_sin2
+                  - T(2) * g_pp * cos_th * sin_th * inv_sin2;
 
   const T ptpt = pt * pt;
   const T ptpp = pt * pph;
@@ -259,24 +295,28 @@ __device__ __forceinline__ T ks_radius(T x, T y, T z, T a) {
   return sqrt_t(T(0.5) * (b + sqrt_t(b * b + T(4) * a * a * z * z)));
 }
 
-// One flow: the metric at the position copy Q with the momenta P_READ
-// kicks the momenta P_KICK and drifts the position Q_DRIFT by dt (flow A:
-// Q = 0, P_READ = 12, P_KICK = 4, Q_DRIFT = 8; flow B: Q = 8, P_READ = 4,
+// A flow's kick/drift: the metric at the position copy Q with the momenta
+// P_READ (flow A: Q = 0, P_READ = 12; flow B: Q = 8, P_READ = 4)
+template <Chart kChart, int Q, int P_READ, typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift(const T (&s)[kRows],
+                                                   const Scalars<T>& sc) {
+  if constexpr (kChart == Chart::kBL) {
+    return kick_drift_bl(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
+                         s[P_READ + 2], s[P_READ + 3], sc);
+  } else {
+    return kick_drift_ks(s[Q + 1], s[Q + 2], s[Q + 3], s[P_READ + 0],
+                         s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
+  }
+}
+
+// A flow applied with its kick/drift k: kick the momenta P_KICK and drift
+// the position Q_DRIFT by dt (flow A: P_KICK = 4, Q_DRIFT = 8; flow B:
 // P_KICK = 12, Q_DRIFT = 0).  Boyer-Lindquist kicks rows r and theta,
 // Kerr-Schild x, y and z; p_t (and p_phi in BL) stay exact invariants.
-template <Chart kChart, int Q, int P_READ, int P_KICK, int Q_DRIFT,
-          typename T>
-__device__ __forceinline__ void flow(T (&s)[kRows], T dt,
-                                     const Scalars<T>& sc) {
+template <Chart kChart, int P_KICK, int Q_DRIFT, typename T>
+__device__ __forceinline__ void apply(T (&s)[kRows], const KickDrift<T>& k,
+                                      T dt) {
   constexpr int kKicked = kChart == Chart::kBL ? 2 : 3;
-  KickDrift<T> k;
-  if constexpr (kChart == Chart::kBL) {
-    k = kick_drift_bl(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
-                      s[P_READ + 2], s[P_READ + 3], sc);
-  } else {
-    k = kick_drift_ks(s[Q + 1], s[Q + 2], s[Q + 3], s[P_READ + 0],
-                      s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
-  }
 #pragma unroll
   for (int m = 0; m < kKicked; ++m) {
     s[P_KICK + 1 + m] = s[P_KICK + 1 + m] - dt * k.kick[m];
@@ -285,6 +325,20 @@ __device__ __forceinline__ void flow(T (&s)[kRows], T dt,
   for (int m = 0; m < 4; ++m) {
     s[Q_DRIFT + m] = s[Q_DRIFT + m] + dt * k.drift[m];
   }
+}
+
+// Flow A's kick/drift, at q1 with the momenta p2
+template <Chart kChart, typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift_a(const T (&s)[kRows],
+                                                     const Scalars<T>& sc) {
+  return kick_drift<kChart, 0, 12>(s, sc);
+}
+
+// Flow B (the metric at q2 with the momenta p1; kick p2, drift q1)
+template <Chart kChart, typename T>
+__device__ __forceinline__ void flow_b(T (&s)[kRows], T dt,
+                                       const Scalars<T>& sc) {
+  apply<kChart, 12, 0>(s, kick_drift<kChart, 8, 4>(s, sc), dt);
 }
 
 // hamiltonian._flow_mixed: the rotation between the copies, cos/sin form
@@ -304,19 +358,26 @@ __device__ __forceinline__ void flow_mixed(T (&s)[kRows], T cw, T sw) {
   }
 }
 
-// One composed step: per substep A(d/2) B(d/2) M B(d/2) A(d/2)
+// One composed step: per substep A(d/2) B(d/2) M B(d/2) A(d/2).  Flow A
+// reads q1 and p2 and writes neither, and nothing else runs between one
+// flow A and the next, so each flow A takes the kick/drift `ka` that the
+// one before it formed (the launch's, on the first step) and each
+// substep's last flow A forms the next one's.  Every flow is still applied
+// by itself, with its own dt.
 template <Chart kChart, typename T>
-__device__ __forceinline__ void composed(T (&s)[kRows], const T* subs,
-                                         int n_sub, const Scalars<T>& sc) {
+__device__ __forceinline__ void composed(T (&s)[kRows], KickDrift<T>& ka,
+                                         const T* subs, int n_sub,
+                                         const Scalars<T>& sc) {
   for (int j = 0; j < n_sub; ++j) {
     const T half = T(0.5) * __ldg(subs + 3 * j);
     const T cw = __ldg(subs + 3 * j + 1);
     const T sw = __ldg(subs + 3 * j + 2);
-    flow<kChart, 0, 12, 4, 8>(s, half, sc);
-    flow<kChart, 8, 4, 12, 0>(s, half, sc);
+    apply<kChart, 4, 8>(s, ka, half);
+    flow_b<kChart>(s, half, sc);
     flow_mixed(s, cw, sw);
-    flow<kChart, 8, 4, 12, 0>(s, half, sc);
-    flow<kChart, 0, 12, 4, 8>(s, half, sc);
+    flow_b<kChart>(s, half, sc);
+    ka = kick_drift_a<kChart>(s, sc);
+    apply<kChart, 4, 8>(s, ka, half);
   }
 }
 
@@ -391,7 +452,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
 }
 
 template <typename T, Chart kChart, Mode kMode>
-__global__ void __launch_bounds__(threads_of(kMode))
+__global__ void __launch_bounds__(threads_of(kMode), (min_blocks<T, kMode>()))
 fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
                    T* __restrict__ out, int* __restrict__ ns_out,
                    const T* __restrict__ params, int n, int n_sub, int steps,
@@ -426,6 +487,7 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   }
   int next_store = 0;  // S2: the next step whose q1 is recorded
   int ns = 0;
+  KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
   for (int k = 0; k < steps; ++k) {
     if constexpr (kMode == Mode::kRecord) {
       if (k == next_store) {
@@ -440,13 +502,15 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     T old[kRows];
 #pragma unroll
     for (int m = 0; m < kRows; ++m) old[m] = s[m];
-    composed<kChart>(s, subs, n_sub, sc);
+    composed<kChart>(s, ka, subs, n_sub, sc);
     const bool parked = guard<kChart>(s, old, r_b, sc);
     ++ns;
-    if constexpr (kMode == Mode::kIntegrate) {
-      if (parked) {
+    if (parked) {
+      if constexpr (kMode == Mode::kIntegrate) {
         ns = -ns;  // the park flag rides in the sign
         break;
+      } else {
+        ka = kick_drift_a<kChart>(s, sc);  // q1 reverted and parked
       }
     }
   }

@@ -27,10 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from ..physics import kerr_bl
+from ..physics import kerr_bl, kerr_schild
 from ..physics.hamiltonian import _flow_mixed, pack_state, substep_schedule
-from ..physics.kerr_schild import (_flow_a_ks, _flow_b_ks, hamiltonian_ks,
-                                   ks_radius_c)
+from ..physics.kerr_schild import _flow_b_ks, hamiltonian_ks, ks_radius_c
 from ..physics.spacetime import COORDS, horizon_radius
 from .integrate import _EXIT_CHECK, resolve_backend, traj_layout
 from .integrate_ks import apply_bardeen_rescue_bl, integrate_dispatch_ks
@@ -122,30 +121,53 @@ def split_params(vec):
 
 
 def make_generic_step(metric, vec):
-    """(active, step) for one integration from a gen_params vector.
+    """(active, opening, step) for one integration from a gen_params
+    vector.
 
     active(state) -> the rays inside the domain before a step: r_cap < r <
-    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  step(state) ->
-    (bad, new state): one composed step of every ray, then the chart's
-    blow-up guard, which reverts the rays it flags (bad) to the pre-step
-    state and parks their q1 (`grtrace.engine.integrate_generic.
-    _domain_tools`'s guard_spherical / guard_cartesian)."""
+    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  opening(state) ->
+    flow A's kick/drift at the state's (q1, p2), the carry the first step
+    takes.  step(state, ka) -> (bad, new state, ka): one composed step of
+    every ray from the carry ka, then the chart's blow-up guard, which
+    reverts the rays it flags (bad) to the pre-step state and parks their
+    q1 (`grtrace.engine.integrate_generic._domain_tools`'s guard_spherical
+    / guard_cartesian); the carry it returns is flow A's at the new state's
+    (q1, p2), except on the reverted rays, which the park leaves outside
+    the domain for good."""
     (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
      err_park), subs = split_params(vec)
     if metric == "KerrSchild":
-        flow_a, flow_b = _flow_a_ks, _flow_b_ks
+        kick_drift, n_kick, flow_b = kerr_schild._kick_drift, 3, _flow_b_ks
     else:
-        flow_a, flow_b = kerr_bl.flow_a, kerr_bl.flow_b
+        kick_drift, n_kick, flow_b = kerr_bl._kick_drift, 2, kerr_bl.flow_b
 
-    def composed(state):
+    def opening(s):
+        """Flow A's kick/drift: the metric at q1 with the momenta p2."""
+        return kick_drift(*s[1:1 + n_kick], *s[12:16], mass, a, charge)
+
+    def flow_a(s, ka, dt):
+        """Flow A applied with its kick/drift ka: kick p1 (its n_kick
+        spatial rows), drift q2 (all 4)."""
+        s = list(s)
+        for m in range(n_kick):
+            s[5 + m] = s[5 + m] - dt * ka[m]
+        for m in range(4):
+            s[8 + m] = s[8 + m] + dt * ka[n_kick + m]
+        return tuple(s)
+
+    def composed(state, ka):
+        # flow A reads q1 and p2 and writes neither, and nothing runs
+        # between one flow A and the next: each takes the kick/drift the one
+        # before it formed, and applies it with its own dt
         for d_j, cos_j, sin_j in subs:
             half = 0.5 * d_j
-            state = flow_a(state, half, mass, a, charge)
+            state = flow_a(state, ka, half)
             state = flow_b(state, half, mass, a, charge)
             state = _flow_mixed(state, cos_j, sin_j)
             state = flow_b(state, half, mass, a, charge)
-            state = flow_a(state, half, mass, a, charge)
-        return state
+            ka = opening(state)
+            state = flow_a(state, ka, half)
+        return state, ka
 
     def finite_q1p1(new):
         finite = torch.isfinite(new[0])
@@ -160,8 +182,8 @@ def make_generic_step(metric, vec):
         rho = torch.sqrt(s[1] * s[1] + s[2] * s[2] + s[3] * s[3])
         return (ks_radius_c(s[1], s[2], s[3], a) > r_cap) & (rho < r_max)
 
-    def step_bl(old):
-        new = composed(old)
+    def step_bl(old, ka):
+        new, ka = composed(old, ka)
         r_b = old[1]
         finite = finite_q1p1(new)
         exploded = (~finite | (torch.abs(new[1] - r_b) > jump_cap)
@@ -174,10 +196,10 @@ def make_generic_step(metric, vec):
         zero = torch.zeros_like(r_b)
         out[1] = torch.where(bad, torch.where(capture, zero + cap_park,
                                               zero + err_park), out[1])
-        return bad, tuple(out)
+        return bad, tuple(out), ka
 
-    def step_ks(old):
-        new = composed(old)
+    def step_ks(old, ka):
+        new, ka = composed(old, ka)
         r_b = ks_radius_c(old[1], old[2], old[3], a)
         finite = finite_q1p1(new)
         x, y, z, pt, px, py, pz = (torch.where(finite, new[i], old[i])
@@ -198,11 +220,11 @@ def make_generic_step(metric, vec):
         out[2] = torch.where(bad, zero, out[2])
         out[3] = torch.where(bad, torch.where(capture, zero + cap_park, zero),
                              out[3])
-        return bad, tuple(out)
+        return bad, tuple(out), ka
 
     if metric == "KerrSchild":
-        return active_ks, step_ks
-    return active_bl, step_bl
+        return active_ks, opening, step_ks
+    return active_bl, opening, step_bl
 
 
 def integrate_generic_twin(q0s, p0s, steps, vec):
@@ -210,16 +232,18 @@ def integrate_generic_twin(q0s, p0s, steps, vec):
     gen_params vector: at most `steps` masked, guarded steps; a ray the
     guard parks freezes with its step count negated (-(n + 1)).  Returns
     (state, ns) before the rescue."""
-    active, step = make_generic_step("Kerr", vec)
+    active, opening, step = make_generic_step("Kerr", vec)
     state = pack_state(q0s, p0s)
+    ka = opening(state)
     ns = torch.zeros(q0s.shape[:1], dtype=torch.int32, device=q0s.device)
     # masked steps on inactive rays are exact no-ops, so checking for an
-    # early exit only every _EXIT_CHECK steps changes nothing
+    # early exit only every _EXIT_CHECK steps changes nothing; a ray that is
+    # inactive (or parked) once stays so, so its carry is never read again
     for k in range(steps):
         act = active(state)
         if k % _EXIT_CHECK == 0 and not bool(act.any()):
             break
-        bad, new = step(state)
+        bad, new, ka = step(state, ka)
         ns = ns + act.to(torch.int32)
         ns = torch.where(act & bad, -ns, ns)
         state = tuple(torch.where(act, n, o) for n, o in zip(new, state))
@@ -262,11 +286,12 @@ def trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride, n_keep):
     is inactive, so the first position outside the domain is recorded
     when it falls on a slot.  Once no ray is alive, the remaining slots
     would all be zero, so the loop stops there."""
-    active, step = make_generic_step(metric, vec)
+    active, opening, step = make_generic_step(metric, vec)
     n = q0s.shape[0]
     traj = torch.zeros((n, n_keep, 4), dtype=q0s.dtype, device=q0s.device)
     ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
     state = pack_state(q0s, p0s)
+    ka = opening(state)
     alive = torch.ones((n,), dtype=torch.bool, device=q0s.device)
     for k in range(steps):
         if k % _EXIT_CHECK == 0 and not bool(alive.any()):
@@ -276,7 +301,7 @@ def trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride, n_keep):
             traj[:, k // stride, :] = torch.where(
                 alive[:, None], torch.stack(state[0:4], dim=-1), 0.0)
         alive = alive & act
-        _, new = step(state)
+        _, new, ka = step(state, ka)
         ns = ns + act.to(torch.int32)
         state = tuple(torch.where(act, nw, o) for nw, o in zip(new, state))
     return traj, ns

@@ -9,15 +9,18 @@
 
 Port-side kernels: JAX runs this engine in XLA loops, not in Pallas, so
 they replace no TPU kernel.  One thread integrates one ray, float32 or
-float64.  Their eager twins, `integrate_generic_twin` and
-`trajectory_generic_twin` (engine/integrate_generic.py), define their
-results, and each kernel and its twin read the same host-built scalar
-vector (`gen_params`).  This module only launches: it never falls back to
+float64; G1's wrapper launches the rays sorted by a cost key and puts the
+results back in the caller's order.  Their eager twins,
+`integrate_generic_twin` and `trajectory_generic_twin`
+(engine/integrate_generic.py), define their results, and each kernel and
+its twin read the same host-built scalar vector (`gen_params`).  This module only launches: it never falls back to
 a twin, and every wrapper raises for CPU tensors.  Rays on the CPU belong
 to `integrate_dispatch_generic` and `trajectory_dispatch_generic`, which
 send them to the twins.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -115,16 +118,51 @@ def launch_fantasy_gen_traj(q0s, p0s, params, steps, stride, n_keep,
     return traj, ns
 
 
+# sin^2 theta below this is taken as this in the cost key, so that a ray at
+# the chart's pole gets a finite key
+_SIN2_FLOOR = 1e-12
+
+
+def _cost_sort_key_bl(q0s, p0s, mass):
+    """Predicted cost key of (N, 4) Boyer-Lindquist rays: the impact
+    parameter b = sqrt(p_theta^2 + p_phi^2 / sin^2 theta) / |p_t|, keyed as
+    |b - 3 sqrt(3) M|, in float64.  It only has to cluster the long-running
+    photon-ring rays into the same warps."""
+    q, p = q0s.double(), p0s.double()
+    sin2 = torch.clamp(torch.sin(q[:, 2]) ** 2, min=_SIN2_FLOOR)
+    ell = torch.sqrt(p[:, 2] * p[:, 2] + p[:, 3] * p[:, 3] / sin2)
+    b = ell / torch.clamp(torch.abs(p[:, 0]), min=1e-30)
+    return torch.abs(b - 3.0 * math.sqrt(3.0) * mass)
+
+
+def _sorted_rays(q0s, p0s, mass):
+    """(launch order, q0s and p0s in that order): the rays by cost key."""
+    order_idx = torch.argsort(_cost_sort_key_bl(q0s, p0s, mass), stable=True)
+    return order_idx, q0s[order_idx], p0s[order_idx]
+
+
+def _unsorted(order_idx, out, ns):
+    """G1's (12, N) rows and (N,) step counts, launched in `order_idx`,
+    back in the caller's order."""
+    out_u, ns_u = torch.empty_like(out), torch.empty_like(ns)
+    out_u[:, order_idx] = out
+    ns_u[order_idx] = ns
+    return out_u, ns_u
+
+
 def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
                                  omega, order=2):
     """Integrate (N, 4) Boyer-Lindquist rays through G1, then the exact
     rescue: (final_q, final_p, status, n_steps), the contract of
     `integrate_batch_generic(metric='Kerr')`, which it matches bit for bit
-    on the card.  Raises for CPU, misshapen or non-contiguous inputs, and
-    for a failed build or launch."""
+    on the card.  Rays are launched in cost-sorted order
+    (`_cost_sort_key_bl`) and come back in the caller's.  Raises for CPU,
+    misshapen or non-contiguous inputs, and for a failed build or
+    launch."""
     _check_inputs(q0s, p0s, (F32, F64))
     vec = gen_params("Kerr", delta, params, r_max, omega, order, q0s.dtype)
-    out, ns = launch_fantasy_gen(q0s, p0s, vec, steps)
+    order_idx, q_s, p_s = _sorted_rays(q0s, p0s, float(vec[0]))
+    out, ns = _unsorted(order_idx, *launch_fantasy_gen(q_s, p_s, vec, steps))
     return finish_generic_bl(tuple(out), ns, q0s, p0s, vec)
 
 

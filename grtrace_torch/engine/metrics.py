@@ -126,17 +126,22 @@ PEAK_BYTES = 3.35e12
 #                12; a multiply by -1 is a negation) + mixing 96 = 337; the
 #                guard 2 per step; once per ray 1.1 rs (1)
 #   fantasy_gen (G1; and S2 in the Boyer-Lindquist chart): per substep
-#                A B M B A = 1 + 4 flows x 139 (the kick/drift 127: sin
-#                and cos 2, the metric 33, its r and theta derivatives 57,
-#                the two contracted kicks 22 with the five momentum
-#                products and the drift 8; the kicks and drifts applied 12)
-#                + mixing 96 = 653; the guard's two differences 2 per step
-#   fantasy_gen_traj_ks (S2 in the Kerr-Schild chart): per substep 1 + 4
-#                flows x (kick/drift 120 + 3 kicks and 4 drifts applied
-#                14) + mixing 96 = 633; per step the active test's radius
-#                and |x| (17 + 6) and the guard 81: the geometry at the
-#                new point (35), S (6) and h (11), the tolerance (7), the
-#                new radius (17) and the inward heading (5)
+#                A B M B A = 1 + 3 kick/drift evaluations x 129 (sin and
+#                cos 2, the metric 33 with its 4 divisions, its r and theta
+#                derivatives 59 with one 1 / sin^2 theta, the two
+#                contracted kicks 22 with the five momentum products 5, the
+#                drift 8; flow A's evaluation is carried to the next flow A)
+#                + 4 flows applied x 12 (2 kicks and 4 drifts) + mixing 96
+#                = 532; the guard's two differences 2 per step; once per ray
+#                the launch's flow A evaluation, 129 (the one a park in S2
+#                recomputes is not counted: the bound stays a bound)
+#   fantasy_gen_traj_ks (S2 in the Kerr-Schild chart): per substep 1 + 3
+#                kick/drift evaluations x 120 + 4 flows applied x (3 kicks
+#                and 4 drifts) 14 + mixing 96 = 513; per step the active
+#                test's radius and |x| (17 + 6) and the guard 81: the
+#                geometry at the new point (35), S (6) and h (11), the
+#                tolerance (7), the new radius (17) and the inward heading
+#                (5); once per ray the launch's flow A evaluation, 120
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -152,9 +157,9 @@ KERNEL_OPS = {
     "fantasy_ks": (586, 55, 332),
     "fantasy_ks_plain": (499, 55, 290),
     "fantasy_traj": (337, 2, 1),
-    "fantasy_gen": (653, 2, 0),
-    "fantasy_gen_traj_bl": (653, 2, 0),
-    "fantasy_gen_traj_ks": (633, 104, 0),
+    "fantasy_gen": (532, 2, 129),
+    "fantasy_gen_traj_bl": (532, 2, 129),
+    "fantasy_gen_traj_ks": (513, 104, 120),
 }
 DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
 SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42

@@ -37,7 +37,11 @@ numerators above):
     drift dH/dp = (g^tt p_t + g^tphi p_phi, g^rr p_r, g^thth p_th,
                    g^tphi p_t + g^phph p_phi)
 The chart is stationary and axisymmetric: the kick on p_t and p_phi is
-exactly 0, so the flows leave those rows as they are.
+exactly 0, so the flows leave those rows as they are.  The derivatives
+multiply by g^thth = 1 / Sigma and by one 1 / s^2 where the formulas
+divide by Sigma, s^2 and s (c / s = c s / s^2): an evaluation divides five
+times, the metric's four and 1 / s^2; the metric itself keeps
+spacetime.kerr_g_inv's association, since the drift reads it.
 
 Every expression is written in the order the kernel evaluates it, since
 the kernel must round exactly as these functions do.  The scalars M, a, Q,
@@ -92,13 +96,14 @@ def _kick_drift(r, th, pt, pr, pth, pph, mass, a, charge=0.0):
     tt_th = -(-a * a * delta * sc2 - n_tt * q_th) * inv_sd
     tp_r = -(2.0 * mass - n_tp * q_r) * a * inv_sd
     tp_th = n_tp * q_th * a * inv_sd
-    rr_r = (del_r - g_rr * two_r) / sigma
-    rr_th = -(g_rr * sig_th) / sigma
-    hh_r = -(g_thth * two_r) / sigma
-    hh_th = -(g_thth * sig_th) / sigma
-    pp_r = (del_r - n_pp * q_r) * inv_sd / sin2
-    pp_th = ((sig_th - n_pp * q_th) * inv_sd / sin2
-             - 2.0 * g_pp * cos_th / sin_th)
+    inv_sin2 = 1.0 / sin2
+    rr_r = (del_r - g_rr * two_r) * g_thth
+    rr_th = -(g_rr * sig_th) * g_thth
+    hh_r = -(g_thth * two_r) * g_thth
+    hh_th = -(g_thth * sig_th) * g_thth
+    pp_r = (del_r - n_pp * q_r) * inv_sd * inv_sin2
+    pp_th = ((sig_th - n_pp * q_th) * inv_sd * inv_sin2
+             - 2.0 * g_pp * cos_th * sin_th * inv_sin2)
 
     ptpt, ptpp = pt * pt, pt * pph
     prpr, phph, pppp = pr * pr, pth * pth, pph * pph
@@ -112,23 +117,6 @@ def _kick_drift(r, th, pt, pr, pth, pph, mass, a, charge=0.0):
     d_th = g_thth * pth
     d_ph = g_tp * pt + g_pp * pph
     return k_r, k_th, d_t, d_r, d_th, d_ph
-
-
-def flow_a(state, dt, mass, a, charge=0.0):
-    """Flow A: metric at q1 and momenta p2; kick p1 (r, theta rows),
-    drift q2 (all 4)."""
-    (q1t, q1r, q1th, q1ph, p1t, p1r, p1th, p1ph,
-     q2t, q2r, q2th, q2ph, p2t, p2r, p2th, p2ph) = state
-    k_r, k_th, d_t, d_r, d_th, d_ph = _kick_drift(
-        q1r, q1th, p2t, p2r, p2th, p2ph, mass, a, charge)
-    p1r = p1r - dt * k_r
-    p1th = p1th - dt * k_th
-    q2t = q2t + dt * d_t
-    q2r = q2r + dt * d_r
-    q2th = q2th + dt * d_th
-    q2ph = q2ph + dt * d_ph
-    return (q1t, q1r, q1th, q1ph, p1t, p1r, p1th, p1ph,
-            q2t, q2r, q2th, q2ph, p2t, p2r, p2th, p2ph)
 
 
 def flow_b(state, dt, mass, a, charge=0.0):

@@ -273,6 +273,8 @@ def test_metrics_table_roofline_and_trace(tmp_path):
     from grtrace_torch.engine import metrics as tm
     assert tm.flops_per_ray_step("fantasy_eqc") == 218
     assert tm.flops_per_ray_step("fantasy_traj", order=4) == 3 * 337 + 2
+    assert tm.flops_per_ray_step("fantasy_gen", order=4) == 3 * 532 + 2
+    assert tm.KERNEL_OPS["fantasy_gen_traj_bl"] == tm.KERNEL_OPS["fantasy_gen"]
     rep = tm.roofline_report(1e9, "fantasy_traj")
     assert rep["sustained_flops"] == 1e9 * 339
     if not torch.cuda.is_available():

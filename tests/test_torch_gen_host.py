@@ -6,14 +6,14 @@ The source compiles on the CPU as it stands (its CUDA include and launch
 functions sit under __CUDACC__); a shim stands in for CUDA's keywords and
 runs the kernel one thread at a time, with -ffp-contract=off so that g++
 contracts no multiply-add, as nvcc's -fmad=false.  The twins run one ray
-at a time in float64: on one-element tensors torch's sqrt, sin and cos
-round as the C library's do, which its vectorized kernels on longer CPU
-tensors do not always, and its sqrt is 1 ulp off the correctly rounded
-one at rare points; on the card the twins and the kernels use the card's
-correctly rounded sqrt and the sin and cos that chip_smoke.py's phase 21a
-holds equal.  The float32 kernels and the
-card's own rounding are held on the card (chip_smoke.py phases 34, 35 and
-37).
+at a time in float64, and the shim routes the kernel's sincos and sqrt to
+torch's sin, cos and sqrt of a one-element tensor: torch's CPU functions
+are not the C library's (they differ by an ulp at a few points in a
+thousand), so this way both sides use one set of them, as on the card the
+twins and the kernels use the card's correctly rounded sqrt and the sin
+and cos that chip_smoke.py's phase 21a holds equal.  The float32 kernels
+and the card's own rounding are held on the card (chip_smoke.py phases
+34, 35 and 37).
 
 At most six tests a file: pytest-xdist's --dist loadfile hands out
 the files with the most tests first, so a file this small runs after
@@ -51,7 +51,19 @@ struct Dim3 { unsigned x, y, z; };
 static Dim3 blockIdx, blockDim, threadIdx;
 template <typename T> static inline T __ldg(const T* p) { return *p; }
 
+// the transcendental functions of the twins' one-element tensors
+static void (*host_sincos)(double, double*, double*) = nullptr;
+static double (*host_sqrt)(double) = nullptr;
+extern "C" void set_math(void (*sc)(double, double*, double*),
+                         double (*sq)(double)) {
+  host_sincos = sc;
+  host_sqrt = sq;
+}
+#define sincos(x, s, c) host_sincos(x, s, c)
+#define sqrt(x) host_sqrt(x)
 #include "fantasy_gen.cu"
+#undef sincos
+#undef sqrt
 
 template <Chart C, Mode M>
 static void run(const double* q0, const double* p0, double* out, int* ns,
@@ -81,6 +93,21 @@ ENTRY(host_s2_ks, Chart::kKS, Mode::kRecord)
 """
 
 
+_SINCOS = ctypes.CFUNCTYPE(None, ctypes.c_double,
+                           ctypes.POINTER(ctypes.c_double),
+                           ctypes.POINTER(ctypes.c_double))
+_SQRT = ctypes.CFUNCTYPE(ctypes.c_double, ctypes.c_double)
+
+
+def _torch_sincos(x, s, c):
+    t = torch.tensor([x], dtype=torch.float64)
+    s[0], c[0] = float(torch.sin(t)), float(torch.cos(t))
+
+
+def _torch_sqrt(x):
+    return float(torch.sqrt(torch.tensor([x], dtype=torch.float64)))
+
+
 @pytest.fixture(scope="module")
 def host_gen(tmp_path_factory):
     """fantasy_gen.cu built for the CPU: {'g1', 's2_bl', 's2_ks'} ->
@@ -95,7 +122,8 @@ def host_gen(tmp_path_factory):
                     "-fPIC", "-I", CSRC, "-o", str(lib), str(d / "shim.cpp")],
                    check=True, capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
-    out = {}
+    out = {"math": (_SINCOS(_torch_sincos), _SQRT(_torch_sqrt))}
+    so.set_math(*out["math"])
     for name in ("g1", "s2_bl", "s2_ks"):
         fn = getattr(so, f"host_{name}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -142,16 +170,46 @@ def test_g1_source_bitwise_equal_to_twin(host_gen):
     assert int((ns < 0).sum()) == 2  # two captures parked by the guard
 
 
+def test_bl_order4_source_bitwise_equal_to_twin(host_gen):
+    """G1 and S2 in the Boyer-Lindquist chart at order 4 with charge (three
+    substeps a step, so flow A's kick/drift is carried across substeps as
+    well as across steps) against their twins on the rays above, 200 steps
+    (S2 every 4th): q1, p1, q2, the signed step counts and every slot bit
+    for bit, a guard-parked capture among them."""
+    q0, p0 = _rays("Kerr", 12.0, 90.0, [0, 27, 28, 45])
+    steps, (stride, n_keep) = 200, ti.traj_layout(200, 50)
+    vec = tig.gen_params("Kerr", 0.1, PARAMS, 13.0, 1.0, 4, torch.float64)
+    n_sub = (vec.numel() - tig.N_SCAL) // 3
+    assert n_sub == 3
+    out = torch.zeros((12, 4), dtype=torch.float64)
+    ns = torch.zeros(4, dtype=torch.int32)
+    host_gen["g1"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(),
+                   ns.data_ptr(), vec.data_ptr(), 4, n_sub, steps, 1, 0)
+    traj = torch.zeros((4, n_keep, 4), dtype=torch.float64)
+    ns_traj = torch.zeros(4, dtype=torch.int32)
+    host_gen["s2_bl"](q0.data_ptr(), p0.data_ptr(), traj.data_ptr(),
+                      ns_traj.data_ptr(), vec.data_ptr(), 4, n_sub, steps,
+                      stride, n_keep)
+    for k in range(4):
+        state, ns_t = tig.integrate_generic_twin(q0[k:k + 1], p0[k:k + 1],
+                                                 steps, vec)
+        assert int(ns_t) == int(ns[k])
+        assert torch.equal(_bits(out[:, k]), _bits(torch.cat(state[:12])))
+        want, ns_t = tig.trajectory_generic_twin(
+            q0[k:k + 1], p0[k:k + 1], steps, vec, "Kerr", stride, n_keep)
+        assert int(ns_t) == int(ns_traj[k])
+        assert torch.equal(_bits(traj[k]), _bits(want[0]))
+    assert int((ns < 0).sum()) == 2 and int(ns_traj.max()) == steps
+
+
 @pytest.mark.parametrize("metric", ["Kerr", "KerrSchild"])
 def test_s2_source_matches_twin(host_gen, metric):
     """S2 against `trajectory_generic_twin` on two rays of the chart's 8x8
     camera at r0 = 30, 400 steps, delta 0.1, n_keep 50 (stride 8): one
     still inside the domain when the budget ends, one that exits before;
     the step counts and the zero slots equal, +0.0 past the exit, every
-    slot bit for bit in the Boyer-Lindquist chart.  The Kerr-Schild flows
-    take square roots, which torch on the CPU rounds 1 ulp off the
-    correctly rounded result at rare points (SLEEF's sqrt), so there the
-    slots are held within 1e-12."""
+    slot bit for bit (the Kerr-Schild flows' square roots are torch's, as
+    the twin's, through the shim)."""
     q0, p0 = _rays(metric, 30.0, 80.0, [9, 28])
     steps, (stride, n_keep) = 400, ti.traj_layout(400, 50)
     vec = tig.gen_params(metric, 0.1, PARAMS, 31.0, 1.0, 2, torch.float64)
@@ -166,8 +224,6 @@ def test_s2_source_matches_twin(host_gen, metric):
             q0[k:k + 1], p0[k:k + 1], steps, vec, metric, stride, n_keep)
         assert int(ns_t) == int(ns[k])
         assert torch.equal(traj[k] == 0, want[0] == 0)
-        if metric == "Kerr":
-            assert torch.equal(_bits(traj[k]), _bits(want[0]))
-        np.testing.assert_allclose(traj[k], want[0], rtol=1e-12, atol=0)
+        assert torch.equal(_bits(traj[k]), _bits(want[0]))
     assert int(ns[0]) == steps and int(ns[1]) < steps
     assert not torch.signbit(traj[(traj == 0)]).any()

@@ -107,8 +107,9 @@ def test_closed_form_step_matches_make_step(metric):
     chart (the flows themselves are held against jax.grad above)."""
     q0, p0 = _camera(metric, 4)
     vec = tig.gen_params(metric, 0.1, PARAMS, 31.0, 1.0, 2, torch.float64)
-    _, step = tig.make_generic_step(metric, vec)
-    bad, new = step(pack_state(torch.tensor(q0), torch.tensor(p0)))
+    _, opening, step = tig.make_generic_step(metric, vec)
+    state = pack_state(torch.tensor(q0), torch.tensor(p0))
+    bad, new, _ = step(state, opening(state))
     assert not bad.any()
     _, subs = tig.split_params(vec)
     t = [torch.tensor(x) for x in (q0, p0, q0, p0)]
