@@ -53,15 +53,19 @@ the port's paths through them:
     result;
   * the Schwarzschild shadow boundary through B1 (float32) and B2
     (float64) against the closed form, within 0.01 px;
-  * the command-line drivers and kernel S1 (csrc/fantasy_traj.cu, the
-    trajectory recorder): `grtrace_torch.cli.main` at the headline width
+  * the command-line drivers and kernel S1 (the trajectory recorder, the
+    record mode of csrc/fantasy_schw16.cu on B3's fused step):
+    `grtrace_torch.cli.main` at the headline width
     (400x400, 200k steps, delta 0.01, a procedural sky, 20 sampled
     trajectories, no plots) with B1 and S1 launched once each, no eager
     sampler on CUDA rays, counts equal to a direct render(), the CSVs
     written by the native writer and the PNGs decoding to the arrays in
-    memory, each stage timed (phase 25); S1 bitwise against its eager twin
+    memory, each stage timed, the sampler's split into the S1 launch and
+    the host conversion (phase 25); S1 bitwise against its eager twin
     on those 20 rays at the full budget, on the single-ray driver's
-    float64 ray with every step kept and at order 4 (26); the band sweep
+    float64 ray with every step kept and at order 4, each beside its
+    single-chain floor, with S1's registers, spills and step-loop SASS
+    counts (26); the band sweep
     (500x500, 30k steps through B1, 50 rays through S1; 27); and the CLI
     with --profile, its top device operations and device-busy share
     printed, ungated (28);
@@ -1447,21 +1451,27 @@ def traj_phase(device, res):
     cli["bound_ms"], cli["bound_by"] = bound(
         metrics.kernel_ops("fantasy_traj", cli["n_steps_sum"], cli["rays"]),
         cli["rays"] * (TRAJ_BYTES_RAY + cli["n_keep"] * 4 * 4))
+    cli["chain_floor_ms"] = chain_floor("fantasy_traj", cli["n_steps_max"])
     phase(26, f"S1 vs eager twin on the CLI's {cli['rays']} sampled rays "
-              f"({STEPS}-step budget, {TRAJ_POINTS} points, float32): "
-              f"{json.dumps(cli)}")
+              f"({STEPS}-step budget, {TRAJ_POINTS} points, float32; "
+              f"{CARD}): {json.dumps(cli)}")
     args = single_ray.build_parser().parse_args([])
     q1, p1 = single_ray.initial_state(args, device)
     _, one = traj_parity(q1, p1, args.steps, args.delta, 2.0 * args.mass,
                          args.r_max, args.omega, reps=1)
+    one["chain_floor_ms"] = chain_floor("fantasy_traj", one["n_steps_max"])
     phase(26, f"S1 vs eager twin on single_ray's default ray (float64, "
               f"{args.steps} steps, every step kept): {json.dumps(one)}")
     q4, p4 = camera(64, device)
     _, ord4 = traj_parity(q4[::256].contiguous(), p4[::256].contiguous(),
                           3000, 0.05, 2.0 * MASS, R_MAX, OMEGA, n_keep=100,
                           order=4, reps=1)
+    ord4["chain_floor_ms"] = chain_floor("fantasy_traj", ord4["n_steps_max"],
+                                         order=4)
     phase(26, f"S1 vs eager twin at order 4, 16 rays of the 64x64 camera, "
               f"3000 steps, delta 0.05, 100 points: {json.dumps(ord4)}")
+    phase(26, f"S1's build (the record mode of fantasy_schw16.cu): "
+              f"{json.dumps(s1_build_report())}")
     for tag, r in (("CLI rays", cli), ("single ray", one), ("order 4", ord4)):
         if not r["traj_bitwise_equal"]:
             raise AssertionError(f"S1 differs from its twin on the {tag} "
@@ -1473,6 +1483,30 @@ def traj_phase(device, res):
     if one["n_keep"] != args.steps or one["stride"] != 1:
         raise AssertionError("the single ray must keep every step")
     return cli
+
+
+def s1_build_report():
+    """{S1 instantiation: ptxas's registers and spilled bytes, and the
+    instructions and MUFU by kind of its step loop (the longest loop of
+    `cuobjdump -sass`, where the tool is found)}."""
+    from grtrace_torch.kernels import build
+    lib = build.library_path(build.CSRC_DIR / "fantasy_schw16.cu")
+    record = {"fantasy_schw16_kernel<f,1>": "float",
+              "fantasy_schw16_kernel<d,1>": "double"}
+    out = {}
+    for k in build.ptxas_summary(lib.with_suffix(".log").read_text()):
+        if k["kernel"] in record:
+            out[record[k["kernel"]]] = {
+                "registers": k["registers"],
+                "spill_bytes": (k["spill_stores"], k["spill_loads"])}
+    if _cuobjdump():
+        for name, counts in sass_counts(lib).items():
+            if name in record and counts["loops"]:
+                loop = counts["loops"][0]
+                out.setdefault(record[name], {}).update(
+                    step_loop_instructions=loop["instructions"],
+                    step_loop_mufu=loop["mufu_by_kind"])
+    return out
 
 
 def band_phase(device):
@@ -1542,6 +1576,16 @@ DISK_CLI_ARGV = ["--size", str(DISK_SIZE), "--metric", "kerr", "--spin",
 BOOST_SIZE, BOOST_STEPS, BOOST_DELTA = 48, 1000, 0.05
 HOT_FRAMES = 64
 CARD = ""   # the card's name and power limit (nvidia-smi), set by main
+SM_CLOCK_HZ = None  # the card's maximum SM clock (nvidia-smi), set by main
+
+
+def chain_floor(kernel, longest_steps, order=2):
+    """metrics.chain_floor_ms at the card's maximum SM clock: the least
+    time of the longest ray's dependent chain (the bound of a recorder
+    that runs tens of rays), or None where the clock was not read."""
+    if SM_CLOCK_HZ is None:
+        return None
+    return metrics.chain_floor_ms(kernel, longest_steps, order, SM_CLOCK_HZ)
 
 
 def csv_rows(path):
@@ -2041,6 +2085,7 @@ def sampled_rays(res, params, metric, tag, n):
     par["bound_ms"], par["bound_by"] = bound(
         metrics.kernel_ops(kernel, par["n_steps_sum"], par["rays"]),
         par["rays"] * (TRAJ_BYTES_RAY + par["n_keep"] * 4 * 4))
+    par["chain_floor_ms"] = chain_floor(kernel, par["n_steps_max"])
     phase(n, f"S2 ({tag}) vs eager twin on the CLI's {par['rays']} sampled "
              f"rays ({KERR_STEPS}-step budget, {TRAJ_POINTS} points, "
              f"float32; {CARD}): {json.dumps(par)}")
@@ -2271,10 +2316,9 @@ OCC_KERNELS = {
                    for mode in ("kPlain", "kDisk", "kSubring")
                    for t, comp in (("float", "true"), ("float", "false"),
                                    ("double", "false"))],
-    "fantasy_schw16": ["fantasy_schw16_kernel<float>",
-                       "fantasy_schw16_kernel<double>"],
-    "fantasy_traj": ["fantasy_traj_kernel<float>",
-                     "fantasy_traj_kernel<double>"],
+    "fantasy_schw16": [f"fantasy_schw16_kernel<{t}, Mode::{m}>"
+                       for m in ("kIntegrate", "kRecord")
+                       for t in ("float", "double")],
     "fantasy_gen": [f"fantasy_gen_kernel<{t}, Chart::{c}, Mode::{m}>"
                     for c, m in (("kBL", "kIntegrate"), ("kBL", "kRecord"),
                                  ("kKS", "kRecord"))
@@ -2542,10 +2586,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    global CARD
+    global CARD, SM_CLOCK_HZ
     CARD = smi
+    SM_CLOCK_HZ = metrics.sm_clock_hz()
     phase(1, f"card: {smi}; torch {torch.__version__}, CUDA "
-             f"{torch.version.cuda}")
+             f"{torch.version.cuda}; max SM clock {SM_CLOCK_HZ} Hz")
     build_kernels()
     occ = kernel_report()
 
@@ -2660,7 +2705,7 @@ def main():
     # --- kernel B4 and the checkpointed headline ----------------------------
     eqc = checkpoint_eqc(device, q0, p0, b1_out, a["kernel_ms"])
     gen = checkpoint_generic(device, q064, p064, counts64)
-    b3 = "fantasy_schw16_kernel<double>"
+    b3 = "fantasy_schw16_kernel<double, Mode::kIntegrate>"
     sweep = schw16_sweep(q064, p064, STEPS, DELTA)
     phase("23b", f"B3 (double) on a quarter, a half and all of the float64 "
                  f"headline rays, {STEPS}-step budget, bare launches; "
@@ -2798,7 +2843,7 @@ def main():
                    f"float32 carry"},
         {"name": "fantasy_traj",
          "route": "cuda",
-         "source": "grtrace_torch/csrc/fantasy_traj.cu",
+         "source": "grtrace_torch/csrc/fantasy_schw16.cu",
          "replaces": "none: a port-side kernel; the JAX package's sampler "
                      "is the XLA loop grtrace/engine/integrate.py:328",
          "launches": cli_launches["S1"],
@@ -2808,7 +2853,9 @@ def main():
          "bound_ms": s1["bound_ms"],
          "bound_by": s1["bound_by"],
          "library_ms": None,
-         "shapes": f"S1, the trajectory recorder; launches from the CLI's "
+         "chain_floor_ms": s1["chain_floor_ms"],
+         "shapes": f"S1, the trajectory recorder (the record mode of "
+                   f"fantasy_schw16.cu); launches from the CLI's "
                    f"headline run (phase 25); every other number on its "
                    f"{s1['rays']} sampled rays at the {STEPS}-step budget, "
                    f"{TRAJ_POINTS} points, float32 (phase 26; longest ray "

@@ -1,40 +1,81 @@
-// Generic (any-plane) Schwarzschild FANTASY integrator on the fused flows:
-// one CUDA thread per ray, instantiated for float and double.
+// The Schwarzschild FANTASY integrator on the fused flows, 16 rows, one
+// CUDA thread per ray: one template in two modes, instantiated for float
+// and double.
 //
-// Replaces the TPU kernel grtrace/engine/integrate_pallas.py::_make_kernel
-// in its n_rows=16 configuration (kernel B3: plain, not staggered, the
+//   B3 (Mode::kIntegrate): the generic (any-plane) integrator, to each
+//      ray's exit or the step budget, state in and out.
+//   S1 (Mode::kRecord): the trajectory recorder, q1 stored every `stride`
+//      steps.
+//
+// B3 replaces the TPU kernel grtrace/engine/integrate_pallas.py::
+// _make_kernel in its n_rows=16 configuration (plain, not staggered, the
 // step fantasy_step_ord2_fused; entry points integrate_batch_pallas(
 // equatorial=False), SchwarzschildIntegrator(backend='pallas') and the
 // checkpoint chunk advance_state_pallas).  One C entry serves the
 // monolithic call and the chunk: the kernel advances a (16, n) state by at
 // most `steps` masked steps and counts the steps each ray took.  Its eager
-// twins, which define what this kernel computes, are
-// grtrace_torch/engine/integrate.py::integrate_batch_fused (and its loop
-// fused_cores, which the chunk twin checkpoint.py::_advance_fused runs),
-// built on hamiltonian.py::fantasy_step_ord2_fused.
+// twins, which define what it computes, are grtrace_torch/engine/
+// integrate.py::integrate_batch_fused (and its loop fused_cores, which the
+// chunk twin checkpoint.py::_advance_fused runs), built on
+// hamiltonian.py::fantasy_step_ord2_fused.
 //
-// What bounds it on an H100: FP32 (or FP64) instruction throughput and
-// latency.  Each ray is a serial chain of about 280 floating-point
+// S1 is a port-side kernel: it replaces no TPU kernel.  The JAX package
+// samples trajectories in an XLA fori_loop (grtrace/engine/integrate.py::
+// integrate_batch_full), not in Pallas.  Its eager twin is grtrace_torch/
+// engine/integrate.py::integrate_batch_full, which steps with B3's fused
+// step (the JAX loop steps with the unfused flows: a deliberate divergence
+// in rounding).  The render's trajectory sampler, the single-ray driver
+// and the band sweep call it through integrate.py::integrate_full_dispatch.
+// Per ray, at step k = 0, 1, ... < steps: the ray is active while
+// 1.1 rs < r < r_max; if k % stride == 0 its q1 goes to slot k / stride
+// (the step on which the ray is first found inactive included); an
+// inactive ray stops; otherwise the step runs, and the horizon guard
+// reverts a step whose radius jumps by more than `cap` (or turns
+// non-finite) and parks the ray at r = rs.  The host zeroes the record, so
+// the slots after a ray's exit stay +0.0.
+//
+// What bounds B3 on an H100: FP32 (or FP64) instruction throughput and
+// latency.  Each ray is a serial chain of about 260 floating-point
 // operations per step, for up to the step budget; near-critical rays orbit
 // longest.  No memory traffic inside the loop.  In float64 the IEEE
 // divisions and sin/cos, which the card computes in software, are most of
 // the instructions.
 //
-// What the design does about it: the 16-row state and the guard's copy of
-// it live in registers; a finished ray breaks out of its loop (the
-// per-thread form of the TPU kernel's masked steps and per-tile early
-// exit); the monolithic wrapper sorts rays by |b - b_crit| so a warp's rays
-// retire together (the chunk keeps the caller's order).  Flow A reads the
-// metric at q1 and the momenta p2 and moves neither, so the first flow A of
-// a substep reads the very values that the last flow A before it read: the
-// kernel keeps that flow's metric terms and forces (Metric) and forms only
-// the products with dt again, across substep and step boundaries alike.
-// At order 2 a step evaluates the metric three times, not four: 9 IEEE
-// divisions and 3 sin/cos pairs where the fused step as written takes 12
-// and 4.  The two increments of the back-to-back A flows are still added
-// one after the other.  A launch's first step evaluates it afresh; a ray
-// that the guard reverts is parked inside the capture radius and takes no
-// further step.
+// What bounds S1: one dependent chain.  The sampler runs tens of rays (20
+// in the CLI's render, 50 in the band sweep, 1 in the single-ray driver),
+// one warp or two, so the card's throughput is idle and the time is the
+// longest ray's steps times the latency of one step.  One warp issues at
+// most one instruction a cycle and, under -fmad=false, each of the 257
+// operations of an order-2 step (engine/metrics.py::KERNEL_OPS) is at
+// least one instruction, so the floor is 257 x the longest ray's steps
+// over the SM clock (metrics.chain_floor_ms: 0.87 ms for the CLI's
+// longest ray, 6,701 steps at 1.98 GHz).  The record is the only memory
+// traffic: at most n_keep 16- or 32-byte stores a ray.
+//
+// What the design does about it: the chain is made short.
+//  * The fused flows: 3 IEEE divisions and one sincos an evaluation where
+//    the unfused flows take about 8 divisions and separate sin and cos.
+//  * Flow A reads the metric at q1 and the momenta p2 and moves neither,
+//    so the first flow A of a substep reads the very values that the last
+//    flow A before it read: the kernel keeps that flow's metric terms and
+//    forces (Metric) and forms only the products with dt again, across
+//    substep and step boundaries alike.  At order 2 a step evaluates the
+//    metric three times, not four: 9 IEEE divisions and 3 sincos where the
+//    fused step as written takes 12 and 4.  The two increments of the
+//    back-to-back A flows are still added one after the other.  A launch's
+//    first step evaluates it afresh; a ray that the guard reverts is
+//    parked inside the capture radius and takes no further step.
+//  * B3: the 16-row state and the guard's copy of it live in registers; a
+//    finished ray breaks out of its loop (the per-thread form of the TPU
+//    kernel's masked steps and per-tile early exit); the monolithic
+//    wrapper sorts rays by |b - b_crit| so a warp's rays retire together
+//    (the chunk keeps the caller's order); 128 threads a block.
+//  * S1: the same loop with the store; blocks of 32 threads in the
+//    caller's order, and no block count asked of __launch_bounds__ (tens
+//    of rays fill a warp or two, so occupancy does not matter: a
+//    min_blocks of 1 and 64-thread blocks measured slower, one ray a block
+//    gained 2% on the CLI's 20 rays only, PERF.md section 6); the slot index
+//    advances by a counter, with no division in the loop.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // operation below rounds once, in the order written, exactly as the twin's
@@ -45,17 +86,30 @@
 // sinf/cosf (sin/cos); fantasy_trig_kernel evaluates both forms on given
 // points so that a caller can hold them against torch.sin and torch.cos.
 //
-// Layout: state_in/state_out are SoA (16, n) in T, each row contiguous:
-// q1 (t, r, theta, phi), p1, q2, p2.  params is the vector [rs, r_max, cap,
-// (d, cos, sin) x n_sub] in T (cos/sin of the mixing angle 2 omega d) built
-// on the host by engine/integrate.py::substep_params(compensated=False,
+// Layout: B3's state_in/state_out are SoA (16, n) in T, each row
+// contiguous: q1 (t, r, theta, phi), p1, q2, p2.  S1's q0 and p0 are
+// (n, 4) in T, row-major, and its traj (n, n_keep, 4) in T, row-major and
+// zeroed by the host.  params is the vector [rs, r_max, cap, (d, cos, sin)
+// x n_sub] in T (cos/sin of the mixing angle 2 omega d) built on the host
+// by engine/integrate.py::substep_params(compensated=False,
 // staggered=False).  ns_out (n,) int32 counts the steps each ray took.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
+
+#include <cstddef>
 
 namespace {
 
 constexpr int kRows = 16;
+
+enum class Mode : int { kIntegrate, kRecord };
+
+// threads per block: a frame for B3, tens of rays for S1
+constexpr int threads_of(Mode mode) {
+  return mode == Mode::kIntegrate ? 128 : 32;
+}
 
 __device__ __forceinline__ float sin_t(float x) { return sinf(x); }
 __device__ __forceinline__ double sin_t(double x) { return sin(x); }
@@ -184,30 +238,56 @@ __device__ __forceinline__ bool active(T r, T r_capture, T r_max) {
   return (r > r_capture) && (r < r_max);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-fantasy_schw16_kernel(const T* __restrict__ state_in,
-                      T* __restrict__ state_out, int* __restrict__ ns_out,
+// B3 (kIntegrate): `in` is state_in (16, n) SoA, `out` state_out (16, n);
+// `p0`, `stride` and `n_keep` are unused.  S1 (kRecord): `in` is q0 (n, 4),
+// `p0` p0 (n, 4), `out` traj (n, n_keep, 4).
+template <typename T, Mode kMode>
+__global__ void __launch_bounds__(threads_of(kMode))
+fantasy_schw16_kernel(const T* __restrict__ in, const T* __restrict__ p0,
+                      T* __restrict__ out, int* __restrict__ ns_out,
                       const T* __restrict__ params, int n, int n_sub,
-                      int steps) {
+                      int steps, int stride, int n_keep) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
   T s[kRows];
+  if constexpr (kMode == Mode::kIntegrate) {
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) s[k] = state_in[k * n + i];
+    for (int k = 0; k < kRows; ++k) s[k] = in[k * n + i];
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      s[a] = in[4 * static_cast<size_t>(i) + a];
+      s[4 + a] = p0[4 * static_cast<size_t>(i) + a];
+      s[8 + a] = s[a];
+      s[12 + a] = s[4 + a];
+    }
+  }
 
   const T rs = __ldg(params + 0);
   const T r_max = __ldg(params + 1);
   const T cap = __ldg(params + 2);
   const T r_capture = T(1.1) * rs;
 
+  T* row = out;
+  if constexpr (kMode == Mode::kRecord) {
+    row += static_cast<size_t>(i) * static_cast<size_t>(n_keep) * 4;
+  }
+  int next_store = 0;  // S1: the next step whose q1 is recorded
   // flow A's metric at the current (q1, p2): evaluated afresh for the
   // launch's first step, then carried from step to step
   Metric<T> ma{};
   if (steps > 0 && active(s[1], r_capture, r_max)) ma = metric_a(s, rs);
   int ns = 0;
   for (int k = 0; k < steps; ++k) {
+    if constexpr (kMode == Mode::kRecord) {
+      if (k == next_store) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) row[a] = s[a];
+        row += 4;
+        next_store += stride;
+      }
+    }
     if (!active(s[1], r_capture, r_max)) break;
     T old[kRows];
 #pragma unroll
@@ -228,8 +308,10 @@ fantasy_schw16_kernel(const T* __restrict__ state_in,
     ++ns;
   }
 
+  if constexpr (kMode == Mode::kIntegrate) {
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) state_out[k * n + i] = s[k];
+    for (int k = 0; k < kRows; ++k) out[k * n + i] = s[k];
+  }
   ns_out[i] = ns;
 }
 
@@ -251,15 +333,21 @@ fantasy_trig_kernel(const T* __restrict__ x, T* __restrict__ sin_out,
   sc_cos_out[i] = c;
 }
 
-template <typename T>
-int launch(const T* state_in, T* state_out, int* ns_out, const T* params,
-           int n, int n_sub, int steps, void* stream) {
+}  // namespace
+
+#ifdef __CUDACC__
+namespace {
+
+template <typename T, Mode kMode>
+int launch(const T* in, const T* p0, T* out, int* ns_out, const T* params,
+           int n, int n_sub, int steps, int stride, int n_keep,
+           void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 128;
+  constexpr int kThreads = threads_of(kMode);
   const int blocks = (n + kThreads - 1) / kThreads;
-  fantasy_schw16_kernel<T>
+  fantasy_schw16_kernel<T, kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          state_in, state_out, ns_out, params, n, n_sub, steps);
+          in, p0, out, ns_out, params, n, n_sub, steps, stride, n_keep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,13 +365,15 @@ int launch_trig(const T* x, T* sin_out, T* cos_out, T* sc_sin_out,
 
 }  // namespace
 
+// B3: (state_in, state_out, ns_out, params, n, n_sub, steps, stream)
 extern "C" int grt_fantasy_schw16_f32_launch(const float* state_in,
                                              float* state_out, int* ns_out,
                                              const float* params, int n,
                                              int n_sub, int steps,
                                              void* stream) {
-  return launch<float>(state_in, state_out, ns_out, params, n, n_sub, steps,
-                       stream);
+  return launch<float, Mode::kIntegrate>(state_in, nullptr, state_out,
+                                         ns_out, params, n, n_sub, steps, 1,
+                                         0, stream);
 }
 
 extern "C" int grt_fantasy_schw16_f64_launch(const double* state_in,
@@ -291,8 +381,29 @@ extern "C" int grt_fantasy_schw16_f64_launch(const double* state_in,
                                              const double* params, int n,
                                              int n_sub, int steps,
                                              void* stream) {
-  return launch<double>(state_in, state_out, ns_out, params, n, n_sub, steps,
-                        stream);
+  return launch<double, Mode::kIntegrate>(state_in, nullptr, state_out,
+                                          ns_out, params, n, n_sub, steps, 1,
+                                          0, stream);
+}
+
+// S1: (q0, p0, traj (n, n_keep, 4), ns_out, params, n, n_sub, steps,
+// stride, n_keep, stream)
+extern "C" int grt_fantasy_traj_f32_launch(const float* q0, const float* p0,
+                                           float* traj, int* ns_out,
+                                           const float* params, int n,
+                                           int n_sub, int steps, int stride,
+                                           int n_keep, void* stream) {
+  return launch<float, Mode::kRecord>(q0, p0, traj, ns_out, params, n, n_sub,
+                                      steps, stride, n_keep, stream);
+}
+
+extern "C" int grt_fantasy_traj_f64_launch(const double* q0, const double* p0,
+                                           double* traj, int* ns_out,
+                                           const double* params, int n,
+                                           int n_sub, int steps, int stride,
+                                           int n_keep, void* stream) {
+  return launch<double, Mode::kRecord>(q0, p0, traj, ns_out, params, n,
+                                       n_sub, steps, stride, n_keep, stream);
 }
 
 extern "C" int grt_fantasy_trig_f32_launch(const float* x, float* sin_out,
@@ -310,3 +421,4 @@ extern "C" int grt_fantasy_trig_f64_launch(const double* x, double* sin_out,
   return launch_trig<double>(x, sin_out, cos_out, sc_sin_out, sc_cos_out, n,
                           stream);
 }
+#endif  // __CUDACC__

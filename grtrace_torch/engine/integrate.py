@@ -420,7 +420,7 @@ def traj_layout(steps, n_keep):
 def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
                          n_keep=None, order=2):
     """Trajectory-capturing variant: returns (N, n_keep, 4) positions, and
-    the eager twin of kernel S1 (csrc/fantasy_traj.cu).
+    the eager twin of kernel S1 (the record mode of csrc/fantasy_schw16.cu).
 
     q1 is recorded every `stride` steps (`traj_layout`) so that at most
     n_keep samples exist, including the step on which a ray exits; rows
@@ -429,8 +429,11 @@ def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
     that exits per ray cannot reproduce that sign, so both write +0.0).
     n_keep=None keeps every step (stride 1).  Once every ray has exited,
     the remaining records would all be zero, so the loop stops there.
-    The step is the unfused 16-row one with the guard, from the plain
-    triples `substep_params` vector that S1 reads too.
+    The step is kernel B3's fused 16-row one (`fantasy_step_ord2_fused`,
+    as `fused_cores`) with the guard, from the plain-triples
+    `substep_params` vector that S1 reads too.  The JAX package's loop
+    steps with the unfused flows, so the two records differ in the last
+    ulps (a deliberate divergence in rounding, ROADMAP Queue C).
     """
     stride, n_keep_eff = traj_layout(steps, n_keep)
     dtype = q0s.dtype
@@ -451,7 +454,8 @@ def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega,
             traj[:, k // stride, :] = torch.where(alive[:, None],
                                                   unpack_q1(state), 0.0)
         alive = alive & active
-        new = guard_state(state, fantasy_step(state, subs, rs), rs, cap)
+        new = guard_state(state, fantasy_step(
+            state, subs, rs, step2_fn=fantasy_step_ord2_fused), rs, cap)
         state = tuple(torch.where(active, nw, o) for nw, o in zip(new, state))
     return traj
 

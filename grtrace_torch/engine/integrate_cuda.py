@@ -8,16 +8,17 @@ all four of its configurations:
   * B2, 12 rows, plain, staggered, open/close, float64 (the same template,
     `integrate_batch_eq_cuda`; JAX: `integrate_batch_pallas(equatorial=True,
     compensated=False)` on float64 rays);
-  * B3, 16 rows, plain, fused flows, float32 and float64
-    (`csrc/fantasy_schw16.cu`; `integrate_batch_generic_cuda` and the
-    checkpoint chunk `advance_state_cuda`; JAX: `integrate_batch_pallas(
+  * B3, 16 rows, plain, fused flows, float32 and float64 (the integrate
+    mode of `csrc/fantasy_schw16.cu`; `integrate_batch_generic_cuda` and
+    the checkpoint chunk `advance_state_cuda`; JAX: `integrate_batch_pallas(
     equatorial=False)` and `advance_state_pallas`);
   * B4, B1's core loop only, on an opened carry (`fantasy_eqc.cu`,
     `advance_state_eqc_cuda`; JAX: `advance_state_pallas_eqc`);
 
-and the port-side trajectory recorder S1 (`csrc/fantasy_traj.cu`,
-`integrate_batch_full_cuda`), which replaces no TPU kernel: the JAX
-package samples trajectories in an XLA loop (`integrate_batch_full`).
+and the port-side trajectory recorder S1 (the record mode of
+`csrc/fantasy_schw16.cu`, B3's step; `integrate_batch_full_cuda`), which
+replaces no TPU kernel: the JAX package samples trajectories in an XLA
+loop (`integrate_batch_full`).
 
 One thread integrates one ray.  The eager twins that define the kernels'
 results are `integrate_batch_compensated`, `integrate_batch_eq`,
@@ -281,6 +282,7 @@ def advance_state_eqc_cuda(state24, steps, delta, rs, r_max, omega,
     return launch_fantasy_eqc_chunk(state24, params, steps)
 
 
+# S1's entries, exported by fantasy_schw16.cu's library (its record mode)
 TRAJ_ENTRIES = {F32: "grt_fantasy_traj_f32_launch",
                 F64: "grt_fantasy_traj_f64_launch"}
 

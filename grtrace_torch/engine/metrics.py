@@ -29,7 +29,9 @@ def _sync():
 
 @dataclass
 class RenderMetrics:
-    """Stage timings and ray/step counts for one render."""
+    """Stage timings and ray/step counts for one render.  A stage named
+    "outer/part" times a part of the stage "outer" that encloses it; the
+    total counts the outer stages only."""
     stages: Dict[str, float] = field(default_factory=dict)
     rays: int = 0
     geodesic_steps: int = 0
@@ -47,7 +49,7 @@ class RenderMetrics:
 
     @property
     def total_s(self) -> float:
-        return sum(self.stages.values())
+        return sum(v for k, v in self.stages.items() if "/" not in k)
 
     def _pipeline_s(self) -> float:
         return self.stages.get("device_pipeline", self.total_s)
@@ -120,11 +122,9 @@ PEAK_BYTES = 3.35e12
 #                = 499; per step the same 5 + 50 as the 32 rows; once per
 #                ray the open and close flows (2 x 134) and the launch's 22
 #                = 290
-#   fantasy_traj (S1): per substep A B M B A = 1 + 4 unfused flows x 60
-#                (sin and cos 2; the metric's derivatives 19 and their
-#                contraction 15; the kicks 4; the metric 8 and the drifts
-#                12; a multiply by -1 is a negation) + mixing 96 = 337; the
-#                guard 2 per step; once per ray 1.1 rs (1)
+#   fantasy_traj (S1, the record mode of fantasy_schw16.cu): B3's 255 per
+#                substep and 2 per step; once per ray 1.1 rs (1) and the
+#                launch's flow A evaluation (26) = 27
 #   fantasy_gen (G1; and S2 in the Boyer-Lindquist chart): per substep
 #                A B M B A = 1 + 3 kick/drift evaluations x 129 (sin and
 #                cos 2, the metric 33 with its 4 divisions, its r and theta
@@ -156,7 +156,7 @@ KERNEL_OPS = {
     "fantasy_eqc_chunk": (216, 2, 1),
     "fantasy_ks": (586, 55, 332),
     "fantasy_ks_plain": (499, 55, 290),
-    "fantasy_traj": (337, 2, 1),
+    "fantasy_traj": (255, 2, 27),
     "fantasy_gen": (532, 2, 129),
     "fantasy_gen_traj_bl": (532, 2, 129),
     "fantasy_gen_traj_ks": (513, 104, 120),
@@ -179,6 +179,33 @@ def kernel_ops(kernel: str, ray_steps: int, rays: int,
     all cost in `kernel`, per-ray terms included."""
     return (ray_steps * flops_per_ray_step(kernel, order)
             + rays * KERNEL_OPS[kernel][2])
+
+
+def chain_floor_ms(kernel: str, longest_steps: int, order: int,
+                   clock_hz: float) -> float:
+    """The least time, in ms, that one dependent chain of `longest_steps`
+    steps of `kernel` can take: one warp issues at most one instruction a
+    cycle, and under -fmad=false each operation that KERNEL_OPS counts is
+    at least one instruction.  The bound of a recorder that runs tens of
+    rays (S1, S2), where the throughput bound does not apply; clock_hz is
+    the SM clock (`sm_clock_hz`)."""
+    return flops_per_ray_step(kernel, order) * longest_steps / clock_hz * 1e3
+
+
+def sm_clock_hz() -> Optional[float]:
+    """The current card's maximum SM clock in Hz, as `nvidia-smi
+    --query-gpu=clocks.max.sm` reads it, or None without a CUDA device or
+    a reading."""
+    if not torch.cuda.is_available():
+        return None
+    rows = nvidia_smi("clocks.max.sm")
+    index = torch.cuda.current_device()
+    if index >= len(rows):
+        return None
+    try:
+        return float(rows[index].split()[0]) * 1e6  # "1980 MHz"
+    except (IndexError, ValueError):
+        return None
 
 
 def nvidia_smi(fields: str) -> list:

@@ -131,10 +131,16 @@ def render_pixels(bg_array, obs_x, fov, mass, boundary_radius,
     }
 
 
-def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
+def _untimed(name):
+    return contextlib.nullcontext()
+
+
+def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype,
+                         stage=_untimed):
     """Re-integrate K sampled rays with decimated trajectory capture (kernel
-    S1 on the card, its eager twin on the CPU: `integrate_full_dispatch`),
-    un-fold by beta, convert to Cartesian (float64, on the host)."""
+    S1 on the card, its eager twin on the CPU: `integrate_full_dispatch`;
+    the part stage "sample_trajectories/s1"), un-fold by beta, convert to
+    Cartesian (float64, on the host; "sample_trajectories/to_cartesian")."""
     h, w = scene.image_size
     flat_idx = torch.as_tensor(sampled_ij[:, 0] * w + sampled_ij[:, 1],
                                device=q0.device)
@@ -143,13 +149,14 @@ def _sample_trajectories(q0, p0, beta, sampled_ij, scene: SceneConfig, dtype):
     betas = beta.reshape(-1)[flat_idx].cpu().double()
 
     integ = scene.integrator
-    traj = integrate_full_dispatch(
-        q0s.to(dtype).contiguous(), p0s.to(dtype).contiguous(), integ.steps,
-        integ.delta, 2.0 * scene.bh_mass, scene.boundary_radius,
-        float(integ.omega), n_keep=min(MAX_TRAJ_POINTS, integ.steps),
-        order=integ.order)
-
-    return trajectories_to_cartesian(traj, betas)
+    with stage("sample_trajectories/s1"):
+        traj = integrate_full_dispatch(
+            q0s.to(dtype).contiguous(), p0s.to(dtype).contiguous(),
+            integ.steps, integ.delta, 2.0 * scene.bh_mass,
+            scene.boundary_radius, float(integ.omega),
+            n_keep=min(MAX_TRAJ_POINTS, integ.steps), order=integ.order)
+    with stage("sample_trajectories/to_cartesian"):
+        return trajectories_to_cartesian(traj, betas)
 
 
 def trajectories_to_cartesian(traj, betas):
@@ -187,10 +194,6 @@ def _route(scene, aa_samples):
             "adaptive antialiasing (engine/aa.py) is not ported to "
             "grtrace_torch yet (ROADMAP Queue A item 8)")
     return "Schwarzschild"
-
-
-def _untimed(name):
-    return contextlib.nullcontext()
 
 
 def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
@@ -263,7 +266,8 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
                               replace=False)
             sampled_ij = np.stack([flat // w, flat % w], axis=-1)
             sampled_trajs = _sample_trajectories(
-                out["q0"], out["p0"], out["beta"], sampled_ij, scene, dtype)
+                out["q0"], out["p0"], out["beta"], sampled_ij, scene, dtype,
+                stage)
 
     return RenderResult(out, counts, sampled_indices=sampled_ij,
                         sampled_trajectories=sampled_trajs)

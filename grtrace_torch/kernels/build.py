@@ -45,6 +45,8 @@ ENTRIES = {
                     "grt_fantasy_eqc_chunk_launch"),
     "fantasy_schw16": ("grt_fantasy_schw16_f32_launch",
                        "grt_fantasy_schw16_f64_launch",
+                       "grt_fantasy_traj_f32_launch",
+                       "grt_fantasy_traj_f64_launch",
                        "grt_fantasy_trig_f32_launch",
                        "grt_fantasy_trig_f64_launch"),
     "fantasy_ks": ("grt_fantasy_ks32_f32_launch",
@@ -56,8 +58,6 @@ ENTRIES = {
                    "grt_fantasy_ks32_f32_sub_launch",
                    "grt_fantasy_ks16_f32_sub_launch",
                    "grt_fantasy_ks16_f64_sub_launch"),
-    "fantasy_traj": ("grt_fantasy_traj_f32_launch",
-                     "grt_fantasy_traj_f64_launch"),
     "fantasy_gen": ("grt_fantasy_gen_bl_f32_launch",
                     "grt_fantasy_gen_bl_f64_launch",
                     "grt_fantasy_gen_traj_bl_f32_launch",

@@ -272,11 +272,16 @@ def test_metrics_table_roofline_and_trace(tmp_path):
     from grtrace.engine.metrics import RenderMetrics as JMetrics
     from grtrace_torch.engine import metrics as tm
     assert tm.flops_per_ray_step("fantasy_eqc") == 218
-    assert tm.flops_per_ray_step("fantasy_traj", order=4) == 3 * 337 + 2
+    assert tm.flops_per_ray_step("fantasy_traj", order=4) == 3 * 255 + 2
     assert tm.flops_per_ray_step("fantasy_gen", order=4) == 3 * 532 + 2
     assert tm.KERNEL_OPS["fantasy_gen_traj_bl"] == tm.KERNEL_OPS["fantasy_gen"]
+    # S1 steps as B3 does; its single-chain floor on the CLI's longest ray
+    assert (tm.KERNEL_OPS["fantasy_traj"][:2]
+            == tm.KERNEL_OPS["fantasy_schw16"][:2])
+    assert tm.chain_floor_ms("fantasy_traj", 6701, 2, 1.98e9) == \
+        pytest.approx(257 * 6701 / 1.98e9 * 1e3)
     rep = tm.roofline_report(1e9, "fantasy_traj")
-    assert rep["sustained_flops"] == 1e9 * 339
+    assert rep["sustained_flops"] == 1e9 * 257
     if not torch.cuda.is_available():
         assert rep["share_of_peak"] is None and "not measured" in rep["card"]
     rm = tm.RenderMetrics(rays=10, geodesic_steps=100)

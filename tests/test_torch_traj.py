@@ -1,23 +1,25 @@
 """The trajectory sampler: the eager twin `integrate_batch_full` against the
-JAX package's, kernel S1's source (grtrace_torch/csrc/fantasy_traj.cu)
-built for the CPU against the twin bit for bit, and the dispatch that sends
-CUDA rays to S1 and CPU rays to the twin.
+JAX package's, kernel S1's source (the record mode of grtrace_torch/csrc/
+fantasy_schw16.cu) built for the CPU against the twin bit for bit, and the
+dispatch that sends CUDA rays to S1 and CPU rays to the twin.
 
 Tolerances:
   * twin vs JAX: weak-field records (r > 3) within a relative 1e-10 in
     float64 and 2e-5 in float32 (XLA contracts multiply-adds into FMAs and
-    torch does not, ROADMAP Queue C: last-ulp differences that grow over
-    hundreds of steps; inside r = 3 a plunging ray amplifies them
-    chaotically, so there only the exit step is compared), the same rows
-    zero in both (equal exit steps), and every zero row +0.0 in the port
-    (JAX leaves -0.0 in a dead ray's negative components: a deliberate
-    divergence in the sign of zero, Queue C);
+    torch does not, and the twin steps with kernel B3's fused flows where
+    JAX steps with the unfused ones, ROADMAP Queue C: last-ulp differences
+    that grow over hundreds of steps; inside r = 3 a plunging ray
+    amplifies them chaotically, so there only the exit step is compared),
+    the same rows zero in both (equal exit steps), and every zero row +0.0
+    in the port (JAX leaves -0.0 in a dead ray's negative components: a
+    deliberate divergence in the sign of zero, Queue C);
   * S1's source vs the twin: bitwise.
 S1 itself runs on the card only; chip_smoke.py holds it against the twin
 there.
 
 The record's layout and S1's build entries are in
-tests/test_torch_traj_layout.py.
+tests/test_torch_traj_layout.py; B3's source (the same file's integrate
+mode, through `build_host`) in tests/test_torch_schw16_host.py.
 """
 import ctypes
 import os
@@ -53,32 +55,48 @@ struct Dim3 { unsigned x, y, z; };
 static Dim3 blockIdx, blockDim, threadIdx;
 template <typename T> static inline T __ldg(const T* p) { return *p; }
 
-#include "fantasy_traj.cu"
+#include "fantasy_schw16.cu"
 
-template <typename T>
-static void run(const T* q0, const T* p0, T* traj, int* ns, const T* params,
+template <typename T, Mode M>
+static void run(const T* in, const T* p0, T* out, int* ns, const T* params,
                 int n, int n_sub, int steps, int stride, int n_keep) {
-  blockDim.x = kThreads;
-  for (unsigned b = 0; b * kThreads < unsigned(n); ++b) {
+  const unsigned threads = threads_of(M);
+  blockDim.x = threads;
+  for (unsigned b = 0; b * threads < unsigned(n); ++b) {
     blockIdx.x = b;
-    for (unsigned t = 0; t < unsigned(kThreads); ++t) {
+    for (unsigned t = 0; t < threads; ++t) {
       threadIdx.x = t;
-      fantasy_traj_kernel<T>(q0, p0, traj, ns, params, n, n_sub, steps,
-                             stride, n_keep);
+      fantasy_schw16_kernel<T, M>(in, p0, out, ns, params, n, n_sub, steps,
+                                  stride, n_keep);
     }
   }
 }
 
+// S1 (the record mode): (q0, p0, traj, ns, params, n, n_sub, steps, stride,
+// n_keep); B3 (the integrate mode): (state_in, state_out, ns, params, n,
+// n_sub, steps)
 extern "C" {
 void host_s1_f32(const float* q0, const float* p0, float* traj, int* ns,
                  const float* params, int n, int n_sub, int steps,
                  int stride, int n_keep) {
-  run<float>(q0, p0, traj, ns, params, n, n_sub, steps, stride, n_keep);
+  run<float, Mode::kRecord>(q0, p0, traj, ns, params, n, n_sub, steps,
+                            stride, n_keep);
 }
 void host_s1_f64(const double* q0, const double* p0, double* traj, int* ns,
                  const double* params, int n, int n_sub, int steps,
                  int stride, int n_keep) {
-  run<double>(q0, p0, traj, ns, params, n, n_sub, steps, stride, n_keep);
+  run<double, Mode::kRecord>(q0, p0, traj, ns, params, n, n_sub, steps,
+                             stride, n_keep);
+}
+void host_b3_f32(const float* in, float* out, int* ns, const float* params,
+                 int n, int n_sub, int steps) {
+  run<float, Mode::kIntegrate>(in, nullptr, out, ns, params, n, n_sub,
+                               steps, 1, 0);
+}
+void host_b3_f64(const double* in, double* out, int* ns,
+                 const double* params, int n, int n_sub, int steps) {
+  run<double, Mode::kIntegrate>(in, nullptr, out, ns, params, n, n_sub,
+                                steps, 1, 0);
 }
 }
 """
@@ -118,27 +136,37 @@ def test_twin_matches_jax(np_dtype, order, n_keep):
     assert not np.signbit(t[dead_t]).any()  # +0.0, where JAX has -0.0
 
 
-@pytest.fixture(scope="module")
-def host_s1(tmp_path_factory):
-    """S1's source built for the CPU: {float32, float64} -> entry."""
+def build_host(tmp_path_factory):
+    """fantasy_schw16.cu built for the CPU: {("s1" | "b3", dtype) ->
+    entry}, or a skip where g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this machine to build the host emulation")
-    d = tmp_path_factory.mktemp("traj_host")
+    d = tmp_path_factory.mktemp("schw16_host")
     (d / "shim.cpp").write_text(SHIM)
-    lib = d / "libtraj_host.so"
+    lib = d / "libschw16_host.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
                     "-fPIC", "-I", CSRC, "-o", str(lib), str(d / "shim.cpp")],
                    check=True, capture_output=True, text=True)
     so = ctypes.CDLL(str(lib))
     out = {}
-    for dtype, name in ((torch.float32, "host_s1_f32"),
-                        (torch.float64, "host_s1_f64")):
-        fn = getattr(so, name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        fn.restype = None
-        out[dtype] = fn
+    for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+        s1 = getattr(so, f"host_s1_{suffix}")
+        s1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        b3 = getattr(so, f"host_b3_{suffix}")
+        b3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        s1.restype = b3.restype = None
+        out["s1", dtype], out["b3", dtype] = s1, b3
     return out
+
+
+@pytest.fixture(scope="module")
+def host_s1(tmp_path_factory):
+    """S1's source (the record mode of fantasy_schw16.cu) built for the
+    CPU: {float32, float64} -> entry."""
+    built = build_host(tmp_path_factory)
+    return {dtype: built["s1", dtype]
+            for dtype in (torch.float32, torch.float64)}
 
 
 def _bits(t):

@@ -25,9 +25,14 @@ def test_traj_layout(steps, n_keep, layout):
 
 
 def test_s1_entries_registered():
-    """Both S1 entries are built from fantasy_traj.cu, with the signature
-    (q0, p0, traj, ns, params, n, n_sub, steps, stride, n_keep, stream)."""
-    assert tbuild.ENTRIES["fantasy_traj"] == tuple(tc.TRAJ_ENTRIES.values())
+    """Both S1 entries are built from fantasy_schw16.cu (its record mode),
+    with the signature (q0, p0, traj, ns, params, n, n_sub, steps, stride,
+    n_keep, stream); no other source exports them."""
+    names = tuple(tc.TRAJ_ENTRIES.values())
+    assert set(names) <= set(tbuild.ENTRIES["fantasy_schw16"])
+    assert [stem for stem, entries in tbuild.ENTRIES.items()
+            if set(names) & set(entries)] == ["fantasy_schw16"]
+    assert {src.stem for src in tbuild._sources()} == set(tbuild.ENTRIES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in tbuild.ENTRIES["fantasy_traj"]:
+    for name in names:
         assert tbuild.argtypes(name) == [p] * 5 + [i] * 5 + [p]
