@@ -93,7 +93,22 @@ the port's paths through them:
     the Schwarzschild fast path (every G1 capture a B1 capture; 36); the
     same command with `--metric kerr` (B5 and S2 once each) and S2 in the
     Kerr-Schild chart bitwise against its twin on the 20 sampled rays,
-    whose rows start at the observer (37).
+    whose rows start at the observer (37);
+  * adaptive antialiasing (engine/aa.py, s = 2) on the frames of phases
+    5, 18, 9, 35, 11 and 14 at their full widths: the sub-rays through B1
+    and B2 (38), B5 (39), G1 (40), B6 (41) and B7 (42); each AA render
+    launches its kernel twice (the frame and its one pass) and no twin on
+    CUDA rays, its refined pixels are byte-equal to the 2N render of the
+    same scene box-averaged (the subrings' per-order intensities within
+    rtol 1e-6), and its other pixels, class map and counts to the base
+    render's, and the pass's own launch is bitwise equal to the eager
+    twin on the card on its sub-rays (those of at most 8,000 steps); the
+    edge and sub-ray counts, the pass's kernel+wrapper time (CUDA events)
+    beside its longest sub-ray's single-chain floor and the twin's time,
+    and the frame's warm wall with and without AA; then the drivers of
+    this line (43): `cli.main --aa 2` at the headline width (B1 twice, S1
+    once), `cli.subring --aa 2 --visibility` (B7 twice), `cli.visibility`
+    (B6) and `cli.hotspot --closure` (B6), each writing its CSVs.
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -119,6 +134,7 @@ and a JSON status line.
 Imports only torch, numpy and grtrace_torch (never jax or grtrace): the
 machine with the card has no jax.
 """
+import contextlib
 import json
 import math
 import os
@@ -691,23 +707,9 @@ def subring_scene():
     return scene, disk
 
 
-def shell_theory():
-    """The photon-shell prediction along the critical curve seen from the
-    subring camera's latitude (float64 on the host, as the JAX CLI's
-    shell_theory computes it)."""
-    from grtrace_torch.physics.photon_shell import critical_curve_observables
-    theta_obs = max(math.radians(90.0 - SUB_ELEV), 1e-4)
-    curve = critical_curve_observables((MASS, SUB_SPIN, 0.0), theta_obs, n=33)
-    gam, dts = curve["gamma"].numpy(), curve["delta_t"].numpy()
-    return {"gamma_min": float(gam.min()), "gamma_median": float(
-                np.median(gam)), "gamma_max": float(gam.max()),
-            "delay_half_orbit_M_min": float(dts.min()),
-            "delay_half_orbit_M_median": float(np.median(dts)),
-            "delay_half_orbit_M_max": float(dts.max())}
-
-
 def subring_main_path():
     import grtrace_torch
+    from grtrace_torch.cli import subring as sub_cli
     from grtrace_torch.engine import integrate_ks_cuda
     from grtrace_torch.engine.metrics import RenderMetrics
 
@@ -725,7 +727,7 @@ def subring_main_path():
     r_em = res.r_em[valid]
     summary = grtrace_torch.subring_summary(res)
     t0 = time.perf_counter()
-    theory = shell_theory()
+    theory = sub_cli.shell_theory(SUB_SPIN, 0.0, SUB_ELEV)
     theory_s = time.perf_counter() - t0
     info = {"launches": launches, "counts": counts,
             "stages_s": rm.stages, "n_steps_max": int(ns.max()),
@@ -1300,16 +1302,21 @@ N_SAMPLES, TRAJ_POINTS = 20, 1000
 TRAJ_BYTES_RAY = 8 * 4 + 4  # float32 rays
 
 
+def run_quiet(fn, argv):
+    """A driver's main in-process: (its return, its standard output as
+    lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    return out, buf.getvalue().splitlines()
+
+
 def run_cli(argv):
     """grtrace_torch.cli.main in-process: (its result, its standard output
     as lines)."""
-    import contextlib
-    import io
     from grtrace_torch.cli import main as cli_main
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        res = cli_main.main(argv)
-    return res, buf.getvalue().splitlines()
+    return run_quiet(cli_main.main, argv)
 
 
 def json_line(lines, key):
@@ -2574,6 +2581,431 @@ def eqc_sweep(q0, p0, q0d, p0d):
             "B4": ray_sweep(b4, q0, p0)}
 
 
+# --- adaptive antialiasing and the observables (phases 38-43) --------------
+# engine/aa.py on every render path of the earlier phases, at their full
+# widths, with s = 2: the headline frame in float32 (the sub-rays through
+# B1) and float64 (B2), the Kerr frame in the Kerr-Schild chart (B5) and
+# the Boyer-Lindquist one (G1), the disk (B6) and the subrings (B7).  With
+# s = 2 each sub-ray sits at a pixel of the 2N frame bit for bit, so the
+# gates are byte equalities against the 2N render of the same scene.
+AA_S = 2
+AA_OUT = os.path.join(HERE, "build", "aa_out")
+# each pass's launch is held against its eager twin on the card on the
+# same sub-rays; the twin's loop lasts as long as its longest ray (2-6 ms
+# a step), so the sub-rays that took more steps than this are left out
+# (only the Boyer-Lindquist pass has such rays: phase 35's bound)
+AA_TWIN_MAX_STEPS = GEN_TWIN_MAX_STEPS
+
+
+class EventMetrics(metrics.RenderMetrics):
+    """A RenderMetrics whose stages read CUDA events: the card's time
+    between the stage's ends, host gaps inside it included (seconds)."""
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            end.synchronize()
+            self.stages[name] = (self.stages.get(name, 0.0)
+                                 + start.elapsed_time(end) / 1e3)
+
+
+@contextlib.contextmanager
+def eager_on_cuda():
+    """Every eager integration twin, counted when it is called on CUDA
+    rays while the block runs (the dispatchers look them up at call
+    time); yields the list of the names called."""
+    from grtrace_torch.engine import integrate as ti
+    from grtrace_torch.engine import integrate_generic as tg
+    from grtrace_torch.engine import integrate_ks as tks
+    names = [(ti, "integrate_batch"), (ti, "integrate_batch_compensated"),
+             (tks, "integrate_batch_ks"), (tks, "integrate_batch_ksc"),
+             (tks, "integrate_batch_disk_ks"),
+             (tks, "integrate_batch_disk_ksc"),
+             (tks, "integrate_batch_subrings_ks"),
+             (tks, "integrate_batch_subrings_ksc"),
+             (tg, "integrate_batch_generic")]
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+    calls = []
+
+    def counted(fn, name):
+        def twin(q0s, *args, **kw):
+            if q0s.is_cuda:
+                calls.append(name)
+            return fn(q0s, *args, **kw)
+        return twin
+    for m, n, fn in saved:
+        setattr(m, n, counted(fn, n))
+    try:
+        yield calls
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def captured_calls(mod, name):
+    """Every call of mod.name while the block runs, as (args, kwargs,
+    outputs); yields the list (the callers look the name up at call
+    time)."""
+    fn = getattr(mod, name)
+    calls = []
+
+    def recorder(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+    setattr(mod, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
+
+
+def aa_pass_parity(tag, kernel, dispatch, call, n):
+    """The AA pass's own launch, as the render made it (the dispatcher's
+    captured arguments and outputs), against the eager twin on the same
+    sub-rays on the card: the dispatcher with backend='torch' (B2's twin
+    is integrate_batch_eq, as in check_parity).  Gated bitwise on
+    final_q, final_p, status, n_steps and the hit records."""
+    from grtrace_torch.engine import integrate as ti
+    from grtrace_torch.engine.validate import compare_outputs, timed
+    args, kw, kern = call
+    ns = kern[3].abs()
+    rays = ns.shape[0]
+    keep = ns <= AA_TWIN_MAX_STEPS
+    held = "every sub-ray"
+    if not bool(keep.any()):
+        raise AssertionError(f"AA {tag}: every sub-ray took more than "
+                             f"{AA_TWIN_MAX_STEPS} steps; none to hold")
+    if not bool(keep.all()):
+        idx = torch.nonzero(keep).reshape(-1)
+        args = (args[0][idx].contiguous(), args[1][idx].contiguous()) \
+            + tuple(args[2:])
+        # the subring hit records are (n_orders, N, 4)
+        kern = tuple(o[:, idx] if o.dim() == 3 else o[idx] for o in kern)
+        held = (f"the {idx.numel()} of {rays} sub-rays that took at most "
+                f"{AA_TWIN_MAX_STEPS} steps")
+    if kernel == "B2":
+        def twin():
+            return ti.integrate_batch_eq(*args, order=kw["order"])
+    else:
+        def twin():
+            return dispatch(*args, **dict(kw, backend="torch"))
+    ref, plain_ms = timed(twin, args[0].device)
+    res = compare_outputs(kern, ref)
+    res.update(rays=int(args[0].shape[0]), held=held,
+               n_steps_max=int(kern[3].abs().max()), plain_ms=plain_ms)
+    phase(n, f"AA {tag}: the pass's {kernel} launch vs the eager twin on "
+             f"its sub-rays ({CARD}): {json.dumps(res)}")
+    gate_parity(f"AA {tag} pass", res)
+    return res
+
+
+def box_average(image, size, s=AA_S):
+    """The s x s blocks of the sN frame averaged with engine/aa.py's
+    rounding (float32 mean, + 0.5, clipped)."""
+    blocks = np.asarray(image, np.float32).reshape(size, s, size, s, 3)
+    return np.clip(blocks.mean(axis=(1, 3)) + 0.5, 0, 255).astype(np.uint8)
+
+
+def warm_walls(fn, n=3):
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def warm_aa_passes(render, size, n=3):
+    """n warm AA renders, each with its stages read by CUDA events: (host
+    walls, the pass's kernel+wrapper ms, the whole pass's ms)."""
+    walls, integrate_ms, pass_ms = [], [], []
+    for _ in range(n):
+        rm = EventMetrics()
+        t0 = time.perf_counter()
+        render(size, aa_samples=AA_S, metrics=rm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        integrate_ms.append(1e3 * rm.stages["device_pipeline/aa/integrate"])
+        pass_ms.append(1e3 * rm.stages["device_pipeline/aa"])
+    return walls, integrate_ms, pass_ms
+
+
+def aa_phase(n, tag, render, size, kernel, counter, ops_kernel, dispatch,
+             subring=False):
+    """One path's AA frame at its full width: the base render, the AA
+    render (stages by CUDA events, the eager twins counted on CUDA rays,
+    the dispatcher's calls captured) and the 2N render, each with the
+    path's kernel count set to 0 just before and read just after; then the
+    gates: (a) refined pixels byte-equal to the 2N render box-averaged
+    (the subrings' per-order intensities within rtol 1e-6), (b) unrefined
+    pixels, the class map and the counts byte-equal to the base render's,
+    (c) the AA render launches the kernel twice (the frame and its one
+    pass) and no twin on CUDA rays, (d) the pass's launch bitwise equal to
+    the eager twin on its sub-rays (`aa_pass_parity`).  Then three warm
+    renders without AA and three with (the pass timed by CUDA events; the
+    first AA render's times are printed apart, as they hold first-call
+    costs).  render(size, **kw) renders the path's scene at `size`;
+    dispatch = (module, name) of the dispatcher the pass calls."""
+    mod, attr = counter
+
+    def counted(sz, **kw):
+        setattr(mod, attr, 0)
+        res = render(sz, **kw)
+        return res, getattr(mod, attr)
+
+    base, base_launches = counted(size)
+    rm = EventMetrics()
+    with eager_on_cuda() as eager, captured_calls(*dispatch) as calls:
+        aa, aa_launches = counted(size, aa_samples=AA_S, metrics=rm)
+    hi, hi_launches = counted(AA_S * size)
+    mask = aa.aa_mask
+    edges = int(mask.sum())
+    # the pass's call is the last one and holds the s^2 sub-rays of every
+    # refined pixel (the disk and subring dispatchers also trace the frame)
+    if not calls or calls[-1][0][0].shape[0] != edges * AA_S ** 2:
+        raise AssertionError(f"AA {tag}: no dispatcher call on the "
+                             f"{edges * AA_S ** 2} sub-rays")
+    twin = aa_pass_parity(tag, kernel, getattr(*dispatch), calls[-1], n)
+    del calls
+    refined_equal = bool(np.array_equal(aa.image[mask],
+                                        box_average(hi.image, size)[mask]))
+    gates = {
+        "refined_byte_equal_2n_box": refined_equal,
+        "refined_pixels_changed": int(
+            (aa.image[mask] != base.image[mask]).any(axis=-1).sum()),
+        "unrefined_byte_equal_base": bool(np.array_equal(
+            aa.image[~mask], base.image[~mask])),
+        "cls_equal_base": bool(np.array_equal(aa.cls, base.cls)),
+        "counts_equal_base": aa.counts == base.counts,
+        "launches": {"base": base_launches, "aa": aa_launches,
+                     "2n": hi_launches},
+        "eager_twins_on_cuda": eager}
+    if subring:
+        bi = hi.intensity.astype(np.float64).reshape(
+            -1, size, AA_S, size, AA_S).mean(axis=(2, 4))
+        got = aa.intensity[:, mask].astype(np.float64)
+        rel = np.abs(got - bi[:, mask]) / np.maximum(np.abs(bi[:, mask]),
+                                                    1e-30)
+        gates.update(
+            intensity_max_rel_err=float(rel.max()),
+            unrefined_intensity_equal=bool(np.array_equal(
+                aa.intensity[:, ~mask], base.intensity[:, ~mask])),
+            count_valid_equal=bool(np.array_equal(aa.count, base.count)
+                                   and np.array_equal(aa.valid,
+                                                      base.valid)),
+            total_is_sum=bool(np.allclose(aa.total_intensity,
+                                          aa.intensity.sum(axis=0),
+                                          rtol=1e-6, atol=0.0)),
+            flux_per_order={"base": base.intensity.sum(axis=(1, 2)).tolist(),
+                            "aa": aa.intensity.sum(axis=(1, 2)).tolist(),
+                            "2n_over_s2": (hi.intensity.sum(axis=(1, 2))
+                                           / AA_S ** 2).tolist()})
+    # the sub-rays are the 2N frame's rays in the refined pixels' blocks:
+    # their longest chain bounds the pass from below
+    ns_hi = np.abs(hi.n_steps.astype(np.int64)).reshape(size, AA_S, size,
+                                                      AA_S)
+    sub_steps = ns_hi.transpose(0, 2, 1, 3).reshape(size, size, -1)[mask]
+    longest = int(sub_steps.max()) if edges else 0
+    floor = metrics.chain_floor_ms(ops_kernel, longest, 2, SM_CLOCK_HZ) \
+        if SM_CLOCK_HZ else None
+    base_walls = warm_walls(lambda: render(size))
+    aa_walls, integrate_ms, pass_ms = warm_aa_passes(render, size)
+    info = {
+        "size": size, "edges": edges, "subrays": edges * AA_S ** 2,
+        "pass_kernel_wrapper_ms": float(np.median(integrate_ms)),
+        "pass_ms": float(np.median(pass_ms)),
+        "pass_plain_ms": twin["plain_ms"], "pass_twin_held": twin["held"],
+        "warm_pass_kernel_wrapper_ms": integrate_ms,
+        "warm_pass_ms": pass_ms,
+        "first_aa_render_stages_s": rm.stages,
+        "longest_subray_steps": longest,
+        "subray_steps_sum": int(sub_steps.sum()),
+        "chain_floor_ms": floor,
+        "wall_s": {"base_median": float(np.median(base_walls)),
+                   "aa_median": float(np.median(aa_walls)),
+                   "base": base_walls, "aa": aa_walls},
+        "gates": gates}
+    phase(n, f"AA {tag} at {size}x{size}, s = {AA_S}, sub-rays through "
+             f"{kernel} ({CARD}): {json.dumps(info)}")
+    bad = [k for k in ("refined_byte_equal_2n_box",
+                       "unrefined_byte_equal_base", "cls_equal_base",
+                       "counts_equal_base") if not gates[k]]
+    if subring:
+        bad += [k for k in ("unrefined_intensity_equal", "count_valid_equal",
+                            "total_is_sum") if not gates[k]]
+        if not gates["intensity_max_rel_err"] <= 1e-6:
+            bad.append("intensity_max_rel_err")
+    if bad or not edges or not gates["refined_pixels_changed"]:
+        raise AssertionError(f"AA {tag}: gates {bad} failed, or no pixel "
+                             f"was refined ({edges} edges)")
+    if (base_launches, aa_launches, hi_launches) != (1, 2, 1) or eager:
+        raise AssertionError(f"AA {tag}: launches {gates['launches']} (the "
+                             f"AA render must launch {kernel} twice: the "
+                             f"frame and its pass) or eager twins {eager} "
+                             f"on CUDA rays")
+    info["aa_render_launches"] = aa_launches
+    return info
+
+
+def aa_phases():
+    """Phases 38-42: the AA frames of phases 5, 18, 9, 35, 11 and 14."""
+    import grtrace_torch
+    from dataclasses import replace
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine import integrate_generic_cuda as tg
+    from grtrace_torch.engine import aa as taa
+    from grtrace_torch.engine import disk as tdisk
+    from grtrace_torch.engine import integrate_ks_cuda as tks
+    from grtrace_torch.engine import subring as tsub
+    from grtrace_torch.io.textures import starfield
+    tex = starfield()
+
+    def at(scene, size):
+        return replace(scene, size=size)
+
+    def schw(dtype):
+        return lambda sz, **kw: grtrace_torch.render(
+            at(headline_scene(dtype), sz), bg_array=tex, device="cuda", **kw)
+
+    def kerr(metric):
+        return lambda sz, **kw: grtrace_torch.render(
+            replace(at(kerr_scene(), sz), metric=metric), bg_array=tex,
+            device="cuda", **kw)
+
+    def disk(sz, **kw):
+        return grtrace_torch.render_disk(at(disk_scene(), sz), bg_array=tex,
+                                         device="cuda", **kw)
+
+    def subrings(sz, **kw):
+        scene, dc = subring_scene()
+        return grtrace_torch.render_subrings(at(scene, sz), dc,
+                                             n_orders=SUB_ORDERS,
+                                             device="cuda", **kw)
+    schw_pass = (taa, "integrate_dispatch")
+    gen_pass = (taa, "integrate_dispatch_generic")
+    return {
+        "B1": aa_phase(38, "headline float32", schw("float32"), SIZE, "B1",
+                       (tc, "launches"), "fantasy_eqc", schw_pass),
+        "B2": aa_phase(38, "headline float64", schw("float64"), SIZE, "B2",
+                       (tc, "eq_launches"), "fantasy_eq", schw_pass),
+        "B5": aa_phase(39, "Kerr, Kerr-Schild chart", kerr("kerr"),
+                       KERR_SIZE, "B5", (tks, "launches"), "fantasy_ks",
+                       gen_pass),
+        "G1": aa_phase(40, "Kerr, Boyer-Lindquist chart", kerr("kerr-bl"),
+                       KERR_SIZE, "G1", (tg, "launches"), "fantasy_gen",
+                       gen_pass),
+        "B6": aa_phase(41, "disk", disk, DISK_SIZE, "B6",
+                       (tks, "disk_launches"), "fantasy_ks",
+                       (tdisk, "integrate_dispatch_disk")),
+        "B7": aa_phase(42, "subrings", subrings, SUB_SIZE, "B7",
+                       (tks, "subring_launches"), "fantasy_ks",
+                       (tsub, "integrate_dispatch_subrings"), subring=True)}
+
+
+def observables_cli_phase():
+    """Phase 43: the drivers of this line on the card, in-process, each
+    kernel count set to 0 just before and read just after: `cli.main
+    --aa 2` at the headline width (B1 twice: the frame and its pass; S1
+    once), `cli.subring --spin 0.9 --size 256 --orders 3 --aa 2
+    --visibility` (B7 twice), `cli.visibility` with its defaults (256x256
+    disk, 20k steps: B6 once) and `cli.hotspot --closure` at 256x256 (B6
+    once; one FFT per frame); all with --no-plots.  Each must return and
+    write its CSVs."""
+    from grtrace_torch.cli import hotspot as hot_cli
+    from grtrace_torch.cli import subring as sub_cli
+    from grtrace_torch.cli import visibility as vis_cli
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine import integrate_ks_cuda as tks
+    runs = {}
+
+    def out_dir(name):
+        return os.path.join(AA_OUT, name)
+
+    tc.launches = tc.traj_launches = 0
+    t0 = time.perf_counter()
+    res, lines = run_cli(CLI_ARGV + ["--aa", str(AA_S), "--out-dir",
+                                     out_dir("main")])
+    runs["main"] = {
+        "argv": "--size 400 --aa 2 (phase 25's flags)",
+        "launches": {"B1": tc.launches, "S1": tc.traj_launches},
+        "wall_s": time.perf_counter() - t0, "counts": res.counts,
+        "aa_edges": int(res.aa_mask.sum()),
+        "stages_s": json_line(lines, "stages_s")["stages_s"],
+        "csv_rows": {f: csv_rows(os.path.join(out_dir("main"), f))
+                     for f in ("photon_data.csv", "sampled_rays.csv")}}
+
+    tks.subring_launches = 0
+    t0 = time.perf_counter()
+    m, _ = run_quiet(sub_cli.main, [
+        "--spin", str(SUB_SPIN), "--size", str(SUB_SIZE), "--orders",
+        str(SUB_ORDERS), "--aa", str(AA_S), "--visibility", "--no-plots",
+        "--out-dir", out_dir("subring")])
+    runs["subring"] = {
+        "launches": {"B7": tks.subring_launches},
+        "wall_s": time.perf_counter() - t0,
+        "aa_edges": int(m["result"].aa_mask.sum()),
+        "flux_per_order": m["flux_per_order"], "gamma_hat": m["gamma_hat"],
+        "delay_per_order_M": m["delay_per_order_M"],
+        "ring_diameter_rad_per_order": m["ring_diameter_rad_per_order"],
+        "csv_rows": {f: csv_rows(os.path.join(out_dir("subring"), f))
+                     for f in ("subring_visibility.csv",
+                               "subring_delay_01.csv")}}
+
+    tks.disk_launches = 0
+    t0 = time.perf_counter()
+    vm, _ = run_quiet(vis_cli.main, ["--no-plots", "--out-dir",
+                                     out_dir("visibility")])
+    runs["visibility"] = {
+        "launches": {"B6": tks.disk_launches},
+        "wall_s": time.perf_counter() - t0, "metrics": vm,
+        "csv_rows": {f: csv_rows(os.path.join(out_dir("visibility"), f))
+                     for f in ("visibility_radial.csv",
+                               "closure_phases.csv")}}
+
+    tks.disk_launches = 0
+    t0 = time.perf_counter()
+    hot, _ = run_quiet(hot_cli.main, [
+        "--size", "256", "--metric", "kerr", "--spin", str(DISK_SPIN),
+        "--frames", str(HOT_FRAMES), "--closure", "--no-gif", "--no-plots",
+        "--out-dir", out_dir("hotspot")])
+    series = hot["closure"]
+    runs["hotspot"] = {
+        "launches": {"B6": tks.disk_launches},
+        "wall_s": time.perf_counter() - t0,
+        "closure_swing_deg": np.degrees(np.ptp(series, axis=0)).tolist(),
+        "closure_finite": bool(np.isfinite(series).all()),
+        "csv_rows": {"closure_vs_time.csv": csv_rows(os.path.join(
+            out_dir("hotspot"), "closure_vs_time.csv"))}}
+    phase(43, f"the observables' drivers on the card ({CARD}): "
+              f"{json.dumps(runs)}")
+    want = {"main": {"B1": 2, "S1": 1}, "subring": {"B7": 2},
+            "visibility": {"B6": 1}, "hotspot": {"B6": 1}}
+    bad = [k for k, v in want.items() if runs[k]["launches"] != v]
+    if bad:
+        raise AssertionError(f"driver launches differ from {want}: {bad}")
+    rows = runs["main"]["csv_rows"]
+    if (rows["photon_data.csv"] != SIZE * SIZE
+            or rows["sampled_rays.csv"] != N_SAMPLES * TRAJ_POINTS
+            or not runs["main"]["aa_edges"]):
+        raise AssertionError(f"cli.main --aa: {runs['main']}")
+    if (not all(v > 0 for r in runs.values() for v in r["csv_rows"].values())
+            or runs["hotspot"]["csv_rows"]["closure_vs_time.csv"]
+            != HOT_FRAMES or not runs["hotspot"]["closure_finite"]
+            or not runs["subring"]["aa_edges"]):
+        raise AssertionError(f"a driver wrote an empty CSV or no result: "
+                             f"{runs}")
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2730,6 +3162,18 @@ def main():
     bl = bl_path_phase()
     ks_path = ks_path_phase()
     bl_a0_phase()
+    # --- adaptive antialiasing and the observables' drivers ----------------
+    aa = aa_phases()
+    obs = observables_cli_phase()
+    aa_launches = {k: {"aa_render": v["aa_render_launches"]}
+                   for k, v in aa.items()}
+    aa_launches["B1"]["cli_main_aa"] = obs["main"]["launches"]["B1"]
+    aa_launches["B7"]["cli_subring_aa"] = obs["subring"]["launches"]["B7"]
+    aa_pass = {k: {f: v[f] for f in ("size", "edges", "subrays",
+                                     "pass_kernel_wrapper_ms", "pass_ms",
+                                     "pass_plain_ms", "longest_subray_steps",
+                                     "chain_floor_ms")}
+               for k, v in aa.items()}
     disk_line = {"disk_cli": dcli["launches"], "reshade": rsh["launches"],
                  "camera_keplerian": mov["launches"],
                  "hotspot": hot["render"]["launches"],
@@ -2741,7 +3185,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_eqc.cu",
          "replaces": "grtrace/engine/integrate_pallas.py:77",
-         "launches": launches,
+         "launches": launches + sum(aa_launches["B1"].values()),
+         "launches_main": launches,
+         "launches_aa": aa_launches["B1"],
+         "aa_pass": aa_pass["B1"],
          "max_abs_err": a["max_abs_err"],
          "ms": a["kernel_ms"],
          "plain_ms": a["twin_ms"],
@@ -2754,7 +3201,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
-         "launches": kerr["launches"],
+         "launches": kerr["launches"] + sum(aa_launches["B5"].values()),
+         "launches_main": kerr["launches"],
+         "launches_aa": aa_launches["B5"],
+         "aa_pass": aa_pass["B5"],
          "max_abs_err": kerr["max_abs_err"],
          "ms": kerr["kernel_ms"],
          "plain_ms": kerr["twin_ms"],
@@ -2767,7 +3217,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
-         "launches": disk["launches"],
+         "launches": disk["launches"] + sum(aa_launches["B6"].values()),
+         "launches_main": disk["launches"],
+         "launches_aa": aa_launches["B6"],
+         "aa_pass": aa_pass["B6"],
          "max_abs_err": disk["max_abs_err"],
          "ms": disk["kernel_ms"],
          "plain_ms": disk["twin_ms"],
@@ -2782,7 +3235,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
-         "launches": sub["launches"],
+         "launches": sub["launches"] + sum(aa_launches["B7"].values()),
+         "launches_main": sub["launches"],
+         "launches_aa": aa_launches["B7"],
+         "aa_pass": aa_pass["B7"],
          "max_abs_err": sub["max_abs_err"],
          "ms": sub["kernel_ms"],
          "plain_ms": sub["twin_ms"],
@@ -2798,7 +3254,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_eqc.cu",
          "replaces": "grtrace/engine/integrate_pallas.py:77",
-         "launches": eq_launches,
+         "launches": eq_launches + sum(aa_launches["B2"].values()),
+         "launches_main": eq_launches,
+         "launches_aa": aa_launches["B2"],
+         "aa_pass": aa_pass["B2"],
          "max_abs_err": b2["max_abs_err"],
          "ms": b2["kernel_ms"],
          "plain_ms": b2["twin_ms"],
@@ -2866,7 +3325,10 @@ def main():
          "replaces": "none: a port-side kernel (G1); the JAX package's "
                      "Boyer-Lindquist engine is the XLA while_loop "
                      "grtrace/engine/integrate_generic.py:209",
-         "launches": bl["launches"]["G1"],
+         "launches": bl["launches"]["G1"] + sum(aa_launches["G1"].values()),
+         "launches_main": bl["launches"]["G1"],
+         "launches_aa": aa_launches["G1"],
+         "aa_pass": aa_pass["G1"],
          "max_abs_err": bl["g1"]["max_abs_err"],
          "ms": bl["g1"]["kernel_ms"],
          "plain_ms": bl["g1"]["twin_ms"],

@@ -8,12 +8,15 @@ guard, exact Bardeen rescue), and the thin accretion disk around a Kerr
 hole (`render_disk`: inclined camera, first-equatorial-crossing capture,
 redshift shading), and the photon-ring subrings of a transparent disk
 (`render_subrings`: every image order as its own layer, with the
-photon-shell theory of physics/photon_shell.py beside it), with
+photon-shell theory of physics/photon_shell.py beside it, and their u-v
+signatures through engine/visibility.py), with
 Walker-Penrose polarization maps (`bfield`) and a camera on a circular
 worldline (`camera_omega`), geodesic transfer maps that re-shade a disk
 without tracing (`TransferMap`, `reshade`), orbiting hot-spot movies
 (`render_hotspot`, `hotspot_from_transfer`), the
-reference-compatible `SchwarzschildIntegrator` for rays in any plane, and
+reference-compatible `SchwarzschildIntegrator` for rays in any plane,
+adaptive edge antialiasing on every render path (`aa_samples`,
+engine/aa.py), and
 checkpoint / resume of long integrations (engine/checkpoint.py), on
 tensors of any torch device.  On an NVIDIA Hopper GPU the integration
 runs hand-written CUDA kernels (csrc/fantasy_eqc.cu in its compensated,
@@ -30,7 +33,8 @@ from .engine.disk import (DiskConfig, from_jax_disk, render_disk,
                           save_disk_maps)
 from .engine.hotspot import HotspotConfig, from_jax_hotspot, render_hotspot
 from .engine.subring import (polarized_moments, render_subrings,
-                             subring_summary)
+                             save_subring_maps, subring_summary,
+                             subring_visibilities)
 from .io.transfer import TransferMap, hotspot_from_transfer, reshade
 
 __version__ = "0.1.0"
@@ -40,7 +44,8 @@ __all__ = [
     "SceneConfig", "from_jax_scene", "RenderResult", "render",
     "render_pixels", "SchwarzschildIntegrator", "DiskConfig",
     "from_jax_disk", "render_disk", "save_disk_maps", "render_subrings",
-    "subring_summary", "polarized_moments", "HotspotConfig",
+    "subring_summary", "subring_visibilities", "save_subring_maps",
+    "polarized_moments", "HotspotConfig",
     "from_jax_hotspot", "render_hotspot", "TransferMap", "reshade",
     "hotspot_from_transfer", "__version__",
 ]

@@ -120,8 +120,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Adaptive shadow-edge antialiasing: re-trace SxS '
                         'stratified sub-rays for the boundary pixels only '
                         'and average their colors (engine/aa.py; class '
-                        'map and CSVs keep center-sample semantics; not '
-                        'ported yet: ROADMAP item 8)')
+                        'map and CSVs keep center-sample semantics)')
     # --- accretion disk mode (beyond the reference; engine/disk.py) ---
     p.add_argument('--disk', action='store_true',
                    help='Render a thin equatorial accretion disk (GR '

@@ -8,10 +8,12 @@ its figures unless --no-plots, which the JAX driver does not have).
 --transfer shades the movie from a saved transfer map instead, with no
 geodesic step.
 
-Run: python -m grtrace_torch.cli.hotspot --size 256 --metric kerr --spin 0.9
-     [--device cpu] [--no-plots]
+--closure adds the closure-phase time series on a fan of closed baseline
+triangles (closure_vs_time.csv; its figure unless --no-plots), one FFT
+per frame on the run's device.
 
-Not ported yet: --closure (engine/visibility.py, ROADMAP Queue A item 8).
+Run: python -m grtrace_torch.cli.hotspot --size 256 --metric kerr --spin 0.9
+     [--device cpu] [--no-plots] [--closure]
 """
 from __future__ import annotations
 
@@ -19,11 +21,6 @@ import argparse
 import json
 import os
 import time
-
-
-# the presets' black-hole masses in solar masses (EHT 2019/2022; GRAVITY
-# 2018), the one number --preset sets here
-PRESET_MASS_MSUN = {"m87": 6.5e9, "sgra": 4.297e6}
 
 
 def build_parser():
@@ -67,8 +64,9 @@ def build_parser():
                    help='skip the light-curve and astrometry figures (they '
                         'need matplotlib)')
     p.add_argument('--closure', action='store_true',
-                   help='the closure-phase time series (not ported yet: '
-                        'ROADMAP item 8)')
+                   help='closure-phase time series on a fan of closed '
+                        'baseline triangles (engine/visibility.py) -> '
+                        'closure_vs_time.csv (and .png unless --no-plots)')
     p.add_argument('--mass-msun', type=float, default=None,
                    help='black-hole mass in solar masses: adds physical '
                         'time (minutes) to the light curve and the '
@@ -131,12 +129,57 @@ def _bench(res, out, args, spin, params, device):
     }
 
 
+def _closure(out, args, device):
+    """--closure: the movie's closure phases on four closed triangles
+    whose legs span the ring scale (JAX's fan), written to
+    closure_vs_time.csv and, unless --no-plots, drawn against the orbital
+    phase; returns the (F, 4) series in radians."""
+    import numpy as np
+
+    from ..engine.hotspot import closure_phase_series
+
+    size = out["frames"].shape[1]
+    pixel_rad = 2.0 * np.tan(np.radians(args.fov) / 2.0) / size
+    du = 1.0 / (2 * size * pixel_rad)        # pad=2 frequency spacing
+    tris = []
+    for s in (3, 6, 11, 18):
+        l1 = np.array([s, 1 - s // 3]) * du
+        l2 = np.array([1 - s // 3, s]) * du
+        tris.append([l1, l2, -(l1 + l2)])
+    tris = np.asarray(tris)
+    series = closure_phase_series(out["frames"], pixel_rad, tris,
+                                  device=device)
+    times = np.asarray(out["times"])
+    np.savetxt(os.path.join(args.out_dir, "closure_vs_time.csv"),
+               np.column_stack([times, np.degrees(series)]),
+               delimiter=",", comments="", fmt="%.8g",
+               header="tau," + ",".join(f"tri{k}_deg"
+                                        for k in range(len(tris))))
+    if not args.no_plots:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(7, 4))
+        for k in range(series.shape[1]):
+            blen = np.linalg.norm(tris[k, 0]) * pixel_rad * size
+            ax.plot(times / out["period"],
+                    np.degrees(np.unwrap(series[:, k])),
+                    label=f"triangle {k} (leg ~{blen:.0f} cyc/fov)")
+        ax.set_xlabel("observer time (orbital periods)")
+        ax.set_ylabel("closure phase (deg)")
+        ax.set_title("flare closure-phase swings")
+        ax.legend(fontsize=8)
+        fig.savefig(os.path.join(args.out_dir, "closure_vs_time.png"),
+                    dpi=110, bbox_inches="tight")
+        plt.close(fig)
+    print(f"closure-phase swings: "
+          f"{np.round(np.degrees(np.ptp(series, axis=0)), 1)} deg "
+          f"-> closure_vs_time.csv")
+    return series
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.closure:
-        raise NotImplementedError(
-            "--closure (closure_phase_series, engine/visibility.py) is not "
-            "ported to grtrace_torch yet (ROADMAP Queue A item 8)")
     if args.spin and args.metric != 'kerr':
         raise SystemExit("--spin requires --metric kerr")
     if args.spin ** 2 + args.charge ** 2 > args.bh_mass ** 2:
@@ -147,6 +190,7 @@ def main(argv=None):
     from ..engine.disk import DiskConfig
     from ..engine.hotspot import (T_SUN_S, HotspotConfig, render_hotspot,
                                   save_hotspot_artifacts)
+    from ..engine.visibility import PRESETS
     from ..io import artifacts
     from ..io.scene import (JAX_BACKENDS, IntegratorConfig, PatchConfig,
                             SceneConfig)
@@ -206,7 +250,7 @@ def main(argv=None):
             print(f"transfer map -> {args.save_transfer}")
     mass_msun = args.mass_msun
     if args.preset and mass_msun is None:
-        mass_msun = PRESET_MASS_MSUN[args.preset]
+        mass_msun = PRESETS[args.preset]["mass_msun"]
     save_hotspot_artifacts(out, args.out_dir, gif=not args.no_gif,
                            mass_msun=mass_msun, plots=not args.no_plots)
     phys = ""
@@ -215,6 +259,9 @@ def main(argv=None):
                 f" at {mass_msun:.3g} M_sun")
     print(f"blob r = {out['r_blob']:.4g} M, period = {out['period']:.5g} M"
           f"{phys}, {args.frames} frames -> {args.out_dir}")
+
+    if args.closure:
+        out["closure"] = _closure(out, args, device)
 
     if args.bench:
         line = json.dumps(_bench(res, out, args, params[1], params, device))

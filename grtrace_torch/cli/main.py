@@ -10,8 +10,9 @@ Pipeline (the reference main.py's):
 Everything runs on the CUDA card by default (--device cpu for the CPU): the
 flat render, the curved render through the hand-written kernels (B1 for
 float32, B2 for --dtype float64, B5 for --metric kerr, G1 for --metric
-kerr-bl, B6 for --disk) and the sampled trajectories through kernel S1
-(S2 on the Kerr charts).  --disk writes the disk's
+kerr-bl, B6 for --disk; --aa S launches the same kernel again on the
+S x S sub-rays of the boundary pixels, engine/aa.py) and the sampled
+trajectories through kernel S1 (S2 on the Kerr charts).  --disk writes the disk's
 science products (redshift_map.csv, line_profile.csv and, with
 --disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
 with --save-transfer, the transfer map that cli/reshade.py and
@@ -77,8 +78,12 @@ def check_ported(args, scene):
     if args.camera_omega is not None and not args.disk:
         raise SystemExit("--camera-omega requires --disk (the orbiting "
                          "camera rides the disk pipeline)")
-    if args.aa:
-        raise _not_ported("--aa (adaptive antialiasing, engine/aa.py)", "8")
+    if args.save_transfer and args.aa:
+        raise SystemExit(
+            "--save-transfer with --aa is not supported: the transfer map "
+            "stores single-ray crossing invariants, so a reshade would "
+            "replace the antialiased disk-edge pixels with single-ray "
+            "colours; save the transfer from a run without --aa")
     metric = scene.metric.lower()
     if metric in ("kottler", "bardeen", "hayward", "rotating-bardeen",
                   "rotating-hayward", "kerr-ds"):
@@ -153,10 +158,12 @@ def main(argv=None):
         t0 = time.time()
         if disk_cfg is not None:
             result = render_disk(scene, disk_cfg, bg_array=bg_array,
-                                 metrics=rm, device=device)
+                                 metrics=rm, aa_samples=args.aa or None,
+                                 device=device)
         else:
             result = render(scene, bg_array=bg_array, seed=args.seed,
-                            metrics=rm, device=device)
+                            metrics=rm, aa_samples=args.aa or None,
+                            device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0

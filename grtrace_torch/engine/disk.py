@@ -21,13 +21,15 @@ products (redshift map, line profile, polarization map).
 
 Rays that never hit carry zero hit rows, as the TPU kernel writes them
 (JAX's XLA disk engine carries the launch state there instead), so the
-redshift map is only meaningful on disk pixels.  Not ported yet, and
-raising NotImplementedError: `aa_samples` and the autodiff ISCO of a
-charged hole (`r_in=None` with charge), ROADMAP Queue A item 8; the
-rotating regular metrics, item 9.
+redshift map is only meaningful on disk pixels.  `aa_samples` refines the
+display image's boundary pixels (engine/aa.py).  Not ported yet, and
+raising NotImplementedError: the autodiff ISCO of a charged hole
+(`r_in=None` with charge), ROADMAP Queue A item 8 (8d); the rotating regular
+metrics, item 9.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -355,20 +357,24 @@ def resolve_camera_omega(scene, disk):
 def _trace_flat(q0f, p0f, bg_array, hole, params, r_obs, boundary_radius,
                 steps, delta, omega, r_in, r_out, patch_center_theta,
                 patch_center_phi, patch_size_theta, patch_size_phi, *, order,
-                backend, flip_theta, flip_phi, has_background):
+                backend, flip_theta, flip_phi, has_background,
+                stage=contextlib.nullcontext):
     """The per-ray disk chain on flat (N, 4) phase points: integrate with
     crossing capture -> classify the rays that missed -> composite, with
     the disk pixels marked CLS_DISK.  JAX's `_trace_shade_flat` without its
     shading: `run_shading` alone colors the disk pixels.  The
     integration reads Python floats (hole = (M, a, Q); all rounded to the
     ray dtype on the host); the classifier 0-dim tensors of the rays'
-    dtype and device (params = (M, a, Q) as one such tensor)."""
+    dtype and device (params = (M, a, Q) as one such tensor).  `stage()` is
+    the context the integration runs in (engine/aa.py times it)."""
     dtype, device = q0f.dtype, q0f.device
     n = q0f.shape[0]
-    final_q, final_p, status, n_steps, hit_q, hit_p = integrate_dispatch_disk(
-        q0f, p0f, steps, float(delta), hole, float(boundary_radius),
-        float(omega), float(r_in), float(r_out), order=order,
-        backend=backend)
+    with stage():
+        final_q, final_p, status, n_steps, hit_q, hit_p = \
+            integrate_dispatch_disk(
+                q0f, p0f, steps, float(delta), hole, float(boundary_radius),
+                float(omega), float(r_in), float(r_out), order=order,
+                backend=backend)
     disk_mask = status == STATUS_DISK
 
     rho, th, ph = cartesian_to_spherical(final_q[:, 1], final_q[:, 2],
@@ -470,6 +476,9 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
     factor (meaningful on disk pixels), result.device('hit_q') /
     ('hit_p') the recorded crossings.  device defaults to 'cuda' (kernel
     B6) and raises without a GPU; pass device='cpu' for the eager twins.
+    aa_samples = s (>= 2) refines the display image's boundary pixels
+    (engine/aa.py: s x s sub-rays through B6 and run_shading; the class
+    map, counts, redshift and polarization maps keep the centre sample).
     """
     from .render import RenderResult, _untimed
 
@@ -478,10 +487,6 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
         raise NotImplementedError(
             f"disks around the rotating regular metric {scene.metric!r} "
             f"are not ported to grtrace_torch yet (ROADMAP Queue A item 9)")
-    if aa_samples:
-        raise NotImplementedError(
-            "adaptive antialiasing of the disk (engine/aa.py) is not ported "
-            "to grtrace_torch yet (ROADMAP Queue A item 8)")
     camera_moving, camera_omega = resolve_camera_omega(scene, disk)
     r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
     device = torch.device(device)
@@ -524,6 +529,24 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
             camera_moving=camera_moving)
         shaded.pop("disk_count")
         out.update(shaded)
+        if aa_samples:
+            from .aa import refine_edges_disk
+            with stage("device_pipeline/aa"):
+                out["image"], out["aa_mask"] = refine_edges_disk(
+                    out["cls"], out["image"], bg_dev, obs_pos, scene.fov,
+                    scene.bh_mass, scene.spin, scene.charge,
+                    scene.boundary_radius, integ.steps, integ.delta,
+                    float(integ.omega), r_in, disk.r_out, disk.t_peak,
+                    disk.exposure, scene.patch.center_theta,
+                    scene.patch.center_phi, scene.patch.size_theta,
+                    scene.patch.size_phi, camera_omega, height=h, width=w,
+                    samples=int(aa_samples), order=integ.order,
+                    backend=integ.backend,
+                    flip_theta=scene.patch.flip_theta,
+                    flip_phi=scene.patch.flip_phi, has_background=has_bg,
+                    dtype=dtype, prograde=disk.prograde,
+                    profile=disk.profile, camera_moving=camera_moving,
+                    stage=stage)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}

@@ -20,8 +20,8 @@ Crossings are recorded on the Cartesian Kerr-Schild chart, whose time and
 azimuth differ from Boyer-Lindquist by functions of r:
 t_ks = t_bl + T(r), phi_ks = phi_bl + Phi(r); `bl_time_azimuth_offsets`
 integrates T' = (2 M r - Q^2) / Delta and Phi' = a / Delta in closed form
-(the subring summary reads it too).  Not ported yet: `closure_phase_series`
-(engine/visibility.py, ROADMAP Queue A item 8).
+(the subring summary reads it too).  `closure_phase_series` turns a movie
+into its closure-phase time series (engine/visibility.py).
 """
 from __future__ import annotations
 
@@ -248,6 +248,22 @@ def render_hotspot(scene, disk=None, hotspot=None, *, bg_array=None,
         frames_per_chunk=frames_per_chunk, camera_omega=camera_omega)
     out["result"] = result
     return out
+
+
+def closure_phase_series(frames, pixel_rad, triangles, device=None):
+    """(F, T) closure phases of a movie, the dynamical-imaging observable:
+    an orbiting hot spot swings the closure phases on Earth-sized
+    triangles, while station gains and image translation cancel.
+    frames: (F, H, W, 3) uint8; `triangles` as
+    engine.visibility.closure_phases.  One FFT per frame, on `device` (by
+    default the frames' own: the CPU for a numpy movie)."""
+    from .visibility import closure_phases, complex_visibility
+
+    series = []
+    for fr in frames:
+        vis, u, v = complex_visibility(fr, pixel_rad, pad=2, device=device)
+        series.append(closure_phases(vis, u, v, triangles))
+    return np.asarray(series)
 
 
 def save_hotspot_artifacts(out, out_dir, gif=True, mass_msun=None, *,

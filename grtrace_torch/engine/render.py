@@ -9,8 +9,9 @@ float64 rays, S1 for the sampled trajectories); on the CPU it runs B1's
 eager twin for float32 rays and the 16-row integrator for float64 rays, as
 the JAX package does, and S1's twin for the trajectories.  `render`
 also routes Kerr and charged scenes to the Kerr-Schild chart and 'kerr-bl'
-scenes to the Boyer-Lindquist one (engine/render_generic.py); the other
-metric families and antialiasing raise NotImplementedError.
+scenes to the Boyer-Lindquist one (engine/render_generic.py), and runs
+the adaptive antialiasing pass (engine/aa.py) when asked; the other metric
+families raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,12 +35,12 @@ class RenderResult:
 
     Per-pixel tensors stay on the device until first accessed: reading an
     attribute (image, cls, final_q, final_th, final_ph, q0, p0, alpha0,
-    heading, beta, n_steps, status) fetches it to the host once and caches
-    it as a numpy array.
+    heading, beta, n_steps, status and, after antialiasing, aa_mask)
+    fetches it to the host once and caches it as a numpy array.
     """
 
     _FIELDS = ("image", "cls", "final_q", "final_th", "final_ph", "q0", "p0",
-               "alpha0", "heading", "beta", "n_steps", "status")
+               "alpha0", "heading", "beta", "n_steps", "status", "aa_mask")
 
     def __init__(self, device_arrays: dict, counts: dict,
                  sampled_indices=None, sampled_trajectories=None):
@@ -173,11 +174,12 @@ def trajectories_to_cartesian(traj, betas):
     return out
 
 
-def _route(scene, aa_samples):
+def _route(scene):
     """The chart `render` takes: 'Kerr' (Boyer-Lindquist, scene.metric
     'kerr-bl' / 'kerrbl'), 'KerrSchild' (Kerr and charged Schwarzschild,
     which is Reissner-Nordstrom there), or 'Schwarzschild' for the
-    headline path; raises for what the port does not have yet."""
+    headline path; raises for the metric families the port does not have
+    yet."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
     if metric in ("kerr-bl", "kerrbl"):
         return "Kerr"
@@ -189,10 +191,6 @@ def _route(scene, aa_samples):
         raise NotImplementedError(
             f"metric {scene.metric!r} is not ported to grtrace_torch yet "
             f"(ROADMAP Queue A item 9)")
-    if aa_samples:
-        raise NotImplementedError(
-            "adaptive antialiasing (engine/aa.py) is not ported to "
-            "grtrace_torch yet (ROADMAP Queue A item 8)")
     return "Schwarzschild"
 
 
@@ -209,9 +207,14 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     torch dtype, by default the scene's integrator dtype.  metrics:
     optional RenderMetrics to fill with stage timings and throughput.
     device defaults to 'cuda' and raises when no GPU is present; pass
-    device='cpu' for the plain torch path.
+    device='cpu' for the plain torch path.  aa_samples = s (>= 2) runs
+    the adaptive edge-refinement pass (engine/aa.py) inside the device
+    pipeline: s x s stratified sub-rays re-traced, through the render's
+    own kernel, for the boundary pixels, their colours averaged into the
+    image (result.device('aa_mask') marks them); the class map, counts and
+    CSV fields keep the centre sample.
     """
-    chart = _route(scene, aa_samples)
+    chart = _route(scene)
     if chart != "Schwarzschild":
         from .render_generic import render_generic
         return render_generic(scene, metric=chart, bg_array=bg_array,
@@ -249,6 +252,21 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
             flip_phi=scene.patch.flip_phi,
             has_background=has_bg, dtype=dtype,
             backend=integ.backend, order=integ.order)
+        if aa_samples:
+            from .aa import refine_edges_schwarzschild
+            with stage("device_pipeline/aa"):
+                out["image"], out["aa_mask"] = refine_edges_schwarzschild(
+                    out["cls"], out["image"], bg_dev,
+                    scene.observer_distance, scene.fov, scene.bh_mass,
+                    scene.boundary_radius, integ.steps, integ.delta,
+                    float(integ.omega),
+                    scene.patch.center_theta, scene.patch.center_phi,
+                    scene.patch.size_theta, scene.patch.size_phi,
+                    height=h, width=w, samples=int(aa_samples),
+                    order=integ.order, backend=integ.backend,
+                    flip_theta=scene.patch.flip_theta,
+                    flip_phi=scene.patch.flip_phi,
+                    has_background=has_bg, dtype=dtype, stage=stage)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4]}

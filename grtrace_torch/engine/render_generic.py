@@ -14,8 +14,9 @@ sphere, background patch), with what the physics forces:
     Bardeen rescue), not the b_crit shortcut;
   * classification reuses engine.classify with beta = 0 and the shortcut
     disabled (alpha0 = pi).
-The sampled trajectories run through kernel S2 (its twin on the CPU).
-The other metric families and antialiasing raise NotImplementedError.
+The sampled trajectories run through kernel S2 (its twin on the CPU), and
+the adaptive antialiasing pass (engine/aa.py) through B5 or G1 again.
+The other metric families raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -160,16 +161,13 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
 
     spin and charge default to the scene's.  device defaults to 'cuda'
     (kernels B5 or G1, and S2) and raises without a GPU; pass
-    device='cpu' for the eager twins.  aa_samples raises
-    NotImplementedError.  Prefer the top-level render, which routes
-    scene.metric to the right chart.
+    device='cpu' for the eager twins.  aa_samples = s (>= 2) runs the
+    adaptive edge-refinement pass (engine/aa.py: the sub-rays through B5
+    or G1).  Prefer the top-level render, which routes scene.metric to
+    the right chart.
     """
     from .render import RenderResult, _untimed
 
-    if aa_samples:
-        raise NotImplementedError(
-            "adaptive antialiasing (engine/aa.py) is not ported to "
-            "grtrace_torch yet (ROADMAP Queue A item 8)")
     METRICS[metric]  # raises for the families of item 9
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -202,6 +200,22 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
             flip_phi=scene.patch.flip_phi,
             has_background=has_bg, dtype=dtype, metric=metric,
             order=integ.order, backend=integ.backend, charge=charge)
+        if aa_samples:
+            from .aa import refine_edges_generic
+            with stage("device_pipeline/aa"):
+                out["image"], out["aa_mask"] = refine_edges_generic(
+                    out["cls"], out["image"], bg_dev,
+                    scene.observer_distance, scene.fov, scene.bh_mass, spin,
+                    charge, scene.boundary_radius, integ.steps, integ.delta,
+                    float(integ.omega),
+                    scene.patch.center_theta, scene.patch.center_phi,
+                    scene.patch.size_theta, scene.patch.size_phi,
+                    height=h, width=w, samples=int(aa_samples),
+                    metric=metric, order=integ.order,
+                    backend=integ.backend,
+                    flip_theta=scene.patch.flip_theta,
+                    flip_phi=scene.patch.flip_phi,
+                    has_background=has_bg, dtype=dtype, stage=stage)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4]}

@@ -23,15 +23,20 @@ With `DiskConfig.bfield` each order gets its own Walker-Penrose EVPA map
 screen), and `polarized_moments` reduces them to the beta_m moments; with
 `camera_omega` the camera rides a circular worldline (the boosted tetrad).
 
-Not ported yet, and raising NotImplementedError: adaptive antialiasing
-(`aa_samples`, `aa.refine_subrings`; ROADMAP Queue A item 8) and the
-autodiff ISCO of a charged hole (`r_in=None` with charge), item 8.
-`save_subring_maps` (matplotlib) and `subring_visibilities`
-(engine/visibility.py) wait as well (items 7, 8).
+`aa_samples` refines every pixel a layer boundary crosses, in the image
+and the per-order intensities (`aa.refine_subrings`, B7 again on the
+sub-rays).  `subring_visibilities` gives each order's u-v signature
+(engine/visibility.py) and `save_subring_maps` writes the science products
+(CSV and JSON always, the figures when matplotlib is asked for).  Not
+ported yet, and raising NotImplementedError: the autodiff ISCO of a charged
+hole (`r_in=None` with charge), ROADMAP Queue A item 8.
 """
 from __future__ import annotations
 
+import contextlib
+import json
 import math
+import os
 
 import numpy as np
 import torch
@@ -105,22 +110,26 @@ def _trace_shade_subrings(q0f, p0f, bg_array, hole, params, r_obs, r_obs_bl,
                           patch_center_phi, patch_size_theta, patch_size_phi,
                           *, n_orders, order, backend, prograde, profile,
                           flip_theta, flip_phi, has_background,
-                          omega_obs=0.0):
+                          omega_obs=0.0, stage=contextlib.nullcontext):
     """The per-ray subring chain on flat (N, 4) phase points: transparent-
     disk integration -> per-order shade -> endpoint classify -> additive
     thin-disk composite.  The integration reads Python floats (hole =
     (M, a, Q), rounded to the ray dtype on the host); the shading and the
     classifier 0-dim tensors of the rays' dtype and device (params =
-    (M, a, Q) as one such tensor)."""
+    (M, a, Q) as one such tensor).  `stage()` is the context the
+    integration runs in (engine/aa.py times it)."""
     dtype, device = q0f.dtype, q0f.device
     n = q0f.shape[0]
 
     def scalar(x):
         return torch.tensor(float(x), dtype=dtype, device=device)
 
-    final_q, _, status, n_steps, hq, hp, count = integrate_dispatch_subrings(
-        q0f, p0f, steps, float(delta), hole, float(boundary_radius),
-        float(omega), n_orders=n_orders, order=order, backend=backend)
+    with stage():
+        final_q, _, status, n_steps, hq, hp, count = \
+            integrate_dispatch_subrings(
+                q0f, p0f, steps, float(delta), hole, float(boundary_radius),
+                float(omega), n_orders=n_orders, order=order,
+                backend=backend)
 
     shade = shade_subrings(
         hq, hp, count, params, r_obs_bl, scalar(r_in), scalar(r_out),
@@ -260,7 +269,7 @@ class SubringResult(RenderResult):
     _FIELDS = ("image", "cls", "status", "n_steps", "count", "q0", "p0",
                "alpha0", "hits_q", "hits_p", "g", "intensity", "r_em",
                "valid", "total_intensity", "evpa", "pol_weight",
-               "pol_check")
+               "pol_check", "aa_mask")
     _SCALARS = ("params", "r_in", "r_out", "obs_pos", "n_orders")
 
     def __init__(self, device_arrays, counts, **scalars):
@@ -285,12 +294,11 @@ def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
 
     counts carries a sixth entry, 'disk': the emitting pixels (any order
     valid).  device defaults to 'cuda' (kernel B7) and raises without a
-    GPU; pass device='cpu' for the eager twins."""
+    GPU; pass device='cpu' for the eager twins.  aa_samples = s (>= 2)
+    refines every pixel a layer boundary crosses (engine/aa.py: s x s
+    sub-rays through B7), in the image and the per-order intensity maps
+    (and so total_intensity); aa_mask marks them."""
     disk = disk or DiskConfig()
-    if aa_samples:
-        raise NotImplementedError(
-            "adaptive antialiasing of the subring layers (aa.refine_subrings)"
-            " is not ported to grtrace_torch yet (ROADMAP Queue A item 8)")
     moving, omega_cam = resolve_camera_omega(scene, disk)
     r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
     device = torch.device(device)
@@ -324,6 +332,26 @@ def render_subrings(scene, disk: DiskConfig = None, *, n_orders=3,
             dtype=dtype, prograde=disk.prograde, profile=disk.profile,
             backend=integ.backend, camera_omega=omega_cam,
             camera_moving=moving, bfield=disk.bfield)
+        if aa_samples:
+            from .aa import refine_subrings
+            with stage("device_pipeline/aa"):
+                (out["image"], out["intensity"], out["total_intensity"],
+                 out["aa_mask"]) = refine_subrings(
+                    out["cls"], out["count"], out["valid"], out["image"],
+                    out["intensity"], bg_dev, obs_pos, scene.fov,
+                    scene.bh_mass, scene.spin, scene.charge,
+                    scene.boundary_radius, integ.steps, integ.delta,
+                    float(integ.omega), r_in, disk.r_out, disk.t_peak,
+                    disk.exposure, scene.patch.center_theta,
+                    scene.patch.center_phi, scene.patch.size_theta,
+                    scene.patch.size_phi, omega_cam, height=h, width=w,
+                    samples=int(aa_samples), n_orders=n_orders,
+                    order=integ.order, backend=integ.backend,
+                    flip_theta=scene.patch.flip_theta,
+                    flip_phi=scene.patch.flip_phi, has_background=has_bg,
+                    dtype=dtype, prograde=disk.prograde,
+                    profile=disk.profile, camera_moving=moving,
+                    stage=stage)
         cv = out.pop("count_vec").tolist()  # the one host fetch
     counts = {"captured": cv[0], "in_domain": cv[1], "escaped": cv[2],
               "background": cv[3], "numerical_error": cv[4], "disk": cv[5]}
@@ -439,3 +467,145 @@ def subring_summary(result):
             float(np.angle(b)) if abs(b) > 0 else float("nan")
             for b in beta]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Science artifacts
+# ---------------------------------------------------------------------------
+
+def subring_visibilities(result, fov_rad, pad=6, n_bins=400):
+    """Per-order u-v signatures of one subring render: each layer's |V|(b)
+    radial profile, first null and thin-ring diameter estimate, in camera
+    radians (multiply baselines by visibility.camera_to_earth for a real
+    source).  The n >= 1 layers converge onto the critical curve, so the
+    thin-ring estimator is cleaner on them than on the composite image.
+    The FFTs run on the result's device.  Returns a list of dicts {order,
+    baselines, profile, b_null, ring_diameter_rad}; empty layers get NaN
+    estimates."""
+    from .visibility import (first_null, radial_profile,
+                             ring_diameter_from_null, visibility_map)
+
+    inten = (result.device("intensity") if hasattr(result, "device")
+             else torch.as_tensor(np.asarray(result["intensity"])))
+    inten = inten.to(torch.float64)
+    n_orders, h, w = inten.shape
+    pixel_cam = 2.0 * np.tan(fov_rad / 2.0) / w
+    out = []
+    for n in range(n_orders):
+        if float(inten[n].sum()) <= 0.0:
+            out.append({"order": n, "baselines": None, "profile": None,
+                        "b_null": float("nan"),
+                        "ring_diameter_rad": float("nan")})
+            continue
+        amp, u, v = visibility_map(inten[n], pixel_cam, pad=pad)
+        base, prof = radial_profile(amp, u, v, n_bins=n_bins,
+                                    b_max=min(u.max(), v.max()) / 4.0)
+        b_null = first_null(base, prof)
+        out.append({"order": n, "baselines": base, "profile": prof,
+                    "b_null": b_null,
+                    "ring_diameter_rad": ring_diameter_from_null(b_null)})
+    return out
+
+
+def _delay_01(result):
+    """The n = 0 - n = 1 Boyer-Lindquist arrival-time gap per pixel (M)
+    and the pixels whose first two slots were filled (host numpy)."""
+    count = np.asarray(result["count"])
+    t_ks = np.asarray(result["hits_q"][..., 0], dtype=np.float64)
+    r_em = np.asarray(result["r_em"], dtype=np.float64)
+    t_off, _ = bl_time_azimuth_offsets(
+        torch.tensor(r_em[:2]), np.asarray(result["params"], np.float64))
+    t_off = t_off.numpy()
+    return (t_ks[0] - t_off[0]) - (t_ks[1] - t_off[1]), count > 1
+
+
+def save_subring_maps(result, out_dir, *, plots=True):
+    """Write the subring science products, as
+    `grtrace.engine.subring.save_subring_maps`: subring_delay_01.csv (i,
+    j, the n = 0 - n = 1 delay in M, g and r_em of both orders, for the
+    pixels that crossed twice) and subring_summary.json
+    (`subring_summary`), always; with `plots` (matplotlib,
+    viz.plots.available()) the per-order intensity maps
+    subring_order_N.png, the polarized orders' subring_evpa_N.png,
+    crossing_count.png and subring_delay_01.png.  Returns (written paths,
+    summary)."""
+    os.makedirs(out_dir, exist_ok=True)
+    inten = np.asarray(result["intensity"])
+    valid = np.asarray(result["valid"])
+    g = np.asarray(result["g"])
+    count = np.asarray(result["count"])
+    n_orders = inten.shape[0]
+    written = []
+    plt = None
+    if plots:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+    def figure(name, data, title, cmap, **kw):
+        fig, ax = plt.subplots(figsize=(5, 5))
+        im = ax.imshow(data, cmap=cmap, origin="upper", **kw)
+        ax.set_title(title)
+        ax.set_axis_off()
+        fig.colorbar(im, ax=ax, fraction=0.046)
+        path = os.path.join(out_dir, name)
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+        written.append(path)
+
+    if plots:
+        vmax = max(float(inten[0].max()), 1e-30)
+        for i in range(n_orders):
+            figure(f"subring_order_{i}.png", inten[i],
+                   f"subring order n={i}  (flux {inten[i].sum():.3e})",
+                   "inferno", vmax=vmax * (1.0 if i == 0 else max(
+                       inten[i].max() / vmax, 1e-6)))
+        if _has(result, "evpa"):
+            # EVPA ticks over each layer's intensity, the tick in (col,
+            # row) components (sin chi, cos chi) x pitch weight
+            evpa = np.asarray(result["evpa"])
+            wgt = np.asarray(result["pol_weight"])
+            for i in range(n_orders):
+                dm = valid[i]
+                if not dm.any():
+                    continue
+                ii, jj = np.nonzero(dm)
+                fig, ax = plt.subplots(figsize=(5, 5))
+                ax.imshow(inten[i], cmap="inferno", origin="upper",
+                          vmax=max(float(inten[i].max()), 1e-30))
+                ax.quiver(jj, ii, np.sin(evpa[i][dm]) * wgt[i][dm],
+                          np.cos(evpa[i][dm]) * wgt[i][dm], color="white",
+                          scale=28.0, headwidth=1, headlength=0,
+                          headaxislength=0, pivot="middle", width=0.003)
+                ax.set_title(f"order n={i} polarization (EVPA ticks)")
+                ax.set_axis_off()
+                path = os.path.join(out_dir, f"subring_evpa_{i}.png")
+                fig.savefig(path, dpi=110, bbox_inches="tight")
+                plt.close(fig)
+                written.append(path)
+        figure("crossing_count.png", count, "equatorial crossings per ray",
+               "viridis")
+
+    summary = subring_summary(result)
+
+    if n_orders >= 2:
+        dt, both = _delay_01(result)
+        if plots:
+            figure("subring_delay_01.png", np.where(both, dt, np.nan),
+                   "subring delay t(n=0) - t(n=1)  [M]", "magma")
+        r_em = np.asarray(result["r_em"], dtype=np.float64)
+        ii, jj = np.nonzero(both)
+        csv = os.path.join(out_dir, "subring_delay_01.csv")
+        with open(csv, "w") as f:
+            f.write("i,j,delay_M,g0,g1,r0,r1\n")
+            for a, b in zip(ii, jj):
+                f.write(f"{a},{b},{dt[a, b]:.9g},{g[0, a, b]:.9g},"
+                        f"{g[1, a, b]:.9g},{r_em[0, a, b]:.9g},"
+                        f"{r_em[1, a, b]:.9g}\n")
+        written.append(csv)
+
+    path = os.path.join(out_dir, "subring_summary.json")
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=2)
+    written.append(path)
+    return written, summary

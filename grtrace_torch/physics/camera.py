@@ -6,8 +6,10 @@ conditions — the torch counterpart of the folded Schwarzschild camera in
 spherical-chart camera of the generic engine (`camera_rays_unfolded`,
 `unfolded_ics_from_pixels`: no fold, for axisymmetric metrics such as
 Kerr in Boyer-Lindquist coordinates), of the inclined
-look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`)
-and of the moving camera's tetrad (`boosted_ics_from_pixels`).
+look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`),
+of the fractional-pixel positions the antialiasing pass traces
+(`pixel_positions_fractional`, `pixel_positions_fractional_lookat`) and of
+the moving camera's tetrad (`boosted_ics_from_pixels`).
 
 Camera geometry (the reference's):
   * observer on the +x axis, optical axis -x, right = +y, up = +z
@@ -34,9 +36,10 @@ from .coords import cartesian_to_spherical, rotate_x
 from .nullcond import null_p_t
 
 
-def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
-               device=None):
-    """Return (H, W, 3) pixel positions on the image plane."""
+def _axis_frame(obs_pos, fov, height, width, dtype, device):
+    """(plane_center, plane_width, plane_height, right, up) of the image
+    plane of the observer on the +x axis: optical axis -x, right +y, up
+    +z, the plane at 0.2 |obs|."""
     obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
     device = obs_pos.device
     fov = torch.as_tensor(fov, dtype=dtype, device=device)
@@ -48,7 +51,15 @@ def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
     plane_center = obs_pos + optical_axis * plane_dist
     plane_width = 2.0 * plane_dist * torch.tan(fov / 2.0)
     plane_height = plane_width * (height / width)
+    return plane_center, plane_width, plane_height, right, up
 
+
+def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
+               device=None):
+    """Return (H, W, 3) pixel positions on the image plane."""
+    plane_center, plane_width, plane_height, right, up = _axis_frame(
+        obs_pos, fov, height, width, dtype, device)
+    device = plane_center.device
     jj = torch.arange(width, dtype=dtype, device=device)
     ii = torch.arange(height, dtype=dtype, device=device)
     u = (jj + 0.5) / width - 0.5   # (W,) along +y
@@ -56,6 +67,31 @@ def pixel_grid(obs_pos, fov, height, width, dtype=torch.float32,
     offsets = (u[None, :, None] * plane_width * right
                + v[:, None, None] * plane_height * up)
     return plane_center + offsets
+
+
+def _fractional_offsets(i_f, j_f, height, width, plane_width, plane_height,
+                        right, up):
+    """(N, 3) image-plane offsets at fractional pixel indices, with
+    pixel_grid's arithmetic (so an integer centre gives its bits)."""
+    u = (j_f + 0.5) / width - 0.5
+    v = (i_f + 0.5) / height - 0.5
+    return (u[:, None] * plane_width * right
+            + v[:, None] * plane_height * up)
+
+
+def pixel_positions_fractional(obs_pos, fov, height, width, i_f, j_f,
+                               dtype=torch.float32):
+    """(N, 3) image-plane positions at fractional pixel indices (i_f, j_f)
+    of an H x W frame, pixel_grid's geometry and association: integer
+    centres give pixel_grid's bits, and with s = 2 the sub-pixel
+    (i +- 0.25, j +- 0.25) gives the bits of pixel (2i + si, 2j + sj) of
+    the 2H x 2W grid (the two differ by exact power-of-two scalings).  The
+    adaptive edge-refinement pass (engine/aa.py) feeds its stratified
+    sub-pixel indices through here."""
+    plane_center, plane_width, plane_height, right, up = _axis_frame(
+        obs_pos, fov, height, width, dtype, i_f.device)
+    return plane_center + _fractional_offsets(
+        i_f, j_f, height, width, plane_width, plane_height, right, up)
 
 
 def _lookat_frame(obs_pos, fov, height, width, dtype=torch.float32,
@@ -100,6 +136,18 @@ def pixel_grid_lookat(obs_pos, fov, height, width, dtype=torch.float32,
     offsets = (u[None, :, None] * plane_width * right
                + v[:, None, None] * plane_height * up)
     return plane_center + offsets
+
+
+def pixel_positions_fractional_lookat(obs_pos, fov, height, width, i_f, j_f,
+                                      dtype=torch.float32):
+    """(N, 3) look-at image-plane positions at fractional pixel indices:
+    the inclined-camera twin of pixel_positions_fractional, with
+    pixel_grid_lookat's arithmetic and the same bit identities (the disk
+    and subring refinement passes of engine/aa.py)."""
+    plane_center, plane_width, plane_height, right, up = _lookat_frame(
+        obs_pos, fov, height, width, dtype, i_f.device)
+    return plane_center + _fractional_offsets(
+        i_f, j_f, height, width, plane_width, plane_height, right, up)
 
 
 def angles_to_p_sph(alpha, beta, r_obs, *, mass_bh=1.0):

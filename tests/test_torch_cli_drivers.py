@@ -41,8 +41,8 @@ def test_cli_refuses_without_a_card(background, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--disk", "--metric", "kottler"], "9"), (["--aa", "2"], "8"),
-    (["--disk", "--aa", "2"], "8"),
+    (["--disk", "--metric", "kottler"], "9"), (["--aa", "2"], None),
+    (["--disk", "--aa", "2"], None),
     (["--disk", "--camera-omega", "0.1", "--metric", "hayward"], "9"),
     (["--metric", "kottler"], "9"), (["--metric", "kerr-ds"], "9"),
     (["--metric", "rotating-bardeen", "--spin", "0.5"], "9"),
@@ -50,10 +50,11 @@ def test_cli_refuses_without_a_card(background, tmp_path):
     (["--metric", "kerr", "--spin", "0.5"], None)])
 def test_unported_options_raise(flags, item):
     """Each unported option raises NotImplementedError naming its ROADMAP
-    item, before any work runs; the options item 5b ported (item None:
-    --metric kerr-bl, and --metric kerr with the default --n-samples) now
-    pass; --metric kerr runs with --n-samples 0, and with the default
-    --n-samples on the disk path (which samples no trajectories)."""
+    item, before any work runs; the options items 5b and 8 ported (item
+    None: --metric kerr-bl, --metric kerr with the default --n-samples,
+    and --aa on the headline and disk paths) now pass; --metric kerr runs
+    with --n-samples 0, and with the default --n-samples on the disk path
+    (which samples no trajectories)."""
     args = targs.parse_args(flags + ["--device", "cpu"])
     if item is None:
         tmain.check_ported(args, targs.scene_from_args(args))
@@ -65,6 +66,16 @@ def test_unported_options_raise(flags, item):
                   "--camera-omega", "zamo", "--save-transfer", "t.npz"]):
         ok = targs.parse_args(argv)
         tmain.check_ported(ok, targs.scene_from_args(ok))
+
+
+def test_aa_with_save_transfer_exits():
+    """--aa with --save-transfer exits with a message before any work, as
+    the JAX CLI does (a reshade would undo the antialiased pixels)."""
+    args = targs.parse_args(["--disk", "--metric", "kerr", "--spin", "0.9",
+                             "--aa", "2", "--save-transfer", "t.npz",
+                             "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--save-transfer with --aa"):
+        tmain.check_ported(args, targs.scene_from_args(args))
 
 
 def test_flag_parity():

@@ -14,8 +14,9 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # `import grtrace_torch` does not reach (it imports engine.subring and
 # engine.hotspot); the command-line drivers; each new module of the
 # disk product line (polarization, transfer maps, hot spots, their CLIs);
-# and the generic engine's (the Boyer-Lindquist flows, the twins, the
-# kernels' wrappers)
+# the generic engine's (the Boyer-Lindquist flows, the twins, the
+# kernels' wrappers); and the observables' (antialiasing, visibilities,
+# their drivers)
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -39,7 +40,11 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.cli.hotspot",
                 "grtrace_torch.physics.kerr_bl",
                 "grtrace_torch.engine.integrate_generic",
-                "grtrace_torch.engine.integrate_generic_cuda"]
+                "grtrace_torch.engine.integrate_generic_cuda",
+                "grtrace_torch.engine.aa",
+                "grtrace_torch.engine.visibility",
+                "grtrace_torch.cli.subring",
+                "grtrace_torch.cli.visibility"]
 
 # One interpreter with jax and grtrace blocked (any import of them raises)
 # imports the modules in turn and reports, for each, whether it imported
@@ -106,7 +111,8 @@ def test_public_api():
                  "DiskConfig", "render_disk", "from_jax_disk",
                  "save_disk_maps", "polarized_moments", "HotspotConfig",
                  "from_jax_hotspot", "render_hotspot", "TransferMap",
-                 "reshade", "hotspot_from_transfer"):
+                 "reshade", "hotspot_from_transfer", "subring_visibilities",
+                 "save_subring_maps"):
         assert hasattr(grtrace_torch, name), name
 
 

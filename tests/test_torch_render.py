@@ -107,9 +107,20 @@ def test_from_jax_scene_maps_every_field():
 def test_unported_scenes_raise(change, kw):
     """The scenes the port does not have raise NotImplementedError naming
     their ROADMAP item; 'kerr-bl', which item 5b ported, renders at 8x8
-    through the Boyer-Lindquist chart."""
+    through the Boyer-Lindquist chart, and aa_samples, which item 8b
+    ported, refines the 8x8 headline frame's shadow edge (s = 4)."""
     from dataclasses import replace
     scene = replace(grtrace_torch.SceneConfig(size=8), **change)
+    if kw.get("aa_samples"):
+        scene = replace(scene, n_samples=0, background=None,
+                        integrator=grtrace_torch.IntegratorConfig(
+                            steps=400, delta=0.2))
+        res = grtrace_torch.render(scene, device="cpu", **kw)
+        base = grtrace_torch.render(scene, device="cpu")
+        assert res.aa_mask.any() and not res.aa_mask.all()
+        assert np.array_equal(res.cls, base.cls)
+        assert res.counts == base.counts
+        return
     if change.get("metric") == "kerr-bl":
         scene = replace(scene, n_samples=0, background=None,
                         integrator=grtrace_torch.IntegratorConfig(

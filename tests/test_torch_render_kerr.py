@@ -39,14 +39,17 @@ PARITY_PARAMS = (1.0, 0.9, 0.0)
 
 @pytest.mark.parametrize("change,kw,match", [
     ({"metric": "kerr-bl"}, {"n_samples": 2}, None),
-    ({"metric": "kerr", "spin": 0.9}, {"aa_samples": 3}, "item 8"),
+    ({"metric": "kerr", "spin": 0.9, "integrator":
+      grtrace_torch.IntegratorConfig(steps=400, delta=0.2)},
+     {"aa_samples": 3}, None),
     ({"metric": "kerr", "spin": 0.9}, {"n_samples": 2}, None),
     ({"metric": "rotating-hayward"}, {}, "item 9"),
 ])
 def test_kerr_paths_not_ported_raise(change, kw, match):
     """The Kerr paths the port does not have raise NotImplementedError
-    naming their ROADMAP item; those item 5b ported (match None: the
-    Boyer-Lindquist chart, the Kerr sampler) render at 8x8."""
+    naming their ROADMAP item; those items 5b and 8b ported (match None:
+    the Boyer-Lindquist chart, the Kerr sampler, antialiasing) render at
+    8x8."""
     scene = replace(grtrace_torch.SceneConfig(
         size=8, n_samples=0, background=None,
         integrator=grtrace_torch.IntegratorConfig(steps=100, delta=0.2)),
@@ -56,6 +59,9 @@ def test_kerr_paths_not_ported_raise(change, kw, match):
         assert sum(res.counts[k] for k in ("captured", "in_domain",
                                            "escaped")) == 64
         assert len(res.sampled_trajectories or []) == kw.get("n_samples", 0)
+        assert res.has("aa_mask") == bool(kw.get("aa_samples"))
+        if kw.get("aa_samples"):
+            assert res.aa_mask.any()
         return
     with pytest.raises(NotImplementedError, match=match):
         grtrace_torch.render(scene, device="cpu", **kw)
