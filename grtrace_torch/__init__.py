@@ -16,12 +16,15 @@ without tracing (`TransferMap`, `reshade`), orbiting hot-spot movies
 (`render_hotspot`, `hotspot_from_transfer`), the
 reference-compatible `SchwarzschildIntegrator` for rays in any plane,
 adaptive edge antialiasing on every render path (`aa_samples`,
-engine/aa.py), and
+engine/aa.py), the EinsteinPy-compatible geodesics (`compat.Geodesic`,
+`Nulllike`, `Timelike`), the shadow, lensing and reverberation observables
+(engine/shadow.py, lensing.py, echo.py), and
 checkpoint / resume of long integrations (engine/checkpoint.py), on
 tensors of any torch device.  On an NVIDIA Hopper GPU the integration
 runs hand-written CUDA kernels (csrc/fantasy_eqc.cu in its compensated,
-float64 and chunk layouts, csrc/fantasy_schw16.cu, csrc/fantasy_ks.cu in
-plain, disk and subring mode); on the CPU it runs their eager twins.
+float64 and chunk layouts, csrc/fantasy_schw16.cu in integrate, record
+and trace mode, csrc/fantasy_ks.cu in plain, disk and subring mode,
+csrc/fantasy_gen.cu); on the CPU it runs their eager twins.
 The JAX package `grtrace` is the reference this package is tested
 against; this package never imports it, nor jax.
 """

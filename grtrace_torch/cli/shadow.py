@@ -1,0 +1,169 @@
+"""Shadow-analysis driver — the port's `grtrace.cli.shadow`: the analytic
+critical curve, its shape metrics and, with --numeric, the real
+integrator's boundary error at every azimuth.
+
+    # metrics + boundary CSV (closed form, no tracing):
+    python -m grtrace_torch.cli.shadow --spin 0.9 --azimuths 128
+
+    # + the numeric-vs-analytic pixel error (kernel B5 on the card):
+    python -m grtrace_torch.cli.shadow --spin 0.9 --numeric
+
+    # + a rendered overlay (needs matplotlib):
+    python -m grtrace_torch.cli.shadow --spin 0.9 --render --numeric
+
+Writes shadow_boundary.csv (psi, rho_px, alpha_deg [, rho_numeric_px,
+px_err]), shadow_metrics.json and, with --render, shadow_overlay.png;
+prints one summary line.  Boundary radii are in 256-image pixels of the
+headline scene (observer at 30 M, fov 80 deg).  --numeric bisects through
+kernel B5 (float32, 32-row compensated) and --render renders through B1
+at a = Q = 0 and B5 otherwise; --device cpu runs their eager twins.  The
+beyond-Kerr metrics (--metric rotating-bardeen, rotating-hayward,
+kerr-ds) wait for ROADMAP Queue A item 9 and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+# the beyond-Kerr --metric values and their metric names
+_BEYOND = {"rotating-bardeen": "RotatingBardeen",
+           "rotating-hayward": "RotatingHayward", "kerr-ds": "KerrDS"}
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="black-hole shadow analysis")
+    p.add_argument('--spin', type=float, default=0.0)
+    p.add_argument('--charge', type=float, default=0.0)
+    p.add_argument('--metric', type=str, default='kerr',
+                   choices=('kerr', 'rotating-bardeen', 'rotating-hayward',
+                            'kerr-ds'),
+                   help='Kerr-Newman (closed-form Bardeen curve); the '
+                        'beyond-Kerr families are not ported yet')
+    p.add_argument('--metric-param', type=float, default=0.0,
+                   help='regular charge g / core length l / Lambda of a '
+                        'beyond-Kerr family')
+    p.add_argument('--azimuths', type=int, default=64)
+    p.add_argument('--render', action='store_true',
+                   help='render the scene and write the critical-curve '
+                        'overlay PNG (needs matplotlib)')
+    p.add_argument('--numeric', action='store_true',
+                   help='bisect the real integrator boundary per azimuth '
+                        'and report pixel errors (kernel B5 on the card)')
+    p.add_argument('--numeric-azimuths', type=int, default=16,
+                   help='azimuth fan for --numeric (each bisection round '
+                        'traces azimuths x 9 rays)')
+    p.add_argument('--size', type=int, default=256,
+                   help='overlay render resolution')
+    p.add_argument('--steps', type=int, default=8000)
+    p.add_argument('--delta', type=float, default=0.02)
+    p.add_argument('--order', type=int, default=4, choices=[2, 4, 6, 8])
+    p.add_argument('--backend', type=str, default='auto',
+                   choices=['auto', 'cuda', 'torch', 'pallas', 'xla'])
+    p.add_argument('--device', type=str, default='cuda',
+                   choices=['cuda', 'cpu'],
+                   help='run on the CUDA card (the default; exits with a '
+                        'message when there is none) or on the CPU')
+    p.add_argument('--out-dir', type=str, default='.')
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from ..engine.shadow import (analytic_boundary, numeric_boundary,
+                                 overlay_png, px_to_alpha_deg,
+                                 shadow_metrics)
+    from ..io.scene import JAX_BACKENDS
+    from ..physics.spacetime import METRICS
+    from ..viz import plots
+
+    if args.metric in _BEYOND:
+        METRICS[_BEYOND[args.metric]]  # raises NotImplementedError (item 9)
+    if args.spin ** 2 + args.charge ** 2 > 1.0:
+        raise SystemExit("naked singularity: need a^2 + Q^2 <= M^2")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("grtrace_torch.cli.shadow: no CUDA device "
+                         "(torch.cuda.is_available() is False); pass "
+                         "--device cpu to run on the CPU")
+    if args.render and not plots.available():
+        raise SystemExit("grtrace_torch.cli.shadow: the overlay needs "
+                         "matplotlib, which this Python does not have; "
+                         "drop --render")
+    backend = JAX_BACKENDS.get(args.backend, args.backend)
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    psis, rho = analytic_boundary(args.spin, args.charge, args.azimuths)
+    metrics = shadow_metrics(psis, rho)
+    metrics |= {"spin": args.spin, "charge": args.charge,
+                "metric": args.metric, "metric_param": args.metric_param,
+                "azimuths": args.azimuths}
+
+    alpha_deg = px_to_alpha_deg(rho)
+    cols = [psis, rho, alpha_deg]
+    header = "psi_rad,rho_px,alpha_deg"
+
+    if args.numeric:
+        npsis, nrho, bracket = numeric_boundary(
+            args.spin, args.charge, n_psi=args.numeric_azimuths,
+            steps=args.steps, delta=args.delta, order=args.order,
+            backend=backend, device=args.device)
+        _, ana_at_n = analytic_boundary(args.spin, args.charge,
+                                        args.numeric_azimuths)
+        err = np.abs(nrho - ana_at_n)
+        metrics |= {
+            "numeric_px_err_max": float(err.max()),
+            "numeric_px_err_mean": float(err.mean()),
+            "numeric_bracket_px": float(bracket),
+            "numeric_azimuths": args.numeric_azimuths,
+        }
+        # join onto the analytic fan where azimuths coincide, else NaN
+        nmap = dict(zip(np.round(npsis, 9), zip(nrho, err)))
+        joined = np.array([nmap.get(k, (np.nan, np.nan))
+                           for k in np.round(psis, 9)])
+        cols += [joined[:, 0], joined[:, 1]]
+        header += ",rho_numeric_px,px_err"
+
+    np.savetxt(os.path.join(args.out_dir, "shadow_boundary.csv"),
+               np.column_stack(cols), delimiter=",", comments="",
+               header=header, fmt="%.8g")
+    with open(os.path.join(args.out_dir, "shadow_metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=1)
+
+    if args.render:
+        from ..engine.render import render
+        from ..io import textures
+        from ..io.scene import IntegratorConfig, PatchConfig, SceneConfig
+        scene = SceneConfig(
+            size=args.size,
+            metric='kerr' if (args.spin or args.charge) else 'Schwarzschild',
+            spin=args.spin, charge=args.charge, n_samples=0,
+            integrator=IntegratorConfig(steps=args.steps, delta=args.delta,
+                                        order=args.order, backend=backend),
+            patch=PatchConfig())
+        res = render(scene, bg_array=textures.starfield(args.size,
+                                                        args.size),
+                     device=args.device)
+        overlay_png(res, psis, rho,
+                    os.path.join(args.out_dir, "shadow_overlay.png"),
+                    title=f"a = {args.spin:g}, Q = {args.charge:g}")
+
+    print(f"shadow: mean diameter {metrics['mean_diameter_px']:.3f} px "
+          f"({2 * metrics['mean_radius_deg']:.3f} deg), centroid shift "
+          f"({metrics['centroid_shift_px'][0]:+.3f}, "
+          f"{metrics['centroid_shift_px'][1]:+.3f}) px, "
+          f"Delta C = {metrics['circularity_deviation']:.5f} "
+          f"-> {args.out_dir}")
+    return metrics
+
+
+def console(argv=None):
+    main(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    main()

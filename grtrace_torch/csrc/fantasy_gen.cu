@@ -1,5 +1,5 @@
 // The generic engine's FANTASY integrator for the Kerr-Newman charts: one
-// CUDA thread per ray, one template in two charts and two modes.
+// CUDA thread per ray, one template in two charts and three modes.
 //
 //   G1 (Chart::kBL, Mode::kIntegrate): the Boyer-Lindquist integrator, to
 //      each ray's exit, with the spherical-chart blow-up guard and the park
@@ -7,6 +7,8 @@
 //   S2 (Mode::kRecord, Chart::kBL or Chart::kKS): the trajectory recorder,
 //      q1 stored every `stride` steps, in the Boyer-Lindquist chart or the
 //      Kerr-Schild one (the invariant guard); float and double.
+//   T2 (Mode::kTrace, Chart::kBL): the EinsteinPy-compatible trace, (q1,
+//      p1) stored after every step, every step taken; float and double.
 //
 // Port-side kernels: they replace no TPU kernel.  The JAX package runs
 // this engine as an XLA while_loop / scan over vmapped jax.grad flows
@@ -44,6 +46,16 @@
 // and parks on the axis: (0, 0, cap_park) captured, (err_park, 0, 0)
 // numerical.  The host zeroes the record, so the slots after a ray's exit
 // stay +0.0.
+//
+// T2, per ray, for k = 0, 1, ... < steps: G1's step runs (flow A's
+// kick/drift carried, the launch forming the first) and its (q1, p1) goes
+// to row k of the ray's record.  Nothing stops a ray: no domain test, no
+// guard, no park, as JAX's trajectory_generic (an XLA scan, grtrace/
+// engine/integrate_generic.py:369-391, which the compat classes run for
+// Kerr and Kerr-Newman) has none.  Its eager twin is integrate_generic.py::
+// trajectory_generic_unmasked; integrate_generic.py::trajectory_generic
+// sends CUDA rays here.  Bound: one dependent chain of 534 operations a
+// step (metrics.chain_floor_ms); the record is 64 bytes a step in double.
 //
 // What bounds them on an H100.  G1 on a 1024x1024 frame: the rate at which
 // the SMs issue FP32 (or FP64) instructions.  A ray is a serial chain of
@@ -95,8 +107,9 @@
 // (d, cos, sin) x n_sub] built on the host by integrate_generic.py::
 // gen_params, the vector the twins read.  G1 writes out (12, n) SoA: q1,
 // p1, q2 in (t, r, theta, phi) order; S2 writes traj (n, n_keep, 4),
-// row-major and zeroed by the host.  ns_out (n,) int32 counts the steps
-// each ray took (negated in G1 if the guard parked it).
+// row-major and zeroed by the host; T2 writes out (n, steps, 8), row-major,
+// every element.  ns_out (n,) int32 counts the steps each ray took (negated
+// in G1 if the guard parked it; T2 has none).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -110,9 +123,9 @@ constexpr int kRows = 16;
 constexpr int kScal = 10;
 
 enum class Chart : int { kBL, kKS };
-enum class Mode : int { kIntegrate, kRecord };
+enum class Mode : int { kIntegrate, kRecord, kTrace };
 
-// threads per block: a full frame for G1, tens of rays for S2
+// threads per block: a full frame for G1, tens of rays for S2 and T2
 constexpr int threads_of(Mode mode) {
   return mode == Mode::kIntegrate ? 128 : 32;
 }
@@ -121,10 +134,10 @@ constexpr int threads_of(Mode mode) {
 // G1: 7 of float (at most 72 registers; left to itself ptxas takes 64 and
 // spills 52 bytes a thread), 4 of double (the 128 registers it takes
 // anyway).  chip_smoke.py fails on any spill here: lower the count then.
-// S2 asks for one.
+// S2 and T2 ask for one.
 template <typename T, Mode kMode>
 constexpr int min_blocks() {
-  if constexpr (kMode == Mode::kRecord) return 1;
+  if constexpr (kMode != Mode::kIntegrate) return 1;
   return sizeof(T) == 8 ? 4 : 7;
 }
 
@@ -481,6 +494,19 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   sc.err_park = __ldg(params + 9);
   const T* subs = params + kScal;
 
+  if constexpr (kMode == Mode::kTrace) {
+    // T2: every step taken, (q1, p1) stored after each
+    T* rec = out + static_cast<size_t>(i) * static_cast<size_t>(steps) * 8;
+    KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
+    for (int k = 0; k < steps; ++k) {
+      composed<kChart>(s, ka, subs, n_sub, sc);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) rec[m] = s[m];
+      rec += 8;
+    }
+    return;
+  }
+
   T* row = out;
   if constexpr (kMode == Mode::kRecord) {
     row += static_cast<size_t>(i) * static_cast<size_t>(n_keep) * 4;
@@ -578,4 +604,17 @@ GRT_S2_ENTRY(grt_fantasy_gen_traj_bl_f64_launch, double, Chart::kBL)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f32_launch, float, Chart::kKS)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f64_launch, double, Chart::kKS)
 #undef GRT_S2_ENTRY
+
+// T2: (q0, p0, out (n, steps, 8), params, n, n_sub, steps, stream)
+#define GRT_T2_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* q0, const T* p0, T* out, const T* params,    \
+                      int n, int n_sub, int steps, void* stream) {          \
+    return launch<T, Chart::kBL, Mode::kTrace>(q0, p0, out, nullptr,        \
+                                               params, n, n_sub, steps, 1,  \
+                                               0, stream);                  \
+  }
+
+GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f32_launch, float)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f64_launch, double)
+#undef GRT_T2_ENTRY
 #endif  // __CUDACC__

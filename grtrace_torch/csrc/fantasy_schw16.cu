@@ -1,11 +1,13 @@
 // The Schwarzschild FANTASY integrator on the fused flows, 16 rows, one
-// CUDA thread per ray: one template in two modes, instantiated for float
+// CUDA thread per ray: one template in three modes, instantiated for float
 // and double.
 //
 //   B3 (Mode::kIntegrate): the generic (any-plane) integrator, to each
 //      ray's exit or the step budget, state in and out.
 //   S1 (Mode::kRecord): the trajectory recorder, q1 stored every `stride`
 //      steps.
+//   T1 (Mode::kTrace): the EinsteinPy-compatible trace, (q1, p1) stored
+//      after every step, every step taken.
 //
 // B3 replaces the TPU kernel grtrace/engine/integrate_pallas.py::
 // _make_kernel in its n_rows=16 configuration (plain, not staggered, the
@@ -33,6 +35,19 @@
 // reverts a step whose radius jumps by more than `cap` (or turns
 // non-finite) and parks the ray at r = rs.  The host zeroes the record, so
 // the slots after a ray's exit stay +0.0.
+//
+// T1 is a port-side kernel too: it replaces the XLA scan of grtrace/compat/
+// einsteinpy.py::_trajectory, which the compat classes Geodesic, Nulllike
+// and Timelike run.  Its eager twin is grtrace_torch/engine/integrate.py::
+// trajectory_unmasked (B3's fused step; JAX's scan steps with the unfused
+// flows, a deliberate divergence in rounding, as for S1), and
+// integrate.py::trajectory_dispatch sends CUDA rays to it.  Per ray, for
+// k = 0, 1, ... < steps: the step runs and its (q1, p1) goes to row k of
+// the ray's record.  Nothing stops a ray: no domain test, no horizon guard,
+// no park, as JAX's scan has none; a ray that falls through the horizon
+// records what the arithmetic gives, NaN included.  Bound: one dependent
+// chain of 257 operations a step (S1's floor, metrics.chain_floor_ms); the
+// record is 64 bytes a step in double, written once.
 //
 // What bounds B3 on an H100: FP32 (or FP64) instruction throughput and
 // latency.  Each ray is a serial chain of about 260 floating-point
@@ -87,9 +102,10 @@
 // points so that a caller can hold them against torch.sin and torch.cos.
 //
 // Layout: B3's state_in/state_out are SoA (16, n) in T, each row
-// contiguous: q1 (t, r, theta, phi), p1, q2, p2.  S1's q0 and p0 are
-// (n, 4) in T, row-major, and its traj (n, n_keep, 4) in T, row-major and
-// zeroed by the host.  params is the vector [rs, r_max, cap, (d, cos, sin)
+// contiguous: q1 (t, r, theta, phi), p1, q2, p2.  S1's and T1's q0 and p0
+// are (n, 4) in T, row-major; S1's traj is (n, n_keep, 4) in T, row-major
+// and zeroed by the host, T1's out (n, steps, 8) in T, row-major, every
+// element written.  params is the vector [rs, r_max, cap, (d, cos, sin)
 // x n_sub] in T (cos/sin of the mixing angle 2 omega d) built on the host
 // by engine/integrate.py::substep_params(compensated=False,
 // staggered=False).  ns_out (n,) int32 counts the steps each ray took.
@@ -104,9 +120,9 @@ namespace {
 
 constexpr int kRows = 16;
 
-enum class Mode : int { kIntegrate, kRecord };
+enum class Mode : int { kIntegrate, kRecord, kTrace };
 
-// threads per block: a frame for B3, tens of rays for S1
+// threads per block: a frame for B3, tens of rays for S1 and T1
 constexpr int threads_of(Mode mode) {
   return mode == Mode::kIntegrate ? 128 : 32;
 }
@@ -233,6 +249,25 @@ __device__ __forceinline__ void step_ord2(T (&s)[kRows], Metric<T>& ma, T d,
   apply_a(s, ma, half, rs);
 }
 
+// T1's loop on the state s: every step taken from flow A's metric carried
+// as in step_ord2, (q1, p1) stored after each to `row` (steps x 8)
+template <typename T>
+__device__ __forceinline__ void trace(T (&s)[kRows], T* __restrict__ row,
+                                      const T* __restrict__ params,
+                                      int n_sub, int steps) {
+  const T rs = __ldg(params + 0);
+  Metric<T> ma = metric_a(s, rs);
+  for (int k = 0; k < steps; ++k) {
+    for (int j = 0; j < n_sub; ++j) {
+      const T* sub = params + 3 + 3 * j;
+      step_ord2(s, ma, __ldg(sub + 0), rs, __ldg(sub + 1), __ldg(sub + 2));
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) row[m] = s[m];
+    row += 8;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ bool active(T r, T r_capture, T r_max) {
   return (r > r_capture) && (r < r_max);
@@ -240,7 +275,8 @@ __device__ __forceinline__ bool active(T r, T r_capture, T r_max) {
 
 // B3 (kIntegrate): `in` is state_in (16, n) SoA, `out` state_out (16, n);
 // `p0`, `stride` and `n_keep` are unused.  S1 (kRecord): `in` is q0 (n, 4),
-// `p0` p0 (n, 4), `out` traj (n, n_keep, 4).
+// `p0` p0 (n, 4), `out` traj (n, n_keep, 4).  T1 (kTrace): `in` and `p0`
+// as S1's, `out` (n, steps, 8); `ns_out`, `stride` and `n_keep` unused.
 template <typename T, Mode kMode>
 __global__ void __launch_bounds__(threads_of(kMode))
 fantasy_schw16_kernel(const T* __restrict__ in, const T* __restrict__ p0,
@@ -262,6 +298,11 @@ fantasy_schw16_kernel(const T* __restrict__ in, const T* __restrict__ p0,
       s[8 + a] = s[a];
       s[12 + a] = s[4 + a];
     }
+  }
+  if constexpr (kMode == Mode::kTrace) {
+    trace(s, out + static_cast<size_t>(i) * static_cast<size_t>(steps) * 8,
+          params, n_sub, steps);
+    return;
   }
 
   const T rs = __ldg(params + 0);
@@ -404,6 +445,24 @@ extern "C" int grt_fantasy_traj_f64_launch(const double* q0, const double* p0,
                                            int n_keep, void* stream) {
   return launch<double, Mode::kRecord>(q0, p0, traj, ns_out, params, n,
                                        n_sub, steps, stride, n_keep, stream);
+}
+
+// T1: (q0, p0, out (n, steps, 8), params, n, n_sub, steps, stream)
+extern "C" int grt_fantasy_trace_f32_launch(const float* q0, const float* p0,
+                                            float* out, const float* params,
+                                            int n, int n_sub, int steps,
+                                            void* stream) {
+  return launch<float, Mode::kTrace>(q0, p0, out, nullptr, params, n, n_sub,
+                                     steps, 1, 0, stream);
+}
+
+extern "C" int grt_fantasy_trace_f64_launch(const double* q0,
+                                            const double* p0, double* out,
+                                            const double* params, int n,
+                                            int n_sub, int steps,
+                                            void* stream) {
+  return launch<double, Mode::kTrace>(q0, p0, out, nullptr, params, n,
+                                      n_sub, steps, 1, 0, stream);
 }
 
 extern "C" int grt_fantasy_trig_f32_launch(const float* x, float* sin_out,

@@ -22,10 +22,10 @@ products (redshift map, line profile, polarization map).
 Rays that never hit carry zero hit rows, as the TPU kernel writes them
 (JAX's XLA disk engine carries the launch state there instead), so the
 redshift map is only meaningful on disk pixels.  `aa_samples` refines the
-display image's boundary pixels (engine/aa.py).  Not ported yet, and
-raising NotImplementedError: the autodiff ISCO of a charged hole
-(`r_in=None` with charge), ROADMAP Queue A item 8 (8d); the rotating regular
-metrics, item 9.
+display image's boundary pixels (engine/aa.py).  A charged hole's inner
+edge is the autodiff ISCO of physics/epicyclic.py.  Not ported yet, and
+raising NotImplementedError: the rotating regular metrics, ROADMAP Queue A
+item 9.
 """
 from __future__ import annotations
 
@@ -97,14 +97,14 @@ class DiskConfig:
 
     def inner_edge(self, mass, a, charge=0.0):
         """Inner disk edge: the explicit r_in, else the prograde or
-        retrograde Kerr ISCO (BPT closed form), computed in float64."""
+        retrograde ISCO, computed in float64: the BPT closed form for Kerr,
+        the exact autodiff root of kappa^2 (physics/epicyclic.py) once
+        charge makes the closed form an approximation."""
         if self.r_in is not None:
             return self.r_in
         if charge:
-            raise NotImplementedError(
-                "the ISCO of a charged hole is the autodiff root of "
-                "physics/epicyclic.py, not ported to grtrace_torch yet "
-                "(ROADMAP Queue A item 8); pass DiskConfig(r_in=...)")
+            from ..physics.epicyclic import isco_from_kappa
+            return float(isco_from_kappa([mass, a, charge], self.prograde))
         return float(isco_radius(mass, a, self.prograde))
 
 

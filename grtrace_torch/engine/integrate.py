@@ -478,6 +478,52 @@ def integrate_full_dispatch(q0s, p0s, steps, delta, rs, r_max, omega,
                                 n_keep=n_keep, order=order)
 
 
+def trace_params(delta, rs, omega, order, dtype):
+    """The scalar vector of kernel T1 and its twin: `substep_params`' plain
+    triples, whose r_max and cap a trace never reads (it stops no ray)."""
+    return substep_params(delta, rs, math.inf, omega, order, dtype,
+                          compensated=False, staggered=False)
+
+
+def trajectory_unmasked(q0s, p0s, steps, delta, rs, omega, order=2):
+    """(N, steps, 8): (q1, p1) of (N, 4) rays after each of `steps` steps,
+    every step taken — the eager twin of kernel T1 (the trace mode of
+    csrc/fantasy_schw16.cu), and the counterpart of the XLA scan
+    `grtrace.compat.einsteinpy._trajectory` that the EinsteinPy-compatible
+    classes run.  No domain test, no horizon guard, no park: a ray that
+    falls through the horizon records whatever the arithmetic gives, NaN
+    included, as JAX's scan does.  The step is B3's fused one
+    (`fantasy_step_ord2_fused`, as the sampler's); JAX's scan steps with
+    the unfused flows, so the two records differ in the last ulps (a
+    deliberate divergence in rounding, ROADMAP Queue C)."""
+    vec = trace_params(delta, rs, omega, order, q0s.dtype)
+    rs, _, _, subs = split_params(vec, 3)
+    out = torch.empty((q0s.shape[0], steps, 8), dtype=q0s.dtype,
+                      device=q0s.device)
+    state = pack_state(q0s, p0s)
+    for k in range(steps):
+        state = fantasy_step(state, subs, rs,
+                             step2_fn=fantasy_step_ord2_fused)
+        out[:, k, :] = torch.stack(state[:8], dim=-1)
+    return out
+
+
+def trajectory_dispatch(q0s, p0s, steps, delta, rs, omega, order=2):
+    """`trajectory_unmasked` on the rays' device: CUDA rays go to kernel
+    T1 (`integrate_cuda.trajectory_unmasked_cuda`), CPU rays to the eager
+    twin; any other device raises.  The card never runs the eager loop."""
+    kind = q0s.device.type
+    if kind == "cuda":
+        from .integrate_cuda import trajectory_unmasked_cuda
+        return trajectory_unmasked_cuda(q0s, p0s, steps, delta, rs, omega,
+                                        order=order)
+    if kind != "cpu":
+        raise ValueError(f"no trace for {kind!r} tensors (CUDA runs kernel "
+                         f"T1, the CPU its eager twin)")
+    return trajectory_unmasked(q0s, p0s, steps, delta, rs, omega,
+                               order=order)
+
+
 class SchwarzschildIntegrator:
     """Counterpart of `grtrace.engine.integrate.SchwarzschildIntegrator`
     (the reference CUDASchwarzschildIntegrator's constructor signature).

@@ -16,18 +16,22 @@ all four of its configurations:
     `advance_state_eqc_cuda`; JAX: `advance_state_pallas_eqc`);
 
 and the port-side trajectory recorder S1 (the record mode of
-`csrc/fantasy_schw16.cu`, B3's step; `integrate_batch_full_cuda`), which
-replaces no TPU kernel: the JAX package samples trajectories in an XLA
-loop (`integrate_batch_full`).
+`csrc/fantasy_schw16.cu`, B3's step; `integrate_batch_full_cuda`) and
+trace T1 (its trace mode; `trajectory_unmasked_cuda`), which replace no
+TPU kernel: the JAX package samples trajectories in an XLA loop
+(`integrate_batch_full`) and runs the EinsteinPy-compatible classes on an
+XLA scan (`grtrace.compat.einsteinpy._trajectory`).
 
 One thread integrates one ray.  The eager twins that define the kernels'
 results are `integrate_batch_compensated`, `integrate_batch_eq`,
-`integrate_batch_fused` and `integrate_batch_full` (engine/integrate.py)
+`integrate_batch_fused`, `integrate_batch_full` and `trajectory_unmasked`
+(engine/integrate.py)
 and the chunk twins of engine/checkpoint.py; each kernel and its twin
 read the same host-built scalar vector (`substep_params`).  This module
 only launches: it never falls back to a twin, and every wrapper raises for
-CPU tensors.  Rays on the CPU belong to `integrate_dispatch` and
-`integrate_full_dispatch`, which send them to the twins.
+CPU tensors.  Rays on the CPU belong to `integrate_dispatch`,
+`integrate_full_dispatch` and `trajectory_dispatch`, which send them to
+the twins.
 """
 from __future__ import annotations
 
@@ -36,16 +40,18 @@ import math
 import torch
 
 from .integrate import (finish_compensated, finish_eq, finish_generic,
-                        substep_params, traj_layout)
+                        substep_params, trace_params, traj_layout)
 from ..physics.hamiltonian import pack_state, pack_state_eq, pack_state_eqc
 
 # Kernel launches since the process started (or since a caller reset it),
-# one counter per configuration: B1, B2, B3 (monolithic and chunk), B4, S1.
+# one counter per configuration: B1, B2, B3 (monolithic and chunk), B4, S1,
+# T1.
 launches = 0
 eq_launches = 0
 generic_launches = 0
 chunk_launches = 0
 traj_launches = 0
+trace_launches = 0
 
 F32, F64 = torch.float32, torch.float64
 # configuration -> ({dtype: C entry}, state rows, scalars per substep)
@@ -101,13 +107,37 @@ def _cost_sort_key(q0s, p0s, rs):
     return (b - 1.5 * math.sqrt(3.0) * rs).abs()
 
 
+def _call(entry, device, ptrs, params, ints):
+    """Launch the C entry `entry` on `device`'s current stream: the tensor
+    pointers, then `params` (a CPU vector, copied to the device), then the
+    integer arguments; raises KernelLaunchError when the launch fails."""
+    from ..kernels.build import load
+
+    lib = load()
+    params_dev = params.to(device)
+    with torch.cuda.device(device):  # launch on the data's card
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(*ptrs, params_dev.data_ptr(), *ints,
+                                  stream)
+    if err != 0:
+        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+
+
+def _check_triples(params, dtype):
+    """The number of substeps of a plain-triples vector [rs, r_max, cap,
+    (d, cos, sin) x n_sub] in `dtype` (S1's and T1's); raises otherwise."""
+    n_sub = (params.numel() - 3) // 3
+    if params.dtype != dtype or n_sub < 1 or params.numel() != 3 + 3 * n_sub:
+        raise ValueError("params must be [rs, r_max, cap, (d, cos, sin) x "
+                         "n_sub] in the rays' dtype")
+    return n_sub
+
+
 def _launch(config, state_in, params, steps):
     """Check, allocate and launch one configuration on a packed (rows, N)
     state; returns (state_out, ns (N,) int32, the steps each ray took).
     `params` is the CPU vector from `substep_params` in the state's dtype;
     it is copied to the state's device."""
-    from ..kernels.build import load
-
     entries, rows, width = CONFIGS[config]
     dtypes = " or ".join(str(d)[6:] for d in entries)
     if (not isinstance(state_in, torch.Tensor)
@@ -128,16 +158,9 @@ def _launch(config, state_in, params, steps):
     ns = torch.empty((n,), dtype=torch.int32, device=state_in.device)
     if n == 0:  # nothing to launch
         return state_out, ns
-    entry = entries[state_in.dtype]
-    lib = load()
-    params_dev = params.to(state_in.device)
-    with torch.cuda.device(state_in.device):  # launch on the data's card
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr(),
-            params_dev.data_ptr(), n, n_sub, int(steps), stream)
-    if err != 0:
-        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+    _call(entries[state_in.dtype], state_in.device,
+          (state_in.data_ptr(), state_out.data_ptr(), ns.data_ptr()),
+          params, (n, n_sub, int(steps)))
     return state_out, ns
 
 
@@ -293,15 +316,9 @@ def launch_fantasy_traj(q0s, p0s, params, steps, stride, n_keep):
     staggered=False)`) in the rays' dtype.  Returns (traj (N, n_keep, 4),
     zero past each ray's exit; ns (N,) int32, the steps each ray took)."""
     global traj_launches
-    from ..kernels.build import load
-
     _check_inputs(q0s, p0s, (F32, F64))
     n = q0s.shape[0]
-    n_sub = (params.numel() - 3) // 3
-    if (params.dtype != q0s.dtype or n_sub < 1
-            or params.numel() != 3 + 3 * n_sub):
-        raise ValueError("params must be [rs, r_max, cap, (d, cos, sin) x "
-                         "n_sub] in the rays' dtype")
+    n_sub = _check_triples(params, q0s.dtype)
     if (not 0 <= steps < 2 ** 31 or not 1 <= stride < 2 ** 31
             or not 0 <= n_keep < 2 ** 31 or n >= 2 ** 31
             or n_keep * stride < steps):
@@ -313,17 +330,9 @@ def launch_fantasy_traj(q0s, p0s, params, steps, stride, n_keep):
     ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
     if n == 0:
         return traj, ns
-    entry = TRAJ_ENTRIES[q0s.dtype]
-    lib = load()
-    params_dev = params.to(q0s.device)
-    with torch.cuda.device(q0s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            q0s.data_ptr(), p0s.data_ptr(), traj.data_ptr(), ns.data_ptr(),
-            params_dev.data_ptr(), n, n_sub, int(steps), int(stride),
-            int(n_keep), stream)
-    if err != 0:
-        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+    _call(TRAJ_ENTRIES[q0s.dtype], q0s.device,
+          (q0s.data_ptr(), p0s.data_ptr(), traj.data_ptr(), ns.data_ptr()),
+          params, (n, n_sub, int(steps), int(stride), int(n_keep)))
     traj_launches += 1
     return traj, ns
 
@@ -344,3 +353,38 @@ def integrate_batch_full_cuda(q0s, p0s, steps, delta, rs, r_max, omega,
     traj, ns = launch_fantasy_traj(q0s, p0s, params, steps, stride,
                                    n_keep_eff)
     return (traj, ns) if return_steps else traj
+
+
+# T1's entries, exported by fantasy_schw16.cu's library (its trace mode)
+TRACE_ENTRIES = {F32: "grt_fantasy_trace_f32_launch",
+                 F64: "grt_fantasy_trace_f64_launch"}
+
+
+def launch_fantasy_trace(q0s, p0s, params, steps):
+    """Launch kernel T1 on (N, 4) float32 or float64 CUDA rays; `params` is
+    the `trace_params` vector in the rays' dtype.  Returns (N, steps, 8):
+    (q1, p1) after each step, every element written by the kernel."""
+    global trace_launches
+    _check_inputs(q0s, p0s, (F32, F64))
+    n = q0s.shape[0]
+    n_sub = _check_triples(params, q0s.dtype)
+    if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
+    out = torch.empty((n, steps, 8), dtype=q0s.dtype, device=q0s.device)
+    if n == 0 or steps == 0:
+        return out
+    _call(TRACE_ENTRIES[q0s.dtype], q0s.device,
+          (q0s.data_ptr(), p0s.data_ptr(), out.data_ptr()), params,
+          (n, n_sub, int(steps)))
+    trace_launches += 1
+    return out
+
+
+def trajectory_unmasked_cuda(q0s, p0s, steps, delta, rs, omega, order=2):
+    """Trace (N, 4) float32 or float64 CUDA rays through kernel T1: (N,
+    steps, 8), (q1, p1) after every step, the contract of
+    `trajectory_unmasked`, which it matches bit for bit on the card.
+    Raises for CPU, misshapen or non-contiguous inputs, and for a failed
+    build or launch."""
+    return launch_fantasy_trace(
+        q0s, p0s, trace_params(delta, rs, omega, order, q0s.dtype), steps)

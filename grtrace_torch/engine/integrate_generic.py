@@ -17,13 +17,21 @@ unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
                                 (kernel B5's twins, integrate_dispatch_ks)
     trajectory_batch_decimated  both charts: the eager twin of S2, q1
                                 recorded every `stride` steps
+    trajectory_generic          metric 'Kerr': one ray's (q1, p1) after
+                                every step, no exit (the EinsteinPy
+                                semantics); its loop
+                                trajectory_generic_unmasked is the eager
+                                twin of T2
 
-`integrate_dispatch_generic` and `trajectory_dispatch_generic` send CUDA
-rays to the kernels (B5 for the Kerr-Schild frame) and CPU rays to the
-twins; the sampler raises for any other device.  A kernel and its twin read the same
+`integrate_dispatch_generic`, `trajectory_dispatch_generic` and
+`trajectory_generic` send CUDA rays to the kernels (B5 for the Kerr-Schild
+frame) and CPU rays to the twins; the samplers raise for any other
+device.  A kernel and its twin read the same
 host-built scalar vector (`gen_params`), so they round alike.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -120,22 +128,13 @@ def split_params(vec):
                                     for j in range((len(p) - N_SCAL) // 3))
 
 
-def make_generic_step(metric, vec):
-    """(active, opening, step) for one integration from a gen_params
-    vector.
-
-    active(state) -> the rays inside the domain before a step: r_cap < r <
-    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  opening(state) ->
-    flow A's kick/drift at the state's (q1, p2), the carry the first step
-    takes.  step(state, ka) -> (bad, new state, ka): one composed step of
-    every ray from the carry ka, then the chart's blow-up guard, which
-    reverts the rays it flags (bad) to the pre-step state and parks their
-    q1 (`grtrace.engine.integrate_generic._domain_tools`'s guard_spherical
-    / guard_cartesian); the carry it returns is flow A's at the new state's
-    (q1, p2), except on the reverted rays, which the park leaves outside
-    the domain for good."""
-    (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
-     err_park), subs = split_params(vec)
+def make_composed_step(metric, vec):
+    """(opening, composed) of the chart's unstaggered step from a
+    gen_params vector: opening(state) -> flow A's kick/drift at the
+    state's (q1, p2); composed(state, ka) -> (state, ka) after one composed
+    step of every ray from the carry ka, with no guard (the loop of kernel
+    T2; `make_generic_step` guards it)."""
+    (mass, a, charge, *_), subs = split_params(vec)
     if metric == "KerrSchild":
         kick_drift, n_kick, flow_b = kerr_schild._kick_drift, 3, _flow_b_ks
     else:
@@ -168,6 +167,27 @@ def make_generic_step(metric, vec):
             ka = opening(state)
             state = flow_a(state, ka, half)
         return state, ka
+
+    return opening, composed
+
+
+def make_generic_step(metric, vec):
+    """(active, opening, step) for one integration from a gen_params
+    vector.
+
+    active(state) -> the rays inside the domain before a step: r_cap < r <
+    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  opening(state) ->
+    flow A's kick/drift at the state's (q1, p2), the carry the first step
+    takes.  step(state, ka) -> (bad, new state, ka): one composed step of
+    every ray from the carry ka, then the chart's blow-up guard, which
+    reverts the rays it flags (bad) to the pre-step state and parks their
+    q1 (`grtrace.engine.integrate_generic._domain_tools`'s guard_spherical
+    / guard_cartesian); the carry it returns is flow A's at the new state's
+    (q1, p2), except on the reverted rays, which the park leaves outside
+    the domain for good."""
+    (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
+     err_park), _ = split_params(vec)
+    opening, composed = make_composed_step(metric, vec)
 
     def finite_q1p1(new):
         finite = torch.isfinite(new[0])
@@ -361,3 +381,51 @@ def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     return trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max,
                                       omega, order=order, metric=metric,
                                       n_keep=n_keep)
+
+
+def trajectory_generic_unmasked(q0s, p0s, steps, vec):
+    """The loop of kernel T2 on (N, 4) Boyer-Lindquist rays from a
+    gen_params vector: (N, steps, 8), (q1, p1) after each of `steps`
+    composed steps (flow A's kick/drift carried, as in G1), every step
+    taken: no domain test, no guard, no park."""
+    opening, composed = make_composed_step("Kerr", vec)
+    out = torch.empty((q0s.shape[0], steps, 8), dtype=q0s.dtype,
+                      device=q0s.device)
+    state = pack_state(q0s, p0s)
+    ka = opening(state)
+    for k in range(steps):
+        state, ka = composed(state, ka)
+        out[:, k, :] = torch.stack(state[:8], dim=-1)
+    return out
+
+
+def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
+                       metric="Kerr"):
+    """Single-ray unmasked trajectory, JAX's signature: (qs (steps, 4), ps
+    (steps, 4)), q and p after each step, with no early exit (EinsteinPy's
+    `Nulllike` semantics, for the compat classes).  CUDA rays go to kernel
+    T2 (`integrate_generic_cuda.trajectory_generic_unmasked_cuda`), CPU
+    rays to its twin `trajectory_generic_unmasked`; any other device
+    raises.  Only the Boyer-Lindquist chart, metric 'Kerr' (the one JAX's
+    compat classes pass); a beyond-Kerr family raises naming ROADMAP item
+    9, any other metric NotImplementedError.  JAX takes the flows by
+    autodiff, the port in closed form (physics/kerr_bl.py): they agree
+    within 1e-12 relative an evaluation (ROADMAP Queue C)."""
+    if metric != "Kerr":
+        COORDS[metric]  # raises for the families of item 9
+        raise NotImplementedError(
+            f"trajectory_generic of grtrace_torch integrates the "
+            f"Boyer-Lindquist chart 'Kerr' only (got {metric!r})")
+    q0s, p0s = q0.reshape(1, 4).contiguous(), p0.reshape(1, 4).contiguous()
+    vec = gen_params(metric, delta, params, math.inf, omega, order,
+                     q0s.dtype)
+    kind = q0s.device.type
+    if kind == "cuda":
+        from .integrate_generic_cuda import trajectory_generic_unmasked_cuda
+        out = trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec)
+    elif kind == "cpu":
+        out = trajectory_generic_unmasked(q0s, p0s, steps, vec)
+    else:
+        raise ValueError(f"no trace for {kind!r} tensors (CUDA runs kernel "
+                         f"T2, the CPU its eager twin)")
+    return out[0, :, :4], out[0, :, 4:]

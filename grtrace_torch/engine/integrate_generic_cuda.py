@@ -5,18 +5,21 @@
     the JAX package's `integrate_batch_generic(metric='Kerr')`);
   * S2, the trajectory recorder in the Boyer-Lindquist and Kerr-Schild
     charts (`trajectory_batch_decimated_cuda`; JAX's
-    `trajectory_batch_decimated`).
+    `trajectory_batch_decimated`);
+  * T2, the Boyer-Lindquist trace, every step recorded and none stopped
+    (`trajectory_generic_unmasked_cuda`; JAX's `trajectory_generic`).
 
 Port-side kernels: JAX runs this engine in XLA loops, not in Pallas, so
 they replace no TPU kernel.  One thread integrates one ray, float32 or
 float64; G1's wrapper launches the rays sorted by a cost key and puts the
 results back in the caller's order.  Their eager twins,
-`integrate_generic_twin` and `trajectory_generic_twin`
-(engine/integrate_generic.py), define their results, and each kernel and
+`integrate_generic_twin`, `trajectory_generic_twin` and
+`trajectory_generic_unmasked` (engine/integrate_generic.py), define their
+results, and each kernel and
 its twin read the same host-built scalar vector (`gen_params`).  This module only launches: it never falls back to
 a twin, and every wrapper raises for CPU tensors.  Rays on the CPU belong
-to `integrate_dispatch_generic` and `trajectory_dispatch_generic`, which
-send them to the twins.
+to `integrate_dispatch_generic`, `trajectory_dispatch_generic` and
+`trajectory_generic`, which send them to the twins.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ from .integrate_cuda import KernelLaunchError, _check_inputs
 from .integrate_generic import N_SCAL, finish_generic_bl, gen_params
 
 # Kernel launches since the process started (or since a caller reset it):
-# G1, and S2 in both charts.
+# G1, S2 in both charts, and T2.
 launches = 0
 traj_launches = 0
+trace_launches = 0
 
 F32, F64 = torch.float32, torch.float64
 ENTRIES = {F32: "grt_fantasy_gen_bl_f32_launch",
@@ -40,6 +44,8 @@ TRAJ_ENTRIES = {("Kerr", F32): "grt_fantasy_gen_traj_bl_f32_launch",
                 ("Kerr", F64): "grt_fantasy_gen_traj_bl_f64_launch",
                 ("KerrSchild", F32): "grt_fantasy_gen_traj_ks_f32_launch",
                 ("KerrSchild", F64): "grt_fantasy_gen_traj_ks_f64_launch"}
+TRACE_ENTRIES = {F32: "grt_fantasy_gen_trace_bl_f32_launch",
+                 F64: "grt_fantasy_gen_trace_bl_f64_launch"}
 OUT_ROWS = 12  # G1 writes q1, p1, q2
 
 
@@ -181,3 +187,32 @@ def trajectory_batch_decimated_cuda(q0s, p0s, steps, delta, params, r_max,
     traj, ns = launch_fantasy_gen_traj(q0s, p0s, vec, steps, stride,
                                        n_keep_eff, metric)
     return (traj, ns) if return_steps else traj
+
+
+def launch_fantasy_gen_trace(q0s, p0s, params, steps):
+    """Launch T2 on (N, 4) float32 or float64 Boyer-Lindquist CUDA rays;
+    `params` is the 'Kerr' `gen_params` vector in the rays' dtype.
+    Returns (N, steps, 8): (q1, p1) after each step, every element written
+    by the kernel."""
+    global trace_launches
+    _check_inputs(q0s, p0s, (F32, F64))
+    n = q0s.shape[0]
+    n_sub = _n_sub(params, q0s.dtype)
+    if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
+    out = torch.empty((n, steps, 8), dtype=q0s.dtype, device=q0s.device)
+    if n == 0 or steps == 0:
+        return out
+    _call(TRACE_ENTRIES[q0s.dtype], q0s, (p0s.data_ptr(), out.data_ptr()),
+          params, (n, n_sub, int(steps)))
+    trace_launches += 1
+    return out
+
+
+def trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec):
+    """Trace (N, 4) Boyer-Lindquist CUDA rays through T2 from a 'Kerr'
+    gen_params vector: (N, steps, 8), the contract of
+    `trajectory_generic_unmasked`, which it matches bit for bit on the
+    card.  Raises for CPU, misshapen or non-contiguous inputs, and for a
+    failed build or launch."""
+    return launch_fantasy_gen_trace(q0s, p0s, vec, steps)

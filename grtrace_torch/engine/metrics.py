@@ -142,6 +142,12 @@ PEAK_BYTES = 3.35e12
 #                geometry at the new point (35), S (6) and h (11), the
 #                tolerance (7), the new radius (17) and the inward heading
 #                (5); once per ray the launch's flow A evaluation, 120
+#   fantasy_trace (T1, the trace mode of fantasy_schw16.cu): B3's 255 per
+#                substep, nothing per step (no domain test, no guard); once
+#                per ray the launch's flow A evaluation, 26
+#   fantasy_gen_trace (T2, the Boyer-Lindquist trace mode of
+#                fantasy_gen.cu): G1's 532 per substep, nothing per step;
+#                once per ray the launch's flow A evaluation, 129
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -157,9 +163,11 @@ KERNEL_OPS = {
     "fantasy_ks": (586, 55, 332),
     "fantasy_ks_plain": (499, 55, 290),
     "fantasy_traj": (255, 2, 27),
+    "fantasy_trace": (255, 0, 26),
     "fantasy_gen": (532, 2, 129),
     "fantasy_gen_traj_bl": (532, 2, 129),
     "fantasy_gen_traj_ks": (513, 104, 120),
+    "fantasy_gen_trace": (532, 0, 129),
 }
 DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
 SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42

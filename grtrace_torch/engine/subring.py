@@ -27,9 +27,9 @@ screen), and `polarized_moments` reduces them to the beta_m moments; with
 and the per-order intensities (`aa.refine_subrings`, B7 again on the
 sub-rays).  `subring_visibilities` gives each order's u-v signature
 (engine/visibility.py) and `save_subring_maps` writes the science products
-(CSV and JSON always, the figures when matplotlib is asked for).  Not
-ported yet, and raising NotImplementedError: the autodiff ISCO of a charged
-hole (`r_in=None` with charge), ROADMAP Queue A item 8.
+(CSV and JSON always, the figures when matplotlib is asked for).  A
+charged hole's inner edge (`r_in=None` with charge) is the autodiff ISCO of
+physics/epicyclic.py, through `DiskConfig.inner_edge`.
 """
 from __future__ import annotations
 

@@ -37,9 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # after steps; a trig entry (`*_trig_*`) takes (x, sin_out, cos_out,
 # sincos_sin_out, sincos_cos_out, n, stream); a trajectory entry
 # (`*_traj_*`) takes (q0, p0, traj_out, ns_out, params, n, n_sub, steps,
-# stride, n_keep, stream); a generic-engine integrator (`*_gen_*`, not a
-# trajectory entry) takes (q0, p0, out, ns_out, params, n, n_sub, steps,
-# stream)
+# stride, n_keep, stream); a trace entry (`*_trace_*`) takes (q0, p0, out,
+# params, n, n_sub, steps, stream); a generic-engine integrator (`*_gen_*`,
+# not a trajectory or trace entry) takes (q0, p0, out, ns_out, params, n,
+# n_sub, steps, stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -47,6 +48,8 @@ ENTRIES = {
                        "grt_fantasy_schw16_f64_launch",
                        "grt_fantasy_traj_f32_launch",
                        "grt_fantasy_traj_f64_launch",
+                       "grt_fantasy_trace_f32_launch",
+                       "grt_fantasy_trace_f64_launch",
                        "grt_fantasy_trig_f32_launch",
                        "grt_fantasy_trig_f64_launch"),
     "fantasy_ks": ("grt_fantasy_ks32_f32_launch",
@@ -63,7 +66,9 @@ ENTRIES = {
                     "grt_fantasy_gen_traj_bl_f32_launch",
                     "grt_fantasy_gen_traj_bl_f64_launch",
                     "grt_fantasy_gen_traj_ks_f32_launch",
-                    "grt_fantasy_gen_traj_ks_f64_launch"),
+                    "grt_fantasy_gen_traj_ks_f64_launch",
+                    "grt_fantasy_gen_trace_bl_f32_launch",
+                    "grt_fantasy_gen_trace_bl_f64_launch"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -72,6 +77,8 @@ def argtypes(name: str) -> list:
     """The ctypes signature of the C entry `name`."""
     if "_trig_" in name:
         return [_PTR] * 5 + [_INT, _PTR]
+    if "_trace_" in name:
+        return [_PTR] * 4 + [_INT] * 3 + [_PTR]
     if "_traj_" in name:
         return [_PTR] * 5 + [_INT] * 5 + [_PTR]
     if "_gen_" in name:

@@ -90,6 +90,7 @@ static void run(const double* q0, const double* p0, double* out, int* ns,
 ENTRY(host_g1, Chart::kBL, Mode::kIntegrate)
 ENTRY(host_s2_bl, Chart::kBL, Mode::kRecord)
 ENTRY(host_s2_ks, Chart::kKS, Mode::kRecord)
+ENTRY(host_t2, Chart::kBL, Mode::kTrace)
 """
 
 
@@ -110,7 +111,7 @@ def _torch_sqrt(x):
 
 @pytest.fixture(scope="module")
 def host_gen(tmp_path_factory):
-    """fantasy_gen.cu built for the CPU: {'g1', 's2_bl', 's2_ks'} ->
+    """fantasy_gen.cu built for the CPU: {'g1', 's2_bl', 's2_ks', 't2'} ->
     entry (float64)."""
     gxx = shutil.which("g++")
     if gxx is None:
@@ -124,7 +125,7 @@ def host_gen(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     out = {"math": (_SINCOS(_torch_sincos), _SQRT(_torch_sqrt))}
     so.set_math(*out["math"])
-    for name in ("g1", "s2_bl", "s2_ks"):
+    for name in ("g1", "s2_bl", "s2_ks", "t2"):
         fn = getattr(so, f"host_{name}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         fn.restype = None
@@ -227,3 +228,37 @@ def test_s2_source_matches_twin(host_gen, metric):
         assert torch.equal(_bits(traj[k]), _bits(want[0]))
     assert int(ns[0]) == steps and int(ns[1]) < steps
     assert not torch.signbit(traj[(traj == 0)]).any()
+
+
+def test_t2_source_bitwise_equal_to_twin(host_gen):
+    """T2 (the Boyer-Lindquist trace mode) against its twin
+    `trajectory_generic_unmasked` on rays of the 8x8 unfolded camera at r0
+    = 12 (those of the G1 test: two escape, two fall in), 200 steps, delta
+    0.1, order 2 (T2 runs G1's `composed`, which the order-4 test above
+    holds across substeps): every step's (q1, p1) bit for bit up to each
+    ray's first non-finite value (if any), whose step agrees.  Nothing
+    stops a ray: the captures run into the horizon, the escapes run on
+    past the boundary."""
+    q0, p0 = _rays("Kerr", 12.0, 90.0, [0, 27, 28, 45])
+    steps = 200
+    for order in (2,):
+        vec = tig.gen_params("Kerr", 0.1, PARAMS, 13.0, 1.0, order,
+                             torch.float64)
+        got = torch.full((4, steps, 8), 7.0, dtype=torch.float64)
+        host_gen["t2"](q0.data_ptr(), p0.data_ptr(), got.data_ptr(), None,
+                       vec.data_ptr(), 4, (vec.numel() - tig.N_SCAL) // 3,
+                       steps, 1, 0)
+        firsts = []
+        for k in range(4):
+            want = tig.trajectory_generic_unmasked(q0[k:k + 1], p0[k:k + 1],
+                                                   steps, vec)[0]
+            bad_w = ~torch.isfinite(want).all(-1)
+            bad_g = ~torch.isfinite(got[k]).all(-1)
+            n = int(bad_w.int().argmax()) if bool(bad_w.any()) else steps
+            assert (int(bad_g.int().argmax()) if bool(bad_g.any())
+                    else steps) == n
+            assert torch.equal(_bits(got[k, :n]), _bits(want[:n])), k
+            firsts.append(n)
+        r_plus = float(tig.horizon_radius("Kerr", *PARAMS))
+        inside = (got[..., 1].nan_to_num(0.0) < r_plus).any(-1)
+        assert bool(inside.any()) and not bool(inside.all())

@@ -32,6 +32,7 @@ from grtrace.engine import integrate_generic as jig
 from grtrace.engine import integrate_ks as jks
 from grtrace.physics import camera as jcam
 from grtrace.physics import spacetime as jsp
+from grtrace_torch.engine import integrate_cuda as tc
 from grtrace_torch.engine import integrate_generic as tig
 from grtrace_torch.engine import integrate_generic_cuda as tigc
 from grtrace_torch.engine import integrate_ks as tks
@@ -289,16 +290,26 @@ def test_dispatch_routes(monkeypatch):
 
 
 def test_gen_entries_registered():
-    """G1 and S2's entries are built from fantasy_gen.cu: G1 takes (q0, p0,
-    out, ns, params, n, n_sub, steps, stream), S2 the trajectory
-    signature."""
+    """G1, S2 and T2's entries are built from fantasy_gen.cu: G1 takes (q0,
+    p0, out, ns, params, n, n_sub, steps, stream), S2 the trajectory
+    signature, T2 the trace one (q0, p0, out, params, n, n_sub, steps,
+    stream); so are T1's from fantasy_schw16.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
     names = tbuild.ENTRIES["fantasy_gen"]
     assert set(names) == (set(tigc.ENTRIES.values())
-                          | set(tigc.TRAJ_ENTRIES.values()))
+                          | set(tigc.TRAJ_ENTRIES.values())
+                          | set(tigc.TRACE_ENTRIES.values()))
     for name in names:
-        want = [p] * 5 + [i] * (5 if "_traj_" in name else 3) + [p]
+        if "_trace_" in name:
+            want = [p] * 4 + [i] * 3 + [p]
+        else:
+            want = [p] * 5 + [i] * (5 if "_traj_" in name else 3) + [p]
         assert tbuild.argtypes(name) == want
+    src = (tbuild.CSRC_DIR / "fantasy_schw16.cu").read_text()
+    for name in tc.TRACE_ENTRIES.values():
+        assert name in tbuild.ENTRIES["fantasy_schw16"]
+        assert f'extern "C" int {name}(' in src
+        assert tbuild.argtypes(name) == [p] * 4 + [i] * 3 + [p]
 
 
 def test_ks_flows_match_make_flows():

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import grtrace_torch
+from grtrace_torch.physics.epicyclic import isco_from_kappa
 from grtrace.engine import disk as jdisk
 from grtrace.io.scene import IntegratorConfig, SceneConfig
 from grtrace_torch.engine import disk as tdisk
@@ -132,10 +133,21 @@ def test_disk_paths_not_ported_raise(change, kw, match):
     """The disk paths the port does not have raise NotImplementedError
     naming their ROADMAP item; aa_samples (item 8b; match None) refines
     the 8x8 disk frame, polarized or seen from a moving camera, leaving
-    the class map, the counts and the science maps alone."""
+    the class map, the counts and the science maps alone; a charged hole
+    (item 8, its 8d: the autodiff ISCO) renders, its inner edge the root
+    of kappa^2."""
     scene = replace(grtrace_torch.SceneConfig(size=8, metric="kerr",
                                               spin=0.9, n_samples=0),
                     **{k: v for k, v in kw.items() if k != "aa_samples"})
+    if match == "item 8":
+        scene = replace(scene, integrator=grtrace_torch.IntegratorConfig(
+            steps=400, delta=0.2))
+        dc = grtrace_torch.DiskConfig(**change)
+        res = grtrace_torch.render_disk(scene, dc, device="cpu")
+        assert sum(res.counts.values()) >= 64 and res.counts["disk"] > 0
+        assert dc.inner_edge(1.0, 0.9, 0.3) == pytest.approx(
+            float(isco_from_kappa([1.0, 0.9, 0.3])), rel=1e-15)
+        return
     if match is None:
         scene = replace(scene, integrator=grtrace_torch.IntegratorConfig(
             steps=400, delta=0.2))

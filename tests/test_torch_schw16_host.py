@@ -112,3 +112,38 @@ def test_sampler_twin_takes_b3_twins_steps(dtype, order):
     assert torch.equal(_bits(last), _bits(torch.stack(state[:4], -1)))
     live = (traj != 0).any(-1)
     assert torch.equal(live.sum(1), ns.long() + 1)
+
+
+def _first_bad(rec):
+    """Per ray, the first step whose (q1, p1) has a non-finite value
+    (steps where there is none)."""
+    bad = ~torch.isfinite(rec).all(-1)
+    return torch.where(bad.any(-1), bad.int().argmax(-1),
+                       torch.full(bad.shape[:1], rec.shape[1]))
+
+
+def test_t1_source_bitwise_equal_to_twin(host):
+    """T1 (the trace mode) against its twin `trajectory_unmasked` on the 3x3
+    headline camera at delta 0.2, 400 steps, float32 at order 2 and
+    float64 at order 4: every step's (q1, p1) bit for bit up to each ray's
+    first non-finite value (if any), whose step agrees.  Nothing stops a
+    ray, so the captured one falls through the horizon (r < rs) and is
+    flung out to r of order -1e3, as JAX's scan lets it; the others pass
+    the boundary sphere and run on for the whole budget."""
+    steps, delta, rs, _, omega = ARGS
+    for dtype, order in ((torch.float32, 2), (torch.float64, 4)):
+        q0, p0 = _rays(dtype)
+        want = ti.trajectory_unmasked(q0, p0, steps, delta, rs, omega,
+                                      order=order)
+        vec = ti.trace_params(delta, rs, omega, order, dtype)
+        got = torch.full_like(want, 7.0)
+        host["t1", dtype](q0.data_ptr(), p0.data_ptr(), got.data_ptr(),
+                          vec.data_ptr(), q0.shape[0],
+                          (vec.numel() - 3) // 3, steps)
+        first = _first_bad(want)
+        assert torch.equal(_first_bad(got), first)
+        inside = (want[..., 1] < rs).any(-1)
+        assert bool(inside.any()) and not bool(inside.all())
+        for k in range(q0.shape[0]):
+            n = int(first[k])
+            assert torch.equal(_bits(got[k, :n]), _bits(want[k, :n])), k

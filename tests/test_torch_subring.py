@@ -123,10 +123,19 @@ def test_subring_options_not_ported_raise(change, kw, match):
     NotImplementedError naming their ROADMAP item; aa_samples (item 8b;
     match None) refines the 8x8 frame, polarized or not: the intensities
     of the refined pixels change, total_intensity stays their sum, and
-    the crossing counts keep the centre sample."""
+    the crossing counts keep the centre sample; a charged hole (item 8,
+    its 8d: the autodiff ISCO) renders its subrings."""
     scene = replace(grtrace_torch.SceneConfig(size=8, metric="kerr",
                                               spin=SPIN, n_samples=0),
                     **{k: v for k, v in kw.items() if k != "aa_samples"})
+    if match == "item 8":
+        scene = replace(scene, integrator=grtrace_torch.IntegratorConfig(
+            steps=600, delta=0.2, dtype="float64"))
+        res = grtrace_torch.render_subrings(
+            scene, grtrace_torch.DiskConfig(elevation_deg=75.0, **change),
+            device="cpu")
+        assert res.count.shape == (8, 8) and int(res.count.max()) > 0
+        return
     if match is None:
         scene = replace(scene, integrator=grtrace_torch.IntegratorConfig(
             steps=600, delta=0.2, dtype="float64"))

@@ -74,7 +74,8 @@ static void run(const T* in, const T* p0, T* out, int* ns, const T* params,
 
 // S1 (the record mode): (q0, p0, traj, ns, params, n, n_sub, steps, stride,
 // n_keep); B3 (the integrate mode): (state_in, state_out, ns, params, n,
-// n_sub, steps)
+// n_sub, steps); T1 (the trace mode): (q0, p0, out, params, n, n_sub,
+// steps)
 extern "C" {
 void host_s1_f32(const float* q0, const float* p0, float* traj, int* ns,
                  const float* params, int n, int n_sub, int steps,
@@ -97,6 +98,16 @@ void host_b3_f64(const double* in, double* out, int* ns,
                  const double* params, int n, int n_sub, int steps) {
   run<double, Mode::kIntegrate>(in, nullptr, out, ns, params, n, n_sub,
                                 steps, 1, 0);
+}
+void host_t1_f32(const float* q0, const float* p0, float* out,
+                 const float* params, int n, int n_sub, int steps) {
+  run<float, Mode::kTrace>(q0, p0, out, nullptr, params, n, n_sub, steps, 1,
+                           0);
+}
+void host_t1_f64(const double* q0, const double* p0, double* out,
+                 const double* params, int n, int n_sub, int steps) {
+  run<double, Mode::kTrace>(q0, p0, out, nullptr, params, n, n_sub, steps,
+                            1, 0);
 }
 }
 """
@@ -137,8 +148,8 @@ def test_twin_matches_jax(np_dtype, order, n_keep):
 
 
 def build_host(tmp_path_factory):
-    """fantasy_schw16.cu built for the CPU: {("s1" | "b3", dtype) ->
-    entry}, or a skip where g++ is missing."""
+    """fantasy_schw16.cu built for the CPU: {("s1" | "b3" | "t1", dtype)
+    -> entry}, or a skip where g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this machine to build the host emulation")
@@ -155,8 +166,10 @@ def build_host(tmp_path_factory):
         s1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         b3 = getattr(so, f"host_b3_{suffix}")
         b3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        s1.restype = b3.restype = None
-        out["s1", dtype], out["b3", dtype] = s1, b3
+        t1 = getattr(so, f"host_t1_{suffix}")
+        t1.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        s1.restype = b3.restype = t1.restype = None
+        out["s1", dtype], out["b3", dtype], out["t1", dtype] = s1, b3, t1
     return out
 
 
