@@ -124,7 +124,19 @@ the port's paths through them:
     against the float32 and float64 witnesses of phase 46) and
     `cli.magnify --metric kerr --spin 0.9` at 256x256 (B5 once; 46);
     `cli.echo` at a = 0 and at a = 0.5 with Q = 0.4 (the charged ISCO;
-    B6 twice a run, the float64 fan bitwise against its twin; 47).
+    B6 twice a run, the float64 fan bitwise against its twin; 47);
+  * the static beyond-Kerr family through the static chart of
+    csrc/fantasy_gen.cu: `cli.main --metric bardeen | hayward | kottler`
+    and horizonless Bardeen at the CLI's width (200x200, 200k steps; G1s
+    and S2s once each, no twin on CUDA rays), G1s on the whole frame
+    beside its bound, bitwise against its twin on every 16th ray at the
+    full budget, the float32 fold's drift off theta = pi/2 (48); S2s on
+    the first frame's 20 samples and T2s on one of its rays, bitwise
+    (49); `render_disk_static` at 512x512, 30k steps (D1 once), D1
+    bitwise against its twin on every ray (50); `cli.exact` at 256x256
+    (its float64 crossing table against the CPU's on every 64th ray,
+    then --compare through B6 and --background --compare through B5;
+    51); `cli.images` with the JAX driver's example (52).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -2363,7 +2375,10 @@ OCC_KERNELS = {
                        for t in ("float", "double")],
     "fantasy_gen": [f"fantasy_gen_kernel<{t}, Chart::{c}, Mode::{m}>"
                     for c, m in (("kBL", "kIntegrate"), ("kBL", "kRecord"),
-                                 ("kKS", "kRecord"))
+                                 ("kKS", "kRecord"),
+                                 ("kStatic", "kIntegrate"),
+                                 ("kStatic", "kRecord"),
+                                 ("kStatic", "kDisk"))
                     for t in ("float", "double")],
 }
 # a probe library that includes one kernel source and asks the runtime
@@ -3561,6 +3576,410 @@ def echo_phase():
     return runs
 
 
+# --- the static beyond-Kerr family and the exact solvers (48-52) ----------
+# phase 48's frames: cli.main at its defaults (200x200, 200k steps, delta
+# 0.01, float32) with a procedural sky, the three families at one
+# sub-critical parameter each and horizonless Bardeen
+STATIC_FRAMES = (("bardeen", 0.5), ("hayward", 0.5), ("kottler", 1e-4),
+                 ("bardeen", 0.9))
+STATIC_SIZE = 200
+STATIC_ARGV = ["--background", "procedural:starfield", "--no-plots",
+               "--print-metrics"]
+STATIC_OUT = os.path.join(HERE, "build", "static_cli_out")
+# the share of each frame's rays held bitwise at the full budget (the
+# twin's time is set by the frame's longest ray, whatever the share)
+STATIC_HELD = 16
+# phase 50: the disk frame of the Kerr disk line (512x512, 30k steps, delta
+# 0.02, the default DiskConfig: camera 12 deg above the tilted disk,
+# [ISCO, 14]) around Bardeen g = 0.5
+STATIC_DISK = ("bardeen", 0.5)
+# phase 51: cli.exact at its default 256x256; the CPU holds every 64th ray
+# of the card's float64 crossing table (the CPU at the full frame would
+# take minutes)
+EXACT_SIZE, EXACT_HELD = 256, 64
+# the card's crossing table against the CPU's, |card - cpu| / (1 + |cpu|):
+# the card's sin, cos, atan2 and log differ from the CPU's by ulps, which
+# the 50- and 60-step bisections and their Newton polish carry to ~1e-8 of
+# the coordinate time (measured 1.7e-8 absolute on t ~ 10^2)
+EXACT_TOL = 1e-8
+EXACT_OUT = os.path.join(HERE, "build", "exact_cli_out")
+
+
+def static_counters(reset=False):
+    """G1s, S2s, T2s and D1's launch counts (set to 0 with reset)."""
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    names = ("static_launches", "static_traj_launches",
+             "static_trace_launches", "disk_launches")
+    if reset:
+        for name in names:
+            setattr(tgc, name, 0)
+    return dict(zip(("G1s", "S2s", "T2s", "D1"),
+                    (getattr(tgc, n) for n in names)))
+
+
+@contextlib.contextmanager
+def eager_on_cuda_static():
+    """The eager twins of G1s, S2s and D1 called on CUDA rays while the
+    block runs (a list that must stay empty on the render paths)."""
+    from grtrace_torch.engine import disk_static as tds
+    from grtrace_torch.engine import integrate_generic as tig
+    calls = []
+    saved = {(tig, "integrate_generic_twin"),
+             (tig, "trajectory_generic_twin"),
+             (tds, "integrate_disk_static_twin")}
+    saved = {(m, n): getattr(m, n) for m, n in saved}
+
+    def counted(fn, name):
+        def twin(q0s, *args, **kw):
+            if q0s.is_cuda:
+                calls.append(name)
+            return fn(q0s, *args, **kw)
+        return twin
+    for (m, n), fn in saved.items():
+        setattr(m, n, counted(fn, n))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
+def static_frame(metric, param):
+    """One phase-48 frame: cli.main --metric metric --metric-param param
+    in-process (G1s and S2s once each, no twin on CUDA rays); its warm
+    render wall; G1s with its wrapper on the whole frame (CUDA events,
+    median of 3) beside its bound; G1s bitwise against its twin on every
+    STATIC_HELD-th ray at the full budget; the float32 fold's drift off
+    theta = pi/2."""
+    import grtrace_torch
+    from grtrace_torch.cli.args import parse_args, scene_from_args
+    from grtrace_torch.engine.integrate_generic_cuda import \
+        integrate_batch_generic_cuda
+    from grtrace_torch.engine.render import STATIC_NAMES
+    from grtrace_torch.engine.validate import gen_kernel_parity, timed
+    from grtrace_torch.io.textures import starfield
+    family = STATIC_NAMES[metric]
+    argv = ["--metric", metric, "--metric-param", str(param)] + STATIC_ARGV
+    static_counters(reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda_static() as eager:
+        res, lines = run_cli(argv + ["--out-dir", STATIC_OUT])
+    cli_wall = time.perf_counter() - t0
+    launches = static_counters()
+    counts = res.counts
+    ns = res.n_steps.astype(np.int64)
+    tag = f"{metric} {param}"
+    phase(48, f"cli.main --metric {metric} --metric-param {param} "
+              f"{STATIC_SIZE}x{STATIC_SIZE}/{STEPS} steps ({CARD}): counts "
+              f"{counts}, launches {launches}, cli wall {cli_wall:.3f} s, "
+              f"stages {json.dumps(json_line(lines, 'stages_s'))}, longest "
+              f"ray {int(ns.max())}, ray-steps {int(ns.sum())}")
+    if launches != {"G1s": 1, "S2s": 1, "T2s": 0, "D1": 0} or eager:
+        raise AssertionError(f"{tag}: launches {launches}, eager twins on "
+                             f"CUDA rays {eager}")
+    if (res.image.shape != (STATIC_SIZE, STATIC_SIZE, 3)
+            or not np.isfinite(res.final_q).all() or counts["in_domain"]):
+        raise AssertionError(f"{tag}: misshapen, non-finite or budget-cut "
+                             f"frame: {counts}")
+    scene = scene_from_args(parse_args(argv))
+    tex = starfield()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render(scene, bg_array=tex, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"{tag}: a warm render's counts "
+                                 f"{r.counts} differ from the CLI's")
+    params = (MASS, param, 0.0)
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    full = [timed(lambda: integrate_batch_generic_cuda(
+        q0, p0, STEPS, DELTA, params, R_MAX, OMEGA, metric=family),
+        q0.device) for _ in range(3)]
+    static_counters(reset=True)  # the timing launches are not the path's
+    full_steps = int(full[0][0][3].long().sum())
+    fq, fp = full[0][0][0], full[0][0][1]
+    drift = {"max_abs_theta_minus_half_pi": float(
+                 (fq[:, 2] - math.pi / 2).abs().max()),
+             "max_abs_p_theta": float(fp[:, 2].abs().max())}
+    g1s = {"ms": float(np.median([ms for _, ms in full])),
+           "rays": q0.shape[0], "ray_steps": full_steps,
+           "n_steps_max": int(full[0][0][3].max()), "fold_drift": drift}
+    g1s["bound_ms"], g1s["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_static", full_steps, q0.shape[0]),
+        q0.shape[0] * BYTES_RAY)
+    qh = q0[::STATIC_HELD].contiguous()
+    ph = p0[::STATIC_HELD].contiguous()
+    kern, par = gen_kernel_parity(qh, ph, STEPS, DELTA, params, R_MAX,
+                                  OMEGA, metric=family)
+    par.update(rays=qh.shape[0], held=f"every {STATIC_HELD}th ray",
+               ray_steps=int(kern[3].long().sum()),
+               n_steps_max=int(kern[3].max()))
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_static", par["ray_steps"],
+                           par["rays"]), par["rays"] * BYTES_RAY)
+    static_counters(reset=True)
+    phase(48, f"G1s ({tag}) vs eager twin on every {STATIC_HELD}th ray of "
+              f"the frame, {STEPS}-step budget ({CARD}): {json.dumps(par)}")
+    gate_parity(f"G1s {tag}", par)
+    wall = float(np.median(walls))
+    phase(48, f"{tag} render warm wall time (frame and {N_SAMPLES} "
+              f"samples): median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}; G1s kernel+wrapper on the "
+              f"whole frame {json.dumps(g1s)}")
+    return {"res": res, "launches": launches, "wall": wall, "g1s": g1s,
+            "held": par, "counts": counts, "cli_wall": cli_wall}
+
+
+def static_cli_phase():
+    """Phase 48: cli.main --metric bardeen | hayward | kottler and
+    horizonless Bardeen at the CLI's full width (STATIC_FRAMES)."""
+    return {f"{m} {p}": static_frame(m, p) for m, p in STATIC_FRAMES}
+
+
+def static_traj_phase(frames):
+    """Phase 49: S2s on the first frame's 20 sampled rays at the full
+    budget, bitwise against its twin (every timed call), beside its
+    single-chain floor; T2s on one of that frame's rays through
+    trajectory_generic (float64, 2000 steps), bitwise against its twin,
+    beside its floor."""
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.validate import (_bitwise_equal,
+                                               gen_traj_parity)
+    metric, param = STATIC_FRAMES[0]
+    family = metric.capitalize()
+    res = frames[f"{metric} {param}"]["res"]
+    params = (MASS, param, 0.0)
+    idx = torch.as_tensor(res.sampled_indices[:, 0] * STATIC_SIZE
+                          + res.sampled_indices[:, 1], device="cuda")
+    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
+    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
+    _, s2 = gen_traj_parity(q0, p0, STEPS, DELTA, params, R_MAX, OMEGA,
+                            metric=family, n_keep=TRAJ_POINTS)
+    s2["bound_ms"], s2["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_traj_static", s2["n_steps_sum"],
+                           s2["rays"]),
+        s2["rays"] * (TRAJ_BYTES_RAY + s2["n_keep"] * 4 * 4))
+    s2["chain_floor_ms"] = chain_floor("fantasy_gen_traj_static",
+                                       s2["n_steps_max"])
+    phase(49, f"S2s ({metric} {param}) vs eager twin on the CLI's "
+              f"{s2['rays']} sampled rays ({STEPS}-step budget, "
+              f"{TRAJ_POINTS} points, float32; {CARD}): {json.dumps(s2)}")
+    if not s2["traj_bitwise_equal"]:
+        raise AssertionError(f"S2s differs from its twin (max abs diff "
+                             f"{s2['max_abs_err']:.3e})")
+    q1, p1 = q0[7].double(), p0[7].double()
+    steps = 2000
+    static_counters(reset=True)
+    qs, ps = tig.trajectory_generic(q1, p1, steps, DELTA, params, OMEGA,
+                                    metric=family)
+    launches = static_counters()["T2s"]
+    vec = tig.gen_params(family, DELTA, params, math.inf, OMEGA, 2,
+                         torch.float64)
+    from grtrace_torch.engine.validate import timed
+    ref, twin_ms = timed(lambda: tig.trajectory_generic_unmasked(
+        q1.reshape(1, 4), p1.reshape(1, 4), steps, vec, family),
+        q1.device)
+    rec = torch.cat([qs, ps], -1)[None]
+    ms = event_ms(lambda: tgc.trajectory_generic_unmasked_cuda(
+        q1.reshape(1, 4).contiguous(), p1.reshape(1, 4).contiguous(),
+        steps, vec, family))
+    t2 = {"rays": 1, "steps": steps, "launches": launches,
+          "finite": bool(torch.isfinite(rec).all()),
+          "record_bitwise_equal": _bitwise_equal(rec, ref),
+          "max_abs_err": float((rec - ref).abs().max()),
+          "kernel_ms": ms, "twin_ms": twin_ms,
+          "chain_floor_ms": chain_floor("fantasy_gen_trace_static", steps)}
+    t2["bound_ms"], t2["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_trace_static", steps, 1),
+        steps * TRACE_BYTES_STEP, PEAK_FLOPS64)
+    phase(49, f"T2s ({metric} {param}) through trajectory_generic on one "
+              f"of the frame's rays, float64, {steps} steps ({CARD}): "
+              f"{json.dumps(t2)}")
+    if launches != 1 or not (t2["record_bitwise_equal"] and t2["finite"]):
+        raise AssertionError(f"T2s: {json.dumps(t2)}")
+    return {"s2": s2, "t2": t2}
+
+
+def static_disk_phase():
+    """Phase 50: render_disk_static at 512x512, 30k steps (D1 once, no
+    twin on CUDA rays, disk pixels, numerical_error 0), its warm wall; D1
+    bitwise against its twin on every ray of the frame, its time beside
+    its bound."""
+    import grtrace_torch
+    from grtrace_torch import DiskConfig
+    from grtrace_torch.engine import disk_static as tds
+    from grtrace_torch.engine.integrate_ks import STATUS_DISK
+    from grtrace_torch.engine.validate import disk_static_parity
+    from grtrace_torch.physics.camera import camera_rays_folded_static
+    from grtrace_torch.physics.spacetime import METRICS
+    from grtrace_torch.io.textures import starfield
+    metric, param = STATIC_DISK
+    family = metric.capitalize()
+    scene = grtrace_torch.SceneConfig(
+        size=DISK_SIZE, fov_deg=FOV_DEG, background=None, bh_mass=MASS,
+        metric=metric, metric_param=param, boundary_radius=R_MAX,
+        observer_distance=OBS_X, n_samples=0,
+        integrator=grtrace_torch.IntegratorConfig(
+            steps=DISK_STEPS, delta=DISK_DELTA, omega=OMEGA, order=2,
+            dtype="float32"))
+    disk = DiskConfig()
+    tex = starfield()
+    static_counters(reset=True)
+    with eager_on_cuda_static() as eager:
+        res = tds.render_disk_static(scene, disk, bg_array=tex,
+                                     device="cuda")
+    launches = static_counters()
+    counts = res.counts
+    phase(50, f"render_disk_static {metric} {param} {DISK_SIZE}x"
+              f"{DISK_SIZE}/{DISK_STEPS} steps, delta {DISK_DELTA} "
+              f"({CARD}): counts {counts}, launches {launches}")
+    if (launches["D1"] != 1 or eager or not counts["disk"]
+            or counts["numerical_error"]):
+        raise AssertionError(f"static disk: launches {launches}, eager "
+                             f"{eager}, counts {counts}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = tds.render_disk_static(scene, disk, bg_array=tex, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError("a warm static disk render's counts differ")
+    r_in, r_out = tds.static_disk_bounds(family, MASS, param, disk.r_in,
+                                         disk.r_out, R_MAX)
+    dt = torch.float32
+    params = torch.tensor([MASS, param, 0.0], dtype=dt, device="cuda")
+    q0, p0, _, beta = camera_rays_folded_static(
+        torch.tensor([OBS_X, 0.0, 0.0], dtype=dt, device="cuda"),
+        torch.tensor(math.radians(FOV_DEG), dtype=dt, device="cuda"),
+        DISK_SIZE, DISK_SIZE, params=params, g_inv_fn=METRICS[family],
+        dtype=dt, device="cuda")
+    if not torch.equal(q0, res.device("q0")) or \
+            not torch.equal(p0, res.device("p0")):
+        raise AssertionError("the disk phase's camera is not the render's")
+    elev = torch.tensor(math.radians(disk.elevation_deg), dtype=dt,
+                        device="cuda")
+    c1 = torch.sin(elev).expand(beta.shape).reshape(-1).contiguous()
+    c2 = (torch.sin(beta) * torch.cos(elev)).reshape(-1).contiguous()
+    q0f = q0.reshape(-1, 4).contiguous()
+    p0f = p0.reshape(-1, 4).contiguous()
+    kern, par = disk_static_parity(q0f, p0f, c1, c2, DISK_STEPS, DISK_DELTA,
+                                   (MASS, param, 0.0), R_MAX, OMEGA, r_in,
+                                   r_out, family)
+    static_counters(reset=True)
+    n = q0f.shape[0]
+    par.update(rays=n, held="every ray", ray_steps=int(kern[3].long().sum()),
+               n_steps_max=int(kern[3].max()),
+               hits=int((kern[2] == STATUS_DISK).sum()))
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_disk_static", par["ray_steps"], n),
+        n * DISK_BYTES_RAY)
+    phase(50, f"D1 vs eager twin on every ray of the static disk frame "
+              f"({CARD}): {json.dumps(par)}")
+    gate_parity("D1 disk frame", par)
+    wall = float(np.median(walls))
+    phase(50, f"static disk render warm wall time: median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}; D1 kernel+wrapper "
+              f"{par['kernel_ms']:.3f} ms, bound {par['bound_ms']:.3f} ms "
+              f"({par['bound_by']})")
+    return {"launches": launches, "wall": wall, "d1": par}
+
+
+def exact_cli_phase():
+    """Phase 51: cli.exact at 256x256 on the card (the closed-form disk:
+    every EXACT_HELD-th ray's float64 crossing table against the same
+    solver on the CPU, within 1e-9), then --compare through B6 (its mask
+    mismatch and delta g, as the JAX driver prints them) and --background
+    --compare through B5 in float64."""
+    from grtrace_torch.cli import exact as texact
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    from grtrace_torch.engine.disk import disk_observer_position
+    from grtrace_torch.physics.camera import (cartesian_ics_from_pixels,
+                                              pixel_grid_lookat)
+    from grtrace_torch.physics.geodesic_exact import crossing_table
+    from grtrace_torch.physics.spacetime import kerr_schild_g_inv
+    from grtrace_torch import DiskConfig, SceneConfig
+    out = {}
+    ks.disk_launches = ks.launches = 0
+    t0 = time.perf_counter()
+    disk_json, _ = run_quiet(texact.main, ["--spin", "0.9", "--size",
+                                           str(EXACT_SIZE), "--compare",
+                                           "--out-dir", EXACT_OUT])
+    out["disk"] = dict(disk_json, wall_s=time.perf_counter() - t0,
+                       b6_launches=ks.disk_launches)
+    # the card's float64 crossing table against the CPU's on a share
+    scene = SceneConfig(size=EXACT_SIZE, metric="kerr", spin=0.9)
+    obs = torch.tensor(disk_observer_position(scene, DiskConfig(
+        elevation_deg=25.0)), dtype=torch.float64)
+    params = (MASS, 0.9, 0.0)
+    pix = pixel_grid_lookat(obs, torch.tensor(math.radians(FOV_DEG),
+                                              dtype=torch.float64),
+                            EXACT_SIZE, EXACT_SIZE, dtype=torch.float64)
+    q0, p0, _ = cartesian_ics_from_pixels(obs, pix.reshape(-1, 3),
+                                          params=params,
+                                          g_inv_fn=kerr_schild_g_inv)
+    q0, p0 = q0[::EXACT_HELD].contiguous(), p0[::EXACT_HELD].contiguous()
+    t0 = time.perf_counter()
+    card = crossing_table(q0.cuda(), p0.cuda(), params)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = crossing_table(q0, p0, params)
+    valid_eq = bool(torch.equal(card["valid"].cpu(), cpu["valid"]))
+    ok = cpu["valid"]
+    errs = {k: float(((card[k].cpu()[ok] - cpu[k][ok]).abs()
+                      / (1.0 + cpu[k][ok].abs())).max())
+            for k in ("r", "t", "phi", "tau")}
+    err = max(errs.values())
+    out["cpu_hold"] = {"rays": int(q0.shape[0]),
+                       "held": f"every {EXACT_HELD}th ray",
+                       "valid_equal": valid_eq, "scaled_err": errs,
+                       "max_abs_err": max(float((card[k].cpu()[ok]
+                                                 - cpu[k][ok]).abs().max())
+                                          for k in errs),
+                       "card_s": card_s}
+    phase(51, f"cli.exact --spin 0.9 --size {EXACT_SIZE} --compare "
+              f"({CARD}): {json.dumps(out['disk'])}; the card's crossing "
+              f"table vs the CPU's: {json.dumps(out['cpu_hold'])}")
+    if (not valid_eq or not err <= EXACT_TOL
+            or out["disk"]["b6_launches"] != 1
+            or not out["disk"]["disk_pixels"]):
+        raise AssertionError(f"cli.exact on the card: {json.dumps(out)}")
+    ks.launches = 0
+    t0 = time.perf_counter()
+    bg_json, _ = run_quiet(texact.main, ["--spin", "0.9", "--size",
+                                         str(EXACT_SIZE), "--background",
+                                         "--compare", "--out-dir",
+                                         EXACT_OUT])
+    out["background"] = dict(bg_json, wall_s=time.perf_counter() - t0,
+                             b5_launches=ks.launches)
+    phase(51, f"cli.exact --spin 0.9 --size {EXACT_SIZE} --background "
+              f"--compare ({CARD}): {json.dumps(out['background'])}")
+    if out["background"]["b5_launches"] != 1:
+        raise AssertionError("--background --compare did not launch B5")
+    return out
+
+
+def images_cli_phase():
+    """Phase 52: cli.images on the card with the JAX driver's example
+    (source (95, 166) deg, a = 0.9, windings -1 0 1, 256x256, scan 96):
+    every image it reports converged."""
+    from grtrace_torch.cli import images as timages
+    t0 = time.perf_counter()
+    got, _ = run_quiet(timages.main, ["--source-theta", "95",
+                                      "--source-phi", "166", "--spin", "0.9",
+                                      "--out-dir", EXACT_OUT])
+    wall = time.perf_counter() - t0
+    phase(52, f"cli.images --source-theta 95 --source-phi 166 --spin 0.9 "
+              f"({CARD}): {wall:.3f} s, {json.dumps(got)}")
+    if not got["n_found"]:
+        raise AssertionError("cli.images found no image on the card")
+    return {"wall_s": wall, "n_found": got["n_found"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3725,6 +4144,17 @@ def main():
     t2 = t2_phase()
     shadow = shadow_phase()
     echo = echo_phase()
+    # --- the static beyond-Kerr family (G1s, S2s, T2s, D1) and 8e ----------
+    static = static_cli_phase()
+    static_traj = static_traj_phase(static)
+    static_disk = static_disk_phase()
+    exact = exact_cli_phase()
+    images = images_cli_phase()
+    first = static[f"{STATIC_FRAMES[0][0]} {STATIC_FRAMES[0][1]}"]
+    phase(52, f"the 8e drivers' walls: cli.exact {exact['disk']['wall_s']:.3f}"
+              f" s (with --compare), --background --compare "
+              f"{exact['background']['wall_s']:.3f} s, cli.images "
+              f"{images['wall_s']:.3f} s")
     aa_launches = {k: {"aa_render": v["aa_render_launches"]}
                    for k, v in aa.items()}
     aa_launches["B1"]["cli_main_aa"] = obs["main"]["launches"]["B1"]
@@ -3992,7 +4422,85 @@ def main():
          "shapes": "T2, the Boyer-Lindquist trace mode of fantasy_gen.cu; "
                    "launches from Nulllike on the Kerr and Kerr-Newman "
                    "rays (phase 45); every other number on the "
-                   "Kerr-Newman ray (1 ray, 400 steps, float64)"}]}))
+                   "Kerr-Newman ray (1 ray, 400 steps, float64)"},
+        {"name": "fantasy_gen_static",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (G1s); the JAX package's "
+                     "static-family engine is the XLA while_loop "
+                     "grtrace/engine/integrate_generic.py:209",
+         "launches": sum(f["launches"]["G1s"] for f in static.values()),
+         "launches_frames": {k: f["launches"]["G1s"]
+                             for k, f in static.items()},
+         "max_abs_err": max(f["held"]["max_abs_err"]
+                            for f in static.values()),
+         "ms": first["g1s"]["ms"],
+         "plain_ms": first["held"]["twin_ms"],
+         "bound_ms": first["g1s"]["bound_ms"],
+         "bound_by": first["g1s"]["bound_by"],
+         "library_ms": None,
+         "ms_held": first["held"]["kernel_ms"],
+         "bound_ms_held": first["held"]["bound_ms"],
+         "frames": {k: {"ms": f["g1s"]["ms"], "bound_ms": f["g1s"]["bound_ms"],
+                        "wall_s": f["wall"],
+                        "fold_drift": f["g1s"]["fold_drift"]}
+                    for k, f in static.items()},
+         "shapes": f"G1s, the static chart of fantasy_gen.cu; launches from "
+                   f"cli.main on the four frames of phase 48 "
+                   f"({STATIC_SIZE}x{STATIC_SIZE}, {STEPS} steps, float32); "
+                   f"ms and bound_ms on the whole {STATIC_FRAMES[0]} frame; "
+                   f"plain_ms, ms_held and max_abs_err on every "
+                   f"{STATIC_HELD}th ray of each frame at the full budget"},
+        {"name": "fantasy_gen_traj_static",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (S2s); the JAX package's "
+                     "sampler is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:312",
+         "launches": sum(f["launches"]["S2s"] for f in static.values()),
+         "max_abs_err": static_traj["s2"]["max_abs_err"],
+         "ms": static_traj["s2"]["kernel_ms"],
+         "plain_ms": static_traj["s2"]["twin_ms"],
+         "bound_ms": static_traj["s2"]["bound_ms"],
+         "bound_by": static_traj["s2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": static_traj["s2"]["chain_floor_ms"],
+         "shapes": f"S2s; launches from phase 48's four CLI runs; every "
+                   f"other number on the {STATIC_FRAMES[0]} frame's "
+                   f"{N_SAMPLES} sampled rays at the {STEPS}-step budget, "
+                   f"{TRAJ_POINTS} points, float32 (phase 49)"},
+        {"name": "fantasy_gen_trace_static",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (T2s); the JAX package's "
+                     "trace is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:369",
+         "launches": static_traj["t2"]["launches"],
+         "max_abs_err": static_traj["t2"]["max_abs_err"],
+         "ms": static_traj["t2"]["kernel_ms"],
+         "plain_ms": static_traj["t2"]["twin_ms"],
+         "bound_ms": static_traj["t2"]["bound_ms"],
+         "bound_by": static_traj["t2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": static_traj["t2"]["chain_floor_ms"],
+         "shapes": "T2s; trajectory_generic on one ray of phase 48's first "
+                   "frame, 2000 steps, float64 (phase 49)"},
+        {"name": "fantasy_gen_disk_static",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (D1); the JAX package's "
+                     "static disk is the XLA while_loop "
+                     "grtrace/engine/disk_static.py:61",
+         "launches": static_disk["launches"]["D1"],
+         "max_abs_err": static_disk["d1"]["max_abs_err"],
+         "ms": static_disk["d1"]["kernel_ms"],
+         "plain_ms": static_disk["d1"]["twin_ms"],
+         "bound_ms": static_disk["d1"]["bound_ms"],
+         "bound_by": static_disk["d1"]["bound_by"],
+         "library_ms": None,
+         "shapes": f"D1; every number from render_disk_static "
+                   f"{STATIC_DISK} at {DISK_SIZE}x{DISK_SIZE}, "
+                   f"{DISK_STEPS} steps, float32, on every ray (phase 50)"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ Pipeline (the reference main.py's):
 Everything runs on the CUDA card by default (--device cpu for the CPU): the
 flat render, the curved render through the hand-written kernels (B1 for
 float32, B2 for --dtype float64, B5 for --metric kerr, G1 for --metric
-kerr-bl, B6 for --disk; --aa S launches the same kernel again on the
-S x S sub-rays of the boundary pixels, engine/aa.py) and the sampled
-trajectories through kernel S1 (S2 on the Kerr charts).  --disk writes the disk's
+kerr-bl, G1s for --metric kottler / bardeen / hayward, B6 for --disk, D1
+for --disk around a static family; --aa S launches the same kernel again
+on the S x S sub-rays of the boundary pixels, engine/aa.py) and the
+sampled trajectories through kernel S1 (S2 on the Kerr charts, S2s on the
+static one).  --disk writes the disk's
 science products (redshift_map.csv, line_profile.csv and, with
 --disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
 with --save-transfer, the transfer map that cli/reshade.py and
@@ -37,7 +39,7 @@ from ..engine.disk import render_disk, save_disk_maps
 from ..engine.flat import flat_render_scene
 from ..engine.metrics import (RenderMetrics, device_summary, roofline_report,
                               trace)
-from ..engine.render import render
+from ..engine.render import STATIC_NAMES, render
 from ..io import artifacts
 from ..viz import plots
 from .args import disk_from_args, parse_args, scene_from_args
@@ -55,8 +57,10 @@ _KERNEL_KS = {"float32": "fantasy_ks", "float64": "fantasy_ks_plain"}
 
 def roofline_kernel(scene, disk=False):
     """The operation table's entry for the layout `render(scene)` (or,
-    with `disk`, `render_disk(scene)`: always the Kerr-Schild chart)
-    runs."""
+    with `disk`, `render_disk(scene)`: the Kerr-Schild chart, or
+    `render_disk_static(scene)` for a static family) runs."""
+    if scene.metric.lower() in STATIC_NAMES:
+        return "fantasy_gen_disk_static" if disk else "fantasy_gen_static"
     if not disk and scene.metric.lower() == "kerr-bl":
         return "fantasy_gen"
     ks = disk or scene.metric.lower() == "kerrschild" or scene.charge
@@ -85,8 +89,23 @@ def check_ported(args, scene):
             "replace the antialiased disk-edge pixels with single-ray "
             "colours; save the transfer from a run without --aa")
     metric = scene.metric.lower()
-    if metric in ("kottler", "bardeen", "hayward", "rotating-bardeen",
-                  "rotating-hayward", "kerr-ds"):
+    if metric in STATIC_NAMES and args.disk:
+        # the static families' planar-fold disk (engine/disk_static.py):
+        # AA and transfer maps ride the Kerr-Schild path only, as in JAX
+        if args.aa:
+            raise SystemExit(
+                "--aa with --disk is implemented on the Kerr-family disk "
+                "path; static-family disks render without edge refinement")
+        if args.save_transfer:
+            raise SystemExit(
+                "--save-transfer records Kerr-Schild chart crossings; not "
+                "supported with static-family metrics")
+        if args.camera_omega is not None:
+            raise NotImplementedError(
+                "orbiting cameras (--camera-omega) ride the Kerr-Schild "
+                "disk path (engine/disk.py); static-family disks take a "
+                "static camera")
+    if metric in ("rotating-bardeen", "rotating-hayward", "kerr-ds"):
         what = "--disk around " if args.disk else ""
         raise _not_ported(f"{what}--metric {args.metric}", "9")
 
@@ -156,7 +175,11 @@ def main(argv=None):
     with trace(os.path.join(out, "torch_trace") if args.profile
                else None) as prof:
         t0 = time.time()
-        if disk_cfg is not None:
+        if disk_cfg is not None and scene.metric.lower() in STATIC_NAMES:
+            from ..engine.disk_static import render_disk_static
+            result = render_disk_static(scene, disk_cfg, bg_array=bg_array,
+                                        metrics=rm, device=device)
+        elif disk_cfg is not None:
             result = render_disk(scene, disk_cfg, bg_array=bg_array,
                                  metrics=rm, aa_samples=args.aa or None,
                                  device=device)
@@ -185,7 +208,10 @@ def main(argv=None):
         with stage("disk_maps"):
             save_disk_maps(result, out,
                            emissivity_index=disk_cfg.emissivity_index,
-                           spin=scene.spin, plots=not args.no_plots)
+                           spin=scene.spin, plots=not args.no_plots,
+                           chart="spherical"
+                           if scene.metric.lower() in STATIC_NAMES
+                           else "ks")
         logging.info("Saved the disk maps (redshift_map, line_profile%s)",
                      ", polarization_map" if disk_cfg.bfield else "")
         if args.save_transfer:

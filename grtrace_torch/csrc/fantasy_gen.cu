@@ -1,5 +1,6 @@
-// The generic engine's FANTASY integrator for the Kerr-Newman charts: one
-// CUDA thread per ray, one template in two charts and three modes.
+// The generic engine's FANTASY integrator for the Kerr-Newman charts and
+// the static beyond-Kerr families: one CUDA thread per ray, one template in
+// three charts and four modes.
 //
 //   G1 (Chart::kBL, Mode::kIntegrate): the Boyer-Lindquist integrator, to
 //      each ray's exit, with the spherical-chart blow-up guard and the park
@@ -9,17 +10,26 @@
 //      Kerr-Schild one (the invariant guard); float and double.
 //   T2 (Mode::kTrace, Chart::kBL): the EinsteinPy-compatible trace, (q1,
 //      p1) stored after every step, every step taken; float and double.
+//   G1s, S2s, T2s (Chart::kStatic in kIntegrate, kRecord, kTrace): the
+//      same three modes in the static chart of Kottler, Bardeen and
+//      Hayward, ds^2 = -f dt^2 + dr^2/f + r^2 dOmega^2 (the flows of
+//      physics/static_chart.py), with G1's spherical guard; float, double.
+//   D1 (Mode::kDisk, Chart::kStatic): G1s's loop plus the first crossing
+//      of the tilted disk plane inside [r_in, r_out], recorded as (hit_q,
+//      hit_p); float and double.
 //
 // Port-side kernels: they replace no TPU kernel.  The JAX package runs
 // this engine as an XLA while_loop / scan over vmapped jax.grad flows
 // (grtrace/engine/integrate_generic.py::integrate_batch_generic and
-// ::trajectory_batch_decimated), not in Pallas; an eager torch loop costs
+// ::trajectory_batch_decimated, grtrace/engine/disk_static.py::
+// integrate_batch_disk_static), not in Pallas; an eager torch loop costs
 // milliseconds a step on the card, whatever the ray count.  The eager
 // twins, which define what these kernels compute, are grtrace_torch/
 // engine/integrate_generic.py::integrate_generic_twin (G1) and
 // ::trajectory_generic_twin (S2), built on the closed-form flows of
-// physics/kerr_bl.py and physics/kerr_schild.py (_kick_drift, _flow_b_ks,
-// hamiltonian_ks) and hamiltonian._flow_mixed.
+// physics/kerr_bl.py, physics/kerr_schild.py (_kick_drift, _flow_b_ks,
+// hamiltonian_ks) and physics/static_chart.py, and hamiltonian.
+// _flow_mixed; D1's is engine/disk_static.py::integrate_disk_static_twin.
 //
 // The step: per substep the unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) of
 // grtrace.physics.spacetime.make_step, flow A kicking p1 from the metric at
@@ -109,7 +119,28 @@
 // p1, q2 in (t, r, theta, phi) order; S2 writes traj (n, n_keep, 4),
 // row-major and zeroed by the host; T2 writes out (n, steps, 8), row-major,
 // every element.  ns_out (n,) int32 counts the steps each ray took (negated
-// in G1 if the guard parked it; T2 has none).
+// in G1 and D1 if the guard parked it; T2 has none).
+//
+// The static chart (G1s, S2s, T2s, D1).  Its vector's second and third
+// slots hold the family's lapse constant k (Lambda / 3, g^2 or 2 M l^2) and
+// its code (0 Kottler, 1 Bardeen, 2 Hayward), a value read once per ray:
+// every ray of a launch takes the same branch of lapse_static.  An
+// evaluation divides five times (1 / r, 1 / f, 1 / sin^2 theta and the
+// family's two), takes one sincos and, for Bardeen, one sqrt; all four
+// components are kept, the theta kick included (cos(fl(pi/2)) is not 0, so
+// folded rays leave the plane by rounding, as in JAX's autodiff step).
+// The guard, the park radii and the signed step count are G1's.
+//
+// D1, per ray: G1s's loop; after each step that the guard did not park,
+// u = c1 cos phi + c2 sin phi (c1, c2 the ray's disk-plane constants, disk
+// (n, 2) in T; the product and the sum rounded apart, no FMA) is compared
+// with the pre-step u (carried from the step before): where u0 u1 < 0, the
+// crossing lerps q1 and p2 at t = u0 / (u0 - u1), and if the lerped r lies
+// in [r_in, r_out] (the two scalars after the substeps in params) the ray
+// records (hit_q, hit_p), sets hit_out and stops.  out is (16, n): q1, p1,
+// hit_q, hit_p, the hit rows zero where the ray never hit.  Bound: G1s's
+// step plus one sincos and about a dozen operations; the loop's exit is
+// per ray, as JAX's while_loop ends when no ray is active and unhit.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -122,21 +153,23 @@ namespace {
 constexpr int kRows = 16;
 constexpr int kScal = 10;
 
-enum class Chart : int { kBL, kKS };
-enum class Mode : int { kIntegrate, kRecord, kTrace };
+enum class Chart : int { kBL, kKS, kStatic };
+enum class Mode : int { kIntegrate, kRecord, kTrace, kDisk };
 
-// threads per block: a full frame for G1, tens of rays for S2 and T2
+// threads per block: a full frame for G1 and D1, tens of rays for S2, T2
 constexpr int threads_of(Mode mode) {
-  return mode == Mode::kIntegrate ? 128 : 32;
+  return mode == Mode::kIntegrate || mode == Mode::kDisk ? 128 : 32;
 }
 
 // The resident blocks per SM that __launch_bounds__ asks ptxas to fit in
 // G1: 7 of float (at most 72 registers; left to itself ptxas takes 64 and
 // spills 52 bytes a thread), 4 of double (the 128 registers it takes
 // anyway).  chip_smoke.py fails on any spill here: lower the count then.
-// S2 and T2 ask for one.
+// S2 and T2 ask for one; D1, with its disk state beside G1s's, 5 of float
+// and 3 of double.
 template <typename T, Mode kMode>
 constexpr int min_blocks() {
+  if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 5;
   if constexpr (kMode != Mode::kIntegrate) return 1;
   return sizeof(T) == 8 ? 4 : 7;
 }
@@ -152,10 +185,13 @@ __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
+// In the static chart `a` holds the lapse constant k and `charge` the
+// family code, which `family` carries as an int.
 template <typename T>
 struct Scalars {
   T mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
       err_park;
+  int family;
 };
 
 // dH/dq on the kicked rows and dH/dp on all four: kick[0..2] is
@@ -228,6 +264,63 @@ __device__ __forceinline__ KickDrift<T> kick_drift_bl(T r, T th, T pt, T pr,
   k.drift[1] = g_rr * pr;
   k.drift[2] = g_thth * pth;
   k.drift[3] = g_tp * pt + g_pp * pph;
+  return k;
+}
+
+// static_chart.lapse: f and f' at r, and 1 / r
+template <typename T>
+__device__ __forceinline__ void lapse_static(T r, const Scalars<T>& sc, T& f,
+                                             T& fp, T& inv_r) {
+  const T m2 = T(2) * sc.mass;
+  const T k = sc.a;
+  inv_r = T(1) / r;
+  const T rr = r * r;
+  if (sc.family == 0) {  // Kottler
+    f = T(1) - m2 * inv_r - k * rr;
+    fp = m2 * inv_r * inv_r - T(2) * k * r;
+  } else if (sc.family == 1) {  // Bardeen
+    const T x = rr + k;
+    const T x15 = x * sqrt_t(x);
+    f = T(1) - m2 * rr / x15;
+    fp = m2 * r * (rr - T(2) * k) / (x15 * x);
+  } else {  // Hayward
+    const T r3 = rr * r;
+    const T d = r3 + k;
+    f = T(1) - m2 * rr / d;
+    fp = m2 * r * (r3 - T(2) * k) / (d * d);
+  }
+}
+
+// static_chart._kick_drift: (k_r, k_th) and the drift at (r, theta)
+template <typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift_static(T r, T th, T pt,
+                                                          T pr, T pth, T pph,
+                                                          const Scalars<T>& sc) {
+  T f, fp, inv_r;
+  lapse_static(r, sc, f, fp, inv_r);
+  T sin_th, cos_th;
+  sincos_t(th, &sin_th, &cos_th);
+  const T sin2 = sin_th * sin_th;
+  const T inv_f = T(1) / f;
+  const T inv_sin2 = T(1) / sin2;
+  const T g_hh = inv_r * inv_r;
+  const T g_pp = g_hh * inv_sin2;
+
+  const T tt_r = fp * inv_f * inv_f;
+  const T hh_r = T(-2) * g_hh * inv_r;
+  const T pp_r = hh_r * inv_sin2;
+  const T pp_th = T(-2) * g_pp * cos_th * sin_th * inv_sin2;
+
+  const T pppp = pph * pph;
+  KickDrift<T> k;
+  k.kick[0] = T(0.5) * (tt_r * (pt * pt) + fp * (pr * pr)
+                        + hh_r * (pth * pth) + pp_r * pppp);
+  k.kick[1] = T(0.5) * (pp_th * pppp);
+  k.kick[2] = T(0);  // unused: the chart has no third kicked row
+  k.drift[0] = -inv_f * pt;
+  k.drift[1] = f * pr;
+  k.drift[2] = g_hh * pth;
+  k.drift[3] = g_pp * pph;
   return k;
 }
 
@@ -316,6 +409,9 @@ __device__ __forceinline__ KickDrift<T> kick_drift(const T (&s)[kRows],
   if constexpr (kChart == Chart::kBL) {
     return kick_drift_bl(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
                          s[P_READ + 2], s[P_READ + 3], sc);
+  } else if constexpr (kChart == Chart::kStatic) {
+    return kick_drift_static(s[Q + 1], s[Q + 2], s[P_READ + 0],
+                             s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
   } else {
     return kick_drift_ks(s[Q + 1], s[Q + 2], s[Q + 3], s[P_READ + 0],
                          s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
@@ -325,11 +421,12 @@ __device__ __forceinline__ KickDrift<T> kick_drift(const T (&s)[kRows],
 // A flow applied with its kick/drift k: kick the momenta P_KICK and drift
 // the position Q_DRIFT by dt (flow A: P_KICK = 4, Q_DRIFT = 8; flow B:
 // P_KICK = 12, Q_DRIFT = 0).  Boyer-Lindquist kicks rows r and theta,
-// Kerr-Schild x, y and z; p_t (and p_phi in BL) stay exact invariants.
+// Kerr-Schild x, y and z; p_t (and p_phi in BL and the static chart) stay
+// exact invariants.
 template <Chart kChart, int P_KICK, int Q_DRIFT, typename T>
 __device__ __forceinline__ void apply(T (&s)[kRows], const KickDrift<T>& k,
                                       T dt) {
-  constexpr int kKicked = kChart == Chart::kBL ? 2 : 3;
+  constexpr int kKicked = kChart == Chart::kKS ? 3 : 2;
 #pragma unroll
   for (int m = 0; m < kKicked; ++m) {
     s[P_KICK + 1 + m] = s[P_KICK + 1 + m] - dt * k.kick[m];
@@ -406,7 +503,7 @@ __device__ __forceinline__ bool finite_q1p1(const T (&s)[kRows]) {
 template <Chart kChart, typename T>
 __device__ __forceinline__ bool active(const T (&s)[kRows],
                                        const Scalars<T>& sc, T& r_b) {
-  if constexpr (kChart == Chart::kBL) {
+  if constexpr (kChart != Chart::kKS) {
     r_b = s[1];
     return (s[1] > sc.r_cap) && (s[1] < sc.r_max);
   } else {
@@ -425,7 +522,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
   bool exploded;
   bool crossed;
   bool inward;
-  if constexpr (kChart == Chart::kBL) {
+  if constexpr (kChart != Chart::kKS) {
     exploded = !finite || abs_t(s[1] - r_b) > sc.jump_cap
                || abs_t(s[2] - old[2]) > T(1.5);
     crossed = finite && s[1] < sc.r_plus && !exploded;
@@ -454,7 +551,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
   if (!(exploded || crossed)) return false;
 #pragma unroll
   for (int m = 0; m < kRows; ++m) s[m] = old[m];
-  if constexpr (kChart == Chart::kBL) {
+  if constexpr (kChart != Chart::kKS) {
     s[1] = capture ? sc.cap_park : sc.err_park;
   } else {
     s[1] = capture ? T(0) : sc.err_park;
@@ -464,12 +561,23 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
   return true;
 }
 
+// D1's u = c1 cos phi + c2 sin phi of the disk-plane linear form
+template <typename T>
+__device__ __forceinline__ T disk_form(T phi, T c1, T c2) {
+  T sin_ph, cos_ph;
+  sincos_t(phi, &sin_ph, &cos_ph);
+  return c1 * cos_ph + c2 * sin_ph;
+}
+
+// disk (n, 2) and hit_out (n,) are D1's, unused (null) in the other modes
 template <typename T, Chart kChart, Mode kMode>
 __global__ void __launch_bounds__(threads_of(kMode), (min_blocks<T, kMode>()))
 fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
                    T* __restrict__ out, int* __restrict__ ns_out,
                    const T* __restrict__ params, int n, int n_sub, int steps,
-                   int stride, int n_keep) {
+                   int stride, int n_keep,
+                   const T* __restrict__ disk = nullptr,
+                   int* __restrict__ hit_out = nullptr) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -492,6 +600,7 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   sc.jump_cap = __ldg(params + 7);
   sc.cap_park = __ldg(params + 8);
   sc.err_park = __ldg(params + 9);
+  sc.family = static_cast<int>(sc.charge);
   const T* subs = params + kScal;
 
   if constexpr (kMode == Mode::kTrace) {
@@ -513,6 +622,18 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   }
   int next_store = 0;  // S2: the next step whose q1 is recorded
   int ns = 0;
+  // D1: the ray's plane constants, the annulus, the carried pre-step u and
+  // the crossing record
+  T c1 = T(0), c2 = T(0), r_in = T(0), r_out = T(0), u0 = T(0);
+  T hit[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+  int was_hit = 0;
+  if constexpr (kMode == Mode::kDisk) {
+    c1 = disk[2 * static_cast<size_t>(i)];
+    c2 = disk[2 * static_cast<size_t>(i) + 1];
+    r_in = __ldg(subs + 3 * n_sub);
+    r_out = __ldg(subs + 3 * n_sub + 1);
+    u0 = disk_form(s[3], c1, c2);
+  }
   KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
   for (int k = 0; k < steps; ++k) {
     if constexpr (kMode == Mode::kRecord) {
@@ -531,8 +652,27 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     composed<kChart>(s, ka, subs, n_sub, sc);
     const bool parked = guard<kChart>(s, old, r_b, sc);
     ++ns;
+    if constexpr (kMode == Mode::kDisk) {
+      if (!parked) {
+        const T u1 = disk_form(s[3], c1, c2);
+        if (u0 * u1 < T(0)) {
+          const T t = u0 / (u0 - u1);
+          const T r_hit = old[1] + t * (s[1] - old[1]);
+          if (r_hit >= r_in && r_hit <= r_out) {
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              hit[m] = old[m] + t * (s[m] - old[m]);
+              hit[4 + m] = old[12 + m] + t * (s[12 + m] - old[12 + m]);
+            }
+            was_hit = 1;
+            break;
+          }
+        }
+        u0 = u1;
+      }
+    }
     if (parked) {
-      if constexpr (kMode == Mode::kIntegrate) {
+      if constexpr (kMode == Mode::kIntegrate || kMode == Mode::kDisk) {
         ns = -ns;  // the park flag rides in the sign
         break;
       } else {
@@ -546,6 +686,14 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
 #pragma unroll
     for (int m = 0; m < 12; ++m) out[m * stride_n + i] = s[m];
   }
+  if constexpr (kMode == Mode::kDisk) {
+    const size_t stride_n = static_cast<size_t>(n);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) out[m * stride_n + i] = s[m];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) out[(8 + m) * stride_n + i] = hit[m];
+    hit_out[i] = was_hit;
+  }
 }
 
 }  // namespace
@@ -556,13 +704,14 @@ namespace {
 template <typename T, Chart kChart, Mode kMode>
 int launch(const T* q0, const T* p0, T* out, int* ns_out, const T* params,
            int n, int n_sub, int steps, int stride, int n_keep,
-           void* stream) {
+           void* stream, const T* disk = nullptr, int* hit_out = nullptr) {
   if (n <= 0) return 0;
   constexpr int kThreads = threads_of(kMode);
   const int blocks = (n + kThreads - 1) / kThreads;
   fantasy_gen_kernel<T, kChart, kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          q0, p0, out, ns_out, params, n, n_sub, steps, stride, n_keep);
+          q0, p0, out, ns_out, params, n, n_sub, steps, stride, n_keep, disk,
+          hit_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -588,6 +737,34 @@ extern "C" int grt_fantasy_gen_bl_f64_launch(const double* q0,
       q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);
 }
 
+// G1s: G1's signature, the static chart's vector
+#define GRT_G1S_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* q0, const T* p0, T* out, int* ns_out,        \
+                      const T* params, int n, int n_sub, int steps,         \
+                      void* stream) {                                       \
+    return launch<T, Chart::kStatic, Mode::kIntegrate>(                     \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);        \
+  }
+
+GRT_G1S_ENTRY(grt_fantasy_gen_static_f32_launch, float)
+GRT_G1S_ENTRY(grt_fantasy_gen_static_f64_launch, double)
+#undef GRT_G1S_ENTRY
+
+// D1: (q0, p0, disk (n, 2), out (16, n), ns_out, hit_out, params, n, n_sub,
+// steps, stream); params ends with r_in, r_out after the substeps
+#define GRT_D1_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* q0, const T* p0, const T* disk, T* out,      \
+                      int* ns_out, int* hit_out, const T* params, int n,    \
+                      int n_sub, int steps, void* stream) {                 \
+    return launch<T, Chart::kStatic, Mode::kDisk>(                          \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream, disk,   \
+        hit_out);                                                           \
+  }
+
+GRT_D1_ENTRY(grt_fantasy_gen_disk_static_f32_launch, float)
+GRT_D1_ENTRY(grt_fantasy_gen_disk_static_f64_launch, double)
+#undef GRT_D1_ENTRY
+
 // S2: (q0, p0, traj (n, n_keep, 4), ns_out, params, n, n_sub, steps,
 // stride, n_keep, stream)
 #define GRT_S2_ENTRY(NAME, T, CHART)                                         \
@@ -603,18 +780,21 @@ GRT_S2_ENTRY(grt_fantasy_gen_traj_bl_f32_launch, float, Chart::kBL)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_bl_f64_launch, double, Chart::kBL)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f32_launch, float, Chart::kKS)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f64_launch, double, Chart::kKS)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f32_launch, float, Chart::kStatic)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f64_launch, double, Chart::kStatic)
 #undef GRT_S2_ENTRY
 
 // T2: (q0, p0, out (n, steps, 8), params, n, n_sub, steps, stream)
-#define GRT_T2_ENTRY(NAME, T)                                                \
+#define GRT_T2_ENTRY(NAME, T, CHART)                                         \
   extern "C" int NAME(const T* q0, const T* p0, T* out, const T* params,    \
                       int n, int n_sub, int steps, void* stream) {          \
-    return launch<T, Chart::kBL, Mode::kTrace>(q0, p0, out, nullptr,        \
-                                               params, n, n_sub, steps, 1,  \
-                                               0, stream);                  \
+    return launch<T, CHART, Mode::kTrace>(q0, p0, out, nullptr, params, n,  \
+                                          n_sub, steps, 1, 0, stream);      \
   }
 
-GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f32_launch, float)
-GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f64_launch, double)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f32_launch, float, Chart::kBL)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f64_launch, double, Chart::kBL)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f32_launch, float, Chart::kStatic)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f64_launch, double, Chart::kStatic)
 #undef GRT_T2_ENTRY
 #endif  // __CUDACC__

@@ -39,16 +39,20 @@ import numpy as np
 import torch
 
 from ..physics.camera import (boosted_ics_from_pixels,
-                              cartesian_ics_from_pixels, initial_conditions,
+                              cartesian_ics_from_pixels,
+                              folded_ics_from_pixels_static,
+                              initial_conditions,
                               pixel_positions_fractional,
                               pixel_positions_fractional_lookat,
                               unfolded_ics_from_pixels)
 from ..physics.coords import cartesian_to_spherical
-from ..physics.spacetime import (COORDS, METRICS, horizon_radius,
-                                 kerr_schild_g_inv, ks_radius)
+from ..physics.spacetime import (COORDS, METRICS, kerr_schild_g_inv,
+                                 ks_radius)
+from ..physics.static_metrics import STATIC_F
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED, integrate_dispatch
 from .integrate_generic import integrate_dispatch_generic
+from .render_generic import classify_radius
 from .render import _untimed
 
 # the timed part of a pass, nested in the render's device_pipeline stage
@@ -175,12 +179,13 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
                          flip_theta=False, flip_phi=False,
                          has_background=True, dtype=torch.float32,
                          stage=_untimed):
-    """The Kerr-Newman pass: sub-rays through render_generic's camera
+    """The generic engine's pass: sub-rays through render_generic's camera
     (Cartesian in the Kerr-Schild chart, unfolded spherical in the
-    Boyer-Lindquist one) and its chain (integrate_dispatch_generic: B5 or
-    G1 with the Boyer-Lindquist rescue on the card; the rs_classify shell,
-    no b_crit shortcut).  The static families of JAX's pass raise, naming
-    ROADMAP item 9, as METRICS does.  Returns (image, aa_mask)."""
+    Boyer-Lindquist one, folded for the static families, whose fold angles
+    un-fold the sub-rays' exit angles) and its chain
+    (integrate_dispatch_generic: B5, G1 with the Boyer-Lindquist rescue,
+    or G1s on the card; the rs_classify shell, no b_crit shortcut).
+    Returns (image, aa_mask)."""
     g_inv_fn = METRICS[metric]
     cartesian = COORDS[metric] == "cartesian"
     idx = _select_edges(cls, default_k_edge(height, width))
@@ -195,9 +200,14 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
     i_f, j_f = _subpixel_indices(idx, width, samples, dtype)
     pix = pixel_positions_fractional(obs_pos, scalar(fov), height, width,
                                      i_f, j_f, dtype=dtype)
-    camera = cartesian_ics_from_pixels if cartesian \
-        else unfolded_ics_from_pixels
-    q0, p0, _ = camera(obs_pos, pix, params=params, g_inv_fn=g_inv_fn)
+    beta = None
+    if metric in STATIC_F:
+        q0, p0, _, beta = folded_ics_from_pixels_static(
+            obs_pos, pix, params=params, g_inv_fn=g_inv_fn)
+    else:
+        camera = cartesian_ics_from_pixels if cartesian \
+            else unfolded_ics_from_pixels
+        q0, p0, _ = camera(obs_pos, pix, params=params, g_inv_fn=g_inv_fn)
     with stage(INTEGRATE_STAGE):
         final_q, _, status, _ = integrate_dispatch_generic(
             q0, p0, steps, float(delta),
@@ -210,12 +220,13 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
         rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho),
                           rho)
         final_q = torch.stack([final_q[:, 0], rho, th, ph], dim=-1)
-    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
-    rs_classify = ((1.05 if cartesian else 1.1) / 1.2) * r_plus
+    rs_classify = classify_radius(metric, params)
     n = final_q.shape[0]
+    if beta is None:
+        beta = torch.zeros((n,), dtype=dtype, device=device)
     sub_cls, _, _, u01, v01 = _classify.classify_rays(
         final_q, torch.full((n,), math.pi, dtype=dtype, device=device),
-        torch.zeros((n,), dtype=dtype, device=device), rs=rs_classify,
+        beta.reshape(-1), rs=rs_classify,
         r_obs_x=obs_x_t, boundary_radius=scalar(boundary_radius),
         patch_center_theta=scalar(patch_center_theta),
         patch_center_phi=scalar(patch_center_phi),

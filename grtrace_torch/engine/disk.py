@@ -567,12 +567,13 @@ def _host(result, name):
 
 
 def save_disk_maps(result, out_dir, emissivity_index=3.0, spin=0.0, *,
-                   plots=True):
+                   plots=True, chart="ks"):
     """Write the disk mode's science products from a render_disk (or
     io/transfer.reshade) result, as `grtrace.engine.disk.save_disk_maps`:
 
     redshift_map.csv: one row per disk pixel: i, j, g (= nu_obs/nu_em) and
-    r_em (the BL radius of the Kerr-Schild crossing);
+    r_em (the BL radius of the Kerr-Schild crossing; with chart
+    'spherical', the static families' disk, the crossing's own r);
     line_profile.csv: the relativistic line profile, observed flux vs g for
     a monochromatic line with emissivity I_em ~ r^-q, q = emissivity_index
     (pixel flux ~ g^4 r_em^-q, 48 bins);
@@ -587,8 +588,11 @@ def save_disk_maps(result, out_dir, emissivity_index=3.0, spin=0.0, *,
     hq = _host(result, "hit_q")
     dm = status == STATUS_DISK
     ii, jj = np.nonzero(dm)
-    r_em = ks_radius(*(torch.from_numpy(hq[dm, k]) for k in (1, 2, 3)),
-                     spin).numpy()
+    if chart == "spherical":
+        r_em = hq[dm, 1]
+    else:
+        r_em = ks_radius(*(torch.from_numpy(hq[dm, k]) for k in (1, 2, 3)),
+                         spin).numpy()
     rows = np.column_stack([ii, jj, g[dm], r_em])
     np.savetxt(os.path.join(out_dir, "redshift_map.csv"), rows,
                delimiter=",", header="i,j,redshift_g,r_emission",

@@ -1,27 +1,31 @@
-"""The generic engine for the Kerr(-Newman) charts — the torch counterpart
-of `grtrace.engine.integrate_generic`, and the eager twins of the CUDA
-kernels G1 and S2 (csrc/fantasy_gen.cu, wrapped by
-engine/integrate_generic_cuda.py).
+"""The generic engine for the Kerr(-Newman) charts and the static
+beyond-Kerr families — the torch counterpart of
+`grtrace.engine.integrate_generic`, and the eager twins of the CUDA
+kernels G1, S2, T2 and their static-chart modes G1s, S2s, T2s
+(csrc/fantasy_gen.cu, wrapped by engine/integrate_generic_cuda.py).
 
 JAX runs this engine as a masked `lax.while_loop` (or `scan`) over
 `vmap`ped `jax.grad` flows.  The port keeps its semantics and takes the
 flows in closed form: physics/kerr_bl.py in the Boyer-Lindquist chart
 (metric 'Kerr'), physics/kerr_schild.py's unstaggered flows in the
-Kerr-Schild chart (metric 'KerrSchild').  Every composed step is the
+Kerr-Schild chart (metric 'KerrSchild'), physics/static_chart.py in the
+static chart (metrics 'Kottler', 'Bardeen', 'Hayward', with the spherical
+guard and no rescue).  Every composed step is the
 unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
 `spacetime.make_step`, followed by the chart's blow-up guard.
 
     integrate_batch_generic     metric 'Kerr': the eager twin of G1, then
-                                the exact Boyer-Lindquist rescue; metric
+                                the exact Boyer-Lindquist rescue; the
+                                static families: the twin of G1s; metric
                                 'KerrSchild': the Kerr-Schild integrators
                                 (kernel B5's twins, integrate_dispatch_ks)
-    trajectory_batch_decimated  both charts: the eager twin of S2, q1
+    trajectory_batch_decimated  every chart: the eager twin of S2 (S2s), q1
                                 recorded every `stride` steps
-    trajectory_generic          metric 'Kerr': one ray's (q1, p1) after
-                                every step, no exit (the EinsteinPy
-                                semantics); its loop
+    trajectory_generic          metric 'Kerr' or a static family: one ray's
+                                (q1, p1) after every step, no exit (the
+                                EinsteinPy semantics); its loop
                                 trajectory_generic_unmasked is the eager
-                                twin of T2
+                                twin of T2 (T2s)
 
 `integrate_dispatch_generic`, `trajectory_dispatch_generic` and
 `trajectory_generic` send CUDA rays to the kernels (B5 for the Kerr-Schild
@@ -35,10 +39,12 @@ import math
 
 import torch
 
-from ..physics import kerr_bl, kerr_schild
+from ..physics import kerr_bl, kerr_schild, static_chart
 from ..physics.hamiltonian import _flow_mixed, pack_state, substep_schedule
 from ..physics.kerr_schild import _flow_b_ks, hamiltonian_ks, ks_radius_c
 from ..physics.spacetime import COORDS, horizon_radius
+from ..physics.static_metrics import STATIC_F, static_capture_radius
+from .integrate import STATUS_ALIVE, STATUS_CAPTURED, STATUS_ESCAPED
 from .integrate import _EXIT_CHECK, resolve_backend, traj_layout
 from .integrate_ks import apply_bardeen_rescue_bl, integrate_dispatch_ks
 
@@ -46,7 +52,7 @@ from .integrate_ks import apply_bardeen_rescue_bl, integrate_dispatch_ks
 # err_park] lead the scalar vector; then (d_j, cos_j, sin_j) per substep
 N_SCAL = 10
 # the charts the engine integrates, by metric
-CHARTS = ("Kerr", "KerrSchild")
+CHARTS = ("Kerr", "KerrSchild", "Kottler", "Bardeen", "Hayward")
 
 
 def _capture_radius(metric, params):
@@ -54,8 +60,13 @@ def _capture_radius(metric, params):
     charts (Boyer-Lindquist goes stiff as Delta -> 0, so one stops short),
     1.05 r_+ in the Kerr-Schild chart (regular at r_+, but backward rays
     freeze toward the past horizon).  params = (M, a[, Q]) or (M,) for
-    Schwarzschild; the other families raise (ROADMAP Queue A item 9)."""
+    Schwarzschild; for the static families (M, p[, 0]), whose capture
+    radius is 1.1 x the bisected outer horizon or the horizonless 1e-2 M
+    floor (`static_capture_radius`, in float64, as JAX's x64 bisection);
+    the other families raise (ROADMAP Queue A item 9)."""
     params = torch.as_tensor(params)
+    if metric in STATIC_F:
+        return static_capture_radius(metric, params[:2])
     charge = params[2] if len(params) > 2 else params[0] * 0.0
     if metric == "KerrSchild":
         return 1.05 * horizon_radius("Kerr", params[0], params[1], charge)
@@ -72,8 +83,8 @@ def _check_metric(metric):
         COORDS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"the generic engine of grtrace_torch integrates the Kerr-Newman "
-            f"charts {CHARTS} (got {metric!r}); Schwarzschild rays take "
-            f"engine.integrate")
+            f"charts and the static families {CHARTS} (got {metric!r}); "
+            f"Schwarzschild rays take engine.integrate")
 
 
 def gen_params(metric, delta, params, r_max, omega, order, dtype):
@@ -93,12 +104,21 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
                  on-axis point's z = 0.5 r_cap (KS);
       err_park   the numerical-error park radius max(150, 2 r_max).
     The kernels and the twins read this vector, so a host/device
-    difference in sqrt or arccos cannot enter between them."""
+    difference in sqrt or arccos cannot enter between them.
+
+    In the static chart params = (M, p[, 0]) and the vector's second and
+    third slots hold the family's lapse constant k (Lambda / 3, g^2 or
+    2 M l^2, rounded to `dtype`; physics/static_chart.py) and its code
+    (static_chart.FAMILY_CODE); r_cap comes from the float64 bisection
+    of the dtype-rounded (M, p), then is rounded to `dtype`."""
     _check_metric(metric)
     p = torch.as_tensor(params, dtype=dtype).cpu()
     mass, a = p[0], p[1]
     charge = p[2] if p.numel() > 2 else torch.zeros((), dtype=dtype)
     r_cap = _capture_radius(metric, torch.stack([mass, a, charge]))
+    if metric in STATIC_F:
+        r_cap = r_cap.to(dtype)
+        a, charge = static_constants(metric, mass, a)
     r_max_t = torch.tensor(r_max, dtype=dtype)
     if metric == "KerrSchild":
         r_plus = r_cap / torch.tensor(1.05, dtype=dtype)
@@ -120,6 +140,20 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
     return torch.tensor(scal, dtype=dtype)
 
 
+def static_constants(metric, mass, param):
+    """(k, family code) of a static family in the dtype of `mass` (0-dim
+    tensors): k = Lambda / 3 (Kottler), g^2 (Bardeen), 2 M l^2 (Hayward),
+    each operation rounded in that dtype, as the kernel's would be."""
+    code = static_chart.FAMILY_CODE[metric]
+    if code == static_chart.KOTTLER:
+        k = param / torch.tensor(3.0, dtype=param.dtype)
+    elif code == static_chart.BARDEEN:
+        k = param * param
+    else:
+        k = 2.0 * mass * (param * param)
+    return k, torch.tensor(float(code), dtype=param.dtype)
+
+
 def split_params(vec):
     """gen_params vector -> (the N_SCAL scalars, substeps), all Python
     floats."""
@@ -137,6 +171,10 @@ def make_composed_step(metric, vec):
     (mass, a, charge, *_), subs = split_params(vec)
     if metric == "KerrSchild":
         kick_drift, n_kick, flow_b = kerr_schild._kick_drift, 3, _flow_b_ks
+    elif metric in STATIC_F:
+        # (mass, a, charge) carry (M, k, family code): static_constants
+        kick_drift, n_kick = static_chart._kick_drift, 2
+        flow_b = static_chart.flow_b
     else:
         kick_drift, n_kick, flow_b = kerr_bl._kick_drift, 2, kerr_bl.flow_b
 
@@ -176,13 +214,15 @@ def make_generic_step(metric, vec):
     vector.
 
     active(state) -> the rays inside the domain before a step: r_cap < r <
-    r_max (BL), ks_radius > r_cap and |x| < r_max (KS).  opening(state) ->
+    r_max (BL and the static chart), ks_radius > r_cap and |x| < r_max
+    (KS).  opening(state) ->
     flow A's kick/drift at the state's (q1, p2), the carry the first step
     takes.  step(state, ka) -> (bad, new state, ka): one composed step of
     every ray from the carry ka, then the chart's blow-up guard, which
     reverts the rays it flags (bad) to the pre-step state and parks their
     q1 (`grtrace.engine.integrate_generic._domain_tools`'s guard_spherical
-    / guard_cartesian); the carry it returns is flow A's at the new state's
+    / guard_cartesian; the static chart takes the spherical one); the carry
+    it returns is flow A's at the new state's
     (q1, p2), except on the reverted rays, which the park leaves outside
     the domain for good."""
     (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
@@ -247,12 +287,13 @@ def make_generic_step(metric, vec):
     return active_bl, opening, step_bl
 
 
-def integrate_generic_twin(q0s, p0s, steps, vec):
-    """The loop of kernel G1 on (N, 4) Boyer-Lindquist rays from a
-    gen_params vector: at most `steps` masked, guarded steps; a ray the
-    guard parks freezes with its step count negated (-(n + 1)).  Returns
-    (state, ns) before the rescue."""
-    active, opening, step = make_generic_step("Kerr", vec)
+def integrate_generic_twin(q0s, p0s, steps, vec, metric="Kerr"):
+    """The loop of kernel G1 (G1s for a static family) on (N, 4) rays of
+    the spherical charts from a gen_params vector: at most `steps`
+    masked, guarded steps; a ray the guard parks freezes with its step
+    count negated (-(n + 1)).  Returns (state, ns) before the read-out
+    (the rescue, or `finish_generic_static`)."""
+    active, opening, step = make_generic_step(metric, vec)
     state = pack_state(q0s, p0s)
     ka = opening(state)
     ns = torch.zeros(q0s.shape[:1], dtype=torch.int32, device=q0s.device)
@@ -280,6 +321,18 @@ def finish_generic_bl(state, ns, q0s, p0s, vec):
         r_max)
 
 
+def finish_generic_static(state, ns, vec):
+    """Read-out of G1s and its twin, JAX's for the static families (no
+    rescue): (q1, p1, status, |ns|), captured where r <= r_cap, escaped
+    where r >= r_max, alive otherwise."""
+    (_, _, _, r_cap, r_max, *_), _ = split_params(vec)
+    q1 = torch.stack(state[0:4], dim=-1)
+    status = torch.where(
+        q1[:, 1] <= r_cap, STATUS_CAPTURED,
+        torch.where(q1[:, 1] >= r_max, STATUS_ESCAPED, STATUS_ALIVE))
+    return q1, torch.stack(state[4:8], dim=-1), status, torch.abs(ns)
+
+
 def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                             order=2, metric="Kerr"):
     """Integrate an (N, 4) batch in the named chart to completion:
@@ -289,12 +342,16 @@ def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     metric 'Kerr' (Boyer-Lindquist): the eager twin of kernel G1 and the
     exact rescue of its guard-parked rays.  metric 'KerrSchild': the
     Kerr-Schild integrators' twins (kernel B5's; JAX's Pallas route).
-    params = (M, a[, Q])."""
+    The static families: the eager twin of kernel G1s, no rescue.
+    params = (M, a[, Q]), or (M, p[, 0]) for a static family."""
     _check_metric(metric)
     if metric == "KerrSchild":
         return integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max,
                                      omega, order=order, backend="torch")
     vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
+    if metric in STATIC_F:
+        state, ns = integrate_generic_twin(q0s, p0s, steps, vec, metric)
+        return finish_generic_static(state, ns, vec)
     state, ns = integrate_generic_twin(q0s, p0s, steps, vec)
     return finish_generic_bl(state, ns, q0s, p0s, vec)
 
@@ -344,7 +401,8 @@ def trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max, omega,
 def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                order=2, metric="Kerr", backend="auto"):
     """integrate_batch_generic on the rays' device: in the Boyer-Lindquist
-    chart CUDA rays go to kernel G1 and CPU rays to its twin (the
+    chart CUDA rays go to kernel G1, in the static chart to G1s, and CPU
+    rays to their twins (the
     backend resolved as `integrate_dispatch_ks` resolves it, which takes
     the Kerr-Schild chart: B5 or its twins).  Never falls back."""
     _check_metric(metric)
@@ -358,7 +416,8 @@ def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     if backend == "cuda":
         from .integrate_generic_cuda import integrate_batch_generic_cuda
         return integrate_batch_generic_cuda(q0s, p0s, steps, delta, params,
-                                            r_max, omega, order=order)
+                                            r_max, omega, order=order,
+                                            metric=metric)
     return integrate_batch_generic(q0s, p0s, steps, delta, params, r_max,
                                    omega, order=order, metric=metric)
 
@@ -366,7 +425,7 @@ def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
 def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                 order=2, metric="Kerr", n_keep=1000):
     """trajectory_batch_decimated on the rays' device: CUDA rays go to
-    kernel S2, CPU rays to its twin; any other device raises (as
+    kernel S2 (S2s in the static chart), CPU rays to its twin; any other device raises (as
     `integrate.integrate_full_dispatch` routes S1).  Never falls back."""
     _check_metric(metric)
     kind = q0s.device.type
@@ -383,12 +442,12 @@ def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                       n_keep=n_keep)
 
 
-def trajectory_generic_unmasked(q0s, p0s, steps, vec):
-    """The loop of kernel T2 on (N, 4) Boyer-Lindquist rays from a
-    gen_params vector: (N, steps, 8), (q1, p1) after each of `steps`
-    composed steps (flow A's kick/drift carried, as in G1), every step
-    taken: no domain test, no guard, no park."""
-    opening, composed = make_composed_step("Kerr", vec)
+def trajectory_generic_unmasked(q0s, p0s, steps, vec, metric="Kerr"):
+    """The loop of kernel T2 (T2s for a static family) on (N, 4) rays of
+    the spherical charts from a gen_params vector: (N, steps, 8), (q1, p1)
+    after each of `steps` composed steps (flow A's kick/drift carried, as
+    in G1), every step taken: no domain test, no guard, no park."""
+    opening, composed = make_composed_step(metric, vec)
     out = torch.empty((q0s.shape[0], steps, 8), dtype=q0s.dtype,
                       device=q0s.device)
     state = pack_state(q0s, p0s)
@@ -404,27 +463,31 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
     """Single-ray unmasked trajectory, JAX's signature: (qs (steps, 4), ps
     (steps, 4)), q and p after each step, with no early exit (EinsteinPy's
     `Nulllike` semantics, for the compat classes).  CUDA rays go to kernel
-    T2 (`integrate_generic_cuda.trajectory_generic_unmasked_cuda`), CPU
-    rays to its twin `trajectory_generic_unmasked`; any other device
-    raises.  Only the Boyer-Lindquist chart, metric 'Kerr' (the one JAX's
-    compat classes pass); a beyond-Kerr family raises naming ROADMAP item
-    9, any other metric NotImplementedError.  JAX takes the flows by
-    autodiff, the port in closed form (physics/kerr_bl.py): they agree
+    T2 (`integrate_generic_cuda.trajectory_generic_unmasked_cuda`; T2s
+    for a static family), CPU rays to its twin
+    `trajectory_generic_unmasked`; any other device raises.  The
+    Boyer-Lindquist chart, metric 'Kerr' (the one JAX's compat classes
+    pass), and the static families 'Kottler', 'Bardeen', 'Hayward'
+    (params (M, p[, 0])); the rotating regular families and Kerr-de
+    Sitter raise naming ROADMAP item 9, any other metric
+    NotImplementedError.  JAX takes the flows by autodiff, the port in
+    closed form (physics/kerr_bl.py, physics/static_chart.py): they agree
     within 1e-12 relative an evaluation (ROADMAP Queue C)."""
-    if metric != "Kerr":
+    if metric != "Kerr" and metric not in STATIC_F:
         COORDS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"trajectory_generic of grtrace_torch integrates the "
-            f"Boyer-Lindquist chart 'Kerr' only (got {metric!r})")
+            f"Boyer-Lindquist chart 'Kerr' only, and the static families "
+            f"{tuple(STATIC_F)} (got {metric!r})")
     q0s, p0s = q0.reshape(1, 4).contiguous(), p0.reshape(1, 4).contiguous()
     vec = gen_params(metric, delta, params, math.inf, omega, order,
                      q0s.dtype)
     kind = q0s.device.type
     if kind == "cuda":
         from .integrate_generic_cuda import trajectory_generic_unmasked_cuda
-        out = trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec)
+        out = trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec, metric)
     elif kind == "cpu":
-        out = trajectory_generic_unmasked(q0s, p0s, steps, vec)
+        out = trajectory_generic_unmasked(q0s, p0s, steps, vec, metric)
     else:
         raise ValueError(f"no trace for {kind!r} tensors (CUDA runs kernel "
                          f"T2, the CPU its eager twin)")

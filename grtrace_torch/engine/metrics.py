@@ -148,6 +148,22 @@ PEAK_BYTES = 3.35e12
 #   fantasy_gen_trace (T2, the Boyer-Lindquist trace mode of
 #                fantasy_gen.cu): G1's 532 per substep, nothing per step;
 #                once per ray the launch's flow A evaluation, 129
+#   fantasy_gen_static (G1s; S2s as fantasy_gen_traj_static, T2s as
+#                fantasy_gen_trace_static, which has nothing per step):
+#                per substep 1 + 3 kick/drift evaluations x 47 (the lapse
+#                12 in Kottler's branch, the least of the three: 2 M, 1 / r
+#                and r^2, f 4 and f' 5, where Bardeen's takes 15 and
+#                Hayward's 14; sin and cos 2, sin^2, 1 / f, 1 / sin^2,
+#                g^thth and g^phph 5, the four derivative terms 9, the r
+#                kick 12, the theta kick 2, the drift 5) + 4 flows applied x
+#                12 + mixing 96 = 286; the guard's two differences 2 per
+#                step; once per ray the launch's flow A evaluation, 47
+#   fantasy_gen_disk_static (D1): G1s's 286 per substep; per step the
+#                guard's 2 and the disk form u = c1 cos phi + c2 sin phi
+#                with its sign product (sin and cos 2, 3 operations, the
+#                product 1) = 8; once per ray the launch's flow A evaluation
+#                and the first u, 47 + 5 = 52 (the crossing of a hit ray,
+#                t and the lerps, is not counted: the bound stays a bound)
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -168,6 +184,10 @@ KERNEL_OPS = {
     "fantasy_gen_traj_bl": (532, 2, 129),
     "fantasy_gen_traj_ks": (513, 104, 120),
     "fantasy_gen_trace": (532, 0, 129),
+    "fantasy_gen_static": (286, 2, 47),
+    "fantasy_gen_traj_static": (286, 2, 47),
+    "fantasy_gen_trace_static": (286, 0, 47),
+    "fantasy_gen_disk_static": (286, 8, 52),
 }
 DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
 SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42

@@ -174,15 +174,23 @@ def trajectories_to_cartesian(traj, betas):
     return out
 
 
+# scene.metric -> the static family of the generic engine
+STATIC_NAMES = {"kottler": "Kottler", "sds": "Kottler", "bardeen": "Bardeen",
+                "hayward": "Hayward"}
+
+
 def _route(scene):
     """The chart `render` takes: 'Kerr' (Boyer-Lindquist, scene.metric
     'kerr-bl' / 'kerrbl'), 'KerrSchild' (Kerr and charged Schwarzschild,
-    which is Reissner-Nordstrom there), or 'Schwarzschild' for the
-    headline path; raises for the metric families the port does not have
-    yet."""
+    which is Reissner-Nordstrom there), the static family 'Kottler'
+    ('kottler' / 'sds'), 'Bardeen' or 'Hayward', or 'Schwarzschild' for
+    the headline path; raises for the metric families the port does not
+    have yet."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
     if metric in ("kerr-bl", "kerrbl"):
         return "Kerr"
+    if metric in STATIC_NAMES:
+        return STATIC_NAMES[metric]
     charged = float(getattr(scene, "charge", 0.0)) != 0.0
     if (metric in ("kerr", "kerrschild", "kerr-schild")
             or (metric == "schwarzschild" and charged)):
@@ -201,7 +209,9 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     the Kerr-Newman render of engine/render_generic.py, as `grtrace.render`
     routes them: in the Kerr-Schild chart for scene.metric in ('kerr',
     'kerrschild', 'kerr-schild') and for a charged Schwarzschild scene, in
-    the Boyer-Lindquist chart for 'kerr-bl' / 'kerrbl'.
+    the Boyer-Lindquist chart for 'kerr-bl' / 'kerrbl', in the static chart
+    for 'kottler' / 'sds', 'bardeen' and 'hayward' (scene.metric_param in
+    the second params slot).
 
     bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
     torch dtype, by default the scene's integrator dtype.  metrics:
@@ -215,6 +225,14 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     CSV fields keep the centre sample.
     """
     chart = _route(scene)
+    if chart in STATIC_NAMES.values():
+        # the family parameter rides the second params slot, charge 0
+        from .render_generic import render_generic
+        return render_generic(scene, metric=chart, bg_array=bg_array,
+                              spin=float(getattr(scene, "metric_param", 0.0)),
+                              charge=0.0, dtype=dtype, n_samples=n_samples,
+                              seed=seed, metrics=metrics,
+                              aa_samples=aa_samples, device=device)
     if chart != "Schwarzschild":
         from .render_generic import render_generic
         return render_generic(scene, metric=chart, bg_array=bg_array,

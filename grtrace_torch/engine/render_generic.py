@@ -1,22 +1,28 @@
-"""Full-frame Kerr / Kerr-Newman rendering — the torch counterpart of
-`grtrace.engine.render_generic` for the Kerr-Newman charts: metric
-'KerrSchild' (the horizon-regular Cartesian chart) and metric 'Kerr'
-(Boyer-Lindquist).
+"""Full-frame Kerr / Kerr-Newman and static beyond-Kerr rendering — the
+torch counterpart of `grtrace.engine.render_generic`: metric 'KerrSchild'
+(the horizon-regular Cartesian chart), metric 'Kerr' (Boyer-Lindquist),
+and the static families 'Kottler', 'Bardeen', 'Hayward' (the family's
+parameter in the spin slot, charge 0).
 
 Same scene layout as the Schwarzschild path (pinhole camera, boundary
 sphere, background patch), with what the physics forces:
-  * no equatorial fold (axisymmetry only): full 3-D integration, with the
-    Cartesian camera through kernel B5 (engine/integrate_ks_cuda.py) in
-    the Kerr-Schild chart, with the unfolded spherical camera through
+  * no equatorial fold for Kerr (axisymmetry only): full 3-D integration,
+    with the Cartesian camera through kernel B5 (engine/integrate_ks_cuda.py)
+    in the Kerr-Schild chart, with the unfolded spherical camera through
     kernel G1 (engine/integrate_generic_cuda.py) in the Boyer-Lindquist
-    one; their eager twins on the CPU;
+    one; the static families keep the reference's beta-fold (exact under
+    spherical symmetry: physics/camera.py's camera_rays_folded_static)
+    and run kernel G1s; their eager twins on the CPU;
   * capture by the integration's outcome (the capture shell and the exact
     Bardeen rescue), not the b_crit shortcut;
-  * classification reuses engine.classify with beta = 0 and the shortcut
-    disabled (alpha0 = pi).
-The sampled trajectories run through kernel S2 (its twin on the CPU), and
-the adaptive antialiasing pass (engine/aa.py) through B5 or G1 again.
-The other metric families raise NotImplementedError.
+  * classification reuses engine.classify with the shortcut disabled
+    (alpha0 = pi), with beta = 0, or the static families' fold angles,
+    which un-fold the exit angles, and the capture shell 1.1 x the bisected
+    outer horizon (or the horizonless floor) for the static families.
+The sampled trajectories run through kernel S2 (S2s; its twin on the CPU)
+and are rotated back by their beta, and the adaptive antialiasing pass
+(engine/aa.py) through B5, G1 or G1s again.  The rotating regular
+families and Kerr-de Sitter raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,9 +31,12 @@ import math
 import numpy as np
 import torch
 
-from ..physics.camera import camera_rays_cartesian, camera_rays_unfolded
+from ..physics.camera import (camera_rays_cartesian,
+                              camera_rays_folded_static,
+                              camera_rays_unfolded)
 from ..physics.coords import cartesian_to_spherical
 from ..physics.spacetime import COORDS, METRICS, horizon_radius
+from ..physics.static_metrics import STATIC_F, static_capture_radius
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED
 from .integrate_generic import (integrate_dispatch_generic,
@@ -59,15 +68,23 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
     obs_x_t = scalar(obs_x)
     zero = torch.zeros_like(obs_x_t)
     obs_pos = torch.stack([obs_x_t, zero, zero])
-    camera = camera_rays_cartesian if cartesian else camera_rays_unfolded
-    q0, p0, alpha0 = camera(obs_pos, scalar(fov), height, width,
-                            params=params, g_inv_fn=METRICS[metric],
-                            dtype=dtype, device=device)
+    static = metric in STATIC_F
+    beta_fold = None
+    if static:
+        # spherically symmetric: the reference's beta-fold is exact
+        q0, p0, alpha0, beta_fold = camera_rays_folded_static(
+            obs_pos, scalar(fov), height, width, params=params,
+            g_inv_fn=METRICS[metric], dtype=dtype, device=device)
+    else:
+        camera = camera_rays_cartesian if cartesian else camera_rays_unfolded
+        q0, p0, alpha0 = camera(obs_pos, scalar(fov), height, width,
+                                params=params, g_inv_fn=METRICS[metric],
+                                dtype=dtype, device=device)
 
     n = height * width
     # Kerr-Schild: float32 rays take B5's Kahan-compensated 32-row layout,
-    # float64 rays the plain 16-row one; Boyer-Lindquist: G1 (the scalars
-    # are rounded to dtype on the host)
+    # float64 rays the plain 16-row one; Boyer-Lindquist: G1; the static
+    # chart: G1s (the scalars are rounded to dtype on the host)
     final_q, final_p, status, n_steps = integrate_dispatch_generic(
         q0.reshape(n, 4), p0.reshape(n, 4), steps, float(delta),
         (float(mass), float(spin), float(charge)), float(boundary_radius),
@@ -88,11 +105,12 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
         final_q = torch.stack([final_q[..., 0], rho, th, ph], dim=-1)
 
     # the radius test fires exactly at the integrator's capture shell (1.1
-    # r_+ in Boyer-Lindquist, 1.05 r_+ in Kerr-Schild); the analytic
-    # capture shortcut is off (alpha0 = pi); no fold (beta = 0)
-    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
-    rs_classify = ((1.05 if cartesian else 1.1) / 1.2) * r_plus
-    beta0 = torch.zeros((height, width), dtype=dtype, device=device)
+    # r_+ in Boyer-Lindquist and the static chart, 1.05 r_+ in
+    # Kerr-Schild); the analytic capture shortcut is off (alpha0 = pi); no
+    # fold (beta = 0) but the static families' own
+    rs_classify = classify_radius(metric, params)
+    beta0 = (beta_fold if static
+             else torch.zeros((height, width), dtype=dtype, device=device))
     alpha_off = torch.full((height, width), math.pi, dtype=dtype,
                            device=device)
 
@@ -124,15 +142,29 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
     }
 
 
+def classify_radius(metric, params):
+    """The classifier's rs for the generic render: (shell / 1.2) r_+ with
+    the integrator's capture shell, 1.05 r_+ (Kerr-Schild) or 1.1 r_+
+    (Boyer-Lindquist; for the static families r_+ = static_capture_radius
+    / 1.1, a float64 tensor on params' device, as JAX's x64 bisection
+    gives it)."""
+    if metric in STATIC_F:
+        r_plus = static_capture_radius(metric, params[:2].cpu()) / 1.1
+        return ((1.1 / 1.2) * r_plus).to(params.device)
+    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
+    return ((1.05 if COORDS[metric] == "cartesian" else 1.1) / 1.2) * r_plus
+
+
 def _sample_trajectories_generic(q0, p0, sampled_ij, scene, spin, metric,
-                                 dtype, charge=0.0):
+                                 dtype, charge=0.0, beta=None):
     """Re-integrate K sampled rays with decimated trajectory capture (kernel
     S2 on the card, its eager twin on the CPU:
     `trajectory_dispatch_generic`): K (P, 3) float64 numpy arrays of
     Cartesian positions, on the host.  Kerr-Schild rows are Cartesian
-    already; Boyer-Lindquist rows go through spherical_to_cartesian and
-    the unfolded camera's beta = 0 rotation (`trajectories_to_cartesian`),
-    as JAX converts them."""
+    already; Boyer-Lindquist and static rows go through
+    spherical_to_cartesian and the rotation by the ray's beta (0 for the
+    unfolded camera, the fold angle for the static families:
+    `trajectories_to_cartesian`), as JAX converts them."""
     from .render import MAX_TRAJ_POINTS, trajectories_to_cartesian
     h, w = scene.image_size
     flat_idx = torch.as_tensor(sampled_ij[:, 0] * w + sampled_ij[:, 1],
@@ -147,8 +179,9 @@ def _sample_trajectories_generic(q0, p0, sampled_ij, scene, spin, metric,
     if COORDS[metric] == "cartesian":
         traj = traj.cpu().double()
         return [traj[k, :, 1:4].numpy() for k in range(traj.shape[0])]
-    return trajectories_to_cartesian(
-        traj, torch.zeros(traj.shape[0], dtype=torch.float64))
+    betas = (torch.zeros(traj.shape[0], dtype=torch.float64) if beta is None
+             else beta.reshape(-1)[flat_idx].cpu().double())
+    return trajectories_to_cartesian(traj, betas)
 
 
 def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
@@ -160,11 +193,13 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
     drawn with numpy's default_rng(seed), as the JAX render draws them).
 
     spin and charge default to the scene's.  device defaults to 'cuda'
-    (kernels B5 or G1, and S2) and raises without a GPU; pass
+    (kernels B5, G1 or G1s, and S2 or S2s) and raises without a GPU; pass
     device='cpu' for the eager twins.  aa_samples = s (>= 2) runs the
-    adaptive edge-refinement pass (engine/aa.py: the sub-rays through B5
-    or G1).  Prefer the top-level render, which routes scene.metric to
-    the right chart.
+    adaptive edge-refinement pass (engine/aa.py: the sub-rays through B5,
+    G1 or G1s).  For the static families ('Kottler', 'Bardeen',
+    'Hayward') `spin` carries the family parameter and charge is 0.
+    Prefer the top-level render, which routes scene.metric to the right
+    chart.
     """
     from .render import RenderResult, _untimed
 
@@ -222,7 +257,7 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
     if metrics is not None:  # costs one (H, W) reduction and fetch
         metrics.rays = h * w
         metrics.geodesic_steps = int(out["n_steps"].sum())
-    # no heading on this path (unfolded charts)
+    # no heading on this path
     out["heading"] = torch.zeros((h, w, 3), dtype=dtype, device=device)
 
     n_samples = scene.n_samples if n_samples is None else n_samples
@@ -236,6 +271,7 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
             sampled_ij = np.stack([flat // w, flat % w], axis=-1)
             sampled_trajs = _sample_trajectories_generic(
                 out["q0"], out["p0"], sampled_ij, scene, spin, metric, dtype,
-                charge=charge)
+                charge=charge, beta=out["beta"] if metric in STATIC_F
+                else None)
     return RenderResult(out, counts, sampled_indices=sampled_ij,
                         sampled_trajectories=sampled_trajs)

@@ -361,18 +361,38 @@ def _traj_report(runs, twin, twin_ms, layout):
 
 
 def gen_kernel_parity(q0, p0, steps, delta, params, r_max=BOUNDARY,
-                      omega=1.0, order=2):
-    """Kernel G1 (`integrate_batch_generic_cuda`) against its eager twin
-    (`integrate_batch_generic(metric='Kerr')`) on the same (N, 4) CUDA
-    rays.  Returns (the kernel's outputs, `compare_outputs`'s counts plus
-    the kernel+wrapper and twin times in ms)."""
+                      omega=1.0, order=2, metric="Kerr"):
+    """Kernel G1 (`integrate_batch_generic_cuda`; G1s for a static
+    `metric`) against its eager twin (`integrate_batch_generic(metric=
+    ...)`) on the same (N, 4) CUDA rays.  Returns (the kernel's outputs,
+    `compare_outputs`'s counts plus the kernel+wrapper and twin times in
+    ms)."""
     from .integrate_generic import integrate_batch_generic
     from .integrate_generic_cuda import integrate_batch_generic_cuda
     args = (steps, delta, params, r_max, omega)
     kern, kernel_ms = timed(lambda: integrate_batch_generic_cuda(
-        q0, p0, *args, order=order), q0.device)
+        q0, p0, *args, order=order, metric=metric), q0.device)
     ref, twin_ms = timed(lambda: integrate_batch_generic(
-        q0, p0, *args, order=order, metric="Kerr"), q0.device)
+        q0, p0, *args, order=order, metric=metric), q0.device)
+    res = compare_outputs(kern, ref)
+    res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
+    return kern, res
+
+
+def disk_static_parity(q0, p0, c1, c2, steps, delta, params, r_max, omega,
+                       r_in, r_out, metric, order=2):
+    """Kernel D1 (`integrate_dispatch_disk_static` on CUDA rays) against
+    its eager twin (`integrate_batch_disk_static`) on the same rays and
+    plane constants.  Returns (the kernel's outputs, `compare_outputs`'s
+    counts with the hit rows, plus the kernel+wrapper and twin times in
+    ms)."""
+    from .disk_static import (integrate_batch_disk_static,
+                              integrate_dispatch_disk_static)
+    args = (q0, p0, c1, c2, steps, delta, params, r_max, omega, r_in, r_out)
+    kern, kernel_ms = timed(lambda: integrate_dispatch_disk_static(
+        *args, order=order, metric=metric), q0.device)
+    ref, twin_ms = timed(lambda: integrate_batch_disk_static(
+        *args, order=order, metric=metric), q0.device)
     res = compare_outputs(kern, ref)
     res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
     return kern, res

@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # stride, n_keep, stream); a trace entry (`*_trace_*`) takes (q0, p0, out,
 # params, n, n_sub, steps, stream); a generic-engine integrator (`*_gen_*`,
 # not a trajectory or trace entry) takes (q0, p0, out, ns_out, params, n,
-# n_sub, steps, stream)
+# n_sub, steps, stream), and its disk entry (`*_gen_disk_*`, D1) (q0, p0,
+# disk, out, ns_out, hit_out, params, n, n_sub, steps, stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -68,7 +69,15 @@ ENTRIES = {
                     "grt_fantasy_gen_traj_ks_f32_launch",
                     "grt_fantasy_gen_traj_ks_f64_launch",
                     "grt_fantasy_gen_trace_bl_f32_launch",
-                    "grt_fantasy_gen_trace_bl_f64_launch"),
+                    "grt_fantasy_gen_trace_bl_f64_launch",
+                    "grt_fantasy_gen_static_f32_launch",
+                    "grt_fantasy_gen_static_f64_launch",
+                    "grt_fantasy_gen_traj_static_f32_launch",
+                    "grt_fantasy_gen_traj_static_f64_launch",
+                    "grt_fantasy_gen_trace_static_f32_launch",
+                    "grt_fantasy_gen_trace_static_f64_launch",
+                    "grt_fantasy_gen_disk_static_f32_launch",
+                    "grt_fantasy_gen_disk_static_f64_launch"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
@@ -81,6 +90,8 @@ def argtypes(name: str) -> list:
         return [_PTR] * 4 + [_INT] * 3 + [_PTR]
     if "_traj_" in name:
         return [_PTR] * 5 + [_INT] * 5 + [_PTR]
+    if "_gen_disk_" in name:
+        return [_PTR] * 7 + [_INT] * 3 + [_PTR]
     if "_gen_" in name:
         return [_PTR] * 5 + [_INT] * 3 + [_PTR]
     sub = "_sub_" in name

@@ -5,7 +5,9 @@ conditions — the torch counterpart of the folded Schwarzschild camera in
 (`camera_rays_cartesian`, `cartesian_ics_from_pixels`), of the unfolded
 spherical-chart camera of the generic engine (`camera_rays_unfolded`,
 `unfolded_ics_from_pixels`: no fold, for axisymmetric metrics such as
-Kerr in Boyer-Lindquist coordinates), of the inclined
+Kerr in Boyer-Lindquist coordinates), of the folded camera of the static
+beyond-Kerr families (`camera_rays_folded_static`,
+`folded_ics_from_pixels_static`), of the inclined
 look-at grid of the disk renderer (`_lookat_frame`, `pixel_grid_lookat`),
 of the fractional-pixel positions the antialiasing pass traces
 (`pixel_positions_fractional`, `pixel_positions_fractional_lookat`) and of
@@ -227,6 +229,52 @@ def camera_rays(obs_pos, fov, height, width, *, mass_bh=1.0,
     pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
                      device=obs_pos.device)
     return initial_conditions(obs_pos, pix, mass_bh=mass_bh)
+
+
+def folded_ics_from_pixels_static(obs, pix, *, params, g_inv_fn):
+    """The folded (equatorial) camera of the static families for pixel
+    positions pix (..., 3): `initial_conditions`' beta-fold, exact under
+    spherical symmetry, with p_t closing the null condition in the
+    family's own metric (`spacetime.null_p_t`) and the Schwarzschild
+    sqrt(1 - 2M/r) radial normalization kept, as JAX keeps it.  Returns
+    (q0, p0, alpha0, beta); classify_rays(beta) un-folds the exit angles
+    and the sampled trajectories rotate back by beta about +x."""
+    obs = torch.as_tensor(obs, dtype=pix.dtype, device=pix.device)
+    ray = pix - obs
+    ray = ray / torch.linalg.vector_norm(ray, dim=-1, keepdim=True)
+    rx, ry, rz = ray[..., 0], ray[..., 1], ray[..., 2]
+
+    beta = torch.atan2(rz, ry)
+    xy_x, xy_y, _ = rotate_x(rx, ry, rz, -beta)
+    r_obs, th_obs, ph_obs = cartesian_to_spherical(
+        obs[..., 0], obs[..., 1], obs[..., 2])
+    alpha_cam = math.pi - torch.atan2(xy_y, xy_x)
+
+    params = torch.as_tensor(params, dtype=pix.dtype, device=pix.device)
+    mass = params[0]
+    p_spatial = angles_to_p_sph(alpha_cam, 0.0, r_obs, mass_bh=mass)
+    zeros = torch.zeros_like(beta)
+    q0 = torch.stack([zeros, r_obs.expand(beta.shape),
+                      th_obs.expand(beta.shape),
+                      ph_obs.expand(beta.shape)], dim=-1)
+    p_t = spacetime.null_p_t(p_spatial, q0, params, g_inv_fn, future=True)
+    p0 = torch.cat([p_t[..., None], p_spatial], dim=-1)
+
+    f_r = torch.sqrt(1.0 - 2.0 * mass / r_obs)
+    alpha0 = torch.arccos(torch.clamp(-p_spatial[..., 0] / f_r, -1.0, 1.0))
+    return q0, p0, alpha0, beta
+
+
+def camera_rays_folded_static(obs_pos, fov, height, width, *, params,
+                              g_inv_fn, dtype=torch.float32, device=None):
+    """Full-grid folded camera of the static families: pixel_grid ->
+    folded_ics_from_pixels_static.  Returns (q0, p0, alpha0, beta), (H, W,
+    4 | 4 | - | -)."""
+    obs_pos = torch.as_tensor(obs_pos, dtype=dtype, device=device)
+    pix = pixel_grid(obs_pos, fov, height, width, dtype=dtype,
+                     device=obs_pos.device)
+    return folded_ics_from_pixels_static(obs_pos, pix, params=params,
+                                         g_inv_fn=g_inv_fn)
 
 
 def _dot3(v, w):

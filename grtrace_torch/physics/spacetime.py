@@ -8,9 +8,12 @@ tables, and the autodiff FANTASY flows `make_flows` / `make_step`
 
 The autodiff flows are the metric-generic API that the beyond-Kerr
 families plug into, and the CPU reference that the closed-form flows
-(physics/kerr_bl.py, physics/kerr_schild.py) are tested against; no path
-on the card runs them.  The other metric families are not ported yet
-(ROADMAP Queue A item 9): looking them up raises NotImplementedError.
+(physics/kerr_bl.py, physics/kerr_schild.py, physics/static_chart.py) are
+tested against; no path on the card runs them.  The static beyond-Kerr
+families (Kottler, Bardeen, Hayward: physics/static_metrics.py) take the
+family's own parameter in the second params slot.  The rotating regular
+families and Kerr-de Sitter are not ported yet (ROADMAP Queue A item 9):
+looking them up raises NotImplementedError.
 
 Metric parameters are `params = (M, a[, Q])`: a 1-D tensor, or a sequence
 of numbers, in the working dtype; the charge slot is optional, as in JAX.
@@ -18,6 +21,9 @@ of numbers, in the working dtype; the charge slot is optional, as in JAX.
 from __future__ import annotations
 
 import torch
+
+from .static_metrics import (STATIC_F, bardeen_g_inv, hayward_g_inv,
+                             kottler_g_inv, outer_horizon)
 
 
 def _charge(params):
@@ -104,8 +110,7 @@ def kerr_schild_g_inv(q, params):
 
 
 # the metric families of the JAX package that the port does not have yet
-_ITEM_9 = ("Kottler", "Bardeen", "Hayward", "RotatingBardeen",
-           "RotatingHayward", "KerrDS")
+_ITEM_9 = ("RotatingBardeen", "RotatingHayward", "KerrDS")
 
 
 class _Table(dict):
@@ -121,17 +126,24 @@ class _Table(dict):
 
 
 METRICS = _Table({"Schwarzschild": schwarzschild_g_inv, "Kerr": kerr_g_inv,
-                  "KerrSchild": kerr_schild_g_inv})
+                  "KerrSchild": kerr_schild_g_inv,
+                  # the static families: params = (M, Lambda | g | l[, 0])
+                  "Kottler": kottler_g_inv, "Bardeen": bardeen_g_inv,
+                  "Hayward": hayward_g_inv})
 
 # coordinate chart per metric: 'spherical' q = (t, r, theta, phi),
 # 'cartesian' q = (t, x, y, z)
 COORDS = _Table({"Schwarzschild": "spherical", "Kerr": "spherical",
-                 "KerrSchild": "cartesian"})
+                 "KerrSchild": "cartesian", "Kottler": "spherical",
+                 "Bardeen": "spherical", "Hayward": "spherical"})
 
 
 def horizon_radius(metric: str, mass, a=0.0, q=0.0):
-    """Outer event-horizon radius r_+: 2M for Schwarzschild, and
-    M + sqrt(max(M^2 - a^2 - Q^2, 0)) for the Kerr-Newman family.
+    """Outer event-horizon radius r_+: 2M for Schwarzschild,
+    M + sqrt(max(M^2 - a^2 - Q^2, 0)) for the Kerr-Newman family, and for
+    the static families (`a` carrying the family parameter) the bisected
+    outer horizon of static_metrics.outer_horizon, NaN where there is
+    none.
     Arguments are tensors or numbers; numbers take the dtype and device of
     the first tensor argument (the default dtype if there is none)."""
     ref = next((v for v in (mass, a, q) if isinstance(v, torch.Tensor)),
@@ -143,6 +155,8 @@ def horizon_radius(metric: str, mass, a=0.0, q=0.0):
     if metric in ("Kerr", "KerrSchild"):
         return mass + torch.sqrt(torch.clamp(mass * mass - a * a - q * q,
                                              min=0.0))
+    if metric in STATIC_F:
+        return outer_horizon(STATIC_F[metric], torch.stack([mass, a]))
     METRICS[metric]  # raises for the families of item 9
     raise KeyError(metric)
 

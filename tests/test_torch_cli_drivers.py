@@ -41,25 +41,30 @@ def test_cli_refuses_without_a_card(background, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--disk", "--metric", "kottler"], "9"), (["--aa", "2"], None),
+    (["--disk", "--metric", "kottler"], None), (["--aa", "2"], None),
     (["--disk", "--aa", "2"], None),
-    (["--disk", "--camera-omega", "0.1", "--metric", "hayward"], "9"),
-    (["--metric", "kottler"], "9"), (["--metric", "kerr-ds"], "9"),
+    (["--disk", "--camera-omega", "0.1", "--metric", "hayward"],
+     "the Kerr-Schild disk path"),
+    (["--metric", "kottler"], None), (["--metric", "kerr-ds"], "9"),
     (["--metric", "rotating-bardeen", "--spin", "0.5"], "9"),
     (["--metric", "kerr-bl", "--n-samples", "0"], None),
     (["--metric", "kerr", "--spin", "0.5"], None)])
 def test_unported_options_raise(flags, item):
     """Each unported option raises NotImplementedError naming its ROADMAP
-    item, before any work runs; the options items 5b and 8 ported (item
-    None: --metric kerr-bl, --metric kerr with the default --n-samples,
-    and --aa on the headline and disk paths) now pass; --metric kerr runs
-    with --n-samples 0, and with the default --n-samples on the disk path
-    (which samples no trajectories)."""
+    item, before any work runs; the options items 5b, 8 and 9's static
+    family ported (item None: --metric kerr-bl, --metric kerr with the
+    default --n-samples, --aa on the headline and disk paths, --metric
+    kottler with and without --disk) now pass; an orbiting camera around a
+    static family raises as JAX's render_disk_static does, naming the
+    Kerr-Schild disk path; --metric kerr runs with --n-samples 0, and with
+    the default --n-samples on the disk path (which samples no
+    trajectories)."""
     args = targs.parse_args(flags + ["--device", "cpu"])
     if item is None:
         tmain.check_ported(args, targs.scene_from_args(args))
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+        match = f"item {item}\\)" if item.isdigit() else item
+        with pytest.raises(NotImplementedError, match=match):
             tmain.check_ported(args, targs.scene_from_args(args))
     for argv in (["--metric", "kerr", "--spin", "0.5", "--n-samples", "0"],
                  ["--disk", "--metric", "kerr", "--spin", "0.9",

@@ -238,9 +238,18 @@ def test_gen_params_match_the_jax_domain(metric, dtype):
 
 
 def test_metric_tables_and_capture_radius():
-    """METRICS / COORDS hold Schwarzschild, Kerr and KerrSchild; the other
-    JAX families raise naming ROADMAP item 9, unknown names KeyError;
-    the capture radii equal JAX's."""
+    """METRICS / COORDS hold Schwarzschild, Kerr, KerrSchild and the static
+    families; the other JAX families raise naming ROADMAP item 9, unknown
+    names KeyError; the capture radii equal JAX's (the static families'
+    within 1e-12 relative: one float64 bisection each)."""
+    for name in ("Kottler", "Bardeen", "Hayward"):
+        assert tsp.COORDS[name] == jsp.COORDS[name]
+        for p in ((1.0, 1e-3 if name == "Kottler" else 0.5),
+                  (1.0, 0.0)):
+            j = float(jig._capture_radius(name, jnp.asarray(p)))
+            t = float(tig._capture_radius(name, torch.tensor(
+                p, dtype=torch.float64)))
+            assert abs(t - j) <= 1e-12 * j
     for name in ("Schwarzschild", "Kerr", "KerrSchild"):
         assert tsp.COORDS[name] == jsp.COORDS[name]
         p = PARAMS if name != "Schwarzschild" else (1.0,)
@@ -249,7 +258,7 @@ def test_metric_tables_and_capture_radius():
             p, dtype=torch.float64)))
         assert t == j
     assert float(tsp.horizon_radius("Schwarzschild", 1.5)) == 3.0
-    for name in ("Kottler", "RotatingHayward", "KerrDS"):
+    for name in ("RotatingHayward", "KerrDS"):
         with pytest.raises(NotImplementedError, match="item 9"):
             tsp.METRICS[name]
         with pytest.raises(NotImplementedError, match="item 9"):
@@ -290,17 +299,27 @@ def test_dispatch_routes(monkeypatch):
 
 
 def test_gen_entries_registered():
-    """G1, S2 and T2's entries are built from fantasy_gen.cu: G1 takes (q0,
-    p0, out, ns, params, n, n_sub, steps, stream), S2 the trajectory
-    signature, T2 the trace one (q0, p0, out, params, n, n_sub, steps,
-    stream); so are T1's from fantasy_schw16.cu."""
+    """G1, S2 and T2's entries, and those of their static-chart modes G1s,
+    S2s, T2s and of D1, are built from fantasy_gen.cu: G1 and G1s take
+    (q0, p0, out, ns, params, n, n_sub, steps, stream), S2 and S2s the
+    trajectory signature, T2 and T2s the trace one (q0, p0, out, params,
+    n, n_sub, steps, stream), D1 (q0, p0, disk, out, ns, hit, params, n,
+    n_sub, steps, stream); so are T1's from fantasy_schw16.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
     names = tbuild.ENTRIES["fantasy_gen"]
     assert set(names) == (set(tigc.ENTRIES.values())
                           | set(tigc.TRAJ_ENTRIES.values())
-                          | set(tigc.TRACE_ENTRIES.values()))
+                          | set(tigc.TRACE_ENTRIES.values())
+                          | set(tigc.STATIC_ENTRIES.values())
+                          | set(tigc.STATIC_TRAJ_ENTRIES.values())
+                          | set(tigc.STATIC_TRACE_ENTRIES.values())
+                          | set(tigc.DISK_ENTRIES.values()))
+    src = (tbuild.CSRC_DIR / "fantasy_gen.cu").read_text()
     for name in names:
-        if "_trace_" in name:
+        assert f"{name}" in src
+        if "_disk_" in name:
+            want = [p] * 7 + [i] * 3 + [p]
+        elif "_trace_" in name:
             want = [p] * 4 + [i] * 3 + [p]
         else:
             want = [p] * 5 + [i] * (5 if "_traj_" in name else 3) + [p]

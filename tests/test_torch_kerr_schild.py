@@ -15,6 +15,8 @@
 The CUDA kernel that runs these flows is compared with them on the card by
 chip_smoke.py.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,8 +175,17 @@ def test_spacetime_pieces_match_jax():
 
 
 def test_horizon_radius_other_families_not_ported():
+    """The rotating regular families still raise naming item 9; the static
+    ones (ported) give JAX's bisected outer horizon, NaN where there is
+    none."""
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tsp.horizon_radius("Bardeen", 1.0, 0.3)
+        tsp.horizon_radius("RotatingBardeen", 1.0, 0.3)
+    j = float(jsp.horizon_radius("Bardeen", 1.0, 0.3))
+    t = float(tsp.horizon_radius("Bardeen", torch.tensor(
+        1.0, dtype=torch.float64), 0.3))
+    assert abs(t - j) <= 1e-12 * j
+    assert math.isnan(float(tsp.horizon_radius(
+        "Hayward", torch.tensor(1.0, dtype=torch.float64), 0.9)))
 
 
 @pytest.mark.parametrize("spin,charge", [(0.9, 0.0), (0.5, 0.3)])
