@@ -1,7 +1,9 @@
 """Command-line drivers of the port (application context: the library
 core never imports them): `main` (the full pipeline, with the disk
 mode), `reshade`, `hotspot`, `subring`, `visibility`, `shadow`,
-`magnify`, `echo`, `single_ray`, `band_sweep` and `probe`.
+`magnify`, `echo`, `exact`, `images`, the line-profile fit's `line_grid`
+and `fit_line`, the camera orbit `orbit`, `single_ray`, `band_sweep`
+and `probe`.
 They run on the CUDA card unless given --device cpu.  Unlike the JAX
 package's drivers they have no compilation cache to enable: the CUDA
 kernels build at first use into `build/`."""

@@ -13,7 +13,12 @@
 // ::integrate_batch_disk_ksc and ::integrate_batch_disk_ks, and in subring
 // mode ::integrate_batch_subrings_ksc and ::integrate_batch_subrings_ks,
 // built on the flows of grtrace_torch/physics/kerr_schild.py and the guard
-// and crossing recorders of make_ks_step.
+// and crossing recorders of make_ks_step.  Its tangent mode (kernel B6t)
+// carries one forward-mode tangent beside the 16-row disk mode; it
+// replaces no TPU kernel: the JAX package differentiates its XLA disk loop
+// (grtrace/engine/disk.py::integrate_batch_disk) with jax.linearize.  Its
+// twin is ::integrate_batch_disk_tangent_ks, on the flows' tangents of
+// kerr_schild.py (_kick_drift_tan, open_ks_tan, core_ks_tan).
 //
 // What bounds it on an H100: FP32 (or FP64) issue rate and latency.  Each
 // ray is a serial chain of about 700 floating-point operations per step at
@@ -85,8 +90,24 @@
 // next to the ~700 operations of a step.  The wrapper zero-fills rec_out
 // (the TPU kernel's zero carry: unfilled slots are +0.0); cnt_out (n,)
 // int32 is written once, at exit.
+//
+// Tangent mode (Mode::kDiskTangent, 16 rows only): the disk mode carrying
+// one forward-mode direction.  Each thread carries its ray's 16 rows and
+// their 16 tangent rows (tan_in, SoA (16, n)); every flow takes its
+// tangent beside its rows (kick_drift's tangent expressions, in the twin's
+// order), while the rows' operations stay the disk mode's, so they are
+// bitwise B6's.  Only mass, a and charge carry a tangent (dparams [d mass,
+// d a, d charge]).  A park reverts the tangent rows with the rows and
+// zeroes its parked coordinates' tangents.  A hit differentiates the
+// crossing: the lerp fraction, t_d = (z0_d - t (z0_d - z1_d)) / (z0 - z1),
+// and each lerp; rec_d_out (8, n) gets d hit_q (t, x, y, z), d hit_p
+// (t, x, y, z), zeros where no ray hit.  The tangent leaves at the
+// crossing, so the closing half-A runs on the rows alone.  The pre-step
+// copy of the tangent rows sits in shared memory below the rows'.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -95,8 +116,9 @@ constexpr int kScal = 6;
 constexpr int kThreads = 128;
 
 // what the loop records besides the state: nothing (B5), the first
-// equatorial crossing inside the annulus (B6), every crossing (B7)
-enum class Mode : int { kPlain, kDisk, kSubring };
+// equatorial crossing inside the annulus (B6), every crossing (B7), the
+// first crossing and its forward-mode tangent (B6t)
+enum class Mode : int { kPlain, kDisk, kSubring, kDiskTangent };
 
 // The resident blocks per SM that __launch_bounds__ asks ptxas to fit: the
 // most each instantiation's registers allow without spilling.  ptxas spills
@@ -105,7 +127,9 @@ enum class Mode : int { kPlain, kDisk, kSubring };
 template <typename T, bool kComp, Mode kMode>
 constexpr int min_blocks() {
   constexpr bool kPlain = kMode == Mode::kPlain;
-  if constexpr (sizeof(T) == 8) {
+  if constexpr (kMode == Mode::kDiskTangent) {
+    return 1;  // 32 rows and their flows' tangents: the whole register file
+  } else if constexpr (sizeof(T) == 8) {
     return 5;
   } else if constexpr (kComp) {
     return kPlain ? 7 : 6;
@@ -209,33 +233,6 @@ __device__ __forceinline__ T ks_radius(T x, T y, T z, T a) {
   return sqrt(T(0.5) * (b + sqrt(b * b + T(4) * a * a * z * z)));
 }
 
-template <typename T>
-struct Geom {
-  T r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz;
-};
-
-template <typename T>
-__device__ __forceinline__ Geom<T> geom(T x, T y, T z, const Scalars<T>& sc) {
-  // kerr_schild._geom
-  Geom<T> g;
-  const T a = sc.a;
-  const T rho2 = x * x + y * y + z * z;
-  g.b = rho2 - a * a;
-  const T az = a * z;
-  const T s = sqrt(g.b * g.b + T(4) * az * az);
-  const T r2 = T(0.5) * (g.b + s);
-  g.r = sqrt(r2);
-  g.inv_r = T(1) / g.r;
-  g.inv_D = T(1) / s;
-  g.w = r2 + a * a;
-  g.inv_w = T(1) / g.w;
-  g.H = (sc.mass * g.r - T(0.5) * sc.charge * sc.charge) * g.inv_D;
-  g.lx = (g.r * x + a * y) * g.inv_w;
-  g.ly = (g.r * y - a * x) * g.inv_w;
-  g.lz = z * g.inv_r;
-  return g;
-}
-
 // H and S = -pt + l.p at the (q, p) of one kick/drift: all that the null
 // invariant needs of the geometry there
 template <typename T>
@@ -249,45 +246,157 @@ struct Kick {
   HS<T> hs;
 };
 
+// The tangent mode's direction: the tangents of mass, a and charge (the
+// substep scalars and the thresholds carry none), and of a kick/drift's
+// seven outputs
 template <typename T>
-__device__ __forceinline__ Kick<T> kick_drift(T x, T y, T z, T pt, T px,
-                                              T py, T pz,
-                                              const Scalars<T>& sc) {
-  // kerr_schild._kick_drift
-  const Geom<T> g = geom(x, y, z, sc);
+struct Tangents {
+  T mass, a, charge;
+};
+
+template <typename T>
+struct Kick7 {
+  T kx, ky, kz, dt, dx, dy, dz;
+};
+
+// kerr_schild._kick_drift, and in kd its tangent (kerr_schild.
+// _kick_drift_tan) along (x_d, ..., pz_d) and sd: the tangent of each
+// intermediate X is X_d, formed in the twin's order; a quotient's tangent
+// reuses the primal reciprocal, (1/u)_d = -(u_d (1/u)) (1/u).  The primal
+// modes pass zero tangents and read no kd, so their tangent expressions
+// are dead code (chip_smoke.py checks their registers and instructions).
+template <typename T>
+__device__ __forceinline__ Kick<T> kick_drift(
+    T x, T y, T z, T pt, T px, T py, T pz, T x_d, T y_d, T z_d, T pt_d,
+    T px_d, T py_d, T pz_d, const Scalars<T>& sc, const Tangents<T>& sd,
+    Kick7<T>& kd) {
   const T a = sc.a;
-  const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
-  const T HS2 = T(2) * g.H * S;
+  const T a_d = sd.a;
+  // kerr_schild._geom
+  const T rho2 = x * x + y * y + z * z;
+  const T rho2_d = T(2) * (x * x_d + y * y_d + z * z_d);
+  const T b = rho2 - a * a;
+  const T b_d = rho2_d - T(2) * a * a_d;
+  const T az = a * z;
+  const T az_d = a_d * z + a * z_d;
+  const T s = sqrt(b * b + T(4) * az * az);
+  const T r2 = T(0.5) * (b + s);
+  const T r = sqrt(r2);
+  const T inv_r = T(1) / r;
+  const T inv_D = T(1) / s;
+  const T s_d = (b * b_d + T(4) * az * az_d) * inv_D;
+  const T r2_d = T(0.5) * (b_d + s_d);
+  const T r_d = T(0.5) * r2_d * inv_r;
+  const T inv_r_d = -(r_d * inv_r * inv_r);
+  const T inv_D_d = -(s_d * inv_D * inv_D);
+  const T w = r2 + a * a;
+  const T w_d = r2_d + T(2) * a * a_d;
+  const T inv_w = T(1) / w;
+  const T inv_w_d = -(w_d * inv_w * inv_w);
+  const T hn = sc.mass * r - T(0.5) * sc.charge * sc.charge;
+  const T hn_d = (sd.mass * r + sc.mass * r_d) - sc.charge * sd.charge;
+  const T H = hn * inv_D;
+  const T H_d = hn_d * inv_D + hn * inv_D_d;
+  const T lxn = r * x + a * y;
+  const T lxn_d = (r_d * x + r * x_d) + (a_d * y + a * y_d);
+  const T lx = lxn * inv_w;
+  const T lx_d = lxn_d * inv_w + lxn * inv_w_d;
+  const T lyn = r * y - a * x;
+  const T lyn_d = (r_d * y + r * y_d) - (a_d * x + a * x_d);
+  const T ly = lyn * inv_w;
+  const T ly_d = lyn_d * inv_w + lyn * inv_w_d;
+  const T lz = z * inv_r;
+  const T lz_d = z_d * inv_r + z * inv_r_d;
+
+  const T S = -pt + lx * px + ly * py + lz * pz;
+  const T S_d = -pt_d + (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d)
+                + (lz_d * pz + lz * pz_d);
+  const T HS2 = T(2) * H * S;
+  const T HS2_d = T(2) * (H_d * S + H * S_d);
   Kick<T> k;
-  k.hs = {g.H, S};
+  k.hs = {H, S};
   k.dt = -pt + HS2;
-  k.dx = px - HS2 * g.lx;
-  k.dy = py - HS2 * g.ly;
-  k.dz = pz - HS2 * g.lz;
+  k.dx = px - HS2 * lx;
+  k.dy = py - HS2 * ly;
+  k.dz = pz - HS2 * lz;
+  kd.dt = -pt_d + HS2_d;
+  kd.dx = px_d - (HS2_d * lx + HS2 * lx_d);
+  kd.dy = py_d - (HS2_d * ly + HS2 * ly_d);
+  kd.dz = pz_d - (HS2_d * lz + HS2 * lz_d);
 
-  const T r_x = x * g.r * g.inv_D;
-  const T r_y = y * g.r * g.inv_D;
-  const T r_z = z * g.w * g.inv_r * g.inv_D;
-  const T D_x = T(2) * x * g.b * g.inv_D;
-  const T D_y = T(2) * y * g.b * g.inv_D;
-  const T D_z = T(2) * z * (g.b + T(2) * a * a) * g.inv_D;
+  const T xr = x * r;
+  const T r_x = xr * inv_D;
+  const T r_x_d = (x_d * r + x * r_d) * inv_D + xr * inv_D_d;
+  const T yr = y * r;
+  const T r_y = yr * inv_D;
+  const T r_y_d = (y_d * r + y * r_d) * inv_D + yr * inv_D_d;
+  const T zw = z * w;
+  const T zw_d = z_d * w + z * w_d;
+  const T zwr = zw * inv_r;
+  const T zwr_d = zw_d * inv_r + zw * inv_r_d;
+  const T r_z = zwr * inv_D;
+  const T r_z_d = zwr_d * inv_D + zwr * inv_D_d;
+  const T xb = T(2) * x * b;
+  const T xb_d = T(2) * (x_d * b + x * b_d);
+  const T D_x = xb * inv_D;
+  const T D_x_d = xb_d * inv_D + xb * inv_D_d;
+  const T yb = T(2) * y * b;
+  const T yb_d = T(2) * (y_d * b + y * b_d);
+  const T D_y = yb * inv_D;
+  const T D_y_d = yb_d * inv_D + yb * inv_D_d;
+  const T bz = b + T(2) * a * a;
+  const T bz_d = b_d + T(4) * a * a_d;
+  const T zb = T(2) * z * bz;
+  const T zb_d = T(2) * (z_d * bz + z * bz_d);
+  const T D_z = zb * inv_D;
+  const T D_z_d = zb_d * inv_D + zb * inv_D_d;
 
-  const T H_x = (sc.mass * r_x - g.H * D_x) * g.inv_D;
-  const T H_y = (sc.mass * r_y - g.H * D_y) * g.inv_D;
-  const T H_z = (sc.mass * r_z - g.H * D_z) * g.inv_D;
+  const T hx = sc.mass * r_x - H * D_x;
+  const T hx_d = (sd.mass * r_x + sc.mass * r_x_d) - (H_d * D_x + H * D_x_d);
+  const T H_x = hx * inv_D;
+  const T H_x_d = hx_d * inv_D + hx * inv_D_d;
+  const T hy = sc.mass * r_y - H * D_y;
+  const T hy_d = (sd.mass * r_y + sc.mass * r_y_d) - (H_d * D_y + H * D_y_d);
+  const T H_y = hy * inv_D;
+  const T H_y_d = hy_d * inv_D + hy * inv_D_d;
+  const T hz = sc.mass * r_z - H * D_z;
+  const T hz_d = (sd.mass * r_z + sc.mass * r_z_d) - (H_d * D_z + H * D_z_d);
+  const T H_z = hz * inv_D;
+  const T H_z_d = hz_d * inv_D + hz * inv_D_d;
 
-  const T inv_r2 = g.inv_r * g.inv_r;
-  const T G = (x * px + y * py - T(2) * g.r * (g.lx * px + g.ly * py))
-                  * g.inv_w
-              - z * pz * inv_r2;
-  const T S_x = r_x * G + (g.r * px - a * py) * g.inv_w;
-  const T S_y = r_y * G + (a * px + g.r * py) * g.inv_w;
-  const T S_z = r_z * G + pz * g.inv_r;
+  const T inv_r2 = inv_r * inv_r;
+  const T inv_r2_d = T(2) * (inv_r * inv_r_d);
+  const T lp = lx * px + ly * py;
+  const T lp_d = (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d);
+  const T rlp = T(2) * r * lp;
+  const T rlp_d = T(2) * (r_d * lp + r * lp_d);
+  const T gn = x * px + y * py - rlp;
+  const T gn_d = (x_d * px + x * px_d) + (y_d * py + y * py_d) - rlp_d;
+  const T zp = z * pz;
+  const T zp_d = z_d * pz + z * pz_d;
+  const T zpr = zp * inv_r2;
+  const T zpr_d = zp_d * inv_r2 + zp * inv_r2_d;
+  const T G = gn * inv_w - zpr;
+  const T G_d = (gn_d * inv_w + gn * inv_w_d) - zpr_d;
+  const T sxn = r * px - a * py;
+  const T sxn_d = (r_d * px + r * px_d) - (a_d * py + a * py_d);
+  const T S_x = r_x * G + sxn * inv_w;
+  const T S_x_d = (r_x_d * G + r_x * G_d) + (sxn_d * inv_w + sxn * inv_w_d);
+  const T syn = a * px + r * py;
+  const T syn_d = (a_d * px + a * px_d) + (r_d * py + r * py_d);
+  const T S_y = r_y * G + syn * inv_w;
+  const T S_y_d = (r_y_d * G + r_y * G_d) + (syn_d * inv_w + syn * inv_w_d);
+  const T S_z = r_z * G + pz * inv_r;
+  const T S_z_d = (r_z_d * G + r_z * G_d) + (pz_d * inv_r + pz * inv_r_d);
 
   const T S2 = S * S;
+  const T S2_d = T(2) * (S * S_d);
   k.kx = -H_x * S2 - HS2 * S_x;
   k.ky = -H_y * S2 - HS2 * S_y;
   k.kz = -H_z * S2 - HS2 * S_z;
+  kd.kx = -(H_x_d * S2 + H_x * S2_d) - (HS2_d * S_x + HS2 * S_x_d);
+  kd.ky = -(H_y_d * S2 + H_y * S2_d) - (HS2_d * S_y + HS2 * S_y_d);
+  kd.kz = -(H_z_d * S2 + H_z * S2_d) - (HS2_d * S_z + HS2 * S_z_d);
   return k;
 }
 
@@ -300,38 +409,44 @@ __device__ __forceinline__ T hamiltonian(T pt, T px, T py, T pz, HS<T> hs) {
          - hs.H * hs.S * hs.S;
 }
 
-// Flow A: metric at q1 (rows 1..3), momenta p2 (12..15); kick p1 (5..7),
-// drift q2 (8..11).  Returns H and S at (q1, p2), which it leaves as they
-// were.
-template <typename T, bool kComp>
-__device__ __forceinline__ HS<T> flow_a(KsState<T, kComp>& st, T dt,
-                                        const Scalars<T>& sc) {
-  const Kick<T> k = kick_drift(st.s[1], st.s[2], st.s[3], st.s[12],
-                               st.s[13], st.s[14], st.s[15], sc);
-  accumulate<5>(st, (-dt) * k.kx);
-  accumulate<6>(st, (-dt) * k.ky);
-  accumulate<7>(st, (-dt) * k.kz);
-  accumulate<8>(st, dt * k.dt);
-  accumulate<9>(st, dt * k.dx);
-  accumulate<10>(st, dt * k.dy);
-  accumulate<11>(st, dt * k.dz);
+// Flow A (kFlowA: metric at q1 (rows 1..3), momenta p2 (12..15); kick p1
+// (5..7), drift q2 (8..11)) or flow B (metric at q2 (9..11), momenta p1
+// (4..7); kick p2 (13..15), drift q1 (0..3)); with kTan the tangent rows
+// ts take the flow's tangent (kerr_schild._flow_tan).  Returns H and S at
+// the metric point, which the flow leaves as they were.
+template <bool kFlowA, bool kTan, typename T, bool kComp>
+__device__ __forceinline__ HS<T> flow(KsState<T, kComp>& st,
+                                      KsState<T, false>& ts, T dt,
+                                      const Scalars<T>& sc,
+                                      const Tangents<T>& sd) {
+  constexpr int kPos = kFlowA ? 1 : 9;
+  constexpr int kMom = kFlowA ? 12 : 4;
+  constexpr int kKick = kFlowA ? 5 : 13;
+  constexpr int kDrift = kFlowA ? 8 : 0;
+  const auto d = [&](int m) { return kTan ? ts.s[m] : T(0); };
+  Kick7<T> kd;
+  const Kick<T> k = kick_drift(
+      st.s[kPos], st.s[kPos + 1], st.s[kPos + 2], st.s[kMom],
+      st.s[kMom + 1], st.s[kMom + 2], st.s[kMom + 3], d(kPos), d(kPos + 1),
+      d(kPos + 2), d(kMom), d(kMom + 1), d(kMom + 2), d(kMom + 3), sc, sd,
+      kd);
+  accumulate<kKick>(st, (-dt) * k.kx);
+  accumulate<kKick + 1>(st, (-dt) * k.ky);
+  accumulate<kKick + 2>(st, (-dt) * k.kz);
+  accumulate<kDrift>(st, dt * k.dt);
+  accumulate<kDrift + 1>(st, dt * k.dx);
+  accumulate<kDrift + 2>(st, dt * k.dy);
+  accumulate<kDrift + 3>(st, dt * k.dz);
+  if constexpr (kTan) {
+    ts.s[kKick] = ts.s[kKick] + (-dt) * kd.kx;
+    ts.s[kKick + 1] = ts.s[kKick + 1] + (-dt) * kd.ky;
+    ts.s[kKick + 2] = ts.s[kKick + 2] + (-dt) * kd.kz;
+    ts.s[kDrift] = ts.s[kDrift] + dt * kd.dt;
+    ts.s[kDrift + 1] = ts.s[kDrift + 1] + dt * kd.dx;
+    ts.s[kDrift + 2] = ts.s[kDrift + 2] + dt * kd.dy;
+    ts.s[kDrift + 3] = ts.s[kDrift + 3] + dt * kd.dz;
+  }
   return k.hs;
-}
-
-// Flow B: metric at q2 (rows 9..11), momenta p1 (4..7); kick p2 (13..15),
-// drift q1 (0..3).
-template <typename T, bool kComp>
-__device__ __forceinline__ void flow_b(KsState<T, kComp>& st, T dt,
-                                       const Scalars<T>& sc) {
-  const Kick<T> k = kick_drift(st.s[9], st.s[10], st.s[11], st.s[4],
-                               st.s[5], st.s[6], st.s[7], sc);
-  accumulate<13>(st, (-dt) * k.kx);
-  accumulate<14>(st, (-dt) * k.ky);
-  accumulate<15>(st, (-dt) * k.kz);
-  accumulate<0>(st, dt * k.dt);
-  accumulate<1>(st, dt * k.dx);
-  accumulate<2>(st, dt * k.dy);
-  accumulate<3>(st, dt * k.dz);
 }
 
 // kerr_schild._flow_mixed_ksc: the mixing rotation in increment form,
@@ -372,25 +487,47 @@ __device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
   }
 }
 
+// the lerp's tangent on row I (tangent mode): b_old_d + (t_d (b_new -
+// b_old) + t (b_new_d - b_old_d))
+template <int I, typename T>
+__device__ __forceinline__ T lerp_tan(const Saved<T, false>& old,
+                                      const KsState<T, false>& now,
+                                      const Saved<T, false>& old_d,
+                                      const KsState<T, false>& now_d, T t,
+                                      T t_d) {
+  const T b_old = old.s(I);
+  const T b_old_d = old_d.s(I);
+  return b_old_d + (t_d * (now.s[I] - b_old) + t * (now_d.s[I] - b_old_d));
+}
+
 template <typename T, bool kComp, Mode kMode>
 __global__ void __launch_bounds__(kThreads, (min_blocks<T, kComp, kMode>()))
-fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
+fantasy_ks_kernel(const T* __restrict__ state_in,
+                  const T* __restrict__ tan_in, T* __restrict__ state_out,
                   int* __restrict__ ns_out, T* __restrict__ rec_out,
-                  int* __restrict__ cnt_out, const T* __restrict__ params,
-                  int n, int n_sub, int steps, int n_orders) {
-  constexpr bool kDisk = kMode == Mode::kDisk;
+                  T* __restrict__ rec_d_out, int* __restrict__ cnt_out,
+                  const T* __restrict__ params,
+                  const T* __restrict__ dparams, int n, int n_sub, int steps,
+                  int n_orders) {
+  constexpr bool kTan = kMode == Mode::kDiskTangent;
+  constexpr bool kDisk = kMode == Mode::kDisk || kTan;
   constexpr bool kSub = kMode == Mode::kSubring;
-  __shared__ T saved[(kComp ? 2 : 1) * kRows][kThreads];
+  static_assert(!(kTan && kComp), "the tangent mode has the 16-row layout");
+  // the pre-step rows (and deficits), then in tangent mode their tangents
+  __shared__ T saved[((kComp ? 2 : 1) + (kTan ? 1 : 0)) * kRows][kThreads];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Saved<T, kComp> old{&saved[0][threadIdx.x]};
+  const Saved<T, false> old_d{&saved[kTan ? kRows : 0][threadIdx.x]};
   const size_t stride = static_cast<size_t>(n);
 
   KsState<T, kComp> st;
+  KsState<T, false> ts;  // tangent mode: the tangent rows
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     st.s[k] = state_in[k * stride + i];
     if constexpr (kComp) st.c[k] = state_in[(kRows + k) * stride + i];
+    if constexpr (kTan) ts.s[k] = tan_in[k * stride + i];
   }
 
   Scalars<T> sc;
@@ -400,6 +537,12 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
   sc.r_cap = __ldg(params + 3);
   sc.r_max = __ldg(params + 4);
   sc.plunge_zone = __ldg(params + 5);
+  Tangents<T> sd{T(0), T(0), T(0)};
+  if constexpr (kTan) {
+    sd.mass = __ldg(dparams + 0);
+    sd.a = __ldg(dparams + 1);
+    sd.charge = __ldg(dparams + 2);
+  }
   const T d0 = __ldg(params + kScal);
   const T r_plus = sc.r_cap / T(1.05);
   const T r_max2 = sc.r_max * sc.r_max;
@@ -418,21 +561,28 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
       && st.s[1] * st.s[1] + st.s[2] * st.s[2] + st.s[3] * st.s[3] < r_max2;
   if (act0 && steps > 0) {
     // H and S of the last flow A, at today's (q1, p2)
-    HS<T> hs = flow_a(st, T(0.5) * d0, sc);  // opening half-A
+    HS<T> hs = flow<true, kTan>(st, ts, T(0.5) * d0, sc, sd);  // opening A
     for (int k = 0; k < steps; ++k) {
       const T rho2 = st.s[1] * st.s[1] + st.s[2] * st.s[2]
                      + st.s[3] * st.s[3];
       if (!(r_old > sc.r_cap && rho2 < r_max2)) break;
       old.store(st);
+      if constexpr (kTan) old_d.store(ts);
       T z0 = T(0);
       if constexpr (kDisk || kSub) z0 = best<3>(st);
       for (int j = 0; j < n_sub; ++j) {
         const T* sub = params + kScal + 4 * j;
         const T half = T(0.5) * __ldg(sub + 0);
-        flow_b(st, half, sc);
-        flow_mixed(st, __ldg(sub + 1), __ldg(sub + 2));
-        flow_b(st, half, sc);
-        hs = flow_a(st, __ldg(sub + 3), sc);
+        flow<false, kTan>(st, ts, half, sc, sd);
+        // the mixing's scalars are read here, not across the flow above:
+        // two more live doubles there spill the double disk and subring
+        // modes at their min_blocks
+        const T cw = __ldg(sub + 1);
+        const T sw = __ldg(sub + 2);
+        flow_mixed(st, cw, sw);
+        if constexpr (kTan) flow_mixed(ts, cw, sw);  // linear: the same
+        flow<false, kTan>(st, ts, half, sc, sd);
+        hs = flow<true, kTan>(st, ts, __ldg(sub + 3), sc, sd);
       }
 
       // null-invariant blow-up guard (make_ks_step), on the (q1, p2) rows
@@ -464,6 +614,14 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
           st.c[2] = T(0);
           st.c[3] = T(0);
         }
+        if constexpr (kTan) {
+          // the tangent rows revert with their rows; the parked
+          // coordinates are constants
+          ts = old_d.load();
+          ts.s[1] = T(0);
+          ts.s[2] = T(0);
+          ts.s[3] = T(0);
+        }
         ns = -ns;
         r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
         continue;
@@ -489,6 +647,22 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
             rec_out[6 * stride + i] = lerp_row<13>(old, st, t);
             rec_out[7 * stride + i] = lerp_row<14>(old, st, t);
             rec_out[8 * stride + i] = lerp_row<15>(old, st, t);
+            if constexpr (kTan) {
+              // the lerp fraction differentiated, t_d = (z0_d - t (z0_d -
+              // z1_d)) / (z0 - z1); the guard, the capture and the annulus
+              // tests are discrete and carry no tangent
+              const T z0_d = old_d.s(3);
+              const T t_d = (z0_d - t * (z0_d - ts.s[3])) / (z0 - z1);
+              T* hd = rec_d_out + i;
+              hd[0 * stride] = lerp_tan<0>(old, st, old_d, ts, t, t_d);
+              hd[1 * stride] = lerp_tan<1>(old, st, old_d, ts, t, t_d);
+              hd[2 * stride] = lerp_tan<2>(old, st, old_d, ts, t, t_d);
+              hd[3 * stride] = lerp_tan<3>(old, st, old_d, ts, t, t_d);
+              hd[4 * stride] = lerp_tan<12>(old, st, old_d, ts, t, t_d);
+              hd[5 * stride] = lerp_tan<13>(old, st, old_d, ts, t, t_d);
+              hd[6 * stride] = lerp_tan<14>(old, st, old_d, ts, t, t_d);
+              hd[7 * stride] = lerp_tan<15>(old, st, old_d, ts, t, t_d);
+            }
             break;  // the hit ray is frozen
           }
         }
@@ -513,8 +687,9 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
       }
     }
     // closing half-A for every opened ray (parked ones too: the park points
-    // are regular chart points and flow A cannot move q1)
-    flow_a(st, T(-0.5) * d0, sc);
+    // are regular chart points and flow A cannot move q1); the tangent has
+    // left at the crossing, so it runs on the rows alone
+    flow<true, false>(st, ts, T(-0.5) * d0, sc, sd);
   }
 
 #pragma unroll
@@ -529,25 +704,36 @@ fantasy_ks_kernel(const T* __restrict__ state_in, T* __restrict__ state_out,
     if (!hit) {
 #pragma unroll
       for (int m = 1; m < 9; ++m) rec_out[m * stride + i] = T(0);
+      if constexpr (kTan) {
+#pragma unroll
+        for (int m = 0; m < 8; ++m) rec_d_out[m * stride + i] = T(0);
+      }
     }
   }
   if constexpr (kSub) cnt_out[i] = cnt;
 }
 
+#ifdef __CUDACC__
+
 template <typename T, bool kComp, Mode kMode>
-int launch(const T* state_in, T* state_out, int* ns_out, T* rec_out,
-           int* cnt_out, const T* params, int n, int n_sub, int steps,
-           int n_orders, void* stream) {
+int launch(const T* state_in, const T* tan_in, T* state_out, int* ns_out,
+           T* rec_out, T* rec_d_out, int* cnt_out, const T* params,
+           const T* dparams, int n, int n_sub, int steps, int n_orders,
+           void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
   fantasy_ks_kernel<T, kComp, kMode>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          state_in, state_out, ns_out, rec_out, cnt_out, params, n, n_sub,
-          steps, n_orders);
+          state_in, tan_in, state_out, ns_out, rec_out, rec_d_out, cnt_out,
+          params, dparams, n, n_sub, steps, n_orders);
   return static_cast<int>(cudaGetLastError());
 }
 
+#endif  // __CUDACC__
+
 }  // namespace
+
+#ifdef __CUDACC__
 
 // 32 rows, float, Kahan-compensated: the production float32 layout
 extern "C" int grt_fantasy_ks32_f32_launch(const float* state_in,
@@ -555,9 +741,9 @@ extern "C" int grt_fantasy_ks32_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, true, Mode::kPlain>(state_in, state_out, ns_out,
-                                           nullptr, nullptr, params, n, n_sub,
-                                           steps, 0, stream);
+  return launch<float, true, Mode::kPlain>(
+      state_in, nullptr, state_out, ns_out, nullptr, nullptr, nullptr, params,
+      nullptr, n, n_sub, steps, 0, stream);
 }
 
 // 16 rows, float, plain
@@ -566,9 +752,9 @@ extern "C" int grt_fantasy_ks16_f32_launch(const float* state_in,
                                            const float* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<float, false, Mode::kPlain>(state_in, state_out, ns_out,
-                                            nullptr, nullptr, params, n,
-                                            n_sub, steps, 0, stream);
+  return launch<float, false, Mode::kPlain>(
+      state_in, nullptr, state_out, ns_out, nullptr, nullptr, nullptr, params,
+      nullptr, n, n_sub, steps, 0, stream);
 }
 
 // 16 rows, double, plain: the float64 layout
@@ -577,9 +763,9 @@ extern "C" int grt_fantasy_ks16_f64_launch(const double* state_in,
                                            const double* params, int n,
                                            int n_sub, int steps,
                                            void* stream) {
-  return launch<double, false, Mode::kPlain>(state_in, state_out, ns_out,
-                                             nullptr, nullptr, params, n,
-                                             n_sub, steps, 0, stream);
+  return launch<double, false, Mode::kPlain>(
+      state_in, nullptr, state_out, ns_out, nullptr, nullptr, nullptr, params,
+      nullptr, n, n_sub, steps, 0, stream);
 }
 
 // Disk mode (kernel B6): the same three layouts, plus the (9, n) recorder
@@ -591,9 +777,9 @@ extern "C" int grt_fantasy_ks32_f32_disk_launch(const float* state_in,
                                                 const float* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<float, true, Mode::kDisk>(state_in, state_out, ns_out,
-                                          disk_out, nullptr, params, n, n_sub,
-                                          steps, 0, stream);
+  return launch<float, true, Mode::kDisk>(
+      state_in, nullptr, state_out, ns_out, disk_out, nullptr, nullptr,
+      params, nullptr, n, n_sub, steps, 0, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f32_disk_launch(const float* state_in,
@@ -602,9 +788,9 @@ extern "C" int grt_fantasy_ks16_f32_disk_launch(const float* state_in,
                                                 const float* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<float, false, Mode::kDisk>(state_in, state_out, ns_out,
-                                           disk_out, nullptr, params, n,
-                                           n_sub, steps, 0, stream);
+  return launch<float, false, Mode::kDisk>(
+      state_in, nullptr, state_out, ns_out, disk_out, nullptr, nullptr,
+      params, nullptr, n, n_sub, steps, 0, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f64_disk_launch(const double* state_in,
@@ -613,9 +799,9 @@ extern "C" int grt_fantasy_ks16_f64_disk_launch(const double* state_in,
                                                 const double* params, int n,
                                                 int n_sub, int steps,
                                                 void* stream) {
-  return launch<double, false, Mode::kDisk>(state_in, state_out, ns_out,
-                                            disk_out, nullptr, params, n,
-                                            n_sub, steps, 0, stream);
+  return launch<double, false, Mode::kDisk>(
+      state_in, nullptr, state_out, ns_out, disk_out, nullptr, nullptr,
+      params, nullptr, n, n_sub, steps, 0, stream);
 }
 
 // Subring mode (kernel B7): the same three layouts, plus cnt_out (n,)
@@ -629,9 +815,9 @@ extern "C" int grt_fantasy_ks32_f32_sub_launch(const float* state_in,
                                                const float* params, int n,
                                                int n_sub, int steps,
                                                int n_orders, void* stream) {
-  return launch<float, true, Mode::kSubring>(state_in, state_out, ns_out,
-                                             slot_out, cnt_out, params, n,
-                                             n_sub, steps, n_orders, stream);
+  return launch<float, true, Mode::kSubring>(
+      state_in, nullptr, state_out, ns_out, slot_out, nullptr, cnt_out,
+      params, nullptr, n, n_sub, steps, n_orders, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f32_sub_launch(const float* state_in,
@@ -640,9 +826,9 @@ extern "C" int grt_fantasy_ks16_f32_sub_launch(const float* state_in,
                                                const float* params, int n,
                                                int n_sub, int steps,
                                                int n_orders, void* stream) {
-  return launch<float, false, Mode::kSubring>(state_in, state_out, ns_out,
-                                              slot_out, cnt_out, params, n,
-                                              n_sub, steps, n_orders, stream);
+  return launch<float, false, Mode::kSubring>(
+      state_in, nullptr, state_out, ns_out, slot_out, nullptr, cnt_out,
+      params, nullptr, n, n_sub, steps, n_orders, stream);
 }
 
 extern "C" int grt_fantasy_ks16_f64_sub_launch(const double* state_in,
@@ -651,8 +837,32 @@ extern "C" int grt_fantasy_ks16_f64_sub_launch(const double* state_in,
                                                const double* params, int n,
                                                int n_sub, int steps,
                                                int n_orders, void* stream) {
-  return launch<double, false, Mode::kSubring>(state_in, state_out, ns_out,
-                                               slot_out, cnt_out, params, n,
-                                               n_sub, steps, n_orders,
-                                               stream);
+  return launch<double, false, Mode::kSubring>(
+      state_in, nullptr, state_out, ns_out, slot_out, nullptr, cnt_out,
+      params, nullptr, n, n_sub, steps, n_orders, stream);
 }
+
+// Tangent mode (kernel B6t): 16 rows, float and double, plus the (16, n)
+// tangent rows tan_in, the (8, n) crossing tangents disk_d_out and the
+// scalar tangents dparams [d mass, d a, d charge]; params is the disk-mode
+// vector.
+
+extern "C" int grt_fantasy_ks16_f32_disk_tangent_launch(
+    const float* state_in, const float* tan_in, float* state_out,
+    int* ns_out, float* disk_out, float* disk_d_out, const float* params,
+    const float* dparams, int n, int n_sub, int steps, void* stream) {
+  return launch<float, false, Mode::kDiskTangent>(
+      state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, nullptr,
+      params, dparams, n, n_sub, steps, 0, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f64_disk_tangent_launch(
+    const double* state_in, const double* tan_in, double* state_out,
+    int* ns_out, double* disk_out, double* disk_d_out, const double* params,
+    const double* dparams, int n, int n_sub, int steps, void* stream) {
+  return launch<double, false, Mode::kDiskTangent>(
+      state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, nullptr,
+      params, dparams, n, n_sub, steps, 0, stream);
+}
+
+#endif  // __CUDACC__

@@ -24,7 +24,15 @@ first-equatorial-crossing recorder of `make_ks_step(disk=...)`:
     integrate_batch_disk_ksc   32 rows (float32 rays)
     integrate_batch_disk_ks    16 rows (float64 rays)
 
-which return (final_q, final_p, status, n_steps, hit_q, hit_p).
+which return (final_q, final_p, status, n_steps, hit_q, hit_p).  Its
+tangent mode (kernel B6t) carries one forward-mode direction beside the
+16 rows (`make_ks_step(tangent=...)`, the flows' tangents of
+physics/kerr_schild.py):
+
+    integrate_batch_disk_tangent_ks   16 rows (float32 or float64 rays)
+
+which returns the six and the crossing's tangents (hit_q_d, hit_p_d);
+engine/sensitivity.py differentiates the line profile through it.
 
 The subring mode (kernel B7, `integrate_batch_pallas_subrings` in JAX)
 counts every equatorial-plane crossing and records the first n_orders
@@ -49,9 +57,10 @@ from __future__ import annotations
 import torch
 
 from ..physics.hamiltonian import bridge_sizes, pack_state, substep_schedule
-from ..physics.kerr_schild import (close_ks, close_ksc, core_ks, core_ksc,
-                                   hamiltonian_ks, ks_radius_c, open_ks,
-                                   open_ksc, pack_state_ksc, unpack_ksc)
+from ..physics.kerr_schild import (close_ks, close_ksc, core_ks, core_ks_tan,
+                                   core_ksc, hamiltonian_ks, ks_radius_c,
+                                   open_ks, open_ks_tan, open_ksc,
+                                   pack_state_ksc, unpack_ksc)
 from ..physics.spacetime import horizon_radius
 from .integrate import (_EXIT_CHECK, STATUS_ALIVE, STATUS_CAPTURED,
                         STATUS_ESCAPED, _in_dtype, resolve_backend)
@@ -133,7 +142,7 @@ def disk_annulus(vec):
 
 def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
                  compensated=False, disk=None, subrings=None, *,
-                 dtype=torch.float32):
+                 dtype=torch.float32, tangent=None):
     """(active, masked_step, open_fn, close_fn) for one KS integration.
 
     active(comps) -> bool mask; masked_step(comps, ns) -> (comps, ns)
@@ -156,6 +165,13 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     n_orders are lerped as in disk mode and stored in slots (n_orders, 8,
     N): slot s holds the q1 rows then the p2 rows of crossing s.  No ray
     freezes, so the early-exit test stays active(comps).
+
+    disk with tangent=(d mass, d a, d charge) (16 rows) is kernel B6t's
+    step: masked_step(comps, ns, hit, hq, hp, tan, hq_d, hp_d) returns
+    the five and (tan, hq_d, hp_d): the flows carry the tangent rows `tan`
+    (`core_ks_tan`), which revert with their rows on a park (the parked
+    coordinates' tangents are zero), and a new hit records the crossing's
+    tangents in hq_d and hp_d, the lerp fraction differentiated.
     """
     core = core_ksc if compensated else core_ks
     open_raw = open_ksc if compensated else open_ks
@@ -176,17 +192,17 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         rho2 = comps[1] * comps[1] + comps[2] * comps[2] + comps[3] * comps[3]
         return (r_bl > r_cap) & (rho2 < r_max2)
 
-    def _advance(comps, ns, frozen=None):
+    def _act(comps, frozen=None):
         r_old = ks_radius_c(comps[1], comps[2], comps[3], a)
         rho2 = (comps[1] * comps[1] + comps[2] * comps[2]
                 + comps[3] * comps[3])
         act = (r_old > r_cap) & (rho2 < r_max2)
         if frozen is not None:
             act = act & ~frozen
-        new = comps
-        for d_j, cw_j, sw_j, bridge_j in subs:
-            new = core(new, d_j, mass, a, cw_j, sw_j, bridge_j, charge)
+        return act, r_old
 
+    def _guard(comps, new, ns, act, r_old):
+        """The step's guard and park: (out, ns_new, ok, park)."""
         # null-invariant blow-up guard, on the (q1, p2) rows, which hold
         # the exact plain-composition boundary values in the staggered
         # state; finiteness of all 16 rows through one aggregate sum; the
@@ -225,7 +241,15 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         # the park flag rides in the SIGN of the step counter
         ns_new = ns + act.to(torch.int32)
         ns_new = torch.where(park, -ns_new, ns_new)
-        return tuple(out), ns_new, new, ok
+        return tuple(out), ns_new, ok, park
+
+    def _advance(comps, ns):
+        act, r_old = _act(comps)
+        new = comps
+        for d_j, cw_j, sw_j, bridge_j in subs:
+            new = core(new, d_j, mass, a, cw_j, sw_j, bridge_j, charge)
+        out, ns_new, ok, _ = _guard(comps, new, ns, act, r_old)
+        return out, ns_new, new, ok
 
     def masked_step(comps, ns):
         out, ns_new, _, _ = _advance(comps, ns)
@@ -268,19 +292,46 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         return active, masked_step_subrings, open_fn, close_fn
 
     r_in, r_out = disk
+    sc, sc_d = (mass, a, charge), tangent
 
-    def masked_step_disk(comps, ns, hit, hq, hp):
-        out, ns_new, new, ok = _advance(comps, ns, frozen=hit)
+    def masked_step_disk(comps, ns, hit, hq, hp, tan=None, hq_d=None,
+                         hp_d=None):
+        act, r_old = _act(comps, frozen=hit)
+        new, new_d = comps, tan
+        for d_j, cw_j, sw_j, bridge_j in subs:
+            if tan is None:
+                new = core(new, d_j, mass, a, cw_j, sw_j, bridge_j, charge)
+            else:
+                new, new_d = core_ks_tan(new, new_d, d_j, cw_j, sw_j,
+                                         bridge_j, sc, sc_d)
+        out, ns_new, ok, park = _guard(comps, new, ns, act, r_old)
         # the first equatorial crossing inside the annulus, lerped within
         # the step on the (q1, p2) rows; ok excludes guard-parked rays
         crossed, t = crossing(comps, new, ok)
-        cq = lerp(comps, new, t, (0, 1, 2, 3))
-        cp = lerp(comps, new, t, (12, 13, 14, 15))
-        r_hit = ks_radius_c(cq[1], cq[2], cq[3], a)
+        rows = (0, 1, 2, 3, 12, 13, 14, 15)
+        cross = lerp(comps, new, t, rows)
+        r_hit = ks_radius_c(cross[1], cross[2], cross[3], a)
         new_hit = crossed & (r_hit >= r_in) & (r_hit <= r_out)
-        hq = tuple(torch.where(new_hit, c, h) for c, h in zip(cq, hq))
-        hp = tuple(torch.where(new_hit, c, h) for c, h in zip(cp, hp))
-        return out, ns_new, hit | new_hit, hq, hp
+
+        def keep(c, h):
+            return tuple(torch.where(new_hit, x, y) for x, y in zip(c, h))
+        step = (out, ns_new, hit | new_hit, keep(cross[:4], hq),
+                keep(cross[4:], hp))
+        if tan is None:
+            return step
+        # the tangent rows revert with their rows; the parked coordinates
+        # are constants
+        out_d = [torch.where(ok, n, o) for n, o in zip(new_d, tan)]
+        for row in (1, 2, 3):
+            out_d[row] = torch.where(park, torch.zeros_like(out_d[row]),
+                                     out_d[row])
+        t_d = torch.where(crossed, (tan[3] - t * (tan[3] - new_d[3]))
+                          / (comps[3] - new[3]), 0.0)
+        cross_d = tuple(tan[i] + (t_d * (new[i] - comps[i])
+                                  + t * (new_d[i] - tan[i]))
+                        for i in rows)
+        return step + (tuple(out_d), keep(cross_d[:4], hq_d),
+                       keep(cross_d[4:], hp_d))
 
     return active, masked_step_disk, open_fn, close_fn
 
@@ -583,6 +634,98 @@ def integrate_batch_disk_ks(q0s, p0s, steps, delta, params, r_max, omega,
                            order, compensated=False, disk=(r_in, r_out))
 
 
+def ks_tangent_params(dparams, dtype=torch.float32):
+    """The tangent of the scalar vector: [d mass, d a, d charge] as one CPU
+    tensor in `dtype` (dparams = (dM, da[, dQ])).  The substep scalars, r_cap,
+    r_max, plunge_zone and the annulus carry no tangent: they are step
+    constants or the thresholds of discrete tests."""
+    d = torch.as_tensor(dparams, dtype=torch.float64).reshape(-1).tolist()
+    return torch.tensor((d + [0.0])[:3], dtype=dtype)
+
+
+def integrate_batch_disk_tangent_ks(q0s, p0s, dq0s, dp0s, steps, delta,
+                                    params, dparams, r_max, omega, r_in,
+                                    r_out, order=2):
+    """Eager twin of kernel B6t, the forward-mode tangent mode of B6 in the
+    16-row plain layout: `integrate_batch_disk_ks` carrying one tangent
+    direction (dq0s, dp0s; dparams = (dM, da[, dQ])) beside its rows
+    (`make_ks_step(tangent=...)`).
+
+    The flows' tangents are `kerr_schild.core_ks_tan`'s; the guard, the
+    capture test and the annulus test are discrete and carry none (a parked
+    ray's tangent is reverted with its rows, its parked coordinates' set to
+    zero); the crossing's lerp fraction t = z0 / (z0 - z1) is
+    differentiated, t_d = (z0_d - t (z0_d - z1_d)) / (z0 - z1), and so is
+    each lerp, b_old_d + (t_d (b_new - b_old) + t (b_new_d - b_old_d)).
+    The primal rows are B6's 16-row twin's, bit for bit.
+
+    Returns B6's six outputs and the tangents of the crossing, (final_q,
+    final_p, status, n_steps, hit_q, hit_p, hit_q_d, hit_p_d); rays that
+    never hit carry zero tangent rows, as zero hit rows."""
+    dtype = q0s.dtype
+    vec = ks_params(delta, params, r_max, omega, order, False, dtype,
+                    disk=(r_in, r_out))
+    (mass, a, charge, r_cap, r_max, plunge_zone), subs = split_params(vec)
+    sc_d = tuple(ks_tangent_params(dparams, dtype).tolist())
+    active, masked_step, _, close_fn = make_ks_step(
+        subs, mass, a, charge, r_cap, r_max, plunge_zone,
+        disk=disk_annulus(vec), dtype=dtype, tangent=sc_d)
+    d0 = subs[0][0]
+
+    state, tan = pack_state(q0s, p0s), pack_state(dq0s, dp0s)
+    n, device = q0s.shape[0], q0s.device
+    ns = torch.zeros((n,), dtype=torch.int32, device=device)
+    hit = torch.zeros((n,), dtype=torch.bool, device=device)
+    hq = hp = hq_d = hp_d = (torch.zeros_like(q0s[:, 0]),) * 4
+    act0 = active(state)
+    if steps > 0:
+        opened, opened_d = open_ks_tan(state, tan, d0, (mass, a, charge),
+                                       sc_d)
+        state = tuple(torch.where(act0, o, s) for o, s in zip(opened, state))
+        tan = tuple(torch.where(act0, o, s) for o, s in zip(opened_d, tan))
+    for k in range(steps):
+        if k % _EXIT_CHECK == 0 and not bool((active(state) & ~hit).any()):
+            break
+        state, ns, hit, hq, hp, tan, hq_d, hp_d = masked_step(
+            state, ns, hit, hq, hp, tan, hq_d, hp_d)
+    if steps > 0:  # the closing half-A of the primal rows, as B6's
+        closed = close_fn(state, d0)
+        state = tuple(torch.where(act0, c, s) for c, s in zip(closed, state))
+    rows = (hit.to(dtype),) + tuple(hq) + tuple(hp)
+    out = finish_disk(state, ns, rows, q0s, p0s, vec, False)
+    return out + (torch.stack(hq_d, dim=-1), torch.stack(hp_d, dim=-1))
+
+
+def integrate_dispatch_disk_tangent(q0s, p0s, dq0s, dp0s, steps, delta,
+                                   params, dparams, r_max, omega, r_in, r_out,
+                                   order=2, backend="auto"):
+    """Backend-dispatching tangent disk integrate: CUDA rays go to kernel
+    B6t (16 rows, float32 or float64), CPU rays to its twin
+    `integrate_batch_disk_tangent_ks`; backend='torch' picks the twin on
+    any device; an unknown backend or device raises.  Never falls back.
+    Returns (final_q, final_p, status, n_steps, hit_q, hit_p, hit_q_d,
+    hit_p_d)."""
+    if q0s.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"KS rays must be float32 or float64 "
+                         f"(got {q0s.dtype})")
+    kind = q0s.device.type
+    if backend == "auto" and kind not in ("cpu", "cuda"):
+        raise ValueError(f"no tangent disk integrator for {kind!r} tensors "
+                         f"(CUDA runs kernel B6t, the CPU its eager twin)")
+    backend = resolve_backend(backend, q0s.device)
+    if backend == "cuda":
+        from .integrate_ks_cuda import integrate_batch_disk_tangent_cuda
+        return integrate_batch_disk_tangent_cuda(
+            q0s, p0s, dq0s, dp0s, steps, delta, params, dparams, r_max,
+            omega, r_in, r_out, order=order)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"(expected 'auto', 'cuda' or 'torch')")
+    return integrate_batch_disk_tangent_ks(q0s, p0s, dq0s, dp0s, steps, delta,
+                                           params, dparams, r_max, omega,
+                                           r_in, r_out, order=order)
+
+
 def _check_orders(n_orders):
     """n_orders as an int >= 1 (JAX's `subrings or None` would silently
     run the plain mode for 0)."""
@@ -645,13 +788,16 @@ def integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max, omega,
 
 
 def integrate_dispatch_disk(q0s, p0s, steps, delta, params, r_max, omega,
-                            r_in, r_out, order=2, backend="auto"):
+                            r_in, r_out, order=2, backend="auto",
+                            plain=False):
     """Backend-dispatching disk integrate: CUDA float32 rays go to kernel
     B6's 32-row layout, CUDA float64 rays to its 16-row one, CPU rays to
     the matching twin; backend='torch' picks the twin on any device.
-    Never falls back.  Returns (final_q, final_p, status, n_steps, hit_q,
-    hit_p)."""
+    plain=True takes the 16-row layout for float32 rays too (the layout
+    that engine/sensitivity.py differentiates, B6t's primal).  Never falls
+    back.  Returns (final_q, final_p, status, n_steps, hit_q, hit_p)."""
     path, compensated = select_path_ks(backend, q0s.device, q0s.dtype)
+    compensated = compensated and not plain
     if path == "kernel":
         from .integrate_ks_cuda import integrate_batch_disk_cuda
         return integrate_batch_disk_cuda(q0s, p0s, steps, delta, params,

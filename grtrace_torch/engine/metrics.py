@@ -164,6 +164,21 @@ PEAK_BYTES = 3.35e12
 #                product 1) = 8; once per ray the launch's flow A evaluation
 #                and the first u, 47 + 5 = 52 (the crossing of a hit ray,
 #                t and the lerps, is not counted: the bound stays a bound)
+#   fantasy_ks_tangent (B6t, the 16-row tangent mode of B6): per substep
+#                1 + 3 flows x (kick/drift 120 + its tangent 262 + 7 plain
+#                adds x 2 on the rows and 7 on their tangents x 2) + mixing
+#                96 on the rows and 96 on the tangents = 1,423 (the
+#                tangent kick/drift, counted from the source: the
+#                geometry's 67 (rho^2 6, b 3, a z 3, s 5, r^2 2, r 2, the
+#                three reciprocals 3 each, w 3, the numerator of H 5 and H
+#                3, l 23), S 13 and 2 H S 4, the drift 14, the radius and D
+#                derivatives 49, the H derivatives 30, G 28 with 1 / r^2,
+#                the S derivatives 35, S^2 2 and the kick 24); per step
+#                B6's 5 + 50 and the crossing's 3 = 58; once per ray the
+#                open flow with its tangent (410), the primal close (134)
+#                and the launch's 22 = 566 (the crossing of a hit ray, B6's
+#                59 and t's and the eight lerps' tangents 52, is not
+#                counted: the bound stays a bound)
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -178,6 +193,7 @@ KERNEL_OPS = {
     "fantasy_eqc_chunk": (216, 2, 1),
     "fantasy_ks": (586, 55, 332),
     "fantasy_ks_plain": (499, 55, 290),
+    "fantasy_ks_tangent": (1423, 58, 566),
     "fantasy_traj": (255, 2, 27),
     "fantasy_trace": (255, 0, 26),
     "fantasy_gen": (532, 2, 129),

@@ -41,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # params, n, n_sub, steps, stream); a generic-engine integrator (`*_gen_*`,
 # not a trajectory or trace entry) takes (q0, p0, out, ns_out, params, n,
 # n_sub, steps, stream), and its disk entry (`*_gen_disk_*`, D1) (q0, p0,
-# disk, out, ns_out, hit_out, params, n, n_sub, steps, stream)
+# disk, out, ns_out, hit_out, params, n, n_sub, steps, stream); a tangent
+# entry (`*_tangent_*`, B6t) takes (state_in, tan_in, state_out, ns_out,
+# disk_out, disk_d_out, params, dparams, n, n_sub, steps, stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -61,7 +63,9 @@ ENTRIES = {
                    "grt_fantasy_ks16_f64_disk_launch",
                    "grt_fantasy_ks32_f32_sub_launch",
                    "grt_fantasy_ks16_f32_sub_launch",
-                   "grt_fantasy_ks16_f64_sub_launch"),
+                   "grt_fantasy_ks16_f64_sub_launch",
+                   "grt_fantasy_ks16_f32_disk_tangent_launch",
+                   "grt_fantasy_ks16_f64_disk_tangent_launch"),
     "fantasy_gen": ("grt_fantasy_gen_bl_f32_launch",
                     "grt_fantasy_gen_bl_f64_launch",
                     "grt_fantasy_gen_traj_bl_f32_launch",
@@ -86,6 +90,8 @@ def argtypes(name: str) -> list:
     """The ctypes signature of the C entry `name`."""
     if "_trig_" in name:
         return [_PTR] * 5 + [_INT, _PTR]
+    if "_tangent_" in name:
+        return [_PTR] * 8 + [_INT] * 3 + [_PTR]
     if "_trace_" in name:
         return [_PTR] * 4 + [_INT] * 3 + [_PTR]
     if "_traj_" in name:

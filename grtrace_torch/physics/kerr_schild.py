@@ -1,6 +1,8 @@
 """Analytic FANTASY flows for Kerr(-Newman) in Cartesian Kerr-Schild
 coordinates — the torch counterpart of `grtrace.physics.kerr_schild`, and
-the arithmetic of the CUDA kernel `csrc/fantasy_ks.cu`.
+the arithmetic of the CUDA kernel `csrc/fantasy_ks.cu`, with the flows'
+forward-mode tangents of its tangent mode (`_kick_drift_tan`,
+`open_ks_tan`, `core_ks_tan`).
 
 The state is a tuple of (N,) component tensors, one per row:
     16 rows: (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
@@ -128,6 +130,183 @@ def _flow_b_ks(state, dt, mass, a, charge=0.0):
     q1z = q1z + dt * dz_
     return (q1t, q1x, q1y, q1z, p1t, p1x, p1y, p1z,
             q2t, q2x, q2y, q2z, p2t, p2x, p2y, p2z)
+
+
+# --- forward-mode tangents (kernel B6t) ------------------------------------
+# One tangent direction rides beside the 16-row state: the tangent of every
+# row and of the scalars mass, a and charge (the substep scalars and the
+# thresholds carry none).  The primal operations are `_kick_drift`'s, in its
+# association, so the primal rows stay bitwise equal to the plain 16-row
+# flows; the tangent of each intermediate X is X_d, formed by hand in the
+# order csrc/fantasy_ks.cu's tangent mode writes it.  A quotient's tangent
+# reuses the primal reciprocal: (1/u)_d = -(u_d (1/u)) (1/u).
+
+
+def _kick_drift_tan(x, y, z, pt, px, py, pz, x_d, y_d, z_d, pt_d, px_d,
+                    py_d, pz_d, mass, a, charge, mass_d, a_d, charge_d):
+    """`_kick_drift` and its tangent: ((kx, ky, kz, dt_, dx_, dy_, dz_),
+    the same seven tangents).  Scalars and their tangents are Python
+    floats exact in the working dtype."""
+    rho2 = x * x + y * y + z * z
+    rho2_d = 2.0 * (x * x_d + y * y_d + z * z_d)
+    b = rho2 - a * a
+    b_d = rho2_d - 2.0 * a * a_d
+    az = a * z
+    az_d = a_d * z + a * z_d
+    s = torch.sqrt(b * b + 4.0 * az * az)
+    r2 = 0.5 * (b + s)
+    r = torch.sqrt(r2)
+    inv_r = 1.0 / r
+    inv_D = 1.0 / s
+    s_d = (b * b_d + 4.0 * az * az_d) * inv_D
+    r2_d = 0.5 * (b_d + s_d)
+    r_d = 0.5 * r2_d * inv_r
+    inv_r_d = -(r_d * inv_r * inv_r)
+    inv_D_d = -(s_d * inv_D * inv_D)
+    w = r2 + a * a
+    w_d = r2_d + 2.0 * a * a_d
+    inv_w = 1.0 / w
+    inv_w_d = -(w_d * inv_w * inv_w)
+    hn = mass * r - 0.5 * charge * charge
+    hn_d = (mass_d * r + mass * r_d) - charge * charge_d
+    H = hn * inv_D
+    H_d = hn_d * inv_D + hn * inv_D_d
+    lxn = r * x + a * y
+    lxn_d = (r_d * x + r * x_d) + (a_d * y + a * y_d)
+    lx = lxn * inv_w
+    lx_d = lxn_d * inv_w + lxn * inv_w_d
+    lyn = r * y - a * x
+    lyn_d = (r_d * y + r * y_d) - (a_d * x + a * x_d)
+    ly = lyn * inv_w
+    ly_d = lyn_d * inv_w + lyn * inv_w_d
+    lz = z * inv_r
+    lz_d = z_d * inv_r + z * inv_r_d
+
+    S = -pt + lx * px + ly * py + lz * pz
+    S_d = (-pt_d + (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d)
+           + (lz_d * pz + lz * pz_d))
+    HS2 = 2.0 * H * S
+    HS2_d = 2.0 * (H_d * S + H * S_d)
+
+    dt_ = -pt + HS2
+    dx_ = px - HS2 * lx
+    dy_ = py - HS2 * ly
+    dz_ = pz - HS2 * lz
+    dt_d = -pt_d + HS2_d
+    dx_d = px_d - (HS2_d * lx + HS2 * lx_d)
+    dy_d = py_d - (HS2_d * ly + HS2 * ly_d)
+    dz_d = pz_d - (HS2_d * lz + HS2 * lz_d)
+
+    xr = x * r
+    r_x = xr * inv_D
+    r_x_d = (x_d * r + x * r_d) * inv_D + xr * inv_D_d
+    yr = y * r
+    r_y = yr * inv_D
+    r_y_d = (y_d * r + y * r_d) * inv_D + yr * inv_D_d
+    zw = z * w
+    zw_d = z_d * w + z * w_d
+    zwr = zw * inv_r
+    zwr_d = zw_d * inv_r + zw * inv_r_d
+    r_z = zwr * inv_D
+    r_z_d = zwr_d * inv_D + zwr * inv_D_d
+    xb = 2.0 * x * b
+    xb_d = 2.0 * (x_d * b + x * b_d)
+    D_x = xb * inv_D
+    D_x_d = xb_d * inv_D + xb * inv_D_d
+    yb = 2.0 * y * b
+    yb_d = 2.0 * (y_d * b + y * b_d)
+    D_y = yb * inv_D
+    D_y_d = yb_d * inv_D + yb * inv_D_d
+    bz = b + 2.0 * a * a
+    bz_d = b_d + 4.0 * a * a_d
+    zb = 2.0 * z * bz
+    zb_d = 2.0 * (z_d * bz + z * bz_d)
+    D_z = zb * inv_D
+    D_z_d = zb_d * inv_D + zb * inv_D_d
+
+    hx = mass * r_x - H * D_x
+    hx_d = (mass_d * r_x + mass * r_x_d) - (H_d * D_x + H * D_x_d)
+    H_x = hx * inv_D
+    H_x_d = hx_d * inv_D + hx * inv_D_d
+    hy = mass * r_y - H * D_y
+    hy_d = (mass_d * r_y + mass * r_y_d) - (H_d * D_y + H * D_y_d)
+    H_y = hy * inv_D
+    H_y_d = hy_d * inv_D + hy * inv_D_d
+    hz = mass * r_z - H * D_z
+    hz_d = (mass_d * r_z + mass * r_z_d) - (H_d * D_z + H * D_z_d)
+    H_z = hz * inv_D
+    H_z_d = hz_d * inv_D + hz * inv_D_d
+
+    inv_r2 = inv_r * inv_r
+    inv_r2_d = 2.0 * (inv_r * inv_r_d)
+    lp = lx * px + ly * py
+    lp_d = (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d)
+    rlp = 2.0 * r * lp
+    rlp_d = 2.0 * (r_d * lp + r * lp_d)
+    gn = x * px + y * py - rlp
+    gn_d = (x_d * px + x * px_d) + (y_d * py + y * py_d) - rlp_d
+    zp = z * pz
+    zp_d = z_d * pz + z * pz_d
+    zpr = zp * inv_r2
+    zpr_d = zp_d * inv_r2 + zp * inv_r2_d
+    G = gn * inv_w - zpr
+    G_d = (gn_d * inv_w + gn * inv_w_d) - zpr_d
+    sxn = r * px - a * py
+    sxn_d = (r_d * px + r * px_d) - (a_d * py + a * py_d)
+    S_x = r_x * G + sxn * inv_w
+    S_x_d = (r_x_d * G + r_x * G_d) + (sxn_d * inv_w + sxn * inv_w_d)
+    syn = a * px + r * py
+    syn_d = (a_d * px + a * px_d) + (r_d * py + r * py_d)
+    S_y = r_y * G + syn * inv_w
+    S_y_d = (r_y_d * G + r_y * G_d) + (syn_d * inv_w + syn * inv_w_d)
+    S_z = r_z * G + pz * inv_r
+    S_z_d = (r_z_d * G + r_z * G_d) + (pz_d * inv_r + pz * inv_r_d)
+
+    S2 = S * S
+    S2_d = 2.0 * (S * S_d)
+    kx = -H_x * S2 - HS2 * S_x
+    ky = -H_y * S2 - HS2 * S_y
+    kz = -H_z * S2 - HS2 * S_z
+    kx_d = -(H_x_d * S2 + H_x * S2_d) - (HS2_d * S_x + HS2 * S_x_d)
+    ky_d = -(H_y_d * S2 + H_y * S2_d) - (HS2_d * S_y + HS2 * S_y_d)
+    kz_d = -(H_z_d * S2 + H_z * S2_d) - (HS2_d * S_z + HS2 * S_z_d)
+    return ((kx, ky, kz, dt_, dx_, dy_, dz_),
+            (kx_d, ky_d, kz_d, dt_d, dx_d, dy_d, dz_d))
+
+
+def _flow_tan(state, tan, dt, sc, sc_d, flow):
+    """Flow A (flow='a': metric at q1, momenta p2, kick p1, drift q2) or B
+    ('b': metric at q2, momenta p1, kick p2, drift q1) on the state and its
+    tangent; sc = (mass, a, charge), sc_d their tangents."""
+    pos, mom, kick, drift = ((1, 12, 5, 8) if flow == "a"
+                             else (9, 4, 13, 0))
+    k, k_d = _kick_drift_tan(*state[pos:pos + 3], *state[mom:mom + 4],
+                             *tan[pos:pos + 3], *tan[mom:mom + 4], *sc,
+                             *sc_d)
+    state, tan = list(state), list(tan)
+    for i in range(3):
+        state[kick + i] = state[kick + i] - dt * k[i]
+        tan[kick + i] = tan[kick + i] - dt * k_d[i]
+    for i in range(4):
+        state[drift + i] = state[drift + i] + dt * k[3 + i]
+        tan[drift + i] = tan[drift + i] + dt * k_d[3 + i]
+    return tuple(state), tuple(tan)
+
+
+def open_ks_tan(state, tan, d0, sc, sc_d):
+    """`open_ks` and its tangent."""
+    return _flow_tan(state, tan, 0.5 * d0, sc, sc_d, "a")
+
+
+def core_ks_tan(state, tan, delta, cos_w, sin_w, bridge, sc, sc_d):
+    """`core_ks` and its tangent: B(d/2) M B(d/2) A(bridge); the mixing is
+    linear, so the tangent rows take the same rotation."""
+    half = 0.5 * delta
+    state, tan = _flow_tan(state, tan, half, sc, sc_d, "b")
+    state, tan = (_flow_mixed(state, cos_w, sin_w),
+                  _flow_mixed(tan, cos_w, sin_w))
+    state, tan = _flow_tan(state, tan, half, sc, sc_d, "b")
+    return _flow_tan(state, tan, bridge, sc, sc_d, "a")
 
 
 # --- staggered (half-A-fused) step forms -----------------------------------

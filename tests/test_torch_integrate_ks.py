@@ -169,6 +169,7 @@ def test_kernel_wrapper_raises_for_cpu_tensors():
 def test_build_registers_the_ks_entries():
     assert (set(tkc.ENTRIES.values()) | set(tkc.DISK_ENTRIES.values())
             | set(tkc.SUB_ENTRIES.values())
+            | set(tkc.TANGENT_ENTRIES.values())
             == set(tbuild.ENTRIES["fantasy_ks"]))
     names = {p.stem for p in tbuild._sources()}
     assert {"fantasy_eqc", "fantasy_ks"} <= names
