@@ -149,7 +149,28 @@ the port's paths through them:
     --fisher 0.01 --bench` at its defaults, its last Fisher pass held
     the same way, and `cli.orbit` in its three modes (55); the sharded
     sweep and frames under an nccl group of one, bitwise equal to the
-    same calls with no group (56).
+    same calls with no group (56);
+  * the rotating regular families through the mass-function Kerr-Schild
+    chart of csrc/fantasy_gen.cu: the 1024x1024 rotating-Bardeen frame
+    (a = 0.9, g = 0.2, 30k steps, float32; G1r once, no twin on CUDA
+    rays), G1r on the whole frame beside its bound and bitwise against
+    its graphed twin on every 16th ray, a 256x256 float64
+    rotating-Hayward frame and the horizonless one (g = 0.5, its
+    numerical-error pixels pinned), each held on every ray (57); the
+    README's `cli.main --metric rotating-hayward` at 256x256 (G1r and S2r
+    once each) and with --aa 2 (G1r twice, the pass's launch held), S2r
+    bitwise on the 20 samples (58); the README's rotating-Bardeen disk at
+    256x256 through `cli.main --disk` and the 512x512 disk (D2 once
+    each), D2 bitwise against its twin on every ray of both (59);
+    `cli.shadow --metric rotating-bardeen` with and without --numeric
+    (G1r once a round, each round held), T2r on one float64 ray of 2,000
+    steps, and `render_kerr_sharded(metric='RotatingBardeen')` under an
+    nccl group of one (60);
+  * item 11's examples at their own sizes, in-process with --no-plots:
+    analyze_photon_data (B1 once), polarized_disk (B6 twice, its face-on
+    redshift and pitch-weight checks gated) and observables_workflow (B6
+    once, every observable written from its transfer map), no twin on
+    CUDA rays (61).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -2393,7 +2414,10 @@ OCC_KERNELS = {
                                  ("kKS", "kRecord"),
                                  ("kStatic", "kIntegrate"),
                                  ("kStatic", "kRecord"),
-                                 ("kStatic", "kDisk"))
+                                 ("kStatic", "kDisk"),
+                                 ("kKSMass", "kIntegrate"),
+                                 ("kKSMass", "kRecord"),
+                                 ("kKSMass", "kDisk"))
                     for t in ("float", "double")],
 }
 # a probe library that includes one kernel source and asks the runtime
@@ -2682,25 +2706,69 @@ class EventMetrics(metrics.RenderMetrics):
                                  + start.elapsed_time(end) / 1e3)
 
 
+# the eager integration twins, "module:function" under grtrace_torch.engine,
+# that a path must not call on CUDA rays: every twin of the Schwarzschild
+# and Kerr-Newman kernels, and those of the static (G1s, S2s, D1) and of
+# the rotating regular families (G1r, S2r, T2r, D2)
+TWINS = ("integrate:integrate_batch", "integrate:integrate_batch_compensated",
+         "integrate:trajectory_unmasked",
+         "integrate_generic:trajectory_generic_unmasked",
+         "integrate_ks:integrate_batch_ks", "integrate_ks:integrate_batch_ksc",
+         "integrate_ks:integrate_batch_disk_ks",
+         "integrate_ks:integrate_batch_disk_ksc",
+         "integrate_ks:integrate_batch_subrings_ks",
+         "integrate_ks:integrate_batch_subrings_ksc",
+         "integrate_ks:integrate_batch_disk_tangent_ks",
+         "integrate_generic:integrate_batch_generic")
+STATIC_TWINS = ("integrate_generic:integrate_generic_twin",
+                "integrate_generic:trajectory_generic_twin",
+                "disk_static:integrate_disk_static_twin")
+ROT_TWINS = ("integrate_generic:integrate_generic_twin",
+             "integrate_generic:trajectory_generic_twin",
+             "integrate_generic:trajectory_generic_unmasked",
+             "integrate_generic:integrate_disk_rotating_twin")
+# launch counters, label -> "module:counter" under grtrace_torch.engine
+STATIC_COUNTERS = {"G1s": "integrate_generic_cuda:static_launches",
+                   "S2s": "integrate_generic_cuda:static_traj_launches",
+                   "T2s": "integrate_generic_cuda:static_trace_launches",
+                   "D1": "integrate_generic_cuda:disk_launches"}
+ROT_COUNTERS = {"G1r": "integrate_generic_cuda:rot_launches",
+                "S2r": "integrate_generic_cuda:rot_traj_launches",
+                "T2r": "integrate_generic_cuda:rot_trace_launches",
+                "D2": "integrate_generic_cuda:rot_disk_launches"}
+DISK_COUNTERS = {"B6": "integrate_ks_cuda:disk_launches",
+                 "B6t": "integrate_ks_cuda:disk_tangent_launches"}
+EXAMPLE_COUNTERS = {"B1": "integrate_cuda:launches",
+                    "B6": "integrate_ks_cuda:disk_launches"}
+
+
+def _engine_attr(ref):
+    """(module, name) of a "module:name" reference under
+    grtrace_torch.engine."""
+    import importlib
+    mod, name = ref.split(":")
+    return importlib.import_module(f"grtrace_torch.engine.{mod}"), name
+
+
+def counters(which, reset=False):
+    """The launch counts of `which` (label -> "module:counter"), each set
+    to 0 first with reset."""
+    out = {}
+    for label, ref in which.items():
+        mod, name = _engine_attr(ref)
+        if reset:
+            setattr(mod, name, 0)
+        out[label] = getattr(mod, name)
+    return out
+
+
 @contextlib.contextmanager
-def eager_on_cuda():
-    """Every eager integration twin, counted when it is called on CUDA
+def eager_on_cuda(twins=TWINS):
+    """The eager twins of `twins`, counted when they are called on CUDA
     rays while the block runs (the dispatchers look them up at call
     time); yields the list of the names called."""
-    from grtrace_torch.engine import integrate as ti
-    from grtrace_torch.engine import integrate_generic as tg
-    from grtrace_torch.engine import integrate_ks as tks
-    names = [(ti, "integrate_batch"), (ti, "integrate_batch_compensated"),
-             (ti, "trajectory_unmasked"),
-             (tg, "trajectory_generic_unmasked"),
-             (tks, "integrate_batch_ks"), (tks, "integrate_batch_ksc"),
-             (tks, "integrate_batch_disk_ks"),
-             (tks, "integrate_batch_disk_ksc"),
-             (tks, "integrate_batch_subrings_ks"),
-             (tks, "integrate_batch_subrings_ksc"),
-             (tks, "integrate_batch_disk_tangent_ks"),
-             (tg, "integrate_batch_generic")]
-    saved = [(m, n, getattr(m, n)) for m, n in names]
+    saved = [(m, n, getattr(m, n))
+             for m, n in (_engine_attr(ref) for ref in twins)]
     calls = []
 
     def counted(fn, name):
@@ -3627,45 +3695,6 @@ EXACT_TOL = 1e-8
 EXACT_OUT = os.path.join(HERE, "build", "exact_cli_out")
 
 
-def static_counters(reset=False):
-    """G1s, S2s, T2s and D1's launch counts (set to 0 with reset)."""
-    from grtrace_torch.engine import integrate_generic_cuda as tgc
-    names = ("static_launches", "static_traj_launches",
-             "static_trace_launches", "disk_launches")
-    if reset:
-        for name in names:
-            setattr(tgc, name, 0)
-    return dict(zip(("G1s", "S2s", "T2s", "D1"),
-                    (getattr(tgc, n) for n in names)))
-
-
-@contextlib.contextmanager
-def eager_on_cuda_static():
-    """The eager twins of G1s, S2s and D1 called on CUDA rays while the
-    block runs (a list that must stay empty on the render paths)."""
-    from grtrace_torch.engine import disk_static as tds
-    from grtrace_torch.engine import integrate_generic as tig
-    calls = []
-    saved = {(tig, "integrate_generic_twin"),
-             (tig, "trajectory_generic_twin"),
-             (tds, "integrate_disk_static_twin")}
-    saved = {(m, n): getattr(m, n) for m, n in saved}
-
-    def counted(fn, name):
-        def twin(q0s, *args, **kw):
-            if q0s.is_cuda:
-                calls.append(name)
-            return fn(q0s, *args, **kw)
-        return twin
-    for (m, n), fn in saved.items():
-        setattr(m, n, counted(fn, n))
-    try:
-        yield calls
-    finally:
-        for (m, n), fn in saved.items():
-            setattr(m, n, fn)
-
-
 def static_frame(metric, param):
     """One phase-48 frame: cli.main --metric metric --metric-param param
     in-process (G1s and S2s once each, no twin on CUDA rays); its warm
@@ -3682,12 +3711,12 @@ def static_frame(metric, param):
     from grtrace_torch.io.textures import starfield
     family = STATIC_NAMES[metric]
     argv = ["--metric", metric, "--metric-param", str(param)] + STATIC_ARGV
-    static_counters(reset=True)
+    counters(STATIC_COUNTERS, reset=True)
     t0 = time.perf_counter()
-    with eager_on_cuda_static() as eager:
+    with eager_on_cuda(STATIC_TWINS) as eager:
         res, lines = run_cli(argv + ["--out-dir", STATIC_OUT])
     cli_wall = time.perf_counter() - t0
-    launches = static_counters()
+    launches = counters(STATIC_COUNTERS)
     counts = res.counts
     ns = res.n_steps.astype(np.int64)
     tag = f"{metric} {param}"
@@ -3722,7 +3751,7 @@ def static_frame(metric, param):
     full = [timed(lambda: integrate_batch_generic_cuda(
         q0, p0, STEPS, DELTA, params, R_MAX, OMEGA, metric=family),
         q0.device) for _ in range(3)]
-    static_counters(reset=True)  # the timing launches are not the path's
+    counters(STATIC_COUNTERS, reset=True)  # the timing launches are not the path's
     full_steps = int(full[0][0][3].long().sum())
     fq, fp = full[0][0][0], full[0][0][1]
     drift = {"max_abs_theta_minus_half_pi": float(
@@ -3744,7 +3773,7 @@ def static_frame(metric, param):
     par["bound_ms"], par["bound_by"] = bound(
         metrics.kernel_ops("fantasy_gen_static", par["ray_steps"],
                            par["rays"]), par["rays"] * BYTES_RAY)
-    static_counters(reset=True)
+    counters(STATIC_COUNTERS, reset=True)
     phase(48, f"G1s ({tag}) vs eager twin on every {STATIC_HELD}th ray of "
               f"the frame, {STEPS}-step budget ({CARD}): {json.dumps(par)}")
     gate_parity(f"G1s {tag}", par)
@@ -3797,10 +3826,10 @@ def static_traj_phase(frames):
                              f"{s2['max_abs_err']:.3e})")
     q1, p1 = q0[7].double(), p0[7].double()
     steps = 2000
-    static_counters(reset=True)
+    counters(STATIC_COUNTERS, reset=True)
     qs, ps = tig.trajectory_generic(q1, p1, steps, DELTA, params, OMEGA,
                                     metric=family)
-    launches = static_counters()["T2s"]
+    launches = counters(STATIC_COUNTERS)["T2s"]
     vec = tig.gen_params(family, DELTA, params, math.inf, OMEGA, 2,
                          torch.float64)
     from grtrace_torch.engine.validate import timed
@@ -3852,11 +3881,11 @@ def static_disk_phase():
             dtype="float32"))
     disk = DiskConfig()
     tex = starfield()
-    static_counters(reset=True)
-    with eager_on_cuda_static() as eager:
+    counters(STATIC_COUNTERS, reset=True)
+    with eager_on_cuda(STATIC_TWINS) as eager:
         res = tds.render_disk_static(scene, disk, bg_array=tex,
                                      device="cuda")
-    launches = static_counters()
+    launches = counters(STATIC_COUNTERS)
     counts = res.counts
     phase(50, f"render_disk_static {metric} {param} {DISK_SIZE}x"
               f"{DISK_SIZE}/{DISK_STEPS} steps, delta {DISK_DELTA} "
@@ -3894,7 +3923,7 @@ def static_disk_phase():
     kern, par = disk_static_parity(q0f, p0f, c1, c2, DISK_STEPS, DISK_DELTA,
                                    (MASS, param, 0.0), R_MAX, OMEGA, r_in,
                                    r_out, family)
-    static_counters(reset=True)
+    counters(STATIC_COUNTERS, reset=True)
     n = q0f.shape[0]
     par.update(rays=n, held="every ray", ray_steps=int(kern[3].long().sum()),
                n_steps_max=int(kern[3].max()),
@@ -4027,14 +4056,6 @@ FIT_OUT = os.path.join(HERE, "build", "fit_line_out")
 ORBIT_FRAMES = 4
 
 
-def disk_counters(reset=False):
-    """B6's and B6t's launch counts (set to 0 with reset)."""
-    from grtrace_torch.engine import integrate_ks_cuda as ks
-    if reset:
-        ks.disk_launches = ks.disk_tangent_launches = 0
-    return {"B6": ks.disk_launches, "B6t": ks.disk_tangent_launches}
-
-
 def tangent_camera(size, dtype, direction):
     """The model's disk camera (engine/sensitivity.disk_camera at the disk
     scene's spin and elevation, float `dtype`) and its forward-mode
@@ -4125,7 +4146,7 @@ def b6t_phase():
                     and res["hits"] and res["max_abs_tangent"] > 0):
                 raise AssertionError(f"B6t {tag}: {res}")
             runs[tag] = res
-    disk_counters(reset=True)  # the held launches are not a path's
+    counters(DISK_COUNTERS, reset=True)  # the held launches are not a path's
     return runs
 
 
@@ -4138,7 +4159,7 @@ def fit_line_run(argv, tag):
     from grtrace_torch.cli import fit_line
     from grtrace_torch.engine import sensitivity as tsens
     from grtrace_torch.sharding import grid as tgrid
-    disk_counters(reset=True)
+    counters(DISK_COUNTERS, reset=True)
     t0 = time.perf_counter()
     with eager_on_cuda() as eager, \
             captured_calls(tgrid, "integrate_dispatch_disk") as sweeps, \
@@ -4146,7 +4167,7 @@ def fit_line_run(argv, tag):
             captured_calls(tsens, "integrate_dispatch_disk_tangent") as tan:
         got, _ = run_quiet(fit_line.main, argv + ["--out-dir", FIT_OUT])
     wall = time.perf_counter() - t0
-    launches = disk_counters()
+    launches = counters(DISK_COUNTERS)
     spins = fit_line.build_parser().parse_args(argv).spins
     res = {"wall_s": wall, "launches": launches, "sweep_calls": len(sweeps),
            "model_primal_calls": len(primal), "model_tangent_calls": len(tan),
@@ -4215,7 +4236,7 @@ def time_tangent_pass(call, n, tag):
     if not (res["tangent_rows_bitwise"] and res["primal_vs_b6_16row_bitwise"]
             and res["hits"] and res["max_abs_tangent"] > 0):
         raise AssertionError(f"B6t on {tag}: {res}")
-    disk_counters(reset=True)  # the timing launches are not a path's
+    counters(DISK_COUNTERS, reset=True)  # the timing launches are not a path's
     return res
 
 
@@ -4256,7 +4277,7 @@ def line_grid_orbit_phase():
     from grtrace_torch.engine import integrate_ks_cuda as ks
     out = {}
     from grtrace_torch.engine import sensitivity as tsens
-    disk_counters(reset=True)
+    counters(DISK_COUNTERS, reset=True)
     t0 = time.perf_counter()
     with eager_on_cuda() as eager, \
             captured_calls(tsens, "integrate_dispatch_disk_tangent") as tan:
@@ -4264,7 +4285,7 @@ def line_grid_orbit_phase():
             "--fisher", "0.01", "--bench", "--no-plots", "--out-dir",
             os.path.join(HERE, "build", "line_grid_out")])
     wall = time.perf_counter() - t0
-    launches = disk_counters()
+    launches = counters(DISK_COUNTERS)
     defaults = line_grid.build_parser().parse_args([])
     points = len(defaults.spins) * len(defaults.inclinations)
     fish = got["fisher"]
@@ -4356,6 +4377,473 @@ def nccl_phase():
     if backend != "nccl" or not all(res["bitwise"].values()):
         raise AssertionError(f"nccl world of one: {res}")
     return res
+
+
+# --- the rotating regular families: G1r, S2r, T2r, D2 (57-60) -------------
+# phase 57's frames: the 1024x1024 rotating-Bardeen frame (a = 0.9, g =
+# 0.2, the Kerr frame's width, budget and step, float32), a 256x256
+# float64 rotating-Hayward frame (l = 0.2) and the horizonless
+# rotating-Bardeen frame (g = 0.5 > critical_parameter(0.9) = 0.2668) at
+# 256x256 in float32
+ROT_SPIN = 0.9
+ROT_FRAME = ("rotating-bardeen", 0.2)
+ROT_F64 = ("rotating-hayward", 0.2)
+ROT_HORIZONLESS = ("rotating-bardeen", 0.5)
+ROT_SMALL = 256
+ROT_HELD = 16
+# each frame's float32 / float64 numerical-error pixels on an H100 80GB
+# HBM3 (700.00 W), as the first run of these phases printed them: none,
+# the horizonless frame's included (its rays through the r = 0 disc are
+# parked as captures at the 1e-2 M floor; ROADMAP Queue C); phase 57 fails
+# on a rise
+ROT_NUMERICAL = {ROT_FRAME: 0, ROT_F64: 0, ROT_HORIZONLESS: 0}
+# phase 58: the README's rotating-Hayward command at 256x256 (30k steps of
+# 0.02, the CLI's 20 samples), and the same with --aa 2
+ROT_CLI_ARGV = ["--size", str(ROT_SMALL), "--metric", "rotating-hayward",
+                "--spin", str(ROT_SPIN), "--metric-param", "0.3", "--steps",
+                "30000", "--delta", "0.02", "--background",
+                "procedural:starfield", "--no-plots", "--print-metrics"]
+# phase 59: the README's rotating-Bardeen disk command (256x256, 30k steps
+# of 0.03), then the disk frame's 512x512 at 0.02
+ROT_DISK_ARGV = ["--size", str(ROT_SMALL), "--metric", "rotating-bardeen",
+                 "--spin", str(ROT_SPIN), "--metric-param", "0.2", "--disk",
+                 "--steps", "30000", "--delta", "0.03", "--background",
+                 "procedural:starfield", "--no-plots", "--print-metrics"]
+ROT_OUT = os.path.join(HERE, "build", "rot_cli_out")
+# the D2 record's extra bytes a ray: hit_q, hit_p and q2 written
+ROT_DISK_BYTES_RAY = BYTES_RAY + 12 * 4
+
+
+def rot_scene(metric, param, size, dtype="float32", steps=KERR_STEPS,
+              delta=KERR_DELTA):
+    import grtrace_torch
+    return grtrace_torch.SceneConfig(
+        size=size, fov_deg=FOV_DEG, background="procedural:starfield",
+        bh_mass=MASS, metric=metric, spin=ROT_SPIN, metric_param=param,
+        boundary_radius=R_MAX, observer_distance=OBS_X, n_samples=0,
+        integrator=grtrace_torch.IntegratorConfig(
+            steps=steps, delta=delta, omega=OMEGA, order=2, dtype=dtype))
+
+
+def rot_frame(metric, param, size, dtype, stride):
+    """One phase-57 frame through render() (G1r once, no twin on CUDA
+    rays, numerical-error pixels at most ROT_NUMERICAL's); G1r with its
+    wrapper on the whole frame (CUDA events, median of 3) beside its
+    bound; G1r bitwise against its graphed twin on every stride-th ray at
+    the full budget."""
+    import grtrace_torch
+    from grtrace_torch.engine.integrate_generic_cuda import \
+        integrate_batch_generic_cuda
+    from grtrace_torch.engine.render import ROTATING_NAMES
+    from grtrace_torch.engine.validate import gen_kernel_parity, timed
+    from grtrace_torch.io.textures import starfield
+    family = ROTATING_NAMES[metric]
+    scene = rot_scene(metric, param, size, dtype)
+    tex = starfield()
+    counters(ROT_COUNTERS, reset=True)
+    with eager_on_cuda(ROT_TWINS) as eager:
+        res = grtrace_torch.render(scene, bg_array=tex, device="cuda")
+    launches = counters(ROT_COUNTERS)
+    counts = res.counts
+    tag = f"{metric} a={ROT_SPIN} p={param} {size}x{size} {dtype}"
+    ns = res.n_steps.astype(np.int64)
+    phase(57, f"render {tag}, {KERR_STEPS} steps of {KERR_DELTA} ({CARD}): "
+              f"counts {counts}, launches {launches}, longest ray "
+              f"{int(ns.max())}, ray-steps {int(ns.sum())}")
+    pinned = ROT_NUMERICAL[metric, param]
+    if (launches != {"G1r": 1, "S2r": 0, "T2r": 0, "D2": 0} or eager
+            or counts["in_domain"] or counts["numerical_error"] > pinned
+            or not np.isfinite(res.final_q).all()):
+        raise AssertionError(f"{tag}: launches {launches}, eager twins on "
+                             f"CUDA rays {eager}, counts {counts} (at most "
+                             f"{pinned} numerical-error pixels)")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = grtrace_torch.render(scene, bg_array=tex, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r.counts != counts:
+            raise AssertionError(f"{tag}: a warm render's counts differ")
+    params = (MASS, ROT_SPIN, param)
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    full = [timed(lambda: integrate_batch_generic_cuda(
+        q0, p0, KERR_STEPS, KERR_DELTA, params, R_MAX, OMEGA,
+        metric=family), q0.device) for _ in range(3)]
+    steps_sum = int(full[0][0][3].long().sum())
+    nbytes = BYTES_RAY if dtype == "float32" else BYTES_RAY64
+    peak = PEAK_FLOPS if dtype == "float32" else PEAK_FLOPS64
+    g1r = {"ms": float(np.median([ms for _, ms in full])),
+           "rays": q0.shape[0], "ray_steps": steps_sum,
+           "n_steps_max": int(full[0][0][3].max())}
+    g1r["bound_ms"], g1r["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_rot", steps_sum, q0.shape[0]),
+        q0.shape[0] * nbytes, peak)
+    qh, ph = q0[::stride].contiguous(), p0[::stride].contiguous()
+    kern, par = gen_kernel_parity(qh, ph, KERR_STEPS, KERR_DELTA, params,
+                                  R_MAX, OMEGA, metric=family)
+    par.update(rays=qh.shape[0], held=f"every {stride}th ray",
+               ray_steps=int(kern[3].long().sum()),
+               n_steps_max=int(kern[3].max()),
+               parked=int((kern[3] < 0).sum()))
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_rot", par["ray_steps"], par["rays"]),
+        par["rays"] * nbytes, peak)
+    counters(ROT_COUNTERS, reset=True)
+    phase(57, f"G1r ({tag}) vs graphed twin on every {stride}th ray at the "
+              f"full budget ({CARD}): {json.dumps(par)}")
+    gate_parity(f"G1r {tag}", par)
+    wall = float(np.median(walls))
+    phase(57, f"{tag} render warm wall time: median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}; G1r kernel+wrapper on the "
+              f"whole frame {json.dumps(g1r)}")
+    return {"launches": launches, "counts": counts, "wall": wall,
+            "g1r": g1r, "held": par}
+
+
+def rot_frames_phase():
+    """Phase 57: the rotating-Bardeen frame at 1024x1024 (every 16th ray
+    held), the float64 rotating-Hayward frame and the horizonless frame
+    at 256x256 (every ray held)."""
+    return {"frame": rot_frame(*ROT_FRAME, KERR_SIZE, "float32", ROT_HELD),
+            "float64": rot_frame(*ROT_F64, ROT_SMALL, "float64", 1),
+            "horizonless": rot_frame(*ROT_HORIZONLESS, ROT_SMALL, "float32",
+                                     1)}
+
+
+def rot_cli_phase():
+    """Phase 58: the README's `cli.main --metric rotating-hayward --spin
+    0.9 --metric-param 0.3` at 256x256 in-process (G1r and S2r once each,
+    no twin on CUDA rays) with its stage times, S2r bitwise against its
+    graphed twin on the 20 samples (every timed call); then the same with
+    --aa 2 (G1r twice, the frame and its pass; the pass's launch bitwise
+    against the twin on its sub-rays)."""
+    from grtrace_torch.engine import aa as taa
+    from grtrace_torch.engine.integrate_generic import \
+        integrate_dispatch_generic
+    from grtrace_torch.engine.validate import gen_traj_parity
+    out = {}
+    for tag, extra in (("plain", []), ("aa", ["--aa", str(AA_S)])):
+        counters(ROT_COUNTERS, reset=True)
+        t0 = time.perf_counter()
+        with eager_on_cuda(ROT_TWINS) as eager, \
+                captured_calls(taa, "integrate_dispatch_generic") as calls:
+            res, lines = run_cli(ROT_CLI_ARGV + extra
+                                 + ["--out-dir", ROT_OUT])
+        wall = time.perf_counter() - t0
+        launches = counters(ROT_COUNTERS)
+        want = {"G1r": 2 if extra else 1, "S2r": 1, "T2r": 0, "D2": 0}
+        run = {"counts": res.counts, "launches": launches, "cli_wall_s": wall,
+               "stages_s": json_line(lines, "stages_s"),
+               "aa_pixels": int(res.aa_mask.sum()) if extra else 0}
+        phase(58, f"cli.main {' '.join(ROT_CLI_ARGV[:12] + extra)} "
+                  f"({CARD}): {json.dumps(run)}")
+        if launches != want or eager or res.counts["in_domain"]:
+            raise AssertionError(f"rotating CLI {tag}: launches {launches} "
+                                 f"(want {want}), eager {eager}, counts "
+                                 f"{res.counts}")
+        if len(res.sampled_trajectories) != N_SAMPLES:
+            raise AssertionError("the rotating CLI sampled no 20 rays")
+        if extra:
+            run["pass"] = aa_pass_parity("rotating-hayward 256", "G1r",
+                                         integrate_dispatch_generic,
+                                         calls[0], 58)
+        out[tag] = run
+    params = (MASS, ROT_SPIN, 0.3)
+    idx = torch.as_tensor(res.sampled_indices[:, 0] * ROT_SMALL
+                          + res.sampled_indices[:, 1], device="cuda")
+    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
+    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
+    _, s2 = gen_traj_parity(q0, p0, 30_000, 0.02, params, R_MAX, OMEGA,
+                            metric="RotatingHayward", n_keep=TRAJ_POINTS)
+    counters(ROT_COUNTERS, reset=True)
+    s2["bound_ms"], s2["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_traj_rot", s2["n_steps_sum"],
+                           s2["rays"]),
+        s2["rays"] * (TRAJ_BYTES_RAY + s2["n_keep"] * 4 * 4))
+    s2["chain_floor_ms"] = chain_floor("fantasy_gen_traj_rot",
+                                       s2["n_steps_max"])
+    phase(58, f"S2r vs graphed twin on the CLI's {s2['rays']} sampled rays "
+              f"(30000-step budget, {TRAJ_POINTS} points, float32; {CARD}): "
+              f"{json.dumps(s2)}")
+    if not s2["traj_bitwise_equal"]:
+        raise AssertionError(f"S2r differs from its twin (max abs diff "
+                             f"{s2['max_abs_err']:.3e})")
+    out["s2"] = s2
+    return out
+
+
+def rot_disk_phase():
+    """Phase 59: the README's rotating-Bardeen disk command at 256x256
+    in-process (D2 once, nothing else, no twin on CUDA rays, disk pixels,
+    numerical_error 0) and D2 bitwise against its graphed twin on every
+    ray of that frame; then render_disk at 512x512 (30k steps of 0.02:
+    D2 once), D2 bitwise on every ray of it, its time beside its bound."""
+    import grtrace_torch
+    from grtrace_torch.engine.integrate_ks import STATUS_DISK
+    from grtrace_torch.engine.validate import disk_rotating_parity
+    from grtrace_torch.io.textures import starfield
+    from grtrace_torch.physics.rotating_orbits import \
+        rotating_disk_inner_edge
+    params = (MASS, ROT_SPIN, 0.2)
+    r_in = rotating_disk_inner_edge("RotatingBardeen", MASS, ROT_SPIN, 0.2)
+    out = {}
+    counters(ROT_COUNTERS, reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda(ROT_TWINS) as eager:
+        res, lines = run_cli(ROT_DISK_ARGV + ["--out-dir", ROT_OUT])
+    wall = time.perf_counter() - t0
+    launches = counters(ROT_COUNTERS)
+    phase(59, f"cli.main {' '.join(ROT_DISK_ARGV[:13])} ({CARD}): counts "
+              f"{res.counts}, launches {launches}, cli wall {wall:.3f} s, "
+              f"stages {json.dumps(json_line(lines, 'stages_s'))}")
+    if (launches != {"G1r": 0, "S2r": 0, "T2r": 0, "D2": 1} or eager
+            or not res.counts["disk"] or res.counts["numerical_error"]):
+        raise AssertionError(f"rotating disk CLI: launches {launches}, "
+                             f"eager {eager}, counts {res.counts}")
+    frames = {"readme_256": (res, 30_000, 0.03, wall)}
+    out["launches"] = {"cli_disk_256": launches["D2"]}
+    scene = rot_scene("rotating-bardeen", 0.2, DISK_SIZE,
+                      steps=DISK_STEPS, delta=DISK_DELTA)
+    counters(ROT_COUNTERS, reset=True)
+    with eager_on_cuda(ROT_TWINS) as eager:
+        big = grtrace_torch.render_disk(scene, grtrace_torch.DiskConfig(),
+                                        bg_array=starfield(), device="cuda")
+    launches = counters(ROT_COUNTERS)
+    if (launches["D2"] != 1 or eager or not big.counts["disk"]
+            or big.counts["numerical_error"]):
+        raise AssertionError(f"rotating disk {DISK_SIZE}: launches "
+                             f"{launches}, eager {eager}, counts "
+                             f"{big.counts}")
+    frames["disk_512"] = (big, DISK_STEPS, DISK_DELTA, None)
+    out["launches"]["render_disk_512"] = launches["D2"]
+    for key, (r, steps, delta, cli_wall) in frames.items():
+        q0 = r.device("q0").reshape(-1, 4).contiguous()
+        p0 = r.device("p0").reshape(-1, 4).contiguous()
+        kern, par = disk_rotating_parity(q0, p0, steps, delta, params, R_MAX,
+                                         OMEGA, r_in, 14.0,
+                                         "RotatingBardeen")
+        n = q0.shape[0]
+        par.update(rays=n, held="every ray", counts=r.counts,
+                   ray_steps=int(kern[3].long().sum()),
+                   n_steps_max=int(kern[3].max()),
+                   hits=int((kern[2] == STATUS_DISK).sum()),
+                   status_equal_render=bool(torch.equal(
+                       kern[2].reshape(r.device("status").shape),
+                       r.device("status"))))
+        par["bound_ms"], par["bound_by"] = bound(
+            metrics.kernel_ops("fantasy_gen_disk_rot", par["ray_steps"], n),
+            n * ROT_DISK_BYTES_RAY)
+        counters(ROT_COUNTERS, reset=True)
+        phase(59, f"D2 vs graphed twin on every ray of the {key} frame "
+                  f"({CARD}): {json.dumps(par)}")
+        gate_parity(f"D2 {key}", par)
+        if not par["status_equal_render"]:
+            raise AssertionError(f"D2 {key}: the timed launch's statuses "
+                                 f"differ from the render's")
+        out[key] = par
+    return out
+
+
+def rot_shadow_phase():
+    """Phase 60: `cli.shadow --metric rotating-bardeen --spin 0.9
+    --metric-param 0.26` (the exact curve, no kernel) and with --numeric
+    (G1r once a bisection round, each round's launch held bitwise against
+    the twin); T2r through trajectory_generic on one float64 ray of 2,000
+    steps, bitwise against its twin; the rotating frames of
+    render_kerr_sharded (G1r) under an nccl group of one, bitwise equal
+    to the calls with no group."""
+    import tempfile
+
+    import torch.distributed as dist
+    from grtrace_torch.cli import shadow as shadow_cli
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.validate import _bitwise_equal, timed
+    from grtrace_torch.io.textures import starfield
+    from grtrace_torch.sharding import mesh as tmesh
+    out = {}
+    argv = ["--metric", "rotating-bardeen", "--spin", "0.9",
+            "--metric-param", "0.26", "--out-dir",
+            os.path.join(ROT_OUT, "shadow")]
+    counters(ROT_COUNTERS, reset=True)
+    m, _ = run_quiet(shadow_cli.main, argv)
+    out["analytic"] = {k: m[k] for k in ("mean_diameter_px",
+                                         "circularity_deviation",
+                                         "centroid_shift_px")}
+    out["analytic"]["launches"] = counters(ROT_COUNTERS)
+    counters(ROT_COUNTERS, reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda(ROT_TWINS) as eager, \
+            captured_calls(tgc, "integrate_batch_generic_cuda") as calls:
+        m, lines = run_quiet(shadow_cli.main, argv + ["--numeric"])
+    launches = counters(ROT_COUNTERS)
+
+    def twin(q, p, *args, order):
+        return tig.integrate_batch_generic(q, p, *args, order=order,
+                                           metric="RotatingBardeen")
+    out["numeric"] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launches,
+                      "numeric_px_err_max": m["numeric_px_err_max"],
+                      "numeric_px_err_mean": m["numeric_px_err_mean"],
+                      "numeric_bracket_px": m["numeric_bracket_px"],
+                      "held": held_rounds(calls, twin)}
+    phase(60, f"cli.shadow --metric rotating-bardeen --spin 0.9 "
+              f"--metric-param 0.26 [--numeric] ({CARD}): "
+              f"{json.dumps(out)}")
+    gate_parity("G1r vs twin on cli.shadow's rounds", out["numeric"]["held"])
+    if (launches["G1r"] != 3 or eager
+            or out["analytic"]["launches"]["G1r"]):
+        raise AssertionError(f"cli.shadow (rotating): G1r {launches}, "
+                             f"eager {eager}")
+    # T2r on one float64 ray of a 16x16 camera, 2000 steps
+    from grtrace_torch.physics.camera import camera_rays_cartesian
+    from grtrace_torch.physics.spacetime import METRICS
+    params = (MASS, ROT_SPIN, 0.2)
+    q0, p0, _ = camera_rays_cartesian(
+        torch.tensor([OBS_X, 0.0, 0.0], dtype=torch.float64, device="cuda"),
+        math.radians(FOV_DEG), 16, 16, params=params,
+        g_inv_fn=METRICS["RotatingBardeen"], dtype=torch.float64,
+        device="cuda")
+    # a corner ray, which escapes: the unmasked trace of a captured one
+    # runs through the horizon into non-finite values
+    q1, p1 = q0.reshape(-1, 4)[0], p0.reshape(-1, 4)[0]
+    steps = 2000
+    counters(ROT_COUNTERS, reset=True)
+    qs, ps = tig.trajectory_generic(q1, p1, steps, DELTA, params, OMEGA,
+                                    metric="RotatingBardeen")
+    t_launches = counters(ROT_COUNTERS)["T2r"]
+    vec = tig.gen_params("RotatingBardeen", DELTA, params, math.inf, OMEGA,
+                         2, torch.float64)
+    ref, twin_ms = timed(lambda: tig.trajectory_generic_unmasked(
+        q1.reshape(1, 4), p1.reshape(1, 4), steps, vec, "RotatingBardeen"),
+        q1.device)
+    rec = torch.cat([qs, ps], -1)[None]
+    ms = event_ms(lambda: tgc.trajectory_generic_unmasked_cuda(
+        q1.reshape(1, 4).contiguous(), p1.reshape(1, 4).contiguous(), steps,
+        vec, "RotatingBardeen"))
+    counters(ROT_COUNTERS, reset=True)
+    t2 = {"rays": 1, "steps": steps, "launches": t_launches,
+          "finite": bool(torch.isfinite(rec).all()),
+          "record_bitwise_equal": _bitwise_equal(rec, ref),
+          "max_abs_err": float((rec - ref).abs().max()),
+          "kernel_ms": ms, "twin_ms": twin_ms,
+          "chain_floor_ms": chain_floor("fantasy_gen_trace_rot", steps)}
+    t2["bound_ms"], t2["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_trace_rot", steps, 1),
+        steps * TRACE_BYTES_STEP, PEAK_FLOPS64)
+    phase(60, f"T2r through trajectory_generic on one float64 ray, {steps} "
+              f"steps ({CARD}): {json.dumps(t2)}")
+    if t_launches != 1 or not (t2["record_bitwise_equal"] and t2["finite"]):
+        raise AssertionError(f"T2r: {json.dumps(t2)}")
+    out["t2"] = t2
+    # the sharded rotating frames under an nccl group of one
+    bg = starfield(128, 128)
+
+    def frames():
+        return tmesh.render_kerr_sharded(
+            tmesh.make_mesh(1), bg, np.full(2, OBS_X), math.radians(FOV_DEG),
+            MASS, ROT_SPIN, R_MAX, KERR_STEPS, KERR_DELTA, OMEGA,
+            math.pi / 2, np.array([math.pi, 0.5]), math.pi,
+            math.radians(350.0), height=128, width=128,
+            metric="RotatingBardeen", charge=0.2)
+    counters(ROT_COUNTERS, reset=True)
+    alone = frames()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            grouped = frames()
+        finally:
+            dist.destroy_process_group()
+    sharded = {"backend": backend, "launches": counters(ROT_COUNTERS),
+               "bitwise": {k: _same(grouped[k], alone[k]) for k in alone}}
+    phase(60, f"render_kerr_sharded(metric='RotatingBardeen', 128x128, 2 "
+              f"frames) under an nccl group of one ({CARD}): "
+              f"{json.dumps(sharded)}")
+    if (backend != "nccl" or not all(sharded["bitwise"].values())
+            or sharded["launches"]["G1r"] != 2):
+        raise AssertionError(f"sharded rotating frames: {sharded}")
+    out["sharded"] = sharded
+    return out
+
+
+# phase 61: item 11's examples at their own sizes.  Gates on the polarized
+# disk's two inline checks: the face-on Schwarzschild redshift against its
+# closed form (8.2e-4 at most on the CPU twin, float32 rays, where the
+# crossing's linear interpolation sets the error) and the vertical field's
+# pitch weight on the outer disk of the near-edge-on view (median 0.910 on
+# the CPU twin; the closed form's limit is 1 for a view in the plane)
+EXAMPLES_OUT = os.path.join(HERE, "build", "examples_out")
+FACEON_REL_ERR = 2e-3
+PITCH_MIN, PITCH_MAX = 0.85, 1.0
+
+
+def examples_phase():
+    """Phase 61: item 11's three examples in-process on the card at their
+    own sizes, with --no-plots, each kernel count set to 0 just before
+    and read just after: analyze_photon_data renders its default scene
+    (64x64, 5,000 steps of 0.05; B1 once) and summarizes it;
+    polarized_disk renders the Novikov-Thorne disk with a vertical field
+    (96x96, 4,000 steps; B6 once) and the face-on Schwarzschild disk (64x64;
+    B6 once), whose inline checks are gated (FACEON_REL_ERR, PITCH_MIN);
+    observables_workflow traces its one Kerr disk at its defaults
+    (192x192, 12,000 steps of 0.03; B6 once) and derives every observable
+    from the transfer map without another launch.  No eager twin runs on
+    CUDA rays."""
+    from grtrace_torch.examples import analyze_photon_data as ex_analyze
+    from grtrace_torch.examples import observables_workflow as ex_workflow
+    from grtrace_torch.examples import polarized_disk as ex_polarized
+    runs = {}
+    for tag, fn, argv, want in (
+            ("analyze_photon_data", ex_analyze.main, [], {"B1": 1, "B6": 0}),
+            ("polarized_disk", ex_polarized.main,
+             [os.path.join(EXAMPLES_OUT, "polarized"), "--no-plots"],
+             {"B1": 0, "B6": 2}),
+            ("observables_workflow", ex_workflow.main,
+             [os.path.join(EXAMPLES_OUT, "workflow"), "--no-plots"],
+             {"B1": 0, "B6": 1})):
+        counters(EXAMPLE_COUNTERS, reset=True)
+        t0 = time.perf_counter()
+        with eager_on_cuda() as eager:
+            ret, _ = run_quiet(fn, argv)
+        runs[tag] = {"launches": counters(EXAMPLE_COUNTERS),
+                     "wall_s": time.perf_counter() - t0, "eager": eager}
+        if runs[tag]["launches"] != want or eager:
+            raise AssertionError(f"example {tag}: {runs[tag]} (want "
+                                 f"launches {want}, no eager twin)")
+        if tag == "analyze_photon_data":
+            runs[tag]["classes"] = ret
+            if (sum(ret.values()) != 64 * 64 or not ret.get("bh")
+                    or not ret.get("escape_bg") or "error" in ret):
+                raise AssertionError(f"analyze_photon_data: classes {ret}")
+        elif tag == "polarized_disk":
+            runs[tag].update(ret)
+            if (ret["counts"]["numerical_error"] or not ret["disk_pixels"]
+                    or not ret["faceon_err"] <= FACEON_REL_ERR
+                    or not PITCH_MIN <= ret["pitch_outer"] <= PITCH_MAX):
+                raise AssertionError(f"polarized_disk: {ret} (face-on "
+                                     f"error at most {FACEON_REL_ERR}, "
+                                     f"pitch in [{PITCH_MIN}, {PITCH_MAX}])")
+        else:
+            runs[tag].update({k: v for k, v in ret.items() if k != "out_dir"})
+            files = ("scene.transfer.npz", "disk.png", "disk_nt.png",
+                     "redshift_map.csv", "line_profile.csv",
+                     "shadow_metrics.json", "visibility_profile.csv",
+                     os.path.join("hotspot", "lightcurve.csv"))
+            missing = [f for f in files
+                       if not os.path.exists(os.path.join(ret["out_dir"], f))]
+            if (missing or ret["counts"]["numerical_error"]
+                    or not ret["counts"]["disk"]
+                    or not all(np.isfinite(ret[k]) and ret[k] > 0 for k in (
+                        "mean_diameter_px", "first_null", "r_blob",
+                        "period"))):
+                raise AssertionError(f"observables_workflow: {ret}, "
+                                     f"missing {missing}")
+    phase(61, f"item 11's examples on the card ({CARD}): {json.dumps(runs)}")
+    return runs
 
 
 def main():
@@ -4538,6 +5026,14 @@ def main():
     fit = fit_line_phase()
     grids = line_grid_orbit_phase()
     nccl_phase()
+    # --- the rotating regular families (G1r, S2r, T2r, D2) ----------------
+    rot = rot_frames_phase()
+    rot_cli = rot_cli_phase()
+    rot_disk = rot_disk_phase()
+    rot_obs = rot_shadow_phase()
+    # --- item 11's examples (B1, B6) ---------------------------------------
+    examples = examples_phase()
+    ex_launches = {k: r["launches"] for k, r in examples.items()}
     b6t_fit, b6t_map = fit["fisher_pass"], grids["line_grid"]["fisher_pass"]
     aa_launches = {k: {"aa_render": v["aa_render_launches"]}
                    for k, v in aa.items()}
@@ -4563,8 +5059,11 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_eqc.cu",
          "replaces": "grtrace/engine/integrate_pallas.py:77",
-         "launches": launches + sum(aa_launches["B1"].values()),
+         "launches": launches + sum(aa_launches["B1"].values())
+         + sum(r["B1"] for r in ex_launches.values()),
          "launches_main": launches,
+         "launches_examples": {k: r["B1"] for k, r in ex_launches.items()
+                               if r["B1"]},
          "launches_aa": aa_launches["B1"],
          "aa_pass": aa_pass["B1"],
          "max_abs_err": a["max_abs_err"],
@@ -4600,7 +5099,10 @@ def main():
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
          "launches": disk["launches"] + sum(aa_launches["B6"].values())
-         + sum(r["launches"] for r in echo.values()),
+         + sum(r["launches"] for r in echo.values())
+         + sum(r["B6"] for r in ex_launches.values()),
+         "launches_examples": {k: r["B6"] for k, r in ex_launches.items()
+                               if r["B6"]},
          "launches_main": disk["launches"],
          "launches_aa": aa_launches["B6"],
          "launches_echo": {t: r["launches"] for t, r in echo.items()},
@@ -4918,7 +5420,100 @@ def main():
                    f"54), fisher_map_pass on cli.line_grid's (phase 55), "
                    f"both held bitwise against the twin; camera_48 on the "
                    f"{B6T_SIZE}x{B6T_SIZE} disk camera, {B6T_STEPS} steps "
-                   f"of {B6T_DELTA}, each dtype and direction (phase 53)"}
+                   f"of {B6T_DELTA}, each dtype and direction (phase 53)"},
+        {"name": "fantasy_gen_rot",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (G1r); the JAX package's "
+                     "rotating regular families run the XLA while_loop "
+                     "grtrace/engine/integrate_generic.py:209",
+         "launches": sum(f["launches"]["G1r"] for f in rot.values())
+         + sum(r["launches"]["G1r"] for r in (rot_cli["plain"],
+                                              rot_cli["aa"]))
+         + rot_obs["numeric"]["launches"]["G1r"]
+         + rot_obs["sharded"]["launches"]["G1r"],
+         "launches_paths": {
+             "frames": {k: f["launches"]["G1r"] for k, f in rot.items()},
+             "cli_main": rot_cli["plain"]["launches"]["G1r"],
+             "cli_main_aa": rot_cli["aa"]["launches"]["G1r"],
+             "cli_shadow_numeric": rot_obs["numeric"]["launches"]["G1r"],
+             "sharded_nccl": rot_obs["sharded"]["launches"]["G1r"]},
+         "max_abs_err": max(f["held"]["max_abs_err"] for f in rot.values()),
+         "ms": rot["frame"]["g1r"]["ms"],
+         "plain_ms": rot["frame"]["held"]["twin_ms"],
+         "bound_ms": rot["frame"]["g1r"]["bound_ms"],
+         "bound_by": rot["frame"]["g1r"]["bound_by"],
+         "library_ms": None,
+         "ms_held": rot["frame"]["held"]["kernel_ms"],
+         "bound_ms_held": rot["frame"]["held"]["bound_ms"],
+         "frames": {k: {"ms": f["g1r"]["ms"], "bound_ms": f["g1r"]["bound_ms"],
+                        "wall_s": f["wall"], "counts": f["counts"]}
+                    for k, f in rot.items()},
+         "shapes": f"G1r, the mass-function Kerr-Schild chart of "
+                   f"fantasy_gen.cu; ms and bound_ms on the whole "
+                   f"{ROT_FRAME} a = {ROT_SPIN} frame at "
+                   f"{KERR_SIZE}x{KERR_SIZE}, {KERR_STEPS} steps of "
+                   f"{KERR_DELTA}, float32 (phase 57); plain_ms and ms_held "
+                   f"on every {ROT_HELD}th ray of it; max_abs_err over that "
+                   f"and every ray of the {ROT_SMALL}x{ROT_SMALL} float64 "
+                   f"{ROT_F64} and horizonless {ROT_HORIZONLESS} frames"},
+        {"name": "fantasy_gen_traj_rot",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (S2r); the JAX package's "
+                     "sampler is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:312",
+         "launches": rot_cli["plain"]["launches"]["S2r"]
+         + rot_cli["aa"]["launches"]["S2r"],
+         "max_abs_err": rot_cli["s2"]["max_abs_err"],
+         "ms": rot_cli["s2"]["kernel_ms"],
+         "plain_ms": rot_cli["s2"]["twin_ms"],
+         "bound_ms": rot_cli["s2"]["bound_ms"],
+         "bound_by": rot_cli["s2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": rot_cli["s2"]["chain_floor_ms"],
+         "shapes": f"S2r; launches from phase 58's two CLI runs; every "
+                   f"other number on the rotating-Hayward CLI frame's "
+                   f"{N_SAMPLES} sampled rays, 30000-step budget, "
+                   f"{TRAJ_POINTS} points, float32 (phase 58)"},
+        {"name": "fantasy_gen_trace_rot",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (T2r); the JAX package's "
+                     "trace is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:369",
+         "launches": rot_obs["t2"]["launches"],
+         "max_abs_err": rot_obs["t2"]["max_abs_err"],
+         "ms": rot_obs["t2"]["kernel_ms"],
+         "plain_ms": rot_obs["t2"]["twin_ms"],
+         "bound_ms": rot_obs["t2"]["bound_ms"],
+         "bound_by": rot_obs["t2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": rot_obs["t2"]["chain_floor_ms"],
+         "shapes": "T2r; trajectory_generic on one rotating-Bardeen ray, "
+                   "2000 steps, float64 (phase 60)"},
+        {"name": "fantasy_gen_disk_rot",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (D2); the JAX package's "
+                     "rotating regular disk is the XLA while_loop "
+                     "grtrace/engine/disk.py:113",
+         "launches": sum(rot_disk["launches"].values()),
+         "launches_paths": rot_disk["launches"],
+         "max_abs_err": max(rot_disk[k]["max_abs_err"]
+                            for k in ("readme_256", "disk_512")),
+         "ms": rot_disk["disk_512"]["kernel_ms"],
+         "plain_ms": rot_disk["disk_512"]["twin_ms"],
+         "bound_ms": rot_disk["disk_512"]["bound_ms"],
+         "bound_by": rot_disk["disk_512"]["bound_by"],
+         "library_ms": None,
+         "readme_256": {k: rot_disk["readme_256"][k] for k in (
+             "kernel_ms", "twin_ms", "bound_ms", "hits")},
+         "shapes": f"D2; every number on every ray of the {DISK_SIZE}x"
+                   f"{DISK_SIZE} rotating-Bardeen (a = {ROT_SPIN}, g = 0.2) "
+                   f"disk, {DISK_STEPS} steps of {DISK_DELTA}, float32 "
+                   f"(phase 59); readme_256 on the README's 256x256 disk "
+                   f"command's frame"}
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

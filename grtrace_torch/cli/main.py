@@ -14,7 +14,7 @@ kerr-bl, G1s for --metric kottler / bardeen / hayward, B6 for --disk, D1
 for --disk around a static family; --aa S launches the same kernel again
 on the S x S sub-rays of the boundary pixels, engine/aa.py) and the
 sampled trajectories through kernel S1 (S2 on the Kerr charts, S2s on the
-static one).  --disk writes the disk's
+static one, S2r on the rotating regular families').  --disk writes the disk's
 science products (redshift_map.csv, line_profile.csv and, with
 --disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
 with --save-transfer, the transfer map that cli/reshade.py and
@@ -105,7 +105,13 @@ def check_ported(args, scene):
                 "orbiting cameras (--camera-omega) ride the Kerr-Schild "
                 "disk path (engine/disk.py); static-family disks take a "
                 "static camera")
-    if metric in ("rotating-bardeen", "rotating-hayward", "kerr-ds"):
+    if metric.startswith("rotating") and args.disk and args.save_transfer:
+        # the reference's reshade() drops the metric, so a rotating map
+        # would reshade as Kerr-Newman: JAX refuses it here
+        raise SystemExit(
+            "--save-transfer reshading is wired for the Kerr-Newman "
+            "family; not supported with rotating regular metrics")
+    if metric == "kerr-ds":
         what = "--disk around " if args.disk else ""
         raise _not_ported(f"{what}--metric {args.metric}", "9")
 

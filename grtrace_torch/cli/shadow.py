@@ -16,9 +16,12 @@ px_err]), shadow_metrics.json and, with --render, shadow_overlay.png;
 prints one summary line.  Boundary radii are in 256-image pixels of the
 headline scene (observer at 30 M, fov 80 deg).  --numeric bisects through
 kernel B5 (float32, 32-row compensated) and --render renders through B1
-at a = Q = 0 and B5 otherwise; --device cpu runs their eager twins.  The
-beyond-Kerr metrics (--metric rotating-bardeen, rotating-hayward,
-kerr-ds) wait for ROADMAP Queue A item 9 and raise NotImplementedError.
+at a = Q = 0 and B5 otherwise; --device cpu runs their eager twins.
+--metric rotating-bardeen / rotating-hayward (--metric-param g / l) takes
+the family's exact conserved-quantity curve, bisects --numeric through
+kernel G1r and renders through G1r; a horizonless point exits with a
+message.  --metric kerr-ds waits for ROADMAP Queue A item 9 and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import os
 # the beyond-Kerr --metric values and their metric names
 _BEYOND = {"rotating-bardeen": "RotatingBardeen",
            "rotating-hayward": "RotatingHayward", "kerr-ds": "KerrDS"}
+_ROTATING = ("rotating-bardeen", "rotating-hayward")
 
 
 def build_parser():
@@ -38,8 +42,10 @@ def build_parser():
     p.add_argument('--metric', type=str, default='kerr',
                    choices=('kerr', 'rotating-bardeen', 'rotating-hayward',
                             'kerr-ds'),
-                   help='Kerr-Newman (closed-form Bardeen curve); the '
-                        'beyond-Kerr families are not ported yet')
+                   help='Kerr-Newman (closed-form Bardeen curve) or a '
+                        'rotating regular family (its exact '
+                        'conserved-quantity curve, --metric-param g / l); '
+                        'kerr-ds is not ported yet')
     p.add_argument('--metric-param', type=float, default=0.0,
                    help='regular charge g / core length l / Lambda of a '
                         'beyond-Kerr family')
@@ -74,17 +80,21 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..engine.shadow import (analytic_boundary, numeric_boundary,
-                                 overlay_png, px_to_alpha_deg,
-                                 shadow_metrics)
+    from ..engine.shadow import (analytic_boundary,
+                                 analytic_boundary_rotating,
+                                 numeric_boundary, overlay_png,
+                                 px_to_alpha_deg, shadow_metrics)
     from ..io.scene import JAX_BACKENDS
     from ..physics.spacetime import METRICS
     from ..viz import plots
 
     if args.metric in _BEYOND:
-        METRICS[_BEYOND[args.metric]]  # raises NotImplementedError (item 9)
-    if args.spin ** 2 + args.charge ** 2 > 1.0:
+        METRICS[_BEYOND[args.metric]]  # kerr-ds raises (item 9)
+    if args.metric == 'kerr' and args.spin ** 2 + args.charge ** 2 > 1.0:
         raise SystemExit("naked singularity: need a^2 + Q^2 <= M^2")
+    if args.metric != 'kerr' and args.charge:
+        raise SystemExit("--charge is Kerr-Newman-only; rotating regular "
+                         "families take --metric-param")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("grtrace_torch.cli.shadow: no CUDA device "
                          "(torch.cuda.is_available() is False); pass "
@@ -96,7 +106,18 @@ def main(argv=None):
     backend = JAX_BACKENDS.get(args.backend, args.backend)
     os.makedirs(args.out_dir, exist_ok=True)
 
-    psis, rho = analytic_boundary(args.spin, args.charge, args.azimuths)
+    rotating = _BEYOND.get(args.metric) if args.metric in _ROTATING \
+        else None
+    if rotating:
+        psis, rho = analytic_boundary_rotating(
+            args.spin, args.metric_param, rotating, args.azimuths)
+        if not np.isfinite(rho).all():
+            raise SystemExit(
+                f"{args.metric} at (a, p) = ({args.spin:g}, "
+                f"{args.metric_param:g}) is horizonless — no shadow "
+                "boundary to extract")
+    else:
+        psis, rho = analytic_boundary(args.spin, args.charge, args.azimuths)
     metrics = shadow_metrics(psis, rho)
     metrics |= {"spin": args.spin, "charge": args.charge,
                 "metric": args.metric, "metric_param": args.metric_param,
@@ -108,11 +129,17 @@ def main(argv=None):
 
     if args.numeric:
         npsis, nrho, bracket = numeric_boundary(
-            args.spin, args.charge, n_psi=args.numeric_azimuths,
-            steps=args.steps, delta=args.delta, order=args.order,
-            backend=backend, device=args.device)
-        _, ana_at_n = analytic_boundary(args.spin, args.charge,
-                                        args.numeric_azimuths)
+            args.spin, args.metric_param if rotating else args.charge,
+            n_psi=args.numeric_azimuths, steps=args.steps, delta=args.delta,
+            order=args.order, backend=backend, device=args.device,
+            metric=rotating or "KerrSchild")
+        if rotating:
+            _, ana_at_n = analytic_boundary_rotating(
+                args.spin, args.metric_param, rotating,
+                args.numeric_azimuths)
+        else:
+            _, ana_at_n = analytic_boundary(args.spin, args.charge,
+                                            args.numeric_azimuths)
         err = np.abs(nrho - ana_at_n)
         metrics |= {
             "numeric_px_err_max": float(err.max()),
@@ -139,17 +166,22 @@ def main(argv=None):
         from ..io.scene import IntegratorConfig, PatchConfig, SceneConfig
         scene = SceneConfig(
             size=args.size,
-            metric='kerr' if (args.spin or args.charge) else 'Schwarzschild',
-            spin=args.spin, charge=args.charge, n_samples=0,
+            metric=args.metric if rotating else (
+                'kerr' if (args.spin or args.charge) else 'Schwarzschild'),
+            spin=args.spin, charge=args.charge,
+            metric_param=args.metric_param, n_samples=0,
             integrator=IntegratorConfig(steps=args.steps, delta=args.delta,
                                         order=args.order, backend=backend),
             patch=PatchConfig())
         res = render(scene, bg_array=textures.starfield(args.size,
                                                         args.size),
                      device=args.device)
+        title = (f"{args.metric} a = {args.spin:g}, "
+                 f"p = {args.metric_param:g}" if rotating
+                 else f"a = {args.spin:g}, Q = {args.charge:g}")
         overlay_png(res, psis, rho,
                     os.path.join(args.out_dir, "shadow_overlay.png"),
-                    title=f"a = {args.spin:g}, Q = {args.charge:g}")
+                    title=title)
 
     print(f"shadow: mean diameter {metrics['mean_diameter_px']:.3f} px "
           f"({2 * metrics['mean_radius_deg']:.3f} deg), centroid shift "

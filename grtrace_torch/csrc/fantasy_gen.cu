@@ -1,6 +1,6 @@
-// The generic engine's FANTASY integrator for the Kerr-Newman charts and
-// the static beyond-Kerr families: one CUDA thread per ray, one template in
-// three charts and four modes.
+// The generic engine's FANTASY integrator for the Kerr-Newman charts, the
+// static beyond-Kerr families and the rotating regular families: one CUDA
+// thread per ray, one template in four charts and four modes.
 //
 //   G1 (Chart::kBL, Mode::kIntegrate): the Boyer-Lindquist integrator, to
 //      each ray's exit, with the spherical-chart blow-up guard and the park
@@ -17,6 +17,11 @@
 //   D1 (Mode::kDisk, Chart::kStatic): G1s's loop plus the first crossing
 //      of the tilted disk plane inside [r_in, r_out], recorded as (hit_q,
 //      hit_p); float and double.
+//   G1r, S2r, T2r, D2 (Chart::kKSMass in kIntegrate, kRecord, kTrace,
+//      kDisk): the mass-function Kerr-Schild chart of rotating Bardeen and
+//      rotating Hayward (the flows of physics/rotating_chart.py) with the
+//      Kerr-Schild invariant guard; D2's crossing is the equatorial one,
+//      z changing sign; float and double.
 //
 // Port-side kernels: they replace no TPU kernel.  The JAX package runs
 // this engine as an XLA while_loop / scan over vmapped jax.grad flows
@@ -28,8 +33,10 @@
 // engine/integrate_generic.py::integrate_generic_twin (G1) and
 // ::trajectory_generic_twin (S2), built on the closed-form flows of
 // physics/kerr_bl.py, physics/kerr_schild.py (_kick_drift, _flow_b_ks,
-// hamiltonian_ks) and physics/static_chart.py, and hamiltonian.
-// _flow_mixed; D1's is engine/disk_static.py::integrate_disk_static_twin.
+// hamiltonian_ks), physics/static_chart.py and physics/rotating_chart.py,
+// and hamiltonian._flow_mixed; D1's is engine/disk_static.py::
+// integrate_disk_static_twin, D2's engine/integrate_generic.py::
+// integrate_disk_rotating_twin.
 //
 // The step: per substep the unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) of
 // grtrace.physics.spacetime.make_step, flow A kicking p1 from the metric at
@@ -141,7 +148,25 @@
 // hit_q, hit_p, the hit rows zero where the ray never hit.  Bound: G1s's
 // step plus one sincos and about a dozen operations; the loop's exit is
 // per ray, as JAX's while_loop ends when no ray is active and unhit.
-
+//
+// The mass-function chart (G1r, S2r, T2r, D2; grtrace/physics/
+// rotating_regular.py in JAX, integrated there by the XLA loops of
+// integrate_generic.py and disk.py::integrate_batch_disk).  Kerr-Schild's
+// geometry with H = m(r) r / s and H_q = (N' r_q - H s_q) / s, N' = m +
+// 3 m k / X (X = r^2 + k for Bardeen, r^3 + k for Hayward): the vector's
+// third slot holds k (g^2 or 2 M l^2) and its jump_cap slot, which the
+// Kerr-Schild guard never reads, the family code (1 Bardeen, 2 Hayward).
+// An evaluation adds two divisions (and a sqrt for Bardeen) to the
+// Kerr-Newman chart's.  At k = 0 it is the Kerr chart to the bit (u = r /
+// sqrt(r r) = 1).  The guard, the park points and the signed step count
+// are the Kerr-Schild ones; the host rescues the parked rays with the
+// family's exact predicate (rotating_regular.escape_pred_rotating).  D2,
+// per ray: G1r's loop; after each step that the guard did not park, where
+// z0 z1 < 0 (pre- and post-step z), q1 and p2 are lerped at t = z0 / (z0 -
+// z1), and if the lerped point's Kerr-Schild radius lies in [r_in, r_out]
+// the ray records (hit_q, hit_p), sets hit_out and stops; out is D1's (16,
+// n) followed by q2's four rows (the rescue's escape direction), disk is
+// null.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -153,7 +178,12 @@ namespace {
 constexpr int kRows = 16;
 constexpr int kScal = 10;
 
-enum class Chart : int { kBL, kKS, kStatic };
+enum class Chart : int { kBL, kKS, kStatic, kKSMass };
+
+// the Kerr-Schild charts: Cartesian (t, x, y, z), three kicked rows, the
+// invariant guard (a variable, which device code may read)
+template <Chart kChart>
+constexpr bool kKSLike = kChart == Chart::kKS || kChart == Chart::kKSMass;
 enum class Mode : int { kIntegrate, kRecord, kTrace, kDisk };
 
 // threads per block: a full frame for G1 and D1, tens of rays for S2, T2
@@ -166,9 +196,15 @@ constexpr int threads_of(Mode mode) {
 // spills 52 bytes a thread), 4 of double (the 128 registers it takes
 // anyway).  chip_smoke.py fails on any spill here: lower the count then.
 // S2 and T2 ask for one; D1, with its disk state beside G1s's, 5 of float
-// and 3 of double.
-template <typename T, Mode kMode>
+// and 3 of double.  The mass-function chart's heavier Kerr-Schild step asks
+// G1r for 5 of float and 3 of double, D2 for 4 and 3.
+template <typename T, Chart kChart, Mode kMode>
 constexpr int min_blocks() {
+  if constexpr (kChart == Chart::kKSMass) {
+    if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 4;
+    if constexpr (kMode == Mode::kIntegrate) return sizeof(T) == 8 ? 3 : 5;
+    return 1;
+  }
   if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 5;
   if constexpr (kMode != Mode::kIntegrate) return 1;
   return sizeof(T) == 8 ? 4 : 7;
@@ -186,7 +222,8 @@ __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
 // In the static chart `a` holds the lapse constant k and `charge` the
-// family code, which `family` carries as an int.
+// family code, which `family` carries as an int; in the mass-function chart
+// `charge` holds k and `jump_cap` the family code.
 template <typename T>
 struct Scalars {
   T mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
@@ -324,13 +361,34 @@ __device__ __forceinline__ KickDrift<T> kick_drift_static(T r, T th, T pt,
   return k;
 }
 
-// Kerr-Schild geometry at one spatial point (kerr_schild._geom)
+// Kerr-Schild geometry at one spatial point (kerr_schild._geom; with the
+// mass function's H and N' = d(m r)/dr in the mass-function chart,
+// rotating_chart._geom)
 template <typename T>
 struct Geom {
-  T r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz;
+  T r, inv_r, inv_D, b, w, inv_w, H, lx, ly, lz, dn;
 };
 
+// rotating_chart.mass_function: m(r), and N' = m + 3 m k / X
 template <typename T>
+__device__ __forceinline__ void mass_fn(T r, const Scalars<T>& sc, T& m,
+                                        T& dn) {
+  const T k = sc.charge;
+  const T rr = r * r;
+  T x;
+  if (sc.family == 1) {  // rotating Bardeen, k = g^2
+    x = rr + k;
+    const T u = r / sqrt_t(x);
+    m = sc.mass * (u * u * u);
+  } else {  // rotating Hayward, k = 2 M l^2
+    const T r3 = rr * r;
+    x = r3 + k;
+    m = sc.mass * (r3 / x);
+  }
+  dn = m + T(3) * m * k / x;
+}
+
+template <Chart kChart, typename T>
 __device__ __forceinline__ Geom<T> geom_ks(T x, T y, T z,
                                            const Scalars<T>& sc) {
   Geom<T> g;
@@ -345,19 +403,27 @@ __device__ __forceinline__ Geom<T> geom_ks(T x, T y, T z,
   g.inv_D = T(1) / s;
   g.w = r2 + a * a;
   g.inv_w = T(1) / g.w;
-  g.H = (sc.mass * g.r - T(0.5) * sc.charge * sc.charge) * g.inv_D;
+  if constexpr (kChart == Chart::kKSMass) {
+    T m;
+    mass_fn(g.r, sc, m, g.dn);
+    g.H = m * g.r * g.inv_D;
+  } else {
+    g.H = (sc.mass * g.r - T(0.5) * sc.charge * sc.charge) * g.inv_D;
+    g.dn = sc.mass;
+  }
   g.lx = (g.r * x + a * y) * g.inv_w;
   g.ly = (g.r * y - a * x) * g.inv_w;
   g.lz = z * g.inv_r;
   return g;
 }
 
-// kerr_schild._kick_drift: (kx, ky, kz) and the drift at (x, y, z)
-template <typename T>
+// kerr_schild._kick_drift (rotating_chart._kick_drift in the mass-function
+// chart, N' in the place of M): (kx, ky, kz) and the drift at (x, y, z)
+template <Chart kChart, typename T>
 __device__ __forceinline__ KickDrift<T> kick_drift_ks(T x, T y, T z, T pt,
                                                       T px, T py, T pz,
                                                       const Scalars<T>& sc) {
-  const Geom<T> g = geom_ks(x, y, z, sc);
+  const Geom<T> g = geom_ks<kChart>(x, y, z, sc);
   const T a = sc.a;
   const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
   const T HS2 = T(2) * g.H * S;
@@ -374,9 +440,9 @@ __device__ __forceinline__ KickDrift<T> kick_drift_ks(T x, T y, T z, T pt,
   const T D_y = T(2) * y * g.b * g.inv_D;
   const T D_z = T(2) * z * (g.b + T(2) * a * a) * g.inv_D;
 
-  const T H_x = (sc.mass * r_x - g.H * D_x) * g.inv_D;
-  const T H_y = (sc.mass * r_y - g.H * D_y) * g.inv_D;
-  const T H_z = (sc.mass * r_z - g.H * D_z) * g.inv_D;
+  const T H_x = (g.dn * r_x - g.H * D_x) * g.inv_D;
+  const T H_y = (g.dn * r_y - g.H * D_y) * g.inv_D;
+  const T H_z = (g.dn * r_z - g.H * D_z) * g.inv_D;
 
   const T inv_r2 = g.inv_r * g.inv_r;
   const T G = (x * px + y * py - T(2) * g.r * (g.lx * px + g.ly * py))
@@ -413,20 +479,21 @@ __device__ __forceinline__ KickDrift<T> kick_drift(const T (&s)[kRows],
     return kick_drift_static(s[Q + 1], s[Q + 2], s[P_READ + 0],
                              s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
   } else {
-    return kick_drift_ks(s[Q + 1], s[Q + 2], s[Q + 3], s[P_READ + 0],
-                         s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
+    return kick_drift_ks<kChart>(s[Q + 1], s[Q + 2], s[Q + 3],
+                                 s[P_READ + 0], s[P_READ + 1], s[P_READ + 2],
+                                 s[P_READ + 3], sc);
   }
 }
 
 // A flow applied with its kick/drift k: kick the momenta P_KICK and drift
 // the position Q_DRIFT by dt (flow A: P_KICK = 4, Q_DRIFT = 8; flow B:
 // P_KICK = 12, Q_DRIFT = 0).  Boyer-Lindquist kicks rows r and theta,
-// Kerr-Schild x, y and z; p_t (and p_phi in BL and the static chart) stay
-// exact invariants.
+// the Kerr-Schild charts x, y and z; p_t (and p_phi in BL and the static
+// chart) stay exact invariants.
 template <Chart kChart, int P_KICK, int Q_DRIFT, typename T>
 __device__ __forceinline__ void apply(T (&s)[kRows], const KickDrift<T>& k,
                                       T dt) {
-  constexpr int kKicked = kChart == Chart::kKS ? 3 : 2;
+  constexpr int kKicked = kKSLike<kChart> ? 3 : 2;
 #pragma unroll
   for (int m = 0; m < kKicked; ++m) {
     s[P_KICK + 1 + m] = s[P_KICK + 1 + m] - dt * k.kick[m];
@@ -503,7 +570,7 @@ __device__ __forceinline__ bool finite_q1p1(const T (&s)[kRows]) {
 template <Chart kChart, typename T>
 __device__ __forceinline__ bool active(const T (&s)[kRows],
                                        const Scalars<T>& sc, T& r_b) {
-  if constexpr (kChart != Chart::kKS) {
+  if constexpr (!kKSLike<kChart>) {
     r_b = s[1];
     return (s[1] > sc.r_cap) && (s[1] < sc.r_max);
   } else {
@@ -522,7 +589,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
   bool exploded;
   bool crossed;
   bool inward;
-  if constexpr (kChart != Chart::kKS) {
+  if constexpr (!kKSLike<kChart>) {
     exploded = !finite || abs_t(s[1] - r_b) > sc.jump_cap
                || abs_t(s[2] - old[2]) > T(1.5);
     crossed = finite && s[1] < sc.r_plus && !exploded;
@@ -537,7 +604,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
     const T px = finite ? s[5] : old[5];
     const T py = finite ? s[6] : old[6];
     const T pz = finite ? s[7] : old[7];
-    const Geom<T> g = geom_ks(x, y, z, sc);
+    const Geom<T> g = geom_ks<kChart>(x, y, z, sc);
     const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
     const T h = T(0.5) * (-pt * pt + px * px + py * py + pz * pz)
                 - g.H * S * S;
@@ -551,7 +618,7 @@ __device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
   if (!(exploded || crossed)) return false;
 #pragma unroll
   for (int m = 0; m < kRows; ++m) s[m] = old[m];
-  if constexpr (kChart != Chart::kKS) {
+  if constexpr (!kKSLike<kChart>) {
     s[1] = capture ? sc.cap_park : sc.err_park;
   } else {
     s[1] = capture ? T(0) : sc.err_park;
@@ -569,9 +636,11 @@ __device__ __forceinline__ T disk_form(T phi, T c1, T c2) {
   return c1 * cos_ph + c2 * sin_ph;
 }
 
-// disk (n, 2) and hit_out (n,) are D1's, unused (null) in the other modes
+// disk (n, 2) is D1's, hit_out (n,) D1's and D2's, unused (null) in the
+// other modes
 template <typename T, Chart kChart, Mode kMode>
-__global__ void __launch_bounds__(threads_of(kMode), (min_blocks<T, kMode>()))
+__global__ void __launch_bounds__(threads_of(kMode),
+                                  (min_blocks<T, kChart, kMode>()))
 fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
                    T* __restrict__ out, int* __restrict__ ns_out,
                    const T* __restrict__ params, int n, int n_sub, int steps,
@@ -600,7 +669,8 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   sc.jump_cap = __ldg(params + 7);
   sc.cap_park = __ldg(params + 8);
   sc.err_park = __ldg(params + 9);
-  sc.family = static_cast<int>(sc.charge);
+  sc.family = static_cast<int>(kChart == Chart::kKSMass ? sc.jump_cap
+                                                        : sc.charge);
   const T* subs = params + kScal;
 
   if constexpr (kMode == Mode::kTrace) {
@@ -628,11 +698,13 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   T hit[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
   int was_hit = 0;
   if constexpr (kMode == Mode::kDisk) {
-    c1 = disk[2 * static_cast<size_t>(i)];
-    c2 = disk[2 * static_cast<size_t>(i) + 1];
     r_in = __ldg(subs + 3 * n_sub);
     r_out = __ldg(subs + 3 * n_sub + 1);
-    u0 = disk_form(s[3], c1, c2);
+    if constexpr (kChart == Chart::kStatic) {
+      c1 = disk[2 * static_cast<size_t>(i)];
+      c2 = disk[2 * static_cast<size_t>(i) + 1];
+      u0 = disk_form(s[3], c1, c2);
+    }
   }
   KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
   for (int k = 0; k < steps; ++k) {
@@ -652,7 +724,7 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     composed<kChart>(s, ka, subs, n_sub, sc);
     const bool parked = guard<kChart>(s, old, r_b, sc);
     ++ns;
-    if constexpr (kMode == Mode::kDisk) {
+    if constexpr (kMode == Mode::kDisk && kChart == Chart::kStatic) {
       if (!parked) {
         const T u1 = disk_form(s[3], c1, c2);
         if (u0 * u1 < T(0)) {
@@ -669,6 +741,25 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
           }
         }
         u0 = u1;
+      }
+    }
+    if constexpr (kMode == Mode::kDisk && kChart == Chart::kKSMass) {
+      // D2: the equatorial crossing, z changing sign within the step
+      if (!parked && old[3] * s[3] < T(0)) {
+        const T t = old[3] / (old[3] - s[3]);
+        T cq[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) cq[m] = old[m] + t * (s[m] - old[m]);
+        const T r_hit = ks_radius(cq[1], cq[2], cq[3], sc.a);
+        if (r_hit >= r_in && r_hit <= r_out) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            hit[m] = cq[m];
+            hit[4 + m] = old[12 + m] + t * (s[12 + m] - old[12 + m]);
+          }
+          was_hit = 1;
+          break;
+        }
       }
     }
     if (parked) {
@@ -692,6 +783,11 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     for (int m = 0; m < 8; ++m) out[m * stride_n + i] = s[m];
 #pragma unroll
     for (int m = 0; m < 8; ++m) out[(8 + m) * stride_n + i] = hit[m];
+    if constexpr (kChart == Chart::kKSMass) {
+      // D2: q2, whose spatial rows the host's rescue reads
+#pragma unroll
+      for (int m = 0; m < 4; ++m) out[(16 + m) * stride_n + i] = s[8 + m];
+    }
     hit_out[i] = was_hit;
   }
 }
@@ -750,6 +846,19 @@ GRT_G1S_ENTRY(grt_fantasy_gen_static_f32_launch, float)
 GRT_G1S_ENTRY(grt_fantasy_gen_static_f64_launch, double)
 #undef GRT_G1S_ENTRY
 
+// G1r: G1's signature, the mass-function chart's vector
+#define GRT_G1R_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* q0, const T* p0, T* out, int* ns_out,        \
+                      const T* params, int n, int n_sub, int steps,         \
+                      void* stream) {                                       \
+    return launch<T, Chart::kKSMass, Mode::kIntegrate>(                     \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);        \
+  }
+
+GRT_G1R_ENTRY(grt_fantasy_gen_rot_f32_launch, float)
+GRT_G1R_ENTRY(grt_fantasy_gen_rot_f64_launch, double)
+#undef GRT_G1R_ENTRY
+
 // D1: (q0, p0, disk (n, 2), out (16, n), ns_out, hit_out, params, n, n_sub,
 // steps, stream); params ends with r_in, r_out after the substeps
 #define GRT_D1_ENTRY(NAME, T)                                                \
@@ -764,6 +873,22 @@ GRT_G1S_ENTRY(grt_fantasy_gen_static_f64_launch, double)
 GRT_D1_ENTRY(grt_fantasy_gen_disk_static_f32_launch, float)
 GRT_D1_ENTRY(grt_fantasy_gen_disk_static_f64_launch, double)
 #undef GRT_D1_ENTRY
+
+// D2: D1's signature, the disk argument unused (null); params ends with
+// r_in, r_out after the substeps
+#define GRT_D2_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* q0, const T* p0, const T* disk, T* out,      \
+                      int* ns_out, int* hit_out, const T* params, int n,    \
+                      int n_sub, int steps, void* stream) {                 \
+    (void)disk;                                                             \
+    return launch<T, Chart::kKSMass, Mode::kDisk>(                          \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream,         \
+        nullptr, hit_out);                                                  \
+  }
+
+GRT_D2_ENTRY(grt_fantasy_gen_disk_rot_f32_launch, float)
+GRT_D2_ENTRY(grt_fantasy_gen_disk_rot_f64_launch, double)
+#undef GRT_D2_ENTRY
 
 // S2: (q0, p0, traj (n, n_keep, 4), ns_out, params, n, n_sub, steps,
 // stride, n_keep, stream)
@@ -782,6 +907,8 @@ GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f32_launch, float, Chart::kKS)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_ks_f64_launch, double, Chart::kKS)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f32_launch, float, Chart::kStatic)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f64_launch, double, Chart::kStatic)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_rot_f32_launch, float, Chart::kKSMass)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_rot_f64_launch, double, Chart::kKSMass)
 #undef GRT_S2_ENTRY
 
 // T2: (q0, p0, out (n, steps, 8), params, n, n_sub, steps, stream)
@@ -796,5 +923,7 @@ GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f32_launch, float, Chart::kBL)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_bl_f64_launch, double, Chart::kBL)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f32_launch, float, Chart::kStatic)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f64_launch, double, Chart::kStatic)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_rot_f32_launch, float, Chart::kKSMass)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_rot_f64_launch, double, Chart::kKSMass)
 #undef GRT_T2_ENTRY
 #endif  // __CUDACC__

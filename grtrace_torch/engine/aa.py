@@ -184,7 +184,9 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
     Boyer-Lindquist one, folded for the static families, whose fold angles
     un-fold the sub-rays' exit angles) and its chain
     (integrate_dispatch_generic: B5, G1 with the Boyer-Lindquist rescue,
-    or G1s on the card; the rs_classify shell, no b_crit shortcut).
+    G1s, or G1r with the rotating families' rescue on the card; the
+    rs_classify shell, no b_crit shortcut).  The rotating regular
+    families take the Cartesian camera with their own g_inv.
     Returns (image, aa_mask)."""
     g_inv_fn = METRICS[metric]
     cartesian = COORDS[metric] == "cartesian"

@@ -1,5 +1,6 @@
 """Thin accretion-disk rendering — the torch counterpart of
-`grtrace.engine.disk` for the Kerr-Newman family in the Kerr-Schild chart.
+`grtrace.engine.disk` for the Kerr-Newman family and the rotating regular
+families in the Kerr-Schild chart.
 
 An optically thick, geometrically thin equatorial disk between r_in (by
 default the prograde ISCO) and r_out, shaded by the exact gravitational +
@@ -23,9 +24,17 @@ Rays that never hit carry zero hit rows, as the TPU kernel writes them
 (JAX's XLA disk engine carries the launch state there instead), so the
 redshift map is only meaningful on disk pixels.  `aa_samples` refines the
 display image's boundary pixels (engine/aa.py).  A charged hole's inner
-edge is the autodiff ISCO of physics/epicyclic.py.  Not ported yet, and
-raising NotImplementedError: the rotating regular metrics, ROADMAP Queue A
-item 9.
+edge is the autodiff ISCO of physics/epicyclic.py.
+
+The rotating regular families (scene.metric 'rotating-bardeen' /
+'rotating-hayward', the family parameter scene.metric_param in the charge
+slot) share the pipeline: their camera takes the family's g_inv, the
+integration runs kernel D2 (`integrate_generic.
+integrate_dispatch_disk_rotating`; its eager twin on the CPU), the
+classifier's shell is the family's 1.05 capture shell, and the inner edge,
+the redshift and the Novikov-Thorne table come from
+physics/rotating_orbits.py.  As in JAX, they take no `bfield`, no
+`camera_omega` and no `aa_samples`.
 """
 from __future__ import annotations
 
@@ -45,16 +54,18 @@ from ..physics.orbits import (_invert_bl_metric, isco_radius, keplerian_omega,
                               page_thorne_flux, redshift_factor, zamo_omega)
 from ..physics.polarization import (bl_from_ks, emission_polarization,
                                     observer_evpa)
-from ..physics.spacetime import (horizon_radius, kerr_g_inv,
+from ..physics.rotating_orbits import (page_thorne_flux_rotating,
+                                       redshift_factor_rotating,
+                                       rotating_disk_inner_edge)
+from ..physics.rotating_regular import MASS_FN, rotating_capture_radius
+from ..physics.spacetime import (METRICS, horizon_radius, kerr_g_inv,
                                  kerr_schild_g_inv, ks_radius)
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED
+from .integrate_generic import integrate_dispatch_disk_rotating
 from .integrate_ks import STATUS_DISK, _unit_grid, integrate_dispatch_disk
 
 CLS_DISK = 5             # extends classify.CLS_* (0..4)
-
-_ROTATING = ("rotating-bardeen", "rotatingbardeen", "rotating-hayward",
-             "rotatinghayward")
 
 
 @dataclasses.dataclass
@@ -152,14 +163,21 @@ def _temp_profile(r, r_in):
 _NT_TABLE_N = 384      # radial quadrature/interp grid for the NT profile
 
 
-def _nt_temp_table(r_in, r_out, params, prograde, dtype):
+def _nt_temp_table(r_in, r_out, params, prograde, dtype,
+                   metric="KerrSchild"):
     """Peak-normalized Novikov-Thorne temperature T(r) ~ F(r)^(1/4) on a
     geometric radial grid over the annulus, from the Page-Thorne quadrature
-    (physics.orbits.page_thorne_flux).  r_in, r_out: 0-dim tensors."""
+    (physics.orbits.page_thorne_flux, or page_thorne_flux_rotating for a
+    rotating regular family).  r_in, r_out: 0-dim tensors."""
     lo = r_in * (1.0 + 1e-5)
     u = _unit_grid(_NT_TABLE_N, dtype, lo.device)  # jnp.linspace's points
     r_grid = lo * (r_out / lo) ** u
-    t = page_thorne_flux(r_grid, params, prograde) ** 0.25
+    if metric == "KerrSchild":
+        flux = page_thorne_flux(r_grid, params, prograde)
+    else:
+        flux = page_thorne_flux_rotating(r_grid, params, MASS_FN[metric],
+                                         prograde)
+    t = flux ** 0.25
     return r_grid, t / torch.clamp(torch.max(t), min=1e-30)
 
 
@@ -180,7 +198,8 @@ def _interp(x, xp, fp):
 
 def shade_disk(hit_q, hit_p, params, r_obs, r_in, *, prograde=True,
                t_peak=9000.0, exposure=2.5, theta_obs=math.pi / 2,
-               profile="shakura", r_out=14.0, omega_obs=0.0):
+               profile="shakura", r_out=14.0, omega_obs=0.0,
+               metric="KerrSchild"):
     """(N, 4) crossings -> (g, rgb01): per-ray redshift factor and shaded
     color, from the Killing constants E = -p_t and L_z = x p_y - y p_x and
     the emission radius."""
@@ -191,23 +210,29 @@ def shade_disk(hit_q, hit_p, params, r_obs, r_in, *, prograde=True,
     return shade_disk_constants(
         energy, l_z, r_em, params, r_obs, r_in, prograde=prograde,
         t_peak=t_peak, exposure=exposure, theta_obs=theta_obs,
-        profile=profile, r_out=r_out, omega_obs=omega_obs)
+        profile=profile, r_out=r_out, omega_obs=omega_obs, metric=metric)
 
 
 def shade_disk_constants(energy, l_z, r_em, params, r_obs, r_in, *,
                          prograde=True, t_peak=9000.0, exposure=2.5,
                          theta_obs=math.pi / 2, profile="shakura",
-                         r_out=14.0, omega_obs=0.0):
+                         r_out=14.0, omega_obs=0.0, metric="KerrSchild"):
     """shade_disk's core on (E, L_z, r_em): I_obs = g^4 I_em (Liouville),
     blackbody color at the observed temperature g T_em(r), tone-mapped
-    1 - exp(-exposure I) and gamma-encoded."""
-    g = redshift_factor(energy, l_z, r_em, r_obs, params, prograde,
-                        theta_obs, omega_obs)
+    1 - exp(-exposure I) and gamma-encoded.  A rotating regular family
+    (`metric`) takes the mass-function emitter algebra of
+    physics/rotating_orbits.py and a static receiver."""
+    if metric == "KerrSchild":
+        g = redshift_factor(energy, l_z, r_em, r_obs, params, prograde,
+                            theta_obs, omega_obs)
+    else:
+        g = redshift_factor_rotating(energy, l_z, r_em, r_obs, params,
+                                     MASS_FN[metric], prograde, theta_obs)
     if profile == "novikov":
         r_grid, t_tab = _nt_temp_table(
             r_in, torch.as_tensor(r_out, dtype=r_em.dtype,
                                   device=r_em.device),
-            params, prograde, r_em.dtype)
+            params, prograde, r_em.dtype, metric)
         t_norm = _interp(r_em, r_grid, t_tab)
     else:
         t_norm = _temp_profile(r_em, r_in)      # [0, 1]
@@ -242,7 +267,8 @@ def polarization_fields(hit_q, hit_p, q0f, p0f, obs_pos, fov, height, width,
 
 def run_shading(result_arrays, *, height, width, profile, prograde, params,
                 obs_pos, r_in, r_out, t_peak, exposure, camera_omega, dtype,
-                fov=None, bfield=None, camera_moving=False):
+                fov=None, bfield=None, camera_moving=False,
+                metric="KerrSchild"):
     """THE disk-shading function: every path that shades disk pixels
     (render_disk and io/transfer.reshade) calls it, with its scalars cast
     here in one canonical way, so equal invariants on one device and dtype
@@ -253,8 +279,9 @@ def run_shading(result_arrays, *, height, width, profile, prograde, params,
     overwritten, the rest kept.  With `bfield` set (and the camera's `fov`)
     the camera rays the EVPA screen solve needs are recomputed (the
     boosted tetrad when camera_moving: an explicit omega 0.0 is a moving
-    camera too).  Returns {image, redshift, disk_count} and, with bfield,
-    {evpa, pol_weight, pol_check}."""
+    camera too).  `metric` 'KerrSchild' or a rotating regular family
+    (params = (M, a, p)).  Returns {image, redshift, disk_count} and, with
+    bfield, {evpa, pol_weight, pol_check}."""
     hit_q, hit_p, status, image = result_arrays
     device = hit_q.device
 
@@ -278,7 +305,7 @@ def run_shading(result_arrays, *, height, width, profile, prograde, params,
                           prograde=prograde, t_peak=scalar(t_peak),
                           exposure=scalar(exposure), theta_obs=th_obs,
                           profile=profile, r_out=scalar(r_out),
-                          omega_obs=omega_obs)
+                          omega_obs=omega_obs, metric=metric)
     disk_u8 = torch.clamp(rgb01 * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
     out_img = torch.where(disk_mask[:, None], disk_u8, image.reshape(n, 3))
     out = {"image": out_img.reshape(height, width, 3),
@@ -358,7 +385,7 @@ def _trace_flat(q0f, p0f, bg_array, hole, params, r_obs, boundary_radius,
                 steps, delta, omega, r_in, r_out, patch_center_theta,
                 patch_center_phi, patch_size_theta, patch_size_phi, *, order,
                 backend, flip_theta, flip_phi, has_background,
-                stage=contextlib.nullcontext):
+                stage=contextlib.nullcontext, metric="KerrSchild"):
     """The per-ray disk chain on flat (N, 4) phase points: integrate with
     crossing capture -> classify the rays that missed -> composite, with
     the disk pixels marked CLS_DISK.  JAX's `_trace_shade_flat` without its
@@ -366,15 +393,24 @@ def _trace_flat(q0f, p0f, bg_array, hole, params, r_obs, boundary_radius,
     integration reads Python floats (hole = (M, a, Q); all rounded to the
     ray dtype on the host); the classifier 0-dim tensors of the rays'
     dtype and device (params = (M, a, Q) as one such tensor).  `stage()` is
-    the context the integration runs in (engine/aa.py times it)."""
+    the context the integration runs in (engine/aa.py times it).  A
+    rotating regular family (`metric`, hole = (M, a, p)) integrates
+    through D2 and classifies at its own capture shell."""
     dtype, device = q0f.dtype, q0f.device
     n = q0f.shape[0]
     with stage():
-        final_q, final_p, status, n_steps, hit_q, hit_p = \
-            integrate_dispatch_disk(
-                q0f, p0f, steps, float(delta), hole, float(boundary_radius),
-                float(omega), float(r_in), float(r_out), order=order,
-                backend=backend)
+        if metric == "KerrSchild":
+            final_q, final_p, status, n_steps, hit_q, hit_p = \
+                integrate_dispatch_disk(
+                    q0f, p0f, steps, float(delta), hole,
+                    float(boundary_radius), float(omega), float(r_in),
+                    float(r_out), order=order, backend=backend)
+        else:
+            final_q, final_p, status, n_steps, hit_q, hit_p = \
+                integrate_dispatch_disk_rotating(
+                    q0f, p0f, steps, float(delta), hole,
+                    float(boundary_radius), float(omega), float(r_in),
+                    float(r_out), order=order, metric=metric)
     disk_mask = status == STATUS_DISK
 
     rho, th, ph = cartesian_to_spherical(final_q[:, 1], final_q[:, 2],
@@ -385,7 +421,13 @@ def _trace_flat(q0f, p0f, bg_array, hole, params, r_obs, boundary_radius,
     def scalar(x):
         return torch.tensor(float(x), dtype=dtype, device=device)
 
-    r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
+    if metric == "KerrSchild":
+        r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
+    else:
+        # the integrator's 1.05 shell over the bisected horizon (or the
+        # horizonless floor), as render_generic's classify_radius
+        r_plus = rotating_capture_radius(metric, params).to(
+            dtype=dtype, device=device) / 1.05
     cls, th_csv, ph_csv, u01, v01 = _classify.classify_rays(
         fq_sph, torch.full((n,), math.pi, dtype=dtype, device=device),
         torch.zeros((n,), dtype=dtype, device=device),
@@ -411,15 +453,16 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
                        order=2, flip_theta=False, flip_phi=False,
                        has_background=True, dtype=torch.float32,
                        backend="auto", camera_omega=0.0,
-                       camera_moving=False):
+                       camera_moving=False, metric="KerrSchild"):
     """The device pipeline of one disk frame, on bg_array's device: the
     look-at camera (static, or the boosted tetrad of the circular worldline
     at camera_omega when camera_moving) -> disk integration -> classify +
     composite.  obs_pos is a full (3,) position.  Scalars are Python
     floats (obs_pos a sequence), rounded to `dtype` on the device as the
-    JAX pipeline receives them.  Returns per-pixel tensors, the base image
-    (disk pixels not yet shaded: see `run_shading`) and the (6,) count
-    vector."""
+    JAX pipeline receives them.  `metric` 'KerrSchild' (charge the hole's
+    Q) or a rotating regular family (charge its parameter), whose g_inv the
+    camera takes.  Returns per-pixel tensors, the base image (disk pixels
+    not yet shaded: see `run_shading`) and the (6,) count vector."""
     device = bg_array.device
 
     def scalar(x):
@@ -437,7 +480,7 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
             omega_cam=scalar(camera_omega))
     else:
         q0, p0, alpha0 = cartesian_ics_from_pixels(
-            obs, pix, params=params, g_inv_fn=kerr_schild_g_inv)
+            obs, pix, params=params, g_inv_fn=METRICS[metric])
     n = height * width
     flat = _trace_flat(
         q0.reshape(n, 4).contiguous(), p0.reshape(n, 4).contiguous(),
@@ -445,7 +488,7 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
         boundary_radius, steps, delta, omega, r_in,
         r_out, patch_center_theta, patch_center_phi, patch_size_theta,
         patch_size_phi, order=order, backend=backend, flip_theta=flip_theta,
-        flip_phi=flip_phi, has_background=has_background)
+        flip_phi=flip_phi, has_background=has_background, metric=metric)
     cls = flat["cls"].reshape(height, width)
     count_vec = torch.cat([_classify.count_vector(cls),
                            (cls == CLS_DISK).sum()[None]])
@@ -471,7 +514,10 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
     """SceneConfig-driven thin-disk render -> engine.render.RenderResult.
 
     scene.spin and scene.charge select the hole (Schwarzschild is spin 0);
-    every scene is traced in the Kerr-Schild chart.  The counts carry an
+    every scene is traced in the Kerr-Schild chart.  scene.metric
+    'rotating-bardeen' / 'rotating-hayward' selects a rotating regular
+    family with scene.metric_param (kernel D2; no bfield, camera_omega or
+    aa_samples, as in JAX).  The counts carry an
     extra 'disk' entry; result.device('redshift') is the per-pixel g
     factor (meaningful on disk pixels), result.device('hit_q') /
     ('hit_p') the recorded crossings.  device defaults to 'cuda' (kernel
@@ -480,15 +526,36 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
     (engine/aa.py: s x s sub-rays through B6 and run_shading; the class
     map, counts, redshift and polarization maps keep the centre sample).
     """
-    from .render import RenderResult, _untimed
+    from .render import ROTATING_NAMES, RenderResult, _untimed
 
     disk = disk or DiskConfig()
-    if getattr(scene, "metric", "Schwarzschild").lower() in _ROTATING:
-        raise NotImplementedError(
-            f"disks around the rotating regular metric {scene.metric!r} "
-            f"are not ported to grtrace_torch yet (ROADMAP Queue A item 9)")
-    camera_moving, camera_omega = resolve_camera_omega(scene, disk)
-    r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
+    metric = ROTATING_NAMES.get(
+        getattr(scene, "metric", "Schwarzschild").lower(), "KerrSchild")
+    if metric == "KerrSchild":
+        charge_slot = scene.charge
+        camera_moving, camera_omega = resolve_camera_omega(scene, disk)
+        r_in = disk.inner_edge(scene.bh_mass, scene.spin, scene.charge)
+    else:
+        if disk.bfield is not None:
+            raise NotImplementedError(
+                "polarized imaging (DiskConfig.bfield) requires the "
+                "Walker-Penrose constant of the exact Kerr-Newman "
+                "family — not wired for the mass-function metrics")
+        if disk.camera_omega is not None:
+            raise NotImplementedError(
+                "orbiting cameras (DiskConfig.camera_omega) are wired "
+                "for the Kerr-Newman disk path only")
+        if aa_samples:
+            raise NotImplementedError(
+                "--aa on the disk mode rides the Kerr-Newman sub-ray "
+                "chain; rotating regular disks render without edge "
+                "refinement")
+        charge_slot = float(getattr(scene, "metric_param", 0.0))
+        r_in = (disk.r_in if disk.r_in is not None
+                else rotating_disk_inner_edge(metric, scene.bh_mass,
+                                              scene.spin, charge_slot,
+                                              disk.prograde))
+        camera_moving, camera_omega = False, 0.0
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render_disk(device='cuda') needs a CUDA GPU; "
@@ -510,7 +577,7 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
     with stage("device_pipeline"):
         out = render_pixels_disk(
             bg_dev, obs_pos, scene.fov, scene.bh_mass, scene.spin,
-            scene.charge, scene.boundary_radius, integ.steps, integ.delta,
+            charge_slot, scene.boundary_radius, integ.steps, integ.delta,
             float(integ.omega), r_in, disk.r_out,
             scene.patch.center_theta, scene.patch.center_phi,
             scene.patch.size_theta, scene.patch.size_phi,
@@ -518,15 +585,15 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None,
             flip_theta=scene.patch.flip_theta,
             flip_phi=scene.patch.flip_phi, has_background=has_bg,
             dtype=dtype, backend=integ.backend, camera_omega=camera_omega,
-            camera_moving=camera_moving)
+            camera_moving=camera_moving, metric=metric)
         shaded = run_shading(
             (out["hit_q"], out["hit_p"], out["status"], out["image"]),
             height=h, width=w, profile=disk.profile, prograde=disk.prograde,
-            params=[scene.bh_mass, scene.spin, scene.charge],
+            params=[scene.bh_mass, scene.spin, charge_slot],
             obs_pos=obs_pos, fov=scene.fov, r_in=r_in, r_out=disk.r_out,
             t_peak=disk.t_peak, exposure=disk.exposure,
             camera_omega=camera_omega, dtype=dtype, bfield=disk.bfield,
-            camera_moving=camera_moving)
+            camera_moving=camera_moving, metric=metric)
         shaded.pop("disk_count")
         out.update(shaded)
         if aa_samples:

@@ -1,8 +1,9 @@
-"""The generic engine for the Kerr(-Newman) charts and the static
-beyond-Kerr families — the torch counterpart of
+"""The generic engine for the Kerr(-Newman) charts, the static beyond-Kerr
+families and the rotating regular families — the torch counterpart of
 `grtrace.engine.integrate_generic`, and the eager twins of the CUDA
-kernels G1, S2, T2 and their static-chart modes G1s, S2s, T2s
-(csrc/fantasy_gen.cu, wrapped by engine/integrate_generic_cuda.py).
+kernels G1, S2, T2, their static-chart modes G1s, S2s, T2s and their
+mass-function Kerr-Schild modes G1r, S2r, T2r and D2 (csrc/fantasy_gen.cu,
+wrapped by engine/integrate_generic_cuda.py).
 
 JAX runs this engine as a masked `lax.while_loop` (or `scan`) over
 `vmap`ped `jax.grad` flows.  The port keeps its semantics and takes the
@@ -10,27 +11,35 @@ flows in closed form: physics/kerr_bl.py in the Boyer-Lindquist chart
 (metric 'Kerr'), physics/kerr_schild.py's unstaggered flows in the
 Kerr-Schild chart (metric 'KerrSchild'), physics/static_chart.py in the
 static chart (metrics 'Kottler', 'Bardeen', 'Hayward', with the spherical
-guard and no rescue).  Every composed step is the
+guard and no rescue), physics/rotating_chart.py in the mass-function
+Kerr-Schild chart (metrics 'RotatingBardeen', 'RotatingHayward', with the
+invariant guard and the rescue by `rotating_regular.escape_pred_rotating`).
+Every composed step is the
 unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
 `spacetime.make_step`, followed by the chart's blow-up guard.
 
     integrate_batch_generic     metric 'Kerr': the eager twin of G1, then
                                 the exact Boyer-Lindquist rescue; the
-                                static families: the twin of G1s; metric
-                                'KerrSchild': the Kerr-Schild integrators
-                                (kernel B5's twins, integrate_dispatch_ks)
+                                static families: the twin of G1s; the
+                                rotating families: the twin of G1r, then
+                                the rescue; metric 'KerrSchild': the
+                                Kerr-Schild integrators (kernel B5's twins,
+                                integrate_dispatch_ks)
     trajectory_batch_decimated  every chart: the eager twin of S2 (S2s), q1
                                 recorded every `stride` steps
-    trajectory_generic          metric 'Kerr' or a static family: one ray's
-                                (q1, p1) after every step, no exit (the
-                                EinsteinPy semantics); its loop
-                                trajectory_generic_unmasked is the eager
-                                twin of T2 (T2s)
+    trajectory_generic          metric 'Kerr', a static or a rotating
+                                family: one ray's (q1, p1) after every
+                                step, no exit (the EinsteinPy semantics);
+                                its loop trajectory_generic_unmasked is
+                                the eager twin of T2 (T2s, T2r)
+    integrate_batch_disk_rotating  the rotating families' disk: the twin of
+                                D2 (G1r's loop and the first z crossing
+                                inside the annulus), then the rescue
 
-`integrate_dispatch_generic`, `trajectory_dispatch_generic` and
-`trajectory_generic` send CUDA rays to the kernels (B5 for the Kerr-Schild
-frame) and CPU rays to the twins; the samplers raise for any other
-device.  A kernel and its twin read the same
+`integrate_dispatch_generic`, `trajectory_dispatch_generic`,
+`trajectory_generic` and `integrate_dispatch_disk_rotating` send CUDA rays
+to the kernels (B5 for the Kerr-Schild frame) and CPU rays to the twins;
+the samplers and the disk raise for any other device.  A kernel and its twin read the same
 host-built scalar vector (`gen_params`), so they round alike.
 """
 from __future__ import annotations
@@ -39,20 +48,24 @@ import math
 
 import torch
 
-from ..physics import kerr_bl, kerr_schild, static_chart
+from ..physics import kerr_bl, kerr_schild, rotating_chart, static_chart
 from ..physics.hamiltonian import _flow_mixed, pack_state, substep_schedule
 from ..physics.kerr_schild import _flow_b_ks, hamiltonian_ks, ks_radius_c
+from ..physics.rotating_regular import (MASS_FN, escape_pred_rotating,
+                                        rotating_capture_radius)
 from ..physics.spacetime import COORDS, horizon_radius
 from ..physics.static_metrics import STATIC_F, static_capture_radius
 from .integrate import STATUS_ALIVE, STATUS_CAPTURED, STATUS_ESCAPED
 from .integrate import _EXIT_CHECK, resolve_backend, traj_layout
-from .integrate_ks import apply_bardeen_rescue_bl, integrate_dispatch_ks
+from .integrate_ks import (STATUS_DISK, apply_bardeen_rescue,
+                           apply_bardeen_rescue_bl, integrate_dispatch_ks)
 
 # [mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
 # err_park] lead the scalar vector; then (d_j, cos_j, sin_j) per substep
 N_SCAL = 10
 # the charts the engine integrates, by metric
-CHARTS = ("Kerr", "KerrSchild", "Kottler", "Bardeen", "Hayward")
+CHARTS = ("Kerr", "KerrSchild", "Kottler", "Bardeen", "Hayward",
+          "RotatingBardeen", "RotatingHayward")
 
 
 def _capture_radius(metric, params):
@@ -62,11 +75,15 @@ def _capture_radius(metric, params):
     freeze toward the past horizon).  params = (M, a[, Q]) or (M,) for
     Schwarzschild; for the static families (M, p[, 0]), whose capture
     radius is 1.1 x the bisected outer horizon or the horizonless 1e-2 M
-    floor (`static_capture_radius`, in float64, as JAX's x64 bisection);
-    the other families raise (ROADMAP Queue A item 9)."""
+    floor (`static_capture_radius`, a float64 tensor); for the rotating
+    regular families (M, a, p), 1.05 x theirs or the same floor
+    (`rotating_capture_radius`); Kerr-de Sitter raises (ROADMAP Queue A
+    item 9)."""
     params = torch.as_tensor(params)
     if metric in STATIC_F:
         return static_capture_radius(metric, params[:2])
+    if metric in MASS_FN:
+        return rotating_capture_radius(metric, params)
     charge = params[2] if len(params) > 2 else params[0] * 0.0
     if metric == "KerrSchild":
         return 1.05 * horizon_radius("Kerr", params[0], params[1], charge)
@@ -83,7 +100,8 @@ def _check_metric(metric):
         COORDS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"the generic engine of grtrace_torch integrates the Kerr-Newman "
-            f"charts and the static families {CHARTS} (got {metric!r}); "
+            f"charts, the static and the rotating regular families {CHARTS} "
+            f"(got {metric!r}); "
             f"Schwarzschild rays take engine.integrate")
 
 
@@ -109,8 +127,15 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
     In the static chart params = (M, p[, 0]) and the vector's second and
     third slots hold the family's lapse constant k (Lambda / 3, g^2 or
     2 M l^2, rounded to `dtype`; physics/static_chart.py) and its code
-    (static_chart.FAMILY_CODE); r_cap comes from the float64 bisection
-    of the dtype-rounded (M, p), then is rounded to `dtype`."""
+    (static_chart.FAMILY_CODE); r_cap comes from the bisection of the
+    dtype-rounded (M, p), then is rounded to `dtype`.
+
+    In the mass-function Kerr-Schild chart params = (M, a, p): the third
+    slot holds the family's constant k (g^2 or 2 M l^2, rounded to
+    `dtype`: rotating_chart.family_constant) and the jump_cap slot, which
+    the Kerr-Schild guard never reads, the family code
+    (rotating_chart.FAMILY_CODE); r_cap as in the static chart, with the
+    1.05 shell."""
     _check_metric(metric)
     p = torch.as_tensor(params, dtype=dtype).cpu()
     mass, a = p[0], p[1]
@@ -119,8 +144,12 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
     if metric in STATIC_F:
         r_cap = r_cap.to(dtype)
         a, charge = static_constants(metric, mass, a)
+    rotating = metric in MASS_FN
+    if rotating:
+        r_cap = r_cap.to(dtype)
+        charge = rotating_chart.family_constant(metric, mass, charge)
     r_max_t = torch.tensor(r_max, dtype=dtype)
-    if metric == "KerrSchild":
+    if metric == "KerrSchild" or rotating:
         r_plus = r_cap / torch.tensor(1.05, dtype=dtype)
         plunge_zone = 2.0 * mass * (1.0 + torch.cos(
             (2.0 / 3.0) * torch.arccos(torch.abs(a) / mass)))
@@ -133,6 +162,9 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
                              20.0 * torch.tensor(delta, dtype=dtype))
     err_park = torch.maximum(torch.tensor(150.0, dtype=dtype),
                              2.0 * r_max_t)
+    if rotating:
+        jump_cap = torch.tensor(float(rotating_chart.FAMILY_CODE[metric]),
+                                dtype=dtype)
     scal = [float(x) for x in (mass, a, charge, r_cap, r_max_t, r_plus,
                                plunge_zone, jump_cap, cap_park, err_park)]
     for sub in substep_schedule(delta, omega, order, dtype=dtype):
@@ -168,9 +200,18 @@ def make_composed_step(metric, vec):
     state's (q1, p2); composed(state, ka) -> (state, ka) after one composed
     step of every ray from the carry ka, with no guard (the loop of kernel
     T2; `make_generic_step` guards it)."""
-    (mass, a, charge, *_), subs = split_params(vec)
+    (mass, a, charge, _, _, _, _, code, _, _), subs = split_params(vec)
     if metric == "KerrSchild":
         kick_drift, n_kick, flow_b = kerr_schild._kick_drift, 3, _flow_b_ks
+    elif metric in MASS_FN:
+        # (mass, a, charge) carry (M, a, k); the family code rides jump_cap
+        family, n_kick = int(code), 3
+
+        def kick_drift(*args):
+            return rotating_chart._kick_drift(*args, family)
+
+        def flow_b(state, dt, mass, a, k):
+            return rotating_chart.flow_b(state, dt, mass, a, k, family)
     elif metric in STATIC_F:
         # (mass, a, charge) carry (M, k, family code): static_constants
         kick_drift, n_kick = static_chart._kick_drift, 2
@@ -215,19 +256,28 @@ def make_generic_step(metric, vec):
 
     active(state) -> the rays inside the domain before a step: r_cap < r <
     r_max (BL and the static chart), ks_radius > r_cap and |x| < r_max
-    (KS).  opening(state) ->
+    (the Kerr-Schild charts).  opening(state) ->
     flow A's kick/drift at the state's (q1, p2), the carry the first step
     takes.  step(state, ka) -> (bad, new state, ka): one composed step of
     every ray from the carry ka, then the chart's blow-up guard, which
     reverts the rays it flags (bad) to the pre-step state and parks their
     q1 (`grtrace.engine.integrate_generic._domain_tools`'s guard_spherical
-    / guard_cartesian; the static chart takes the spherical one); the carry
+    / guard_cartesian; the static chart takes the spherical one, the
+    mass-function chart the Cartesian one with its own H); the carry
     it returns is flow A's at the new state's
     (q1, p2), except on the reverted rays, which the park leaves outside
     the domain for good."""
     (mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
      err_park), _ = split_params(vec)
     opening, composed = make_composed_step(metric, vec)
+    if metric in MASS_FN:
+        family = int(jump_cap)
+
+        def ham(*args):
+            return rotating_chart.hamiltonian(*args, mass, a, charge, family)
+    else:
+        def ham(*args):
+            return hamiltonian_ks(*args, mass, a, charge)
 
     def finite_q1p1(new):
         finite = torch.isfinite(new[0])
@@ -264,7 +314,7 @@ def make_generic_step(metric, vec):
         finite = finite_q1p1(new)
         x, y, z, pt, px, py, pz = (torch.where(finite, new[i], old[i])
                                    for i in range(1, 8))
-        h = hamiltonian_ks(x, y, z, pt, px, py, pz, mass, a, charge)
+        h = ham(x, y, z, pt, px, py, pz)
         p2n = px * px + py * py + pz * pz + 1.0
         exploded = ~finite | (torch.abs(h) > 3e-2 * p2n)
         crossed = finite & (ks_radius_c(x, y, z, a) < r_plus) & ~exploded
@@ -282,17 +332,19 @@ def make_generic_step(metric, vec):
                              out[3])
         return bad, tuple(out), ka
 
-    if metric == "KerrSchild":
+    if COORDS[metric] == "cartesian":
         return active_ks, opening, step_ks
     return active_bl, opening, step_bl
 
 
 def integrate_generic_twin(q0s, p0s, steps, vec, metric="Kerr"):
-    """The loop of kernel G1 (G1s for a static family) on (N, 4) rays of
-    the spherical charts from a gen_params vector: at most `steps`
+    """The loop of kernel G1 (G1s for a static family, G1r for a rotating
+    one) on (N, 4) rays from a gen_params vector: at most `steps`
     masked, guarded steps; a ray the guard parks freezes with its step
     count negated (-(n + 1)).  Returns (state, ns) before the read-out
     (the rescue, or `finish_generic_static`)."""
+    # through the module's global, so that a caller may wrap the factory
+    # (the step replayed from a CUDA graph, as chip_smoke.py does)
     active, opening, step = make_generic_step(metric, vec)
     state = pack_state(q0s, p0s)
     ka = opening(state)
@@ -333,6 +385,32 @@ def finish_generic_static(state, ns, vec):
     return q1, torch.stack(state[4:8], dim=-1), status, torch.abs(ns)
 
 
+def rotating_pred(metric, q0s, p0s, params, parked):
+    """`escape_pred_rotating` of the (N,) parked rays, False on the rest:
+    the rescue reads it on parked rays only, and the predicate is
+    elementwise, so this gives JAX's booleans there at a fraction of the
+    (N, 192) grid's memory and time."""
+    pred = torch.zeros_like(parked)
+    idx = torch.nonzero(parked)[:, 0]
+    if idx.numel():
+        pred[idx] = escape_pred_rotating(metric, q0s[idx], p0s[idx], params)
+    return pred
+
+
+def finish_generic_rotating(state, ns, q0s, p0s, vec, metric, params):
+    """Read-out of G1r and its twin, JAX's for the rotating families: the
+    first copy's q and p, then `apply_bardeen_rescue` with the family's
+    exact predicate (`rotating_pred`, on the launch rays and params = (M,
+    a, p)) and the reverted second copy's q2."""
+    (mass, a, _, r_cap, r_max, *_), _ = split_params(vec)
+    q1 = torch.stack(state[0:4], dim=-1)
+    pred = rotating_pred(metric, q0s, p0s, params, ns < 0)
+    return apply_bardeen_rescue(
+        q1, torch.stack(state[4:8], dim=-1), ns,
+        torch.stack(state[9:12], dim=-1), q0s, p0s, mass, a, 0.0, r_cap,
+        r_max, pred=pred)
+
+
 def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                             order=2, metric="Kerr"):
     """Integrate an (N, 4) batch in the named chart to completion:
@@ -342,8 +420,10 @@ def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     metric 'Kerr' (Boyer-Lindquist): the eager twin of kernel G1 and the
     exact rescue of its guard-parked rays.  metric 'KerrSchild': the
     Kerr-Schild integrators' twins (kernel B5's; JAX's Pallas route).
-    The static families: the eager twin of kernel G1s, no rescue.
-    params = (M, a[, Q]), or (M, p[, 0]) for a static family."""
+    The static families: the eager twin of kernel G1s, no rescue.  The
+    rotating families: the eager twin of kernel G1r, then the rescue by
+    their exact predicate.  params = (M, a[, Q]), (M, p[, 0]) for a static
+    family, (M, a, p) for a rotating one."""
     _check_metric(metric)
     if metric == "KerrSchild":
         return integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max,
@@ -352,6 +432,10 @@ def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     if metric in STATIC_F:
         state, ns = integrate_generic_twin(q0s, p0s, steps, vec, metric)
         return finish_generic_static(state, ns, vec)
+    if metric in MASS_FN:
+        state, ns = integrate_generic_twin(q0s, p0s, steps, vec, metric)
+        return finish_generic_rotating(state, ns, q0s, p0s, vec, metric,
+                                       params)
     state, ns = integrate_generic_twin(q0s, p0s, steps, vec)
     return finish_generic_bl(state, ns, q0s, p0s, vec)
 
@@ -362,7 +446,8 @@ def trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride, n_keep):
     ray is still alive (+0.0 otherwise); a ray dies on the first step it
     is inactive, so the first position outside the domain is recorded
     when it falls on a slot.  Once no ray is alive, the remaining slots
-    would all be zero, so the loop stops there."""
+    would all be zero, so the loop stops there.  (S2s and S2r in the
+    static and mass-function charts.)"""
     active, opening, step = make_generic_step(metric, vec)
     n = q0s.shape[0]
     traj = torch.zeros((n, n_keep, 4), dtype=q0s.dtype, device=q0s.device)
@@ -390,8 +475,8 @@ def trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max, omega,
     every `stride` steps (`engine.integrate.traj_layout`), rows after a
     ray's exit +0.0, the same guard as integrate_batch_generic (a parked
     ray freezes at its park point; no rescue).  The eager twin of kernel
-    S2, in the Boyer-Lindquist chart (metric 'Kerr') or the Kerr-Schild
-    one ('KerrSchild')."""
+    S2, in the Boyer-Lindquist chart (metric 'Kerr'), the Kerr-Schild one
+    ('KerrSchild'), the static (S2s) or the mass-function chart (S2r)."""
     stride, n_keep_eff = traj_layout(steps, n_keep)
     vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
     return trajectory_generic_twin(q0s, p0s, steps, vec, metric, stride,
@@ -401,8 +486,8 @@ def trajectory_batch_decimated(q0s, p0s, steps, delta, params, r_max, omega,
 def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                order=2, metric="Kerr", backend="auto"):
     """integrate_batch_generic on the rays' device: in the Boyer-Lindquist
-    chart CUDA rays go to kernel G1, in the static chart to G1s, and CPU
-    rays to their twins (the
+    chart CUDA rays go to kernel G1, in the static chart to G1s, in the
+    mass-function chart to G1r, and CPU rays to their twins (the
     backend resolved as `integrate_dispatch_ks` resolves it, which takes
     the Kerr-Schild chart: B5 or its twins).  Never falls back."""
     _check_metric(metric)
@@ -425,7 +510,8 @@ def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
 def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                 order=2, metric="Kerr", n_keep=1000):
     """trajectory_batch_decimated on the rays' device: CUDA rays go to
-    kernel S2 (S2s in the static chart), CPU rays to its twin; any other device raises (as
+    kernel S2 (S2s, S2r in the static and mass-function charts), CPU rays
+    to its twin; any other device raises (as
     `integrate.integrate_full_dispatch` routes S1).  Never falls back."""
     _check_metric(metric)
     kind = q0s.device.type
@@ -443,8 +529,8 @@ def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
 
 
 def trajectory_generic_unmasked(q0s, p0s, steps, vec, metric="Kerr"):
-    """The loop of kernel T2 (T2s for a static family) on (N, 4) rays of
-    the spherical charts from a gen_params vector: (N, steps, 8), (q1, p1)
+    """The loop of kernel T2 (T2s for a static family, T2r for a rotating
+    one) on (N, 4) rays from a gen_params vector: (N, steps, 8), (q1, p1)
     after each of `steps` composed steps (flow A's kick/drift carried, as
     in G1), every step taken: no domain test, no guard, no park."""
     opening, composed = make_composed_step(metric, vec)
@@ -464,21 +550,23 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
     (steps, 4)), q and p after each step, with no early exit (EinsteinPy's
     `Nulllike` semantics, for the compat classes).  CUDA rays go to kernel
     T2 (`integrate_generic_cuda.trajectory_generic_unmasked_cuda`; T2s
-    for a static family), CPU rays to its twin
+    for a static family, T2r for a rotating one), CPU rays to its twin
     `trajectory_generic_unmasked`; any other device raises.  The
     Boyer-Lindquist chart, metric 'Kerr' (the one JAX's compat classes
-    pass), and the static families 'Kottler', 'Bardeen', 'Hayward'
-    (params (M, p[, 0])); the rotating regular families and Kerr-de
-    Sitter raise naming ROADMAP item 9, any other metric
-    NotImplementedError.  JAX takes the flows by autodiff, the port in
-    closed form (physics/kerr_bl.py, physics/static_chart.py): they agree
-    within 1e-12 relative an evaluation (ROADMAP Queue C)."""
-    if metric != "Kerr" and metric not in STATIC_F:
+    pass), the static families 'Kottler', 'Bardeen', 'Hayward' (params
+    (M, p[, 0])) and the rotating ones 'RotatingBardeen',
+    'RotatingHayward' (params (M, a, p)); Kerr-de Sitter raises naming
+    ROADMAP item 9, any other metric NotImplementedError.  JAX takes the
+    flows by autodiff, the port in closed form (physics/kerr_bl.py,
+    physics/static_chart.py, physics/rotating_chart.py): they agree within
+    1e-12 relative an evaluation (ROADMAP Queue C)."""
+    if metric != "Kerr" and metric not in STATIC_F and metric not in MASS_FN:
         COORDS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"trajectory_generic of grtrace_torch integrates the "
-            f"Boyer-Lindquist chart 'Kerr' only, and the static families "
-            f"{tuple(STATIC_F)} (got {metric!r})")
+            f"Boyer-Lindquist chart 'Kerr' only, besides the static "
+            f"families {tuple(STATIC_F)} and the rotating ones "
+            f"{tuple(MASS_FN)} (got {metric!r})")
     q0s, p0s = q0.reshape(1, 4).contiguous(), p0.reshape(1, 4).contiguous()
     vec = gen_params(metric, delta, params, math.inf, omega, order,
                      q0s.dtype)
@@ -492,3 +580,104 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
         raise ValueError(f"no trace for {kind!r} tensors (CUDA runs kernel "
                          f"T2, the CPU its eager twin)")
     return out[0, :, :4], out[0, :, 4:]
+
+
+# --- the rotating families' disk (kernel D2) ------------------------------
+
+def disk_rotating_params(vec, r_in, r_out):
+    """D2's scalar vector: the mass-function chart's gen_params vector
+    followed by r_in and r_out, rounded to its dtype."""
+    tail = torch.tensor([float(r_in), float(r_out)], dtype=vec.dtype)
+    return torch.cat([vec, tail])
+
+
+def integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric):
+    """The loop of kernel D2 on (N, 4) rays of the mass-function chart from
+    its disk vector (`disk_rotating_params`).  Per step, JAX's
+    integrate_batch_disk: the masked, guarded G1r step of the rays that
+    are active and not hit, then the sign test of z at the pre- and
+    post-step q1; where it changes, q1 and p2 are lerped at t = z0 / (z0 -
+    z1) and the crossing counts if its Kerr-Schild radius lies in [r_in,
+    r_out] on an unguarded step.  Returns (state, ns, hit, hit_q, hit_p),
+    ns negated for guard-parked rays, the hit rows zero where the ray
+    never hit."""
+    r_in, r_out = vec[-2:].tolist()
+    base = vec[:-2]
+    a = float(base[1])
+    # through the module's global, so that a caller may wrap the factory
+    active, opening, step = make_generic_step(metric, base)
+    n = q0s.shape[0]
+    state = pack_state(q0s, p0s)
+    ka = opening(state)
+    ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
+    hit = torch.zeros((n,), dtype=torch.bool, device=q0s.device)
+    hq = torch.zeros((n, 4), dtype=q0s.dtype, device=q0s.device)
+    hp = torch.zeros_like(hq)
+    for k in range(steps):
+        act = active(state) & ~hit
+        if k % _EXIT_CHECK == 0 and not bool(act.any()):
+            break
+        bad, new, ka = step(state, ka)
+        z0, z1 = state[3], new[3]
+        crossed = (z0 * z1) < 0.0
+        t = torch.where(crossed, z0 / (z0 - z1), 0.0)
+        cq = [state[m] + t * (new[m] - state[m]) for m in range(4)]
+        cp = [state[12 + m] + t * (new[12 + m] - state[12 + m])
+              for m in range(4)]
+        r_hit = ks_radius_c(cq[1], cq[2], cq[3], a)
+        new_hit = act & ~bad & crossed & (r_hit >= r_in) & (r_hit <= r_out)
+        hq = torch.where(new_hit[:, None], torch.stack(cq, dim=-1), hq)
+        hp = torch.where(new_hit[:, None], torch.stack(cp, dim=-1), hp)
+        hit = hit | new_hit
+        ns = ns + act.to(torch.int32)
+        ns = torch.where(act & bad, -ns, ns)
+        state = tuple(torch.where(act, nw, o) for nw, o in zip(new, state))
+    return state, ns, hit, hq, hp
+
+
+def finish_disk_rotating(state, ns, hit, hq, hp, q0s, p0s, vec, metric,
+                         params):
+    """Read-out of D2 and its twin: `finish_generic_rotating` (the rescue
+    of the parked rays), then STATUS_DISK for the hit rays.  Returns
+    (final_q, final_p, status, n_steps, hit_q, hit_p)."""
+    q1, p1, status, n_steps = finish_generic_rotating(
+        state, ns, q0s, p0s, vec[:-2], metric, params)
+    return q1, p1, torch.where(hit, STATUS_DISK, status), n_steps, hq, hp
+
+
+def integrate_batch_disk_rotating(q0s, p0s, steps, delta, params, r_max,
+                                  omega, r_in, r_out, order=2,
+                                  metric="RotatingBardeen"):
+    """JAX's integrate_batch_disk(metric=...) for a rotating regular
+    family on the CPU: the eager twin of kernel D2, then the rescue.
+    params = (M, a, p).  Returns (final_q, final_p, status, n_steps,
+    hit_q, hit_p)."""
+    vec = disk_rotating_params(
+        gen_params(metric, delta, params, r_max, omega, order, q0s.dtype),
+        r_in, r_out)
+    out = integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric)
+    return finish_disk_rotating(*out, q0s, p0s, vec, metric, params)
+
+
+def integrate_dispatch_disk_rotating(q0s, p0s, steps, delta, params, r_max,
+                                     omega, r_in, r_out, order=2,
+                                     metric="RotatingBardeen"):
+    """The rotating families' disk integration on the rays' device: CUDA
+    rays go to kernel D2, CPU rays to its twin
+    (`integrate_batch_disk_rotating`); any other device raises.  Never
+    falls back."""
+    if metric not in MASS_FN:
+        raise ValueError(f"D2 integrates the rotating regular families "
+                         f"{tuple(MASS_FN)} (got {metric!r})")
+    kind = q0s.device.type
+    if kind == "cpu":
+        return integrate_batch_disk_rotating(
+            q0s, p0s, steps, delta, params, r_max, omega, r_in, r_out,
+            order=order, metric=metric)
+    if kind != "cuda":
+        raise ValueError(f"no disk integrator for {kind!r} tensors (CUDA "
+                         f"runs kernel D2, the CPU its eager twin)")
+    from .integrate_generic_cuda import integrate_batch_disk_rotating_cuda
+    return integrate_batch_disk_rotating_cuda(
+        q0s, p0s, steps, delta, params, r_max, omega, r_in, r_out,
+        order=order, metric=metric)

@@ -13,15 +13,21 @@
     with a static `metric`);
   * D1, G1s's loop with the first crossing of the tilted disk plane
     recorded (`integrate_batch_disk_static_cuda`; JAX's
-    `disk_static.integrate_batch_disk_static`).
+    `disk_static.integrate_batch_disk_static`);
+  * G1r, S2r and T2r, the same three in the mass-function Kerr-Schild
+    chart of the rotating regular families (the same wrappers with a
+    rotating `metric`), and D2, G1r's loop with the first equatorial
+    crossing inside the annulus recorded
+    (`integrate_batch_disk_rotating_cuda`; JAX's
+    `disk.integrate_batch_disk(metric=...)`).
 
 Port-side kernels: JAX runs this engine in XLA loops, not in Pallas, so
 they replace no TPU kernel.  One thread integrates one ray, float32 or
 float64; G1's wrapper launches the rays sorted by a cost key and puts the
 results back in the caller's order.  Their eager twins,
-`integrate_generic_twin`, `trajectory_generic_twin` and
-`trajectory_generic_unmasked` (engine/integrate_generic.py), define their
-results, and each kernel and
+`integrate_generic_twin`, `trajectory_generic_twin`,
+`trajectory_generic_unmasked` and `integrate_disk_rotating_twin`
+(engine/integrate_generic.py), define their results, and each kernel and
 its twin read the same host-built scalar vector (`gen_params`).  This module only launches: it never falls back to
 a twin, and every wrapper raises for CPU tensors.  Rays on the CPU belong
 to `integrate_dispatch_generic`, `trajectory_dispatch_generic` and
@@ -35,12 +41,17 @@ import torch
 
 from .integrate import traj_layout
 from .integrate_cuda import KernelLaunchError, _check_inputs
+from .integrate_ks_cuda import _cost_sort_key_ks
+from ..physics.rotating_regular import MASS_FN
 from ..physics.static_metrics import STATIC_F, b_critical_cached
-from .integrate_generic import (N_SCAL, finish_generic_bl,
+from .integrate_generic import (N_SCAL, disk_rotating_params,
+                                finish_disk_rotating, finish_generic_bl,
+                                finish_generic_rotating,
                                 finish_generic_static, gen_params)
 
 # Kernel launches since the process started (or since a caller reset it):
-# G1, S2 in every chart, T2; G1s, S2s in the static chart, T2s, D1.
+# G1, S2 in the BL and KS charts, T2; G1s, S2s in the static chart, T2s,
+# D1; G1r, S2r in the mass-function chart, T2r, D2.
 launches = 0
 traj_launches = 0
 trace_launches = 0
@@ -48,26 +59,33 @@ static_launches = 0
 static_traj_launches = 0
 static_trace_launches = 0
 disk_launches = 0
+rot_launches = 0
+rot_traj_launches = 0
+rot_trace_launches = 0
+rot_disk_launches = 0
 
 F32, F64 = torch.float32, torch.float64
-ENTRIES = {F32: "grt_fantasy_gen_bl_f32_launch",
-           F64: "grt_fantasy_gen_bl_f64_launch"}
-TRAJ_ENTRIES = {("Kerr", F32): "grt_fantasy_gen_traj_bl_f32_launch",
-                ("Kerr", F64): "grt_fantasy_gen_traj_bl_f64_launch",
-                ("KerrSchild", F32): "grt_fantasy_gen_traj_ks_f32_launch",
-                ("KerrSchild", F64): "grt_fantasy_gen_traj_ks_f64_launch"}
-TRACE_ENTRIES = {F32: "grt_fantasy_gen_trace_bl_f32_launch",
-                 F64: "grt_fantasy_gen_trace_bl_f64_launch"}
-STATIC_ENTRIES = {F32: "grt_fantasy_gen_static_f32_launch",
-                  F64: "grt_fantasy_gen_static_f64_launch"}
-STATIC_TRAJ_ENTRIES = {F32: "grt_fantasy_gen_traj_static_f32_launch",
-                       F64: "grt_fantasy_gen_traj_static_f64_launch"}
-STATIC_TRACE_ENTRIES = {F32: "grt_fantasy_gen_trace_static_f32_launch",
-                        F64: "grt_fantasy_gen_trace_static_f64_launch"}
-DISK_ENTRIES = {F32: "grt_fantasy_gen_disk_static_f32_launch",
-                F64: "grt_fantasy_gen_disk_static_f64_launch"}
+# (mode, chart) -> (C entry stem, launch counter); a dtype's entry is
+# f"{stem}_f32_launch" or f"{stem}_f64_launch" (kernels/build.py)
+KERNELS = {
+    ("gen", "bl"): ("grt_fantasy_gen_bl", "launches"),
+    ("gen", "static"): ("grt_fantasy_gen_static", "static_launches"),
+    ("gen", "rot"): ("grt_fantasy_gen_rot", "rot_launches"),
+    ("traj", "bl"): ("grt_fantasy_gen_traj_bl", "traj_launches"),
+    ("traj", "ks"): ("grt_fantasy_gen_traj_ks", "traj_launches"),
+    ("traj", "static"): ("grt_fantasy_gen_traj_static",
+                         "static_traj_launches"),
+    ("traj", "rot"): ("grt_fantasy_gen_traj_rot", "rot_traj_launches"),
+    ("trace", "bl"): ("grt_fantasy_gen_trace_bl", "trace_launches"),
+    ("trace", "static"): ("grt_fantasy_gen_trace_static",
+                          "static_trace_launches"),
+    ("trace", "rot"): ("grt_fantasy_gen_trace_rot", "rot_trace_launches"),
+    ("disk", "static"): ("grt_fantasy_gen_disk_static", "disk_launches"),
+    ("disk", "rot"): ("grt_fantasy_gen_disk_rot", "rot_disk_launches"),
+}
 OUT_ROWS = 12  # G1 writes q1, p1, q2
 DISK_ROWS = 16  # D1 writes q1, p1, hit_q, hit_p
+ROT_DISK_ROWS = 20  # D2 writes q1, p1, hit_q, hit_p, q2
 
 
 def _n_sub(params, dtype, extra=0):
@@ -81,25 +99,49 @@ def _n_sub(params, dtype, extra=0):
     return n_sub
 
 
-def _call(entry, q0s, ptrs, params, ints):
+def chart_of(mode, metric):
+    """The kernel chart of `metric` in `mode` ('gen', 'traj', 'trace',
+    'disk'): 'bl', 'ks' ('KerrSchild'), 'static' (the static families) or
+    'rot' (the rotating regular ones); raises where `mode` has no kernel
+    in that chart."""
+    chart = ("static" if metric in STATIC_F else "rot" if metric in MASS_FN
+             else "ks" if metric == "KerrSchild" else "bl")
+    if (mode, chart) not in KERNELS:
+        raise ValueError(f"no {mode} kernel for metric {metric!r} (have "
+                         f"{sorted(c for m, c in KERNELS if m == mode)} "
+                         f"charts)")
+    return chart
+
+
+def entry(mode, chart, dtype):
+    """The C entry of `mode` in `chart` for rays of `dtype`."""
+    suffix = "f32" if dtype == F32 else "f64"
+    return f"{KERNELS[mode, chart][0]}_{suffix}_launch"
+
+
+def _call(mode, chart, q0s, ptrs, params, ints):
+    """Launch `mode` in `chart` on the rays' card and count it."""
     from ..kernels.build import load
     lib = load()
+    name = entry(mode, chart, q0s.dtype)
     params_dev = params.to(q0s.device)
     with torch.cuda.device(q0s.device):  # launch on the data's card
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(q0s.data_ptr(), *ptrs,
-                                  params_dev.data_ptr(), *ints, stream)
+        err = getattr(lib, name)(q0s.data_ptr(), *ptrs,
+                                 params_dev.data_ptr(), *ints, stream)
     if err != 0:
-        raise KernelLaunchError(f"{entry} failed: cudaError {err}")
+        raise KernelLaunchError(f"{name} failed: cudaError {err}")
+    counter = KERNELS[mode, chart][1]
+    globals()[counter] += 1
 
 
-def launch_fantasy_gen(q0s, p0s, params, steps, static=False):
-    """Launch G1 (G1s with `static`) on (N, 4) float32 or float64 CUDA
-    rays; `params` is the Boyer-Lindquist (static chart's) `gen_params`
-    vector in the rays' dtype.  Returns (out (12, N): q1, p1, q2 rows; ns
-    (N,) int32, negative for guard-parked rays)."""
-    global launches, static_launches
+def launch_fantasy_gen(q0s, p0s, params, steps, metric="Kerr"):
+    """Launch G1 ('Kerr'), G1s (a static family) or G1r (a rotating one)
+    on (N, 4) float32 or float64 CUDA rays; `params` is that chart's
+    `gen_params` vector in the rays' dtype.  Returns (out (12, N): q1, p1,
+    q2 rows; ns (N,) int32, negative for guard-parked rays)."""
     _check_inputs(q0s, p0s, (F32, F64))
+    chart = chart_of("gen", metric)
     n = q0s.shape[0]
     n_sub = _n_sub(params, q0s.dtype)
     if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
@@ -108,31 +150,20 @@ def launch_fantasy_gen(q0s, p0s, params, steps, static=False):
     ns = torch.empty((n,), dtype=torch.int32, device=q0s.device)
     if n == 0:
         return out, ns
-    _call((STATIC_ENTRIES if static else ENTRIES)[q0s.dtype], q0s,
-          (p0s.data_ptr(), out.data_ptr(), ns.data_ptr()), params,
-          (n, n_sub, int(steps)))
-    if static:
-        static_launches += 1
-    else:
-        launches += 1
+    _call("gen", chart, q0s, (p0s.data_ptr(), out.data_ptr(),
+                              ns.data_ptr()), params, (n, n_sub, int(steps)))
     return out, ns
 
 
 def launch_fantasy_gen_traj(q0s, p0s, params, steps, stride, n_keep,
                             metric="Kerr"):
-    """Launch S2 in `metric`'s chart ('Kerr', 'KerrSchild', or S2s for a
-    static family) on (N, 4) float32 or float64 CUDA rays; `params` is
-    that chart's `gen_params` vector in the rays' dtype.  Returns (traj (N,
-    n_keep, 4), zero past each ray's exit; ns (N,) int32, the steps each
-    ray took)."""
-    global traj_launches, static_traj_launches
+    """Launch S2 in `metric`'s chart ('Kerr', 'KerrSchild', S2s for a
+    static family, S2r for a rotating one) on (N, 4) float32 or float64
+    CUDA rays; `params` is that chart's `gen_params` vector in the rays'
+    dtype.  Returns (traj (N, n_keep, 4), zero past each ray's exit; ns
+    (N,) int32, the steps each ray took)."""
     _check_inputs(q0s, p0s, (F32, F64))
-    static = metric in STATIC_F
-    entry = (STATIC_TRAJ_ENTRIES.get(q0s.dtype) if static
-             else TRAJ_ENTRIES.get((metric, q0s.dtype)))
-    if entry is None:
-        raise ValueError(f"no S2 entry for metric {metric!r} (have "
-                         f"'Kerr', 'KerrSchild' and the static families)")
+    chart = chart_of("traj", metric)
     n = q0s.shape[0]
     n_sub = _n_sub(params, q0s.dtype)
     if (not 0 <= steps < 2 ** 31 or not 1 <= stride < 2 ** 31
@@ -145,12 +176,9 @@ def launch_fantasy_gen_traj(q0s, p0s, params, steps, stride, n_keep,
     ns = torch.zeros((n,), dtype=torch.int32, device=q0s.device)
     if n == 0:
         return traj, ns
-    _call(entry, q0s, (p0s.data_ptr(), traj.data_ptr(), ns.data_ptr()),
-          params, (n, n_sub, int(steps), int(stride), int(n_keep)))
-    if static:
-        static_traj_launches += 1
-    else:
-        traj_launches += 1
+    _call("traj", chart, q0s,
+          (p0s.data_ptr(), traj.data_ptr(), ns.data_ptr()), params,
+          (n, n_sub, int(steps), int(stride), int(n_keep)))
     return traj, ns
 
 
@@ -192,22 +220,31 @@ def _unsorted(order_idx, out, ns):
 
 def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
                                  omega, order=2, metric="Kerr"):
-    """Integrate (N, 4) rays of the spherical charts through G1 ('Kerr',
-    then the exact rescue) or G1s (a static family, no rescue):
-    (final_q, final_p, status, n_steps), the contract of
-    `integrate_batch_generic(metric=...)`, which it matches bit for bit
-    on the card.  Rays are launched in cost-sorted order
-    (`_cost_sort_key_bl`, about the family's critical impact parameter)
-    and come back in the caller's.  Raises for CPU, misshapen or
+    """Integrate (N, 4) rays through G1 ('Kerr', then the exact rescue),
+    G1s (a static family, no rescue) or G1r (a rotating family, then the
+    rescue by its exact predicate): (final_q, final_p, status, n_steps),
+    the contract of `integrate_batch_generic(metric=...)`, which it
+    matches bit for bit on the card.  Rays are launched in cost-sorted
+    order (`_cost_sort_key_bl`, about the family's critical impact
+    parameter; `integrate_ks_cuda._cost_sort_key_ks` in the Cartesian
+    chart) and come back in the caller's.  Raises for CPU, misshapen or
     non-contiguous inputs, and for a failed build or launch."""
     _check_inputs(q0s, p0s, (F32, F64))
     vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
+    if metric in MASS_FN:
+        order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s,
+                                                    float(vec[0])),
+                                  stable=True)
+        out, ns = _unsorted(order_idx, *launch_fantasy_gen(
+            q0s[order_idx], p0s[order_idx], vec, steps, metric))
+        return finish_generic_rotating(tuple(out), ns, q0s, p0s, vec, metric,
+                                       params)
     static = metric in STATIC_F
     b_crit = (b_critical_cached(metric, *[float(x) for x in params][:2])
               if static else None)
     order_idx, q_s, p_s = _sorted_rays(q0s, p0s, float(vec[0]), b_crit)
     out, ns = _unsorted(order_idx, *launch_fantasy_gen(q_s, p_s, vec, steps,
-                                                       static=static))
+                                                       metric))
     if static:
         return finish_generic_static(tuple(out), ns, vec)
     return finish_generic_bl(tuple(out), ns, q0s, p0s, vec)
@@ -230,13 +267,13 @@ def trajectory_batch_decimated_cuda(q0s, p0s, steps, delta, params, r_max,
     return (traj, ns) if return_steps else traj
 
 
-def launch_fantasy_gen_trace(q0s, p0s, params, steps, static=False):
-    """Launch T2 (T2s with `static`) on (N, 4) float32 or float64 CUDA
-    rays; `params` is the 'Kerr' (static chart's) `gen_params` vector in
-    the rays' dtype.  Returns (N, steps, 8): (q1, p1) after each step,
-    every element written by the kernel."""
-    global trace_launches, static_trace_launches
+def launch_fantasy_gen_trace(q0s, p0s, params, steps, metric="Kerr"):
+    """Launch T2 ('Kerr'), T2s (a static family) or T2r (a rotating one)
+    on (N, 4) float32 or float64 CUDA rays; `params` is that chart's
+    `gen_params` vector in the rays' dtype.  Returns (N, steps, 8): (q1,
+    p1) after each step, every element written by the kernel."""
     _check_inputs(q0s, p0s, (F32, F64))
+    chart = chart_of("trace", metric)
     n = q0s.shape[0]
     n_sub = _n_sub(params, q0s.dtype)
     if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
@@ -244,24 +281,18 @@ def launch_fantasy_gen_trace(q0s, p0s, params, steps, static=False):
     out = torch.empty((n, steps, 8), dtype=q0s.dtype, device=q0s.device)
     if n == 0 or steps == 0:
         return out
-    entries = STATIC_TRACE_ENTRIES if static else TRACE_ENTRIES
-    _call(entries[q0s.dtype], q0s, (p0s.data_ptr(), out.data_ptr()),
-          params, (n, n_sub, int(steps)))
-    if static:
-        static_trace_launches += 1
-    else:
-        trace_launches += 1
+    _call("trace", chart, q0s, (p0s.data_ptr(), out.data_ptr()), params,
+          (n, n_sub, int(steps)))
     return out
 
 
 def trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec, metric="Kerr"):
-    """Trace (N, 4) CUDA rays through T2 ('Kerr') or T2s (a static family)
-    from that chart's gen_params vector: (N, steps, 8), the contract of
-    `trajectory_generic_unmasked`, which it matches bit for bit on the
-    card.  Raises for CPU, misshapen or non-contiguous inputs, and for a
-    failed build or launch."""
-    return launch_fantasy_gen_trace(q0s, p0s, vec, steps,
-                                    static=metric in STATIC_F)
+    """Trace (N, 4) CUDA rays through T2 ('Kerr'), T2s (a static family)
+    or T2r (a rotating one) from that chart's gen_params vector: (N,
+    steps, 8), the contract of `trajectory_generic_unmasked`, which it
+    matches bit for bit on the card.  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch."""
+    return launch_fantasy_gen_trace(q0s, p0s, vec, steps, metric)
 
 
 def launch_fantasy_gen_disk(q0s, p0s, disk, params, steps):
@@ -272,7 +303,6 @@ def launch_fantasy_gen_disk(q0s, p0s, disk, params, steps):
     (16, N): q1, p1, hit_q, hit_p rows, the hit rows zero where the ray
     never hit; ns (N,) int32, negative for guard-parked rays; hit (N,)
     bool)."""
-    global disk_launches
     _check_inputs(q0s, p0s, (F32, F64))
     n = q0s.shape[0]
     n_sub = _n_sub(params, q0s.dtype, extra=2)
@@ -287,8 +317,58 @@ def launch_fantasy_gen_disk(q0s, p0s, disk, params, steps):
     hit = torch.empty((n,), dtype=torch.int32, device=q0s.device)
     if n == 0:
         return out, ns, hit.bool()
-    _call(DISK_ENTRIES[q0s.dtype], q0s,
+    _call("disk", "static", q0s,
           (p0s.data_ptr(), disk.data_ptr(), out.data_ptr(), ns.data_ptr(),
            hit.data_ptr()), params, (n, n_sub, int(steps)))
-    disk_launches += 1
     return out, ns, hit.bool()
+
+
+def launch_fantasy_gen_disk_rotating(q0s, p0s, params, steps):
+    """Launch D2 on (N, 4) float32 or float64 CUDA rays of the
+    mass-function chart; params is that chart's `gen_params` vector
+    followed by r_in and r_out (`integrate_generic.disk_rotating_params`),
+    in the rays' dtype.  Returns (out (20, N): q1, p1, hit_q, hit_p, q2
+    rows, the hit rows zero where the ray never hit; ns (N,) int32,
+    negative for guard-parked rays; hit (N,) bool)."""
+    _check_inputs(q0s, p0s, (F32, F64))
+    n = q0s.shape[0]
+    n_sub = _n_sub(params, q0s.dtype, extra=2)
+    if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
+    out = torch.empty((ROT_DISK_ROWS, n), dtype=q0s.dtype,
+                      device=q0s.device)
+    ns = torch.empty((n,), dtype=torch.int32, device=q0s.device)
+    hit = torch.empty((n,), dtype=torch.int32, device=q0s.device)
+    if n == 0:
+        return out, ns, hit.bool()
+    _call("disk", "rot", q0s,
+          (p0s.data_ptr(), None, out.data_ptr(), ns.data_ptr(),
+           hit.data_ptr()), params, (n, n_sub, int(steps)))
+    return out, ns, hit.bool()
+
+
+def integrate_batch_disk_rotating_cuda(q0s, p0s, steps, delta, params, r_max,
+                                       omega, r_in, r_out, order=2,
+                                       metric="RotatingBardeen"):
+    """The rotating families' disk integration of (N, 4) CUDA rays through
+    D2, launched in G1r's cost-sorted order and put back in the caller's,
+    then the rescue and STATUS_DISK (`finish_disk_rotating`): (final_q,
+    final_p, status, n_steps, hit_q, hit_p), the contract of
+    `integrate_batch_disk_rotating`, which it matches bit for bit on the
+    card.  params = (M, a, p).  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch."""
+    _check_inputs(q0s, p0s, (F32, F64))
+    vec = disk_rotating_params(
+        gen_params(metric, delta, params, r_max, omega, order, q0s.dtype),
+        r_in, r_out)
+    order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s, float(vec[0])),
+                              stable=True)
+    out_s, ns_s, hit_s = launch_fantasy_gen_disk_rotating(
+        q0s[order_idx], p0s[order_idx], vec, steps)
+    out, ns = _unsorted(order_idx, out_s, ns_s)
+    hit = torch.empty_like(hit_s)
+    hit[order_idx] = hit_s
+    # the read-out takes the state rows (q1, p1, q2)
+    state = tuple(out[0:8]) + tuple(out[16:20])
+    return finish_disk_rotating(state, ns, hit, out[8:12].T, out[12:16].T,
+                                q0s, p0s, vec, metric, params)

@@ -442,17 +442,19 @@ def ks_status(final_q, a, r_cap, r_max):
 
 
 def apply_bardeen_rescue(final_q, final_p, n_steps_signed, q2_spatial,
-                         q0s, p0s, mass, a, charge, r_cap, r_max):
+                         q0s, p0s, mass, a, charge, r_cap, r_max, pred=None):
     """Reclassify guard-parked rays (n_steps_signed < 0) by the exact
-    Bardeen predicate: escape -> parked at 1.001 r_max along the
-    last-resolved direction of the second copy (q2_spatial), ESCAPED;
-    capture -> the on-axis capture point (0, 0, 0.5 r_cap), CAPTURED.
-    Unparked rays pass through.  Returns (final_q, final_p, status,
-    n_steps)."""
+    predicate (`pred`, by default `bardeen_escape_pred`; the rotating
+    regular families pass theirs, which only its parked rays need):
+    escape -> parked at 1.001 r_max along the last-resolved direction of
+    the second copy (q2_spatial), ESCAPED; capture -> the on-axis capture
+    point (0, 0, 0.5 r_cap), CAPTURED.  Unparked rays pass through.
+    Returns (final_q, final_p, status, n_steps)."""
     dtype = final_q.dtype
     parked = n_steps_signed < 0
     n_steps = torch.abs(n_steps_signed)
-    pred = bardeen_escape_pred(q0s, p0s, mass, a, charge)
+    if pred is None:
+        pred = bardeen_escape_pred(q0s, p0s, mass, a, charge)
     esc_r = parked & pred
     cap_r = parked & ~pred
 

@@ -179,6 +179,19 @@ PEAK_BYTES = 3.35e12
 #                and the launch's 22 = 566 (the crossing of a hit ray, B6's
 #                59 and t's and the eight lerps' tangents 52, is not
 #                counted: the bound stays a bound)
+#   fantasy_gen_rot (G1r; S2r as fantasy_gen_traj_rot, T2r as
+#                fantasy_gen_trace_rot, which has nothing per step): S2's
+#                Kerr-Schild chart with the mass function's H in each of
+#                the 3 evaluations a substep: H and N' 11 (Hayward's
+#                branch, the least: r^2, r^3, X, r^3 / X, M m, N' 4, m r
+#                and H 2; Bardeen's takes 13) where the Kerr-Newman H took
+#                5, so 513 + 3 x 6 = 531; per step the active test 23 and
+#                the guard 81 + 6 = 110; once per ray the launch's flow A
+#                evaluation, 126
+#   fantasy_gen_disk_rot (D2): G1r's 531 per substep; per step G1r's 110
+#                and the z product 1 = 111; once per ray 126 (the
+#                crossing of a hit ray, t, the eight lerps and the hit
+#                radius, is not counted: the bound stays a bound)
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -204,6 +217,10 @@ KERNEL_OPS = {
     "fantasy_gen_traj_static": (286, 2, 47),
     "fantasy_gen_trace_static": (286, 0, 47),
     "fantasy_gen_disk_static": (286, 8, 52),
+    "fantasy_gen_rot": (531, 110, 126),
+    "fantasy_gen_traj_rot": (531, 110, 126),
+    "fantasy_gen_trace_rot": (531, 0, 126),
+    "fantasy_gen_disk_rot": (531, 111, 126),
 }
 DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
 SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42

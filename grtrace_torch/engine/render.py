@@ -177,13 +177,19 @@ def trajectories_to_cartesian(traj, betas):
 # scene.metric -> the static family of the generic engine
 STATIC_NAMES = {"kottler": "Kottler", "sds": "Kottler", "bardeen": "Bardeen",
                 "hayward": "Hayward"}
+# scene.metric -> the rotating regular family of the generic engine
+ROTATING_NAMES = {"rotating-bardeen": "RotatingBardeen",
+                  "rotatingbardeen": "RotatingBardeen",
+                  "rotating-hayward": "RotatingHayward",
+                  "rotatinghayward": "RotatingHayward"}
 
 
 def _route(scene):
     """The chart `render` takes: 'Kerr' (Boyer-Lindquist, scene.metric
     'kerr-bl' / 'kerrbl'), 'KerrSchild' (Kerr and charged Schwarzschild,
     which is Reissner-Nordstrom there), the static family 'Kottler'
-    ('kottler' / 'sds'), 'Bardeen' or 'Hayward', or 'Schwarzschild' for
+    ('kottler' / 'sds'), 'Bardeen' or 'Hayward', the rotating regular
+    family 'RotatingBardeen' or 'RotatingHayward', or 'Schwarzschild' for
     the headline path; raises for the metric families the port does not
     have yet."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
@@ -191,6 +197,8 @@ def _route(scene):
         return "Kerr"
     if metric in STATIC_NAMES:
         return STATIC_NAMES[metric]
+    if metric in ROTATING_NAMES:
+        return ROTATING_NAMES[metric]
     charged = float(getattr(scene, "charge", 0.0)) != 0.0
     if (metric in ("kerr", "kerrschild", "kerr-schild")
             or (metric == "schwarzschild" and charged)):
@@ -211,7 +219,9 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     'kerrschild', 'kerr-schild') and for a charged Schwarzschild scene, in
     the Boyer-Lindquist chart for 'kerr-bl' / 'kerrbl', in the static chart
     for 'kottler' / 'sds', 'bardeen' and 'hayward' (scene.metric_param in
-    the second params slot).
+    the second params slot), in the mass-function Kerr-Schild chart for
+    'rotating-bardeen' / 'rotating-hayward' (scene.spin in the second
+    slot, scene.metric_param in the third).
 
     bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
     torch dtype, by default the scene's integrator dtype.  metrics:
@@ -233,6 +243,16 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
                               charge=0.0, dtype=dtype, n_samples=n_samples,
                               seed=seed, metrics=metrics,
                               aa_samples=aa_samples, device=device)
+    if chart in ROTATING_NAMES.values():
+        # the family parameter rides the charge slot
+        from .render_generic import render_generic
+        return render_generic(scene, metric=chart, bg_array=bg_array,
+                              spin=scene.spin,
+                              charge=float(getattr(scene, "metric_param",
+                                                   0.0)),
+                              dtype=dtype, n_samples=n_samples, seed=seed,
+                              metrics=metrics, aa_samples=aa_samples,
+                              device=device)
     if chart != "Schwarzschild":
         from .render_generic import render_generic
         return render_generic(scene, metric=chart, bg_array=bg_array,

@@ -1,8 +1,10 @@
-"""Full-frame Kerr / Kerr-Newman and static beyond-Kerr rendering — the
-torch counterpart of `grtrace.engine.render_generic`: metric 'KerrSchild'
-(the horizon-regular Cartesian chart), metric 'Kerr' (Boyer-Lindquist),
-and the static families 'Kottler', 'Bardeen', 'Hayward' (the family's
-parameter in the spin slot, charge 0).
+"""Full-frame Kerr / Kerr-Newman and beyond-Kerr rendering — the torch
+counterpart of `grtrace.engine.render_generic`: metric 'KerrSchild' (the
+horizon-regular Cartesian chart), metric 'Kerr' (Boyer-Lindquist), the
+static families 'Kottler', 'Bardeen', 'Hayward' (the family's parameter in
+the spin slot, charge 0), and the rotating regular families
+'RotatingBardeen', 'RotatingHayward' (the spin, and the family's parameter
+in the charge slot).
 
 Same scene layout as the Schwarzschild path (pinhole camera, boundary
 sphere, background patch), with what the physics forces:
@@ -12,17 +14,20 @@ sphere, background patch), with what the physics forces:
     kernel G1 (engine/integrate_generic_cuda.py) in the Boyer-Lindquist
     one; the static families keep the reference's beta-fold (exact under
     spherical symmetry: physics/camera.py's camera_rays_folded_static)
-    and run kernel G1s; their eager twins on the CPU;
+    and run kernel G1s; the rotating regular families take the Cartesian
+    camera with their own g_inv and run kernel G1r (the mass-function
+    Kerr-Schild chart); their eager twins on the CPU;
   * capture by the integration's outcome (the capture shell and the exact
     Bardeen rescue), not the b_crit shortcut;
   * classification reuses engine.classify with the shortcut disabled
     (alpha0 = pi), with beta = 0, or the static families' fold angles,
     which un-fold the exit angles, and the capture shell 1.1 x the bisected
-    outer horizon (or the horizonless floor) for the static families.
-The sampled trajectories run through kernel S2 (S2s; its twin on the CPU)
-and are rotated back by their beta, and the adaptive antialiasing pass
-(engine/aa.py) through B5, G1 or G1s again.  The rotating regular
-families and Kerr-de Sitter raise NotImplementedError.
+    outer horizon (or the horizonless floor) for the static families,
+    1.05 x it for the rotating ones.
+The sampled trajectories run through kernel S2 (S2s, S2r; its twin on the
+CPU) and are rotated back by their beta, and the adaptive antialiasing
+pass (engine/aa.py) through B5, G1, G1s or G1r again.  Kerr-de Sitter
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..physics.camera import (camera_rays_cartesian,
                               camera_rays_folded_static,
                               camera_rays_unfolded)
 from ..physics.coords import cartesian_to_spherical
+from ..physics.rotating_regular import MASS_FN, rotating_capture_radius
 from ..physics.spacetime import COORDS, METRICS, horizon_radius
 from ..physics.static_metrics import STATIC_F, static_capture_radius
 from . import classify as _classify
@@ -147,10 +153,15 @@ def classify_radius(metric, params):
     the integrator's capture shell, 1.05 r_+ (Kerr-Schild) or 1.1 r_+
     (Boyer-Lindquist; for the static families r_+ = static_capture_radius
     / 1.1, a float64 tensor on params' device, as JAX's x64 bisection
-    gives it)."""
+    gives it; for the rotating families rotating_capture_radius / 1.05 in
+    params' dtype, as JAX's bisection in that dtype gives it)."""
     if metric in STATIC_F:
         r_plus = static_capture_radius(metric, params[:2].cpu()) / 1.1
         return ((1.1 / 1.2) * r_plus).to(params.device)
+    if metric in MASS_FN:
+        r_plus = rotating_capture_radius(metric, params).to(
+            dtype=params.dtype, device=params.device) / 1.05
+        return (1.05 / 1.2) * r_plus
     r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
     return ((1.05 if COORDS[metric] == "cartesian" else 1.1) / 1.2) * r_plus
 
@@ -196,8 +207,10 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
     (kernels B5, G1 or G1s, and S2 or S2s) and raises without a GPU; pass
     device='cpu' for the eager twins.  aa_samples = s (>= 2) runs the
     adaptive edge-refinement pass (engine/aa.py: the sub-rays through B5,
-    G1 or G1s).  For the static families ('Kottler', 'Bardeen',
-    'Hayward') `spin` carries the family parameter and charge is 0.
+    G1, G1s or G1r).  For the static families ('Kottler', 'Bardeen',
+    'Hayward') `spin` carries the family parameter and charge is 0; for
+    the rotating ones ('RotatingBardeen', 'RotatingHayward') `charge`
+    carries it.
     Prefer the top-level render, which routes scene.metric to the right
     chart.
     """

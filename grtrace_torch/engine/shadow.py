@@ -17,10 +17,15 @@ Pallas path) and on the CPU B5's eager twin.  `overlay_png` draws a curve
 over a render (matplotlib).
 
 Boundary radii are quoted in 256-image pixels of the headline scene
-(observer at 30 M on +x, fov 80 deg).  The rotating regular and Kerr-de
-Sitter curves (JAX's `analytic_boundary_rotating`, `analytic_boundary_kds`
-and `numeric_boundary` in their charts) wait for those metric families:
-ROADMAP Queue A item 9, whose NotImplementedError they raise.
+(observer at 30 M on +x, fov 80 deg).  The rotating regular families'
+exact curve (`analytic_boundary_rotating`) bisects their conserved-quantity
+predicate (physics/rotating_regular.escape_pred_rotating) on the host, and
+`numeric_boundary(metric='RotatingBardeen' | 'RotatingHayward')` traces
+its fan through kernel G1r (`integrate_generic.
+integrate_dispatch_generic`; its eager twin on the CPU).  The Kerr-de
+Sitter curves (JAX's `analytic_boundary_kds` and `numeric_boundary` in its
+chart) wait for that family: ROADMAP Queue A item 9, whose
+NotImplementedError they raise.
 """
 from __future__ import annotations
 
@@ -28,8 +33,11 @@ import numpy as np
 import torch
 
 from ..physics.camera import cartesian_ics_from_pixels
+from ..physics.rotating_regular import (MASS_FN, escape_pred_rotating,
+                                        rotating_horizon)
 from ..physics.spacetime import METRICS, kerr_schild_g_inv
 from .integrate import STATUS_ESCAPED
+from .integrate_generic import integrate_dispatch_generic
 from .integrate_ks import integrate_dispatch_ks
 from .validate import (BOUNDARY, PLANE_D, PLANE_W, R0, SIZE,
                        _pixel_positions, bardeen_escapes, bisect_boundary,
@@ -57,10 +65,25 @@ def analytic_boundary(spin, charge=0.0, n_psi=64, rounds=6):
 
 def analytic_boundary_rotating(spin, p1, metric="RotatingBardeen",
                                n_psi=64, rounds=6):
-    """The rotating regular families' critical curve: not ported yet
-    (raises NotImplementedError, ROADMAP Queue A item 9)."""
-    METRICS[metric]
-    raise KeyError(metric)
+    """(psis, rho_px): the exact critical curve of a rotating regular
+    family (M = 1, spin, family parameter p1), by radial bisection of its
+    conserved-quantity escape predicate (`escape_pred_rotating`) on the
+    Cartesian camera's rays through each pixel radius, on the host in
+    float64: no ray is traced.  NaN radii where (a, p1) has no horizon
+    (no shadow to bound)."""
+    psis = np.linspace(0.0, 2.0 * np.pi, n_psi, endpoint=False)
+    params = torch.tensor([1.0, spin, p1], dtype=torch.float64)
+    if not bool(torch.isfinite(rotating_horizon(metric, params))):
+        return psis, np.full(n_psi, np.nan)
+
+    def escape(rhos):
+        q0, p0 = fan_rays(rhos, psis, params, torch.float64, "cpu",
+                          metric=metric)
+        pred = escape_pred_rotating(metric, q0, p0, params)
+        return pred.reshape(rhos.shape).numpy()
+
+    rho, _ = bisect_boundary(escape, 2.0, 40.0, rounds=rounds, n_psi=n_psi)
+    return psis, rho
 
 
 def analytic_boundary_kds(spin, lam, n_psi=64, rounds=6):
@@ -101,15 +124,18 @@ def shadow_metrics(psis, rho_px):
     }
 
 
-def fan_rays(rhos, psis, params, dtype, device):
+def fan_rays(rhos, psis, params, dtype, device, metric="KerrSchild"):
     """The Kerr-Schild camera rays (q0, p0), each (P*K, 4), through the
-    (P, K) pixel radii `rhos` at the P azimuths `psis`: the fan that
-    `numeric_boundary` traces each round."""
+    (P, K) pixel radii `rhos` at the P azimuths `psis`, with `metric`'s
+    g_inv (the Kerr-Newman one, or a rotating regular family's): the fan
+    that `numeric_boundary` traces each round."""
     obs = torch.tensor([R0, 0.0, 0.0], dtype=dtype, device=device)
     pix = torch.as_tensor(_pixel_positions(rhos, np.asarray(psis)[:, None]),
                           dtype=dtype, device=device)
+    g_inv_fn = kerr_schild_g_inv if metric == "KerrSchild" \
+        else METRICS[metric]
     q0, p0, _ = cartesian_ics_from_pixels(obs, pix, params=params,
-                                          g_inv_fn=kerr_schild_g_inv)
+                                          g_inv_fn=g_inv_fn)
     return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
 
 
@@ -122,14 +148,16 @@ def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
     B5 on the card (float32 rays, the default, in its 32-row compensated
     layout), its eager twin on the CPU or with backend='torch'.  device
     defaults to 'cuda' and raises without a GPU; pass device='cpu' for the
-    twin.  Only the Kerr-Newman family in the Kerr-Schild chart: the
-    rotating regular and Kerr-de Sitter charts raise naming ROADMAP item 9,
-    any other metric NotImplementedError."""
-    if metric != "KerrSchild":
+    twin.  For a rotating regular family (`metric` 'RotatingBardeen' /
+    'RotatingHayward', its parameter in `charge`'s slot) the fan takes the
+    family's camera and goes through `integrate_dispatch_generic`: kernel
+    G1r on the card, its twin on the CPU.  Kerr-de Sitter raises naming
+    ROADMAP item 9, any other metric NotImplementedError."""
+    if metric != "KerrSchild" and metric not in MASS_FN:
         METRICS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"numeric_boundary of grtrace_torch traces the Kerr-Schild "
-            f"chart only (got {metric!r})")
+            f"charts only (got {metric!r})")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("numeric_boundary(device='cuda') needs a CUDA "
@@ -140,10 +168,15 @@ def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
     params = (1.0, spin, charge)
 
     def escape(rhos):
-        q0, p0 = fan_rays(rhos, psis, params, dtype, device)
-        _, _, status, _ = integrate_dispatch_ks(
-            q0, p0, steps, delta, params, BOUNDARY, 1.0, order=order,
-            backend=backend)
+        q0, p0 = fan_rays(rhos, psis, params, dtype, device, metric=metric)
+        if metric == "KerrSchild":
+            _, _, status, _ = integrate_dispatch_ks(
+                q0, p0, steps, delta, params, BOUNDARY, 1.0, order=order,
+                backend=backend)
+        else:
+            _, _, status, _ = integrate_dispatch_generic(
+                q0, p0, steps, delta, params, BOUNDARY, 1.0, order=order,
+                metric=metric, backend=backend)
         return status.reshape(rhos.shape).cpu().numpy() == STATUS_ESCAPED
 
     rho, bracket = bisect_boundary(escape, 6.0, 40.0, rounds=rounds, k=9,

@@ -398,6 +398,24 @@ def disk_static_parity(q0, p0, c1, c2, steps, delta, params, r_max, omega,
     return kern, res
 
 
+def disk_rotating_parity(q0, p0, steps, delta, params, r_max, omega, r_in,
+                         r_out, metric, order=2):
+    """Kernel D2 (`integrate_dispatch_disk_rotating` on CUDA rays) against
+    its eager twin (`integrate_batch_disk_rotating`) on the same rays.
+    Returns (the kernel's outputs, `compare_outputs`'s counts with the hit
+    rows, plus the kernel+wrapper and twin times in ms)."""
+    from .integrate_generic import (integrate_batch_disk_rotating,
+                                    integrate_dispatch_disk_rotating)
+    args = (q0, p0, steps, delta, params, r_max, omega, r_in, r_out)
+    kern, kernel_ms = timed(lambda: integrate_dispatch_disk_rotating(
+        *args, order=order, metric=metric), q0.device)
+    ref, twin_ms = timed(lambda: integrate_batch_disk_rotating(
+        *args, order=order, metric=metric), q0.device)
+    res = compare_outputs(kern, ref)
+    res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
+    return kern, res
+
+
 def gen_traj_parity(q0s, p0s, steps, delta, params, r_max, omega,
                     metric="Kerr", n_keep=1000, order=2, reps=3):
     """Kernel S2, through `trajectory_batch_decimated_cuda` (the entry the

@@ -11,9 +11,11 @@ families plug into, and the CPU reference that the closed-form flows
 (physics/kerr_bl.py, physics/kerr_schild.py, physics/static_chart.py) are
 tested against; no path on the card runs them.  The static beyond-Kerr
 families (Kottler, Bardeen, Hayward: physics/static_metrics.py) take the
-family's own parameter in the second params slot.  The rotating regular
-families and Kerr-de Sitter are not ported yet (ROADMAP Queue A item 9):
-looking them up raises NotImplementedError.
+family's own parameter in the second params slot; the rotating regular
+families (RotatingBardeen, RotatingHayward: physics/rotating_regular.py)
+the spin in the second and their own parameter in the third.  Kerr-de
+Sitter is not ported yet (ROADMAP Queue A item 9): looking it up raises
+NotImplementedError.
 
 Metric parameters are `params = (M, a[, Q])`: a 1-D tensor, or a sequence
 of numbers, in the working dtype; the charge slot is optional, as in JAX.
@@ -22,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .rotating_regular import (MASS_FN, rotating_bardeen_g_inv,
+                               rotating_hayward_g_inv, rotating_horizon)
 from .static_metrics import (STATIC_F, bardeen_g_inv, hayward_g_inv,
                              kottler_g_inv, outer_horizon)
 
@@ -110,7 +114,7 @@ def kerr_schild_g_inv(q, params):
 
 
 # the metric families of the JAX package that the port does not have yet
-_ITEM_9 = ("RotatingBardeen", "RotatingHayward", "KerrDS")
+_ITEM_9 = ("KerrDS",)
 
 
 class _Table(dict):
@@ -129,21 +133,27 @@ METRICS = _Table({"Schwarzschild": schwarzschild_g_inv, "Kerr": kerr_g_inv,
                   "KerrSchild": kerr_schild_g_inv,
                   # the static families: params = (M, Lambda | g | l[, 0])
                   "Kottler": kottler_g_inv, "Bardeen": bardeen_g_inv,
-                  "Hayward": hayward_g_inv})
+                  "Hayward": hayward_g_inv,
+                  # the rotating regular families: params = (M, a, g | l)
+                  "RotatingBardeen": rotating_bardeen_g_inv,
+                  "RotatingHayward": rotating_hayward_g_inv})
 
 # coordinate chart per metric: 'spherical' q = (t, r, theta, phi),
 # 'cartesian' q = (t, x, y, z)
 COORDS = _Table({"Schwarzschild": "spherical", "Kerr": "spherical",
                  "KerrSchild": "cartesian", "Kottler": "spherical",
-                 "Bardeen": "spherical", "Hayward": "spherical"})
+                 "Bardeen": "spherical", "Hayward": "spherical",
+                 "RotatingBardeen": "cartesian",
+                 "RotatingHayward": "cartesian"})
 
 
 def horizon_radius(metric: str, mass, a=0.0, q=0.0):
     """Outer event-horizon radius r_+: 2M for Schwarzschild,
     M + sqrt(max(M^2 - a^2 - Q^2, 0)) for the Kerr-Newman family, and for
     the static families (`a` carrying the family parameter) the bisected
-    outer horizon of static_metrics.outer_horizon, NaN where there is
-    none.
+    outer horizon of static_metrics.outer_horizon, for the rotating
+    regular families (`q` carrying theirs) rotating_regular.
+    rotating_horizon, each NaN where there is none.
     Arguments are tensors or numbers; numbers take the dtype and device of
     the first tensor argument (the default dtype if there is none)."""
     ref = next((v for v in (mass, a, q) if isinstance(v, torch.Tensor)),
@@ -157,6 +167,8 @@ def horizon_radius(metric: str, mass, a=0.0, q=0.0):
                                              min=0.0))
     if metric in STATIC_F:
         return outer_horizon(STATIC_F[metric], torch.stack([mass, a]))
+    if metric in MASS_FN:
+        return rotating_horizon(metric, torch.stack([mass, a, q]))
     METRICS[metric]  # raises for the families of item 9
     raise KeyError(metric)
 

@@ -18,7 +18,8 @@ under gloo on the host.
 The frames of one rank share every scalar of their kernel's vector, so
 their rays go to the card in one launch: B1 / B2 (`integrate_dispatch`)
 for the Schwarzschild frames, B5 (`integrate_dispatch_ks`) for the Kerr
-ones, B6 (`integrate_dispatch_disk`) for the disk.  A pixel's result does
+ones, G1r (`integrate_dispatch_generic`) for the rotating regular
+families' ones, B6 (`integrate_dispatch_disk`) for the disk.  A pixel's result does
 not depend on the launch it rides in, so the images, classes and step
 counts do not depend on the mesh's shape.
 
@@ -40,6 +41,7 @@ import torch.distributed as dist
 from ..engine import classify as _classify
 from ..engine.disk import CLS_DISK, shade_disk
 from ..engine.integrate import STATUS_CAPTURED, integrate_dispatch
+from ..engine.integrate_generic import integrate_dispatch_generic
 from ..engine.integrate_ks import (STATUS_DISK, integrate_dispatch_disk,
                                    integrate_dispatch_ks)
 from ..physics.camera import (boosted_ics_from_pixels,
@@ -47,6 +49,7 @@ from ..physics.camera import (boosted_ics_from_pixels,
                               pixel_positions_fractional,
                               pixel_positions_fractional_lookat)
 from ..physics.coords import cartesian_to_spherical
+from ..physics.rotating_regular import MASS_FN, rotating_capture_radius
 from ..physics.spacetime import (METRICS, horizon_radius, kerr_schild_g_inv,
                                  ks_radius)
 
@@ -302,11 +305,15 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
     through `integrate_dispatch_ks` (float32 rays: the 32-row compensated
     layout, the single-device production path's), the status-pinned
     classification.  Equatorial orbits about the spin axis keep the
-    patch-rotation trick exact.  The rotating regular families (the
-    JAX function's other Cartesian metrics) are ROADMAP item 9 and
-    raise."""
-    if metric != "KerrSchild":
-        METRICS[metric]  # the rotating regular families raise, naming item 9
+    patch-rotation trick exact.  The rotating regular families (metric
+    'RotatingBardeen' / 'RotatingHayward', the family parameter in
+    `charge`) take the camera with their g_inv, G1r through
+    `integrate_dispatch_generic` and the classifier's shell
+    rotating_capture_radius / 1.2, as JAX's XLA route; Kerr-de Sitter
+    raises naming ROADMAP item 9."""
+    rotating = metric in MASS_FN
+    if metric != "KerrSchild" and not rotating:
+        METRICS[metric]  # Kerr-de Sitter raises, naming item 9
         raise ValueError(f"sharded Kerr-family frames use the Cartesian "
                          f"Kerr-Schild chart (got {metric!r})")
     device, bg, (obs_x, phis), n, i_f, j_f = _setup(
@@ -317,8 +324,12 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
         return torch.tensor(float(x), dtype=dtype, device=device)
 
     params = torch.stack([scalar(mass), scalar(spin), scalar(charge)])
-    rs_classify = (1.05 / 1.2) * horizon_radius("Kerr", params[0],
-                                                params[1], params[2])
+    if rotating:
+        rs_classify = rotating_capture_radius(metric, params).to(
+            dtype=dtype, device=device) / 1.2
+    else:
+        rs_classify = (1.05 / 1.2) * horizon_radius("Kerr", params[0],
+                                                    params[1], params[2])
     fov_t = scalar(fov)
     frames = _local_frames(mesh, obs_x.numel())
     q0s, p0s = [], []
@@ -328,13 +339,20 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
         pix = pixel_positions_fractional(obs_pos, fov_t, height, width, i_f,
                                          j_f, dtype=dtype)
         q0, p0, _ = cartesian_ics_from_pixels(obs_pos, pix, params=params,
-                                              g_inv_fn=kerr_schild_g_inv)
+                                              g_inv_fn=METRICS[metric])
         q0s.append(q0)
         p0s.append(p0)
-    final_q, _, status, n_steps = integrate_dispatch_ks(
-        torch.cat(q0s), torch.cat(p0s), steps, float(delta),
-        (float(mass), float(spin), float(charge)), float(boundary_radius),
-        float(omega), order=order, backend=backend)
+    hole = (float(mass), float(spin), float(charge))
+    if rotating:
+        final_q, _, status, n_steps = integrate_dispatch_generic(
+            torch.cat(q0s), torch.cat(p0s), steps, float(delta), hole,
+            float(boundary_radius), float(omega), order=order,
+            metric=metric, backend=backend)
+    else:
+        final_q, _, status, n_steps = integrate_dispatch_ks(
+            torch.cat(q0s), torch.cat(p0s), steps, float(delta), hole,
+            float(boundary_radius), float(omega), order=order,
+            backend=backend)
     n_local = i_f.numel()
     alpha_off = torch.full((n_local,), math.pi, dtype=dtype, device=device)
     beta0 = torch.zeros((n_local,), dtype=dtype, device=device)

@@ -46,9 +46,12 @@ def test_cli_refuses_without_a_card(background, tmp_path):
     (["--disk", "--camera-omega", "0.1", "--metric", "hayward"],
      "the Kerr-Schild disk path"),
     (["--metric", "kottler"], None), (["--metric", "kerr-ds"], "9"),
-    (["--metric", "rotating-bardeen", "--spin", "0.5"], "9"),
+    (["--metric", "kerr-ds", "--spin", "0.5"], "9"),
     (["--metric", "kerr-bl", "--n-samples", "0"], None),
-    (["--metric", "kerr", "--spin", "0.5"], None)])
+    (["--metric", "kerr", "--spin", "0.5"], None),
+    (["--metric", "rotating-bardeen", "--spin", "0.5"], None),
+    (["--disk", "--metric", "rotating-hayward", "--spin", "0.9",
+      "--metric-param", "0.2"], None)])
 def test_unported_options_raise(flags, item):
     """Each unported option raises NotImplementedError naming its ROADMAP
     item, before any work runs; the options items 5b, 8 and 9's static
@@ -58,7 +61,8 @@ def test_unported_options_raise(flags, item):
     static family raises as JAX's render_disk_static does, naming the
     Kerr-Schild disk path; --metric kerr runs with --n-samples 0, and with
     the default --n-samples on the disk path (which samples no
-    trajectories)."""
+    trajectories); the rotating regular families (item 9's rotating half)
+    pass with and without --disk, Kerr-de Sitter raises naming item 9."""
     args = targs.parse_args(flags + ["--device", "cpu"])
     if item is None:
         tmain.check_ported(args, targs.scene_from_args(args))

@@ -238,10 +238,11 @@ def test_gen_params_match_the_jax_domain(metric, dtype):
 
 
 def test_metric_tables_and_capture_radius():
-    """METRICS / COORDS hold Schwarzschild, Kerr, KerrSchild and the static
-    families; the other JAX families raise naming ROADMAP item 9, unknown
-    names KeyError; the capture radii equal JAX's (the static families'
-    within 1e-12 relative: one float64 bisection each)."""
+    """METRICS / COORDS hold Schwarzschild, Kerr, KerrSchild, the static
+    and the rotating regular families; Kerr-de Sitter raises naming
+    ROADMAP item 9, unknown names KeyError; the capture radii equal JAX's
+    (the static and rotating families' within 1e-12 relative: one float64
+    bisection each)."""
     for name in ("Kottler", "Bardeen", "Hayward"):
         assert tsp.COORDS[name] == jsp.COORDS[name]
         for p in ((1.0, 1e-3 if name == "Kottler" else 0.5),
@@ -258,11 +259,17 @@ def test_metric_tables_and_capture_radius():
             p, dtype=torch.float64)))
         assert t == j
     assert float(tsp.horizon_radius("Schwarzschild", 1.5)) == 3.0
-    for name in ("RotatingHayward", "KerrDS"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tsp.METRICS[name]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tig._capture_radius(name, torch.tensor(PARAMS))
+    for name in ("RotatingBardeen", "RotatingHayward"):
+        assert tsp.COORDS[name] == jsp.COORDS[name] == "cartesian"
+        for p in ((1.0, 0.9, 0.2), (1.0, 0.6, 0.75)):
+            j = float(jig._capture_radius(name, jnp.asarray(p)))
+            t = float(tig._capture_radius(name, torch.tensor(
+                p, dtype=torch.float64)))
+            assert abs(t - j) <= 1e-12 * j
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tsp.METRICS["KerrDS"]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tig._capture_radius("KerrDS", torch.tensor(PARAMS))
     with pytest.raises(KeyError):
         tsp.COORDS["Minkowski"]
     with pytest.raises(NotImplementedError, match="Kerr-Newman charts"):
@@ -300,20 +307,26 @@ def test_dispatch_routes(monkeypatch):
 
 def test_gen_entries_registered():
     """G1, S2 and T2's entries, and those of their static-chart modes G1s,
-    S2s, T2s and of D1, are built from fantasy_gen.cu: G1 and G1s take
-    (q0, p0, out, ns, params, n, n_sub, steps, stream), S2 and S2s the
-    trajectory signature, T2 and T2s the trace one (q0, p0, out, params,
-    n, n_sub, steps, stream), D1 (q0, p0, disk, out, ns, hit, params, n,
-    n_sub, steps, stream); so are T1's from fantasy_schw16.cu."""
+    S2s, T2s and of D1, and of the mass-function chart's G1r, S2r, T2r
+    and D2, are built from fantasy_gen.cu: G1, G1s and G1r take (q0, p0,
+    out, ns, params, n, n_sub, steps, stream), S2, S2s and S2r the
+    trajectory signature, T2, T2s and T2r the trace one (q0, p0, out,
+    params, n, n_sub, steps, stream), D1 and D2 (q0, p0, disk, out, ns,
+    hit, params, n, n_sub, steps, stream; D2's disk null); so are T1's
+    from fantasy_schw16.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
     names = tbuild.ENTRIES["fantasy_gen"]
-    assert set(names) == (set(tigc.ENTRIES.values())
-                          | set(tigc.TRAJ_ENTRIES.values())
-                          | set(tigc.TRACE_ENTRIES.values())
-                          | set(tigc.STATIC_ENTRIES.values())
-                          | set(tigc.STATIC_TRAJ_ENTRIES.values())
-                          | set(tigc.STATIC_TRACE_ENTRIES.values())
-                          | set(tigc.DISK_ENTRIES.values()))
+    assert set(names) == {tigc.entry(mode, chart, dt)
+                          for mode, chart in tigc.KERNELS
+                          for dt in (torch.float32, torch.float64)}
+    assert len(names) == 2 * len(tigc.KERNELS) == 24
+    for mode, metric, chart in (("gen", "Kerr", "bl"),
+                                ("traj", "KerrSchild", "ks"),
+                                ("trace", "Hayward", "static"),
+                                ("disk", "RotatingHayward", "rot")):
+        assert tigc.chart_of(mode, metric) == chart
+    with pytest.raises(ValueError, match="no gen kernel"):
+        tigc.chart_of("gen", "KerrSchild")
     src = (tbuild.CSRC_DIR / "fantasy_gen.cu").read_text()
     for name in names:
         assert f"{name}" in src

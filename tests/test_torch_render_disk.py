@@ -124,14 +124,19 @@ def test_disk_config_matches_jax():
 @pytest.mark.parametrize("change,kw,match", [
     ({"bfield": "vertical"}, {"aa_samples": 3}, None),
     ({"camera_omega": "zamo"}, {"charge": 0.3}, "item 8"),
-    ({"camera_omega": 0.01}, {"metric": "rotating-bardeen"}, "item 9"),
+    ({"camera_omega": 0.01}, {"metric": "rotating-bardeen"},
+     "Kerr-Newman disk path only"),
     ({"camera_omega": "zamo"}, {"aa_samples": 3}, None),
     ({}, {"charge": 0.3}, "item 8"),
-    ({}, {"metric": "rotating-bardeen"}, "item 9"),
+    ({}, {"metric": "rotating-bardeen", "aa_samples": 3}, "sub-ray chain"),
+    ({"bfield": "vertical"}, {"metric": "rotating-hayward"},
+     "Walker-Penrose"),
 ])
 def test_disk_paths_not_ported_raise(change, kw, match):
     """The disk paths the port does not have raise NotImplementedError
-    naming their ROADMAP item; aa_samples (item 8b; match None) refines
+    naming their ROADMAP item, and the rotating regular families refuse an
+    orbiting camera, aa_samples and bfield with JAX's messages;
+    aa_samples (item 8b; match None) refines
     the 8x8 disk frame, polarized or seen from a moving camera, leaving
     the class map, the counts and the science maps alone; a charged hole
     (item 8, its 8d: the autodiff ISCO) renders, its inner edge the root

@@ -43,13 +43,15 @@ PARITY_PARAMS = (1.0, 0.9, 0.0)
       grtrace_torch.IntegratorConfig(steps=400, delta=0.2)},
      {"aa_samples": 3}, None),
     ({"metric": "kerr", "spin": 0.9}, {"n_samples": 2}, None),
-    ({"metric": "rotating-hayward"}, {}, "item 9"),
+    ({"metric": "kerr-ds"}, {}, "item 9"),
+    ({"metric": "rotating-hayward", "spin": 0.9, "metric_param": 0.2},
+     {"n_samples": 2}, None),
 ])
 def test_kerr_paths_not_ported_raise(change, kw, match):
     """The Kerr paths the port does not have raise NotImplementedError
-    naming their ROADMAP item; those items 5b and 8b ported (match None:
-    the Boyer-Lindquist chart, the Kerr sampler, antialiasing) render at
-    8x8."""
+    naming their ROADMAP item; those items 5b, 8b and 9 ported (match
+    None: the Boyer-Lindquist chart, the Kerr sampler, antialiasing, the
+    rotating regular families with their sampler) render at 8x8."""
     scene = replace(grtrace_torch.SceneConfig(
         size=8, n_samples=0, background=None,
         integrator=grtrace_torch.IntegratorConfig(steps=100, delta=0.2)),

@@ -87,15 +87,13 @@ def test_cli_writes_the_boundary_and_metrics(numeric):
 
 
 def test_unported_metrics_and_missing_matplotlib(monkeypatch, tmp_path):
-    """The beyond-Kerr curves raise naming ROADMAP item 9; --render without
-    matplotlib exits with a message; the card is the default."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.analytic_boundary_rotating(0.5, 0.3)
+    """The Kerr-de Sitter curves raise naming ROADMAP item 9 (the rotating
+    regular ones are ported: test_torch_rotating_shadow.py); --render
+    without matplotlib exits with a message; the card is the default."""
     with pytest.raises(NotImplementedError, match="item 9"):
         ts.analytic_boundary_kds(0.5, 1e-4)
     with pytest.raises(NotImplementedError, match="item 9"):
-        ts.numeric_boundary(0.5, 0.3, metric="RotatingHayward",
-                            device="cpu")
+        ts.numeric_boundary(0.5, 1e-4, metric="KerrDS", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         shadow_cli.main(["--metric", "kerr-ds", "--device", "cpu",
                          "--out-dir", str(tmp_path)])

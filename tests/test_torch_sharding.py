@@ -24,7 +24,10 @@ Tolerances:
     1e-5 of JAX's float64 sweep (emissivity 3): JAX's float32 sweep on
     the CPU is itself 1.4e-4 of its largest bin from its float64 one,
     where the port's is 8e-7 from it (a 1 x 1 mesh, the same inputs);
-  * the rotating regular families raise naming ROADMAP item 9.
+  * the rotating regular families' frames equal their single-device
+    frames bit for bit, and in float64 JAX's (its XLA autodiff engine on
+    the 2 x 2 mesh): classes, images and step counts equal; Kerr-de
+    Sitter raises naming ROADMAP item 9.
 
 At most six tests a file: pytest-xdist's --dist loadfile hands out
 the files with the most tests first, so a file this small runs after
@@ -52,6 +55,9 @@ FISHER = dict(size=10, steps=400, delta=0.2, n_bins=24)
 GRID = (30.0, math.radians(80.0), 1.0, 0.0, 31.0, 500, 0.1, 1.0, 12.0)
 # the renders' budget: every ray escapes or falls in but a few Kerr ones
 RENDER = (500, 0.15, 1.0)
+# the rotating-Bardeen frames (a = 0.9, g = 0.2): mass, spin, boundary,
+# steps, delta, omega
+ROT = (1.0, 0.9, 31.0, 300, 0.2, 1.0)
 
 
 def _run_all(mesh):
@@ -147,6 +153,9 @@ def jax_ref():
     out["fisher"] = jg.fisher_grid_sharded(
         jm.make_mesh(2, 1, devices=jax.devices()[:2]), SPINS4[1:3],
         ELEVS4[1:3], 0.01, **FISHER)
+    out["rot"] = jm.render_kerr_sharded(
+        mesh, bg, OBS_X, np.radians(80.0), *ROT, *PATCH, height=4, width=4,
+        metric="RotatingBardeen", charge=0.2, dtype=jnp.float64)
     return jax.tree_util.tree_map(np.asarray, out)
 
 
@@ -219,14 +228,35 @@ def test_grids_match_jax(worlds, jax_ref):
     np.testing.assert_allclose(fisher, jax_ref["fisher"], rtol=1e-8)
 
 
-def test_rotating_regular_frames_raise_item_9():
-    """render_kerr_sharded's rotating regular branch is ROADMAP item 9."""
+def test_rotating_regular_frames_raise_item_9(jax_ref):
+    """render_kerr_sharded's rotating regular branch (ported; named when
+    it raised) gives, on a mesh of one, each frame's classes and step
+    counts bit for bit as the single-device render_pixels_generic at the
+    same patch, and in float64 JAX's sharded frames on its 2 x 2 mesh
+    (image, classes, step counts equal); Kerr-de Sitter still raises
+    naming ROADMAP item 9."""
+    from grtrace_torch.engine.render_generic import render_pixels_generic
     mesh = tm.make_mesh(1, 1)
+    args = (mesh, BG, OBS_X, math.radians(80.0), *ROT, *PATCH)
+    got = tm.render_kerr_sharded(*args, height=4, width=4,
+                                 metric="RotatingBardeen", charge=0.2,
+                                 dtype=torch.float64, device="cpu")
+    for key in ("image", "cls", "n_steps"):
+        np.testing.assert_array_equal(got[key].numpy(), jax_ref["rot"][key])
+    assert len(np.unique(jax_ref["rot"]["cls"])) >= 2
+    out = tm.render_kerr_sharded(*args, height=4, width=4,
+                                 metric="RotatingBardeen", charge=0.2,
+                                 device="cpu")
+    for k in range(F):
+        one = render_pixels_generic(
+            torch.as_tensor(BG), 30.0, math.radians(80.0), 1.0, 0.9, 31.0,
+            300, 0.2, 1.0, PATCH[0], float(PHIS[k]), PATCH[2], PATCH[3],
+            height=4, width=4, metric="RotatingBardeen", charge=0.2)
+        assert torch.equal(out["cls"][k].cpu(), one["cls"])
+        assert torch.equal(out["n_steps"][k].cpu(), one["n_steps"])
     with pytest.raises(NotImplementedError, match="item 9"):
-        tm.render_kerr_sharded(
-            mesh, BG, OBS_X, math.radians(80.0), 1.0, 0.9, 31.0, 10, 0.1,
-            1.0, *PATCH, height=4, width=4, metric="RotatingBardeen",
-            device="cpu")
+        tm.render_kerr_sharded(*args, height=4, width=4, metric="KerrDS",
+                               device="cpu")
     with pytest.raises(ValueError, match="ranks"):
         tm.make_mesh(2, 1)
     assert tm.rank_device("cpu") == torch.device("cpu")
