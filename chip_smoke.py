@@ -133,8 +133,8 @@ the port's paths through them:
     full budget, the float32 fold's drift off theta = pi/2 (48); S2s on
     the first frame's 20 samples and T2s on one of its rays, bitwise
     (49); `render_disk_static` at 512x512, 30k steps (D1 once), D1
-    bitwise against its twin on every ray (50); `cli.exact` at 256x256
-    (its float64 crossing table against the CPU's on every 64th ray,
+    bitwise against its twin on every ray (50); `cli.exact` at 128x128
+    (its float64 crossing table against the CPU's on every 16th ray,
     then --compare through B6 and --background --compare through B5;
     51); `cli.images` with the JAX driver's example (52);
   * the line-profile fit and the multi-device drivers: B6t (the tangent
@@ -170,7 +170,23 @@ the port's paths through them:
     analyze_photon_data (B1 once), polarized_disk (B6 twice, its face-on
     redshift and pitch-weight checks gated) and observables_workflow (B6
     once, every observable written from its transfer map), no twin on
-    CUDA rays (61).
+    CUDA rays (61);
+  * Kerr-de Sitter through the Carter chart of csrc/fantasy_gen.cu: the
+    README's scene (a = 0.8, Lambda = 1e-3) at 1024x1024 (30k steps,
+    float32; G1d once, no twin on CUDA rays), G1d on the whole frame
+    beside its bound and bitwise against its graphed twin on every 16th
+    ray, the scene at 256x256 in float64 and at Lambda = 0 (every ray
+    held), G1d on the Lambda = 0 frame's rays bitwise equal to G1 on
+    them, G1d's registers, spills and warps (62); the README's
+    `cli.main --metric kerr-ds` at 256x256 (G1d and S2d once each) and
+    with --aa 2 (G1d twice, the pass's launch held), S2d bitwise on the 20
+    samples (63); `cli.main --metric kerr-ds --metric-param 1e-4 --disk`
+    at 512x512 (D3 once), D3 bitwise against its twin on every ray, the
+    counts and the range of g (64); `cli.shadow --metric kerr-ds` with and
+    without --numeric (G1d once a round, each round held) and T2d on one
+    float64 ray of 2,000 steps (65); `cli.qpo` for the four families on
+    the card, each table within 1e-10 relative of the same run on the host
+    (66).
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -2417,7 +2433,10 @@ OCC_KERNELS = {
                                  ("kStatic", "kDisk"),
                                  ("kKSMass", "kIntegrate"),
                                  ("kKSMass", "kRecord"),
-                                 ("kKSMass", "kDisk"))
+                                 ("kKSMass", "kDisk"),
+                                 ("kKdS", "kIntegrate"),
+                                 ("kKdS", "kRecord"),
+                                 ("kKdS", "kDisk"))
                     for t in ("float", "double")],
 }
 # a probe library that includes one kernel source and asks the runtime
@@ -2726,7 +2745,7 @@ STATIC_TWINS = ("integrate_generic:integrate_generic_twin",
 ROT_TWINS = ("integrate_generic:integrate_generic_twin",
              "integrate_generic:trajectory_generic_twin",
              "integrate_generic:trajectory_generic_unmasked",
-             "integrate_generic:integrate_disk_rotating_twin")
+             "integrate_generic:integrate_disk_spin_twin")
 # launch counters, label -> "module:counter" under grtrace_torch.engine
 STATIC_COUNTERS = {"G1s": "integrate_generic_cuda:static_launches",
                    "S2s": "integrate_generic_cuda:static_traj_launches",
@@ -4425,38 +4444,42 @@ def rot_scene(metric, param, size, dtype="float32", steps=KERR_STEPS,
             steps=steps, delta=delta, omega=OMEGA, order=2, dtype=dtype))
 
 
-def rot_frame(metric, param, size, dtype, stride):
-    """One phase-57 frame through render() (G1r once, no twin on CUDA
-    rays, numerical-error pixels at most ROT_NUMERICAL's); G1r with its
-    wrapper on the whole frame (CUDA events, median of 3) beside its
-    bound; G1r bitwise against its graphed twin on every stride-th ray at
-    the full budget."""
+def gen_frame(no, scene, family, params, counts_of, twins, pinned, stride,
+              tag, forbid=()):
+    """One frame of a fantasy_gen chart through render() (its G1 kernel,
+    the first entry of `counts_of`, once and no other kernel, no twin of
+    `twins` on CUDA rays, numerical-error pixels at most `pinned`, none of
+    the counts in `forbid`); that kernel with its wrapper on the whole
+    frame (CUDA events, median of 3) beside its bound; the kernel bitwise
+    against its graphed twin on every stride-th ray at the full budget.
+    Returns the kernel's numbers under its label in lower case (g1r,
+    g1d) and the render's result under "result"."""
     import grtrace_torch
-    from grtrace_torch.engine.integrate_generic_cuda import \
-        integrate_batch_generic_cuda
-    from grtrace_torch.engine.render import ROTATING_NAMES
+    from grtrace_torch.engine.integrate_generic_cuda import (
+        chart_of, integrate_batch_generic_cuda)
     from grtrace_torch.engine.validate import gen_kernel_parity, timed
     from grtrace_torch.io.textures import starfield
-    family = ROTATING_NAMES[metric]
-    scene = rot_scene(metric, param, size, dtype)
+    label = next(iter(counts_of))
+    ops = f"fantasy_gen_{chart_of('gen', family)}"
+    dtype = scene.integrator.dtype
     tex = starfield()
-    counters(ROT_COUNTERS, reset=True)
-    with eager_on_cuda(ROT_TWINS) as eager:
+    counters(counts_of, reset=True)
+    with eager_on_cuda(twins) as eager:
         res = grtrace_torch.render(scene, bg_array=tex, device="cuda")
-    launches = counters(ROT_COUNTERS)
+    launches = counters(counts_of)
     counts = res.counts
-    tag = f"{metric} a={ROT_SPIN} p={param} {size}x{size} {dtype}"
     ns = res.n_steps.astype(np.int64)
-    phase(57, f"render {tag}, {KERR_STEPS} steps of {KERR_DELTA} ({CARD}): "
+    phase(no, f"render {tag}, {KERR_STEPS} steps of {KERR_DELTA} ({CARD}): "
               f"counts {counts}, launches {launches}, longest ray "
               f"{int(ns.max())}, ray-steps {int(ns.sum())}")
-    pinned = ROT_NUMERICAL[metric, param]
-    if (launches != {"G1r": 1, "S2r": 0, "T2r": 0, "D2": 0} or eager
-            or counts["in_domain"] or counts["numerical_error"] > pinned
+    want = {k: int(k == label) for k in counts_of}
+    if (launches != want or eager or any(counts[k] for k in forbid)
+            or counts["numerical_error"] > pinned
             or not np.isfinite(res.final_q).all()):
         raise AssertionError(f"{tag}: launches {launches}, eager twins on "
                              f"CUDA rays {eager}, counts {counts} (at most "
-                             f"{pinned} numerical-error pixels)")
+                             f"{pinned} numerical-error pixels, no "
+                             f"{forbid})")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -4465,7 +4488,6 @@ def rot_frame(metric, param, size, dtype, stride):
         walls.append(time.perf_counter() - t0)
         if r.counts != counts:
             raise AssertionError(f"{tag}: a warm render's counts differ")
-    params = (MASS, ROT_SPIN, param)
     q0 = res.device("q0").reshape(-1, 4).contiguous()
     p0 = res.device("p0").reshape(-1, 4).contiguous()
     full = [timed(lambda: integrate_batch_generic_cuda(
@@ -4474,11 +4496,11 @@ def rot_frame(metric, param, size, dtype, stride):
     steps_sum = int(full[0][0][3].long().sum())
     nbytes = BYTES_RAY if dtype == "float32" else BYTES_RAY64
     peak = PEAK_FLOPS if dtype == "float32" else PEAK_FLOPS64
-    g1r = {"ms": float(np.median([ms for _, ms in full])),
-           "rays": q0.shape[0], "ray_steps": steps_sum,
-           "n_steps_max": int(full[0][0][3].max())}
-    g1r["bound_ms"], g1r["bound_by"] = bound(
-        metrics.kernel_ops("fantasy_gen_rot", steps_sum, q0.shape[0]),
+    whole = {"ms": float(np.median([ms for _, ms in full])),
+             "rays": q0.shape[0], "ray_steps": steps_sum,
+             "n_steps_max": int(full[0][0][3].max())}
+    whole["bound_ms"], whole["bound_by"] = bound(
+        metrics.kernel_ops(ops, steps_sum, q0.shape[0]),
         q0.shape[0] * nbytes, peak)
     qh, ph = q0[::stride].contiguous(), p0[::stride].contiguous()
     kern, par = gen_kernel_parity(qh, ph, KERR_STEPS, KERR_DELTA, params,
@@ -4488,90 +4510,115 @@ def rot_frame(metric, param, size, dtype, stride):
                n_steps_max=int(kern[3].max()),
                parked=int((kern[3] < 0).sum()))
     par["bound_ms"], par["bound_by"] = bound(
-        metrics.kernel_ops("fantasy_gen_rot", par["ray_steps"], par["rays"]),
+        metrics.kernel_ops(ops, par["ray_steps"], par["rays"]),
         par["rays"] * nbytes, peak)
-    counters(ROT_COUNTERS, reset=True)
-    phase(57, f"G1r ({tag}) vs graphed twin on every {stride}th ray at the "
-              f"full budget ({CARD}): {json.dumps(par)}")
-    gate_parity(f"G1r {tag}", par)
+    counters(counts_of, reset=True)
+    phase(no, f"{label} ({tag}) vs graphed twin on every {stride}th ray at "
+              f"the full budget ({CARD}): {json.dumps(par)}")
+    gate_parity(f"{label} {tag}", par)
     wall = float(np.median(walls))
-    phase(57, f"{tag} render warm wall time: median {wall:.6f} s of "
-              f"{[round(w, 6) for w in walls]}; G1r kernel+wrapper on the "
-              f"whole frame {json.dumps(g1r)}")
+    phase(no, f"{tag} render warm wall time: median {wall:.6f} s of "
+              f"{[round(w, 6) for w in walls]}; {label} kernel+wrapper on "
+              f"the whole frame {json.dumps(whole)}")
     return {"launches": launches, "counts": counts, "wall": wall,
-            "g1r": g1r, "held": par}
+            label.lower(): whole, "held": par, "result": res}
+
+
+def gen_cli_phase(no, argv, out_dir, counts_of, twins, family, params,
+                  size, tag, forbid):
+    """`cli.main` with `argv` at size x size in-process (the chart's G1
+    and S2 kernels, the first two entries of `counts_of`, once each, no
+    twin of `twins` on CUDA rays, none of the counts in `forbid`) with
+    its stage times, S2 bitwise against its graphed twin on the 20
+    samples (every timed call); then the same with --aa 2 (G1 twice, the
+    frame and its pass; the pass's launch bitwise against the twin on
+    its sub-rays)."""
+    from grtrace_torch.engine import aa as taa
+    from grtrace_torch.engine.integrate_generic import \
+        integrate_dispatch_generic
+    from grtrace_torch.engine.integrate_generic_cuda import chart_of
+    from grtrace_torch.engine.validate import gen_traj_parity
+    g1, s2_label = list(counts_of)[:2]
+    out = {}
+    for run_tag, extra in (("plain", []), ("aa", ["--aa", str(AA_S)])):
+        counters(counts_of, reset=True)
+        t0 = time.perf_counter()
+        with eager_on_cuda(twins) as eager, \
+                captured_calls(taa, "integrate_dispatch_generic") as calls:
+            res, lines = run_cli(argv + extra + ["--out-dir", out_dir])
+        wall = time.perf_counter() - t0
+        launches = counters(counts_of)
+        want = {k: 0 for k in counts_of}
+        want.update({g1: 2 if extra else 1, s2_label: 1})
+        run = {"counts": res.counts, "launches": launches, "cli_wall_s": wall,
+               "stages_s": json_line(lines, "stages_s"),
+               "aa_pixels": int(res.aa_mask.sum()) if extra else 0}
+        phase(no, f"cli.main {' '.join(argv[:12] + extra)} "
+                  f"({CARD}): {json.dumps(run)}")
+        if launches != want or eager or any(res.counts[k] for k in forbid):
+            raise AssertionError(f"{tag} CLI {run_tag}: launches {launches} "
+                                 f"(want {want}), eager {eager}, counts "
+                                 f"{res.counts}")
+        if len(res.sampled_trajectories) != N_SAMPLES:
+            raise AssertionError(f"the {tag} CLI sampled no 20 rays")
+        if extra:
+            run["pass"] = aa_pass_parity(f"{tag} {size}", g1,
+                                         integrate_dispatch_generic,
+                                         calls[0], no)
+        out[run_tag] = run
+    idx = torch.as_tensor(res.sampled_indices[:, 0] * size
+                          + res.sampled_indices[:, 1], device="cuda")
+    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
+    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
+    _, s2 = gen_traj_parity(q0, p0, 30_000, 0.02, params, R_MAX, OMEGA,
+                            metric=family, n_keep=TRAJ_POINTS)
+    counters(counts_of, reset=True)
+    ops = f"fantasy_gen_traj_{chart_of('traj', family)}"
+    s2["bound_ms"], s2["bound_by"] = bound(
+        metrics.kernel_ops(ops, s2["n_steps_sum"], s2["rays"]),
+        s2["rays"] * (TRAJ_BYTES_RAY + s2["n_keep"] * 4 * 4))
+    s2["chain_floor_ms"] = chain_floor(ops, s2["n_steps_max"])
+    phase(no, f"{s2_label} vs graphed twin on the CLI's {s2['rays']} sampled "
+              f"rays (30000-step budget, {TRAJ_POINTS} points, float32; "
+              f"{CARD}): {json.dumps(s2)}")
+    if not s2["traj_bitwise_equal"]:
+        raise AssertionError(f"{s2_label} differs from its twin (max abs "
+                             f"diff {s2['max_abs_err']:.3e})")
+    out["s2"] = s2
+    return out
+
+
+def rot_frame(metric, param, size, dtype, stride):
+    """One phase-57 frame of a rotating regular family (`gen_frame`: G1r,
+    no in-domain pixel)."""
+    from grtrace_torch.engine.render import ROTATING_NAMES
+    return gen_frame(57, rot_scene(metric, param, size, dtype),
+                     ROTATING_NAMES[metric], (MASS, ROT_SPIN, param),
+                     ROT_COUNTERS, ROT_TWINS, ROT_NUMERICAL[metric, param],
+                     stride, f"{metric} a={ROT_SPIN} p={param} "
+                     f"{size}x{size} {dtype}", forbid=("in_domain",))
 
 
 def rot_frames_phase():
     """Phase 57: the rotating-Bardeen frame at 1024x1024 (every 16th ray
     held), the float64 rotating-Hayward frame and the horizonless frame
     at 256x256 (every ray held)."""
-    return {"frame": rot_frame(*ROT_FRAME, KERR_SIZE, "float32", ROT_HELD),
-            "float64": rot_frame(*ROT_F64, ROT_SMALL, "float64", 1),
-            "horizonless": rot_frame(*ROT_HORIZONLESS, ROT_SMALL, "float32",
-                                     1)}
+    out = {"frame": rot_frame(*ROT_FRAME, KERR_SIZE, "float32", ROT_HELD),
+           "float64": rot_frame(*ROT_F64, ROT_SMALL, "float64", 1),
+           "horizonless": rot_frame(*ROT_HORIZONLESS, ROT_SMALL, "float32",
+                                    1)}
+    for v in out.values():
+        v.pop("result")
+    return out
 
 
 def rot_cli_phase():
     """Phase 58: the README's `cli.main --metric rotating-hayward --spin
-    0.9 --metric-param 0.3` at 256x256 in-process (G1r and S2r once each,
-    no twin on CUDA rays) with its stage times, S2r bitwise against its
-    graphed twin on the 20 samples (every timed call); then the same with
-    --aa 2 (G1r twice, the frame and its pass; the pass's launch bitwise
-    against the twin on its sub-rays)."""
-    from grtrace_torch.engine import aa as taa
-    from grtrace_torch.engine.integrate_generic import \
-        integrate_dispatch_generic
-    from grtrace_torch.engine.validate import gen_traj_parity
-    out = {}
-    for tag, extra in (("plain", []), ("aa", ["--aa", str(AA_S)])):
-        counters(ROT_COUNTERS, reset=True)
-        t0 = time.perf_counter()
-        with eager_on_cuda(ROT_TWINS) as eager, \
-                captured_calls(taa, "integrate_dispatch_generic") as calls:
-            res, lines = run_cli(ROT_CLI_ARGV + extra
-                                 + ["--out-dir", ROT_OUT])
-        wall = time.perf_counter() - t0
-        launches = counters(ROT_COUNTERS)
-        want = {"G1r": 2 if extra else 1, "S2r": 1, "T2r": 0, "D2": 0}
-        run = {"counts": res.counts, "launches": launches, "cli_wall_s": wall,
-               "stages_s": json_line(lines, "stages_s"),
-               "aa_pixels": int(res.aa_mask.sum()) if extra else 0}
-        phase(58, f"cli.main {' '.join(ROT_CLI_ARGV[:12] + extra)} "
-                  f"({CARD}): {json.dumps(run)}")
-        if launches != want or eager or res.counts["in_domain"]:
-            raise AssertionError(f"rotating CLI {tag}: launches {launches} "
-                                 f"(want {want}), eager {eager}, counts "
-                                 f"{res.counts}")
-        if len(res.sampled_trajectories) != N_SAMPLES:
-            raise AssertionError("the rotating CLI sampled no 20 rays")
-        if extra:
-            run["pass"] = aa_pass_parity("rotating-hayward 256", "G1r",
-                                         integrate_dispatch_generic,
-                                         calls[0], 58)
-        out[tag] = run
-    params = (MASS, ROT_SPIN, 0.3)
-    idx = torch.as_tensor(res.sampled_indices[:, 0] * ROT_SMALL
-                          + res.sampled_indices[:, 1], device="cuda")
-    q0 = res.device("q0").reshape(-1, 4)[idx].contiguous()
-    p0 = res.device("p0").reshape(-1, 4)[idx].contiguous()
-    _, s2 = gen_traj_parity(q0, p0, 30_000, 0.02, params, R_MAX, OMEGA,
-                            metric="RotatingHayward", n_keep=TRAJ_POINTS)
-    counters(ROT_COUNTERS, reset=True)
-    s2["bound_ms"], s2["bound_by"] = bound(
-        metrics.kernel_ops("fantasy_gen_traj_rot", s2["n_steps_sum"],
-                           s2["rays"]),
-        s2["rays"] * (TRAJ_BYTES_RAY + s2["n_keep"] * 4 * 4))
-    s2["chain_floor_ms"] = chain_floor("fantasy_gen_traj_rot",
-                                       s2["n_steps_max"])
-    phase(58, f"S2r vs graphed twin on the CLI's {s2['rays']} sampled rays "
-              f"(30000-step budget, {TRAJ_POINTS} points, float32; {CARD}): "
-              f"{json.dumps(s2)}")
-    if not s2["traj_bitwise_equal"]:
-        raise AssertionError(f"S2r differs from its twin (max abs diff "
-                             f"{s2['max_abs_err']:.3e})")
-    out["s2"] = s2
-    return out
+    0.9 --metric-param 0.3` at 256x256 (`gen_cli_phase`: G1r and S2r, no
+    in-domain pixel)."""
+    return gen_cli_phase(58, ROT_CLI_ARGV, ROT_OUT, ROT_COUNTERS, ROT_TWINS,
+                         "RotatingHayward", (MASS, ROT_SPIN, 0.3), ROT_SMALL,
+                         "rotating-hayward", ("in_domain",))
 
 
 def rot_disk_phase():
@@ -4767,6 +4814,386 @@ def rot_shadow_phase():
             or sharded["launches"]["G1r"] != 2):
         raise AssertionError(f"sharded rotating frames: {sharded}")
     out["sharded"] = sharded
+    return out
+
+
+# --- Kerr-de Sitter: G1d, S2d, T2d, D3 and cli.qpo (62-66) ----------------
+# phase 62's frames: the README's scene (a = 0.8, Lambda = 1e-3) at the
+# Kerr frame's width, budget and step in float32, the same scene at
+# 256x256 in float64, and Lambda = 0 at 256x256 beside G1's kerr-bl frame
+# of the same spin (the Carter chart reduces to G1's to the bit there)
+KDS_SPIN, KDS_LAMBDA = 0.8, 1e-3
+KDS_SMALL = 256
+KDS_HELD = 16
+# each frame's float32 / float64 numerical-error pixels on the card;
+# phase 62 fails on a rise
+KDS_NUMERICAL = {("float32", KDS_LAMBDA): 0, ("float64", KDS_LAMBDA): 0,
+                 ("float32", 0.0): 0}
+# phase 63: the README's cli.main --metric kerr-ds at 256x256 (30k steps
+# of 0.02, the CLI's 20 samples), and the same with --aa 2
+KDS_CLI_ARGV = ["--size", str(KDS_SMALL), "--metric", "kerr-ds", "--spin",
+                str(KDS_SPIN), "--metric-param", str(KDS_LAMBDA), "--steps",
+                "30000", "--delta", "0.02", "--background",
+                "procedural:starfield", "--no-plots", "--print-metrics"]
+# phase 64: the Kerr-de Sitter disk at 512x512 (Lambda = 1e-4, 30k steps
+# of 0.03)
+KDS_DISK_LAMBDA = 1e-4
+KDS_DISK_ARGV = ["--size", str(DISK_SIZE), "--metric", "kerr-ds", "--spin",
+                 str(KDS_SPIN), "--metric-param", str(KDS_DISK_LAMBDA),
+                 "--disk", "--steps", "30000", "--delta", "0.03",
+                 "--background", "procedural:starfield", "--no-plots",
+                 "--print-metrics"]
+KDS_OUT = os.path.join(HERE, "build", "kds_cli_out")
+# the D3 record's extra bytes a ray: hit_q, hit_p and q2 written
+KDS_DISK_BYTES_RAY = BYTES_RAY + 12 * 4
+KDS_TWINS = ("integrate_generic:integrate_generic_twin",
+             "integrate_generic:trajectory_generic_twin",
+             "integrate_generic:trajectory_generic_unmasked",
+             "integrate_generic:integrate_disk_spin_twin")
+KDS_COUNTERS = {"G1d": "integrate_generic_cuda:kds_launches",
+                "S2d": "integrate_generic_cuda:kds_traj_launches",
+                "T2d": "integrate_generic_cuda:kds_trace_launches",
+                "D3": "integrate_generic_cuda:kds_disk_launches"}
+# phase 66: cli.qpo for every family, on the card and on the host
+QPO_RUNS = {
+    "kerr": ["--spin", "0.9", "--preset", "grs1915"],
+    "hayward": ["--metric", "hayward", "--metric-param", "0.5", "--preset",
+                "grs1915"],
+    "rotating-bardeen": ["--metric", "rotating-bardeen", "--spin", "0.9",
+                         "--metric-param", "0.2", "--preset", "grs1915"],
+    "kerr-ds": ["--metric", "kerr-ds", "--spin", "0.8", "--metric-param",
+                "1e-4", "--mass-msun", "10"]}
+QPO_REL = 1e-10
+
+
+def kds_scene(lam, size, dtype="float32", steps=KERR_STEPS, delta=KERR_DELTA,
+              metric="kerr-ds"):
+    import grtrace_torch
+    return grtrace_torch.SceneConfig(
+        size=size, fov_deg=FOV_DEG, background="procedural:starfield",
+        bh_mass=MASS, metric=metric, spin=KDS_SPIN, metric_param=lam,
+        boundary_radius=R_MAX, observer_distance=OBS_X, n_samples=0,
+        integrator=grtrace_torch.IntegratorConfig(
+            steps=steps, delta=delta, omega=OMEGA, order=2, dtype=dtype))
+
+
+def kds_frame(lam, size, dtype, stride):
+    """One phase-62 frame of the README's Kerr-de Sitter scene
+    (`gen_frame`: G1d)."""
+    return gen_frame(62, kds_scene(lam, size, dtype), "KerrDS",
+                     (MASS, KDS_SPIN, lam), KDS_COUNTERS, KDS_TWINS,
+                     KDS_NUMERICAL[dtype, lam], stride,
+                     f"kerr-ds a={KDS_SPIN} Lambda={lam} {size}x{size} "
+                     f"{dtype}")
+
+
+def kds_zero_lambda(frame0):
+    """Phase 62's Lambda = 0 frame against G1.  The gate: G1d and G1 on
+    that frame's rays (the same vector: at Lambda = 0 the two charts'
+    gen_params agree in float32) give the same q1, p1, q2 and signed step
+    counts bit for bit, the Carter chart reducing to G1's; both launches
+    timed (CUDA events, the rays in the frame's order).  Reported
+    beside it: kerr-bl's own frame at the same spin (G1), whose camera
+    solves p_t with kerr_g_inv's association where the Kerr-de Sitter
+    frame's uses kerr_de_sitter_g_inv's, so that a few rays start an ulp
+    apart and the near-critical ones among them can end elsewhere."""
+    import grtrace_torch
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.validate import _bitwise_equal, timed
+    from grtrace_torch.io.textures import starfield
+    res = frame0["result"]
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    params = (MASS, KDS_SPIN, 0.0)
+    vec_d, vec_b = (tig.gen_params(m, KERR_DELTA, params, R_MAX, OMEGA, 2,
+                                   q0.dtype) for m in ("KerrDS", "Kerr"))
+    (out_d, ns_d), ms_d = timed(lambda: tgc.launch_fantasy_gen(
+        q0, p0, vec_d, KERR_STEPS, "KerrDS"), q0.device)
+    (out_b, ns_b), ms_b = timed(lambda: tgc.launch_fantasy_gen(
+        q0, p0, vec_b, KERR_STEPS, "Kerr"), q0.device)
+    bl = grtrace_torch.render(kds_scene(0.0, KDS_SMALL, metric="kerr-bl"),
+                              bg_array=starfield(), device="cuda")
+    out = {"vectors_equal": bool(torch.equal(vec_d, vec_b)),
+           "g1d_vs_g1_state_bitwise_equal": _bitwise_equal(out_d, out_b),
+           "g1d_vs_g1_steps_equal": bool(torch.equal(ns_d, ns_b)),
+           "rays": q0.shape[0], "g1d_launch_ms": ms_d, "g1_launch_ms": ms_b,
+           "kerr_bl_frame": {
+               "counts": bl.counts, "kerr_ds_counts": res.counts,
+               "status_differs": int((res.device("status")
+                                      != bl.device("status")).sum()),
+               "p0_differs": int((res.device("p0")
+                                  != bl.device("p0")).any(-1).sum())}}
+    phase(62, f"kerr-ds Lambda = 0: G1d vs G1 on the frame's rays, and the "
+              f"kerr-bl frame (G1), a = {KDS_SPIN}, {KDS_SMALL}x{KDS_SMALL} "
+              f"float32 ({CARD}): {json.dumps(out)}")
+    if not (out["vectors_equal"] and out["g1d_vs_g1_state_bitwise_equal"]
+            and out["g1d_vs_g1_steps_equal"]):
+        raise AssertionError(f"G1d at Lambda = 0 differs from G1: {out}")
+    return out
+
+
+def kds_resources(occ):
+    """Registers, spills, resident warps and the step loop's SASS and MUFU
+    counts of G1d, S2d and D3 (float32 and float64), from the build's
+    ptxas log, phase 2b's occupancy and cuobjdump."""
+    from grtrace_torch.kernels import build
+    lib = build.library_path(build.CSRC_DIR / "fantasy_gen.cu")
+    ptx = {k["kernel"]: k for k in build.ptxas_summary(
+        lib.with_suffix(".log").read_text())}
+    sass = sass_counts(lib) if _cuobjdump() else {}
+    out = {}
+    # ptxas and cuobjdump name an instantiation by its enum values:
+    # Chart::kKdS is 4, Mode::kIntegrate 0, kRecord 1, kDisk 3
+    for mode, m in (("kIntegrate", 0), ("kRecord", 1), ("kDisk", 3)):
+        for t in ("float", "double"):
+            name = f"fantasy_gen_kernel<{t}, Chart::kKdS, Mode::{mode}>"
+            key = f"fantasy_gen_kernel<{t[0]},4,{m}>"
+            rec = {k: occ[name][k] for k in ("registers", "warps_per_sm",
+                                             "local_bytes")}
+            if key in ptx:
+                rec.update(spill_stores=ptx[key]["spill_stores"],
+                           spill_loads=ptx[key]["spill_loads"])
+            if key in sass:
+                rec["loops"] = sass[key]["loops"]
+            out[name] = rec
+    return out
+
+
+def kds_frames_phase(occ):
+    """Phase 62: the README's scene at 1024x1024 (every 16th ray held), in
+    float64 at 256x256 (every ray held), Lambda = 0 at 256x256 (every ray
+    held) with G1 on its rays (`kds_zero_lambda`); G1d's registers,
+    spills and warps."""
+    out = {"frame": kds_frame(KDS_LAMBDA, KERR_SIZE, "float32", KDS_HELD),
+           "float64": kds_frame(KDS_LAMBDA, KDS_SMALL, "float64", 1),
+           "zero": kds_frame(0.0, KDS_SMALL, "float32", 1)}
+    out["zero_vs_bl"] = kds_zero_lambda(out["zero"])
+    out["resources"] = kds_resources(occ)
+    phase(62, f"G1d, S2d, D3: registers, spills, resident warps and SASS "
+              f"({CARD}): {json.dumps(out['resources'])}")
+    for v in out.values():
+        if isinstance(v, dict):
+            v.pop("result", None)
+    return out
+
+
+def kds_cli_phase():
+    """Phase 63: the README's `cli.main --metric kerr-ds --spin 0.8
+    --metric-param 1e-3` at 256x256 (`gen_cli_phase`: G1d and S2d, no
+    numerical-error pixel)."""
+    return gen_cli_phase(63, KDS_CLI_ARGV, KDS_OUT, KDS_COUNTERS, KDS_TWINS,
+                         "KerrDS", (MASS, KDS_SPIN, KDS_LAMBDA), KDS_SMALL,
+                         "kerr-ds", ("numerical_error",))
+
+
+def kds_disk_phase():
+    """Phase 64: `cli.main --metric kerr-ds --spin 0.8 --metric-param 1e-4
+    --disk` at 512x512, 30k steps of 0.03, in-process (D3 once, nothing
+    else, no twin on CUDA rays, disk pixels, numerical_error 0), its
+    counts and the range of g on the disk; D3 bitwise against its graphed
+    twin on every ray of that frame, its time beside its bound."""
+    from grtrace_torch.engine.disk import DiskConfig
+    from grtrace_torch.engine.disk_kds import kds_disk_bounds
+    from grtrace_torch.engine.integrate_ks import STATUS_DISK
+    from grtrace_torch.engine.validate import disk_kds_parity
+    params = (MASS, KDS_SPIN, KDS_DISK_LAMBDA)
+    r_in, r_out = kds_disk_bounds(MASS, KDS_SPIN, KDS_DISK_LAMBDA, None,
+                                  DiskConfig().r_out, R_MAX)
+    counters(KDS_COUNTERS, reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda(KDS_TWINS) as eager:
+        res, lines = run_cli(KDS_DISK_ARGV + ["--out-dir", KDS_OUT])
+    wall = time.perf_counter() - t0
+    launches = counters(KDS_COUNTERS)
+    g = res.device("redshift")[res.device("status") == STATUS_DISK]
+    run = {"counts": res.counts, "launches": launches, "cli_wall_s": wall,
+           "stages_s": json_line(lines, "stages_s"),
+           "g_min": float(g.min()) if g.numel() else None,
+           "g_max": float(g.max()) if g.numel() else None,
+           "r_in": r_in, "r_out": r_out}
+    phase(64, f"cli.main {' '.join(KDS_DISK_ARGV[:13])} ({CARD}): "
+              f"{json.dumps(run)}")
+    if (launches != {"G1d": 0, "S2d": 0, "T2d": 0, "D3": 1} or eager
+            or not res.counts["disk"] or res.counts["numerical_error"]
+            or not bool(torch.isfinite(g).all())):
+        raise AssertionError(f"kerr-ds disk CLI: launches {launches}, "
+                             f"eager {eager}, counts {res.counts}")
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    kern, par = disk_kds_parity(q0, p0, 30_000, 0.03, params, R_MAX, OMEGA,
+                                r_in, r_out)
+    n = q0.shape[0]
+    par.update(rays=n, held="every ray",
+               ray_steps=int(kern[3].long().sum()),
+               n_steps_max=int(kern[3].max()),
+               hits=int((kern[2] == STATUS_DISK).sum()),
+               status_equal_render=bool(torch.equal(
+                   kern[2].reshape(res.device("status").shape),
+                   res.device("status"))))
+    par["bound_ms"], par["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_disk_kds", par["ray_steps"], n),
+        n * KDS_DISK_BYTES_RAY)
+    counters(KDS_COUNTERS, reset=True)
+    phase(64, f"D3 vs graphed twin on every ray of the {DISK_SIZE}x"
+              f"{DISK_SIZE} frame ({CARD}): {json.dumps(par)}")
+    gate_parity("D3", par)
+    if not par["status_equal_render"]:
+        raise AssertionError("D3: the timed launch's statuses differ from "
+                             "the render's")
+    run["d3"] = par
+    return run
+
+
+def kds_shadow_phase():
+    """Phase 65: `cli.shadow --metric kerr-ds --spin 0.8 --metric-param
+    1e-3` (the exact curve, no kernel) and with --numeric (G1d once a
+    bisection round, each round's launch held bitwise against the twin),
+    the numeric boundary's gap to the exact curve in pixels; T2d through
+    trajectory_generic on one float64 ray of 2,000 steps, bitwise against
+    its twin."""
+    from grtrace_torch.cli import shadow as shadow_cli
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.validate import _bitwise_equal, timed
+    from grtrace_torch.physics.camera import camera_rays_unfolded
+    from grtrace_torch.physics.spacetime import METRICS
+    out = {}
+    argv = ["--metric", "kerr-ds", "--spin", str(KDS_SPIN), "--metric-param",
+            str(KDS_LAMBDA), "--out-dir", os.path.join(KDS_OUT, "shadow")]
+    counters(KDS_COUNTERS, reset=True)
+    m, _ = run_quiet(shadow_cli.main, argv)
+    out["analytic"] = {k: m[k] for k in ("mean_diameter_px",
+                                         "circularity_deviation",
+                                         "centroid_shift_px")}
+    out["analytic"]["launches"] = counters(KDS_COUNTERS)
+    counters(KDS_COUNTERS, reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda(KDS_TWINS) as eager, \
+            captured_calls(tgc, "integrate_batch_generic_cuda") as calls:
+        m, _ = run_quiet(shadow_cli.main, argv + ["--numeric"])
+    launches = counters(KDS_COUNTERS)
+
+    def twin(q, p, *args, order):
+        return tig.integrate_batch_generic(q, p, *args, order=order,
+                                           metric="KerrDS")
+    out["numeric"] = {"wall_s": time.perf_counter() - t0,
+                      "launches": launches,
+                      "numeric_px_err_max": m["numeric_px_err_max"],
+                      "numeric_px_err_mean": m["numeric_px_err_mean"],
+                      "numeric_bracket_px": m["numeric_bracket_px"],
+                      "held": held_rounds(calls, twin)}
+    phase(65, f"cli.shadow --metric kerr-ds --spin {KDS_SPIN} "
+              f"--metric-param {KDS_LAMBDA} [--numeric] ({CARD}): "
+              f"{json.dumps(out)}")
+    gate_parity("G1d vs twin on cli.shadow's rounds", out["numeric"]["held"])
+    if (launches["G1d"] != 3 or eager
+            or out["analytic"]["launches"]["G1d"]):
+        raise AssertionError(f"cli.shadow (kerr-ds): G1d {launches}, "
+                             f"eager {eager}")
+    # T2d on one float64 ray of a 16x16 camera, 2000 steps: a corner ray,
+    # which escapes (the unmasked trace of a captured one runs through the
+    # horizon into non-finite values)
+    params = (MASS, KDS_SPIN, KDS_LAMBDA)
+    q0, p0, _ = camera_rays_unfolded(
+        torch.tensor([OBS_X, 0.0, 0.0], dtype=torch.float64, device="cuda"),
+        math.radians(FOV_DEG), 16, 16, params=params,
+        g_inv_fn=METRICS["KerrDS"], dtype=torch.float64, device="cuda")
+    q1, p1 = q0.reshape(-1, 4)[0], p0.reshape(-1, 4)[0]
+    steps = 2000
+    counters(KDS_COUNTERS, reset=True)
+    qs, ps = tig.trajectory_generic(q1, p1, steps, DELTA, params, OMEGA,
+                                    metric="KerrDS")
+    t_launches = counters(KDS_COUNTERS)["T2d"]
+    vec = tig.gen_params("KerrDS", DELTA, params, math.inf, OMEGA, 2,
+                         torch.float64)
+    ref, twin_ms = timed(lambda: tig.trajectory_generic_unmasked(
+        q1.reshape(1, 4), p1.reshape(1, 4), steps, vec, "KerrDS"),
+        q1.device)
+    rec = torch.cat([qs, ps], -1)[None]
+    ms = event_ms(lambda: tgc.trajectory_generic_unmasked_cuda(
+        q1.reshape(1, 4).contiguous(), p1.reshape(1, 4).contiguous(), steps,
+        vec, "KerrDS"))
+    counters(KDS_COUNTERS, reset=True)
+    t2 = {"rays": 1, "steps": steps, "launches": t_launches,
+          "finite": bool(torch.isfinite(rec).all()),
+          "record_bitwise_equal": _bitwise_equal(rec, ref),
+          "max_abs_err": float((rec - ref).abs().max()),
+          "kernel_ms": ms, "twin_ms": twin_ms,
+          "chain_floor_ms": chain_floor("fantasy_gen_trace_kds", steps)}
+    t2["bound_ms"], t2["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_gen_trace_kds", steps, 1),
+        steps * TRACE_BYTES_STEP, PEAK_FLOPS64)
+    phase(65, f"T2d through trajectory_generic on one float64 ray, {steps} "
+              f"steps ({CARD}): {json.dumps(t2)}")
+    if t_launches != 1 or not (t2["record_bitwise_equal"] and t2["finite"]):
+        raise AssertionError(f"T2d: {json.dumps(t2)}")
+    out["t2"] = t2
+    return out
+
+
+def qpo_close(card, host):
+    """The largest relative difference of two cli.qpo CSV tables (rows of
+    r / M and the five frequencies), and whether it is within QPO_REL.
+    nu_r is the square root of kappa^2, which vanishes at the ISCO (and at
+    Kerr-de Sitter's OSCO), where a last-bit difference in kappa^2 is a
+    difference of order one in nu_r: nu_r is held through nu_r^2, within
+    QPO_REL of its largest value, and nu_periastron through (nu_phi -
+    nu_periastron)^2 = nu_r^2 the same way."""
+    a, b = np.asarray(card, np.float64), np.asarray(host, np.float64)
+    nan_same = bool(np.array_equal(np.isnan(a), np.isnan(b)))
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+    for col, ar, br in ((2, a[:, 2], b[:, 2]),
+                        (4, a[:, 1] - a[:, 4], b[:, 1] - b[:, 4])):
+        rel[:, col] = (np.abs(ar ** 2 - br ** 2)
+                       / max(float((br ** 2).max()), 1e-300))
+    worst = float(rel.max())
+    return worst, nan_same and worst <= QPO_REL
+
+
+def _rel(a, b):
+    """|a - b| / |b| of two JSON numbers; 0 where both are None or NaN."""
+    if a is None or b is None:
+        return 0.0 if a is b else math.inf
+    if math.isnan(a) and math.isnan(b):
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def qpo_phase():
+    """Phase 66: cli.qpo on the card for the four families (Kerr, a static
+    family, a rotating regular family, Kerr-de Sitter), each CSV and its
+    JSON line held within QPO_REL relative of the same run with --device
+    cpu (`qpo_close`); no kernel runs."""
+    from grtrace_torch.cli import qpo as qpo_cli
+    out = {}
+    for name, argv in QPO_RUNS.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(KDS_OUT, "qpo", f"{name}_{dev}")
+            t0 = time.perf_counter()
+            m, _ = run_quiet(qpo_cli.main, argv + ["--device", dev,
+                                                   "--no-plots",
+                                                   "--out-dir", d])
+            runs[dev] = (m, time.perf_counter() - t0,
+                         np.loadtxt(m["csv"], delimiter=",", skiprows=1))
+        worst, ok = qpo_close(runs["cuda"][2], runs["cpu"][2])
+        keys = ("r_isco_over_M", "nu_phi_isco", "nu_r_max",
+                "r_nu_r_max_over_M", "r_32_resonance_over_M", "nu_32_upper")
+        json_rel = max(_rel(runs["cuda"][0][k], runs["cpu"][0][k])
+                       for k in keys)
+        out[name] = {"rows": int(runs["cuda"][2].shape[0]),
+                     "csv_max_rel": worst, "json_max_rel": json_rel,
+                     "wall_s": {dev: r[1] for dev, r in runs.items()},
+                     "r_isco_over_M": runs["cuda"][0]["r_isco_over_M"],
+                     "nu_r_max": runs["cuda"][0]["nu_r_max"],
+                     "unit": runs["cuda"][0]["unit"]}
+        phase(66, f"cli.qpo {' '.join(argv)} on the card vs --device cpu "
+                  f"({CARD}): {json.dumps(out[name])}")
+        if not ok or not json_rel <= QPO_REL:
+            raise AssertionError(f"cli.qpo {name}: the card's run differs "
+                                 f"from the host's: {out[name]}")
     return out
 
 
@@ -5033,6 +5460,12 @@ def main():
     rot_obs = rot_shadow_phase()
     # --- item 11's examples (B1, B6) ---------------------------------------
     examples = examples_phase()
+    # --- Kerr-de Sitter (G1d, S2d, T2d, D3) and cli.qpo --------------------
+    kds = kds_frames_phase(occ)
+    kds_cli = kds_cli_phase()
+    kds_disk = kds_disk_phase()
+    kds_obs = kds_shadow_phase()
+    qpo_phase()
     ex_launches = {k: r["launches"] for k, r in examples.items()}
     b6t_fit, b6t_map = fit["fisher_pass"], grids["line_grid"]["fisher_pass"]
     aa_launches = {k: {"aa_render": v["aa_render_launches"]}
@@ -5513,7 +5946,98 @@ def main():
                    f"{DISK_SIZE} rotating-Bardeen (a = {ROT_SPIN}, g = 0.2) "
                    f"disk, {DISK_STEPS} steps of {DISK_DELTA}, float32 "
                    f"(phase 59); readme_256 on the README's 256x256 disk "
-                   f"command's frame"}
+                   f"command's frame"},
+        {"name": "fantasy_gen_kds",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (G1d); the JAX package's "
+                     "Kerr-de Sitter engine is the XLA while_loop "
+                     "grtrace/engine/integrate_generic.py:209",
+         "launches": sum(kds[k]["launches"]["G1d"]
+                         for k in ("frame", "float64", "zero"))
+         + sum(r["launches"]["G1d"] for r in (kds_cli["plain"],
+                                              kds_cli["aa"]))
+         + kds_obs["numeric"]["launches"]["G1d"],
+         "launches_paths": {
+             "frames": {k: kds[k]["launches"]["G1d"]
+                        for k in ("frame", "float64", "zero")},
+             "cli_main": kds_cli["plain"]["launches"]["G1d"],
+             "cli_main_aa": kds_cli["aa"]["launches"]["G1d"],
+             "cli_shadow_numeric": kds_obs["numeric"]["launches"]["G1d"]},
+         "max_abs_err": max(kds[k]["held"]["max_abs_err"]
+                            for k in ("frame", "float64", "zero")),
+         "ms": kds["frame"]["g1d"]["ms"],
+         "plain_ms": kds["frame"]["held"]["twin_ms"],
+         "bound_ms": kds["frame"]["g1d"]["bound_ms"],
+         "bound_by": kds["frame"]["g1d"]["bound_by"],
+         "library_ms": None,
+         "ms_held": kds["frame"]["held"]["kernel_ms"],
+         "bound_ms_held": kds["frame"]["held"]["bound_ms"],
+         "frames": {k: {"ms": kds[k]["g1d"]["ms"],
+                        "bound_ms": kds[k]["g1d"]["bound_ms"],
+                        "wall_s": kds[k]["wall"], "counts": kds[k]["counts"]}
+                    for k in ("frame", "float64", "zero")},
+         "zero_lambda_vs_kerr_bl": kds["zero_vs_bl"],
+         "shapes": f"G1d, the Carter chart of fantasy_gen.cu; ms and "
+                   f"bound_ms on the whole a = {KDS_SPIN}, Lambda = "
+                   f"{KDS_LAMBDA} frame at {KERR_SIZE}x{KERR_SIZE}, "
+                   f"{KERR_STEPS} steps of {KERR_DELTA}, float32 (phase "
+                   f"62); plain_ms and ms_held on every {KDS_HELD}th ray "
+                   f"of it; max_abs_err over that and every ray of the "
+                   f"{KDS_SMALL}x{KDS_SMALL} float64 and Lambda = 0 "
+                   f"frames"},
+        {"name": "fantasy_gen_traj_kds",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (S2d); the JAX package's "
+                     "sampler is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:312",
+         "launches": kds_cli["plain"]["launches"]["S2d"]
+         + kds_cli["aa"]["launches"]["S2d"],
+         "max_abs_err": kds_cli["s2"]["max_abs_err"],
+         "ms": kds_cli["s2"]["kernel_ms"],
+         "plain_ms": kds_cli["s2"]["twin_ms"],
+         "bound_ms": kds_cli["s2"]["bound_ms"],
+         "bound_by": kds_cli["s2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": kds_cli["s2"]["chain_floor_ms"],
+         "shapes": f"S2d; launches from phase 63's two CLI runs; every "
+                   f"other number on the CLI frame's {N_SAMPLES} sampled "
+                   f"rays, 30000-step budget, {TRAJ_POINTS} points, "
+                   f"float32 (phase 63)"},
+        {"name": "fantasy_gen_trace_kds",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (T2d); the JAX package's "
+                     "trace is the XLA scan "
+                     "grtrace/engine/integrate_generic.py:369",
+         "launches": kds_obs["t2"]["launches"],
+         "max_abs_err": kds_obs["t2"]["max_abs_err"],
+         "ms": kds_obs["t2"]["kernel_ms"],
+         "plain_ms": kds_obs["t2"]["twin_ms"],
+         "bound_ms": kds_obs["t2"]["bound_ms"],
+         "bound_by": kds_obs["t2"]["bound_by"],
+         "library_ms": None,
+         "chain_floor_ms": kds_obs["t2"]["chain_floor_ms"],
+         "shapes": "T2d; trajectory_generic on one Kerr-de Sitter ray, "
+                   "2000 steps, float64 (phase 65)"},
+        {"name": "fantasy_gen_disk_kds",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_gen.cu",
+         "replaces": "none: a port-side kernel (D3); the JAX package's "
+                     "Kerr-de Sitter disk is the XLA while_loop "
+                     "grtrace/engine/disk_kds.py:108",
+         "launches": kds_disk["launches"]["D3"],
+         "max_abs_err": kds_disk["d3"]["max_abs_err"],
+         "ms": kds_disk["d3"]["kernel_ms"],
+         "plain_ms": kds_disk["d3"]["twin_ms"],
+         "bound_ms": kds_disk["d3"]["bound_ms"],
+         "bound_by": kds_disk["d3"]["bound_by"],
+         "library_ms": None,
+         "shapes": f"D3; every number on every ray of the {DISK_SIZE}x"
+                   f"{DISK_SIZE} Kerr-de Sitter disk (a = {KDS_SPIN}, "
+                   f"Lambda = {KDS_DISK_LAMBDA}), 30000 steps of 0.03, "
+                   f"float32 (phase 64)"}
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

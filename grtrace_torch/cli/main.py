@@ -10,17 +10,19 @@ Pipeline (the reference main.py's):
 Everything runs on the CUDA card by default (--device cpu for the CPU): the
 flat render, the curved render through the hand-written kernels (B1 for
 float32, B2 for --dtype float64, B5 for --metric kerr, G1 for --metric
-kerr-bl, G1s for --metric kottler / bardeen / hayward, B6 for --disk, D1
-for --disk around a static family; --aa S launches the same kernel again
-on the S x S sub-rays of the boundary pixels, engine/aa.py) and the
-sampled trajectories through kernel S1 (S2 on the Kerr charts, S2s on the
-static one, S2r on the rotating regular families').  --disk writes the disk's
+kerr-bl, G1s for --metric kottler / bardeen / hayward, G1r for the
+rotating regular families, G1d for --metric kerr-ds, B6 for --disk, D1
+for --disk around a static family, D2 around a rotating one, D3 around
+Kerr-de Sitter; --aa S launches the same kernel again on the S x S
+sub-rays of the boundary pixels, engine/aa.py) and the sampled
+trajectories through kernel S1 (S2 on the Kerr charts, S2s on the static
+one, S2r on the rotating regular families', S2d on Kerr-de Sitter's).
+--disk writes the disk's
 science products (redshift_map.csv, line_profile.csv and, with
 --disk-bfield, polarization_map.csv; their figures unless --no-plots) and,
 with --save-transfer, the transfer map that cli/reshade.py and
 cli/hotspot.py --transfer read.  The kernels build at first use (there is
-no compilation cache to warm).  Options whose engines are not ported yet
-raise NotImplementedError naming their ROADMAP item.
+no compilation cache to warm).
 
 Run: python -m grtrace_torch.cli.main [flags]  (flags: cli/args.py)
 """
@@ -39,7 +41,7 @@ from ..engine.disk import render_disk, save_disk_maps
 from ..engine.flat import flat_render_scene
 from ..engine.metrics import (RenderMetrics, device_summary, roofline_report,
                               trace)
-from ..engine.render import STATIC_NAMES, render
+from ..engine.render import KDS_NAMES, STATIC_NAMES, render
 from ..io import artifacts
 from ..viz import plots
 from .args import disk_from_args, parse_args, scene_from_args
@@ -58,7 +60,10 @@ _KERNEL_KS = {"float32": "fantasy_ks", "float64": "fantasy_ks_plain"}
 def roofline_kernel(scene, disk=False):
     """The operation table's entry for the layout `render(scene)` (or,
     with `disk`, `render_disk(scene)`: the Kerr-Schild chart, or
-    `render_disk_static(scene)` for a static family) runs."""
+    `render_disk_static(scene)` for a static family, `render_disk_kds`
+    for Kerr-de Sitter) runs."""
+    if scene.metric.lower() in KDS_NAMES:
+        return "fantasy_gen_disk_kds" if disk else "fantasy_gen_kds"
     if scene.metric.lower() in STATIC_NAMES:
         return "fantasy_gen_disk_static" if disk else "fantasy_gen_static"
     if not disk and scene.metric.lower() == "kerr-bl":
@@ -67,15 +72,9 @@ def roofline_kernel(scene, disk=False):
     return (_KERNEL_KS if ks else _KERNEL)[scene.integrator.dtype]
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to grtrace_torch yet "
-                               f"(ROADMAP Queue A item {item})")
-
-
 def check_ported(args, scene):
-    """Raise NotImplementedError for the options whose engines the port
-    does not have yet, before any work runs, and SystemExit for the
-    options the JAX CLI refuses."""
+    """Raise SystemExit for the options the JAX CLI refuses (and
+    NotImplementedError where its engine raises), before any work runs."""
     if args.save_transfer and not args.disk:
         raise SystemExit("--save-transfer requires --disk (the transfer "
                          "map records disk-crossing invariants)")
@@ -111,9 +110,16 @@ def check_ported(args, scene):
         raise SystemExit(
             "--save-transfer reshading is wired for the Kerr-Newman "
             "family; not supported with rotating regular metrics")
-    if metric == "kerr-ds":
-        what = "--disk around " if args.disk else ""
-        raise _not_ported(f"{what}--metric {args.metric}", "9")
+    if metric in KDS_NAMES and args.disk:
+        # the Carter chart's theta-crossing disk (engine/disk_kds.py)
+        if args.aa:
+            raise SystemExit(
+                "--aa with --disk rides the Kerr-family path; kerr-ds "
+                "disks render without edge refinement")
+        if args.save_transfer:
+            raise SystemExit(
+                "--save-transfer records Kerr-Schild chart crossings; not "
+                "supported with kerr-ds")
 
 
 def _untimed(name):
@@ -185,6 +191,10 @@ def main(argv=None):
             from ..engine.disk_static import render_disk_static
             result = render_disk_static(scene, disk_cfg, bg_array=bg_array,
                                         metrics=rm, device=device)
+        elif disk_cfg is not None and scene.metric.lower() in KDS_NAMES:
+            from ..engine.disk_kds import render_disk_kds
+            result = render_disk_kds(scene, disk_cfg, bg_array=bg_array,
+                                     metrics=rm, device=device)
         elif disk_cfg is not None:
             result = render_disk(scene, disk_cfg, bg_array=bg_array,
                                  metrics=rm, aa_samples=args.aa or None,
@@ -217,6 +227,7 @@ def main(argv=None):
                            spin=scene.spin, plots=not args.no_plots,
                            chart="spherical"
                            if scene.metric.lower() in STATIC_NAMES
+                           or scene.metric.lower() in KDS_NAMES
                            else "ks")
         logging.info("Saved the disk maps (redshift_map, line_profile%s)",
                      ", polarization_map" if disk_cfg.bfield else "")

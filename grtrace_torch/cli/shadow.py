@@ -20,8 +20,11 @@ at a = Q = 0 and B5 otherwise; --device cpu runs their eager twins.
 --metric rotating-bardeen / rotating-hayward (--metric-param g / l) takes
 the family's exact conserved-quantity curve, bisects --numeric through
 kernel G1r and renders through G1r; a horizonless point exits with a
-message.  --metric kerr-ds waits for ROADMAP Queue A item 9 and raises
-NotImplementedError.
+message.  --metric kerr-ds (--metric-param Lambda) takes Kerr-de Sitter's
+exact curve through the unfolded spherical camera, bisects --numeric
+through kernel G1d and renders through G1d; a camera at 30 M too close to
+the cosmological horizon, or a point with no black-hole horizon, exits
+with a message.
 """
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ def build_parser():
     p.add_argument('--metric', type=str, default='kerr',
                    choices=('kerr', 'rotating-bardeen', 'rotating-hayward',
                             'kerr-ds'),
-                   help='Kerr-Newman (closed-form Bardeen curve) or a '
+                   help='Kerr-Newman (closed-form Bardeen curve), a '
                         'rotating regular family (its exact '
-                        'conserved-quantity curve, --metric-param g / l); '
-                        'kerr-ds is not ported yet')
+                        'conserved-quantity curve, --metric-param g / l) '
+                        'or Kerr-de Sitter (--metric-param Lambda)')
     p.add_argument('--metric-param', type=float, default=0.0,
                    help='regular charge g / core length l / Lambda of a '
                         'beyond-Kerr family')
@@ -80,16 +83,13 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..engine.shadow import (analytic_boundary,
+    from ..engine.shadow import (analytic_boundary, analytic_boundary_kds,
                                  analytic_boundary_rotating,
                                  numeric_boundary, overlay_png,
                                  px_to_alpha_deg, shadow_metrics)
     from ..io.scene import JAX_BACKENDS
-    from ..physics.spacetime import METRICS
     from ..viz import plots
 
-    if args.metric in _BEYOND:
-        METRICS[_BEYOND[args.metric]]  # kerr-ds raises (item 9)
     if args.metric == 'kerr' and args.spin ** 2 + args.charge ** 2 > 1.0:
         raise SystemExit("naked singularity: need a^2 + Q^2 <= M^2")
     if args.metric != 'kerr' and args.charge:
@@ -116,6 +116,20 @@ def main(argv=None):
                 f"{args.metric} at (a, p) = ({args.spin:g}, "
                 f"{args.metric_param:g}) is horizonless — no shadow "
                 "boundary to extract")
+    elif args.metric == 'kerr-ds':
+        if args.metric_param > 0 and \
+                30.0 >= 0.9 * np.sqrt(3.0 / args.metric_param):
+            raise SystemExit(
+                "kerr-ds shadow: the r_obs = 30 M camera must sit well "
+                "inside the cosmological horizon — need Lambda < "
+                "0.0027/M^2 (0.9 sqrt(3/Lambda) > 30)")
+        psis, rho = analytic_boundary_kds(args.spin, args.metric_param,
+                                          args.azimuths)
+        if not np.isfinite(rho).all():
+            raise SystemExit(
+                f"kerr-ds at (a, Lambda) = ({args.spin:g}, "
+                f"{args.metric_param:g}) has no black-hole horizon — "
+                "no shadow boundary to extract")
     else:
         psis, rho = analytic_boundary(args.spin, args.charge, args.azimuths)
     metrics = shadow_metrics(psis, rho)
@@ -127,16 +141,20 @@ def main(argv=None):
     cols = [psis, rho, alpha_deg]
     header = "psi_rad,rho_px,alpha_deg"
 
+    beyond = _BEYOND.get(args.metric)
     if args.numeric:
         npsis, nrho, bracket = numeric_boundary(
-            args.spin, args.metric_param if rotating else args.charge,
+            args.spin, args.metric_param if beyond else args.charge,
             n_psi=args.numeric_azimuths, steps=args.steps, delta=args.delta,
             order=args.order, backend=backend, device=args.device,
-            metric=rotating or "KerrSchild")
+            metric=beyond or "KerrSchild")
         if rotating:
             _, ana_at_n = analytic_boundary_rotating(
                 args.spin, args.metric_param, rotating,
                 args.numeric_azimuths)
+        elif args.metric == 'kerr-ds':
+            _, ana_at_n = analytic_boundary_kds(
+                args.spin, args.metric_param, args.numeric_azimuths)
         else:
             _, ana_at_n = analytic_boundary(args.spin, args.charge,
                                             args.numeric_azimuths)
@@ -166,7 +184,7 @@ def main(argv=None):
         from ..io.scene import IntegratorConfig, PatchConfig, SceneConfig
         scene = SceneConfig(
             size=args.size,
-            metric=args.metric if rotating else (
+            metric=args.metric if beyond else (
                 'kerr' if (args.spin or args.charge) else 'Schwarzschild'),
             spin=args.spin, charge=args.charge,
             metric_param=args.metric_param, n_samples=0,
@@ -177,7 +195,7 @@ def main(argv=None):
                                                         args.size),
                      device=args.device)
         title = (f"{args.metric} a = {args.spin:g}, "
-                 f"p = {args.metric_param:g}" if rotating
+                 f"p = {args.metric_param:g}" if beyond
                  else f"a = {args.spin:g}, Q = {args.charge:g}")
         overlay_png(res, psis, rho,
                     os.path.join(args.out_dir, "shadow_overlay.png"),

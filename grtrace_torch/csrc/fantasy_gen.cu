@@ -22,6 +22,10 @@
 //      rotating Hayward (the flows of physics/rotating_chart.py) with the
 //      Kerr-Schild invariant guard; D2's crossing is the equatorial one,
 //      z changing sign; float and double.
+//   G1d, S2d, T2d, D3 (Chart::kKdS in kIntegrate, kRecord, kTrace, kDisk):
+//      Kerr-de Sitter's Boyer-Lindquist-like Carter chart (the flows of
+//      physics/kds_chart.py) with G1's spherical guard; D3's crossing is
+//      the equatorial one, cos theta changing sign; float and double.
 //
 // Port-side kernels: they replace no TPU kernel.  The JAX package runs
 // this engine as an XLA while_loop / scan over vmapped jax.grad flows
@@ -167,6 +171,24 @@
 // the ray records (hit_q, hit_p), sets hit_out and stops; out is D1's (16,
 // n) followed by q2's four rows (the rescue's escape direction), disk is
 // null.
+//
+// The Carter chart (G1d, S2d, T2d, D3; grtrace/physics/kerr_de_sitter.py
+// in JAX, integrated there by the XLA loops of integrate_generic.py and
+// disk_kds.py::integrate_batch_disk_kds).  kerr_bl's evaluation with
+// Delta = r^2 - 2 M r + a^2 - L r^2 (r^2 + a^2), Delta_th = 1 + L a^2
+// cos^2 theta and chi^2 = (1 + L a^2)^2 inserted (kick_drift_kds): the
+// vector's charge slot holds L = Lambda / 3, rounded on the host in the
+// working dtype, and the kernel forms chi^2 once per ray.  An evaluation
+// divides six times (kick_drift_bl's five and 1 / Delta_th).  At L = 0
+// every added term is an exact zero and every added factor an exact one,
+// so the chart is G1's at Q = 0 to the bit.  The guard, the park radii and
+// the signed step count are G1's; the host rescues the parked rays with
+// the exact Kerr-de Sitter predicate (kerr_de_sitter.kds_escape_pred).
+// D3, per ray: G1d's loop; after each step that the guard did not park,
+// c1 = cos theta of the new q1 is compared with the pre-step c0 (carried):
+// where c0 c1 < 0, q1 and p2 are lerped at t = c0 / (c0 - c1), and if the
+// lerped r lies in [r_in, r_out] the ray records (hit_q, hit_p), sets
+// hit_out and stops; out is D2's (20, n): q1, p1, hit_q, hit_p, q2.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -178,7 +200,7 @@ namespace {
 constexpr int kRows = 16;
 constexpr int kScal = 10;
 
-enum class Chart : int { kBL, kKS, kStatic, kKSMass };
+enum class Chart : int { kBL, kKS, kStatic, kKSMass, kKdS };
 
 // the Kerr-Schild charts: Cartesian (t, x, y, z), three kicked rows, the
 // invariant guard (a variable, which device code may read)
@@ -197,9 +219,15 @@ constexpr int threads_of(Mode mode) {
 // anyway).  chip_smoke.py fails on any spill here: lower the count then.
 // S2 and T2 ask for one; D1, with its disk state beside G1s's, 5 of float
 // and 3 of double.  The mass-function chart's heavier Kerr-Schild step asks
-// G1r for 5 of float and 3 of double, D2 for 4 and 3.
+// G1r for 5 of float and 3 of double, D2 for 4 and 3; the Carter chart's
+// longer evaluation G1d for 6 and 3, D3 for 5 and 3.
 template <typename T, Chart kChart, Mode kMode>
 constexpr int min_blocks() {
+  if constexpr (kChart == Chart::kKdS) {
+    if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 5;
+    if constexpr (kMode == Mode::kIntegrate) return sizeof(T) == 8 ? 3 : 6;
+    return 1;
+  }
   if constexpr (kChart == Chart::kKSMass) {
     if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 4;
     if constexpr (kMode == Mode::kIntegrate) return sizeof(T) == 8 ? 3 : 5;
@@ -223,12 +251,14 @@ __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
 
 // In the static chart `a` holds the lapse constant k and `charge` the
 // family code, which `family` carries as an int; in the mass-function chart
-// `charge` holds k and `jump_cap` the family code.
+// `charge` holds k and `jump_cap` the family code; in the Carter chart
+// `charge` holds L = Lambda / 3 and chi2 the per-ray (1 + L a^2)^2.
 template <typename T>
 struct Scalars {
   T mass, a, charge, r_cap, r_max, r_plus, plunge_zone, jump_cap, cap_park,
       err_park;
   int family;
+  T chi2;
 };
 
 // dH/dq on the kicked rows and dH/dp on all four: kick[0..2] is
@@ -284,6 +314,83 @@ __device__ __forceinline__ KickDrift<T> kick_drift_bl(T r, T th, T pt, T pr,
   const T hh_th = -(g_thth * sig_th) * g_thth;
   const T pp_r = (del_r - n_pp * q_r) * inv_sd * inv_sin2;
   const T pp_th = (sig_th - n_pp * q_th) * inv_sd * inv_sin2
+                  - T(2) * g_pp * cos_th * sin_th * inv_sin2;
+
+  const T ptpt = pt * pt;
+  const T ptpp = pt * pph;
+  const T prpr = pr * pr;
+  const T phph = pth * pth;
+  const T pppp = pph * pph;
+  KickDrift<T> k;
+  k.kick[0] = T(0.5) * (tt_r * ptpt + T(2) * tp_r * ptpp + rr_r * prpr
+                        + hh_r * phph + pp_r * pppp);
+  k.kick[1] = T(0.5) * (tt_th * ptpt + T(2) * tp_th * ptpp + rr_th * prpr
+                        + hh_th * phph + pp_th * pppp);
+  k.kick[2] = T(0);  // unused: the chart has no third kicked row
+  k.drift[0] = g_tt * pt + g_tp * pph;
+  k.drift[1] = g_rr * pr;
+  k.drift[2] = g_thth * pth;
+  k.drift[3] = g_tp * pt + g_pp * pph;
+  return k;
+}
+
+// kds_chart._kick_drift: (k_r, k_th) and the drift at (r, theta), kerr_bl's
+// association with Delta_th (dth), chi^2 / Delta_th (kf) and Lambda / 3
+// (L) inserted
+template <typename T>
+__device__ __forceinline__ KickDrift<T> kick_drift_kds(T r, T th, T pt, T pr,
+                                                       T pth, T pph,
+                                                       const Scalars<T>& sc) {
+  const T a = sc.a;
+  const T mass = sc.mass;
+  const T lam3 = sc.charge;
+  T sin_th, cos_th;
+  sincos_t(th, &sin_th, &cos_th);
+  const T sin2 = sin_th * sin_th;
+  const T rr = r * r;
+  const T ac2 = a * a * cos_th * cos_th;
+  const T sigma = rr + ac2;
+  const T w = rr + a * a;
+  const T delta = rr - T(2) * mass * r + a * a - lam3 * rr * w;
+  const T dth = T(1) + lam3 * ac2;
+  const T inv_dth = T(1) / dth;
+  const T kf = sc.chi2 * inv_dth;
+  const T inv_sig = T(1) / sigma;
+  const T inv_sd = T(1) / (sigma * delta);
+  const T n_tt = w * w * dth - a * a * delta * sin2;
+  const T n_tp = w * dth - delta;
+  const T n_pp = delta - a * a * sin2 * dth;
+  const T g_tt = -n_tt * inv_sd * kf;
+  const T g_tp = -n_tp * a * inv_sd * kf;
+  const T g_rr = delta / sigma;
+  const T g_thth = dth * inv_sig;
+  const T g_pp = n_pp * inv_sd * kf / sin2;
+
+  const T two_r = T(2) * r;
+  const T lam_x = lam3 * two_r;
+  const T sc2 = T(2) * sin_th * cos_th;
+  const T sig_th = -a * a * sc2;
+  const T e_th = lam3 * sig_th;
+  const T del_r = two_r - T(2) * mass - lam_x * (w + rr);
+  const T q_r = (two_r * delta + sigma * del_r) * inv_sd;
+  const T q_th = sig_th * delta * inv_sd;
+  const T q_thk = q_th + e_th * inv_dth;
+
+  const T tt_r = -(T(2) * w * two_r * dth - a * a * del_r * sin2
+                   - n_tt * q_r) * inv_sd * kf;
+  const T tt_th = -(-a * a * delta * sc2 + w * w * e_th - n_tt * q_thk)
+                  * inv_sd * kf;
+  const T ntp_r = T(2) * mass + lam_x * (ac2 + w + rr);
+  const T tp_r = -(ntp_r - n_tp * q_r) * a * inv_sd * kf;
+  const T tp_th = (n_tp * q_thk - w * e_th) * a * inv_sd * kf;
+  const T inv_sin2 = T(1) / sin2;
+  const T rr_r = (del_r - g_rr * two_r) * inv_sig;
+  const T rr_th = -(g_rr * sig_th) * inv_sig;
+  const T hh_r = -(g_thth * two_r) * inv_sig;
+  const T hh_th = (e_th - g_thth * sig_th) * inv_sig;
+  const T pp_r = (del_r - n_pp * q_r) * inv_sd * kf * inv_sin2;
+  const T pp_th = (sig_th * dth - a * a * sin2 * e_th - n_pp * q_thk)
+                      * inv_sd * kf * inv_sin2
                   - T(2) * g_pp * cos_th * sin_th * inv_sin2;
 
   const T ptpt = pt * pt;
@@ -475,6 +582,9 @@ __device__ __forceinline__ KickDrift<T> kick_drift(const T (&s)[kRows],
   if constexpr (kChart == Chart::kBL) {
     return kick_drift_bl(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
                          s[P_READ + 2], s[P_READ + 3], sc);
+  } else if constexpr (kChart == Chart::kKdS) {
+    return kick_drift_kds(s[Q + 1], s[Q + 2], s[P_READ + 0], s[P_READ + 1],
+                          s[P_READ + 2], s[P_READ + 3], sc);
   } else if constexpr (kChart == Chart::kStatic) {
     return kick_drift_static(s[Q + 1], s[Q + 2], s[P_READ + 0],
                              s[P_READ + 1], s[P_READ + 2], s[P_READ + 3], sc);
@@ -671,6 +781,10 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   sc.err_park = __ldg(params + 9);
   sc.family = static_cast<int>(kChart == Chart::kKSMass ? sc.jump_cap
                                                         : sc.charge);
+  if constexpr (kChart == Chart::kKdS) {
+    const T chi = T(1) + sc.charge * sc.a * sc.a;
+    sc.chi2 = chi * chi;
+  }
   const T* subs = params + kScal;
 
   if constexpr (kMode == Mode::kTrace) {
@@ -692,8 +806,8 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
   }
   int next_store = 0;  // S2: the next step whose q1 is recorded
   int ns = 0;
-  // D1: the ray's plane constants, the annulus, the carried pre-step u and
-  // the crossing record
+  // D1: the ray's plane constants, the annulus, the carried pre-step u
+  // (D3: the carried pre-step cos theta) and the crossing record
   T c1 = T(0), c2 = T(0), r_in = T(0), r_out = T(0), u0 = T(0);
   T hit[8] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
   int was_hit = 0;
@@ -704,6 +818,10 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
       c1 = disk[2 * static_cast<size_t>(i)];
       c2 = disk[2 * static_cast<size_t>(i) + 1];
       u0 = disk_form(s[3], c1, c2);
+    }
+    if constexpr (kChart == Chart::kKdS) {
+      T sin_th;
+      sincos_t(s[2], &sin_th, &u0);
     }
   }
   KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
@@ -762,6 +880,29 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
         }
       }
     }
+    if constexpr (kMode == Mode::kDisk && kChart == Chart::kKdS) {
+      // D3: the equatorial crossing, cos theta changing sign within the step
+      if (!parked) {
+        T sin_th, u1;
+        sincos_t(s[2], &sin_th, &u1);
+        if (u0 * u1 < T(0)) {
+          const T t = u0 / (u0 - u1);
+          T cq[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) cq[m] = old[m] + t * (s[m] - old[m]);
+          if (cq[1] >= r_in && cq[1] <= r_out) {
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              hit[m] = cq[m];
+              hit[4 + m] = old[12 + m] + t * (s[12 + m] - old[12 + m]);
+            }
+            was_hit = 1;
+            break;
+          }
+        }
+        u0 = u1;
+      }
+    }
     if (parked) {
       if constexpr (kMode == Mode::kIntegrate || kMode == Mode::kDisk) {
         ns = -ns;  // the park flag rides in the sign
@@ -783,8 +924,8 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     for (int m = 0; m < 8; ++m) out[m * stride_n + i] = s[m];
 #pragma unroll
     for (int m = 0; m < 8; ++m) out[(8 + m) * stride_n + i] = hit[m];
-    if constexpr (kChart == Chart::kKSMass) {
-      // D2: q2, whose spatial rows the host's rescue reads
+    if constexpr (kChart == Chart::kKSMass || kChart == Chart::kKdS) {
+      // D2, D3: q2, whose rows the host's rescue reads
 #pragma unroll
       for (int m = 0; m < 4; ++m) out[(16 + m) * stride_n + i] = s[8 + m];
     }
@@ -859,6 +1000,19 @@ GRT_G1R_ENTRY(grt_fantasy_gen_rot_f32_launch, float)
 GRT_G1R_ENTRY(grt_fantasy_gen_rot_f64_launch, double)
 #undef GRT_G1R_ENTRY
 
+// G1d: G1's signature, the Carter chart's vector
+#define GRT_G1D_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(const T* q0, const T* p0, T* out, int* ns_out,        \
+                      const T* params, int n, int n_sub, int steps,         \
+                      void* stream) {                                       \
+    return launch<T, Chart::kKdS, Mode::kIntegrate>(                        \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream);        \
+  }
+
+GRT_G1D_ENTRY(grt_fantasy_gen_kds_f32_launch, float)
+GRT_G1D_ENTRY(grt_fantasy_gen_kds_f64_launch, double)
+#undef GRT_G1D_ENTRY
+
 // D1: (q0, p0, disk (n, 2), out (16, n), ns_out, hit_out, params, n, n_sub,
 // steps, stream); params ends with r_in, r_out after the substeps
 #define GRT_D1_ENTRY(NAME, T)                                                \
@@ -890,6 +1044,21 @@ GRT_D2_ENTRY(grt_fantasy_gen_disk_rot_f32_launch, float)
 GRT_D2_ENTRY(grt_fantasy_gen_disk_rot_f64_launch, double)
 #undef GRT_D2_ENTRY
 
+// D3: D2's signature in the Carter chart
+#define GRT_D3_ENTRY(NAME, T)                                                \
+  extern "C" int NAME(const T* q0, const T* p0, const T* disk, T* out,      \
+                      int* ns_out, int* hit_out, const T* params, int n,    \
+                      int n_sub, int steps, void* stream) {                 \
+    (void)disk;                                                             \
+    return launch<T, Chart::kKdS, Mode::kDisk>(                             \
+        q0, p0, out, ns_out, params, n, n_sub, steps, 1, 0, stream,         \
+        nullptr, hit_out);                                                  \
+  }
+
+GRT_D3_ENTRY(grt_fantasy_gen_disk_kds_f32_launch, float)
+GRT_D3_ENTRY(grt_fantasy_gen_disk_kds_f64_launch, double)
+#undef GRT_D3_ENTRY
+
 // S2: (q0, p0, traj (n, n_keep, 4), ns_out, params, n, n_sub, steps,
 // stride, n_keep, stream)
 #define GRT_S2_ENTRY(NAME, T, CHART)                                         \
@@ -909,6 +1078,8 @@ GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f32_launch, float, Chart::kStatic)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_static_f64_launch, double, Chart::kStatic)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_rot_f32_launch, float, Chart::kKSMass)
 GRT_S2_ENTRY(grt_fantasy_gen_traj_rot_f64_launch, double, Chart::kKSMass)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_kds_f32_launch, float, Chart::kKdS)
+GRT_S2_ENTRY(grt_fantasy_gen_traj_kds_f64_launch, double, Chart::kKdS)
 #undef GRT_S2_ENTRY
 
 // T2: (q0, p0, out (n, steps, 8), params, n, n_sub, steps, stream)
@@ -925,5 +1096,7 @@ GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f32_launch, float, Chart::kStatic)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_static_f64_launch, double, Chart::kStatic)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_rot_f32_launch, float, Chart::kKSMass)
 GRT_T2_ENTRY(grt_fantasy_gen_trace_rot_f64_launch, double, Chart::kKSMass)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_kds_f32_launch, float, Chart::kKdS)
+GRT_T2_ENTRY(grt_fantasy_gen_trace_kds_f64_launch, double, Chart::kKdS)
 #undef GRT_T2_ENTRY
 #endif  // __CUDACC__

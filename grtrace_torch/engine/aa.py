@@ -46,8 +46,8 @@ from ..physics.camera import (boosted_ics_from_pixels,
                               pixel_positions_fractional_lookat,
                               unfolded_ics_from_pixels)
 from ..physics.coords import cartesian_to_spherical
-from ..physics.spacetime import (COORDS, METRICS, kerr_schild_g_inv,
-                                 ks_radius)
+from ..physics.spacetime import (COORDS, METRICS, horizon_radius,
+                                 kerr_schild_g_inv, ks_radius)
 from ..physics.static_metrics import STATIC_F
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED, integrate_dispatch
@@ -186,7 +186,11 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
     (integrate_dispatch_generic: B5, G1 with the Boyer-Lindquist rescue,
     G1s, or G1r with the rotating families' rescue on the card; the
     rs_classify shell, no b_crit shortcut).  The rotating regular
-    families take the Cartesian camera with their own g_inv.
+    families take the Cartesian camera with their own g_inv, Kerr-de
+    Sitter the unfolded spherical one and G1d.  Kerr-de Sitter's sub-rays
+    are classified, as JAX's pass classifies them, at the Kerr-Newman
+    horizon with Lambda in the charge slot, not at the render's capture
+    surface (ROADMAP Queue C).
     Returns (image, aa_mask)."""
     g_inv_fn = METRICS[metric]
     cartesian = COORDS[metric] == "cartesian"
@@ -222,7 +226,13 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
         rho = torch.where(status == STATUS_CAPTURED, torch.zeros_like(rho),
                           rho)
         final_q = torch.stack([final_q[:, 0], rho, th, ph], dim=-1)
-    rs_classify = classify_radius(metric, params)
+    if metric == "KerrDS":
+        # grtrace/engine/aa.py:160-170: horizon_radius('Kerr', M, a,
+        # Lambda) with the 1.1 shell
+        rs_classify = (1.1 / 1.2) * horizon_radius("Kerr", params[0],
+                                                   params[1], params[2])
+    else:
+        rs_classify = classify_radius(metric, params)
     n = final_q.shape[0]
     if beta is None:
         beta = torch.zeros((n,), dtype=dtype, device=device)

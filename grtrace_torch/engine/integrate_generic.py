@@ -1,9 +1,10 @@
 """The generic engine for the Kerr(-Newman) charts, the static beyond-Kerr
-families and the rotating regular families — the torch counterpart of
-`grtrace.engine.integrate_generic`, and the eager twins of the CUDA
-kernels G1, S2, T2, their static-chart modes G1s, S2s, T2s and their
-mass-function Kerr-Schild modes G1r, S2r, T2r and D2 (csrc/fantasy_gen.cu,
-wrapped by engine/integrate_generic_cuda.py).
+families, the rotating regular families and Kerr-de Sitter — the torch
+counterpart of `grtrace.engine.integrate_generic`, and the eager twins of
+the CUDA kernels G1, S2, T2, their static-chart modes G1s, S2s, T2s, their
+mass-function Kerr-Schild modes G1r, S2r, T2r and D2, and their Carter-chart
+modes G1d, S2d, T2d (csrc/fantasy_gen.cu, wrapped by
+engine/integrate_generic_cuda.py; D3's twin is engine/disk_kds.py's).
 
 JAX runs this engine as a masked `lax.while_loop` (or `scan`) over
 `vmap`ped `jax.grad` flows.  The port keeps its semantics and takes the
@@ -13,7 +14,10 @@ Kerr-Schild chart (metric 'KerrSchild'), physics/static_chart.py in the
 static chart (metrics 'Kottler', 'Bardeen', 'Hayward', with the spherical
 guard and no rescue), physics/rotating_chart.py in the mass-function
 Kerr-Schild chart (metrics 'RotatingBardeen', 'RotatingHayward', with the
-invariant guard and the rescue by `rotating_regular.escape_pred_rotating`).
+invariant guard and the rescue by `rotating_regular.escape_pred_rotating`),
+physics/kds_chart.py in Kerr-de Sitter's Carter chart (metric 'KerrDS',
+with the spherical guard and the rescue by
+`kerr_de_sitter.kds_escape_pred`).
 Every composed step is the
 unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
 `spacetime.make_step`, followed by the chart's blow-up guard.
@@ -22,19 +26,24 @@ unstaggered A(d/2) B(d/2) M B(d/2) A(d/2) per substep of
                                 the exact Boyer-Lindquist rescue; the
                                 static families: the twin of G1s; the
                                 rotating families: the twin of G1r, then
-                                the rescue; metric 'KerrSchild': the
+                                the rescue; 'KerrDS': the twin of G1d,
+                                then the rescue; metric 'KerrSchild': the
                                 Kerr-Schild integrators (kernel B5's twins,
                                 integrate_dispatch_ks)
     trajectory_batch_decimated  every chart: the eager twin of S2 (S2s), q1
                                 recorded every `stride` steps
     trajectory_generic          metric 'Kerr', a static or a rotating
-                                family: one ray's (q1, p1) after every
-                                step, no exit (the EinsteinPy semantics);
-                                its loop trajectory_generic_unmasked is
-                                the eager twin of T2 (T2s, T2r)
+                                family, 'KerrDS': one ray's (q1, p1) after
+                                every step, no exit (the EinsteinPy
+                                semantics); its loop
+                                trajectory_generic_unmasked is the eager
+                                twin of T2 (T2s, T2r, T2d)
     integrate_batch_disk_rotating  the rotating families' disk: the twin of
                                 D2 (G1r's loop and the first z crossing
-                                inside the annulus), then the rescue
+                                inside the annulus), then the rescue;
+                                its loop integrate_disk_spin_twin is also
+                                D3's (G1d's loop, cos theta), which
+                                engine/disk_kds.py drives
 
 `integrate_dispatch_generic`, `trajectory_dispatch_generic`,
 `trajectory_generic` and `integrate_dispatch_disk_rotating` send CUDA rays
@@ -48,8 +57,10 @@ import math
 
 import torch
 
-from ..physics import kerr_bl, kerr_schild, rotating_chart, static_chart
+from ..physics import (kds_chart, kerr_bl, kerr_schild, rotating_chart,
+                       static_chart)
 from ..physics.hamiltonian import _flow_mixed, pack_state, substep_schedule
+from ..physics.kerr_de_sitter import kds_capture_radius, kds_escape_pred
 from ..physics.kerr_schild import _flow_b_ks, hamiltonian_ks, ks_radius_c
 from ..physics.rotating_regular import (MASS_FN, escape_pred_rotating,
                                         rotating_capture_radius)
@@ -65,7 +76,7 @@ from .integrate_ks import (STATUS_DISK, apply_bardeen_rescue,
 N_SCAL = 10
 # the charts the engine integrates, by metric
 CHARTS = ("Kerr", "KerrSchild", "Kottler", "Bardeen", "Hayward",
-          "RotatingBardeen", "RotatingHayward")
+          "RotatingBardeen", "RotatingHayward", "KerrDS")
 
 
 def _capture_radius(metric, params):
@@ -77,19 +88,22 @@ def _capture_radius(metric, params):
     radius is 1.1 x the bisected outer horizon or the horizonless 1e-2 M
     floor (`static_capture_radius`, a float64 tensor); for the rotating
     regular families (M, a, p), 1.05 x theirs or the same floor
-    (`rotating_capture_radius`); Kerr-de Sitter raises (ROADMAP Queue A
-    item 9)."""
+    (`rotating_capture_radius`); for Kerr-de Sitter (M, a, Lambda), 1.1 x
+    the bisected outer horizon or the floor (`kds_capture_radius`), as a
+    float64 tensor of the params' dtype's value."""
     params = torch.as_tensor(params)
     if metric in STATIC_F:
         return static_capture_radius(metric, params[:2])
     if metric in MASS_FN:
         return rotating_capture_radius(metric, params)
+    if metric == "KerrDS":
+        return kds_capture_radius(params)
     charge = params[2] if len(params) > 2 else params[0] * 0.0
     if metric == "KerrSchild":
         return 1.05 * horizon_radius("Kerr", params[0], params[1], charge)
     if metric == "Kerr":
         return 1.1 * horizon_radius("Kerr", params[0], params[1], charge)
-    COORDS[metric]  # raises for the families of item 9
+    COORDS[metric]  # a KeyError for an unknown metric
     if metric == "Schwarzschild":
         return 1.1 * horizon_radius("Schwarzschild", params[0])
     raise KeyError(metric)
@@ -97,11 +111,10 @@ def _capture_radius(metric, params):
 
 def _check_metric(metric):
     if metric not in CHARTS:
-        COORDS[metric]  # raises for the families of item 9
         raise NotImplementedError(
             f"the generic engine of grtrace_torch integrates the Kerr-Newman "
-            f"charts, the static and the rotating regular families {CHARTS} "
-            f"(got {metric!r}); "
+            f"charts, the static and the rotating regular families and "
+            f"Kerr-de Sitter {CHARTS} (got {metric!r}); "
             f"Schwarzschild rays take engine.integrate")
 
 
@@ -135,7 +148,13 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
     `dtype`: rotating_chart.family_constant) and the jump_cap slot, which
     the Kerr-Schild guard never reads, the family code
     (rotating_chart.FAMILY_CODE); r_cap as in the static chart, with the
-    1.05 shell."""
+    1.05 shell.
+
+    In the Carter chart of Kerr-de Sitter params = (M, a, Lambda): the
+    third slot holds L = Lambda / 3 rounded to `dtype` (the kernel forms
+    chi^2 = (1 + L a^2)^2 from it); r_cap is 1.1 x the bisected horizon in
+    the dtype-rounded params, rounded to `dtype`; the rest is the
+    Boyer-Lindquist chart's."""
     _check_metric(metric)
     p = torch.as_tensor(params, dtype=dtype).cpu()
     mass, a = p[0], p[1]
@@ -148,6 +167,9 @@ def gen_params(metric, delta, params, r_max, omega, order, dtype):
     if rotating:
         r_cap = r_cap.to(dtype)
         charge = rotating_chart.family_constant(metric, mass, charge)
+    if metric == "KerrDS":
+        r_cap = r_cap.to(dtype)
+        charge = charge / torch.tensor(3.0, dtype=dtype)
     r_max_t = torch.tensor(r_max, dtype=dtype)
     if metric == "KerrSchild" or rotating:
         r_plus = r_cap / torch.tensor(1.05, dtype=dtype)
@@ -216,6 +238,17 @@ def make_composed_step(metric, vec):
         # (mass, a, charge) carry (M, k, family code): static_constants
         kick_drift, n_kick = static_chart._kick_drift, 2
         flow_b = static_chart.flow_b
+    elif metric == "KerrDS":
+        # (mass, a, charge) carry (M, a, Lambda / 3); chi^2 once, as the
+        # kernel forms it per ray
+        n_kick = 2
+        chi2 = kds_chart.chi_squared(charge, a, vec.dtype)
+
+        def kick_drift(*args):
+            return kds_chart._kick_drift(*args, chi2)
+
+        def flow_b(state, dt, mass, a, lam3):
+            return kds_chart.flow_b(state, dt, mass, a, lam3, chi2)
     else:
         kick_drift, n_kick, flow_b = kerr_bl._kick_drift, 2, kerr_bl.flow_b
 
@@ -385,29 +418,46 @@ def finish_generic_static(state, ns, vec):
     return q1, torch.stack(state[4:8], dim=-1), status, torch.abs(ns)
 
 
-def rotating_pred(metric, q0s, p0s, params, parked):
-    """`escape_pred_rotating` of the (N,) parked rays, False on the rest:
-    the rescue reads it on parked rays only, and the predicate is
-    elementwise, so this gives JAX's booleans there at a fraction of the
-    (N, 192) grid's memory and time."""
+def parked_pred(escape_pred, q0s, p0s, parked):
+    """escape_pred(q0s, p0s) of the (N,) parked rays, False on the rest:
+    the rescue reads it on parked rays only, and the exact predicates
+    (`escape_pred_rotating`, `kds_escape_pred`) are elementwise, so this
+    gives JAX's booleans there at a fraction of the (N, 192) grid's memory
+    and time."""
     pred = torch.zeros_like(parked)
     idx = torch.nonzero(parked)[:, 0]
     if idx.numel():
-        pred[idx] = escape_pred_rotating(metric, q0s[idx], p0s[idx], params)
+        pred[idx] = escape_pred(q0s[idx], p0s[idx])
     return pred
 
 
 def finish_generic_rotating(state, ns, q0s, p0s, vec, metric, params):
     """Read-out of G1r and its twin, JAX's for the rotating families: the
     first copy's q and p, then `apply_bardeen_rescue` with the family's
-    exact predicate (`rotating_pred`, on the launch rays and params = (M,
-    a, p)) and the reverted second copy's q2."""
+    exact predicate (`escape_pred_rotating` of the parked launch rays,
+    params = (M, a, p)) and the reverted second copy's q2."""
     (mass, a, _, r_cap, r_max, *_), _ = split_params(vec)
     q1 = torch.stack(state[0:4], dim=-1)
-    pred = rotating_pred(metric, q0s, p0s, params, ns < 0)
+    pred = parked_pred(lambda q, p: escape_pred_rotating(metric, q, p,
+                                                         params),
+                       q0s, p0s, ns < 0)
     return apply_bardeen_rescue(
         q1, torch.stack(state[4:8], dim=-1), ns,
         torch.stack(state[9:12], dim=-1), q0s, p0s, mass, a, 0.0, r_cap,
+        r_max, pred=pred)
+
+
+def finish_generic_kds(state, ns, q0s, p0s, vec, params):
+    """Read-out of G1d and its twin, JAX's for Kerr-de Sitter: the first
+    copy's q and p, then `apply_bardeen_rescue_bl` with the exact
+    predicate (`kds_escape_pred` of the parked launch rays, params = (M, a,
+    Lambda)) and the reverted second copy's q2."""
+    (mass, a, _, r_cap, r_max, *_), _ = split_params(vec)
+    pred = parked_pred(lambda q, p: kds_escape_pred(q, p, params), q0s, p0s,
+                       ns < 0)
+    return apply_bardeen_rescue_bl(
+        torch.stack(state[0:4], dim=-1), torch.stack(state[4:8], dim=-1), ns,
+        torch.stack(state[8:12], dim=-1), q0s, p0s, mass, a, 0.0, r_cap,
         r_max, pred=pred)
 
 
@@ -422,8 +472,10 @@ def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
     Kerr-Schild integrators' twins (kernel B5's; JAX's Pallas route).
     The static families: the eager twin of kernel G1s, no rescue.  The
     rotating families: the eager twin of kernel G1r, then the rescue by
-    their exact predicate.  params = (M, a[, Q]), (M, p[, 0]) for a static
-    family, (M, a, p) for a rotating one."""
+    their exact predicate; Kerr-de Sitter: the twin of G1d, then the
+    Boyer-Lindquist rescue by its exact predicate.  params = (M, a[, Q]),
+    (M, p[, 0]) for a static family, (M, a, p) for a rotating one, (M, a,
+    Lambda) for Kerr-de Sitter."""
     _check_metric(metric)
     if metric == "KerrSchild":
         return integrate_dispatch_ks(q0s, p0s, steps, delta, params, r_max,
@@ -436,6 +488,9 @@ def integrate_batch_generic(q0s, p0s, steps, delta, params, r_max, omega,
         state, ns = integrate_generic_twin(q0s, p0s, steps, vec, metric)
         return finish_generic_rotating(state, ns, q0s, p0s, vec, metric,
                                        params)
+    if metric == "KerrDS":
+        state, ns = integrate_generic_twin(q0s, p0s, steps, vec, metric)
+        return finish_generic_kds(state, ns, q0s, p0s, vec, params)
     state, ns = integrate_generic_twin(q0s, p0s, steps, vec)
     return finish_generic_bl(state, ns, q0s, p0s, vec)
 
@@ -487,7 +542,8 @@ def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                order=2, metric="Kerr", backend="auto"):
     """integrate_batch_generic on the rays' device: in the Boyer-Lindquist
     chart CUDA rays go to kernel G1, in the static chart to G1s, in the
-    mass-function chart to G1r, and CPU rays to their twins (the
+    mass-function chart to G1r, in the Carter chart to G1d, and CPU rays to
+    their twins (the
     backend resolved as `integrate_dispatch_ks` resolves it, which takes
     the Kerr-Schild chart: B5 or its twins).  Never falls back."""
     _check_metric(metric)
@@ -510,7 +566,8 @@ def integrate_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
 def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
                                 order=2, metric="Kerr", n_keep=1000):
     """trajectory_batch_decimated on the rays' device: CUDA rays go to
-    kernel S2 (S2s, S2r in the static and mass-function charts), CPU rays
+    kernel S2 (S2s, S2r, S2d in the static, mass-function and Carter
+    charts), CPU rays
     to its twin; any other device raises (as
     `integrate.integrate_full_dispatch` routes S1).  Never falls back."""
     _check_metric(metric)
@@ -530,9 +587,10 @@ def trajectory_dispatch_generic(q0s, p0s, steps, delta, params, r_max, omega,
 
 def trajectory_generic_unmasked(q0s, p0s, steps, vec, metric="Kerr"):
     """The loop of kernel T2 (T2s for a static family, T2r for a rotating
-    one) on (N, 4) rays from a gen_params vector: (N, steps, 8), (q1, p1)
-    after each of `steps` composed steps (flow A's kick/drift carried, as
-    in G1), every step taken: no domain test, no guard, no park."""
+    one, T2d for Kerr-de Sitter) on (N, 4) rays from a gen_params vector:
+    (N, steps, 8), (q1, p1) after each of `steps` composed steps (flow A's
+    kick/drift carried, as in G1), every step taken: no domain test, no
+    guard, no park."""
     opening, composed = make_composed_step(metric, vec)
     out = torch.empty((q0s.shape[0], steps, 8), dtype=q0s.dtype,
                       device=q0s.device)
@@ -550,23 +608,24 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
     (steps, 4)), q and p after each step, with no early exit (EinsteinPy's
     `Nulllike` semantics, for the compat classes).  CUDA rays go to kernel
     T2 (`integrate_generic_cuda.trajectory_generic_unmasked_cuda`; T2s
-    for a static family, T2r for a rotating one), CPU rays to its twin
-    `trajectory_generic_unmasked`; any other device raises.  The
-    Boyer-Lindquist chart, metric 'Kerr' (the one JAX's compat classes
-    pass), the static families 'Kottler', 'Bardeen', 'Hayward' (params
-    (M, p[, 0])) and the rotating ones 'RotatingBardeen',
-    'RotatingHayward' (params (M, a, p)); Kerr-de Sitter raises naming
-    ROADMAP item 9, any other metric NotImplementedError.  JAX takes the
+    for a static family, T2r for a rotating one, T2d for Kerr-de Sitter),
+    CPU rays to its twin `trajectory_generic_unmasked`; any other device
+    raises.  The Boyer-Lindquist chart, metric 'Kerr' (the one JAX's
+    compat classes pass), the static families 'Kottler', 'Bardeen',
+    'Hayward' (params (M, p[, 0])), the rotating ones 'RotatingBardeen',
+    'RotatingHayward' (params (M, a, p)) and 'KerrDS' (params (M, a,
+    Lambda)); any other metric raises NotImplementedError.  JAX takes the
     flows by autodiff, the port in closed form (physics/kerr_bl.py,
-    physics/static_chart.py, physics/rotating_chart.py): they agree within
-    1e-12 relative an evaluation (ROADMAP Queue C)."""
-    if metric != "Kerr" and metric not in STATIC_F and metric not in MASS_FN:
-        COORDS[metric]  # raises for the families of item 9
+    physics/static_chart.py, physics/rotating_chart.py,
+    physics/kds_chart.py): they agree within 1e-12 relative an evaluation
+    (ROADMAP Queue C)."""
+    if (metric not in ("Kerr", "KerrDS") and metric not in STATIC_F
+            and metric not in MASS_FN):
         raise NotImplementedError(
             f"trajectory_generic of grtrace_torch integrates the "
             f"Boyer-Lindquist chart 'Kerr' only, besides the static "
-            f"families {tuple(STATIC_F)} and the rotating ones "
-            f"{tuple(MASS_FN)} (got {metric!r})")
+            f"families {tuple(STATIC_F)}, the rotating ones "
+            f"{tuple(MASS_FN)} and 'KerrDS' (got {metric!r})")
     q0s, p0s = q0.reshape(1, 4).contiguous(), p0.reshape(1, 4).contiguous()
     vec = gen_params(metric, delta, params, math.inf, omega, order,
                      q0s.dtype)
@@ -582,28 +641,42 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
     return out[0, :, :4], out[0, :, 4:]
 
 
-# --- the rotating families' disk (kernel D2) ------------------------------
+# --- the spinning families' disks (kernels D2 and D3) ---------------------
 
-def disk_rotating_params(vec, r_in, r_out):
-    """D2's scalar vector: the mass-function chart's gen_params vector
-    followed by r_in and r_out, rounded to its dtype."""
+def disk_spin_params(vec, r_in, r_out):
+    """D2's and D3's scalar vector: the mass-function or the Carter chart's
+    gen_params vector followed by r_in and r_out, rounded to its dtype."""
     tail = torch.tensor([float(r_in), float(r_out)], dtype=vec.dtype)
     return torch.cat([vec, tail])
 
 
-def integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric):
-    """The loop of kernel D2 on (N, 4) rays of the mass-function chart from
-    its disk vector (`disk_rotating_params`).  Per step, JAX's
-    integrate_batch_disk: the masked, guarded G1r step of the rays that
-    are active and not hit, then the sign test of z at the pre- and
-    post-step q1; where it changes, q1 and p2 are lerped at t = z0 / (z0 -
-    z1) and the crossing counts if its Kerr-Schild radius lies in [r_in,
-    r_out] on an unguarded step.  Returns (state, ns, hit, hit_q, hit_p),
-    ns negated for guard-parked rays, the hit rows zero where the ray
-    never hit."""
+def _disk_level_radius(metric, a):
+    """The disk plane's level function of a chart state row set and the
+    crossing's radius: z and the Kerr-Schild radius for a rotating family
+    (D2), cos(theta) and r for 'KerrDS' (D3)."""
+    if metric == "KerrDS":
+        return (lambda q: torch.cos(q[2])), (lambda cq: cq[1])
+    if metric in MASS_FN:
+        return (lambda q: q[3]), (lambda cq: ks_radius_c(cq[1], cq[2], cq[3],
+                                                         a))
+    raise ValueError(f"the 20-row disk kernels integrate {tuple(MASS_FN)} "
+                     f"and 'KerrDS' (got {metric!r})")
+
+
+def integrate_disk_spin_twin(q0s, p0s, steps, vec, metric):
+    """The loop of kernel D2 (a rotating family) or D3 ('KerrDS') on (N, 4)
+    rays of its chart from its disk vector (`disk_spin_params`).  Per step,
+    JAX's integrate_batch_disk (integrate_batch_disk_kds): the masked,
+    guarded G1r (G1d) step of the rays that are active and not hit, then
+    the sign test of the plane's level (z; cos theta) at the pre- and
+    post-step q1; where it changes, q1 and p2 are lerped at t = c0 / (c0 -
+    c1) and the crossing counts if its radius (Kerr-Schild; r) lies in
+    [r_in, r_out] on an unguarded step.  Returns (state, ns, hit, hit_q,
+    hit_p), ns negated for guard-parked rays, the hit rows zero where the
+    ray never hit."""
     r_in, r_out = vec[-2:].tolist()
     base = vec[:-2]
-    a = float(base[1])
+    level, radius = _disk_level_radius(metric, float(base[1]))
     # through the module's global, so that a caller may wrap the factory
     active, opening, step = make_generic_step(metric, base)
     n = q0s.shape[0]
@@ -618,13 +691,13 @@ def integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric):
         if k % _EXIT_CHECK == 0 and not bool(act.any()):
             break
         bad, new, ka = step(state, ka)
-        z0, z1 = state[3], new[3]
-        crossed = (z0 * z1) < 0.0
-        t = torch.where(crossed, z0 / (z0 - z1), 0.0)
+        c0, c1 = level(state), level(new)
+        crossed = (c0 * c1) < 0.0
+        t = torch.where(crossed, c0 / (c0 - c1), 0.0)
         cq = [state[m] + t * (new[m] - state[m]) for m in range(4)]
         cp = [state[12 + m] + t * (new[12 + m] - state[12 + m])
               for m in range(4)]
-        r_hit = ks_radius_c(cq[1], cq[2], cq[3], a)
+        r_hit = radius(cq)
         new_hit = act & ~bad & crossed & (r_hit >= r_in) & (r_hit <= r_out)
         hq = torch.where(new_hit[:, None], torch.stack(cq, dim=-1), hq)
         hp = torch.where(new_hit[:, None], torch.stack(cp, dim=-1), hp)
@@ -635,13 +708,17 @@ def integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric):
     return state, ns, hit, hq, hp
 
 
-def finish_disk_rotating(state, ns, hit, hq, hp, q0s, p0s, vec, metric,
-                         params):
-    """Read-out of D2 and its twin: `finish_generic_rotating` (the rescue
-    of the parked rays), then STATUS_DISK for the hit rays.  Returns
-    (final_q, final_p, status, n_steps, hit_q, hit_p)."""
-    q1, p1, status, n_steps = finish_generic_rotating(
-        state, ns, q0s, p0s, vec[:-2], metric, params)
+def finish_disk_spin(state, ns, hit, hq, hp, q0s, p0s, vec, metric, params):
+    """Read-out of D2 or D3 and its twin: `finish_generic_rotating` or
+    `finish_generic_kds` (the rescue of the parked rays), then STATUS_DISK
+    for the hit rays.  Returns (final_q, final_p, status, n_steps, hit_q,
+    hit_p)."""
+    if metric == "KerrDS":
+        out = finish_generic_kds(state, ns, q0s, p0s, vec[:-2], params)
+    else:
+        out = finish_generic_rotating(state, ns, q0s, p0s, vec[:-2], metric,
+                                      params)
+    q1, p1, status, n_steps = out
     return q1, p1, torch.where(hit, STATUS_DISK, status), n_steps, hq, hp
 
 
@@ -652,11 +729,11 @@ def integrate_batch_disk_rotating(q0s, p0s, steps, delta, params, r_max,
     family on the CPU: the eager twin of kernel D2, then the rescue.
     params = (M, a, p).  Returns (final_q, final_p, status, n_steps,
     hit_q, hit_p)."""
-    vec = disk_rotating_params(
+    vec = disk_spin_params(
         gen_params(metric, delta, params, r_max, omega, order, q0s.dtype),
         r_in, r_out)
-    out = integrate_disk_rotating_twin(q0s, p0s, steps, vec, metric)
-    return finish_disk_rotating(*out, q0s, p0s, vec, metric, params)
+    out = integrate_disk_spin_twin(q0s, p0s, steps, vec, metric)
+    return finish_disk_spin(*out, q0s, p0s, vec, metric, params)
 
 
 def integrate_dispatch_disk_rotating(q0s, p0s, steps, delta, params, r_max,
@@ -677,7 +754,7 @@ def integrate_dispatch_disk_rotating(q0s, p0s, steps, delta, params, r_max,
     if kind != "cuda":
         raise ValueError(f"no disk integrator for {kind!r} tensors (CUDA "
                          f"runs kernel D2, the CPU its eager twin)")
-    from .integrate_generic_cuda import integrate_batch_disk_rotating_cuda
-    return integrate_batch_disk_rotating_cuda(
+    from .integrate_generic_cuda import integrate_batch_disk_spin_cuda
+    return integrate_batch_disk_spin_cuda(
         q0s, p0s, steps, delta, params, r_max, omega, r_in, r_out,
         order=order, metric=metric)

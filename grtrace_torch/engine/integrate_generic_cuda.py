@@ -18,16 +18,21 @@
     chart of the rotating regular families (the same wrappers with a
     rotating `metric`), and D2, G1r's loop with the first equatorial
     crossing inside the annulus recorded
-    (`integrate_batch_disk_rotating_cuda`; JAX's
-    `disk.integrate_batch_disk(metric=...)`).
+    (`integrate_batch_disk_spin_cuda`; JAX's
+    `disk.integrate_batch_disk(metric=...)`);
+  * G1d, S2d and T2d, the same three in Kerr-de Sitter's Carter chart
+    (the same wrappers with metric 'KerrDS'), and D3, G1d's loop with the
+    first equatorial crossing (cos theta changing sign) inside the annulus
+    recorded (`integrate_batch_disk_spin_cuda` with metric 'KerrDS'; JAX's
+    `disk_kds.integrate_batch_disk_kds`).
 
 Port-side kernels: JAX runs this engine in XLA loops, not in Pallas, so
 they replace no TPU kernel.  One thread integrates one ray, float32 or
 float64; G1's wrapper launches the rays sorted by a cost key and puts the
 results back in the caller's order.  Their eager twins,
 `integrate_generic_twin`, `trajectory_generic_twin`,
-`trajectory_generic_unmasked` and `integrate_disk_rotating_twin`
-(engine/integrate_generic.py), define their results, and each kernel and
+`trajectory_generic_unmasked` and `integrate_disk_spin_twin`
+(engine/integrate_generic.py) define their results, and each kernel and
 its twin read the same host-built scalar vector (`gen_params`).  This module only launches: it never falls back to
 a twin, and every wrapper raises for CPU tensors.  Rays on the CPU belong
 to `integrate_dispatch_generic`, `trajectory_dispatch_generic` and
@@ -44,14 +49,15 @@ from .integrate_cuda import KernelLaunchError, _check_inputs
 from .integrate_ks_cuda import _cost_sort_key_ks
 from ..physics.rotating_regular import MASS_FN
 from ..physics.static_metrics import STATIC_F, b_critical_cached
-from .integrate_generic import (N_SCAL, disk_rotating_params,
-                                finish_disk_rotating, finish_generic_bl,
-                                finish_generic_rotating,
+from .integrate_generic import (N_SCAL, disk_spin_params,
+                                finish_disk_spin, finish_generic_bl,
+                                finish_generic_kds, finish_generic_rotating,
                                 finish_generic_static, gen_params)
 
 # Kernel launches since the process started (or since a caller reset it):
 # G1, S2 in the BL and KS charts, T2; G1s, S2s in the static chart, T2s,
-# D1; G1r, S2r in the mass-function chart, T2r, D2.
+# D1; G1r, S2r in the mass-function chart, T2r, D2; G1d, S2d in the
+# Carter chart, T2d, D3.
 launches = 0
 traj_launches = 0
 trace_launches = 0
@@ -63,6 +69,10 @@ rot_launches = 0
 rot_traj_launches = 0
 rot_trace_launches = 0
 rot_disk_launches = 0
+kds_launches = 0
+kds_traj_launches = 0
+kds_trace_launches = 0
+kds_disk_launches = 0
 
 F32, F64 = torch.float32, torch.float64
 # (mode, chart) -> (C entry stem, launch counter); a dtype's entry is
@@ -82,10 +92,14 @@ KERNELS = {
     ("trace", "rot"): ("grt_fantasy_gen_trace_rot", "rot_trace_launches"),
     ("disk", "static"): ("grt_fantasy_gen_disk_static", "disk_launches"),
     ("disk", "rot"): ("grt_fantasy_gen_disk_rot", "rot_disk_launches"),
+    ("gen", "kds"): ("grt_fantasy_gen_kds", "kds_launches"),
+    ("traj", "kds"): ("grt_fantasy_gen_traj_kds", "kds_traj_launches"),
+    ("trace", "kds"): ("grt_fantasy_gen_trace_kds", "kds_trace_launches"),
+    ("disk", "kds"): ("grt_fantasy_gen_disk_kds", "kds_disk_launches"),
 }
 OUT_ROWS = 12  # G1 writes q1, p1, q2
 DISK_ROWS = 16  # D1 writes q1, p1, hit_q, hit_p
-ROT_DISK_ROWS = 20  # D2 writes q1, p1, hit_q, hit_p, q2
+SPIN_DISK_ROWS = 20  # D2 and D3 write q1, p1, hit_q, hit_p, q2
 
 
 def _n_sub(params, dtype, extra=0):
@@ -101,11 +115,12 @@ def _n_sub(params, dtype, extra=0):
 
 def chart_of(mode, metric):
     """The kernel chart of `metric` in `mode` ('gen', 'traj', 'trace',
-    'disk'): 'bl', 'ks' ('KerrSchild'), 'static' (the static families) or
-    'rot' (the rotating regular ones); raises where `mode` has no kernel
-    in that chart."""
+    'disk'): 'bl', 'ks' ('KerrSchild'), 'static' (the static families),
+    'rot' (the rotating regular ones) or 'kds' ('KerrDS'); raises where
+    `mode` has no kernel in that chart."""
     chart = ("static" if metric in STATIC_F else "rot" if metric in MASS_FN
-             else "ks" if metric == "KerrSchild" else "bl")
+             else "ks" if metric == "KerrSchild"
+             else "kds" if metric == "KerrDS" else "bl")
     if (mode, chart) not in KERNELS:
         raise ValueError(f"no {mode} kernel for metric {metric!r} (have "
                          f"{sorted(c for m, c in KERNELS if m == mode)} "
@@ -136,10 +151,10 @@ def _call(mode, chart, q0s, ptrs, params, ints):
 
 
 def launch_fantasy_gen(q0s, p0s, params, steps, metric="Kerr"):
-    """Launch G1 ('Kerr'), G1s (a static family) or G1r (a rotating one)
-    on (N, 4) float32 or float64 CUDA rays; `params` is that chart's
-    `gen_params` vector in the rays' dtype.  Returns (out (12, N): q1, p1,
-    q2 rows; ns (N,) int32, negative for guard-parked rays)."""
+    """Launch G1 ('Kerr'), G1s (a static family), G1r (a rotating one) or
+    G1d ('KerrDS') on (N, 4) float32 or float64 CUDA rays; `params` is
+    that chart's `gen_params` vector in the rays' dtype.  Returns (out (12,
+    N): q1, p1, q2 rows; ns (N,) int32, negative for guard-parked rays)."""
     _check_inputs(q0s, p0s, (F32, F64))
     chart = chart_of("gen", metric)
     n = q0s.shape[0]
@@ -158,10 +173,10 @@ def launch_fantasy_gen(q0s, p0s, params, steps, metric="Kerr"):
 def launch_fantasy_gen_traj(q0s, p0s, params, steps, stride, n_keep,
                             metric="Kerr"):
     """Launch S2 in `metric`'s chart ('Kerr', 'KerrSchild', S2s for a
-    static family, S2r for a rotating one) on (N, 4) float32 or float64
-    CUDA rays; `params` is that chart's `gen_params` vector in the rays'
-    dtype.  Returns (traj (N, n_keep, 4), zero past each ray's exit; ns
-    (N,) int32, the steps each ray took)."""
+    static family, S2r for a rotating one, S2d for 'KerrDS') on (N, 4)
+    float32 or float64 CUDA rays; `params` is that chart's `gen_params`
+    vector in the rays' dtype.  Returns (traj (N, n_keep, 4), zero past
+    each ray's exit; ns (N,) int32, the steps each ray took)."""
     _check_inputs(q0s, p0s, (F32, F64))
     chart = chart_of("traj", metric)
     n = q0s.shape[0]
@@ -221,13 +236,14 @@ def _unsorted(order_idx, out, ns):
 def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
                                  omega, order=2, metric="Kerr"):
     """Integrate (N, 4) rays through G1 ('Kerr', then the exact rescue),
-    G1s (a static family, no rescue) or G1r (a rotating family, then the
-    rescue by its exact predicate): (final_q, final_p, status, n_steps),
-    the contract of `integrate_batch_generic(metric=...)`, which it
-    matches bit for bit on the card.  Rays are launched in cost-sorted
-    order (`_cost_sort_key_bl`, about the family's critical impact
-    parameter; `integrate_ks_cuda._cost_sort_key_ks` in the Cartesian
-    chart) and come back in the caller's.  Raises for CPU, misshapen or
+    G1s (a static family, no rescue), G1r (a rotating family, then the
+    rescue by its exact predicate) or G1d ('KerrDS', then the
+    Boyer-Lindquist rescue by its exact predicate): (final_q, final_p,
+    status, n_steps), the contract of `integrate_batch_generic(metric=
+    ...)`, which it matches bit for bit on the card.  Rays are launched
+    in cost-sorted order (`_cost_sort_key_bl`, about the family's critical
+    impact parameter; `integrate_ks_cuda._cost_sort_key_ks` in the
+    Cartesian chart) and come back in the caller's.  Raises for CPU, misshapen or
     non-contiguous inputs, and for a failed build or launch."""
     _check_inputs(q0s, p0s, (F32, F64))
     vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
@@ -247,6 +263,8 @@ def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
                                                        metric))
     if static:
         return finish_generic_static(tuple(out), ns, vec)
+    if metric == "KerrDS":
+        return finish_generic_kds(tuple(out), ns, q0s, p0s, vec, params)
     return finish_generic_bl(tuple(out), ns, q0s, p0s, vec)
 
 
@@ -268,10 +286,11 @@ def trajectory_batch_decimated_cuda(q0s, p0s, steps, delta, params, r_max,
 
 
 def launch_fantasy_gen_trace(q0s, p0s, params, steps, metric="Kerr"):
-    """Launch T2 ('Kerr'), T2s (a static family) or T2r (a rotating one)
-    on (N, 4) float32 or float64 CUDA rays; `params` is that chart's
-    `gen_params` vector in the rays' dtype.  Returns (N, steps, 8): (q1,
-    p1) after each step, every element written by the kernel."""
+    """Launch T2 ('Kerr'), T2s (a static family), T2r (a rotating one) or
+    T2d ('KerrDS') on (N, 4) float32 or float64 CUDA rays; `params` is
+    that chart's `gen_params` vector in the rays' dtype.  Returns (N,
+    steps, 8): (q1, p1) after each step, every element written by the
+    kernel."""
     _check_inputs(q0s, p0s, (F32, F64))
     chart = chart_of("trace", metric)
     n = q0s.shape[0]
@@ -287,10 +306,10 @@ def launch_fantasy_gen_trace(q0s, p0s, params, steps, metric="Kerr"):
 
 
 def trajectory_generic_unmasked_cuda(q0s, p0s, steps, vec, metric="Kerr"):
-    """Trace (N, 4) CUDA rays through T2 ('Kerr'), T2s (a static family)
-    or T2r (a rotating one) from that chart's gen_params vector: (N,
-    steps, 8), the contract of `trajectory_generic_unmasked`, which it
-    matches bit for bit on the card.  Raises for CPU, misshapen or
+    """Trace (N, 4) CUDA rays through T2 ('Kerr'), T2s (a static family),
+    T2r (a rotating one) or T2d ('KerrDS') from that chart's gen_params
+    vector: (N, steps, 8), the contract of `trajectory_generic_unmasked`,
+    which it matches bit for bit on the card.  Raises for CPU, misshapen or
     non-contiguous inputs, and for a failed build or launch."""
     return launch_fantasy_gen_trace(q0s, p0s, vec, steps, metric)
 
@@ -323,52 +342,59 @@ def launch_fantasy_gen_disk(q0s, p0s, disk, params, steps):
     return out, ns, hit.bool()
 
 
-def launch_fantasy_gen_disk_rotating(q0s, p0s, params, steps):
-    """Launch D2 on (N, 4) float32 or float64 CUDA rays of the
-    mass-function chart; params is that chart's `gen_params` vector
-    followed by r_in and r_out (`integrate_generic.disk_rotating_params`),
-    in the rays' dtype.  Returns (out (20, N): q1, p1, hit_q, hit_p, q2
-    rows, the hit rows zero where the ray never hit; ns (N,) int32,
-    negative for guard-parked rays; hit (N,) bool)."""
+def launch_fantasy_gen_disk_spin(q0s, p0s, params, steps, metric):
+    """Launch D2 (a rotating family) or D3 ('KerrDS'), the 20-row disk
+    kernels of `metric`'s chart (`chart_of('disk', metric)`: 'rot' or
+    'kds'), on (N, 4) float32 or float64 CUDA rays; params is that chart's
+    `gen_params` vector followed by r_in and r_out
+    (`integrate_generic.disk_spin_params`), in the rays' dtype.  Returns
+    (out (20, N): q1, p1, hit_q, hit_p, q2 rows, the hit rows zero where
+    the ray never hit; ns (N,) int32, negative for guard-parked rays; hit
+    (N,) bool)."""
     _check_inputs(q0s, p0s, (F32, F64))
+    chart = chart_of("disk", metric)
+    if chart not in ("rot", "kds"):
+        raise ValueError(f"no 20-row disk kernel for metric {metric!r}")
     n = q0s.shape[0]
     n_sub = _n_sub(params, q0s.dtype, extra=2)
     if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
         raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
-    out = torch.empty((ROT_DISK_ROWS, n), dtype=q0s.dtype,
+    out = torch.empty((SPIN_DISK_ROWS, n), dtype=q0s.dtype,
                       device=q0s.device)
     ns = torch.empty((n,), dtype=torch.int32, device=q0s.device)
     hit = torch.empty((n,), dtype=torch.int32, device=q0s.device)
     if n == 0:
         return out, ns, hit.bool()
-    _call("disk", "rot", q0s,
+    _call("disk", chart, q0s,
           (p0s.data_ptr(), None, out.data_ptr(), ns.data_ptr(),
            hit.data_ptr()), params, (n, n_sub, int(steps)))
     return out, ns, hit.bool()
 
 
-def integrate_batch_disk_rotating_cuda(q0s, p0s, steps, delta, params, r_max,
-                                       omega, r_in, r_out, order=2,
-                                       metric="RotatingBardeen"):
-    """The rotating families' disk integration of (N, 4) CUDA rays through
-    D2, launched in G1r's cost-sorted order and put back in the caller's,
-    then the rescue and STATUS_DISK (`finish_disk_rotating`): (final_q,
-    final_p, status, n_steps, hit_q, hit_p), the contract of
-    `integrate_batch_disk_rotating`, which it matches bit for bit on the
-    card.  params = (M, a, p).  Raises for CPU, misshapen or
-    non-contiguous inputs, and for a failed build or launch."""
+def integrate_batch_disk_spin_cuda(q0s, p0s, steps, delta, params, r_max,
+                                   omega, r_in, r_out, order=2,
+                                   metric="RotatingBardeen"):
+    """The disk integration of (N, 4) CUDA rays through D2 (a rotating
+    family, params = (M, a, p)) or D3 ('KerrDS', params = (M, a, Lambda)),
+    launched in G1r's or G1d's cost-sorted order and put back in the
+    caller's, then the rescue and STATUS_DISK (`finish_disk_spin`):
+    (final_q, final_p, status, n_steps, hit_q, hit_p), the contract of
+    `integrate_batch_disk_rotating` and `disk_kds.integrate_batch_disk_kds`,
+    which it matches bit for bit on the card.  Raises for CPU, misshapen
+    or non-contiguous inputs, and for a failed build or launch."""
     _check_inputs(q0s, p0s, (F32, F64))
-    vec = disk_rotating_params(
+    vec = disk_spin_params(
         gen_params(metric, delta, params, r_max, omega, order, q0s.dtype),
         r_in, r_out)
-    order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s, float(vec[0])),
-                              stable=True)
-    out_s, ns_s, hit_s = launch_fantasy_gen_disk_rotating(
-        q0s[order_idx], p0s[order_idx], vec, steps)
+    key = (_cost_sort_key_bl if chart_of("disk", metric) == "kds"
+           else _cost_sort_key_ks)
+    order_idx = torch.argsort(key(q0s, p0s, float(vec[0])), stable=True)
+    out_s, ns_s, hit_s = launch_fantasy_gen_disk_spin(
+        q0s[order_idx], p0s[order_idx], vec, steps, metric)
     out, ns = _unsorted(order_idx, out_s, ns_s)
     hit = torch.empty_like(hit_s)
     hit[order_idx] = hit_s
     # the read-out takes the state rows (q1, p1, q2)
     state = tuple(out[0:8]) + tuple(out[16:20])
-    return finish_disk_rotating(state, ns, hit, out[8:12].T, out[12:16].T,
-                                q0s, p0s, vec, metric, params)
+    return finish_disk_spin(state, ns, hit, out[8:12].T, out[12:16].T, q0s,
+                            p0s, vec, metric, params)

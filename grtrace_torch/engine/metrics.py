@@ -192,6 +192,25 @@ PEAK_BYTES = 3.35e12
 #                and the z product 1 = 111; once per ray 126 (the
 #                crossing of a hit ray, t, the eight lerps and the hit
 #                radius, is not counted: the bound stays a bound)
+#   fantasy_gen_kds (G1d; S2d as fantasy_gen_traj_kds, T2d as
+#                fantasy_gen_trace_kds, which has nothing per step): G1's
+#                evaluation with Delta_th, chi^2 / Delta_th and Lambda / 3
+#                inserted, counted from the source on G1's terms: sin and
+#                cos 2, the metric 45 (Delta's Lambda term 3, Delta_th and
+#                its reciprocal 3, chi^2 / Delta_th 1, the three numerators'
+#                Delta_th factors 3, the three chi^2 / Delta_th factors 3,
+#                g^thth's 1), the derivatives 88 (Delta_r's Lambda term 4,
+#                Delta_th's theta derivative 1 and its log-derivative 2,
+#                the numerators' new terms 14, the eight chi^2 / Delta_th
+#                factors 8), the kicks 22 with the momentum products 5, the
+#                drift 8 = 170; per substep 3 x 170 + 4 flows applied x 12
+#                + mixing 96 + 1 = 655; the guard's 2 per step; once per ray
+#                the launch's flow A evaluation and chi^2 (4), 174
+#   fantasy_gen_disk_kds (D3): G1d's 655 per substep; per step the guard's
+#                2 and cos theta with its sign product (sincos 2, the
+#                product 1) = 5; once per ray 174 and the first cos theta
+#                (2), 176 (the crossing of a hit ray, t and the eight
+#                lerps, is not counted: the bound stays a bound)
 # The disk mode (B6) adds per accepted step the two folds of z and their
 # product (3) and per hit ray the crossing: t (2), eight lerps on folded
 # rows (8 x 5) and the hit radius (17) = 59 (crossings outside the annulus,
@@ -221,6 +240,10 @@ KERNEL_OPS = {
     "fantasy_gen_traj_rot": (531, 110, 126),
     "fantasy_gen_trace_rot": (531, 0, 126),
     "fantasy_gen_disk_rot": (531, 111, 126),
+    "fantasy_gen_kds": (655, 2, 174),
+    "fantasy_gen_traj_kds": (655, 2, 174),
+    "fantasy_gen_trace_kds": (655, 0, 174),
+    "fantasy_gen_disk_kds": (655, 5, 176),
 }
 DISK_OPS_STEP, DISK_OPS_HIT = 3, 59
 SUB_OPS_STEP, SUB_OPS_EVENT = 3, 42

@@ -182,6 +182,8 @@ ROTATING_NAMES = {"rotating-bardeen": "RotatingBardeen",
                   "rotatingbardeen": "RotatingBardeen",
                   "rotating-hayward": "RotatingHayward",
                   "rotatinghayward": "RotatingHayward"}
+# scene.metric -> Kerr-de Sitter's Carter chart
+KDS_NAMES = ("kerr-ds", "kerrds", "kerr-de-sitter")
 
 
 def _route(scene):
@@ -189,9 +191,10 @@ def _route(scene):
     'kerr-bl' / 'kerrbl'), 'KerrSchild' (Kerr and charged Schwarzschild,
     which is Reissner-Nordstrom there), the static family 'Kottler'
     ('kottler' / 'sds'), 'Bardeen' or 'Hayward', the rotating regular
-    family 'RotatingBardeen' or 'RotatingHayward', or 'Schwarzschild' for
-    the headline path; raises for the metric families the port does not
-    have yet."""
+    family 'RotatingBardeen' or 'RotatingHayward', Kerr-de Sitter's
+    'KerrDS' ('kerr-ds' / 'kerrds' / 'kerr-de-sitter'), or 'Schwarzschild'
+    for the headline path; raises NotImplementedError for any other
+    metric."""
     metric = getattr(scene, "metric", "Schwarzschild").lower()
     if metric in ("kerr-bl", "kerrbl"):
         return "Kerr"
@@ -199,14 +202,15 @@ def _route(scene):
         return STATIC_NAMES[metric]
     if metric in ROTATING_NAMES:
         return ROTATING_NAMES[metric]
+    if metric in KDS_NAMES:
+        return "KerrDS"
     charged = float(getattr(scene, "charge", 0.0)) != 0.0
     if (metric in ("kerr", "kerrschild", "kerr-schild")
             or (metric == "schwarzschild" and charged)):
         return "KerrSchild"
     if metric != "schwarzschild":
         raise NotImplementedError(
-            f"metric {scene.metric!r} is not ported to grtrace_torch yet "
-            f"(ROADMAP Queue A item 9)")
+            f"grtrace_torch renders no metric {scene.metric!r}")
     return "Schwarzschild"
 
 
@@ -221,7 +225,9 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
     for 'kottler' / 'sds', 'bardeen' and 'hayward' (scene.metric_param in
     the second params slot), in the mass-function Kerr-Schild chart for
     'rotating-bardeen' / 'rotating-hayward' (scene.spin in the second
-    slot, scene.metric_param in the third).
+    slot, scene.metric_param in the third), in Kerr-de Sitter's Carter
+    chart for 'kerr-ds' (scene.spin, and Lambda = scene.metric_param in
+    the third slot).
 
     bg_array: (th, tw, 3) uint8 numpy array or tensor, or None.  dtype: a
     torch dtype, by default the scene's integrator dtype.  metrics:
@@ -243,8 +249,9 @@ def render(scene: SceneConfig, *, bg_array=None, n_samples=None, seed=0,
                               charge=0.0, dtype=dtype, n_samples=n_samples,
                               seed=seed, metrics=metrics,
                               aa_samples=aa_samples, device=device)
-    if chart in ROTATING_NAMES.values():
-        # the family parameter rides the charge slot
+    if chart in ROTATING_NAMES.values() or chart == "KerrDS":
+        # the family parameter (Kerr-de Sitter's Lambda) rides the charge
+        # slot
         from .render_generic import render_generic
         return render_generic(scene, metric=chart, bg_array=bg_array,
                               spin=scene.spin,

@@ -2,9 +2,10 @@
 counterpart of `grtrace.engine.render_generic`: metric 'KerrSchild' (the
 horizon-regular Cartesian chart), metric 'Kerr' (Boyer-Lindquist), the
 static families 'Kottler', 'Bardeen', 'Hayward' (the family's parameter in
-the spin slot, charge 0), and the rotating regular families
+the spin slot, charge 0), the rotating regular families
 'RotatingBardeen', 'RotatingHayward' (the spin, and the family's parameter
-in the charge slot).
+in the charge slot), and Kerr-de Sitter 'KerrDS' (the spin, and Lambda in
+the charge slot).
 
 Same scene layout as the Schwarzschild path (pinhole camera, boundary
 sphere, background patch), with what the physics forces:
@@ -16,18 +17,18 @@ sphere, background patch), with what the physics forces:
     spherical symmetry: physics/camera.py's camera_rays_folded_static)
     and run kernel G1s; the rotating regular families take the Cartesian
     camera with their own g_inv and run kernel G1r (the mass-function
-    Kerr-Schild chart); their eager twins on the CPU;
+    Kerr-Schild chart); Kerr-de Sitter takes the unfolded spherical camera
+    and runs kernel G1d (the Carter chart); their eager twins on the CPU;
   * capture by the integration's outcome (the capture shell and the exact
     Bardeen rescue), not the b_crit shortcut;
   * classification reuses engine.classify with the shortcut disabled
     (alpha0 = pi), with beta = 0, or the static families' fold angles,
     which un-fold the exit angles, and the capture shell 1.1 x the bisected
-    outer horizon (or the horizonless floor) for the static families,
-    1.05 x it for the rotating ones.
-The sampled trajectories run through kernel S2 (S2s, S2r; its twin on the
-CPU) and are rotated back by their beta, and the adaptive antialiasing
-pass (engine/aa.py) through B5, G1, G1s or G1r again.  Kerr-de Sitter
-raises NotImplementedError.
+    outer horizon (or the horizonless floor) for the static families and
+    Kerr-de Sitter, 1.05 x it for the rotating ones.
+The sampled trajectories run through kernel S2 (S2s, S2r, S2d; its twin on
+the CPU) and are rotated back by their beta, and the adaptive antialiasing
+pass (engine/aa.py) through B5, G1, G1s, G1r or G1d again.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from ..physics.camera import (camera_rays_cartesian,
                               camera_rays_folded_static,
                               camera_rays_unfolded)
 from ..physics.coords import cartesian_to_spherical
+from ..physics.kerr_de_sitter import kds_capture_radius
 from ..physics.rotating_regular import MASS_FN, rotating_capture_radius
 from ..physics.spacetime import COORDS, METRICS, horizon_radius
 from ..physics.static_metrics import STATIC_F, static_capture_radius
@@ -153,8 +155,9 @@ def classify_radius(metric, params):
     the integrator's capture shell, 1.05 r_+ (Kerr-Schild) or 1.1 r_+
     (Boyer-Lindquist; for the static families r_+ = static_capture_radius
     / 1.1, a float64 tensor on params' device, as JAX's x64 bisection
-    gives it; for the rotating families rotating_capture_radius / 1.05 in
-    params' dtype, as JAX's bisection in that dtype gives it)."""
+    gives it; for the rotating families rotating_capture_radius / 1.05 and
+    for Kerr-de Sitter kds_capture_radius / 1.1, in params' dtype, as JAX's
+    bisection in that dtype gives it)."""
     if metric in STATIC_F:
         r_plus = static_capture_radius(metric, params[:2].cpu()) / 1.1
         return ((1.1 / 1.2) * r_plus).to(params.device)
@@ -162,6 +165,10 @@ def classify_radius(metric, params):
         r_plus = rotating_capture_radius(metric, params).to(
             dtype=params.dtype, device=params.device) / 1.05
         return (1.05 / 1.2) * r_plus
+    if metric == "KerrDS":
+        r_plus = kds_capture_radius(params).to(
+            dtype=params.dtype, device=params.device) / 1.1
+        return (1.1 / 1.2) * r_plus
     r_plus = horizon_radius("Kerr", params[0], params[1], params[2])
     return ((1.05 if COORDS[metric] == "cartesian" else 1.1) / 1.2) * r_plus
 
@@ -210,13 +217,13 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
     G1, G1s or G1r).  For the static families ('Kottler', 'Bardeen',
     'Hayward') `spin` carries the family parameter and charge is 0; for
     the rotating ones ('RotatingBardeen', 'RotatingHayward') `charge`
-    carries it.
+    carries it, for Kerr-de Sitter ('KerrDS') Lambda.
     Prefer the top-level render, which routes scene.metric to the right
     chart.
     """
     from .render import RenderResult, _untimed
 
-    METRICS[metric]  # raises for the families of item 9
+    METRICS[metric]  # a KeyError for an unknown metric
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(device='cuda') needs a CUDA GPU; "

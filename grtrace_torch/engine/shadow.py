@@ -22,17 +22,23 @@ exact curve (`analytic_boundary_rotating`) bisects their conserved-quantity
 predicate (physics/rotating_regular.escape_pred_rotating) on the host, and
 `numeric_boundary(metric='RotatingBardeen' | 'RotatingHayward')` traces
 its fan through kernel G1r (`integrate_generic.
-integrate_dispatch_generic`; its eager twin on the CPU).  The Kerr-de
-Sitter curves (JAX's `analytic_boundary_kds` and `numeric_boundary` in its
-chart) wait for that family: ROADMAP Queue A item 9, whose
-NotImplementedError they raise.
+integrate_dispatch_generic`; its eager twin on the CPU).  Kerr-de
+Sitter's exact curve (`analytic_boundary_kds`) bisects its predicate
+(physics/kerr_de_sitter.kds_escape_pred) through the unfolded spherical
+camera on the host, and `numeric_boundary(metric='KerrDS')` traces that
+camera's fan through kernel G1d (its eager twin on the CPU); the
+spherical camera's pixel gauge differs from the Kerr-Schild camera's by
+O(2 M / r_obs), so these curves compare with each other, not with
+`analytic_boundary`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..physics.camera import cartesian_ics_from_pixels
+from ..physics.camera import (cartesian_ics_from_pixels,
+                              unfolded_ics_from_pixels)
+from ..physics.kerr_de_sitter import kds_escape_pred, outer_horizon_cached
 from ..physics.rotating_regular import (MASS_FN, escape_pred_rotating,
                                         rotating_horizon)
 from ..physics.spacetime import METRICS, kerr_schild_g_inv
@@ -87,10 +93,24 @@ def analytic_boundary_rotating(spin, p1, metric="RotatingBardeen",
 
 
 def analytic_boundary_kds(spin, lam, n_psi=64, rounds=6):
-    """The Kerr-de Sitter critical curve: not ported yet (raises
-    NotImplementedError, ROADMAP Queue A item 9)."""
-    METRICS["KerrDS"]
-    raise KeyError("KerrDS")
+    """(psis, rho_px): the exact Kerr-de Sitter critical curve (M = 1), by
+    radial bisection of its conserved-quantity escape predicate
+    (`kds_escape_pred`) on the unfolded spherical camera's rays through
+    each pixel radius, on the host in float64: no ray is traced.  NaN
+    radii where (a, Lambda) has no black-hole horizon."""
+    psis = np.linspace(0.0, 2.0 * np.pi, n_psi, endpoint=False)
+    params = torch.tensor([1.0, spin, lam], dtype=torch.float64)
+    if not bool(torch.isfinite(outer_horizon_cached(params))):
+        return psis, np.full(n_psi, np.nan)
+
+    def escape(rhos):
+        q0, p0 = fan_rays(rhos, psis, params, torch.float64, "cpu",
+                          metric="KerrDS")
+        pred = kds_escape_pred(q0, p0, params)
+        return pred.reshape(rhos.shape).numpy()
+
+    rho, _ = bisect_boundary(escape, 2.0, 40.0, rounds=rounds, n_psi=n_psi)
+    return psis, rho
 
 
 def shadow_metrics(psis, rho_px):
@@ -127,15 +147,17 @@ def shadow_metrics(psis, rho_px):
 def fan_rays(rhos, psis, params, dtype, device, metric="KerrSchild"):
     """The Kerr-Schild camera rays (q0, p0), each (P*K, 4), through the
     (P, K) pixel radii `rhos` at the P azimuths `psis`, with `metric`'s
-    g_inv (the Kerr-Newman one, or a rotating regular family's): the fan
-    that `numeric_boundary` traces each round."""
+    g_inv (the Kerr-Newman one, or a rotating regular family's), or for
+    'KerrDS' the unfolded spherical camera's: the fan that
+    `numeric_boundary` traces each round."""
     obs = torch.tensor([R0, 0.0, 0.0], dtype=dtype, device=device)
     pix = torch.as_tensor(_pixel_positions(rhos, np.asarray(psis)[:, None]),
                           dtype=dtype, device=device)
     g_inv_fn = kerr_schild_g_inv if metric == "KerrSchild" \
         else METRICS[metric]
-    q0, p0, _ = cartesian_ics_from_pixels(obs, pix, params=params,
-                                          g_inv_fn=g_inv_fn)
+    camera = unfolded_ics_from_pixels if metric == "KerrDS" \
+        else cartesian_ics_from_pixels
+    q0, p0, _ = camera(obs, pix, params=params, g_inv_fn=g_inv_fn)
     return q0.reshape(-1, 4).contiguous(), p0.reshape(-1, 4).contiguous()
 
 
@@ -151,13 +173,13 @@ def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
     twin.  For a rotating regular family (`metric` 'RotatingBardeen' /
     'RotatingHayward', its parameter in `charge`'s slot) the fan takes the
     family's camera and goes through `integrate_dispatch_generic`: kernel
-    G1r on the card, its twin on the CPU.  Kerr-de Sitter raises naming
-    ROADMAP item 9, any other metric NotImplementedError."""
-    if metric != "KerrSchild" and metric not in MASS_FN:
-        METRICS[metric]  # raises for the families of item 9
+    G1r on the card, its twin on the CPU; for Kerr-de Sitter ('KerrDS',
+    Lambda in `charge`'s slot) the unfolded spherical camera and kernel
+    G1d.  Any other metric raises NotImplementedError."""
+    if metric not in ("KerrSchild", "KerrDS") and metric not in MASS_FN:
         raise NotImplementedError(
             f"numeric_boundary of grtrace_torch traces the Kerr-Schild "
-            f"charts only (got {metric!r})")
+            f"charts and Kerr-de Sitter's only (got {metric!r})")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("numeric_boundary(device='cuda') needs a CUDA "

@@ -24,6 +24,8 @@ the torch counterpart of `grtrace.engine.validate`.
     integrator, against its eager twin `integrate_batch_generic(metric=
     'Kerr')` on the same rays: q and p bit for bit, status and exit step
     exactly;
+  * `disk_kds_parity` — kernel D3, Kerr-de Sitter's disk, against its
+    eager twin `disk_kds.integrate_batch_disk_kds` on the same rays;
   * `gen_traj_parity` — kernel S2, the generic engine's trajectory
     recorder, against its eager twin `trajectory_batch_decimated` in
     either chart, every slot bit for bit.
@@ -411,6 +413,24 @@ def disk_rotating_parity(q0, p0, steps, delta, params, r_max, omega, r_in,
         *args, order=order, metric=metric), q0.device)
     ref, twin_ms = timed(lambda: integrate_batch_disk_rotating(
         *args, order=order, metric=metric), q0.device)
+    res = compare_outputs(kern, ref)
+    res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
+    return kern, res
+
+
+def disk_kds_parity(q0, p0, steps, delta, params, r_max, omega, r_in,
+                    r_out, order=2):
+    """Kernel D3 (`disk_kds.integrate_dispatch_disk_kds` on CUDA rays)
+    against its eager twin (`disk_kds.integrate_batch_disk_kds`) on the
+    same rays.  Returns (the kernel's outputs, `compare_outputs`'s counts
+    with the hit rows, plus the kernel+wrapper and twin times in ms)."""
+    from .disk_kds import (integrate_batch_disk_kds,
+                           integrate_dispatch_disk_kds)
+    args = (q0, p0, steps, delta, params, r_max, omega, r_in, r_out)
+    kern, kernel_ms = timed(lambda: integrate_dispatch_disk_kds(
+        *args, order=order), q0.device)
+    ref, twin_ms = timed(lambda: integrate_batch_disk_kds(
+        *args, order=order), q0.device)
     res = compare_outputs(kern, ref)
     res.update(kernel_ms=kernel_ms, twin_ms=twin_ms)
     return kern, res

@@ -89,7 +89,15 @@ ENTRIES = {
                     "grt_fantasy_gen_trace_rot_f32_launch",
                     "grt_fantasy_gen_trace_rot_f64_launch",
                     "grt_fantasy_gen_disk_rot_f32_launch",
-                    "grt_fantasy_gen_disk_rot_f64_launch"),
+                    "grt_fantasy_gen_disk_rot_f64_launch",
+                    "grt_fantasy_gen_kds_f32_launch",
+                    "grt_fantasy_gen_kds_f64_launch",
+                    "grt_fantasy_gen_traj_kds_f32_launch",
+                    "grt_fantasy_gen_traj_kds_f64_launch",
+                    "grt_fantasy_gen_trace_kds_f32_launch",
+                    "grt_fantasy_gen_trace_kds_f64_launch",
+                    "grt_fantasy_gen_disk_kds_f32_launch",
+                    "grt_fantasy_gen_disk_kds_f64_launch"),
 }
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 

@@ -214,8 +214,16 @@ def _pred_chunk(metric, q0s, p0s, params, r_lo, ts, iters):
         quad = E_ * r * r + B_
         return quad * quad - delta_bl(r, m_fn, params) * c1_
 
-    lo = (r_lo + torch.zeros_like(r0_bl))[:, None]
-    hi = r0_bl[:, None]
+    return turning_point(R, r_lo, r0_bl, ts, iters)
+
+
+def turning_point(R, r_lo, r0, ts, iters):
+    """Whether the (N, ...) radial potential R(r) of each ray reaches R <= 0
+    in [r_lo, r0]: JAX's argmin of R on the grid r_lo + (r0 - r_lo) ts,
+    refined by `iters` golden-section steps about it (the shared tail of
+    the exact escape predicates)."""
+    lo = (r_lo + torch.zeros_like(r0))[:, None]
+    hi = r0[:, None]
     grid = lo + (hi - lo) * ts[None, :]
     Rg = R(grid)
     jmin = torch.argmin(Rg, dim=1)

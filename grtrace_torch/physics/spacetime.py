@@ -13,9 +13,9 @@ tested against; no path on the card runs them.  The static beyond-Kerr
 families (Kottler, Bardeen, Hayward: physics/static_metrics.py) take the
 family's own parameter in the second params slot; the rotating regular
 families (RotatingBardeen, RotatingHayward: physics/rotating_regular.py)
-the spin in the second and their own parameter in the third.  Kerr-de
-Sitter is not ported yet (ROADMAP Queue A item 9): looking it up raises
-NotImplementedError.
+the spin in the second and their own parameter in the third; Kerr-de
+Sitter (KerrDS: physics/kerr_de_sitter.py) the spin in the second and the
+cosmological constant Lambda in the third.
 
 Metric parameters are `params = (M, a[, Q])`: a 1-D tensor, or a sequence
 of numbers, in the working dtype; the charge slot is optional, as in JAX.
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .kerr_de_sitter import kds_outer_horizon, kerr_de_sitter_g_inv
 from .rotating_regular import (MASS_FN, rotating_bardeen_g_inv,
                                rotating_hayward_g_inv, rotating_horizon)
 from .static_metrics import (STATIC_F, bardeen_g_inv, hayward_g_inv,
@@ -113,38 +114,24 @@ def kerr_schild_g_inv(q, params):
                                                * l_up[..., None, :])
 
 
-# the metric families of the JAX package that the port does not have yet
-_ITEM_9 = ("KerrDS",)
-
-
-class _Table(dict):
-    """A metric-name table whose lookup of an unported family raises
-    NotImplementedError naming its ROADMAP item."""
-
-    def __missing__(self, name):
-        if name in _ITEM_9:
-            raise NotImplementedError(
-                f"metric {name!r} is not ported to grtrace_torch yet "
-                f"(ROADMAP Queue A item 9)")
-        raise KeyError(name)
-
-
-METRICS = _Table({"Schwarzschild": schwarzschild_g_inv, "Kerr": kerr_g_inv,
-                  "KerrSchild": kerr_schild_g_inv,
-                  # the static families: params = (M, Lambda | g | l[, 0])
-                  "Kottler": kottler_g_inv, "Bardeen": bardeen_g_inv,
-                  "Hayward": hayward_g_inv,
-                  # the rotating regular families: params = (M, a, g | l)
-                  "RotatingBardeen": rotating_bardeen_g_inv,
-                  "RotatingHayward": rotating_hayward_g_inv})
+METRICS = {"Schwarzschild": schwarzschild_g_inv, "Kerr": kerr_g_inv,
+           "KerrSchild": kerr_schild_g_inv,
+           # the static families: params = (M, Lambda | g | l[, 0])
+           "Kottler": kottler_g_inv, "Bardeen": bardeen_g_inv,
+           "Hayward": hayward_g_inv,
+           # the rotating regular families: params = (M, a, g | l)
+           "RotatingBardeen": rotating_bardeen_g_inv,
+           "RotatingHayward": rotating_hayward_g_inv,
+           # Kerr-de Sitter: params = (M, a, Lambda)
+           "KerrDS": kerr_de_sitter_g_inv}
 
 # coordinate chart per metric: 'spherical' q = (t, r, theta, phi),
 # 'cartesian' q = (t, x, y, z)
-COORDS = _Table({"Schwarzschild": "spherical", "Kerr": "spherical",
-                 "KerrSchild": "cartesian", "Kottler": "spherical",
-                 "Bardeen": "spherical", "Hayward": "spherical",
-                 "RotatingBardeen": "cartesian",
-                 "RotatingHayward": "cartesian"})
+COORDS = {"Schwarzschild": "spherical", "Kerr": "spherical",
+          "KerrSchild": "cartesian", "Kottler": "spherical",
+          "Bardeen": "spherical", "Hayward": "spherical",
+          "RotatingBardeen": "cartesian", "RotatingHayward": "cartesian",
+          "KerrDS": "spherical"}
 
 
 def horizon_radius(metric: str, mass, a=0.0, q=0.0):
@@ -153,7 +140,8 @@ def horizon_radius(metric: str, mass, a=0.0, q=0.0):
     the static families (`a` carrying the family parameter) the bisected
     outer horizon of static_metrics.outer_horizon, for the rotating
     regular families (`q` carrying theirs) rotating_regular.
-    rotating_horizon, each NaN where there is none.
+    rotating_horizon, for Kerr-de Sitter (`q` carrying Lambda)
+    kerr_de_sitter.kds_outer_horizon, each NaN where there is none.
     Arguments are tensors or numbers; numbers take the dtype and device of
     the first tensor argument (the default dtype if there is none)."""
     ref = next((v for v in (mass, a, q) if isinstance(v, torch.Tensor)),
@@ -169,7 +157,8 @@ def horizon_radius(metric: str, mass, a=0.0, q=0.0):
         return outer_horizon(STATIC_F[metric], torch.stack([mass, a]))
     if metric in MASS_FN:
         return rotating_horizon(metric, torch.stack([mass, a, q]))
-    METRICS[metric]  # raises for the families of item 9
+    if metric == "KerrDS":
+        return kds_outer_horizon(torch.stack([mass, a, q]))
     raise KeyError(metric)
 
 

@@ -50,8 +50,8 @@ from ..physics.camera import (boosted_ics_from_pixels,
                               pixel_positions_fractional_lookat)
 from ..physics.coords import cartesian_to_spherical
 from ..physics.rotating_regular import MASS_FN, rotating_capture_radius
-from ..physics.spacetime import (METRICS, horizon_radius, kerr_schild_g_inv,
-                                 ks_radius)
+from ..physics.spacetime import (COORDS, METRICS, horizon_radius,
+                                 kerr_schild_g_inv, ks_radius)
 
 
 @dataclass(frozen=True)
@@ -309,13 +309,14 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
     'RotatingBardeen' / 'RotatingHayward', the family parameter in
     `charge`) take the camera with their g_inv, G1r through
     `integrate_dispatch_generic` and the classifier's shell
-    rotating_capture_radius / 1.2, as JAX's XLA route; Kerr-de Sitter
-    raises naming ROADMAP item 9."""
+    rotating_capture_radius / 1.2, as JAX's XLA route.  A metric of a
+    spherical chart (Kerr-de Sitter's, Boyer-Lindquist's) raises
+    ValueError, as JAX's assertion refuses it."""
     rotating = metric in MASS_FN
-    if metric != "KerrSchild" and not rotating:
-        METRICS[metric]  # Kerr-de Sitter raises, naming item 9
-        raise ValueError(f"sharded Kerr-family frames use the Cartesian "
-                         f"Kerr-Schild chart (got {metric!r})")
+    if COORDS[metric] != "cartesian":
+        raise ValueError(
+            f"sharded Kerr-family frames use the Cartesian chart "
+            f"(KerrSchild or a rotating regular family; got {metric!r})")
     device, bg, (obs_x, phis), n, i_f, j_f = _setup(
         mesh, bg_array, (obs_x, patch_center_phi), dtype, device, height,
         width)

@@ -133,9 +133,14 @@ def test_errors(monkeypatch):
         ti.trajectory_dispatch(torch.zeros((1, 4), device="meta"),
                                torch.zeros((1, 4), device="meta"), 3, 0.1,
                                2.0, 1.0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tig.trajectory_generic(torch.zeros(4), torch.zeros(4), 3, 0.1,
-                               (1.0, 0.5), 1.0, metric="KerrDS")
+    # Kerr-de Sitter is ported (T2d's twin on the CPU): three steps of a
+    # ray at r = 15 stay finite, one row a step
+    q0 = torch.tensor([0.0, 15.0, 1.2, 0.0], dtype=torch.float64)
+    p0 = torch.tensor([-1.0, -1.0, 0.3, 2.0], dtype=torch.float64)
+    qs, ps = tig.trajectory_generic(q0, p0, 3, 0.1, (1.0, 0.5, 1e-3), 1.0,
+                                    metric="KerrDS")
+    assert qs.shape == ps.shape == (3, 4)
+    assert bool(torch.isfinite(qs).all()) and float(qs[0, 1]) < 15.0
     with pytest.raises(NotImplementedError, match="'Kerr' only"):
         tig.trajectory_generic(torch.zeros(4), torch.zeros(4), 3, 0.1,
                                (1.0, 0.5), 1.0, metric="KerrSchild")

@@ -1,0 +1,166 @@
+"""Kerr-de Sitter's Carter chart of kernels G1d, S2d, T2d and D3
+(`Chart::kKdS` of grtrace_torch/csrc/fantasy_gen.cu) built for the CPU
+with g++ and held bit for bit against their eager twins in float64
+(`integrate_generic_twin`, `trajectory_generic_twin`,
+`trajectory_generic_unmasked`, `integrate_disk_spin_twin`).
+
+The shim is test_torch_static_host.py's for the new chart: CUDA's keywords
+stand in, the kernel runs one thread at a time, -ffp-contract=off keeps g++
+from contracting a multiply-add (nvcc's -fmad=false), and the source's
+sincos goes to torch's sin and cos of a one-element tensor, the functions
+the twins call.  The float32 kernels and the card's own rounding are held
+on the card (chip_smoke.py phases 62-65).
+"""
+import ctypes
+import math
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from grtrace_torch.engine import integrate as ti
+from grtrace_torch.engine import integrate_generic as tig
+from grtrace_torch.physics.camera import (pixel_grid_lookat,
+                                          unfolded_ics_from_pixels)
+from grtrace_torch.physics.spacetime import METRICS
+
+from test_torch_gen_host import CSRC, _SINCOS, _SQRT, _bits, _torch_sincos
+from test_torch_rotating_host import _torch_sqrt
+from test_torch_static_host import SHIM as STATIC_SHIM
+
+torch.set_num_threads(1)
+
+SHIM = STATIC_SHIM.replace("Chart::kStatic", "Chart::kKdS").replace(
+    "host_g1s", "host_g1d").replace("host_s2s", "host_s2d").replace(
+    "host_t2s", "host_t2d").replace("host_d1", "host_d3")
+
+# (spin, Lambda): the README's scene, Lambda = 0 (the Boyer-Lindquist
+# chart to the bit) and a slower hole in a stronger tide
+CASES = [(0.8, 1e-3), (0.8, 0.0), (0.5, 2e-3)]
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    """fantasy_gen.cu's Carter chart built for the CPU: {'g1d', 's2d',
+    't2d', 'd3'} -> entry (float64)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ on this machine to build the host emulation")
+    d = tmp_path_factory.mktemp("kds_host")
+    (d / "shim.cpp").write_text(SHIM)
+    lib = d / "libkds_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", CSRC, "-o", str(lib), str(d / "shim.cpp")],
+                   check=True, capture_output=True, text=True)
+    so = ctypes.CDLL(str(lib))
+    out = {"math": (_SINCOS(_torch_sincos), _SQRT(_torch_sqrt))}
+    so.set_math(*out["math"])
+    for name in ("g1d", "s2d", "t2d", "d3"):
+        fn = getattr(so, f"host_{name}")
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = None
+        out[name] = fn
+    return out
+
+
+def _rays(spin, lam, idx, obs=(15.0, 0.0, 0.0), fov_deg=60.0):
+    """Rays `idx` of the unfolded look-at 8x8 camera at `obs`, float64."""
+    obs = torch.tensor(obs, dtype=torch.float64)
+    pix = pixel_grid_lookat(obs, torch.tensor(math.radians(fov_deg),
+                                              dtype=torch.float64), 8, 8,
+                            dtype=torch.float64)
+    q0, p0, _ = unfolded_ics_from_pixels(obs, pix, params=(1.0, spin, lam),
+                                         g_inv_fn=METRICS["KerrDS"])
+    return (q0.reshape(-1, 4)[idx].contiguous(),
+            p0.reshape(-1, 4)[idx].contiguous())
+
+
+def _n_sub(vec):
+    return (vec.numel() - tig.N_SCAL) // 3
+
+
+@pytest.mark.parametrize("spin,lam", CASES[:2])
+def test_g1d_source_bitwise_equal_to_twin(host, spin, lam):
+    """G1d against `integrate_generic_twin(metric='KerrDS')` on every other
+    ray of the 8x8 camera at r0 = 15 (fov 60 deg, boundary 16, delta 0.08,
+    800 steps, order 2): q1, p1, q2 and the signed step counts bit for
+    bit, with captures and escapes after the rescue."""
+    q0, p0 = _rays(spin, lam, list(range(0, 64, 2)))
+    steps = 800
+    vec = tig.gen_params("KerrDS", 0.08, (1.0, spin, lam), 16.0, 1.0, 2,
+                         torch.float64)
+    out = torch.zeros((12, 32), dtype=torch.float64)
+    ns = torch.zeros(32, dtype=torch.int32)
+    host["g1d"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(), ns.data_ptr(),
+                vec.data_ptr(), 32, _n_sub(vec), steps, 1, 0, None, None)
+    state, ns_t = tig.integrate_generic_twin(q0, p0, steps, vec, "KerrDS")
+    assert torch.equal(ns_t, ns)
+    assert torch.equal(_bits(out), _bits(torch.stack(state[:12])))
+    _, _, status, _ = tig.finish_generic_kds(tuple(out), ns, q0, p0, vec,
+                                             (1.0, spin, lam))
+    assert bool((status == ti.STATUS_ESCAPED).any())
+    assert bool((status == ti.STATUS_CAPTURED).any())
+
+
+def test_s2d_t2d_order4_source_bitwise_equal_to_twins(host):
+    """S2d (q1 every 4th step, 200 steps, n_keep 50) and T2d (every step's
+    (q1, p1), 100 steps) at order 4 in each case against
+    `trajectory_generic_twin` and `trajectory_generic_unmasked`: every slot
+    and every row bit for bit, the zero slots past an exit included (the
+    README's scene and Lambda = 0)."""
+    for spin, lam in CASES[:2]:
+        q0, p0 = _rays(spin, lam, [9, 27, 28])
+        vec = tig.gen_params("KerrDS", 0.1, (1.0, spin, lam), 16.0, 1.0, 4,
+                             torch.float64)
+        steps, (stride, n_keep) = 200, ti.traj_layout(200, 50)
+        traj = torch.zeros((3, n_keep, 4), dtype=torch.float64)
+        ns = torch.zeros(3, dtype=torch.int32)
+        host["s2d"](q0.data_ptr(), p0.data_ptr(), traj.data_ptr(),
+                    ns.data_ptr(), vec.data_ptr(), 3, _n_sub(vec), steps,
+                    stride, n_keep, None, None)
+        want, ns_t = tig.trajectory_generic_twin(q0, p0, steps, vec,
+                                                 "KerrDS", stride, n_keep)
+        assert torch.equal(ns_t, ns)
+        assert torch.equal(_bits(traj), _bits(want))
+        got = torch.full((3, 100, 8), 7.0, dtype=torch.float64)
+        host["t2d"](q0.data_ptr(), p0.data_ptr(), got.data_ptr(), None,
+                    vec.data_ptr(), 3, _n_sub(vec), 100, 1, 0, None, None)
+        want = tig.trajectory_generic_unmasked(q0, p0, 100, vec, "KerrDS")
+        fin = torch.isfinite(want).all(-1)
+        assert torch.equal(torch.isfinite(got).all(-1), fin)
+        assert torch.equal(_bits(got[fin]), _bits(want[fin]))
+
+
+@pytest.mark.parametrize("spin,lam", CASES[2:])
+def test_d3_source_bitwise_equal_to_twin(host, spin, lam):
+    """D3 against `integrate_disk_spin_twin` on every ray of the
+    8x8 camera 20 deg above the plane at r0 = 15 (disk [2, 12], 800 steps,
+    delta 0.08): q1, p1, the hit rows (zero where no hit), the hit flags,
+    D3's q2 rows and the signed step counts bit for bit, with hits among
+    them."""
+    el = math.radians(20.0)
+    q0, p0 = _rays(spin, lam, list(range(64)),
+                   obs=(15.0 * math.cos(el), 0.0, 15.0 * math.sin(el)))
+    vec = tig.gen_params("KerrDS", 0.08, (1.0, spin, lam), 16.0, 1.0, 2,
+                         torch.float64)
+    dvec = tig.disk_spin_params(vec, 2.0, 12.0)
+    steps = 800
+    out = torch.full((20, 64), 7.0, dtype=torch.float64)
+    ns = torch.zeros(64, dtype=torch.int32)
+    hit = torch.zeros(64, dtype=torch.int32)
+    host["d3"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(), ns.data_ptr(),
+               dvec.data_ptr(), 64, _n_sub(vec), steps, 1, 0, None,
+               hit.data_ptr())
+    state, ns_t, hit_t, hq, hp = tig.integrate_disk_spin_twin(
+        q0, p0, steps, dvec, "KerrDS")
+    assert torch.equal(ns, ns_t)
+    assert torch.equal(hit.bool(), hit_t)
+    assert torch.equal(_bits(out[:8].T), _bits(torch.stack(state[:8], -1)))
+    assert torch.equal(_bits(out[8:12].T), _bits(hq))
+    assert torch.equal(_bits(out[12:16].T), _bits(hp))
+    assert torch.equal(_bits(out[16:20].T),
+                       _bits(torch.stack(state[8:12], -1)))
+    assert not bool(out[8:16, ~hit.bool()].any())  # zeros where no hit
+    assert 0 < int(hit.sum()) < 64

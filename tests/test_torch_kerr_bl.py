@@ -239,9 +239,9 @@ def test_gen_params_match_the_jax_domain(metric, dtype):
 
 def test_metric_tables_and_capture_radius():
     """METRICS / COORDS hold Schwarzschild, Kerr, KerrSchild, the static
-    and the rotating regular families; Kerr-de Sitter raises naming
-    ROADMAP item 9, unknown names KeyError; the capture radii equal JAX's
-    (the static and rotating families' within 1e-12 relative: one float64
+    and the rotating regular families and Kerr-de Sitter, unknown names
+    KeyError; the capture radii equal JAX's (the static and rotating
+    families' and Kerr-de Sitter's within 1e-12 relative: one float64
     bisection each)."""
     for name in ("Kottler", "Bardeen", "Hayward"):
         assert tsp.COORDS[name] == jsp.COORDS[name]
@@ -266,10 +266,13 @@ def test_metric_tables_and_capture_radius():
             t = float(tig._capture_radius(name, torch.tensor(
                 p, dtype=torch.float64)))
             assert abs(t - j) <= 1e-12 * j
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsp.METRICS["KerrDS"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tig._capture_radius("KerrDS", torch.tensor(PARAMS))
+    assert tsp.COORDS["KerrDS"] == jsp.COORDS["KerrDS"] == "spherical"
+    for p in ((1.0, 0.8, 1e-3), (1.0, 0.5, 0.0)):
+        j = float(jax.jit(lambda x: jig._capture_radius("KerrDS", x))(
+            jnp.asarray(p)))
+        t = float(tig._capture_radius("KerrDS", torch.tensor(
+            p, dtype=torch.float64)))
+        assert abs(t - j) <= 1e-12 * j
     with pytest.raises(KeyError):
         tsp.COORDS["Minkowski"]
     with pytest.raises(NotImplementedError, match="Kerr-Newman charts"):
@@ -307,23 +310,26 @@ def test_dispatch_routes(monkeypatch):
 
 def test_gen_entries_registered():
     """G1, S2 and T2's entries, and those of their static-chart modes G1s,
-    S2s, T2s and of D1, and of the mass-function chart's G1r, S2r, T2r
-    and D2, are built from fantasy_gen.cu: G1, G1s and G1r take (q0, p0,
-    out, ns, params, n, n_sub, steps, stream), S2, S2s and S2r the
-    trajectory signature, T2, T2s and T2r the trace one (q0, p0, out,
-    params, n, n_sub, steps, stream), D1 and D2 (q0, p0, disk, out, ns,
-    hit, params, n, n_sub, steps, stream; D2's disk null); so are T1's
-    from fantasy_schw16.cu."""
+    S2s, T2s and of D1, of the mass-function chart's G1r, S2r, T2r and
+    D2, and of the Carter chart's G1d, S2d, T2d and D3, are built from
+    fantasy_gen.cu: G1, G1s, G1r and G1d take (q0, p0, out, ns, params,
+    n, n_sub, steps, stream), S2, S2s, S2r and S2d the trajectory
+    signature, T2, T2s, T2r and T2d the trace one (q0, p0, out, params, n,
+    n_sub, steps, stream), D1, D2 and D3 (q0, p0, disk, out, ns, hit,
+    params, n, n_sub, steps, stream; D2's and D3's disk null); so are
+    T1's from fantasy_schw16.cu."""
     p, i = ctypes.c_void_p, ctypes.c_int
     names = tbuild.ENTRIES["fantasy_gen"]
     assert set(names) == {tigc.entry(mode, chart, dt)
                           for mode, chart in tigc.KERNELS
                           for dt in (torch.float32, torch.float64)}
-    assert len(names) == 2 * len(tigc.KERNELS) == 24
+    assert len(names) == 2 * len(tigc.KERNELS) == 32
     for mode, metric, chart in (("gen", "Kerr", "bl"),
                                 ("traj", "KerrSchild", "ks"),
                                 ("trace", "Hayward", "static"),
-                                ("disk", "RotatingHayward", "rot")):
+                                ("disk", "RotatingHayward", "rot"),
+                                ("gen", "KerrDS", "kds"),
+                                ("disk", "KerrDS", "kds")):
         assert tigc.chart_of(mode, metric) == chart
     with pytest.raises(ValueError, match="no gen kernel"):
         tigc.chart_of("gen", "KerrSchild")

@@ -175,12 +175,14 @@ def test_spacetime_pieces_match_jax():
 
 
 def test_horizon_radius_other_families_not_ported():
-    """Kerr-de Sitter still raises naming item 9; the static and the
-    rotating regular families (ported) give JAX's bisected outer horizon
-    within 1e-12 relative, NaN where there is none."""
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tsp.horizon_radius("KerrDS", 1.0, 0.3)
+    """Kerr-de Sitter, the static and the rotating regular families (all
+    ported) give JAX's bisected outer horizon within 1e-12 relative, NaN
+    where there is none."""
     f64 = torch.tensor(1.0, dtype=torch.float64)
+    j = float(jsp.horizon_radius("KerrDS", 1.0, 0.3, 1e-3))
+    t = float(tsp.horizon_radius("KerrDS", f64, 0.3, 1e-3))
+    assert abs(t - j) <= 1e-12 * j
+    assert math.isnan(float(tsp.horizon_radius("KerrDS", f64, 1.2, 1e-3)))
     j = float(jsp.horizon_radius("RotatingBardeen", 1.0, 0.9, 0.2))
     t = float(tsp.horizon_radius("RotatingBardeen", f64, 0.9, 0.2))
     assert abs(t - j) <= 1e-12 * j

@@ -105,12 +105,12 @@ def test_from_jax_scene_maps_every_field():
     ({"metric": "kerr-bl"}, {}), ({"metric": "bardeen"}, {}),
     ({"metric": "kerr-ds", "charge": 0.3}, {}), ({}, {"aa_samples": 4})])
 def test_unported_scenes_raise(change, kw):
-    """The scenes the port does not have raise NotImplementedError naming
-    their ROADMAP item; 'kerr-bl', which item 5b ported, renders at 8x8
-    through the Boyer-Lindquist chart, 'bardeen', which item 9's static
-    family ported, at 8x8 through the static chart, and aa_samples, which
-    item 8b ported, refines the 8x8 headline frame's shadow edge (s =
-    4)."""
+    """The scenes ROADMAP items 5b, 8b and 9 ported render on the CPU:
+    'kerr-bl' at 8x8 through the Boyer-Lindquist chart, 'bardeen' at 8x8
+    through the static chart, 'kerr-ds' (its scene.charge ignored, as
+    JAX's route ignores it: Lambda is scene.metric_param) at 8x8 through
+    the Carter chart, and aa_samples refines the 8x8 headline frame's
+    shadow edge (s = 4)."""
     from dataclasses import replace
     scene = replace(grtrace_torch.SceneConfig(size=8), **change)
     if kw.get("aa_samples"):
@@ -123,7 +123,7 @@ def test_unported_scenes_raise(change, kw):
         assert np.array_equal(res.cls, base.cls)
         assert res.counts == base.counts
         return
-    if change.get("metric") in ("kerr-bl", "bardeen"):
+    if change.get("metric") in ("kerr-bl", "bardeen", "kerr-ds"):
         scene = replace(scene, n_samples=0, background=None,
                         integrator=grtrace_torch.IntegratorConfig(
                             steps=100, delta=0.2))

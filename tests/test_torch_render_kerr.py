@@ -43,15 +43,16 @@ PARITY_PARAMS = (1.0, 0.9, 0.0)
       grtrace_torch.IntegratorConfig(steps=400, delta=0.2)},
      {"aa_samples": 3}, None),
     ({"metric": "kerr", "spin": 0.9}, {"n_samples": 2}, None),
-    ({"metric": "kerr-ds"}, {}, "item 9"),
+    ({"metric": "kerr-ds", "spin": 0.8, "metric_param": 1e-3},
+     {"n_samples": 2}, None),
     ({"metric": "rotating-hayward", "spin": 0.9, "metric_param": 0.2},
      {"n_samples": 2}, None),
 ])
 def test_kerr_paths_not_ported_raise(change, kw, match):
-    """The Kerr paths the port does not have raise NotImplementedError
-    naming their ROADMAP item; those items 5b, 8b and 9 ported (match
-    None: the Boyer-Lindquist chart, the Kerr sampler, antialiasing, the
-    rotating regular families with their sampler) render at 8x8."""
+    """The Kerr paths items 5b, 8b and 9 ported (match None: the
+    Boyer-Lindquist chart, the Kerr sampler, antialiasing, the rotating
+    regular families and Kerr-de Sitter with their samplers) render at
+    8x8; a path the port lacks would raise NotImplementedError."""
     scene = replace(grtrace_torch.SceneConfig(
         size=8, n_samples=0, background=None,
         integrator=grtrace_torch.IntegratorConfig(steps=100, delta=0.2)),

@@ -2,7 +2,7 @@
 (`Chart::kKSMass` of grtrace_torch/csrc/fantasy_gen.cu) built for the CPU
 with g++ and held bit for bit against their eager twins in float64
 (`integrate_generic_twin`, `trajectory_generic_twin`,
-`trajectory_generic_unmasked`, `integrate_disk_rotating_twin`).
+`trajectory_generic_unmasked`, `integrate_disk_spin_twin`).
 
 The shim is test_torch_static_host.py's for the new chart: CUDA's keywords
 stand in, the kernel runs one thread at a time, -ffp-contract=off keeps
@@ -148,7 +148,7 @@ def test_s2r_t2r_order4_source_bitwise_equal_to_twins(host):
 
 @pytest.mark.parametrize("metric,spin,param", CASES[:2])
 def test_d2_source_bitwise_equal_to_twin(host, metric, spin, param):
-    """D2 against `integrate_disk_rotating_twin` on every ray of the 8x8
+    """D2 against `integrate_disk_spin_twin` on every ray of the 8x8
     camera 20 deg above the plane at r0 = 15 (disk [2, 12], 800 steps,
     delta 0.08): q1, p1, the hit rows (zero where no hit), the hit flags
     and the signed step counts bit for bit, with hits, escapes and
@@ -159,7 +159,7 @@ def test_d2_source_bitwise_equal_to_twin(host, metric, spin, param):
                    obs=(15.0 * math.cos(el), 0.0, 15.0 * math.sin(el)))
     vec = tig.gen_params(metric, 0.08, (1.0, spin, param), 16.0, 1.0, 2,
                          torch.float64)
-    dvec = tig.disk_rotating_params(vec, 2.0, 12.0)
+    dvec = tig.disk_spin_params(vec, 2.0, 12.0)
     steps = 800
     out = torch.full((20, 64), 7.0, dtype=torch.float64)
     ns = torch.zeros(64, dtype=torch.int32)
@@ -167,7 +167,7 @@ def test_d2_source_bitwise_equal_to_twin(host, metric, spin, param):
     host["d2"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(), ns.data_ptr(),
                dvec.data_ptr(), 64, _n_sub(vec), steps, 1, 0, None,
                hit.data_ptr())
-    state, ns_t, hit_t, hq, hp = tig.integrate_disk_rotating_twin(
+    state, ns_t, hit_t, hq, hp = tig.integrate_disk_spin_twin(
         q0, p0, steps, dvec, metric)
     assert torch.equal(ns, ns_t)
     assert torch.equal(hit.bool(), hit_t)

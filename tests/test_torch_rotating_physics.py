@@ -239,12 +239,27 @@ ITEM_9_CALLS = {
 @pytest.mark.parametrize("metric", ["KerrDS", "RotatingBardeen",
                                     "RotatingHayward"])
 def test_item_9_raises_name_kerr_ds_only(call, metric):
-    """Every lookup that raised for ROADMAP item 9 now raises for Kerr-de
-    Sitter only: the rotating regular families pass through each entry
-    point."""
-    if metric == "KerrDS":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ITEM_9_CALLS[call](metric)
+    """Every lookup that raised for ROADMAP item 9 passes for all three
+    of its families now that Kerr-de Sitter is ported: its metric, chart,
+    horizon (the bisected outer horizon), capture radius (1.1 r_+),
+    vector (L = Lambda / 3 in the charge slot) and trace (T2d's twin)."""
+    out = ITEM_9_CALLS[call](metric)
+    if metric != "KerrDS":
+        return
+    from grtrace_torch.physics import kerr_de_sitter as tkds
+    # the calls pass Python numbers: the default dtype's bisection (and
+    # gen_params's float64 one)
+    r_h = tkds.kds_outer_horizon(torch.tensor([1.0, 0.5, 1e-4]))
+    want = {"METRICS": tkds.kerr_de_sitter_g_inv, "COORDS": "spherical"}
+    if call in want:
+        assert out is want[call]
+    elif call == "horizon_radius":
+        assert float(out) == float(r_h)
+    elif call == "capture_radius":
+        assert float(out) == float(1.1 * r_h)
+    elif call == "gen_params":
+        r_h = tkds.kds_outer_horizon(torch.tensor([1.0, 0.5, 1e-4], dtype=F64))
+        assert float(out[2]) == 1e-4 / 3.0
+        assert float(out[3]) == float(1.1 * r_h)
     else:
-        ITEM_9_CALLS[call](metric)
-    assert tsp._ITEM_9 == ("KerrDS",)
+        assert out[0].shape == out[1].shape == (3, 4)

@@ -87,16 +87,24 @@ def test_cli_writes_the_boundary_and_metrics(numeric):
 
 
 def test_unported_metrics_and_missing_matplotlib(monkeypatch, tmp_path):
-    """The Kerr-de Sitter curves raise naming ROADMAP item 9 (the rotating
-    regular ones are ported: test_torch_rotating_shadow.py); --render
-    without matplotlib exits with a message; the card is the default."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.analytic_boundary_kds(0.5, 1e-4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.numeric_boundary(0.5, 1e-4, metric="KerrDS", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        shadow_cli.main(["--metric", "kerr-ds", "--device", "cpu",
-                         "--out-dir", str(tmp_path)])
+    """The Kerr-de Sitter curves are ported (held against JAX in
+    test_torch_kds_render_jax.py): the exact curve and one numeric
+    bisection round at 2 azimuths bracket the same boundary, and
+    cli.shadow --metric kerr-ds writes its metrics; a metric with no curve
+    raises; --render without matplotlib exits with a message; the card is
+    the default."""
+    psis, rho = ts.analytic_boundary_kds(0.5, 1e-4, n_psi=2, rounds=3)
+    _, nrho, bracket = ts.numeric_boundary(
+        0.5, 1e-4, metric="KerrDS", device="cpu", n_psi=2, steps=900,
+        delta=0.1, order=2, rounds=1)
+    assert np.isfinite(rho).all() and np.isfinite(nrho).all()
+    assert np.abs(nrho - rho).max() <= 2.0 * bracket
+    m = shadow_cli.main(["--metric", "kerr-ds", "--spin", "0.5",
+                         "--metric-param", "1e-4", "--azimuths", "4",
+                         "--device", "cpu", "--out-dir", str(tmp_path)])
+    assert m["metric"] == "kerr-ds" and m["mean_diameter_px"] > 0
+    with pytest.raises(NotImplementedError, match="Kerr-de Sitter's only"):
+        ts.numeric_boundary(0.5, metric="Kerr", device="cpu")
     from grtrace_torch.viz import plots
     monkeypatch.setattr(plots, "available", lambda: False)
     with pytest.raises(SystemExit, match="matplotlib"):

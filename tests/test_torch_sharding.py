@@ -27,7 +27,7 @@ Tolerances:
   * the rotating regular families' frames equal their single-device
     frames bit for bit, and in float64 JAX's (its XLA autodiff engine on
     the 2 x 2 mesh): classes, images and step counts equal; Kerr-de
-    Sitter raises naming ROADMAP item 9.
+    Sitter's spherical chart is refused, as JAX's assertion refuses it.
 
 At most six tests a file: pytest-xdist's --dist loadfile hands out
 the files with the most tests first, so a file this small runs after
@@ -233,8 +233,8 @@ def test_rotating_regular_frames_raise_item_9(jax_ref):
     it raised) gives, on a mesh of one, each frame's classes and step
     counts bit for bit as the single-device render_pixels_generic at the
     same patch, and in float64 JAX's sharded frames on its 2 x 2 mesh
-    (image, classes, step counts equal); Kerr-de Sitter still raises
-    naming ROADMAP item 9."""
+    (image, classes, step counts equal); Kerr-de Sitter's spherical chart
+    raises ValueError where JAX's assertion refuses it."""
     from grtrace_torch.engine.render_generic import render_pixels_generic
     mesh = tm.make_mesh(1, 1)
     args = (mesh, BG, OBS_X, math.radians(80.0), *ROT, *PATCH)
@@ -254,9 +254,14 @@ def test_rotating_regular_frames_raise_item_9(jax_ref):
             height=4, width=4, metric="RotatingBardeen", charge=0.2)
         assert torch.equal(out["cls"][k].cpu(), one["cls"])
         assert torch.equal(out["n_steps"][k].cpu(), one["n_steps"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="Cartesian chart"):
         tm.render_kerr_sharded(*args, height=4, width=4, metric="KerrDS",
-                               device="cpu")
+                               charge=1e-3, device="cpu")
+    from grtrace.sharding import mesh as jm
+    with pytest.raises(AssertionError, match="Cartesian chart"):
+        jm.render_kerr_sharded(None, BG, OBS_X, math.radians(80.0), *ROT,
+                               *PATCH, height=4, width=4, metric="KerrDS",
+                               charge=1e-3)
     with pytest.raises(ValueError, match="ranks"):
         tm.make_mesh(2, 1)
     assert tm.rank_device("cpu") == torch.device("cpu")
