@@ -186,7 +186,16 @@ the port's paths through them:
     without --numeric (G1d once a round, each round held) and T2d on one
     float64 ray of 2,000 steps (65); `cli.qpo` for the four families on
     the card, each table within 1e-10 relative of the same run on the host
-    (66).
+    (66);
+  * the benchmark driver `cli.bench_cli` in-process (67): JAX's defaults
+    (400x400, 200k steps; B1), `--dtype float64` (B2), `--metric kerr
+    --spin 0.9` (B5), the README's disk line (256x256, 20k steps of 0.02;
+    B6) and its 3840x3840 line (`--iters 2`; B1 on 14,745,600 rays), one
+    launch a render and no twin on CUDA rays, each JSON line printed; the
+    defaults' counts those of phase 5 and their `value` at least B1's
+    CUDA-event time; the README's two lines beside the TPU's records
+    (`DISK_r03.json`, `BENCH4K_r03.json`; not gated), the 3840x3840
+    frame with its nearest-critical rays and the card's peak memory.
 
 Beside them it reports what bounds the kernels: the resident blocks per SM,
 registers, local and shared bytes of every kernel instantiation
@@ -436,10 +445,28 @@ def headline_scene(dtype="float32"):
         patch=PatchConfig(), n_samples=0)
 
 
+def nearest_critical(res):
+    """Where a Schwarzschild render's counts can differ from another
+    implementation's (the TPU's per-ray classes are not recorded): after
+    the rescue a ray's status is the exact launch-state predicate, so the
+    rays that can flip are those whose launch impact parameter rounds
+    across b_crit.  Returns (the rays whose status disagrees with the
+    predicate, the ten smallest |b - b_crit| / b_crit), on the device."""
+    from grtrace_torch.engine.integrate import schw_true_escape_pred
+    q0 = res.device("q0").reshape(-1, 4)
+    p0 = res.device("p0").reshape(-1, 4)
+    pred = schw_true_escape_pred(q0, p0, 2.0 * MASS)
+    status = res.device("status").reshape(-1)
+    off_pred = int(((status == 1) & pred | (status == 2) & ~pred).sum())
+    b_crit = 3.0 * math.sqrt(3.0) * MASS
+    b_rel = ((p0[:, 3].abs() / p0[:, 0].abs()).double() - b_crit).abs() \
+        / b_crit
+    return off_pred, torch.topk(b_rel, 10, largest=False).values.tolist()
+
+
 def main_path(device):
     import grtrace_torch
     from grtrace_torch.engine import integrate_cuda
-    from grtrace_torch.engine.integrate import schw_true_escape_pred
     from grtrace_torch.engine.metrics import RenderMetrics
     from grtrace_torch.io.textures import starfield
 
@@ -470,25 +497,12 @@ def main_path(device):
                              "non-finite final positions")
     if (counts["captured"] != TPU_COUNTS["captured"]
             or counts["escaped"] != TPU_COUNTS["escaped"]):
-        # The TPU's per-ray classes are not recorded.  After the rescue a
-        # ray's status is the exact launch-state predicate, so the rays
-        # that can flip between implementations are those whose launch
-        # impact parameter rounds across b_crit: print the nearest.
-        q0 = res.device("q0").reshape(-1, 4)
-        p0 = res.device("p0").reshape(-1, 4)
-        pred = schw_true_escape_pred(q0, p0, 2.0 * MASS).cpu().numpy()
-        status = res.status.reshape(-1)
-        off_pred = np.flatnonzero((status == 1) & pred
-                                  | (status == 2) & ~pred)
-        b = (p0[:, 3].abs() / p0[:, 0].abs()).double().cpu().numpy()
-        b_rel = np.abs(b - 3.0 * math.sqrt(3.0) * MASS) / (
-            3.0 * math.sqrt(3.0) * MASS)
-        nearest = np.sort(b_rel)[:10]
+        off_pred, nearest = nearest_critical(res)
         phase(5, f"counts differ from the TPU's by "
                  f"{counts['captured'] - TPU_COUNTS['captured']} captured; "
-                 f"{len(off_pred)} rays' status disagrees with the exact "
+                 f"{off_pred} rays' status disagrees with the exact "
                  f"predicate; nearest-critical |b - b_crit|/b_crit: "
-                 f"{nearest.tolist()}")
+                 f"{nearest}")
 
     walls = []
     for _ in range(3):
@@ -2806,16 +2820,18 @@ def eager_on_cuda(twins=TWINS):
 
 
 @contextlib.contextmanager
-def captured_calls(mod, name):
+def captured_calls(mod, name, keep=None):
     """Every call of mod.name while the block runs, as (args, kwargs,
-    outputs); yields the list (the callers look the name up at call
-    time)."""
+    outputs), or the last `keep` of them; yields the list (the callers
+    look the name up at call time)."""
     fn = getattr(mod, name)
     calls = []
 
     def recorder(*args, **kw):
         out = fn(*args, **kw)
         calls.append((args, kw, out))
+        if keep:
+            del calls[:-keep]
         return out
     setattr(mod, name, recorder)
     try:
@@ -5197,6 +5213,175 @@ def qpo_phase():
     return out
 
 
+# phase 67: the benchmark driver cli.bench_cli in-process on the card: JAX's
+# defaults (the headline frame), float64, Kerr, and the README's two
+# measured lines; each run's kernel and its renders (the warm-up and
+# --iters)
+BENCH_RUNS = {
+    "defaults": ([], "B1", 4),
+    "float64": (["--dtype", "float64"], "B2", 4),
+    "kerr": (["--metric", "kerr", "--spin", "0.9"], "B5", 4),
+    "disk_readme": (["--size", "256", "--steps", "20000", "--delta", "0.02",
+                     "--metric", "kerr", "--spin", "0.9", "--disk"], "B6",
+                    4),
+    "4k_readme": (["--size", "3840", "--iters", "2"], "B1", 3)}
+BENCH_COUNTERS = {"B1": "integrate_cuda:launches",
+                  "B2": "integrate_cuda:eq_launches",
+                  "B5": "integrate_ks_cuda:launches",
+                  "B6": "integrate_ks_cuda:disk_launches"}
+# the keys of grtrace.cli.bench_cli's line, in its order
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "steps_budget",
+              "metric_family", "spin", "backend", "dtype", "warmup_s",
+              "rays_per_s", "geodesic_steps_per_s", "counts"]
+# the JAX package's TPU records of the README's two lines (an older commit):
+# printed beside the card's counts, not gated; a Schwarzschild line whose
+# counts differ from its record by more than TPU_DIFF_MAX of the rays gets
+# phase 5's nearest-critical analysis
+TPU_DIFF_MAX = 1e-5
+# the 3840x3840 frame: B1's launch on every ray held against its twin on
+# every B1_HELD_STRIDE-th ray and the last B1_HELD_TAIL, the highest
+# k * n + i offsets into its (24, N) carry
+B1_HELD_STRIDE, B1_HELD_TAIL = 4096, 256
+TPU_BENCH = {"disk_readme": ("DISK_r03.json", {"captured": 618,
+                                               "escaped": 59326,
+                                               "disk": 5592}),
+             "4k_readme": ("BENCH4K_r03.json", {"captured": 525516,
+                                                "escaped": 14220084})}
+
+
+def bench_cli_phase(counts32):
+    """Phase 67: `grtrace_torch.cli.bench_cli.main` in-process on the card
+    for each of BENCH_RUNS, the kernel counts set to 0 just before each run
+    and read just after (its kernel once a render, the others 0; no eager
+    twin on CUDA rays), the line JAX's keys, its counts whole (no
+    numerical error, none left in the domain, every escape on the sky,
+    size^2 in all).  The defaults' counts must be phase 5's (`counts32`)
+    and their `value` at least B1's kernel+wrapper time on the headline
+    rays (CUDA events, timed here first): a window that closed before the
+    card finished would read less.  The README's two lines are printed
+    beside the TPU's records (a Schwarzschild line more than TPU_DIFF_MAX
+    of the rays off with its nearest-critical rays), each with the card's
+    peak memory; on the 3840x3840 frame, B1's kernel+wrapper time on its
+    rays beside the bound, and that launch (`b1_on_frame`) held against
+    the render and against the twin."""
+    import grtrace_torch
+    from grtrace_torch.cli import bench_cli
+    from grtrace_torch.engine import integrate_cuda as tc
+    q0, p0 = camera(SIZE, "cuda")
+    b1_ms = event_ms(lambda: tc.integrate_batch_cuda(
+        q0, p0, STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA), reps=3)
+    del q0, p0
+    phase(67, f"B1 kernel+wrapper on the {SIZE}x{SIZE} headline rays, "
+              f"{STEPS} steps: {b1_ms:.3f} ms (CUDA events, median of 3)")
+    out = {}
+    for name, (argv, kernel, renders) in BENCH_RUNS.items():
+        entry = "render_disk" if "--disk" in argv else "render"
+        counters(BENCH_COUNTERS, reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with eager_on_cuda() as eager, \
+                captured_calls(grtrace_torch, entry, keep=1) as calls:
+            m, lines = run_quiet(bench_cli.main, argv)
+        wall = time.perf_counter() - t0
+        launches = counters(BENCH_COUNTERS)
+        size = int(argv[argv.index("--size") + 1]) if "--size" in argv \
+            else SIZE
+        c = m["counts"]
+        run = {"launches": launches, "eager": eager, "run_s": wall,
+               # the CLI holds one frame while it renders the next
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if name in TPU_BENCH:
+            record, tpu = TPU_BENCH[name]
+            run[f"tpu_{record}"] = tpu
+            run["card_minus_tpu"] = {k: c[k] - v for k, v in tpu.items()}
+            run["max_diff_over_rays"] = max(
+                abs(d) for d in run["card_minus_tpu"].values()) / size ** 2
+            if (run["max_diff_over_rays"] > TPU_DIFF_MAX
+                    and m["metric_family"] != "kerr"
+                    and "--disk" not in argv):
+                run["off_predicate"], run["nearest_critical"] = \
+                    nearest_critical(calls[-1][2])
+        if name == "4k_readme":
+            run.update(b1_on_frame(calls[-1][2], size))
+        del calls[:]
+        out[name] = dict(run, line=m)
+        phase(67, f"cli.bench_cli {' '.join(argv) or '(defaults)'} "
+                  f"({CARD}): {json.dumps(run)}")
+        print(lines[-1], flush=True)
+        want = {k: renders if k == kernel else 0 for k in BENCH_COUNTERS}
+        if launches != want or eager:
+            raise AssertionError(f"cli.bench_cli {name}: launches "
+                                 f"{launches} (want {want}), eager twins "
+                                 f"on CUDA rays {eager}")
+        if list(m) != BENCH_KEYS or json.loads(lines[-1]) != m:
+            raise AssertionError(f"cli.bench_cli {name}: the line's keys "
+                                 f"{list(m)} or the printed line differ")
+        if (c["numerical_error"] or c["in_domain"]
+                or c["escaped"] != c["background"]
+                or sum(v for k, v in c.items() if k != "background")
+                != size * size):
+            raise AssertionError(f"cli.bench_cli {name}: counts {c}")
+        if name == "defaults" and (c != counts32
+                                   or not m["value"] * 1e3 >= b1_ms):
+            raise AssertionError(f"cli.bench_cli defaults: counts {c} (phase "
+                                 f"5: {counts32}) or value {m['value']} s "
+                                 f"below B1's {b1_ms:.3f} ms")
+        if name == "4k_readme":
+            if any(run["render_vs_launch"].values()):
+                raise AssertionError(f"cli.bench_cli {name}: the render's "
+                                     f"rays differ from B1's launch on "
+                                     f"them: {run['render_vs_launch']}")
+            gate_parity(f"B1 on the {size}x{size} frame", run["b1_held"])
+    return out
+
+
+def b1_on_frame(res, size):
+    """B1 with its wrapper on every ray of a Schwarzschild render `res`
+    (CUDA events, median of 2 after a warm call), beside its bound; the
+    last launch's output against the render's (status, n_steps and
+    final_q mismatches on every ray) and against the eager twin on every
+    B1_HELD_STRIDE-th ray and the last B1_HELD_TAIL."""
+    from grtrace_torch.engine import integrate as ti
+    from grtrace_torch.engine import integrate_cuda as tc
+    from grtrace_torch.engine.validate import compare_outputs
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    args = (STEPS, DELTA, 2.0 * MASS, R_MAX, OMEGA)
+    kept = []
+
+    def launch():
+        kept[:] = [tc.integrate_batch_cuda(q0, p0, *args)]
+    out = {"b1_ms": event_ms(launch, reps=2)}
+    kern = kept.pop()
+    ray_steps = int(kern[3].long().sum())
+    out["b1_bound_ms"], out["b1_bound_by"] = bound(
+        metrics.kernel_ops("fantasy_eqc", ray_steps, size * size),
+        size * size * BYTES_RAY)
+    fq = res.device("final_q").reshape(-1, 4)
+    out["render_vs_launch"] = {
+        "status_mismatch": int((res.device("status").reshape(-1)
+                                != kern[2]).sum()),
+        "n_steps_mismatch": int((res.device("n_steps").reshape(-1)
+                                 != kern[3]).sum()),
+        "final_q_bits_differ": not torch.equal(fq.view(torch.int32),
+                                               kern[0].view(torch.int32))}
+    n = q0.shape[0]
+    idx = torch.unique(torch.cat([
+        torch.arange(0, n, B1_HELD_STRIDE, device=q0.device),
+        torch.arange(n - B1_HELD_TAIL, n, device=q0.device)]))
+    twin = ti.integrate_dispatch(q0[idx].contiguous(), p0[idx].contiguous(),
+                                 *args, backend="torch", equatorial=True)
+    held = compare_outputs(tuple(o[idx] for o in kern), twin)
+    held.update(rays=int(idx.numel()),
+                held=f"every {B1_HELD_STRIDE}th ray and the last "
+                     f"{B1_HELD_TAIL}", last_index=int(idx[-1]),
+                captured=int((twin[2] == 1).sum()),
+                escaped=int((twin[2] == 2).sum()),
+                n_steps_max=int(twin[3].max()))
+    out["b1_held"] = held
+    return out
+
+
 # phase 61: item 11's examples at their own sizes.  Gates on the polarized
 # disk's two inline checks: the face-on Schwarzschild redshift against its
 # closed form (8.2e-4 at most on the CPU twin, float32 rays, where the
@@ -5466,6 +5651,12 @@ def main():
     kds_disk = kds_disk_phase()
     kds_obs = kds_shadow_phase()
     qpo_phase()
+    # --- the benchmark driver (B1, B2, B5, B6) -----------------------------
+    bench = bench_cli_phase(counts32)
+    bench_launches = {
+        k: {n: r["launches"][k] for n, r in bench.items()
+            if r["launches"][k]}
+        for k in BENCH_COUNTERS}
     ex_launches = {k: r["launches"] for k, r in examples.items()}
     b6t_fit, b6t_map = fit["fisher_pass"], grids["line_grid"]["fisher_pass"]
     aa_launches = {k: {"aa_render": v["aa_render_launches"]}
@@ -5493,8 +5684,10 @@ def main():
          "source": "grtrace_torch/csrc/fantasy_eqc.cu",
          "replaces": "grtrace/engine/integrate_pallas.py:77",
          "launches": launches + sum(aa_launches["B1"].values())
-         + sum(r["B1"] for r in ex_launches.values()),
+         + sum(r["B1"] for r in ex_launches.values())
+         + sum(bench_launches["B1"].values()),
          "launches_main": launches,
+         "launches_bench_cli": bench_launches["B1"],
          "launches_examples": {k: r["B1"] for k, r in ex_launches.items()
                                if r["B1"]},
          "launches_aa": aa_launches["B1"],
@@ -5512,8 +5705,10 @@ def main():
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
          "launches": kerr["launches"] + sum(aa_launches["B5"].values())
-         + shadow["shadow"]["launches"] + shadow["magnify"]["launches"],
+         + shadow["shadow"]["launches"] + shadow["magnify"]["launches"]
+         + sum(bench_launches["B5"].values()),
          "launches_main": kerr["launches"],
+         "launches_bench_cli": bench_launches["B5"],
          "launches_aa": aa_launches["B5"],
          "launches_observables": {
              "cli_shadow_numeric": shadow["shadow"]["launches"],
@@ -5533,7 +5728,9 @@ def main():
          "replaces": "grtrace/engine/integrate_pallas_ks.py:72",
          "launches": disk["launches"] + sum(aa_launches["B6"].values())
          + sum(r["launches"] for r in echo.values())
-         + sum(r["B6"] for r in ex_launches.values()),
+         + sum(r["B6"] for r in ex_launches.values())
+         + sum(bench_launches["B6"].values()),
+         "launches_bench_cli": bench_launches["B6"],
          "launches_examples": {k: r["B6"] for k, r in ex_launches.items()
                                if r["B6"]},
          "launches_main": disk["launches"],
@@ -5573,8 +5770,10 @@ def main():
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_eqc.cu",
          "replaces": "grtrace/engine/integrate_pallas.py:77",
-         "launches": eq_launches + sum(aa_launches["B2"].values()),
+         "launches": eq_launches + sum(aa_launches["B2"].values())
+         + sum(bench_launches["B2"].values()),
          "launches_main": eq_launches,
+         "launches_bench_cli": bench_launches["B2"],
          "launches_aa": aa_launches["B2"],
          "aa_pass": aa_pass["B2"],
          "max_abs_err": b2["max_abs_err"],

@@ -29,7 +29,8 @@ The JAX package `grtrace` is the reference this package is tested
 against; this package never imports it, nor jax.
 """
 from .io.scene import (BlackHole, IntegratorConfig, Observer, PatchConfig,
-                       SceneConfig, from_jax_scene)
+                       Photon, SceneConfig, apply_relative_offsets,
+                       from_jax_scene)
 from .engine.render import RenderResult, render, render_pixels
 from .engine.integrate import SchwarzschildIntegrator
 from .engine.disk import (DiskConfig, from_jax_disk, render_disk,
@@ -43,8 +44,8 @@ from .io.transfer import TransferMap, hotspot_from_transfer, reshade
 __version__ = "0.1.0"
 
 __all__ = [
-    "BlackHole", "Observer", "PatchConfig", "IntegratorConfig",
-    "SceneConfig", "from_jax_scene", "RenderResult", "render",
+    "BlackHole", "Observer", "Photon", "PatchConfig", "IntegratorConfig",
+    "SceneConfig", "apply_relative_offsets", "from_jax_scene", "RenderResult", "render",
     "render_pixels", "SchwarzschildIntegrator", "DiskConfig",
     "from_jax_disk", "render_disk", "save_disk_maps", "render_subrings",
     "subring_summary", "subring_visibilities", "save_subring_maps",

@@ -35,6 +35,17 @@ class Observer:
 
 
 @dataclasses.dataclass
+class Photon:
+    """Kept for API parity with `grtrace.io.scene.Photon` (defined but
+    unused by the reference pipeline)."""
+    position: Tuple[float, float, float]
+    direction: Tuple[float, float, float]
+    mesh_idx: Tuple[int, int]
+    collision: Optional[str] = None
+    collision_pos: Optional[Tuple[float, float, float]] = None
+
+
+@dataclasses.dataclass
 class PatchConfig:
     """Background-patch geometry on the boundary sphere (radians)."""
     center_theta: float = np.pi / 2

@@ -15,8 +15,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # engine.hotspot); the command-line drivers; each new module of the
 # disk product line (polarization, transfer maps, hot spots, their CLIs);
 # the generic engine's (the Boyer-Lindquist flows, the twins, the
-# kernels' wrappers); and the observables' (antialiasing, visibilities,
-# their drivers)
+# kernels' wrappers); the observables' (antialiasing, visibilities,
+# their drivers); and the throughput benchmark's driver
 PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.kernels.build",
                 "grtrace_torch.physics.spacetime",
@@ -44,7 +44,8 @@ PORT_MODULES = ["grtrace_torch", "grtrace_torch.engine",
                 "grtrace_torch.engine.aa",
                 "grtrace_torch.engine.visibility",
                 "grtrace_torch.cli.subring",
-                "grtrace_torch.cli.visibility"]
+                "grtrace_torch.cli.visibility",
+                "grtrace_torch.cli.bench_cli"]
 
 # One interpreter with jax and grtrace blocked (any import of them raises)
 # imports the modules in turn and reports, for each, whether it imported
