@@ -2426,7 +2426,8 @@ def build_kernels():
 
 
 # Every kernel instantiation of the port, for the occupancy report:
-# resident blocks of 128 threads per SM, from the CUDA runtime on the card
+# resident blocks per SM of the threads each launches (its
+# __launch_bounds__), from the CUDA runtime on the card
 OCC_KERNELS = {
     "fantasy_eqc": [f"fantasy_eqc_kernel<{args}>" for args in (
         "float, true, true", "double, false, true", "float, true, false")],
@@ -2434,7 +2435,8 @@ OCC_KERNELS = {
                    for mode in ("kPlain", "kDisk", "kSubring")
                    for t, comp in (("float", "true"), ("float", "false"),
                                    ("double", "false"))]
-    + [f"fantasy_ks_kernel<{t}, false, Mode::kDiskTangent>"
+    + [f"fantasy_ks_kernel<{t}, false, Mode::{m}>"
+       for m in ("kDiskTangent", "kDiskTangent2")
        for t in ("float", "double")],
     "fantasy_schw16": [f"fantasy_schw16_kernel<{t}, Mode::{m}>"
                        for m in ("kIntegrate", "kRecord")
@@ -2454,8 +2456,10 @@ OCC_KERNELS = {
                     for t in ("float", "double")],
 }
 # a probe library that includes one kernel source and asks the runtime
-# about each of its kernels: out = [blocks per SM, registers, local bytes a
-# thread, static shared bytes a block]
+# about each of its kernels, at the block size it launches with (its
+# __launch_bounds__, the attribute maxThreadsPerBlock): out = [blocks per
+# SM, registers, local bytes a thread, static shared bytes a block,
+# threads a block]
 OCC_SHIM = """#include "{source}"
 
 namespace {{
@@ -2464,11 +2468,13 @@ int query(K kernel, int* out) {{
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) {{
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, 128, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, attr.maxThreadsPerBlock, 0);
   }}
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = static_cast<int>(attr.sharedSizeBytes);
+  out[4] = attr.maxThreadsPerBlock;
   return static_cast<int>(err);
 }}
 }}  // namespace
@@ -2484,9 +2490,9 @@ extern "C" int grt_occupancy(int which, int* out) {{
 
 def occupancy():
     """{kernel: {blocks_per_sm, warps_per_sm, registers, local_bytes,
-    shared_bytes}} for OCC_KERNELS, through probe libraries built from the
-    checkout's sources with the kernels' own nvcc flags (all nvcc started
-    together)."""
+    shared_bytes, threads}} for OCC_KERNELS, through probe libraries built
+    from the checkout's sources with the kernels' own nvcc flags (all nvcc
+    started together)."""
     import ctypes
     from grtrace_torch.kernels import build
     out_dir = build.BUILD_DIR / "occupancy"
@@ -2510,13 +2516,14 @@ def occupancy():
         fn = ctypes.CDLL(str(lib)).grt_occupancy
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         for j, kernel in enumerate(OCC_KERNELS[stem]):
-            buf = (ctypes.c_int * 4)()
+            buf = (ctypes.c_int * 5)()
             err = fn(j, ctypes.addressof(buf))
             if err:
                 raise RuntimeError(f"occupancy of {kernel}: cudaError {err}")
-            res[kernel] = {"blocks_per_sm": buf[0], "warps_per_sm": 4 * buf[0],
+            res[kernel] = {"blocks_per_sm": buf[0],
+                           "warps_per_sm": buf[0] * buf[4] // 32,
                            "registers": buf[1], "local_bytes": buf[2],
-                           "shared_bytes": buf[3]}
+                           "shared_bytes": buf[3], "threads": buf[4]}
     return res
 
 
@@ -2578,8 +2585,8 @@ def kernel_report():
     every kernel instantiation, and the SASS counts of the libraries."""
     from grtrace_torch.kernels import build
     occ = occupancy()
-    phase("2b", f"resident blocks of 128 threads per SM "
-                f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+    phase("2b", f"resident blocks per SM of the threads a block launches "
+                f"with (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
                 f"registers, local and shared bytes: {json.dumps(occ)}")
     # B1, B2, B4-B7 and B6t use no local memory at all (B3's is sin and
     # cos's argument reduction, not a spill: phase 2 checks its spills)
@@ -2770,7 +2777,8 @@ ROT_COUNTERS = {"G1r": "integrate_generic_cuda:rot_launches",
                 "T2r": "integrate_generic_cuda:rot_trace_launches",
                 "D2": "integrate_generic_cuda:rot_disk_launches"}
 DISK_COUNTERS = {"B6": "integrate_ks_cuda:disk_launches",
-                 "B6t": "integrate_ks_cuda:disk_tangent_launches"}
+                 "B6t": "integrate_ks_cuda:disk_tangent_launches",
+                 "B6t2": "integrate_ks_cuda:disk_tangent2_launches"}
 EXAMPLE_COUNTERS = {"B1": "integrate_cuda:launches",
                     "B6": "integrate_ks_cuda:disk_launches"}
 
@@ -4091,26 +4099,29 @@ FIT_OUT = os.path.join(HERE, "build", "fit_line_out")
 ORBIT_FRAMES = 4
 
 
-def tangent_camera(size, dtype, direction):
+def tangent_camera(size, dtype):
     """The model's disk camera (engine/sensitivity.disk_camera at the disk
     scene's spin and elevation, float `dtype`) and its forward-mode
-    tangent in `direction` of theta = [spin, elevation]: (q0, p0, dq0,
-    dp0, dparams)."""
+    tangents in both directions of theta = [spin, elevation] (the
+    B6T_DIRECTIONS, stacked): (q0, p0, dq0 (2, N, 4), dp0, dparams)."""
     import torch.autograd.forward_ad as fwAD
     from grtrace_torch.engine.sensitivity import disk_camera
     theta = torch.tensor([DISK_SPIN, math.radians(12.0)], dtype=dtype,
                          device="cuda")
-    e = torch.tensor(direction, dtype=dtype, device="cuda")
-    with fwAD.dual_level():
-        q0, p0, params, _ = disk_camera(fwAD.make_dual(theta, e), size,
-                                        math.radians(FOV_DEG), MASS)
-        (q0, dq0), (p0, dp0), (_, dpar) = (
-            fwAD.unpack_dual(t)[:2] for t in (q0, p0, params))
-    zero = torch.zeros_like(q0)
+    dirs = []
+    for direction in B6T_DIRECTIONS.values():
+        e = torch.tensor(direction, dtype=dtype, device="cuda")
+        with fwAD.dual_level():
+            q0, p0, params, _ = disk_camera(fwAD.make_dual(theta, e), size,
+                                            math.radians(FOV_DEG), MASS)
+            (q0, dq0), (p0, dp0), (_, dpar) = (
+                fwAD.unpack_dual(t)[:2] for t in (q0, p0, params))
+        zero = torch.zeros_like(q0)
+        dirs.append((zero if dq0 is None else dq0,
+                     zero if dp0 is None else dp0, tuple(dpar.tolist())))
     return (q0.contiguous(), p0.contiguous(),
-            zero if dq0 is None else dq0.contiguous(),
-            zero if dp0 is None else dp0.contiguous(),
-            tuple(dpar.tolist()))
+            torch.stack([d[0] for d in dirs]),
+            torch.stack([d[1] for d in dirs]), [d[2] for d in dirs])
 
 
 def _same(a, b):
@@ -4121,76 +4132,151 @@ def _same(a, b):
     return bool(torch.equal(a, b))
 
 
-def b6t_phase():
-    """Phase 53: kernel B6t (the tangent mode of fantasy_ks.cu) on the
-    disk camera at B6T_SIZE^2, float32 and float64, in the spin and the
-    elevation directions: all eight outputs bitwise equal to its twin
-    (graphed), the six primal ones bitwise equal to B6's 16-row launch on
-    the same rays; kernel+wrapper times of B6t and of that B6 launch
-    (CUDA events, median of 3) beside B6t's bound; B6t's registers."""
+def _median_ms(runs):
+    return float(np.median([ms for _, ms in runs]))
+
+
+def hold_tangent_launch(args, kw, twin=True):
+    """B6t with both directions (`args`: integrate_batch_disk_tangent_cuda's
+    arguments, the tangents (2, N, 4)) against its twin (graphed; skipped
+    without `twin`), each direction against a one-direction launch on it
+    and its primal outputs against B6's 16-row launch on the same rays,
+    all bit for bit; kernel+wrapper times (CUDA events, median of 3) of
+    the two-direction launch, of each one-direction launch and of B6
+    beside the bounds of both modes.  Returns (the record, the
+    two-direction launch's outputs)."""
     from grtrace_torch.engine import integrate_ks as tks
     from grtrace_torch.engine import integrate_ks_cuda as ks
+    from grtrace_torch.engine.validate import timed
+    q0, p0, dq0, dp0, steps, delta, hole, dparams = args[:8]
+    tail = args[8:]
+    dev = q0.device
+    two = [timed(lambda: ks.integrate_batch_disk_tangent_cuda(*args, **kw),
+                 dev) for _ in range(3)]
+    out = two[0][0]
+    ones = [[timed(lambda: ks.integrate_batch_disk_tangent_cuda(
+        q0, p0, dq0[d:d + 1], dp0[d:d + 1], steps, delta, hole,
+        dparams[d:d + 1], *tail, **kw), dev) for _ in range(3)]
+        for d in range(dq0.shape[0])]
+    b6 = [timed(lambda: ks.integrate_batch_disk_cuda(
+        q0, p0, steps, delta, hole, *tail, compensated=False, **kw), dev)
+        for _ in range(3)]
+    f64 = q0.dtype == torch.float64
+    res = {"rays": q0.shape[0], "dtype": str(q0.dtype)[6:],
+           "ray_steps": int(out[3].long().sum()),
+           "n_steps_max": int(out[3].max()),
+           "hits": int((out[2] == 3).sum()),
+           "max_abs_tangent": float(out[6].abs().max()),
+           "b6t2_ms": _median_ms(two),
+           "b6t_ms": [_median_ms(r) for r in ones],
+           "b6_16row_ms": _median_ms(b6),
+           "directions_bitwise_one_direction": all(
+               all(_same(a, b) for a, b in zip(out[:6], r[0][0][:6]))
+               and _same(out[6][d], r[0][0][6][0])
+               and _same(out[7][d], r[0][0][7][0])
+               for d, r in enumerate(ones)),
+           "primal_vs_b6_16row_bitwise": all(
+               _same(a, b) for a, b in zip(out[:6], b6[0][0]))}
+    res["parent_cost_ms"] = res["b6_16row_ms"] + sum(res["b6t_ms"])
+    if twin:
+        ref, res["twin_ms"] = timed(
+            lambda: tks.integrate_batch_disk_tangent_ks(*args, **kw), dev)
+        res["tangent_rows_bitwise"] = all(_same(a, b)
+                                          for a, b in zip(out, ref))
+        res["max_abs_err"] = max(float((a.double() - b.double()).abs().max())
+                                 for a, b in zip(out[4:], ref[4:]))
+    nbytes = res["rays"] * 2 * (BYTES_RAY64 if f64 else BYTES_RAY)
+    peak = PEAK_FLOPS64 if f64 else PEAK_FLOPS
+    res["bound_ms"], res["bound_by"] = bound(
+        metrics.kernel_ops("fantasy_ks_tangent2", res["ray_steps"],
+                           res["rays"]), nbytes, peak)
+    res["bound_ms_b6t"], _ = bound(
+        metrics.kernel_ops("fantasy_ks_tangent", res["ray_steps"],
+                           res["rays"]), nbytes, peak)
+    counters(DISK_COUNTERS, reset=True)  # the held launches are not a path's
+    if not (res.get("tangent_rows_bitwise", True)
+            and res["directions_bitwise_one_direction"]
+            and res["primal_vs_b6_16row_bitwise"]
+            and res["hits"] and res["max_abs_tangent"] > 0):
+        raise AssertionError(f"B6t: {res}")
+    return res, out
+
+
+def b6t_phase():
+    """Phase 53: kernel B6t (the tangent modes of fantasy_ks.cu) on the
+    disk camera at B6T_SIZE^2, float32 and float64, with both directions
+    of theta = [spin, elevation] in one launch (`hold_tangent_launch`: its
+    twin, the one-direction launches and B6 bit for bit, their times), and
+    the one-direction launch on the spin direction against its own twin;
+    then the model under forward AD along spin (line_profile_model with a
+    dual theta at B6T_SIZE^2, float64: B6 once and B6t with one direction
+    once, no twin on CUDA rays), the path of a one-direction jvp."""
+    import torch.autograd.forward_ad as fwAD
+    from grtrace_torch.engine import integrate_ks as tks
+    from grtrace_torch.engine import integrate_ks_cuda as ks
+    from grtrace_torch.engine.sensitivity import line_profile_model
     from grtrace_torch.engine.validate import timed
     r_in, r_out = disk_annulus()
     hole = (MASS, DISK_SPIN, 0.0)
     runs = {}
     for dtype in (torch.float32, torch.float64):
-        for name, direction in B6T_DIRECTIONS.items():
-            q0, p0, dq0, dp0, dparams = tangent_camera(B6T_SIZE, dtype,
-                                                       direction)
-            args = (B6T_STEPS, B6T_DELTA, hole, dparams, R_MAX, OMEGA, r_in,
-                    r_out)
-            plain = (B6T_STEPS, B6T_DELTA, hole, R_MAX, OMEGA, r_in, r_out)
-            ks.integrate_batch_disk_tangent_cuda(q0, p0, dq0, dp0, *args)
-            kern = [timed(lambda: ks.integrate_batch_disk_tangent_cuda(
-                q0, p0, dq0, dp0, *args), q0.device) for _ in range(3)]
-            b6 = [timed(lambda: ks.integrate_batch_disk_cuda(
-                q0, p0, *plain, compensated=False), q0.device)
-                for _ in range(3)]
-            twin, twin_ms = timed(lambda: tks.integrate_batch_disk_tangent_ks(
-                q0, p0, dq0, dp0, *args), q0.device)
-            out = kern[0][0]
-            res = {"tangent_rows_bitwise": all(
-                       _same(a, b) for a, b in zip(out, twin)),
-                   "primal_vs_b6_16row_bitwise": all(
-                       _same(a, b) for a, b in zip(out[:6], b6[0][0])),
-                   "max_abs_err": max(float((a.double() - b.double())
-                                            .abs().max())
-                                      for a, b in zip(out[4:], twin[4:])),
-                   "kernel_ms": float(np.median([ms for _, ms in kern])),
-                   "b6_16row_ms": float(np.median([ms for _, ms in b6])),
-                   "twin_ms": twin_ms, "rays": q0.shape[0],
-                   "ray_steps": int(out[3].long().sum()),
-                   "n_steps_max": int(out[3].max()),
-                   "hits": int((out[2] == 3).sum()),
-                   "max_abs_tangent": float(out[6].abs().max()),
-                   "dparams": dparams}
-            peak = PEAK_FLOPS if dtype == torch.float32 else PEAK_FLOPS64
-            nbytes = res["rays"] * (2 * (BYTES_RAY if dtype == torch.float32
-                                         else BYTES_RAY64))
-            res["bound_ms"], res["bound_by"] = bound(
-                metrics.kernel_ops("fantasy_ks_tangent", res["ray_steps"],
-                                   res["rays"]), nbytes, peak)
-            tag = f"{str(dtype)[6:]} {name}"
-            phase(53, f"B6t vs its twin and vs B6 (16 rows) on the disk "
-                      f"camera {B6T_SIZE}x{B6T_SIZE}, {B6T_STEPS} steps of "
-                      f"{B6T_DELTA}, {tag} direction ({CARD}): "
-                      f"{json.dumps(res)}")
-            if not (res["tangent_rows_bitwise"]
-                    and res["primal_vs_b6_16row_bitwise"]
-                    and res["hits"] and res["max_abs_tangent"] > 0):
-                raise AssertionError(f"B6t {tag}: {res}")
-            runs[tag] = res
-    counters(DISK_COUNTERS, reset=True)  # the held launches are not a path's
+        q0, p0, dq0, dp0, dparams = tangent_camera(B6T_SIZE, dtype)
+        tail = (R_MAX, OMEGA, r_in, r_out)
+        args = (q0, p0, dq0, dp0, B6T_STEPS, B6T_DELTA, hole, dparams) + tail
+        res, out = hold_tangent_launch(args, {})
+        one = (q0, p0, dq0[:1], dp0[:1], B6T_STEPS, B6T_DELTA, hole,
+               dparams[:1]) + tail
+        k1, k1_ms = timed(lambda: ks.integrate_batch_disk_tangent_cuda(*one),
+                          q0.device)
+        twin1, res["twin_b6t_ms"] = timed(
+            lambda: tks.integrate_batch_disk_tangent_ks(*one), q0.device)
+        res["b6t_vs_twin_bitwise"] = all(_same(a, b)
+                                         for a, b in zip(k1, twin1))
+        res["max_abs_err_b6t"] = max(
+            float((a.double() - b.double()).abs().max())
+            for a, b in zip(k1[4:], twin1[4:]))
+        res["dparams"] = dparams
+        counters(DISK_COUNTERS, reset=True)
+        tag = str(dtype)[6:]
+        phase(53, f"B6t with both directions vs its twin, vs two launches "
+                  f"with one and vs B6 (16 rows) on the disk camera "
+                  f"{B6T_SIZE}x{B6T_SIZE}, {B6T_STEPS} steps of {B6T_DELTA}, "
+                  f"{tag} ({CARD}): {json.dumps(res)}")
+        if not res["b6t_vs_twin_bitwise"]:
+            raise AssertionError(f"B6t (one direction) {tag}: {res}")
+        runs[tag] = res
+    centers = np.linspace(0.35, 1.25, 32)
+    theta = torch.tensor([DISK_SPIN, math.radians(12.0)],
+                         dtype=torch.float64, device="cuda")
+    knobs = dict(size=B6T_SIZE, steps=B6T_STEPS, delta=B6T_DELTA,
+                 r_out=r_out, fov=math.radians(FOV_DEG))
+    counters(DISK_COUNTERS, reset=True)
+    t0 = time.perf_counter()
+    with eager_on_cuda() as eager, fwAD.dual_level():
+        dual = line_profile_model(fwAD.make_dual(
+            theta, torch.tensor([1.0, 0.0], dtype=torch.float64,
+                                device="cuda")), centers, **knobs)
+        tangent = fwAD.unpack_dual(dual).tangent
+    torch.cuda.synchronize()
+    model = {"wall_s": time.perf_counter() - t0,
+             "launches": counters(DISK_COUNTERS),
+             "max_abs_tangent": float(tangent.abs().max())}
+    phase(53, f"line_profile_model under forward AD along spin, "
+              f"{B6T_SIZE}x{B6T_SIZE}, float64 ({CARD}): {json.dumps(model)}")
+    if (eager or model["launches"] != {"B6": 1, "B6t": 1, "B6t2": 0}
+            or not model["max_abs_tangent"] > 0):
+        raise AssertionError(f"the model's jvp: {model}, eager {eager}")
+    runs["model_jvp"] = model
     return runs
 
 
 def fit_line_run(argv, tag):
     """One cli.fit_line run in-process: its result, launches and calls,
     checked: B6 once per distinct spin of the grid, once for the
-    observation and once per primal pass of the model; B6t twice per
-    linearization; no twin on CUDA rays; the residual norms never rise; a
-    finite Fisher matrix with a positive determinant."""
+    observation and once per primal pass of the line search; B6t with
+    both directions once per linearization and never with one; no twin on
+    CUDA rays; the residual norms never rise; a finite Fisher matrix with
+    a positive determinant."""
     from grtrace_torch.cli import fit_line
     from grtrace_torch.engine import sensitivity as tsens
     from grtrace_torch.sharding import grid as tgrid
@@ -4206,6 +4292,7 @@ def fit_line_run(argv, tag):
     spins = fit_line.build_parser().parse_args(argv).spins
     res = {"wall_s": wall, "launches": launches, "sweep_calls": len(sweeps),
            "model_primal_calls": len(primal), "model_tangent_calls": len(tan),
+           "tangent_directions": sorted({c[0][2].shape[0] for c in tan}),
            "result": got}
     phase(54, f"cli.fit_line {' '.join(argv)}, {tag} ({CARD}): "
               f"{json.dumps(res)}")
@@ -4214,8 +4301,10 @@ def fit_line_run(argv, tag):
     linearizations = len(rns) + 1
     if (eager or launches["B6"] != len(sweeps) + len(primal)
             or len(sweeps) != len(set(spins)) + 1
-            or launches["B6t"] != len(tan) or len(tan) != 2 * linearizations
-            or len(primal) < 2 * linearizations - 1):
+            or launches["B6t2"] != len(tan) or launches["B6t"]
+            or len(tan) != linearizations
+            or res["tangent_directions"] != [2]
+            or len(primal) < linearizations - 1):
         raise AssertionError(f"cli.fit_line {tag}: launches {launches}, "
                              f"calls {len(sweeps)} / {len(primal)} / "
                              f"{len(tan)}, eager twins on CUDA rays {eager}")
@@ -4226,52 +4315,14 @@ def fit_line_run(argv, tag):
 
 
 def time_tangent_pass(call, n, tag):
-    """B6t on a tangent pass's own rays and tangents (`call`, a
-    `captured_calls` record of integrate_dispatch_disk_tangent): all eight
-    outputs bitwise equal to its twin (graphed) and the six primal ones
-    bitwise equal to B6's 16-row launch, as in phase 53; kernel+wrapper
-    times of B6t and of that B6 launch (CUDA events, median of 3) and the
-    twin's, beside B6t's bound."""
-    from grtrace_torch.engine import integrate_ks as tks
-    from grtrace_torch.engine import integrate_ks_cuda as ks
-    from grtrace_torch.engine.validate import timed
+    """B6t on a linearization's own rays and tangents (`call`, a
+    `captured_calls` record of integrate_dispatch_disk_tangent with both
+    directions), held and timed by `hold_tangent_launch` (the twin
+    graphed)."""
     args, kw, _ = call
-    q0, p0 = args[0], args[1]
-    plain = args[4:7] + args[8:]
-    kern = [timed(lambda: ks.integrate_batch_disk_tangent_cuda(*args, **kw),
-                  q0.device) for _ in range(3)]
-    b6 = [timed(lambda: ks.integrate_batch_disk_cuda(
-        q0, p0, *plain, compensated=False, **kw), q0.device)
-        for _ in range(3)]
-    twin, twin_ms = timed(lambda: tks.integrate_batch_disk_tangent_ks(
-        *args, **kw), q0.device)
-    k_out = kern[0][0]
-    f64 = q0.dtype == torch.float64
-    res = {"rays": q0.shape[0], "dtype": str(q0.dtype)[6:],
-           "ray_steps": int(k_out[3].long().sum()),
-           "n_steps_max": int(k_out[3].max()),
-           "hits": int((k_out[2] == 3).sum()),
-           "b6t_ms": float(np.median([ms for _, ms in kern])),
-           "b6_16row_ms": float(np.median([ms for _, ms in b6])),
-           "twin_ms": twin_ms,
-           "tangent_rows_bitwise": all(
-               _same(a, b) for a, b in zip(k_out, twin)),
-           "max_abs_err": max(float((a.double() - b.double()).abs().max())
-                              for a, b in zip(k_out[4:], twin[4:])),
-           "max_abs_tangent": float(k_out[6].abs().max()),
-           "primal_vs_b6_16row_bitwise": all(
-               _same(a, b) for a, b in zip(k_out[:6], b6[0][0]))}
-    res["bound_ms"], res["bound_by"] = bound(
-        metrics.kernel_ops("fantasy_ks_tangent", res["ray_steps"],
-                           res["rays"]),
-        res["rays"] * 2 * (BYTES_RAY64 if f64 else BYTES_RAY),
-        PEAK_FLOPS64 if f64 else PEAK_FLOPS)
-    phase(n, f"B6t and B6 (16 rows) on {tag}'s rays ({CARD}): "
-             f"{json.dumps(res)}")
-    if not (res["tangent_rows_bitwise"] and res["primal_vs_b6_16row_bitwise"]
-            and res["hits"] and res["max_abs_tangent"] > 0):
-        raise AssertionError(f"B6t on {tag}: {res}")
-    counters(DISK_COUNTERS, reset=True)  # the timing launches are not a path's
+    res, _ = hold_tangent_launch(args, kw)
+    phase(n, f"B6t with both directions, with one, and B6 (16 rows) on "
+             f"{tag}'s rays ({CARD}): {json.dumps(res)}")
     return res
 
 
@@ -4297,14 +4348,14 @@ def fit_line_phase():
     out["fisher_pass"] = time_tangent_pass(tan[-1], 54,
                                            "the last Fisher pass")
     out["launches"] = {k: out["defaults"]["launches"][k]
-                       + res["launches"][k] for k in ("B6", "B6t")}
+                       + res["launches"][k] for k in ("B6", "B6t2")}
     return out
 
 
 def line_grid_orbit_phase():
     """Phase 55: cli.line_grid --fisher 0.01 --bench at its defaults (the
-    4 x 4 grid at 256^2, 20k steps: B6 once per spin of the sweep and
-    once per point of the Fisher map, B6t twice per point) and cli.orbit
+    4 x 4 grid at 256^2, 20k steps: B6 once per spin of the sweep, B6t
+    with both directions once per point of the Fisher map) and cli.orbit
     at ORBIT_FRAMES frames in its three modes (B1; --metric kerr, B5;
     --disk, B6: one launch a batch), no twin on CUDA rays."""
     from grtrace_torch.cli import line_grid, orbit
@@ -4331,7 +4382,7 @@ def line_grid_orbit_phase():
     phase(55, f"cli.line_grid --fisher 0.01 --bench at its defaults "
               f"({CARD}): {json.dumps(out['line_grid'])}")
     # the sweep: once per distinct spin, 4 times (the run and --bench's 3)
-    want = {"B6": 4 * len(set(defaults.spins)) + points, "B6t": 2 * points}
+    want = {"B6": 4 * len(set(defaults.spins)), "B6t": 0, "B6t2": points}
     if (eager or launches != want or not np.isfinite(fish).all()
             or not (fish[:, :2] > 0).all()):
         raise AssertionError(f"cli.line_grid: launches {launches} (want "
@@ -4471,6 +4522,7 @@ def gen_frame(no, scene, family, params, counts_of, twins, pinned, stride,
     Returns the kernel's numbers under its label in lower case (g1r,
     g1d) and the render's result under "result"."""
     import grtrace_torch
+    from grtrace_torch.engine import integrate_generic as tig
     from grtrace_torch.engine.integrate_generic_cuda import (
         chart_of, integrate_batch_generic_cuda)
     from grtrace_torch.engine.validate import gen_kernel_parity, timed
@@ -4536,8 +4588,12 @@ def gen_frame(no, scene, family, params, counts_of, twins, pinned, stride,
     phase(no, f"{tag} render warm wall time: median {wall:.6f} s of "
               f"{[round(w, 6) for w in walls]}; {label} kernel+wrapper on "
               f"the whole frame {json.dumps(whole)}")
+    vec = tig.gen_params(family, KERR_DELTA, params, R_MAX, OMEGA, 2,
+                         q0.dtype)
+    orders = order_times(no, f"{label} {tag}", res, vec, family, KERR_STEPS)
     return {"launches": launches, "counts": counts, "wall": wall,
-            label.lower(): whole, "held": par, "result": res}
+            label.lower(): whole, "held": par, "orders": orders,
+            "result": res}
 
 
 def gen_cli_phase(no, argv, out_dir, counts_of, twins, family, params,
@@ -4615,16 +4671,19 @@ def rot_frame(metric, param, size, dtype, stride):
                      f"{size}x{size} {dtype}", forbid=("in_domain",))
 
 
-def rot_frames_phase():
+def rot_frames_phase(occ):
     """Phase 57: the rotating-Bardeen frame at 1024x1024 (every 16th ray
     held), the float64 rotating-Hayward frame and the horizonless frame
-    at 256x256 (every ray held)."""
+    at 256x256 (every ray held); G1r's, S2r's and D2's registers, spills,
+    warps and step loops' SASS and MUFU."""
     out = {"frame": rot_frame(*ROT_FRAME, KERR_SIZE, "float32", ROT_HELD),
            "float64": rot_frame(*ROT_F64, ROT_SMALL, "float64", 1),
            "horizonless": rot_frame(*ROT_HORIZONLESS, ROT_SMALL, "float32",
                                     1)}
     for v in out.values():
         v.pop("result")
+    phase(57, f"G1r, S2r, D2: registers, spills, resident warps and SASS "
+              f"({CARD}): {json.dumps(gen_resources(occ, 'kKSMass', 3))}")
     return out
 
 
@@ -4645,6 +4704,7 @@ def rot_disk_phase():
     D2 once), D2 bitwise on every ray of it, its time beside its bound."""
     import grtrace_torch
     from grtrace_torch.engine.integrate_ks import STATUS_DISK
+    from grtrace_torch.engine import integrate_generic as tig
     from grtrace_torch.engine.validate import disk_rotating_parity
     from grtrace_torch.io.textures import starfield
     from grtrace_torch.physics.rotating_orbits import \
@@ -4706,6 +4766,12 @@ def rot_disk_phase():
             raise AssertionError(f"D2 {key}: the timed launch's statuses "
                                  f"differ from the render's")
         out[key] = par
+        if key == "disk_512":
+            vec = tig.disk_spin_params(tig.gen_params(
+                "RotatingBardeen", delta, params, R_MAX, OMEGA, 2,
+                q0.dtype), r_in, 14.0)
+            out["orders"] = order_times(59, f"D2 {key}", r, vec,
+                                        "RotatingBardeen", steps, disk=True)
     return out
 
 
@@ -4949,10 +5015,11 @@ def kds_zero_lambda(frame0):
     return out
 
 
-def kds_resources(occ):
+def gen_resources(occ, chart, chart_no):
     """Registers, spills, resident warps and the step loop's SASS and MUFU
-    counts of G1d, S2d and D3 (float32 and float64), from the build's
-    ptxas log, phase 2b's occupancy and cuobjdump."""
+    counts of one chart's G1, S2 and disk kernels (float32 and float64),
+    from the build's ptxas log, phase 2b's occupancy and cuobjdump;
+    `chart_no` is the Chart enum's value that ptxas prints."""
     from grtrace_torch.kernels import build
     lib = build.library_path(build.CSRC_DIR / "fantasy_gen.cu")
     ptx = {k["kernel"]: k for k in build.ptxas_summary(
@@ -4960,11 +5027,11 @@ def kds_resources(occ):
     sass = sass_counts(lib) if _cuobjdump() else {}
     out = {}
     # ptxas and cuobjdump name an instantiation by its enum values:
-    # Chart::kKdS is 4, Mode::kIntegrate 0, kRecord 1, kDisk 3
+    # Mode::kIntegrate is 0, kRecord 1, kDisk 3
     for mode, m in (("kIntegrate", 0), ("kRecord", 1), ("kDisk", 3)):
         for t in ("float", "double"):
-            name = f"fantasy_gen_kernel<{t}, Chart::kKdS, Mode::{mode}>"
-            key = f"fantasy_gen_kernel<{t[0]},4,{m}>"
+            name = f"fantasy_gen_kernel<{t}, Chart::{chart}, Mode::{mode}>"
+            key = f"fantasy_gen_kernel<{t[0]},{chart_no},{m}>"
             rec = {k: occ[name][k] for k in ("registers", "warps_per_sm",
                                              "local_bytes")}
             if key in ptx:
@@ -4976,6 +5043,43 @@ def kds_resources(occ):
     return out
 
 
+def dealt(order_idx, threads=128):
+    """The launch order that deals the 32-ray warps of `order_idx`, in its
+    order, round-robin over the blocks of `threads` rays: block b takes
+    warps b, b + B, b + 2 B, ... of the B blocks."""
+    n = order_idx.numel()
+    blocks = -(-n // threads)
+    pos = torch.arange(n, device=order_idx.device)
+    warp = pos // 32
+    slot = (warp % blocks) * (threads // 32) + warp // blocks
+    return order_idx[torch.argsort(slot * 32 + pos % 32)]
+
+
+def order_times(no, tag, res, vec, family, steps, disk=False):
+    """The bare launch of `family`'s G1 (with `disk`, its 20-row disk
+    kernel) on the rays of the render `res` in three orders: the wrappers'
+    `launch_order` (cost-sorted), frame order, and the sorted warps dealt
+    round-robin over the blocks (CUDA events, median of 3 each)."""
+    from grtrace_torch.engine import integrate_generic_cuda as tgc
+    from grtrace_torch.engine.validate import timed
+    q0 = res.device("q0").reshape(-1, 4).contiguous()
+    p0 = res.device("p0").reshape(-1, 4).contiguous()
+    launch = (tgc.launch_fantasy_gen_disk_spin if disk
+              else tgc.launch_fantasy_gen)
+    srt = tgc.launch_order(q0, p0, float(vec[0]), family)
+    ms = {}
+    for name, idx in (("sorted", srt), ("frame", torch.arange(
+            q0.shape[0], device=q0.device)), ("dealt", dealt(srt))):
+        q, p = q0[idx].contiguous(), p0[idx].contiguous()
+        launch(q, p, vec, steps, family)  # warm
+        ms[name] = float(np.median([timed(lambda: launch(
+            q, p, vec, steps, family), q0.device)[1] for _ in range(3)]))
+    rec = {"rays": q0.shape[0], "ms": ms}
+    phase(no, f"{tag}: bare launch in three orders ({CARD}): "
+              f"{json.dumps(rec)}")
+    return rec
+
+
 def kds_frames_phase(occ):
     """Phase 62: the README's scene at 1024x1024 (every 16th ray held), in
     float64 at 256x256 (every ray held), Lambda = 0 at 256x256 (every ray
@@ -4985,7 +5089,7 @@ def kds_frames_phase(occ):
            "float64": kds_frame(KDS_LAMBDA, KDS_SMALL, "float64", 1),
            "zero": kds_frame(0.0, KDS_SMALL, "float32", 1)}
     out["zero_vs_bl"] = kds_zero_lambda(out["zero"])
-    out["resources"] = kds_resources(occ)
+    out["resources"] = gen_resources(occ, "kKdS", 4)
     phase(62, f"G1d, S2d, D3: registers, spills, resident warps and SASS "
               f"({CARD}): {json.dumps(out['resources'])}")
     for v in out.values():
@@ -5639,7 +5743,7 @@ def main():
     grids = line_grid_orbit_phase()
     nccl_phase()
     # --- the rotating regular families (G1r, S2r, T2r, D2) ----------------
-    rot = rot_frames_phase()
+    rot = rot_frames_phase(occ)
     rot_cli = rot_cli_phase()
     rot_disk = rot_disk_phase()
     rot_obs = rot_shadow_phase()
@@ -6022,37 +6126,66 @@ def main():
         {"name": "fantasy_ks_disk_tangent",
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_ks.cu",
-         "replaces": "none: a port-side kernel (B6t); the JAX package "
-                     "differentiates the XLA while_loop "
+         "replaces": "none: a port-side kernel (B6t, one direction); the "
+                     "JAX package differentiates the XLA while_loop "
                      "grtrace/engine/disk.py:113 with jax.linearize / "
                      "jax.jacfwd (engine/sensitivity.py:66-138)",
-         "launches": fit["launches"]["B6t"]
-         + grids["line_grid"]["launches"]["B6t"],
-         "launches_paths": {"cli_fit_line": fit["launches"]["B6t"],
+         "launches": b6t["model_jvp"]["launches"]["B6t"],
+         "launches_paths": {"line_profile_model_jvp":
+                                b6t["model_jvp"]["launches"]["B6t"]},
+         "max_abs_err": max(b6t[k]["max_abs_err_b6t"]
+                            for k in ("float32", "float64")),
+         "ms": b6t["float64"]["b6t_ms"][0],
+         "plain_ms": b6t["float64"]["twin_b6t_ms"],
+         "bound_ms": b6t["float64"]["bound_ms_b6t"],
+         "bound_by": b6t["float64"]["bound_by"],
+         "library_ms": None,
+         "shapes": f"B6t with one direction (Mode::kDiskTangent), the jvp "
+                   f"of line_profile_model under forward AD; launches from "
+                   f"that model along spin at {B6T_SIZE}x{B6T_SIZE}, "
+                   f"float64 (phase 53); ms, plain_ms and bound_ms on the "
+                   f"{B6T_SIZE}x{B6T_SIZE} disk camera's rays, "
+                   f"{B6T_STEPS} steps of {B6T_DELTA}, float64, the spin "
+                   f"direction (bound: that launch's ray-steps)"},
+        {"name": "fantasy_ks_disk_tangent2",
+         "route": "cuda",
+         "source": "grtrace_torch/csrc/fantasy_ks.cu",
+         "replaces": "none: a port-side kernel (B6t, both directions); the "
+                     "JAX package differentiates the XLA while_loop "
+                     "grtrace/engine/disk.py:113 with jax.linearize / "
+                     "jax.jacfwd (engine/sensitivity.py:66-138)",
+         "launches": fit["launches"]["B6t2"]
+         + grids["line_grid"]["launches"]["B6t2"],
+         "launches_paths": {"cli_fit_line": fit["launches"]["B6t2"],
                             "cli_line_grid_fisher":
-                                grids["line_grid"]["launches"]["B6t"]},
-         "max_abs_err": max([r["max_abs_err"] for r in b6t.values()]
+                                grids["line_grid"]["launches"]["B6t2"]},
+         "max_abs_err": max([b6t[k]["max_abs_err"]
+                             for k in ("float32", "float64")]
                             + [b6t_fit["max_abs_err"],
                                b6t_map["max_abs_err"]]),
-         "ms": b6t_fit["b6t_ms"],
+         "ms": b6t_fit["b6t2_ms"],
          "plain_ms": b6t_fit["twin_ms"],
          "bound_ms": b6t_fit["bound_ms"],
          "bound_by": b6t_fit["bound_by"],
          "library_ms": None,
          "b6_16row_ms": b6t_fit["b6_16row_ms"],
+         "b6t_one_direction_ms": b6t_fit["b6t_ms"],
          "fisher_map_pass": b6t_map,
-         "camera_48": {k: {f: r[f] for f in ("kernel_ms", "b6_16row_ms",
-                                             "twin_ms", "bound_ms")}
-                       for k, r in b6t.items()},
-         "shapes": f"B6t, the tangent mode of fantasy_ks.cu; launches from "
-                   f"cli.fit_line and cli.line_grid --fisher at their "
-                   f"defaults (phases 54, 55); ms, plain_ms, bound_ms and "
-                   f"b6_16row_ms on cli.fit_line's last tangent pass "
-                   f"({b6t_fit['rays']} rays, {b6t_fit['dtype']}; phase "
-                   f"54), fisher_map_pass on cli.line_grid's (phase 55), "
-                   f"both held bitwise against the twin; camera_48 on the "
-                   f"{B6T_SIZE}x{B6T_SIZE} disk camera, {B6T_STEPS} steps "
-                   f"of {B6T_DELTA}, each dtype and direction (phase 53)"},
+         "camera_48": {k: {f: b6t[k][f] for f in (
+             "b6t2_ms", "b6t_ms", "b6_16row_ms", "twin_ms", "bound_ms")}
+                       for k in ("float32", "float64")},
+         "shapes": f"B6t with both directions (Mode::kDiskTangent2), one "
+                   f"launch a linearization; launches from cli.fit_line and "
+                   f"cli.line_grid --fisher at their defaults (phases 54, "
+                   f"55); ms, plain_ms, bound_ms, b6_16row_ms and "
+                   f"b6t_one_direction_ms on cli.fit_line's last "
+                   f"linearization ({b6t_fit['rays']} rays, "
+                   f"{b6t_fit['dtype']}; phase 54), fisher_map_pass on "
+                   f"cli.line_grid's (phase 55), both held bitwise against "
+                   f"the twin, the one-direction launches and B6; "
+                   f"camera_48 on the {B6T_SIZE}x{B6T_SIZE} disk camera, "
+                   f"{B6T_STEPS} steps of {B6T_DELTA}, each dtype (phase "
+                   f"53)"},
         {"name": "fantasy_gen_rot",
          "route": "cuda",
          "source": "grtrace_torch/csrc/fantasy_gen.cu",

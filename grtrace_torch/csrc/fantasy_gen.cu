@@ -63,7 +63,7 @@
 // chart's guard, which parks and reverts as in G1 (a parked ray stops at
 // the next step, after that step's slot).  The Kerr-Schild guard (JAX's
 // guard_cartesian) tests the null invariant |H| > 3e-2 (|p|^2 + 1) at the
-// post-step (q1, p1), or at the pre-step one where the step is not finite,
+// post-step (q1, p1) (a step that is not finite parks whatever it is),
 // and parks on the axis: (0, 0, cap_park) captured, (err_park, 0, 0)
 // numerical.  The host zeroes the record, so the slots after a ray's exit
 // stay +0.0.
@@ -194,6 +194,7 @@
 #endif
 
 #include <cstddef>
+#include <type_traits>
 
 namespace {
 
@@ -213,14 +214,19 @@ constexpr int threads_of(Mode mode) {
   return mode == Mode::kIntegrate || mode == Mode::kDisk ? 128 : 32;
 }
 
+// the same as a constant, which device code may read
+template <Mode kMode>
+constexpr int kThreadsOf = threads_of(kMode);
+
 // The resident blocks per SM that __launch_bounds__ asks ptxas to fit in
 // G1: 7 of float (at most 72 registers; left to itself ptxas takes 64 and
 // spills 52 bytes a thread), 4 of double (the 128 registers it takes
 // anyway).  chip_smoke.py fails on any spill here: lower the count then.
 // S2 and T2 ask for one; D1, with its disk state beside G1s's, 5 of float
-// and 3 of double.  The mass-function chart's heavier Kerr-Schild step asks
-// G1r for 5 of float and 3 of double, D2 for 4 and 3; the Carter chart's
-// longer evaluation G1d for 6 and 3, D3 for 5 and 3.
+// and 3 of double.  The mass-function chart, whose pre-step copy sits in
+// shared memory, asks G1r for 10 of float and 5 of double, D2 for 8 and 4:
+// the most that fit without a spill; the Carter chart's longer evaluation
+// G1d for 6 and 3, D3 for 5 and 3.
 template <typename T, Chart kChart, Mode kMode>
 constexpr int min_blocks() {
   if constexpr (kChart == Chart::kKdS) {
@@ -229,8 +235,8 @@ constexpr int min_blocks() {
     return 1;
   }
   if constexpr (kChart == Chart::kKSMass) {
-    if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 4;
-    if constexpr (kMode == Mode::kIntegrate) return sizeof(T) == 8 ? 3 : 5;
+    if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 4 : 8;
+    if constexpr (kMode == Mode::kIntegrate) return sizeof(T) == 8 ? 5 : 10;
     return 1;
   }
   if constexpr (kMode == Mode::kDisk) return sizeof(T) == 8 ? 3 : 5;
@@ -263,11 +269,15 @@ struct Scalars {
 
 // dH/dq on the kicked rows and dH/dp on all four: kick[0..2] is
 // subtracted scaled by dt from rows 1..K of the kicked momenta, drift[0..3]
-// added scaled by dt to the drifted position
+// added scaled by dt to the drifted position.  The Kerr-Schild-like charts
+// keep H and l at the metric point beside them: the guard reads those of
+// the step's last flow A, formed at the very q1 it tests (the other charts
+// leave them unset and unread).
 template <typename T>
 struct KickDrift {
   T kick[3];
   T drift[4];
+  T H, lx, ly, lz;
 };
 
 // kerr_bl._kick_drift: (k_r, k_th) and the drift at (r, theta)
@@ -563,6 +573,10 @@ __device__ __forceinline__ KickDrift<T> kick_drift_ks(T x, T y, T z, T pt,
   k.kick[0] = -H_x * S2 - HS2 * S_x;
   k.kick[1] = -H_y * S2 - HS2 * S_y;
   k.kick[2] = -H_z * S2 - HS2 * S_z;
+  k.H = g.H;
+  k.lx = g.lx;
+  k.ly = g.ly;
+  k.lz = g.lz;
   return k;
 }
 
@@ -676,7 +690,10 @@ __device__ __forceinline__ bool finite_q1p1(const T (&s)[kRows]) {
   return finite;
 }
 
-// The pre-step domain test; r_b is the chart radius the guard reads
+// The pre-step domain test; r_b is the chart radius the guard reads: q1's
+// r in the spherical charts, and in the Kerr-Schild-like ones q1's
+// ks_radius, which the caller carries in r_b from the guard of the step
+// before (from the launch on the first step)
 template <Chart kChart, typename T>
 __device__ __forceinline__ bool active(const T (&s)[kRows],
                                        const Scalars<T>& sc, T& r_b) {
@@ -684,48 +701,79 @@ __device__ __forceinline__ bool active(const T (&s)[kRows],
     r_b = s[1];
     return (s[1] > sc.r_cap) && (s[1] < sc.r_max);
   } else {
-    r_b = ks_radius(s[1], s[2], s[3], sc.a);
     const T rho = sqrt_t(s[1] * s[1] + s[2] * s[2] + s[3] * s[3]);
     return (r_b > sc.r_cap) && (rho < sc.r_max);
   }
 }
 
-// The blow-up guard after a step from `old` (chart radius r_b) to s: true
-// if it reverted s to old and parked q1
-template <Chart kChart, typename T>
-__device__ __forceinline__ bool guard(T (&s)[kRows], const T (&old)[kRows],
-                                      T r_b, const Scalars<T>& sc) {
+// A thread's column of the pre-step copy in shared memory (the
+// Kerr-Schild-like charts): row m at col[m * threads], so a warp's
+// accesses to one row are 32 consecutive words
+template <typename T, Chart kChart, Mode kMode>
+struct SharedRows {
+  T* col;
+
+  __device__ __forceinline__ SharedRows() : col(column()) {}
+
+  __device__ __forceinline__ static T* column() {
+    __shared__ T saved[kRows][kThreadsOf<kMode>];
+    return &saved[0][threadIdx.x];
+  }
+
+  __device__ __forceinline__ T& operator[](int m) const {
+    return col[m * kThreadsOf<kMode>];
+  }
+};
+
+// The pre-step copy: in registers in the spherical charts, in shared
+// memory in the Kerr-Schild-like ones, whose heavier step needs the
+// registers (fantasy_ks.cu's layout)
+template <typename T, Chart kChart, Mode kMode>
+using PreStep = std::conditional_t<kKSLike<kChart>,
+                                   SharedRows<T, kChart, kMode>, T[kRows]>;
+
+// The blow-up guard after a step from `old` (chart radius r_b) to s, whose
+// last flow A formed ka: true if it reverted s to old and parked q1.  In
+// the Kerr-Schild-like charts it leaves the post-step q1's ks_radius in r_b
+// where it passes the step
+template <Chart kChart, typename T, typename Old>
+__device__ __forceinline__ bool guard(T (&s)[kRows], const Old& old,
+                                      T& r_b, const KickDrift<T>& ka,
+                                      const Scalars<T>& sc) {
   const bool finite = finite_q1p1(s);
   bool exploded;
   bool crossed;
   bool inward;
+  T r_new = T(0);
   if constexpr (!kKSLike<kChart>) {
     exploded = !finite || abs_t(s[1] - r_b) > sc.jump_cap
                || abs_t(s[2] - old[2]) > T(1.5);
     crossed = finite && s[1] < sc.r_plus && !exploded;
     inward = old[5] < T(0);
   } else {
-    // the null invariant at the post-step (q1, p1), pre-step where the
-    // step is not finite (kerr_schild.hamiltonian_ks)
-    const T x = finite ? s[1] : old[1];
-    const T y = finite ? s[2] : old[2];
-    const T z = finite ? s[3] : old[3];
-    const T pt = finite ? s[4] : old[4];
-    const T px = finite ? s[5] : old[5];
-    const T py = finite ? s[6] : old[6];
-    const T pz = finite ? s[7] : old[7];
-    const Geom<T> g = geom_ks<kChart>(x, y, z, sc);
-    const T S = -pt + g.lx * px + g.ly * py + g.lz * pz;
+    // the null invariant at the post-step (q1, p1) (kerr_schild.
+    // hamiltonian_ks), from the H and l that the step's last flow A formed
+    // at that q1 (flow A moves only p1 and q2); a step that is not finite
+    // parks whatever h is
+    const T pt = s[4];
+    const T px = s[5];
+    const T py = s[6];
+    const T pz = s[7];
+    const T S = -pt + ka.lx * px + ka.ly * py + ka.lz * pz;
     const T h = T(0.5) * (-pt * pt + px * px + py * py + pz * pz)
-                - g.H * S * S;
+                - ka.H * S * S;
     const T p2 = px * px + py * py + pz * pz + T(1);
     exploded = !finite || abs_t(h) > T(3e-2) * p2;
-    crossed = finite && ks_radius(x, y, z, sc.a) < sc.r_plus && !exploded;
+    r_new = ks_radius(s[1], s[2], s[3], sc.a);
+    crossed = finite && r_new < sc.r_plus && !exploded;
     inward = (old[1] * old[5] + old[2] * old[6] + old[3] * old[7]) < T(0);
   }
   const bool capture =
       crossed || (exploded && (inward || r_b < sc.plunge_zone));
-  if (!(exploded || crossed)) return false;
+  if (!(exploded || crossed)) {
+    if constexpr (kKSLike<kChart>) r_b = r_new;
+    return false;
+  }
 #pragma unroll
   for (int m = 0; m < kRows; ++m) s[m] = old[m];
   if constexpr (!kKSLike<kChart>) {
@@ -825,6 +873,10 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
     }
   }
   KickDrift<T> ka = kick_drift_a<kChart>(s, sc);  // flow A's, carried
+  // the Kerr-Schild-like charts carry q1's radius from each guard to the
+  // next step's domain test (the launch's to the first)
+  T r_b = T(0);
+  if constexpr (kKSLike<kChart>) r_b = ks_radius(s[1], s[2], s[3], sc.a);
   for (int k = 0; k < steps; ++k) {
     if constexpr (kMode == Mode::kRecord) {
       if (k == next_store) {
@@ -834,13 +886,12 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
         next_store += stride;
       }
     }
-    T r_b;
     if (!active<kChart>(s, sc, r_b)) break;
-    T old[kRows];
+    PreStep<T, kChart, kMode> old;
 #pragma unroll
     for (int m = 0; m < kRows; ++m) old[m] = s[m];
     composed<kChart>(s, ka, subs, n_sub, sc);
-    const bool parked = guard<kChart>(s, old, r_b, sc);
+    const bool parked = guard<kChart>(s, old, r_b, ka, sc);
     ++ns;
     if constexpr (kMode == Mode::kDisk && kChart == Chart::kStatic) {
       if (!parked) {
@@ -904,12 +955,18 @@ fantasy_gen_kernel(const T* __restrict__ q0, const T* __restrict__ p0,
       }
     }
     if (parked) {
-      if constexpr (kMode == Mode::kIntegrate || kMode == Mode::kDisk) {
-        ns = -ns;  // the park flag rides in the sign
-        break;
+      if constexpr (kMode == Mode::kRecord) {
+        // every park point lies outside the domain (cap_park inside r_cap,
+        // err_park beyond r_max), so the next step's domain test would stop
+        // the ray: what is left is its record of the park point
+        if (k + 1 < steps && k + 1 == next_store) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) row[m] = s[m];
+        }
       } else {
-        ka = kick_drift_a<kChart>(s, sc);  // q1 reverted and parked
+        ns = -ns;  // the park flag rides in the sign
       }
+      break;
     }
   }
   ns_out[i] = ns;

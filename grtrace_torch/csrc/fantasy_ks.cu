@@ -13,9 +13,9 @@
 // ::integrate_batch_disk_ksc and ::integrate_batch_disk_ks, and in subring
 // mode ::integrate_batch_subrings_ksc and ::integrate_batch_subrings_ks,
 // built on the flows of grtrace_torch/physics/kerr_schild.py and the guard
-// and crossing recorders of make_ks_step.  Its tangent mode (kernel B6t)
-// carries one forward-mode tangent beside the 16-row disk mode; it
-// replaces no TPU kernel: the JAX package differentiates its XLA disk loop
+// and crossing recorders of make_ks_step.  Its tangent modes (kernel B6t)
+// carry one or two forward-mode tangents beside the 16-row disk mode; they
+// replace no TPU kernel: the JAX package differentiates its XLA disk loop
 // (grtrace/engine/disk.py::integrate_batch_disk) with jax.linearize.  Its
 // twin is ::integrate_batch_disk_tangent_ks, on the flows' tangents of
 // kerr_schild.py (_kick_drift_tan, open_ks_tan, core_ks_tan).
@@ -91,19 +91,27 @@
 // (the TPU kernel's zero carry: unfilled slots are +0.0); cnt_out (n,)
 // int32 is written once, at exit.
 //
-// Tangent mode (Mode::kDiskTangent, 16 rows only): the disk mode carrying
-// one forward-mode direction.  Each thread carries its ray's 16 rows and
-// their 16 tangent rows (tan_in, SoA (16, n)); every flow takes its
-// tangent beside its rows (kick_drift's tangent expressions, in the twin's
-// order), while the rows' operations stay the disk mode's, so they are
-// bitwise B6's.  Only mass, a and charge carry a tangent (dparams [d mass,
-// d a, d charge]).  A park reverts the tangent rows with the rows and
-// zeroes its parked coordinates' tangents.  A hit differentiates the
+// Tangent modes (Mode::kDiskTangent, Mode::kDiskTangent2; 16 rows only):
+// the disk mode carrying one or two forward-mode directions.  Each thread
+// carries its ray's 16 rows and, per direction, their 16 tangent rows
+// (tan_in, SoA (16 K, n), direction d in rows 16 d .. 16 d + 15).  Every
+// flow evaluates its kick/drift once and applies its tangent expressions
+// (kick_drift_tan, in the twin's order) to each direction in turn, while
+// the rows' operations stay the disk mode's: the rows are bitwise B6's, and
+// each direction's tangent rows bitwise those of a launch on that direction
+// alone.  Only mass, a and charge carry a tangent (dparams, [d mass, d a,
+// d charge] per direction).  A park reverts the tangent rows with the rows
+// and zeroes its parked coordinates' tangents.  A hit differentiates the
 // crossing: the lerp fraction, t_d = (z0_d - t (z0_d - z1_d)) / (z0 - z1),
-// and each lerp; rec_d_out (8, n) gets d hit_q (t, x, y, z), d hit_p
-// (t, x, y, z), zeros where no ray hit.  The tangent leaves at the
-// crossing, so the closing half-A runs on the rows alone.  The pre-step
-// copy of the tangent rows sits in shared memory below the rows'.
+// and each lerp; rec_d_out (8 K, n) gets per direction d hit_q (t, x, y,
+// z), d hit_p (t, x, y, z), zeros where no ray hit.  The tangent leaves at
+// the crossing, so the closing half-A runs on the rows alone.  The tangent
+// rows and their pre-step copies live in shared memory, one column per
+// thread (32 or 64 rows beside the rows' 16), in blocks of 64 threads, so
+// that the registers hold the rows and one kick/drift with its tangent:
+// the linearization of two parameters (engine/sensitivity.py) evaluates
+// the geometry of a step once, where one launch per direction evaluated
+// it twice and a separate primal launch a third time.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -113,12 +121,23 @@ namespace {
 
 constexpr int kRows = 16;
 constexpr int kScal = 6;
-constexpr int kThreads = 128;
 
 // what the loop records besides the state: nothing (B5), the first
 // equatorial crossing inside the annulus (B6), every crossing (B7), the
-// first crossing and its forward-mode tangent (B6t)
-enum class Mode : int { kPlain, kDisk, kSubring, kDiskTangent };
+// first crossing and its forward-mode tangent in one or two directions
+// (B6t)
+enum class Mode : int { kPlain, kDisk, kSubring, kDiskTangent, kDiskTangent2 };
+
+// the forward-mode directions a mode carries (constants, which device code
+// may read)
+template <Mode kMode>
+constexpr int kDirsOf = kMode == Mode::kDiskTangent2 ? 2
+                        : kMode == Mode::kDiskTangent ? 1 : 0;
+
+// threads per block: 64 in the tangent modes, whose tangent rows take a
+// block's shared memory, 128 in the others
+template <Mode kMode>
+constexpr int kThreadsOf = kDirsOf<kMode> ? 64 : 128;
 
 // The resident blocks per SM that __launch_bounds__ asks ptxas to fit: the
 // most each instantiation's registers allow without spilling.  ptxas spills
@@ -127,8 +146,10 @@ enum class Mode : int { kPlain, kDisk, kSubring, kDiskTangent };
 template <typename T, bool kComp, Mode kMode>
 constexpr int min_blocks() {
   constexpr bool kPlain = kMode == Mode::kPlain;
-  if constexpr (kMode == Mode::kDiskTangent) {
-    return 1;  // 32 rows and their flows' tangents: the whole register file
+  if constexpr (kDirsOf<kMode> == 2) {
+    return sizeof(T) == 8 ? 4 : 8;  // blocks of 64 threads
+  } else if constexpr (kDirsOf<kMode> == 1) {
+    return sizeof(T) == 8 ? 6 : 10;  // blocks of 64 threads
   } else if constexpr (sizeof(T) == 8) {
     return 5;
   } else if constexpr (kComp) {
@@ -155,19 +176,30 @@ __device__ __forceinline__ T best(const KsState<T, kComp>& st) {
   }
 }
 
-// A thread's pre-step copy of its state, in shared memory: row m at
-// col[m * kThreads], so a warp's accesses to one row are 32 consecutive
-// words.  Written every step, read only on a revert and for the crossing
+// A thread's rows in shared memory: row m at col[m * kStride] (kStride the
+// block's threads), so a warp's accesses to one row are 32 consecutive
+// words
+template <typename T, int kStride>
+struct Column {
+  T* col;
+
+  __device__ __forceinline__ T& operator[](int m) const {
+    return col[m * kStride];
+  }
+};
+
+// A thread's pre-step copy of its state, in shared memory, one column per
+// thread.  Written every step, read only on a revert and for the crossing
 // lerps.
-template <typename T, bool kComp>
+template <typename T, bool kComp, int kStride>
 struct Saved {
   T* col;
 
   __device__ __forceinline__ void store(const KsState<T, kComp>& st) const {
 #pragma unroll
     for (int m = 0; m < kRows; ++m) {
-      col[m * kThreads] = st.s[m];
-      if constexpr (kComp) col[(kRows + m) * kThreads] = st.c[m];
+      col[m * kStride] = st.s[m];
+      if constexpr (kComp) col[(kRows + m) * kStride] = st.c[m];
     }
   }
 
@@ -175,27 +207,27 @@ struct Saved {
     KsState<T, kComp> st;
 #pragma unroll
     for (int m = 0; m < kRows; ++m) {
-      st.s[m] = col[m * kThreads];
-      if constexpr (kComp) st.c[m] = col[(kRows + m) * kThreads];
+      st.s[m] = col[m * kStride];
+      if constexpr (kComp) st.c[m] = col[(kRows + m) * kStride];
     }
     return st;
   }
 
-  __device__ __forceinline__ T s(int m) const { return col[m * kThreads]; }
+  __device__ __forceinline__ T s(int m) const { return col[m * kStride]; }
 
   template <int I>
   __device__ __forceinline__ T best() const {
     if constexpr (kComp) {
-      return col[I * kThreads] - col[(kRows + I) * kThreads];
+      return col[I * kStride] - col[(kRows + I) * kStride];
     } else {
-      return col[I * kThreads];
+      return col[I * kStride];
     }
   }
 };
 
 // b_old + t (b_new - b_old) on row I, the crossing lerp
-template <int I, typename T, bool kComp>
-__device__ __forceinline__ T lerp_row(const Saved<T, kComp>& old,
+template <int I, typename T, bool kComp, int kStride>
+__device__ __forceinline__ T lerp_row(const Saved<T, kComp, kStride>& old,
                                       const KsState<T, kComp>& now, T t) {
   const T b_old = old.template best<I>();
   return b_old + t * (best<I>(now) - b_old);
@@ -246,7 +278,7 @@ struct Kick {
   HS<T> hs;
 };
 
-// The tangent mode's direction: the tangents of mass, a and charge (the
+// The tangent modes' direction: the tangents of mass, a and charge (the
 // substep scalars and the thresholds carry none), and of a kick/drift's
 // seven outputs
 template <typename T>
@@ -259,145 +291,180 @@ struct Kick7 {
   T kx, ky, kz, dt, dx, dy, dz;
 };
 
-// kerr_schild._kick_drift, and in kd its tangent (kerr_schild.
-// _kick_drift_tan) along (x_d, ..., pz_d) and sd: the tangent of each
-// intermediate X is X_d, formed in the twin's order; a quotient's tangent
-// reuses the primal reciprocal, (1/u)_d = -(u_d (1/u)) (1/u).  The primal
-// modes pass zero tangents and read no kd, so their tangent expressions
-// are dead code (chip_smoke.py checks their registers and instructions).
+// The intermediates of one kick/drift that its tangent reads
 template <typename T>
-__device__ __forceinline__ Kick<T> kick_drift(
-    T x, T y, T z, T pt, T px, T py, T pz, T x_d, T y_d, T z_d, T pt_d,
-    T px_d, T py_d, T pz_d, const Scalars<T>& sc, const Tangents<T>& sd,
-    Kick7<T>& kd) {
+struct KickGeom {
+  T x, y, z, px, py, pz, b, az, r, inv_r, inv_D, w, inv_w, hn, H, lxn, lx,
+      lyn, ly, lz, S, HS2, xr, r_x, yr, r_y, zw, zwr, r_z, xb, D_x, yb, D_y,
+      bz, zb, D_z, hx, H_x, hy, H_y, hz, H_z, inv_r2, lp, gn, zp, G, sxn, S_x,
+      syn, S_y, S_z, S2;
+};
+
+// kerr_schild._kick_drift at (x, y, z) with the momenta (pt, px, py, pz);
+// g receives the intermediates that its tangent (kick_drift_tan) reads,
+// which the primal modes leave dead
+template <typename T>
+__device__ __forceinline__ Kick<T> kick_drift(T x, T y, T z, T pt, T px,
+                                              T py, T pz,
+                                              const Scalars<T>& sc,
+                                              KickGeom<T>& g) {
   const T a = sc.a;
-  const T a_d = sd.a;
   // kerr_schild._geom
   const T rho2 = x * x + y * y + z * z;
-  const T rho2_d = T(2) * (x * x_d + y * y_d + z * z_d);
   const T b = rho2 - a * a;
-  const T b_d = rho2_d - T(2) * a * a_d;
   const T az = a * z;
-  const T az_d = a_d * z + a * z_d;
   const T s = sqrt(b * b + T(4) * az * az);
   const T r2 = T(0.5) * (b + s);
   const T r = sqrt(r2);
   const T inv_r = T(1) / r;
   const T inv_D = T(1) / s;
-  const T s_d = (b * b_d + T(4) * az * az_d) * inv_D;
-  const T r2_d = T(0.5) * (b_d + s_d);
-  const T r_d = T(0.5) * r2_d * inv_r;
-  const T inv_r_d = -(r_d * inv_r * inv_r);
-  const T inv_D_d = -(s_d * inv_D * inv_D);
   const T w = r2 + a * a;
-  const T w_d = r2_d + T(2) * a * a_d;
   const T inv_w = T(1) / w;
-  const T inv_w_d = -(w_d * inv_w * inv_w);
   const T hn = sc.mass * r - T(0.5) * sc.charge * sc.charge;
-  const T hn_d = (sd.mass * r + sc.mass * r_d) - sc.charge * sd.charge;
   const T H = hn * inv_D;
-  const T H_d = hn_d * inv_D + hn * inv_D_d;
   const T lxn = r * x + a * y;
-  const T lxn_d = (r_d * x + r * x_d) + (a_d * y + a * y_d);
   const T lx = lxn * inv_w;
-  const T lx_d = lxn_d * inv_w + lxn * inv_w_d;
   const T lyn = r * y - a * x;
-  const T lyn_d = (r_d * y + r * y_d) - (a_d * x + a * x_d);
   const T ly = lyn * inv_w;
-  const T ly_d = lyn_d * inv_w + lyn * inv_w_d;
   const T lz = z * inv_r;
-  const T lz_d = z_d * inv_r + z * inv_r_d;
 
   const T S = -pt + lx * px + ly * py + lz * pz;
-  const T S_d = -pt_d + (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d)
-                + (lz_d * pz + lz * pz_d);
   const T HS2 = T(2) * H * S;
-  const T HS2_d = T(2) * (H_d * S + H * S_d);
   Kick<T> k;
   k.hs = {H, S};
   k.dt = -pt + HS2;
   k.dx = px - HS2 * lx;
   k.dy = py - HS2 * ly;
   k.dz = pz - HS2 * lz;
-  kd.dt = -pt_d + HS2_d;
-  kd.dx = px_d - (HS2_d * lx + HS2 * lx_d);
-  kd.dy = py_d - (HS2_d * ly + HS2 * ly_d);
-  kd.dz = pz_d - (HS2_d * lz + HS2 * lz_d);
 
   const T xr = x * r;
   const T r_x = xr * inv_D;
-  const T r_x_d = (x_d * r + x * r_d) * inv_D + xr * inv_D_d;
   const T yr = y * r;
   const T r_y = yr * inv_D;
-  const T r_y_d = (y_d * r + y * r_d) * inv_D + yr * inv_D_d;
   const T zw = z * w;
-  const T zw_d = z_d * w + z * w_d;
   const T zwr = zw * inv_r;
-  const T zwr_d = zw_d * inv_r + zw * inv_r_d;
   const T r_z = zwr * inv_D;
-  const T r_z_d = zwr_d * inv_D + zwr * inv_D_d;
   const T xb = T(2) * x * b;
-  const T xb_d = T(2) * (x_d * b + x * b_d);
   const T D_x = xb * inv_D;
-  const T D_x_d = xb_d * inv_D + xb * inv_D_d;
   const T yb = T(2) * y * b;
-  const T yb_d = T(2) * (y_d * b + y * b_d);
   const T D_y = yb * inv_D;
-  const T D_y_d = yb_d * inv_D + yb * inv_D_d;
   const T bz = b + T(2) * a * a;
-  const T bz_d = b_d + T(4) * a * a_d;
   const T zb = T(2) * z * bz;
-  const T zb_d = T(2) * (z_d * bz + z * bz_d);
   const T D_z = zb * inv_D;
-  const T D_z_d = zb_d * inv_D + zb * inv_D_d;
 
   const T hx = sc.mass * r_x - H * D_x;
-  const T hx_d = (sd.mass * r_x + sc.mass * r_x_d) - (H_d * D_x + H * D_x_d);
   const T H_x = hx * inv_D;
-  const T H_x_d = hx_d * inv_D + hx * inv_D_d;
   const T hy = sc.mass * r_y - H * D_y;
-  const T hy_d = (sd.mass * r_y + sc.mass * r_y_d) - (H_d * D_y + H * D_y_d);
   const T H_y = hy * inv_D;
-  const T H_y_d = hy_d * inv_D + hy * inv_D_d;
   const T hz = sc.mass * r_z - H * D_z;
-  const T hz_d = (sd.mass * r_z + sc.mass * r_z_d) - (H_d * D_z + H * D_z_d);
   const T H_z = hz * inv_D;
-  const T H_z_d = hz_d * inv_D + hz * inv_D_d;
 
   const T inv_r2 = inv_r * inv_r;
-  const T inv_r2_d = T(2) * (inv_r * inv_r_d);
   const T lp = lx * px + ly * py;
-  const T lp_d = (lx_d * px + lx * px_d) + (ly_d * py + ly * py_d);
   const T rlp = T(2) * r * lp;
-  const T rlp_d = T(2) * (r_d * lp + r * lp_d);
   const T gn = x * px + y * py - rlp;
-  const T gn_d = (x_d * px + x * px_d) + (y_d * py + y * py_d) - rlp_d;
   const T zp = z * pz;
-  const T zp_d = z_d * pz + z * pz_d;
   const T zpr = zp * inv_r2;
-  const T zpr_d = zp_d * inv_r2 + zp * inv_r2_d;
   const T G = gn * inv_w - zpr;
-  const T G_d = (gn_d * inv_w + gn * inv_w_d) - zpr_d;
   const T sxn = r * px - a * py;
-  const T sxn_d = (r_d * px + r * px_d) - (a_d * py + a * py_d);
   const T S_x = r_x * G + sxn * inv_w;
-  const T S_x_d = (r_x_d * G + r_x * G_d) + (sxn_d * inv_w + sxn * inv_w_d);
   const T syn = a * px + r * py;
-  const T syn_d = (a_d * px + a * px_d) + (r_d * py + r * py_d);
   const T S_y = r_y * G + syn * inv_w;
-  const T S_y_d = (r_y_d * G + r_y * G_d) + (syn_d * inv_w + syn * inv_w_d);
   const T S_z = r_z * G + pz * inv_r;
-  const T S_z_d = (r_z_d * G + r_z * G_d) + (pz_d * inv_r + pz * inv_r_d);
 
   const T S2 = S * S;
-  const T S2_d = T(2) * (S * S_d);
   k.kx = -H_x * S2 - HS2 * S_x;
   k.ky = -H_y * S2 - HS2 * S_y;
   k.kz = -H_z * S2 - HS2 * S_z;
-  kd.kx = -(H_x_d * S2 + H_x * S2_d) - (HS2_d * S_x + HS2 * S_x_d);
-  kd.ky = -(H_y_d * S2 + H_y * S2_d) - (HS2_d * S_y + HS2 * S_y_d);
-  kd.kz = -(H_z_d * S2 + H_z * S2_d) - (HS2_d * S_z + HS2 * S_z_d);
+  g = {x,  y,   z,   px,  py,  pz,  b,   az,  r,  inv_r, inv_D, w,  inv_w,
+       hn, H,   lxn, lx,  lyn, ly,  lz,  S,   HS2, xr,  r_x,  yr,  r_y,
+       zw, zwr, r_z, xb,  D_x, yb,  D_y, bz,  zb,  D_z, hx,   H_x, hy,
+       H_y, hz, H_z, inv_r2, lp, gn, zp, G, sxn, S_x, syn, S_y, S_z, S2};
   return k;
+}
+
+// The tangent of the kick/drift g (kerr_schild._kick_drift_tan) along
+// (x_d, ..., pz_d) and sd: the tangent of each intermediate X is X_d,
+// formed in the twin's order; a quotient's tangent reuses the primal
+// reciprocal, (1/u)_d = -(u_d (1/u)) (1/u)
+template <typename T>
+__device__ __forceinline__ Kick7<T> kick_drift_tan(
+    const KickGeom<T>& g, T x_d, T y_d, T z_d, T pt_d, T px_d, T py_d,
+    T pz_d, const Scalars<T>& sc, const Tangents<T>& sd) {
+  const T a = sc.a;
+  const T a_d = sd.a;
+  const T rho2_d = T(2) * (g.x * x_d + g.y * y_d + g.z * z_d);
+  const T b_d = rho2_d - T(2) * a * a_d;
+  const T az_d = a_d * g.z + a * z_d;
+  const T s_d = (g.b * b_d + T(4) * g.az * az_d) * g.inv_D;
+  const T r2_d = T(0.5) * (b_d + s_d);
+  const T r_d = T(0.5) * r2_d * g.inv_r;
+  const T inv_r_d = -(r_d * g.inv_r * g.inv_r);
+  const T inv_D_d = -(s_d * g.inv_D * g.inv_D);
+  const T w_d = r2_d + T(2) * a * a_d;
+  const T inv_w_d = -(w_d * g.inv_w * g.inv_w);
+  const T hn_d = (sd.mass * g.r + sc.mass * r_d) - sc.charge * sd.charge;
+  const T H_d = hn_d * g.inv_D + g.hn * inv_D_d;
+  const T lxn_d = (r_d * g.x + g.r * x_d) + (a_d * g.y + a * y_d);
+  const T lx_d = lxn_d * g.inv_w + g.lxn * inv_w_d;
+  const T lyn_d = (r_d * g.y + g.r * y_d) - (a_d * g.x + a * x_d);
+  const T ly_d = lyn_d * g.inv_w + g.lyn * inv_w_d;
+  const T lz_d = z_d * g.inv_r + g.z * inv_r_d;
+
+  const T S_d = -pt_d + (lx_d * g.px + g.lx * px_d)
+                + (ly_d * g.py + g.ly * py_d) + (lz_d * g.pz + g.lz * pz_d);
+  const T HS2_d = T(2) * (H_d * g.S + g.H * S_d);
+  Kick7<T> kd;
+  kd.dt = -pt_d + HS2_d;
+  kd.dx = px_d - (HS2_d * g.lx + g.HS2 * lx_d);
+  kd.dy = py_d - (HS2_d * g.ly + g.HS2 * ly_d);
+  kd.dz = pz_d - (HS2_d * g.lz + g.HS2 * lz_d);
+
+  const T r_x_d = (x_d * g.r + g.x * r_d) * g.inv_D + g.xr * inv_D_d;
+  const T r_y_d = (y_d * g.r + g.y * r_d) * g.inv_D + g.yr * inv_D_d;
+  const T zw_d = z_d * g.w + g.z * w_d;
+  const T zwr_d = zw_d * g.inv_r + g.zw * inv_r_d;
+  const T r_z_d = zwr_d * g.inv_D + g.zwr * inv_D_d;
+  const T xb_d = T(2) * (x_d * g.b + g.x * b_d);
+  const T D_x_d = xb_d * g.inv_D + g.xb * inv_D_d;
+  const T yb_d = T(2) * (y_d * g.b + g.y * b_d);
+  const T D_y_d = yb_d * g.inv_D + g.yb * inv_D_d;
+  const T bz_d = b_d + T(4) * a * a_d;
+  const T zb_d = T(2) * (z_d * g.bz + g.z * bz_d);
+  const T D_z_d = zb_d * g.inv_D + g.zb * inv_D_d;
+
+  const T hx_d = (sd.mass * g.r_x + sc.mass * r_x_d)
+                 - (H_d * g.D_x + g.H * D_x_d);
+  const T H_x_d = hx_d * g.inv_D + g.hx * inv_D_d;
+  const T hy_d = (sd.mass * g.r_y + sc.mass * r_y_d)
+                 - (H_d * g.D_y + g.H * D_y_d);
+  const T H_y_d = hy_d * g.inv_D + g.hy * inv_D_d;
+  const T hz_d = (sd.mass * g.r_z + sc.mass * r_z_d)
+                 - (H_d * g.D_z + g.H * D_z_d);
+  const T H_z_d = hz_d * g.inv_D + g.hz * inv_D_d;
+
+  const T inv_r2_d = T(2) * (g.inv_r * inv_r_d);
+  const T lp_d = (lx_d * g.px + g.lx * px_d) + (ly_d * g.py + g.ly * py_d);
+  const T rlp_d = T(2) * (r_d * g.lp + g.r * lp_d);
+  const T gn_d = (x_d * g.px + g.x * px_d) + (y_d * g.py + g.y * py_d)
+                 - rlp_d;
+  const T zp_d = z_d * g.pz + g.z * pz_d;
+  const T zpr_d = zp_d * g.inv_r2 + g.zp * inv_r2_d;
+  const T G_d = (gn_d * g.inv_w + g.gn * inv_w_d) - zpr_d;
+  const T sxn_d = (r_d * g.px + g.r * px_d) - (a_d * g.py + a * py_d);
+  const T S_x_d = (r_x_d * g.G + g.r_x * G_d)
+                  + (sxn_d * g.inv_w + g.sxn * inv_w_d);
+  const T syn_d = (a_d * g.px + a * px_d) + (r_d * g.py + g.r * py_d);
+  const T S_y_d = (r_y_d * g.G + g.r_y * G_d)
+                  + (syn_d * g.inv_w + g.syn * inv_w_d);
+  const T S_z_d = (r_z_d * g.G + g.r_z * G_d)
+                  + (pz_d * g.inv_r + g.pz * inv_r_d);
+
+  const T S2_d = T(2) * (g.S * S_d);
+  kd.kx = -(H_x_d * g.S2 + g.H_x * S2_d) - (HS2_d * g.S_x + g.HS2 * S_x_d);
+  kd.ky = -(H_y_d * g.S2 + g.H_y * S2_d) - (HS2_d * g.S_y + g.HS2 * S_y_d);
+  kd.kz = -(H_z_d * g.S2 + g.H_z * S2_d) - (HS2_d * g.S_z + g.HS2 * S_z_d);
+  return kd;
 }
 
 // kerr_schild.hamiltonian_ks, from the H and S that a kick/drift computed
@@ -411,25 +478,23 @@ __device__ __forceinline__ T hamiltonian(T pt, T px, T py, T pz, HS<T> hs) {
 
 // Flow A (kFlowA: metric at q1 (rows 1..3), momenta p2 (12..15); kick p1
 // (5..7), drift q2 (8..11)) or flow B (metric at q2 (9..11), momenta p1
-// (4..7); kick p2 (13..15), drift q1 (0..3)); with kTan the tangent rows
-// ts take the flow's tangent (kerr_schild._flow_tan).  Returns H and S at
+// (4..7); kick p2 (13..15), drift q1 (0..3)); then, for each of kDirs
+// directions d, its tangent rows td[d] take the flow's tangent
+// (kerr_schild._flow_tan) from the same evaluation.  Returns H and S at
 // the metric point, which the flow leaves as they were.
-template <bool kFlowA, bool kTan, typename T, bool kComp>
+template <bool kFlowA, int kDirs, typename T, bool kComp, int kStride>
 __device__ __forceinline__ HS<T> flow(KsState<T, kComp>& st,
-                                      KsState<T, false>& ts, T dt,
+                                      const Column<T, kStride>* td, T dt,
                                       const Scalars<T>& sc,
-                                      const Tangents<T>& sd) {
+                                      const Tangents<T>* sd) {
   constexpr int kPos = kFlowA ? 1 : 9;
   constexpr int kMom = kFlowA ? 12 : 4;
   constexpr int kKick = kFlowA ? 5 : 13;
   constexpr int kDrift = kFlowA ? 8 : 0;
-  const auto d = [&](int m) { return kTan ? ts.s[m] : T(0); };
-  Kick7<T> kd;
-  const Kick<T> k = kick_drift(
-      st.s[kPos], st.s[kPos + 1], st.s[kPos + 2], st.s[kMom],
-      st.s[kMom + 1], st.s[kMom + 2], st.s[kMom + 3], d(kPos), d(kPos + 1),
-      d(kPos + 2), d(kMom), d(kMom + 1), d(kMom + 2), d(kMom + 3), sc, sd,
-      kd);
+  KickGeom<T> g;
+  const Kick<T> k = kick_drift(st.s[kPos], st.s[kPos + 1], st.s[kPos + 2],
+                               st.s[kMom], st.s[kMom + 1], st.s[kMom + 2],
+                               st.s[kMom + 3], sc, g);
   accumulate<kKick>(st, (-dt) * k.kx);
   accumulate<kKick + 1>(st, (-dt) * k.ky);
   accumulate<kKick + 2>(st, (-dt) * k.kz);
@@ -437,14 +502,19 @@ __device__ __forceinline__ HS<T> flow(KsState<T, kComp>& st,
   accumulate<kDrift + 1>(st, dt * k.dx);
   accumulate<kDrift + 2>(st, dt * k.dy);
   accumulate<kDrift + 3>(st, dt * k.dz);
-  if constexpr (kTan) {
-    ts.s[kKick] = ts.s[kKick] + (-dt) * kd.kx;
-    ts.s[kKick + 1] = ts.s[kKick + 1] + (-dt) * kd.ky;
-    ts.s[kKick + 2] = ts.s[kKick + 2] + (-dt) * kd.kz;
-    ts.s[kDrift] = ts.s[kDrift] + dt * kd.dt;
-    ts.s[kDrift + 1] = ts.s[kDrift + 1] + dt * kd.dx;
-    ts.s[kDrift + 2] = ts.s[kDrift + 2] + dt * kd.dy;
-    ts.s[kDrift + 3] = ts.s[kDrift + 3] + dt * kd.dz;
+#pragma unroll
+  for (int d = 0; d < kDirs; ++d) {
+    const Column<T, kStride>& ts = td[d];
+    const Kick7<T> kd = kick_drift_tan(
+        g, ts[kPos], ts[kPos + 1], ts[kPos + 2], ts[kMom], ts[kMom + 1],
+        ts[kMom + 2], ts[kMom + 3], sc, sd[d]);
+    ts[kKick] = ts[kKick] + (-dt) * kd.kx;
+    ts[kKick + 1] = ts[kKick + 1] + (-dt) * kd.ky;
+    ts[kKick + 2] = ts[kKick + 2] + (-dt) * kd.kz;
+    ts[kDrift] = ts[kDrift] + dt * kd.dt;
+    ts[kDrift + 1] = ts[kDrift + 1] + dt * kd.dx;
+    ts[kDrift + 2] = ts[kDrift + 2] + dt * kd.dy;
+    ts[kDrift + 3] = ts[kDrift + 3] + dt * kd.dz;
   }
   return k.hs;
 }
@@ -468,40 +538,47 @@ __device__ __forceinline__ void flow_mixed(KsState<T, true>& st, T omc_w,
   }
 }
 
-// hamiltonian._flow_mixed: the plain mixing rotation, cos_w = cos(2 omega d)
-template <typename T>
-__device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
-                                           T sin_w) {
+// hamiltonian._flow_mixed: the plain mixing rotation, cos_w = cos(2 omega
+// d), on 16 rows r (a thread's registers, or its column of tangent rows)
+template <typename T, typename Rows>
+__device__ __forceinline__ void mix_rows(Rows&& r, T cos_w, T sin_w) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const T q1 = st.s[i], p1 = st.s[4 + i];
-    const T q2 = st.s[8 + i], p2 = st.s[12 + i];
+    const T q1 = r[i], p1 = r[4 + i];
+    const T q2 = r[8 + i], p2 = r[12 + i];
     const T q_sum = q1 + q2;
     const T q_dif = q1 - q2;
     const T p_sum = p1 + p2;
     const T p_dif = p1 - p2;
-    st.s[i] = T(0.5) * (q_sum + q_dif * cos_w + p_dif * sin_w);
-    st.s[4 + i] = T(0.5) * (p_sum + p_dif * cos_w - q_dif * sin_w);
-    st.s[8 + i] = T(0.5) * (q_sum - q_dif * cos_w - p_dif * sin_w);
-    st.s[12 + i] = T(0.5) * (p_sum - p_dif * cos_w + q_dif * sin_w);
+    r[i] = T(0.5) * (q_sum + q_dif * cos_w + p_dif * sin_w);
+    r[4 + i] = T(0.5) * (p_sum + p_dif * cos_w - q_dif * sin_w);
+    r[8 + i] = T(0.5) * (q_sum - q_dif * cos_w - p_dif * sin_w);
+    r[12 + i] = T(0.5) * (p_sum - p_dif * cos_w + q_dif * sin_w);
   }
 }
 
-// the lerp's tangent on row I (tangent mode): b_old_d + (t_d (b_new -
+template <typename T>
+__device__ __forceinline__ void flow_mixed(KsState<T, false>& st, T cos_w,
+                                           T sin_w) {
+  mix_rows(st.s, cos_w, sin_w);
+}
+
+// the lerp's tangent on row I (tangent modes): b_old_d + (t_d (b_new -
 // b_old) + t (b_new_d - b_old_d))
-template <int I, typename T>
-__device__ __forceinline__ T lerp_tan(const Saved<T, false>& old,
+template <int I, typename T, int kStride>
+__device__ __forceinline__ T lerp_tan(const Saved<T, false, kStride>& old,
                                       const KsState<T, false>& now,
-                                      const Saved<T, false>& old_d,
-                                      const KsState<T, false>& now_d, T t,
+                                      const Column<T, kStride>& old_d,
+                                      const Column<T, kStride>& now_d, T t,
                                       T t_d) {
   const T b_old = old.s(I);
-  const T b_old_d = old_d.s(I);
-  return b_old_d + (t_d * (now.s[I] - b_old) + t * (now_d.s[I] - b_old_d));
+  const T b_old_d = old_d[I];
+  return b_old_d + (t_d * (now.s[I] - b_old) + t * (now_d[I] - b_old_d));
 }
 
 template <typename T, bool kComp, Mode kMode>
-__global__ void __launch_bounds__(kThreads, (min_blocks<T, kComp, kMode>()))
+__global__ void __launch_bounds__(kThreadsOf<kMode>,
+                                  (min_blocks<T, kComp, kMode>()))
 fantasy_ks_kernel(const T* __restrict__ state_in,
                   const T* __restrict__ tan_in, T* __restrict__ state_out,
                   int* __restrict__ ns_out, T* __restrict__ rec_out,
@@ -509,25 +586,39 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
                   const T* __restrict__ params,
                   const T* __restrict__ dparams, int n, int n_sub, int steps,
                   int n_orders) {
-  constexpr bool kTan = kMode == Mode::kDiskTangent;
-  constexpr bool kDisk = kMode == Mode::kDisk || kTan;
+  constexpr int kDirs = kDirsOf<kMode>;
+  constexpr int kTh = kThreadsOf<kMode>;
+  constexpr bool kDisk = kMode == Mode::kDisk || kDirs > 0;
   constexpr bool kSub = kMode == Mode::kSubring;
-  static_assert(!(kTan && kComp), "the tangent mode has the 16-row layout");
-  // the pre-step rows (and deficits), then in tangent mode their tangents
-  __shared__ T saved[((kComp ? 2 : 1) + (kTan ? 1 : 0)) * kRows][kThreads];
+  static_assert(!(kDirs && kComp), "the tangent modes have the 16-row layout");
+  // the pre-step rows (and deficits); in the tangent modes then, per
+  // direction, the pre-step tangent rows and the tangent rows
+  __shared__ T saved[((kComp ? 2 : 1) + 2 * kDirs) * kRows][kTh];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Saved<T, kComp> old{&saved[0][threadIdx.x]};
-  const Saved<T, false> old_d{&saved[kTan ? kRows : 0][threadIdx.x]};
+  const Saved<T, kComp, kTh> old{&saved[0][threadIdx.x]};
+  constexpr int kD = kDirs ? kDirs : 1;  // arrays of the primal modes: unused
+  Column<T, kTh> old_d[kD];
+  Column<T, kTh> td[kD];
+  Tangents<T> sd[kD];
+#pragma unroll
+  for (int d = 0; d < kDirs; ++d) {
+    old_d[d].col = &saved[(1 + 2 * d) * kRows][threadIdx.x];
+    td[d].col = &saved[(2 + 2 * d) * kRows][threadIdx.x];
+    sd[d] = {__ldg(dparams + 3 * d), __ldg(dparams + 3 * d + 1),
+             __ldg(dparams + 3 * d + 2)};
+  }
   const size_t stride = static_cast<size_t>(n);
 
   KsState<T, kComp> st;
-  KsState<T, false> ts;  // tangent mode: the tangent rows
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     st.s[k] = state_in[k * stride + i];
     if constexpr (kComp) st.c[k] = state_in[(kRows + k) * stride + i];
-    if constexpr (kTan) ts.s[k] = tan_in[k * stride + i];
+#pragma unroll
+    for (int d = 0; d < kDirs; ++d) {
+      td[d][k] = tan_in[(d * kRows + k) * stride + i];
+    }
   }
 
   Scalars<T> sc;
@@ -537,12 +628,6 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
   sc.r_cap = __ldg(params + 3);
   sc.r_max = __ldg(params + 4);
   sc.plunge_zone = __ldg(params + 5);
-  Tangents<T> sd{T(0), T(0), T(0)};
-  if constexpr (kTan) {
-    sd.mass = __ldg(dparams + 0);
-    sd.a = __ldg(dparams + 1);
-    sd.charge = __ldg(dparams + 2);
-  }
   const T d0 = __ldg(params + kScal);
   const T r_plus = sc.r_cap / T(1.05);
   const T r_max2 = sc.r_max * sc.r_max;
@@ -561,28 +646,35 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
       && st.s[1] * st.s[1] + st.s[2] * st.s[2] + st.s[3] * st.s[3] < r_max2;
   if (act0 && steps > 0) {
     // H and S of the last flow A, at today's (q1, p2)
-    HS<T> hs = flow<true, kTan>(st, ts, T(0.5) * d0, sc, sd);  // opening A
+    HS<T> hs = flow<true, kDirs>(st, td, T(0.5) * d0, sc, sd);  // opening A
     for (int k = 0; k < steps; ++k) {
       const T rho2 = st.s[1] * st.s[1] + st.s[2] * st.s[2]
                      + st.s[3] * st.s[3];
       if (!(r_old > sc.r_cap && rho2 < r_max2)) break;
       old.store(st);
-      if constexpr (kTan) old_d.store(ts);
+#pragma unroll
+      for (int d = 0; d < kDirs; ++d) {
+#pragma unroll
+        for (int m = 0; m < kRows; ++m) old_d[d][m] = td[d][m];
+      }
       T z0 = T(0);
       if constexpr (kDisk || kSub) z0 = best<3>(st);
       for (int j = 0; j < n_sub; ++j) {
         const T* sub = params + kScal + 4 * j;
         const T half = T(0.5) * __ldg(sub + 0);
-        flow<false, kTan>(st, ts, half, sc, sd);
+        flow<false, kDirs>(st, td, half, sc, sd);
         // the mixing's scalars are read here, not across the flow above:
         // two more live doubles there spill the double disk and subring
         // modes at their min_blocks
         const T cw = __ldg(sub + 1);
         const T sw = __ldg(sub + 2);
         flow_mixed(st, cw, sw);
-        if constexpr (kTan) flow_mixed(ts, cw, sw);  // linear: the same
-        flow<false, kTan>(st, ts, half, sc, sd);
-        hs = flow<true, kTan>(st, ts, __ldg(sub + 3), sc, sd);
+#pragma unroll
+        for (int d = 0; d < kDirs; ++d) {
+          mix_rows(td[d], cw, sw);  // linear: the same rotation
+        }
+        flow<false, kDirs>(st, td, half, sc, sd);
+        hs = flow<true, kDirs>(st, td, __ldg(sub + 3), sc, sd);
       }
 
       // null-invariant blow-up guard (make_ks_step), on the (q1, p2) rows
@@ -614,13 +706,15 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
           st.c[2] = T(0);
           st.c[3] = T(0);
         }
-        if constexpr (kTan) {
-          // the tangent rows revert with their rows; the parked
-          // coordinates are constants
-          ts = old_d.load();
-          ts.s[1] = T(0);
-          ts.s[2] = T(0);
-          ts.s[3] = T(0);
+        // the tangent rows revert with their rows; the parked coordinates
+        // are constants
+#pragma unroll
+        for (int d = 0; d < kDirs; ++d) {
+#pragma unroll
+          for (int m = 0; m < kRows; ++m) td[d][m] = old_d[d][m];
+          td[d][1] = T(0);
+          td[d][2] = T(0);
+          td[d][3] = T(0);
         }
         ns = -ns;
         r_old = ks_radius(st.s[1], st.s[2], st.s[3], sc.a);
@@ -647,21 +741,26 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
             rec_out[6 * stride + i] = lerp_row<13>(old, st, t);
             rec_out[7 * stride + i] = lerp_row<14>(old, st, t);
             rec_out[8 * stride + i] = lerp_row<15>(old, st, t);
-            if constexpr (kTan) {
-              // the lerp fraction differentiated, t_d = (z0_d - t (z0_d -
-              // z1_d)) / (z0 - z1); the guard, the capture and the annulus
-              // tests are discrete and carry no tangent
-              const T z0_d = old_d.s(3);
-              const T t_d = (z0_d - t * (z0_d - ts.s[3])) / (z0 - z1);
-              T* hd = rec_d_out + i;
-              hd[0 * stride] = lerp_tan<0>(old, st, old_d, ts, t, t_d);
-              hd[1 * stride] = lerp_tan<1>(old, st, old_d, ts, t, t_d);
-              hd[2 * stride] = lerp_tan<2>(old, st, old_d, ts, t, t_d);
-              hd[3 * stride] = lerp_tan<3>(old, st, old_d, ts, t, t_d);
-              hd[4 * stride] = lerp_tan<12>(old, st, old_d, ts, t, t_d);
-              hd[5 * stride] = lerp_tan<13>(old, st, old_d, ts, t, t_d);
-              hd[6 * stride] = lerp_tan<14>(old, st, old_d, ts, t, t_d);
-              hd[7 * stride] = lerp_tan<15>(old, st, old_d, ts, t, t_d);
+            if constexpr (kDirs > 0) {
+#pragma unroll
+              for (int d = 0; d < kDirs; ++d) {
+                // the lerp fraction differentiated, t_d = (z0_d - t (z0_d -
+                // z1_d)) / (z0 - z1); the guard, the capture and the
+                // annulus tests are discrete and carry no tangent
+                const Column<T, kTh>& od = old_d[d];
+                const Column<T, kTh>& nd = td[d];
+                const T z0_d = od[3];
+                const T t_d = (z0_d - t * (z0_d - nd[3])) / (z0 - z1);
+                T* hd = rec_d_out + 8 * d * stride + i;
+                hd[0 * stride] = lerp_tan<0>(old, st, od, nd, t, t_d);
+                hd[1 * stride] = lerp_tan<1>(old, st, od, nd, t, t_d);
+                hd[2 * stride] = lerp_tan<2>(old, st, od, nd, t, t_d);
+                hd[3 * stride] = lerp_tan<3>(old, st, od, nd, t, t_d);
+                hd[4 * stride] = lerp_tan<12>(old, st, od, nd, t, t_d);
+                hd[5 * stride] = lerp_tan<13>(old, st, od, nd, t, t_d);
+                hd[6 * stride] = lerp_tan<14>(old, st, od, nd, t, t_d);
+                hd[7 * stride] = lerp_tan<15>(old, st, od, nd, t, t_d);
+              }
             }
             break;  // the hit ray is frozen
           }
@@ -687,9 +786,9 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
       }
     }
     // closing half-A for every opened ray (parked ones too: the park points
-    // are regular chart points and flow A cannot move q1); the tangent has
-    // left at the crossing, so it runs on the rows alone
-    flow<true, false>(st, ts, T(-0.5) * d0, sc, sd);
+    // are regular chart points and flow A cannot move q1); the tangents
+    // have left at the crossing, so it runs on the rows alone
+    flow<true, 0>(st, td, T(-0.5) * d0, sc, sd);
   }
 
 #pragma unroll
@@ -704,10 +803,8 @@ fantasy_ks_kernel(const T* __restrict__ state_in,
     if (!hit) {
 #pragma unroll
       for (int m = 1; m < 9; ++m) rec_out[m * stride + i] = T(0);
-      if constexpr (kTan) {
 #pragma unroll
-        for (int m = 0; m < 8; ++m) rec_d_out[m * stride + i] = T(0);
-      }
+      for (int m = 0; m < 8 * kDirs; ++m) rec_d_out[m * stride + i] = T(0);
     }
   }
   if constexpr (kSub) cnt_out[i] = cnt;
@@ -721,9 +818,10 @@ int launch(const T* state_in, const T* tan_in, T* state_out, int* ns_out,
            const T* dparams, int n, int n_sub, int steps, int n_orders,
            void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  constexpr int kTh = kThreadsOf<kMode>;
+  const int blocks = (n + kTh - 1) / kTh;
   fantasy_ks_kernel<T, kComp, kMode>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<blocks, kTh, 0, static_cast<cudaStream_t>(stream)>>>(
           state_in, tan_in, state_out, ns_out, rec_out, rec_d_out, cnt_out,
           params, dparams, n, n_sub, steps, n_orders);
   return static_cast<int>(cudaGetLastError());
@@ -842,11 +940,11 @@ extern "C" int grt_fantasy_ks16_f64_sub_launch(const double* state_in,
       params, nullptr, n, n_sub, steps, n_orders, stream);
 }
 
-// Tangent mode (kernel B6t): 16 rows, float and double, plus the (16, n)
-// tangent rows tan_in, the (8, n) crossing tangents disk_d_out and the
-// scalar tangents dparams [d mass, d a, d charge]; params is the disk-mode
-// vector.
-
+// Tangent modes (kernel B6t): 16 rows, float and double, one direction
+// (*_disk_tangent_*) or two (*_disk_tangent2_*), plus the (16 K, n)
+// tangent rows tan_in, the (8 K, n) crossing tangents disk_d_out and the
+// scalar tangents dparams [d mass, d a, d charge] x K; params is the
+// disk-mode vector.
 extern "C" int grt_fantasy_ks16_f32_disk_tangent_launch(
     const float* state_in, const float* tan_in, float* state_out,
     int* ns_out, float* disk_out, float* disk_d_out, const float* params,
@@ -861,6 +959,24 @@ extern "C" int grt_fantasy_ks16_f64_disk_tangent_launch(
     int* ns_out, double* disk_out, double* disk_d_out, const double* params,
     const double* dparams, int n, int n_sub, int steps, void* stream) {
   return launch<double, false, Mode::kDiskTangent>(
+      state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, nullptr,
+      params, dparams, n, n_sub, steps, 0, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f32_disk_tangent2_launch(
+    const float* state_in, const float* tan_in, float* state_out,
+    int* ns_out, float* disk_out, float* disk_d_out, const float* params,
+    const float* dparams, int n, int n_sub, int steps, void* stream) {
+  return launch<float, false, Mode::kDiskTangent2>(
+      state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, nullptr,
+      params, dparams, n, n_sub, steps, 0, stream);
+}
+
+extern "C" int grt_fantasy_ks16_f64_disk_tangent2_launch(
+    const double* state_in, const double* tan_in, double* state_out,
+    int* ns_out, double* disk_out, double* disk_d_out, const double* params,
+    const double* dparams, int n, int n_sub, int steps, void* stream) {
+  return launch<double, false, Mode::kDiskTangent2>(
       state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, nullptr,
       params, dparams, n, n_sub, steps, 0, stream);
 }

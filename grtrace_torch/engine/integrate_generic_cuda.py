@@ -217,10 +217,23 @@ def _cost_sort_key_bl(q0s, p0s, mass, b_crit=None):
     return torch.abs(b - b_crit)
 
 
+def launch_order(q0s, p0s, mass, metric="Kerr", b_crit=None):
+    """The order in which G1's and the 20-row disk kernels' wrappers
+    launch (N, 4) rays, for every chart and every N: by the chart's cost
+    key, stable (`_cost_sort_key_ks` for the rotating families, whose
+    chart is Cartesian; `_cost_sort_key_bl` with `b_crit` otherwise).
+    Against frame order and against the sorted warps dealt round-robin
+    over the blocks, on launches of a fraction of one wave as on launches
+    of several, the sort was as fast as either or faster, within 3% where
+    it was not the fastest (PERF.md section 6, tools/gen_ablation.py)."""
+    key = (_cost_sort_key_ks(q0s, p0s, mass) if metric in MASS_FN
+           else _cost_sort_key_bl(q0s, p0s, mass, b_crit))
+    return torch.argsort(key, stable=True)
+
+
 def _sorted_rays(q0s, p0s, mass, b_crit=None):
     """(launch order, q0s and p0s in that order): the rays by cost key."""
-    order_idx = torch.argsort(_cost_sort_key_bl(q0s, p0s, mass, b_crit),
-                              stable=True)
+    order_idx = launch_order(q0s, p0s, mass, b_crit=b_crit)
     return order_idx, q0s[order_idx], p0s[order_idx]
 
 
@@ -241,26 +254,21 @@ def integrate_batch_generic_cuda(q0s, p0s, steps, delta, params, r_max,
     Boyer-Lindquist rescue by its exact predicate): (final_q, final_p,
     status, n_steps), the contract of `integrate_batch_generic(metric=
     ...)`, which it matches bit for bit on the card.  Rays are launched
-    in cost-sorted order (`_cost_sort_key_bl`, about the family's critical
-    impact parameter; `integrate_ks_cuda._cost_sort_key_ks` in the
-    Cartesian chart) and come back in the caller's.  Raises for CPU, misshapen or
-    non-contiguous inputs, and for a failed build or launch."""
+    in `launch_order` (cost-sorted: about the family's critical impact
+    parameter, or by `integrate_ks_cuda._cost_sort_key_ks` in the
+    Cartesian chart) and come back in the caller's.  Raises for CPU,
+    misshapen or non-contiguous inputs, and for a failed build or launch."""
     _check_inputs(q0s, p0s, (F32, F64))
     vec = gen_params(metric, delta, params, r_max, omega, order, q0s.dtype)
-    if metric in MASS_FN:
-        order_idx = torch.argsort(_cost_sort_key_ks(q0s, p0s,
-                                                    float(vec[0])),
-                                  stable=True)
-        out, ns = _unsorted(order_idx, *launch_fantasy_gen(
-            q0s[order_idx], p0s[order_idx], vec, steps, metric))
-        return finish_generic_rotating(tuple(out), ns, q0s, p0s, vec, metric,
-                                       params)
     static = metric in STATIC_F
     b_crit = (b_critical_cached(metric, *[float(x) for x in params][:2])
               if static else None)
-    order_idx, q_s, p_s = _sorted_rays(q0s, p0s, float(vec[0]), b_crit)
-    out, ns = _unsorted(order_idx, *launch_fantasy_gen(q_s, p_s, vec, steps,
-                                                       metric))
+    order_idx = launch_order(q0s, p0s, float(vec[0]), metric, b_crit)
+    out, ns = _unsorted(order_idx, *launch_fantasy_gen(
+        q0s[order_idx], p0s[order_idx], vec, steps, metric))
+    if metric in MASS_FN:
+        return finish_generic_rotating(tuple(out), ns, q0s, p0s, vec, metric,
+                                       params)
     if static:
         return finish_generic_static(tuple(out), ns, vec)
     if metric == "KerrDS":
@@ -376,7 +384,7 @@ def integrate_batch_disk_spin_cuda(q0s, p0s, steps, delta, params, r_max,
                                    metric="RotatingBardeen"):
     """The disk integration of (N, 4) CUDA rays through D2 (a rotating
     family, params = (M, a, p)) or D3 ('KerrDS', params = (M, a, Lambda)),
-    launched in G1r's or G1d's cost-sorted order and put back in the
+    launched in `launch_order` (G1r's or G1d's) and put back in the
     caller's, then the rescue and STATUS_DISK (`finish_disk_spin`):
     (final_q, final_p, status, n_steps, hit_q, hit_p), the contract of
     `integrate_batch_disk_rotating` and `disk_kds.integrate_batch_disk_kds`,
@@ -386,9 +394,7 @@ def integrate_batch_disk_spin_cuda(q0s, p0s, steps, delta, params, r_max,
     vec = disk_spin_params(
         gen_params(metric, delta, params, r_max, omega, order, q0s.dtype),
         r_in, r_out)
-    key = (_cost_sort_key_bl if chart_of("disk", metric) == "kds"
-           else _cost_sort_key_ks)
-    order_idx = torch.argsort(key(q0s, p0s, float(vec[0])), stable=True)
+    order_idx = launch_order(q0s, p0s, float(vec[0]), metric)
     out_s, ns_s, hit_s = launch_fantasy_gen_disk_spin(
         q0s[order_idx], p0s[order_idx], vec, steps, metric)
     out, ns = _unsorted(order_idx, out_s, ns_s)

@@ -25,14 +25,15 @@ first-equatorial-crossing recorder of `make_ks_step(disk=...)`:
     integrate_batch_disk_ks    16 rows (float64 rays)
 
 which return (final_q, final_p, status, n_steps, hit_q, hit_p).  Its
-tangent mode (kernel B6t) carries one forward-mode direction beside the
-16 rows (`make_ks_step(tangent=...)`, the flows' tangents of
-physics/kerr_schild.py):
+tangent mode (kernel B6t) carries K = 1 or 2 forward-mode directions
+beside the 16 rows (`make_ks_step(tangent=...)`, the flows' tangents of
+physics/kerr_schild.py, each direction a leading axis of its rows):
 
     integrate_batch_disk_tangent_ks   16 rows (float32 or float64 rays)
 
-which returns the six and the crossing's tangents (hit_q_d, hit_p_d);
-engine/sensitivity.py differentiates the line profile through it.
+which returns the six and the crossing's tangents (hit_q_d, hit_p_d, each
+(K, N, 4)); engine/sensitivity.py linearizes the line profile through it
+in both parameters at once.
 
 The subring mode (kernel B7, `integrate_batch_pallas_subrings` in JAX)
 counts every equatorial-plane crossing and records the first n_orders
@@ -166,12 +167,15 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     N): slot s holds the q1 rows then the p2 rows of crossing s.  No ray
     freezes, so the early-exit test stays active(comps).
 
-    disk with tangent=(d mass, d a, d charge) (16 rows) is kernel B6t's
-    step: masked_step(comps, ns, hit, hq, hp, tan, hq_d, hp_d) returns
-    the five and (tan, hq_d, hp_d): the flows carry the tangent rows `tan`
-    (`core_ks_tan`), which revert with their rows on a park (the parked
-    coordinates' tangents are zero), and a new hit records the crossing's
-    tangents in hq_d and hp_d, the lerp fraction differentiated.
+    disk with tangent=(d mass, d a, d charge) (16 rows; each a (K, 1)
+    tensor, one row a direction) is kernel B6t's step: masked_step(comps,
+    ns, hit, hq, hp, tan, hq_d, hp_d) returns the five and (tan, hq_d,
+    hp_d): the flows carry the tangent rows `tan` ((K, N) each, the
+    primal rows broadcast against them, so that each direction's rows are
+    bitwise those of a run on it alone), which revert with their rows on
+    a park (the parked coordinates' tangents are zero), and a new hit
+    records the crossing's tangents in hq_d and hp_d, the lerp fraction
+    differentiated.
     """
     core = core_ksc if compensated else core_ks
     open_raw = open_ksc if compensated else open_ks
@@ -637,21 +641,24 @@ def integrate_batch_disk_ks(q0s, p0s, steps, delta, params, r_max, omega,
 
 
 def ks_tangent_params(dparams, dtype=torch.float32):
-    """The tangent of the scalar vector: [d mass, d a, d charge] as one CPU
-    tensor in `dtype` (dparams = (dM, da[, dQ])).  The substep scalars, r_cap,
-    r_max, plunge_zone and the annulus carry no tangent: they are step
-    constants or the thresholds of discrete tests."""
-    d = torch.as_tensor(dparams, dtype=torch.float64).reshape(-1).tolist()
-    return torch.tensor((d + [0.0])[:3], dtype=dtype)
+    """The tangents of the scalar vector, one direction a row: (K, 3) [d
+    mass, d a, d charge] as a CPU tensor in `dtype` (dparams = K rows of
+    (dM, da[, dQ])).  The substep scalars, r_cap, r_max, plunge_zone and
+    the annulus carry no tangent: they are step constants or the
+    thresholds of discrete tests."""
+    d = torch.as_tensor(dparams, dtype=torch.float64)
+    d = d.reshape(-1, d.shape[-1])
+    pad = torch.zeros((d.shape[0], 3 - d.shape[1]), dtype=torch.float64)
+    return torch.cat([d, pad], dim=1).to(dtype)
 
 
 def integrate_batch_disk_tangent_ks(q0s, p0s, dq0s, dp0s, steps, delta,
                                     params, dparams, r_max, omega, r_in,
                                     r_out, order=2):
     """Eager twin of kernel B6t, the forward-mode tangent mode of B6 in the
-    16-row plain layout: `integrate_batch_disk_ks` carrying one tangent
-    direction (dq0s, dp0s; dparams = (dM, da[, dQ])) beside its rows
-    (`make_ks_step(tangent=...)`).
+    16-row plain layout: `integrate_batch_disk_ks` carrying K tangent
+    directions (dq0s, dp0s (K, N, 4); dparams K rows of (dM, da[, dQ]))
+    beside its rows (`make_ks_step(tangent=...)`).
 
     The flows' tangents are `kerr_schild.core_ks_tan`'s; the guard, the
     capture test and the annulus test are discrete and carry none (a parked
@@ -662,13 +669,19 @@ def integrate_batch_disk_tangent_ks(q0s, p0s, dq0s, dp0s, steps, delta,
     The primal rows are B6's 16-row twin's, bit for bit.
 
     Returns B6's six outputs and the tangents of the crossing, (final_q,
-    final_p, status, n_steps, hit_q, hit_p, hit_q_d, hit_p_d); rays that
-    never hit carry zero tangent rows, as zero hit rows."""
+    final_p, status, n_steps, hit_q, hit_p, hit_q_d, hit_p_d), the last
+    two (K, N, 4); rays that never hit carry zero tangent rows, as zero
+    hit rows.  Each direction's tangents are bitwise those of a call on
+    it alone: the tangent expressions are elementwise."""
     dtype = q0s.dtype
     vec = ks_params(delta, params, r_max, omega, order, False, dtype,
                     disk=(r_in, r_out))
     (mass, a, charge, r_cap, r_max, plunge_zone), subs = split_params(vec)
-    sc_d = tuple(ks_tangent_params(dparams, dtype).tolist())
+    dvec = ks_tangent_params(dparams, dtype).to(q0s.device)
+    if dq0s.dim() != 3 or dvec.shape[0] != dq0s.shape[0]:
+        raise ValueError("the tangents must be (K, N, 4) with K rows of "
+                         "dparams")
+    sc_d = tuple(dvec[:, j:j + 1] for j in range(3))
     active, masked_step, _, close_fn = make_ks_step(
         subs, mass, a, charge, r_cap, r_max, plunge_zone,
         disk=disk_annulus(vec), dtype=dtype, tangent=sc_d)
@@ -678,7 +691,8 @@ def integrate_batch_disk_tangent_ks(q0s, p0s, dq0s, dp0s, steps, delta,
     n, device = q0s.shape[0], q0s.device
     ns = torch.zeros((n,), dtype=torch.int32, device=device)
     hit = torch.zeros((n,), dtype=torch.bool, device=device)
-    hq = hp = hq_d = hp_d = (torch.zeros_like(q0s[:, 0]),) * 4
+    hq = hp = (torch.zeros_like(q0s[:, 0]),) * 4
+    hq_d = hp_d = (torch.zeros_like(dq0s[..., 0]),) * 4
     act0 = active(state)
     if steps > 0:
         opened, opened_d = open_ks_tan(state, tan, d0, (mass, a, charge),

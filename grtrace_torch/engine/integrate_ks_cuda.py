@@ -6,8 +6,8 @@ counterpart of `integrate_batch_pallas_disk`) and in subring mode (B7, the
 counterpart of `integrate_batch_pallas_subrings`).
 
 The tangent mode (B6t, `integrate_batch_disk_tangent_cuda`) is a kernel of
-its own in the same source: B6's 16-row disk step carrying one
-forward-mode tangent, float and double; its twin is
+its own in the same source: B6's 16-row disk step carrying one or two
+forward-mode tangents, float and double; its twin is
 `integrate_batch_disk_tangent_ks`.
 
 Each mode has three instantiations of one kernel template: 32 rows float
@@ -40,8 +40,10 @@ from .integrate_ks import (N_SCAL, _check_orders, finish_disk, finish_ks,
 launches = 0
 disk_launches = 0
 subring_launches = 0
-# the tangent mode (B6t), one forward-mode direction a launch
+# the tangent mode (B6t): launches with one forward-mode direction, and
+# with two (a linearization in both parameters)
 disk_tangent_launches = 0
+disk_tangent2_launches = 0
 
 # (rows, dtype) -> C entry of csrc/fantasy_ks.cu, plain and disk mode
 ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_launch",
@@ -53,8 +55,12 @@ DISK_ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_disk_launch",
 SUB_ENTRIES = {(32, torch.float32): "grt_fantasy_ks32_f32_sub_launch",
                (16, torch.float32): "grt_fantasy_ks16_f32_sub_launch",
                (16, torch.float64): "grt_fantasy_ks16_f64_sub_launch"}
-TANGENT_ENTRIES = {torch.float32: "grt_fantasy_ks16_f32_disk_tangent_launch",
-                   torch.float64: "grt_fantasy_ks16_f64_disk_tangent_launch"}
+# (directions, dtype) -> C entry of the tangent mode
+TANGENT_ENTRIES = {
+    (1, torch.float32): "grt_fantasy_ks16_f32_disk_tangent_launch",
+    (1, torch.float64): "grt_fantasy_ks16_f64_disk_tangent_launch",
+    (2, torch.float32): "grt_fantasy_ks16_f32_disk_tangent2_launch",
+    (2, torch.float64): "grt_fantasy_ks16_f64_disk_tangent2_launch"}
 DISK_ROWS = 9  # hit flag, hit_q (4), hit_p (4)
 
 
@@ -244,48 +250,53 @@ def integrate_batch_disk_cuda(q0s, p0s, steps, delta, params, r_max, omega,
 
 def launch_fantasy_ks_disk_tangent(state_in, tan_in, params, dparams,
                                    steps):
-    """Launch kernel B6t, the tangent mode, on a packed (16, N) state and its
-    (16, N) tangent rows; `params` is a disk-mode `ks_params` vector and
-    `dparams` its tangent (`ks_tangent_params`), CPU tensors in the state's
-    dtype.
+    """Launch kernel B6t, the tangent mode, on a packed (16, N) state and
+    the (16 K, N) tangent rows of K = 1 or 2 directions (direction d in
+    rows 16 d .. 16 d + 15); `params` is a disk-mode `ks_params` vector and
+    `dparams` its (K, 3) tangents (`ks_tangent_params`), CPU tensors in the
+    state's dtype.
 
-    Returns (state_out, ns, disk_rows (9, N), disk_d_rows (8, N): the
-    tangents of hit_q and hit_p, zeros where no ray hit).
+    Returns (state_out, ns, disk_rows (9, N), disk_d_rows (8 K, N): per
+    direction the tangents of hit_q and hit_p, zeros where no ray hit).
     """
-    global disk_tangent_launches
+    global disk_tangent_launches, disk_tangent2_launches
     from ..kernels.build import load
 
     for name, t in (("state_in", state_in), ("tan_in", tan_in)):
         if (not isinstance(t, torch.Tensor) or t.device.type != "cuda"
-                or t.dim() != 2 or t.shape[0] != 16
+                or t.dim() != 2 or t.shape[0] % 16
                 or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous (16, N) CUDA "
+            raise ValueError(f"{name} must be a contiguous (16 K, N) CUDA "
                              f"tensor")
-    if (tan_in.shape != state_in.shape or tan_in.dtype != state_in.dtype
+    k = tan_in.shape[0] // 16
+    if (state_in.shape[0] != 16 or tan_in.shape[1] != state_in.shape[1]
+            or tan_in.dtype != state_in.dtype
             or tan_in.device != state_in.device):
-        raise ValueError("tan_in must match state_in in shape, dtype and "
-                         "device")
-    entry = TANGENT_ENTRIES.get(state_in.dtype)
+        raise ValueError("state_in must be (16, N) and tan_in (16 K, N), in "
+                         "one dtype on one device")
+    entry = TANGENT_ENTRIES.get((k, state_in.dtype))
     if entry is None:
-        raise ValueError(f"no tangent KS kernel for {state_in.dtype}")
+        raise ValueError(f"no tangent KS kernel for {k} directions of "
+                         f"{state_in.dtype}")
     n = state_in.shape[1]
     n_sub = n_substeps(params)
     if (params.dtype != state_in.dtype or n_sub < 1
             or params.numel() != N_SCAL + 4 * n_sub + 2
-            or dparams.dtype != state_in.dtype or dparams.numel() != 3):
+            or dparams.dtype != state_in.dtype
+            or tuple(dparams.shape) != (k, 3)):
         raise ValueError("params must be a disk-mode ks_params vector and "
-                         "dparams [dM, da, dQ], in the state's dtype")
+                         "dparams (K, 3) [dM, da, dQ], in the state's dtype")
     if not 0 <= steps < 2 ** 31 or n >= 2 ** 31:
         raise ValueError(f"steps={steps} or N={n} out of the kernel's range")
     device = state_in.device
     state_out = torch.empty_like(state_in)
     ns = torch.empty((n,), dtype=torch.int32, device=device)
     rows = torch.empty((DISK_ROWS, n), dtype=state_in.dtype, device=device)
-    rows_d = torch.empty((8, n), dtype=state_in.dtype, device=device)
+    rows_d = torch.empty((8 * k, n), dtype=state_in.dtype, device=device)
     if n == 0:
         return state_out, ns, rows, rows_d
     lib = load()
-    vec_dev, dvec_dev = params.to(device), dparams.to(device)
+    vec_dev, dvec_dev = params.to(device), dparams.contiguous().to(device)
     ptrs = [t.data_ptr() for t in (state_in, tan_in, state_out, ns, rows,
                                    rows_d, vec_dev, dvec_dev)]
     with torch.cuda.device(device):
@@ -293,41 +304,53 @@ def launch_fantasy_ks_disk_tangent(state_in, tan_in, params, dparams,
         err = getattr(lib, entry)(*ptrs, n, n_sub, int(steps), stream)
     if err != 0:
         raise KernelLaunchError(f"{entry} failed: cudaError {err}")
-    disk_tangent_launches += 1
+    if k == 1:
+        disk_tangent_launches += 1
+    else:
+        disk_tangent2_launches += 1
     return state_out, ns, rows, rows_d
 
 
 def integrate_batch_disk_tangent_cuda(q0s, p0s, dq0s, dp0s, steps, delta,
                                       params, dparams, r_max, omega, r_in,
                                       r_out, order=2):
-    """Integrate (N, 4) Kerr-Schild camera rays and one tangent direction
-    (dq0s, dp0s; dparams = (dM, da[, dQ])) through kernel B6t, the 16-row
-    tangent mode of B6 (float32 or float64).
+    """Integrate (N, 4) Kerr-Schild camera rays and K = 1 or 2 tangent
+    directions (dq0s, dp0s (K, N, 4); dparams K rows of (dM, da[, dQ]))
+    through one launch of kernel B6t, the 16-row tangent mode of B6
+    (float32 or float64).
 
     B6's cost sort, applied to the tangents too; results back in the input
     order: (final_q, final_p, status, n_steps, hit_q, hit_p, hit_q_d,
-    hit_p_d), the contract of the twin `integrate_batch_disk_tangent_ks`,
-    which it matches bit for bit on the card (its first six bit for bit
-    B6's 16-row launch).  Raises for CPU, misshapen or non-contiguous
-    inputs, and for a failed build or launch.
+    hit_p_d (K, N, 4)), the contract of the twin
+    `integrate_batch_disk_tangent_ks`, which it matches bit for bit on the
+    card (its first six bit for bit B6's 16-row launch, each direction bit
+    for bit a launch on it alone).  Raises for CPU, misshapen or
+    non-contiguous inputs, and for a failed build or launch.
     """
     _check_inputs(q0s, p0s, False)
-    _check_inputs(dq0s, dp0s, False)
-    if dq0s.shape != q0s.shape or dq0s.dtype != q0s.dtype:
-        raise ValueError("the tangents must match the rays in shape and "
-                         "dtype")
+    for name, t in (("dq0s", dq0s), ("dp0s", dp0s)):
+        if (not isinstance(t, torch.Tensor) or t.dim() != 3
+                or t.shape[1:] != q0s.shape or t.dtype != q0s.dtype
+                or t.device != q0s.device):
+            raise ValueError(f"{name} must be (K, N, 4), the rays' dtype and "
+                             f"device")
+    if dq0s.shape != dp0s.shape:
+        raise ValueError("dq0s and dp0s must match in shape")
     vec = ks_params(delta, params, r_max, omega, order, False, q0s.dtype,
                     disk=(r_in, r_out))
     dvec = ks_tangent_params(dparams, q0s.dtype)
     order_idx, state_in = _sorted_state(q0s, p0s, vec, False)
-    tan_in = torch.stack(pack_state(dq0s[order_idx], dp0s[order_idx]))
+    n = q0s.shape[0]
+    tan_in = torch.stack(pack_state(dq0s[:, order_idx], dp0s[:, order_idx]),
+                         dim=1).reshape(-1, n)
     state_sorted, ns_sorted, rows_sorted, rows_d_sorted = \
         launch_fantasy_ks_disk_tangent(state_in, tan_in, vec, dvec, steps)
     out = finish_disk(tuple(_unsort(state_sorted, order_idx)),
                       _unsort(ns_sorted, order_idx),
                       _unsort(rows_sorted, order_idx), q0s, p0s, vec, False)
-    rows_d = _unsort(rows_d_sorted, order_idx)
-    return out + (rows_d[:4].T.contiguous(), rows_d[4:].T.contiguous())
+    rows_d = _unsort(rows_d_sorted, order_idx).reshape(-1, 8, n)
+    return out + (rows_d[:, :4].transpose(1, 2).contiguous(),
+                  rows_d[:, 4:].transpose(1, 2).contiguous())
 
 
 def integrate_batch_subrings_cuda(q0s, p0s, steps, delta, params, r_max,

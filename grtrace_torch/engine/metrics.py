@@ -179,6 +179,14 @@ PEAK_BYTES = 3.35e12
 #                and the launch's 22 = 566 (the crossing of a hit ray, B6's
 #                59 and t's and the eight lerps' tangents 52, is not
 #                counted: the bound stays a bound)
+#   fantasy_ks_tangent2 (B6t with two directions): per substep 1 + 3 flows
+#                x (kick/drift 120 + two tangents 2 x 262 + 7 plain adds x 2
+#                on the rows and 7 on each direction's tangents x 2 x 2) +
+#                mixing 96 on the rows and 2 x 96 on the tangents = 2,347
+#                (1,423 + 924: the rows' and the kick/drift's 499 a substep
+#                are counted once); per step B6t's 58; once per ray the open
+#                flow with both tangents (134 + 2 x 276), the primal close
+#                (134) and the launch's 22 = 842
 #   fantasy_gen_rot (G1r; S2r as fantasy_gen_traj_rot, T2r as
 #                fantasy_gen_trace_rot, which has nothing per step): S2's
 #                Kerr-Schild chart with the mass function's H in each of
@@ -226,6 +234,7 @@ KERNEL_OPS = {
     "fantasy_ks": (586, 55, 332),
     "fantasy_ks_plain": (499, 55, 290),
     "fantasy_ks_tangent": (1423, 58, 566),
+    "fantasy_ks_tangent2": (2347, 58, 842),
     "fantasy_traj": (255, 2, 27),
     "fantasy_trace": (255, 0, 26),
     "fantasy_gen": (532, 2, 129),

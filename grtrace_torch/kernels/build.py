@@ -42,8 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # not a trajectory or trace entry) takes (q0, p0, out, ns_out, params, n,
 # n_sub, steps, stream), and its disk entry (`*_gen_disk_*`, D1) (q0, p0,
 # disk, out, ns_out, hit_out, params, n, n_sub, steps, stream); a tangent
-# entry (`*_tangent_*`, B6t) takes (state_in, tan_in, state_out, ns_out,
-# disk_out, disk_d_out, params, dparams, n, n_sub, steps, stream)
+# entry (`*_tangent_*` and `*_tangent2_*`, B6t with one and two directions)
+# takes (state_in, tan_in, state_out, ns_out, disk_out, disk_d_out, params,
+# dparams, n, n_sub, steps, stream)
 ENTRIES = {
     "fantasy_eqc": ("grt_fantasy_eqc_launch", "grt_fantasy_eq_f64_launch",
                     "grt_fantasy_eqc_chunk_launch"),
@@ -65,7 +66,9 @@ ENTRIES = {
                    "grt_fantasy_ks16_f32_sub_launch",
                    "grt_fantasy_ks16_f64_sub_launch",
                    "grt_fantasy_ks16_f32_disk_tangent_launch",
-                   "grt_fantasy_ks16_f64_disk_tangent_launch"),
+                   "grt_fantasy_ks16_f64_disk_tangent_launch",
+                   "grt_fantasy_ks16_f32_disk_tangent2_launch",
+                   "grt_fantasy_ks16_f64_disk_tangent2_launch"),
     "fantasy_gen": ("grt_fantasy_gen_bl_f32_launch",
                     "grt_fantasy_gen_bl_f64_launch",
                     "grt_fantasy_gen_traj_bl_f32_launch",
@@ -106,7 +109,7 @@ def argtypes(name: str) -> list:
     """The ctypes signature of the C entry `name`."""
     if "_trig_" in name:
         return [_PTR] * 5 + [_INT, _PTR]
-    if "_tangent_" in name:
+    if "_disk_tangent" in name:
         return [_PTR] * 8 + [_INT] * 3 + [_PTR]
     if "_trace_" in name:
         return [_PTR] * 4 + [_INT] * 3 + [_PTR]

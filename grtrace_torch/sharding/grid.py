@@ -16,8 +16,8 @@ shape moves a sum only by rounding.
     subring_grid_sharded        kernel B7, one launch per grid point
     fisher_grid_sharded         the forward-mode Jacobian of
                                 engine/sensitivity.line_profile_model in
-                                float64 per point: B6 once, B6t once per
-                                parameter
+                                float64 per point: one B6t launch with
+                                both directions
 
 Per ray the physics is engine.disk.save_disk_maps' line profile: pixel
 flux g^4 r_em^-q for a narrow line with power-law emissivity.
@@ -219,8 +219,8 @@ def fisher_grid_sharded(mesh, spins, elevations, noise_sigma, *, size=48,
     the 1-sigma marginalized errors sigma(spin), sigma(elevation) and the
     spin-elevation correlation that a line-profile fit at that truth
     attains with per-bin noise `noise_sigma`, from the forward-mode
-    Jacobian of engine/sensitivity.line_profile_model (one B6 launch and
-    one B6t launch per parameter a point) in float64, the widest dtype.
+    Jacobian of engine/sensitivity.line_profile_model (one B6t launch with
+    both directions a point, no B6 launch) in float64, the widest dtype.
     Grid points ride the 'frames' axis; each point's size x size camera
     runs whole on the first rank of its frame shard.  Returns (F, 3)
     float64 on every rank: [sigma_spin, sigma_elev_rad, correlation]."""
@@ -244,7 +244,7 @@ def fisher_grid_sharded(mesh, spins, elevations, noise_sigma, *, size=48,
     for k in frames:
         theta = torch.tensor([spins[k], elevs[k]], dtype=wide, device=device)
         _, jac = _linearize(
-            lambda t, loop: _profile(t, centers, loop, **knobs), theta)
+            lambda t, lin: _profile(t, centers, lin, **knobs), theta)
         cov = torch.linalg.inv((jac.T @ jac) / sigma2)
         err = torch.sqrt(torch.diagonal(cov))
         corr = cov[0, 1] / torch.clamp(err[0] * err[1], min=1e-300)

@@ -1,7 +1,8 @@
 """Kernel G1's cost sort (engine/integrate_generic_cuda.py), on the CPU:
-the Boyer-Lindquist cost key, and the wrapper's sort and un-sort around the
-launch.  G1 itself runs only on the card (chip_smoke.py phases 34-36 hold
-it against its twin there; the launch order cannot change a ray's bits).
+the Boyer-Lindquist cost key, the wrappers' sort and un-sort around the
+launch, and `launch_order`, the launch rule of every chart.  G1 itself
+runs only on the card (chip_smoke.py phases 34-36 hold it against its
+twin there; the launch order cannot change a ray's bits).
 
 At most six tests a file: pytest-xdist's --dist loadfile hands out the
 files with the most tests first, so a file this small runs after the
@@ -73,3 +74,30 @@ def test_sort_and_unsort_are_inverse(dtype):
                             steps[order])
     assert torch.equal(out, torch.cat([q0.T, p0.T, q0.T]))
     assert torch.equal(ns, steps)
+
+
+def test_launch_order_is_a_permutation_the_unsort_inverts():
+    """`launch_order`, the one rule of G1's and the 20-row disk kernels'
+    wrappers, in the Boyer-Lindquist (Kerr, Kerr-de Sitter, a static
+    family with its b_crit) and the Cartesian (rotating Bardeen) charts:
+    a permutation of the rays, the stable argsort of the chart's cost
+    key, and `_unsorted` puts rows launched in it back in the caller's
+    order bit for bit."""
+    rng = np.random.default_rng(5)
+    n = 777
+    cases = {"Kerr": None, "KerrDS": None, "Bardeen": 5.1,
+             "RotatingBardeen": None}
+    for metric, b_crit in cases.items():
+        q0 = torch.tensor(rng.uniform(0.5, 3.0, (n, 4)), dtype=torch.float64)
+        p0 = torch.tensor(rng.normal(size=(n, 4)), dtype=torch.float64)
+        q0[400:450], p0[400:450] = q0[:50], p0[:50]   # equal keys
+        order = tgc.launch_order(q0, p0, 1.0, metric, b_crit)
+        assert torch.equal(torch.sort(order).values, torch.arange(n))
+        key = (tgc._cost_sort_key_ks(q0, p0, 1.0)
+               if metric == "RotatingBardeen"
+               else tgc._cost_sort_key_bl(q0, p0, 1.0, b_crit))
+        assert torch.equal(order, torch.argsort(key, stable=True))
+        steps = torch.tensor(rng.integers(-9, 9, n), dtype=torch.int32)
+        rows = torch.cat([q0.T, p0.T, q0.T])
+        out, ns = tgc._unsorted(order, rows[:, order], steps[order])
+        assert torch.equal(out, rows) and torch.equal(ns, steps)

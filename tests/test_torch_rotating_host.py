@@ -25,7 +25,9 @@ import torch
 
 from grtrace_torch.engine import integrate as ti
 from grtrace_torch.engine import integrate_generic as tig
+from grtrace_torch.physics import rotating_chart
 from grtrace_torch.physics.camera import camera_rays_cartesian
+from grtrace_torch.physics.kerr_schild import ks_radius_c
 from grtrace_torch.physics.spacetime import METRICS
 
 from test_torch_gen_host import CSRC, _SINCOS, _SQRT, _bits, _torch_sincos
@@ -178,3 +180,80 @@ def test_d2_source_bitwise_equal_to_twin(host, metric, spin, param):
                        _bits(torch.stack(state[8:12], -1)))
     assert not bool(out[8:16, ~hit.bool()].any())  # zeros where no hit
     assert 0 < int(hit.sum()) < 64
+
+
+
+def test_guard_parks_source_bitwise_equal_to_twins(host):
+    """The Kerr-Schild guard's two parks against the twins, rotating
+    Hayward (a = 0.9, l = 0.2), 600 steps of 0.08 at order 2.  Its
+    captures park on the invariant before they cross r_plus, so the
+    vector's r_plus is raised to 2.5 (above r_cap): two central rays of
+    the 8x8 camera take a finite step inside it that keeps the invariant
+    (crossed); a corner ray escapes; the central ray with its momentum
+    scaled by 1e155, a null ray whose first step overflows, explodes on
+    a step that is not finite.  G1r, S2r recording every step (the slot
+    after each park holds its park point, where the ray stops) and D2
+    (disk [2, 12]) bit for bit; the unguarded trace confirms each park's
+    kind."""
+    metric, spin, param = "RotatingHayward", 0.9, 0.2
+    q0, p0 = _rays(metric, spin, param, [0, 27, 36])
+    q0 = torch.cat([q0, q0[1:2]]).contiguous()
+    p0 = torch.cat([p0, 1e155 * p0[1:2]]).contiguous()
+    n, steps = q0.shape[0], 600
+    vec = tig.gen_params(metric, 0.08, (1.0, spin, param), 16.0, 1.0, 2,
+                         torch.float64)
+    vec[5] = 2.5
+    (mass, a, k, _, _, r_plus, _, family, cap_park, _), _ = \
+        tig.split_params(vec)
+    out = torch.zeros((12, n), dtype=torch.float64)
+    ns = torch.zeros(n, dtype=torch.int32)
+    host["g1r"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(), ns.data_ptr(),
+                vec.data_ptr(), n, _n_sub(vec), steps, 1, 0, None, None)
+    state, ns_t = tig.integrate_generic_twin(q0, p0, steps, vec, metric)
+    assert torch.equal(ns_t, ns)
+    assert torch.equal(_bits(out), _bits(torch.stack(state[:12])))
+    # the kind of each park, from the unguarded step it refused
+    trace = tig.trajectory_generic_unmasked(q0, p0, steps, vec, metric)
+    assert int(ns[0]) > 0 and bool((ns[1:] < 0).all())
+    kinds = []
+    for j in range(1, n):
+        new = trace[j, -int(ns[j]) - 1]
+        if not bool(torch.isfinite(new).all()):
+            kinds.append("not finite")
+            continue
+        h = rotating_chart.hamiltonian(*new[1:8], mass, a, k, int(family))
+        p2 = float(new[5] ** 2 + new[6] ** 2 + new[7] ** 2) + 1.0
+        r = float(ks_radius_c(*new[1:4], a))
+        kinds.append("exploded" if abs(float(h)) > 3e-2 * p2
+                     else "crossed" if r < r_plus else "?")
+    assert kinds == ["crossed", "crossed", "not finite"]
+    assert int(ns[3]) == -1
+    # S2r, every step recorded: the slot after a park is its park point
+    traj = torch.zeros((n, steps, 4), dtype=torch.float64)
+    ns = torch.zeros(n, dtype=torch.int32)
+    host["s2r"](q0.data_ptr(), p0.data_ptr(), traj.data_ptr(),
+                ns.data_ptr(), vec.data_ptr(), n, _n_sub(vec), steps, 1,
+                steps, None, None)
+    want, ns_t = tig.trajectory_generic_twin(q0, p0, steps, vec, metric, 1,
+                                             steps)
+    assert torch.equal(ns_t, ns)
+    assert torch.equal(_bits(traj), _bits(want))
+    for j in range(1, n):
+        m = int(ns[j])
+        assert traj[j, m, 1:].tolist() == [0.0, 0.0, cap_park]
+        assert not bool(traj[j, m + 1:].any())   # the ray stopped there
+    # D2 on the same rays
+    dvec = tig.disk_spin_params(vec, 2.0, 12.0)
+    out = torch.zeros((20, n), dtype=torch.float64)
+    ns = torch.zeros(n, dtype=torch.int32)
+    hit = torch.zeros(n, dtype=torch.int32)
+    host["d2"](q0.data_ptr(), p0.data_ptr(), out.data_ptr(), ns.data_ptr(),
+               dvec.data_ptr(), n, _n_sub(vec), steps, 1, 0, None,
+               hit.data_ptr())
+    state, ns_t, hit_t, hq, hp = tig.integrate_disk_spin_twin(
+        q0, p0, steps, dvec, metric)
+    assert torch.equal(ns, ns_t) and torch.equal(hit.bool(), hit_t)
+    assert torch.equal(_bits(out[:8].T), _bits(torch.stack(state[:8], -1)))
+    assert torch.equal(_bits(out[16:20].T),
+                       _bits(torch.stack(state[8:12], -1)))
+    assert int(ns[3]) == -1

@@ -12,8 +12,12 @@ B6 (csrc/fantasy_ks.cu), against forward AD and the JAX package.
     functions sit under __CUDACC__; the shim runs one thread at a time,
     -ffp-contract=off as nvcc's -fmad=false, and routes sqrt to torch's,
     which is not always the C library's) against its twin bit for bit,
-    its primal rows bit for bit those of B6's 16-row disk mode built from
-    the same source;
+    with one and with two directions, its primal rows bit for bit those
+    of B6's 16-row disk mode built from the same source; the twin with
+    two directions bit for bit two runs with one;
+  * `_linearize` (one tangent dispatch with both directions) bit for bit
+    the two forward-mode passes of the model, each with its own
+    one-direction dispatch;
   * `line_profile_jacobian` against JAX's (`jax.linearize` of the XLA
     loop) on JAX's own test inputs (tests/test_sensitivity.py: 16^2, 900
     steps, delta 0.1, r_out 12): the profile within 1e-10 and J within
@@ -57,11 +61,11 @@ THETA = np.array([0.5, 0.3])            # spin, elevation (rad)
 HOLE = (1.0, 0.7, 0.2)
 
 
-def _rays(dtype, n, seed=0):
+def _rays(dtype, n, seed=0, k=1):
     """The n x n look-at camera 40 degrees above the plane of HOLE (a 40
     degree field: every ray hits the annulus [2.5, 20] or falls in within
-    about 670 steps at delta 0.1), and a tangent of its launch state drawn
-    from a seeded numpy generator."""
+    about 670 steps at delta 0.1), and k tangents of its launch state,
+    (k, n^2, 4), drawn from a seeded numpy generator."""
     params = torch.tensor(HOLE, dtype=dtype)
     el = math.radians(40.0)
     obs = torch.tensor([30 * math.cos(el), 0.0, 30 * math.sin(el)],
@@ -72,8 +76,10 @@ def _rays(dtype, n, seed=0):
                                           params=params,
                                           g_inv_fn=kerr_schild_g_inv)
     rng = np.random.default_rng(seed)
-    dq = torch.tensor(1e-2 * rng.standard_normal(q0.shape), dtype=dtype)
-    dp = torch.tensor(1e-2 * rng.standard_normal(p0.shape), dtype=dtype)
+    dq = torch.tensor(1e-2 * rng.standard_normal((k,) + q0.shape),
+                      dtype=dtype)
+    dp = torch.tensor(1e-2 * rng.standard_normal((k,) + p0.shape),
+                      dtype=dtype)
     return q0.contiguous(), p0.contiguous(), dq, dp
 
 
@@ -92,8 +98,9 @@ def test_twin_matches_forward_ad(monkeypatch):
     dparams = (0.25, 0.5, 0.125)
     args = (200, 0.2, HOLE)
     tail = (31.0, 1.0, 2.5, 20.0)
-    want = tk.integrate_batch_disk_tangent_ks(q0, p0, dq, dp, *args, dparams,
-                                              *tail)
+    want = tk.integrate_batch_disk_tangent_ks(q0, p0, dq, dp, *args,
+                                              [dparams], *tail)
+    dq, dp = dq[0], dp[0]
     split = tk.split_params
 
     def dual_scalars(vec):
@@ -113,7 +120,7 @@ def test_twin_matches_forward_ad(monkeypatch):
     assert int(hit.sum()) >= 10
     assert torch.equal(hq.primal, want[4]) and torch.equal(hp.primal,
                                                            want[5])
-    for ad, explicit in ((hq.tangent, want[6]), (hp.tangent, want[7])):
+    for ad, explicit in ((hq.tangent, want[6][0]), (hp.tangent, want[7][0])):
         scale = float(explicit[hit].abs().max())
         assert scale > 1e-3
         np.testing.assert_allclose(explicit[hit].numpy(),
@@ -130,7 +137,7 @@ def test_tangent_dispatch_routes():
     from grtrace_torch.engine import metrics
     from grtrace_torch.kernels import build as tbuild
     q0, p0, dq, dp = _rays(torch.float64, 3)
-    args = (40, 0.2, HOLE, (0.0, 1.0, 0.0), 31.0, 1.0, 2.5, 20.0)
+    args = (40, 0.2, HOLE, [(0.0, 1.0, 0.0)], 31.0, 1.0, 2.5, 20.0)
     got = tk.integrate_dispatch_disk_tangent(q0, p0, dq, dp, *args)
     want = tk.integrate_batch_disk_tangent_ks(q0, p0, dq, dp, *args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -150,6 +157,9 @@ def test_tangent_dispatch_routes():
         assert len(tbuild.argtypes(name)) == 12
     assert metrics.flops_per_ray_step("fantasy_ks_tangent") > \
         2 * metrics.flops_per_ray_step("fantasy_ks_plain")
+    # two directions count the rows' and the kick/drift's operations once
+    assert (metrics.flops_per_ray_step("fantasy_ks_tangent2")
+            < 2 * metrics.flops_per_ray_step("fantasy_ks_tangent"))
 
 
 SHIM = r"""
@@ -178,36 +188,38 @@ static inline float tsqrt(float x) { return host_sqrt32(x); }
 #include "fantasy_ks.cu"
 #undef sqrt
 
-template <typename T, bool kTan>
+template <typename T, Mode M>
 static void run(const T* in, const T* tin, T* out, int* ns, T* rec,
                 T* rec_d, const T* params, const T* dparams, int n,
                 int n_sub, int steps) {
-  blockDim.x = kThreads;
-  for (unsigned b = 0; b * kThreads < unsigned(n); ++b) {
+  const unsigned threads = kThreadsOf<M>;
+  blockDim.x = threads;
+  for (unsigned b = 0; b * threads < unsigned(n); ++b) {
     blockIdx.x = b;
-    for (unsigned t = 0; t < kThreads; ++t) {
+    for (unsigned t = 0; t < threads; ++t) {
       threadIdx.x = t;
-      fantasy_ks_kernel<T, false, kTan ? Mode::kDiskTangent : Mode::kDisk>(
-          in, tin, out, ns, rec, rec_d, nullptr, params, dparams, n, n_sub,
-          steps, 0);
+      fantasy_ks_kernel<T, false, M>(in, tin, out, ns, rec, rec_d, nullptr,
+                                     params, dparams, n, n_sub, steps, 0);
     }
   }
 }
 
-// B6t: (state_in, tan_in, state_out, ns, disk, disk_d, params, dparams,
-// n, n_sub, steps); B6's 16-row disk mode the same, tan_in, disk_d and
-// dparams unused
-#define ENTRY(NAME, T, TAN)                                                \
+// B6t with one and two directions: (state_in, tan_in, state_out, ns,
+// disk, disk_d, params, dparams, n, n_sub, steps); B6's 16-row disk mode
+// the same, tan_in, disk_d and dparams unused
+#define ENTRY(NAME, T, M)                                                  \
   extern "C" void NAME(const T* in, const T* tin, T* out, int* ns, T* rec, \
                        T* rec_d, const T* params, const T* dparams, int n, \
                        int n_sub, int steps) {                             \
-    run<T, TAN>(in, tin, out, ns, rec, rec_d, params, dparams, n, n_sub,   \
-                steps);                                                    \
+    run<T, M>(in, tin, out, ns, rec, rec_d, params, dparams, n, n_sub,     \
+              steps);                                                      \
   }
-ENTRY(host_b6t_f32, float, true)
-ENTRY(host_b6t_f64, double, true)
-ENTRY(host_b6_f32, float, false)
-ENTRY(host_b6_f64, double, false)
+ENTRY(host_b6t_f32, float, Mode::kDiskTangent)
+ENTRY(host_b6t_f64, double, Mode::kDiskTangent)
+ENTRY(host_b6t2_f32, float, Mode::kDiskTangent2)
+ENTRY(host_b6t2_f64, double, Mode::kDiskTangent2)
+ENTRY(host_b6_f32, float, Mode::kDisk)
+ENTRY(host_b6_f64, double, Mode::kDisk)
 """
 _SQRT64 = ctypes.CFUNCTYPE(ctypes.c_double, ctypes.c_double)
 _SQRT32 = ctypes.CFUNCTYPE(ctypes.c_float, ctypes.c_float)
@@ -221,8 +233,9 @@ def _torch_sqrt(dtype):
 
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
-    """fantasy_ks.cu's B6t and B6 (16 rows) built for the CPU:
-    {(name, dtype) -> entry}, or a skip where g++ is missing."""
+    """fantasy_ks.cu's B6t (one and two directions) and B6 (16 rows)
+    built for the CPU: {(name, dtype) -> entry}, or a skip where g++ is
+    missing."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this machine to build the host emulation")
@@ -237,7 +250,7 @@ def host(tmp_path_factory):
                     _SQRT32(_torch_sqrt(torch.float32)))}
     so.set_sqrt(*out["sqrt"])
     for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
-        for name in ("b6t", "b6"):
+        for name in ("b6t", "b6t2", "b6"):
             fn = getattr(so, f"host_{name}_{suffix}")
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
             fn.restype = None
@@ -245,14 +258,20 @@ def host(tmp_path_factory):
     return out
 
 
+# two directions' scalar tangents: one that moves all three scalars, one
+# that moves a alone (the spin direction of a linearization)
+DPARAMS = [(0.25, 0.5, 0.125), (0.0, 1.0, 0.0)]
+
+
+@pytest.mark.parametrize("k", [1, 2], ids=["k1", "k2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-def test_b6t_source_bitwise_equal_to_twin(host, dtype):
-    """B6t's source, one thread at a time, against its twin on an 8x8
-    camera (hits, guard parks): all eight outputs bit for bit,
-    and its primal rows bit for bit B6's 16-row disk mode."""
-    q0, p0, dq, dp = _rays(dtype, 8)
-    steps, dparams = 700, (0.25, 0.5, 0.125)
+def test_b6t_source_bitwise_equal_to_twin(host, dtype, k):
+    """B6t's source with k directions, one thread at a time, against its
+    twin on an 8x8 camera (hits, guard parks): all eight outputs bit for
+    bit, and its primal rows bit for bit B6's 16-row disk mode."""
+    q0, p0, dq, dp = _rays(dtype, 8, k=k)
+    steps, dparams = 700, DPARAMS[:k]
     want = tk.integrate_batch_disk_tangent_ks(
         q0, p0, dq, dp, steps, 0.1, HOLE, dparams, 31.0, 1.0, 2.5, 20.0)
     vec = tk.ks_params(0.1, HOLE, 31.0, 1.0, 2, False, dtype,
@@ -260,29 +279,93 @@ def test_b6t_source_bitwise_equal_to_twin(host, dtype):
     dvec = tk.ks_tangent_params(dparams, dtype)
     n, n_sub = q0.shape[0], tk.n_substeps(vec)
     state_in = torch.stack(pack_state(q0, p0)).contiguous()
-    tan_in = torch.stack(pack_state(dq, dp)).contiguous()
-    runs = {}
-    for name in ("b6t", "b6"):
+    tan_in = torch.stack(pack_state(dq, dp), dim=1).reshape(16 * k, n)
+    runs, b6t = {}, "b6t" if k == 1 else "b6t2"
+    for name in (b6t, "b6"):
         out = torch.empty_like(state_in)
         ns = torch.empty(n, dtype=torch.int32)
         rec = torch.empty((9, n), dtype=dtype)
-        rec_d = torch.empty((8, n), dtype=dtype)
+        rec_d = torch.empty((8 * k, n), dtype=dtype)
         host[name, dtype](state_in.data_ptr(), tan_in.data_ptr(),
                           out.data_ptr(), ns.data_ptr(), rec.data_ptr(),
                           rec_d.data_ptr(), vec.data_ptr(), dvec.data_ptr(),
                           n, n_sub, steps)
         runs[name] = (out, ns, rec, rec_d)
-    out, ns, rec, rec_d = runs["b6t"]
-    assert torch.equal(_bits(out), _bits(runs["b6"][0]))
-    assert torch.equal(ns, runs["b6"][1])
-    assert torch.equal(_bits(rec), _bits(runs["b6"][2]))
+    (out, ns, rec, rec_d), b6 = runs[b6t], runs["b6"]
+    assert torch.equal(_bits(out), _bits(b6[0]))
+    assert torch.equal(ns, b6[1])
+    assert torch.equal(_bits(rec), _bits(b6[2]))
+    rec_d = rec_d.reshape(k, 8, n)
     got = tk.finish_disk(tuple(out), ns, rec, q0, p0, vec, False) + (
-        rec_d[:4].T, rec_d[4:].T)
+        rec_d[:, :4].transpose(1, 2), rec_d[:, 4:].transpose(1, 2))
     for g, w in zip(got, want):
         assert torch.equal(_bits(g) if g.is_floating_point() else g,
                            _bits(w) if w.is_floating_point() else w)
     assert int((want[2] == tk.STATUS_DISK).sum()) > 0
     assert int((ns < 0).sum()) > 0        # the guard's park is covered
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_b6t_twin_two_directions_bitwise_one_each(dtype):
+    """The twin with two directions against two runs of it with one, on a
+    5x5 camera (180 steps of 0.2, hits among them): the six primal outputs
+    and each direction's crossing tangents bit for bit."""
+    q0, p0, dq, dp = _rays(dtype, 5, seed=1, k=2)
+    args = (180, 0.2, HOLE)
+    tail = (31.0, 1.0, 2.5, 20.0)
+    both = tk.integrate_batch_disk_tangent_ks(q0, p0, dq, dp, *args,
+                                              DPARAMS, *tail)
+    assert int((both[2] == tk.STATUS_DISK).sum()) > 0
+    for d in range(2):
+        one = tk.integrate_batch_disk_tangent_ks(
+            q0, p0, dq[d:d + 1], dp[d:d + 1], *args, DPARAMS[d:d + 1], *tail)
+        for g, w in zip(both[:6], one[:6]):
+            assert torch.equal(_bits(g) if g.is_floating_point() else g,
+                               _bits(w) if w.is_floating_point() else w)
+        for g, w in zip(both[6:], one[6:]):
+            assert torch.equal(_bits(g[d]), _bits(w[0]))
+        assert bool(both[6][d].any())
+
+
+def test_linearize_one_dispatch_bitwise_two_passes(monkeypatch):
+    """`line_profile_jacobian` (one primal pass, one tangent dispatch with
+    both directions) against the model's two forward-mode passes, each
+    with its primal dispatch and a one-direction tangent dispatch, on the
+    CPU (a 5x5 camera, 220 steps of 0.2): the profile and every column of
+    J bit for bit, and one tangent dispatch, with two directions, and no
+    primal dispatch in the linearization."""
+    knobs = dict(size=5, steps=220, delta=0.2, r_out=12.0)
+    calls = []
+
+    def counted(name):
+        fn = getattr(ts, name)
+
+        def wrapped(q0, *args, **kw):
+            calls.append((name, args[1].shape[0] if "tangent" in name
+                          else 0))
+            return fn(q0, *args, **kw)
+        monkeypatch.setattr(ts, name, wrapped)
+    counted("integrate_dispatch_disk")
+    counted("integrate_dispatch_disk_tangent")
+    prof, jac = ts.line_profile_jacobian(THETA, CENTERS, device="cpu",
+                                         **knobs)
+    assert calls == [("integrate_dispatch_disk_tangent", 2)]
+    theta = torch.as_tensor(THETA)
+    for k in range(2):
+        e = torch.zeros_like(theta)
+        e[k] = 1.0
+        with fwAD.dual_level():
+            dual = ts.line_profile_model(fwAD.make_dual(theta, e), CENTERS,
+                                         device="cpu", **knobs)
+            primal, tangent = fwAD.unpack_dual(dual)
+        assert np.array_equal(primal.numpy().view(np.int64),
+                              prof.view(np.int64))
+        assert np.array_equal(tangent.numpy().view(np.int64),
+                              jac[:, k].copy().view(np.int64))
+    assert calls[1:] == [("integrate_dispatch_disk", 0),
+                         ("integrate_dispatch_disk_tangent", 1)] * 2
+    assert np.abs(jac).max() > 0.0
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ using std::isfinite;
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __shared__ static
 struct Dim3 { unsigned x, y, z; };
 static Dim3 blockIdx, blockDim, threadIdx;
 template <typename T> static inline T __ldg(const T* p) { return *p; }

@@ -1,5 +1,6 @@
-"""Time the kernels of grtrace_torch/csrc/fantasy_gen.cu (G1, S2) in several
-copies of the package, in turns, on one NVIDIA GPU.
+"""Time the kernels of grtrace_torch/csrc/fantasy_gen.cu (G1, S2, and the
+rotating and Kerr-de Sitter charts' G1r, D2, S2r, G1d) in several copies
+of the package, in turns, on one NVIDIA GPU.
 
     python3 tools/gen_ablation.py ROOT [ROOT ...] [--new-bits ROOT ...]
                                   [--out FILE] [--sass DIR]
@@ -24,7 +25,22 @@ kernels and prints one JSON line:
     in both charts, through `trajectory_batch_decimated_cuda`, median of 5;
   * phase 36's a = 0 frames (G1 beside the fast path, float64 and
     float32, with their gates);
-  * a digest of G1's and each S2's outputs.
+  * chip_smoke.py phase 57's three rotating frames (G1r: the 1024x1024
+    rotating-Bardeen frame, the 256x256 float64 rotating-Hayward one and
+    the horizonless 256x256 one), phase 62's three Kerr-de Sitter frames
+    (G1d: 1024x1024, 256x256 float64, Lambda = 0 at 256x256), the 512x512
+    rotating-Bardeen disk of phase 59 (D2) and its README 256x256 disk at
+    the same budget, and phase 48's first static frame (G1s): each through
+    its wrapper (kernel+wrapper, median of 5) on the render's rays, and S2r
+    on the 20 rays of the rotating frame that the render samples;
+  * the launch-order comparison on each of those rotating, Kerr-de Sitter
+    and disk frames: the bare launch (median of 3) with the rays in three
+    orders: sorted by the wrapper's cost key, in frame order, and the
+    sorted warps dealt round-robin over the blocks (block b takes sorted
+    warps b, b + B, b + 2 B, b + 3 B of B blocks; chip_smoke.dealt),
+    beside the cost key's sort and the rays' gather alone (the rest of
+    the wrapper's time is its read-out and rescue);
+  * a digest of the outputs of G1, each S2, G1r, G1d, D2, S2r and G1s.
 
 The script fails unless every ROOT's digests equal the first ROOT's,
 except for the ROOTs named with --new-bits (a change that rounds
@@ -156,6 +172,7 @@ def one(root, arrays, sass_dir=None):
         a0 = sm.bl_a0_phase()
     except AssertionError as err:
         a0 = {"gate_failed": str(err)}
+    frames, orders, digest = other_charts(sm, tgc, device)
     return {"root": root, "ptxas": _ptxas(build, lib), "occupancy": occ,
             "sass": sass, "sweep": sweep,
             "wrapper_ms": {"G1": g1_ms, "S2_BL": s2_ms["Kerr"],
@@ -164,9 +181,124 @@ def one(root, arrays, sass_dir=None):
                       "longest_ray": int(n_steps.max()),
                       "status_counts": torch.bincount(
                           status.long(), minlength=4).tolist()},
-            "a0": a0,
+            "a0": a0, "frames": frames, "orders": orders,
             "digest": {"G1": _digest(g1), "S2_BL": _digest(s2["Kerr"]),
-                       "S2_KS": _digest(s2["KerrSchild"])}}
+                       "S2_KS": _digest(s2["KerrSchild"]), **digest}}
+
+
+def other_charts(sm, tgc, device):
+    """The rotating, Kerr-de Sitter, disk and static frames' wrapper times
+    and launch orders ({label: record}, {label: {order: ms}}) and their
+    digests."""
+    import numpy as np
+    import torch
+    import grtrace_torch as gt
+    from grtrace_torch.cli.args import parse_args, scene_from_args
+    from grtrace_torch.engine import integrate_generic as tig
+    from grtrace_torch.engine.integrate_ks_cuda import _cost_sort_key_ks
+    from grtrace_torch.engine.render import ROTATING_NAMES, STATIC_NAMES
+    from grtrace_torch.io.textures import starfield
+    from grtrace_torch.physics.rotating_orbits import \
+        rotating_disk_inner_edge
+    from grtrace_torch.physics.rotating_regular import MASS_FN
+    tex = starfield()
+    frames, orders, digest = {}, {}, {}
+    dealt = _smoke(HERE).dealt  # this checkout's, for every ROOT alike
+
+    def rays(res):
+        return (res.device("q0").reshape(-1, 4).contiguous(),
+                res.device("p0").reshape(-1, 4).contiguous())
+
+    def order_times(label, q0, p0, vec, family, steps, launch):
+        key_fn = (_cost_sort_key_ks if family in MASS_FN
+                  else tgc._cost_sort_key_bl)
+
+        def sort_and_gather():
+            idx = torch.argsort(key_fn(q0, p0, float(vec[0])), stable=True)
+            return idx, q0[idx].contiguous(), p0[idx].contiguous()
+        (srt, _, _), sort_ms = _median_ms(sort_and_gather, device, reps=3)
+        cand = {"sorted": srt, "frame": torch.arange(q0.shape[0],
+                                                     device=q0.device),
+                "dealt": dealt(srt)}
+        out = {}
+        for name, idx in cand.items():
+            q, p = q0[idx].contiguous(), p0[idx].contiguous()
+            _, out[name] = _median_ms(lambda: launch(q, p, vec, steps),
+                                      device, reps=3)
+        orders[label] = {"rays": q0.shape[0], "ms": out,
+                         "sort_and_gather_ms": sort_ms}
+
+    gen = [(f"G1r {m} {p} {n} {d}", sm.rot_scene(m, p, n, d),
+            ROTATING_NAMES[m], (sm.MASS, sm.ROT_SPIN, p))
+           for m, p, n, d in ((*sm.ROT_FRAME, sm.KERR_SIZE, "float32"),
+                              (*sm.ROT_F64, sm.ROT_SMALL, "float64"),
+                              (*sm.ROT_HORIZONLESS, sm.ROT_SMALL,
+                               "float32"))]
+    gen += [(f"G1d {lam} {n} {d}", sm.kds_scene(lam, n, d), "KerrDS",
+             (sm.MASS, sm.KDS_SPIN, lam))
+            for lam, n, d in ((sm.KDS_LAMBDA, sm.KERR_SIZE, "float32"),
+                              (sm.KDS_LAMBDA, sm.KDS_SMALL, "float64"),
+                              (0.0, sm.KDS_SMALL, "float32"))]
+    for label, scene, family, params in gen:
+        q0, p0 = rays(gt.render(scene, bg_array=tex, device="cuda"))
+        out, ms = _median_ms(lambda: tgc.integrate_batch_generic_cuda(
+            q0, p0, sm.KERR_STEPS, sm.KERR_DELTA, params, sm.R_MAX,
+            sm.OMEGA, metric=family), device)
+        frames[label] = {"ms": ms, "rays": q0.shape[0],
+                         "ray_steps": int(out[3].long().sum()),
+                         "longest_ray": int(out[3].max())}
+        digest[label] = _digest(out)
+        vec = tig.gen_params(family, sm.KERR_DELTA, params, sm.R_MAX,
+                             sm.OMEGA, 2, q0.dtype)
+        order_times(label, q0, p0, vec, family, sm.KERR_STEPS,
+                    lambda q, p, v, n: tgc.launch_fantasy_gen(q, p, v, n,
+                                                              family))
+        if label.startswith("G1r") and q0.shape[0] == sm.KERR_SIZE ** 2:
+            idx = torch.as_tensor(np.random.default_rng(0).choice(
+                q0.shape[0], size=N_SAMPLES, replace=False), device=device)
+            qs, ps = q0[idx].contiguous(), p0[idx].contiguous()
+            s2r, ms = _median_ms(lambda: tgc.trajectory_batch_decimated_cuda(
+                qs, ps, sm.KERR_STEPS, sm.KERR_DELTA, params, sm.R_MAX,
+                sm.OMEGA, metric=family, n_keep=sm.TRAJ_POINTS,
+                return_steps=True), device)
+            frames["S2r"] = {"ms": ms, "rays": N_SAMPLES,
+                             "longest_ray": int(s2r[1].max())}
+            digest["S2r"] = _digest(s2r)
+    # D2: the 512x512 rotating-Bardeen disk and the README's 256x256 one
+    params = (sm.MASS, sm.ROT_SPIN, 0.2)
+    r_in = rotating_disk_inner_edge("RotatingBardeen", sm.MASS, sm.ROT_SPIN,
+                                    0.2)
+    for size in (sm.DISK_SIZE, sm.ROT_SMALL):
+        label = f"D2 {size}"
+        q0, p0 = rays(gt.render_disk(
+            sm.rot_scene("rotating-bardeen", 0.2, size, steps=sm.DISK_STEPS,
+                         delta=sm.DISK_DELTA),
+            gt.DiskConfig(), bg_array=tex, device="cuda"))
+        out, ms = _median_ms(lambda: tgc.integrate_batch_disk_spin_cuda(
+            q0, p0, sm.DISK_STEPS, sm.DISK_DELTA, params, sm.R_MAX, sm.OMEGA,
+            r_in, 14.0, metric="RotatingBardeen"), device)
+        frames[label] = {"ms": ms, "rays": q0.shape[0],
+                         "ray_steps": int(out[3].long().sum()),
+                         "hits": int((out[2] == 3).sum())}
+        digest[label] = _digest(out)
+        vec = tig.disk_spin_params(tig.gen_params(
+            "RotatingBardeen", sm.DISK_DELTA, params, sm.R_MAX, sm.OMEGA, 2,
+            q0.dtype), r_in, 14.0)
+        order_times(label, q0, p0, vec, "RotatingBardeen", sm.DISK_STEPS,
+                    lambda q, p, v, n: tgc.launch_fantasy_gen_disk_spin(
+                        q, p, v, n, "RotatingBardeen"))
+    # G1s: phase 48's first static frame
+    metric, param = sm.STATIC_FRAMES[0]
+    scene = scene_from_args(parse_args(["--metric", metric, "--metric-param",
+                                        str(param)] + sm.STATIC_ARGV))
+    q0, p0 = rays(gt.render(scene, bg_array=tex, seed=0, device="cuda"))
+    out, ms = _median_ms(lambda: tgc.integrate_batch_generic_cuda(
+        q0, p0, sm.STEPS, sm.DELTA, (sm.MASS, param, 0.0), sm.R_MAX,
+        sm.OMEGA, metric=STATIC_NAMES[metric]), device)
+    frames[f"G1s {metric} {param}"] = {"ms": ms, "rays": q0.shape[0]}
+    digest[f"G1s {metric} {param}"] = _digest(out)
+    return frames, orders, digest
+
 
 
 def _angles(status_a, dir_a, status_b, dir_b):
@@ -216,9 +348,9 @@ def main():
     for j, root in enumerate(a.roots):
         arrays = os.path.join(ARRAYS, f"{j}.npz")
         cmd = [sys.executable, os.path.abspath(__file__), "--one", arrays,
-               root]
+               os.path.abspath(root)]  # the child runs in this checkout
         if a.sass:
-            cmd += ["--sass", a.sass]
+            cmd += ["--sass", os.path.abspath(a.sass)]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE)
         if proc.returncode:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
@@ -230,8 +362,8 @@ def main():
             rec["against_first"] = compare(records[0]["arrays"], arrays)
         records.append(rec)
         print(json.dumps({k: rec.get(k) for k in (
-            "root", "wrapper_ms", "digest", "frame", "against_first")}),
-            flush=True)
+            "root", "wrapper_ms", "digest", "frame", "against_first",
+            "frames", "orders")}), flush=True)
         print(json.dumps({
             "root": root,
             "sweep_ms": {s: v["ms"] for s, v in rec["sweep"].items()},
